@@ -23,13 +23,25 @@ __all__ = ["SOURCES", "build", "load", "nvcc_path", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"hub_kernels": _PKG / "csrc" / "hub_kernels.cu"}
+SOURCES = {"hub_kernels": _PKG / "csrc" / "hub_kernels.cu",
+           "attn_kernels": _PKG / "csrc" / "attn_kernels.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_c_int, _ptr = ctypes.c_int, ctypes.c_void_p
-# C signatures: every pointer and the stream as c_void_p, ints as c_int.
+_c_int, _ptr, _f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+# C signatures: every pointer and the stream as c_void_p, ints as c_int,
+# floats as c_float.
 _SIGNATURES = {
+    "attn_kernels": {
+        "attn_fwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int, _ptr,
+                     _ptr, _ptr, _c_int, _c_int, _f, _ptr, _c_int, _f,
+                     _c_int, _ptr, _ptr, _ptr, _ptr, _ptr],
+        "attn_bwd_src": [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
+                         _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
+                         _f, _ptr, _c_int, _f, _c_int, _ptr, _ptr, _ptr,
+                         _ptr],
+        "attn_ger_reduce": [_ptr, _ptr, _c_int, _ptr, _c_int, _ptr, _ptr],
+    },
     "hub_kernels": {
         "hub_dense_fwd": [_ptr, _c_int, _ptr, _ptr, _c_int, _c_int, _c_int,
                           _ptr],

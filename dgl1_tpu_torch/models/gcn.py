@@ -8,7 +8,7 @@ import torch
 from torch import nn
 
 from dgl1_tpu_torch.graph import Graph, resolve_device
-from dgl1_tpu_torch.nn.conv import GraphConv
+from dgl1_tpu_torch.nn.conv import GraphConv, _dropout
 
 __all__ = ["GCN"]
 
@@ -34,8 +34,5 @@ class GCN(nn.Module):
         for layer in self.layers[:-1]:
             h = torch.relu(layer(g, h))
             if self.training and self.dropout > 0:
-                keep = torch.rand(h.shape, generator=generator,
-                                  device=h.device) >= self.dropout
-                h = torch.where(keep, h / (1.0 - self.dropout),
-                                torch.zeros_like(h))
+                h = _dropout(h, self.dropout, generator)
         return self.layers[-1](g, h)

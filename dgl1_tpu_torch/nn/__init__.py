@@ -1,5 +1,5 @@
 """``dgl1_tpu_torch.nn``: graph neural network modules."""
 
-from dgl1_tpu_torch.nn.conv import GraphConv
+from dgl1_tpu_torch.nn.conv import GATConv, GraphConv
 
-__all__ = ["GraphConv"]
+__all__ = ["GraphConv", "GATConv"]

@@ -1,0 +1,35 @@
+"""Edge softmax (the port's ``dgl1_tpu/ops/edge_softmax.py``): softmax of
+edge logits over each destination's incoming edges, composed as the
+reference composes it (max -> sub -> exp -> sum -> div) from g-SpMM and
+g-SDDMM, so each step runs on whichever engine serves it."""
+
+from __future__ import annotations
+
+import torch
+
+from dgl1_tpu_torch.graph import Graph
+from dgl1_tpu_torch.ops.sddmm import gsddmm
+from dgl1_tpu_torch.ops.spmm import gspmm
+
+__all__ = ["edge_softmax"]
+
+
+def edge_softmax(g: Graph, logits, norm_by: str = "dst"):
+    """Softmax of ``logits`` (num_edges, *f) over each destination's
+    incoming edges. ``norm_by='src'`` (the reverse graph) is not ported."""
+    if norm_by != "dst":
+        raise NotImplementedError("edge_softmax: only norm_by='dst' is "
+                                  "ported")
+    squeeze = logits.dim() == 1
+    if squeeze:
+        logits = logits[:, None]
+    # Softmax is shift-invariant, so the max is a constant for autograd
+    # (the reference's stop_gradient).
+    mx = gspmm(g, "copy_rhs", "max", None, logits).detach()
+    ex = torch.exp(gsddmm(g, "sub", logits, mx, lhs_target="e",
+                          rhs_target="v"))
+    denom = gspmm(g, "copy_rhs", "sum", None, ex)
+    # 1e-30, not 1e-38: a subnormal floor flushes to zero (0/0 = NaN).
+    denom = torch.clamp_min(denom, 1e-30)
+    out = gsddmm(g, "div", ex, denom, lhs_target="e", rhs_target="v")
+    return out[..., 0] if squeeze else out

@@ -160,9 +160,10 @@ def gspmm_hub(g: Graph, op: str, reduce_op: str, u, e):
         return None
     if op in ("mul", "copy_rhs"):
         raise NotImplementedError(
-            f"hub engine op {op!r} needs _chunk_kernel in mul/rhs mode and "
-            "_edge_grad_kernel (dgl1_tpu/ops/engine_hub.py), which are not "
-            "ported yet; use set_engine('ell') or 'xla'")
+            f"hub engine op {op!r} needs _chunk_kernel in mul/rhs mode (K2 "
+            "mul/rhs) and _edge_grad_kernel (K5) of "
+            "dgl1_tpu/ops/engine_hub.py, which are not ported yet; use "
+            "set_engine('ell') or 'xla'")
     if op != "copy_lhs" or u is None or not u.is_floating_point():
         return None
     out = _HubCopyLhsSum.apply(g, u)

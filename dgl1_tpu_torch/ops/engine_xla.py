@@ -1,9 +1,11 @@
-"""The oracle engine for g-SpMM: gather + ``index_add`` with autograd.
+"""The oracle engine for g-SpMM and g-SDDMM: gathers + ``index_add``
+with autograd.
 
 The port's counterpart of ``dgl1_tpu/ops/engine_xla.py`` (the module keeps
-the reference's name). Per-edge messages are gathered in CSC
-(dst-sorted) order and reduced per destination. Every other engine is
-tested against this one.
+the reference's name). g-SpMM gathers per-edge messages in CSC
+(dst-sorted) order and reduces them per destination; g-SDDMM gathers node
+data onto edges in user edge order. Every other engine is tested against
+this one.
 """
 
 from __future__ import annotations
@@ -14,11 +16,12 @@ import torch
 
 from dgl1_tpu_torch.graph import Graph
 
-__all__ = ["gspmm_xla", "SPMM_OPS", "SPMM_REDUCES", "gather_rows",
-           "take_fill"]
+__all__ = ["gspmm_xla", "gsddmm_xla", "SPMM_OPS", "SPMM_REDUCES",
+           "SDDMM_OPS", "gather_rows", "take_fill"]
 
 SPMM_OPS = ("add", "sub", "mul", "div", "copy_lhs", "copy_rhs")
 SPMM_REDUCES = ("sum", "max", "min", "mean", "prod")
+SDDMM_OPS = ("add", "sub", "mul", "div", "dot", "copy_lhs", "copy_rhs")
 
 
 def _binary(op: str, lhs, rhs):
@@ -30,6 +33,8 @@ def _binary(op: str, lhs, rhs):
         return lhs * rhs
     if op == "div":
         return lhs / rhs
+    if op == "dot":
+        return (lhs * rhs).sum(dim=-1, keepdim=True)
     raise ValueError(f"unknown binary op {op!r}")
 
 
@@ -39,18 +44,18 @@ def gather_rows(x, idx):
     return x.index_select(0, idx.long().clamp(0, x.shape[0] - 1))
 
 
-def take_fill(x, idx):
-    """``jnp.take(x, idx, axis=0, mode="fill", fill_value=0)``: rows for
-    indices outside ``[0, len(x))`` are zero. ``index_select`` has no fill
-    mode, so the index is clamped and the result masked."""
+def take_fill(x, idx, fill: float = 0.0):
+    """``jnp.take(x, idx, axis=0, mode="fill", fill_value=fill)``: rows for
+    indices outside ``[0, len(x))`` are ``fill``. ``index_select`` has no
+    fill mode, so the index is clamped and the result masked."""
     idx = idx.long()
     valid = (idx >= 0) & (idx < x.shape[0])
     if x.shape[0] == 0:
-        return x.new_zeros((idx.shape[0],) + tuple(x.shape[1:]))
+        return x.new_full((idx.shape[0],) + tuple(x.shape[1:]), fill)
     rows = x.index_select(0, idx.clamp(0, x.shape[0] - 1))
     mask = valid.reshape((-1,) + (1,) * (x.dim() - 1))
-    return torch.where(mask, rows, torch.zeros((), dtype=x.dtype,
-                                               device=x.device))
+    return torch.where(mask, rows, torch.full((), fill, dtype=x.dtype,
+                                              device=x.device))
 
 
 def gspmm_xla(g: Graph, op: str, reduce_op: str, u: Optional[torch.Tensor],
@@ -97,3 +102,31 @@ def gspmm_xla(g: Graph, op: str, reduce_op: str, u: Optional[torch.Tensor],
         return torch.where(empty, torch.ones_like(out), out)
     # Empty max/min rows are 0, as in the reference.
     return out
+
+
+def gsddmm_xla(g: Graph, op: str, lhs: Optional[torch.Tensor],
+               rhs: Optional[torch.Tensor], lhs_target: str = "u",
+               rhs_target: str = "v") -> torch.Tensor:
+    """Per-edge binary ``op`` between data on any two of source nodes
+    (``'u'``), destination nodes (``'v'``) and edges (``'e'``). Returns
+    (num_edges, *feat_out) in user edge order."""
+    if op not in SDDMM_OPS:
+        raise ValueError(f"gsddmm op {op!r} not in {SDDMM_OPS}")
+
+    def fetch(data, target):
+        if data is None:
+            raise ValueError(f"gsddmm op {op!r} missing operand for "
+                             f"{target!r}")
+        if target == "u":
+            return gather_rows(data, g.src)
+        if target == "v":
+            return gather_rows(data, g.dst)
+        if target == "e":
+            return data
+        raise ValueError(f"unknown target {target!r}")
+
+    if op == "copy_lhs":
+        return fetch(lhs, lhs_target)
+    if op == "copy_rhs":
+        return fetch(rhs, rhs_target)
+    return _binary(op, fetch(lhs, lhs_target), fetch(rhs, rhs_target))
