@@ -28,14 +28,29 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
 4. the trainers at the arxiv configuration of tools/bench_models.py
    (169,343 nodes, ``add_self_loop(powerlaw_graph(., 26))``, Adam 1e-2):
    GCN 128 -> 256 -> 40 for 5 steps (K1, K3, K4a) and 3 on the mixed
-   graph (K2, K4b); then the GAT trainer, this slice's main path, 128 ->
-   8 x 32 -> 40 with dropout 0: logits against the composed path, 5
-   steps (K6, K7, K8), 3 on the mixed graph, and 2 at the model's default
-   dropout 0.6 (in-kernel attention dropout). Losses finite (and falling
-   without dropout), the launch counters of each path's kernels above
-   zero; ms/step and peak memory; then a ``torch.profiler`` trace of 3
-   arxiv GAT steps (device busy time, idle share, top kernels);
-5. the ``{"kernels": [...]}`` line: ``launches_by_path`` holds each
+   graph (K2, K4b); then the GAT trainer, 128 -> 8 x 32 -> 40 with
+   dropout 0: logits against the composed path, 5 steps (K6, K7, K8), 3
+   on the mixed graph, and 2 at the model's default dropout 0.6
+   (in-kernel attention dropout). Losses finite (and falling without
+   dropout), the launch counters of each path's kernels above zero;
+   ms/step and peak memory; then a ``torch.profiler`` trace of 3 arxiv
+   GAT steps (device busy time, idle share, top kernels);
+5. the sampled GraphSAGE slice, this slice's main path, at the Reddit
+   configuration of tools/bench_minibatch.py (--scale reddit: 232,965
+   nodes, 114,615,892 edges, F=602, 41 classes, fanouts [10, 25], batch
+   1024, hidden 256, dropout 0.5, Adam 1e-3; parent graph on the host,
+   features on the card): the graph's build seconds; K9 (tile_sum) at
+   block 1's reverse tiles (F=256) and K10 (tile_minmax) at block 0's
+   forward tiles (F=602) of a real sampled batch, against their plain
+   versions (K9 in float64 within the tolerance below, K10 exactly), with
+   other blocks, widths and min as ``variants``; the mean trainer for 5
+   steps from the 2-worker loader (logits at step 0 against the oracle
+   engine, launches K9 1 and every other kernel 0 per step, losses
+   finite, then 5 steps on the first batch repeated whose losses fall;
+   host sampling ms per batch, device step ms, peak memory); the pool
+   trainer for 3 steps (K10 2 and K9 4 per step); a ``torch.profiler``
+   trace of 3 mean steps on batches sampled beforehand;
+6. the ``{"kernels": [...]}`` line: ``launches_by_path`` holds each
    trainer run's count and ``launches`` their sum (every kernel above
    zero), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -73,6 +88,8 @@ _HUB_SRC, _HUB_REF = ("dgl1_tpu_torch/csrc/hub_kernels.cu",
                       "dgl1_tpu/ops/engine_hub.py")
 _ATT_SRC, _ATT_REF = ("dgl1_tpu_torch/csrc/attn_kernels.cu",
                       "dgl1_tpu/ops/attention.py")
+_TILE_SRC, _TILE_REF = ("dgl1_tpu_torch/csrc/tile_kernels.cu",
+                        "dgl1_tpu/ops/engine_pallas.py")
 # name -> (id, source in this repository, TPU kernel it replaces)
 KERNEL_INFO = {
     "dense_fwd": ("K1", _HUB_SRC, f"{_HUB_REF}:170"),
@@ -83,6 +100,8 @@ KERNEL_INFO = {
     "attn_fwd": ("K6", _ATT_SRC, f"{_ATT_REF}:152"),
     "attn_bwd_src": ("K7", _ATT_SRC, f"{_ATT_REF}:307"),
     "ger_reduce": ("K8", _ATT_SRC, f"{_ATT_REF}:612"),
+    "tile_sum": ("K9", _TILE_SRC, f"{_TILE_REF}:54"),
+    "tile_minmax": ("K10", _TILE_SRC, f"{_TILE_REF}:75"),
 }
 
 
@@ -193,13 +212,24 @@ def chunked_share(g):
 
 
 def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
-               flops, shapes, library_note=None, plain_iters=20):
+               flops, shapes, library_note=None, plain_iters=20,
+               exact=False):
     """Check one kernel against its plain version and time both. ``out``,
-    ``ref`` and ``scale`` may be tuples (one entry per output)."""
+    ``ref`` and ``scale`` may be tuples (one entry per output). ``exact``:
+    the outputs must be equal element for element (infinities included)
+    and ``scale`` is unused."""
     if not isinstance(out, tuple):
         out, ref, scale = (out,), (ref,), (scale,)
-    err = max(check(f"{name}[{i}]", o, r, s)
-              for i, (o, r, s) in enumerate(zip(out, ref, scale)))
+    if exact:
+        torch.cuda.synchronize()
+        for i, (o, r) in enumerate(zip(out, ref)):
+            if not torch.equal(o, r):
+                raise AssertionError(f"{name}[{i}]: kernel differs from its "
+                                     f"plain version")
+        err = 0.0
+    else:
+        err = max(check(f"{name}[{i}]", o, r, s)
+                  for i, (o, r, s) in enumerate(zip(out, ref, scale)))
     ms = cuda_ms(fn)
     plain_ms = cuda_ms(plain, iters=plain_iters,
                        warmup=min(3, plain_iters))
@@ -211,7 +241,8 @@ def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
            "bytes": int(bytes_moved), "flops": int(flops),
-           "tolerance": f"|err| <= {RTOL} * |A||B| + {ATOL}",
+           "tolerance": ("max abs difference 0" if exact else
+                         f"|err| <= {RTOL} * |A||B| + {ATOL}"),
            "shapes": shapes, "ok": True}
     if library_note:
         row["library_note"] = library_note
@@ -618,6 +649,243 @@ def profile_gat(dev, g, steps=3):
         dgl.train(g, feat, labels, model, steps=steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    summarize_profile("gat_profile", "gat_arxiv_train", prof, steps,
+                      wall_ms)
+
+
+REDDIT = dict(batch=1024, fanouts=[10, 25], hidden=256, lr=1e-3)
+
+
+def reddit_setup(dev):
+    """The Reddit configuration of tools/bench_minibatch.py (--scale
+    reddit): 232,965 nodes, 114,615,892 edges, F=602, 41 classes, 153,431
+    training seeds; the parent stays on the host. Features and labels are
+    random from a seed, resident on the card."""
+    import dgl1_tpu_torch as dgl
+
+    t0 = time.perf_counter()
+    g, in_f, classes, train_ids = dgl.data.minibatch_graph("reddit", seed=0)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(g.num_nodes(), in_f, device=dev, generator=gen)
+    labels = torch.randint(0, classes, (g.num_nodes(),), device=dev,
+                           generator=gen)
+    log(json.dumps({"phase": "reddit_graph", "build_s": build_s,
+                    "nodes": g.num_nodes(), "edges": g.num_edges(),
+                    "feat": in_f, "classes": classes,
+                    "train_seeds": len(train_ids)}))
+    return dict(g=g, in_f=in_f, classes=classes, train_ids=train_ids,
+                feat=feat, labels=labels)
+
+
+def reddit_loader(r, dev, seed=0):
+    from dgl1_tpu_torch.dataloading import NeighborSampler, NodeDataLoader
+
+    return NodeDataLoader(r["g"], r["train_ids"],
+                          NeighborSampler(REDDIT["fanouts"]),
+                          batch_size=REDDIT["batch"], shuffle=True,
+                          seed=seed, num_workers=2, prefetch=2, device=dev)
+
+
+def tile_case(name, tiles, f, dev, is_max=None, library=True, seed=0):
+    """K9 (``is_max`` None) or K10 on one tile layout of a sampled Reddit
+    block at width ``f``. Message rows of padding slots hold NaN: a kernel
+    that read one would put NaN in its output. K9 is held against its
+    float64 plain version with the script's tolerance, K10 against its
+    float32 plain version exactly; plain_ms times the float32 plain
+    version. The library call (timed only) gets the real slots' rows
+    gathered beforehand: ``index_add_`` for K9, ``scatter_reduce_`` amax
+    or amin (include_self=False) for K10."""
+    from dgl1_tpu_torch.ops import tile_kernels as TK
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lid = tiles["lid"]
+    args = (tiles["rows"], tiles["first"], lid)
+    n_tiles, n_rb = lid.shape[0], tiles["block_mask"].shape[0]
+    msg = torch.randn(lid.numel(), f, device=dev, generator=gen)
+    if is_max is not None:
+        msg.clamp_(min=0.0)  # relu'd pool features: ties at zero
+    real = (lid.reshape(-1) >= 0).nonzero().squeeze(1)
+    msg[lid.reshape(-1) < 0] = float("nan")
+    target = (tiles["rows"].long()[:, None] * 128 + lid.long()).reshape(
+        -1).index_select(0, real)
+    n_real = int(real.numel())
+    bytes_moved = (n_real * f * 4 + nbytes(lid, tiles["rows"],
+                                           tiles["first"])
+                   + n_rb * 128 * f * 4)
+    shapes = {"case": name, "f": f, "tiles": n_tiles, "row_blocks": n_rb,
+              "slots": int(lid.numel()), "real_slots": n_real,
+              "row_blocks_with_edges": int(tiles["block_mask"].sum())}
+    lib = None
+    if library:
+        msg_real = msg.index_select(0, real)
+        lib_out = torch.zeros(n_rb * 128, f, device=dev)
+        if is_max is None:
+            lib = lambda: lib_out.index_add_(0, target, msg_real)
+        else:
+            idx = target[:, None].expand(-1, f)
+            red = "amax" if is_max else "amin"
+            lib = lambda: lib_out.scatter_reduce_(0, idx, msg_real, red,
+                                                  include_self=False)
+    if is_max is None:
+        out = TK.tile_sum(*args, msg, n_rb)
+        ref = TK.tile_sum_torch(*args, msg.double(), n_rb)
+        scale = TK.tile_sum_torch(*args, msg.abs().double(), n_rb)
+        row = kernel_row(
+            "tile_sum", out, ref, scale,
+            lambda: TK.tile_sum(*args, msg, n_rb),
+            lambda: TK.tile_sum_torch(*args, msg, n_rb), lib,
+            bytes_moved, n_real * f, shapes, plain_iters=3)
+    else:
+        out = TK.tile_minmax(is_max, *args, msg, n_rb)
+        ref = TK.tile_minmax_torch(is_max, *args, msg, n_rb)
+        shapes["reduce"] = "max" if is_max else "min"
+        row = kernel_row(
+            "tile_minmax", out, ref, None,
+            lambda: TK.tile_minmax(is_max, *args, msg, n_rb),
+            lambda: TK.tile_minmax_torch(is_max, *args, msg, n_rb), lib,
+            bytes_moved, n_real * f, shapes, plain_iters=3, exact=True)
+    if lib is None:
+        row["library_note"] = "timed on the main case only"
+    return row
+
+
+def phase_tile_kernels(dev, blocks):
+    """K9 at block 1 ``tsrc`` (F=256: the mean step's only launch) and K10
+    max at block 0 ``tdst`` (F=602: the pool step's first layer), on a
+    real sampled Reddit batch; K9 at block 0 ``tsrc`` and ``tdst`` and
+    K10 min and block 1 ride in ``variants``."""
+    b0, b1 = blocks
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bytes", "flops", "shapes")
+    k9 = tile_case("block1_tsrc_f256", b1.tsrc, 256, dev)
+    k9["variants"] = [{k: v[k] for k in keep} for v in (
+        tile_case("block0_tsrc_f602", b0.tsrc, 602, dev, library=False,
+                  seed=1),
+        tile_case("block0_tdst_f602", b0.tdst, 602, dev, library=False,
+                  seed=2))]
+    k10 = tile_case("block0_tdst_f602_max", b0.tdst, 602, dev, is_max=True)
+    k10["variants"] = [{k: v[k] for k in keep} for v in (
+        tile_case("block0_tdst_f602_min", b0.tdst, 602, dev, is_max=False,
+                  library=False, seed=3),
+        tile_case("block1_tdst_f256_max", b1.tdst, 256, dev, is_max=True,
+                  library=False, seed=4))]
+    return {"tile_sum": k9, "tile_minmax": k10}
+
+
+def sage_model(r, dev, aggregator, dropout=0.5):
+    from dgl1_tpu_torch.models import GraphSAGE
+
+    return GraphSAGE(r["in_f"], REDDIT["hidden"], r["classes"],
+                     num_layers=len(REDDIT["fanouts"]),
+                     aggregator=aggregator, dropout=dropout, device=dev,
+                     generator=torch.Generator().manual_seed(2))
+
+
+def expect_exact(name, counts, want):
+    """Every kernel's launch count equals ``want`` (0 where absent)."""
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{name}: launches {bad}, expected {want}")
+
+
+def phase_sage(name, dev, r, loader, aggregator, steps, per_step,
+               first_batch=None):
+    """The sampled GraphSAGE trainer at the Reddit configuration (602 ->
+    256 -> 41, fanouts [10, 25], batch 1024, dropout 0.5, Adam 1e-3) for
+    ``steps`` steps from ``loader``; counters zeroed before and read
+    after, each kernel's count equal to ``per_step`` times the steps. With
+    ``first_batch``, first the step-0 logits against the oracle engine on
+    the card, and after the run 5 steps of a fresh model on that batch
+    repeated, whose losses must fall (dropout 0 there: at 0.5 its noise
+    can hide five steps of progress)."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch import ops
+
+    model = sage_model(r, dev, aggregator)
+    lerr = lmax = None
+    if first_batch is not None:
+        inp, out, blocks, _ = first_batch
+        x = r["feat"].index_select(0, inp)
+        model.eval()
+        with torch.no_grad():
+            ops.set_engine("xla")
+            try:
+                ref = model(blocks, x)
+            finally:
+                ops.set_engine("auto")
+            got = model(blocks, x)
+        if got.shape != (REDDIT["batch"], r["classes"]):
+            raise AssertionError(f"logits shape {tuple(got.shape)}")
+        # The ELL mean adds at most 25 rows in another order than the
+        # oracle's index_add; everything else is the same float32 math.
+        lerr = float((got - ref).abs().max())
+        lmax = float(ref.abs().max())
+        if not lerr <= 1e-4 * lmax:
+            raise AssertionError(f"{name} logits: engines vs oracle err "
+                                 f"{lerr} > 1e-4 * max|logit| ({lmax})")
+        del ref, got, x
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    res = dgl.train_sampled(loader, r["feat"], r["labels"], model,
+                            steps=steps, lr=REDDIT["lr"], generator=gen)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    losses = res["losses"]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    expect_exact(name, counts, {k: v * steps for k, v in per_step.items()})
+    rec = {
+        "phase": "sage_train", "path": name, "aggregator": aggregator,
+        "dims": [r["in_f"], REDDIT["hidden"], r["classes"]],
+        "fanouts": REDDIT["fanouts"], "batch": REDDIT["batch"],
+        "steps": steps, "losses": losses,
+        "ms_per_step": [x * 1e3 for x in res["step_s"]],
+        "device_step_ms_after_first": float(np.mean(res["step_s"][1:]) * 1e3),
+        "wait_ms_per_step": [x * 1e3 for x in res["wait_s"]],
+        "host_sample_ms_per_batch": float(np.mean(res["sample_ms"])),
+        "host_sample_ms": res["sample_ms"],
+        "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "logits_err_vs_oracle": lerr, "logits_max_abs": lmax,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    if first_batch is not None:
+        rep = dgl.train_sampled([first_batch] * 5, r["feat"], r["labels"],
+                                sage_model(r, dev, aggregator, dropout=0.0),
+                                lr=REDDIT["lr"])
+        if not rep["losses"][-1] < rep["losses"][0]:
+            raise AssertionError(f"{name}: loss on a repeated batch did not "
+                                 f"fall: {rep['losses']}")
+        rec["repeated_batch_losses"] = rep["losses"]
+    log(json.dumps(rec))
+    return counts
+
+
+def profile_sage(dev, r, batches, steps=3):
+    """Where the Reddit mean step's device time goes: ``torch.profiler``
+    over ``steps`` steps on batches sampled beforehand (so the loader is
+    out of the window), after two warm-up steps; as profile_gat."""
+    import dgl1_tpu_torch as dgl
+    from torch.profiler import ProfilerActivity, profile
+
+    model = sage_model(r, dev, "mean")
+    dgl.train_sampled(batches[:2], r["feat"], r["labels"], model)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dgl.train_sampled(batches[2:2 + steps], r["feat"], r["labels"],
+                          model)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    summarize_profile("sage_profile", "sage_reddit_train", prof, steps,
+                      wall_ms)
+
+
+def summarize_profile(phase, path, prof, steps, wall_ms):
+    """Device busy time, idle share and the top device kernels of a
+    ``torch.profiler`` window of ``steps`` steps."""
     events = prof.key_averages()
     # Device spans of host annotations share their name with a host event
     # and would count the same device time twice.
@@ -633,10 +901,10 @@ def profile_gat(dev, g, steps=3):
 
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
     if not busy_ms > 0:
-        raise AssertionError("gat_profile: the trace holds no device time")
+        raise AssertionError(f"{phase}: the trace holds no device time")
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     log(json.dumps({
-        "phase": "gat_profile", "path": "gat_arxiv_train", "steps": steps,
+        "phase": phase, "path": path, "steps": steps,
         "host_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "top_kernels": [{"name": e.key[:90],
@@ -644,19 +912,24 @@ def profile_gat(dev, g, steps=3):
                          "calls_per_step": e.count / steps} for e in top]}))
 
 
-def reset_all_launches():
+def _kernel_modules():
     from dgl1_tpu_torch.ops import attn_kernels as AK
     from dgl1_tpu_torch.ops import hub_kernels as K
+    from dgl1_tpu_torch.ops import tile_kernels as TK
 
-    K.reset_launches()
-    AK.reset_launches()
+    return K, AK, TK
+
+
+def reset_all_launches():
+    for m in _kernel_modules():
+        m.reset_launches()
 
 
 def all_launches():
-    from dgl1_tpu_torch.ops import attn_kernels as AK
-    from dgl1_tpu_torch.ops import hub_kernels as K
-
-    return {**K.LAUNCHES, **AK.LAUNCHES}
+    out = {}
+    for m in _kernel_modules():
+        out.update(m.LAUNCHES)
+    return out
 
 
 def expect_launches(name, counts, expect):
@@ -848,6 +1121,33 @@ def main():
             check_logits=False)),
     ]
     profile_gat(dev, g_arx)
+    del g_arx, g_mix
+
+    # Phase 2c and 4b: the sampled GraphSAGE slice at the Reddit
+    # configuration. K9/K10 against their plain versions on a real
+    # sampled batch, then the trainers: mean (K9 once per step) and pool
+    # (K10 twice, K9 four times per step), then a profile of the mean step.
+    from dgl1_tpu_torch.dataloading import NeighborSampler
+
+    r = reddit_setup(dev)
+    _, _, blocks = NeighborSampler(REDDIT["fanouts"]).sample_blocks(
+        r["g"], r["train_ids"][:REDDIT["batch"]],
+        rng=np.random.default_rng(0))
+    rows.update(phase_tile_kernels(dev, [b.to(dev) for b in blocks]))
+    del blocks
+    loader = reddit_loader(r, dev)
+    it = iter(loader)
+    batches = [next(it) for _ in range(5)]
+    it.close()
+    main_counts += [
+        ("sage_reddit_train", phase_sage(
+            "sage_reddit_train", dev, r, loader, "mean", 5,
+            {"tile_sum": 1}, first_batch=batches[0])),
+        ("sage_reddit_pool_train", phase_sage(
+            "sage_reddit_pool_train", dev, r, loader, "pool", 3,
+            {"tile_sum": 4, "tile_minmax": 2})),
+    ]
+    profile_sage(dev, r, batches)
 
     # ``launches`` is one number per kernel: the sum of the trainer runs,
     # each zeroed and read on its own; ``launches_by_path`` keeps them

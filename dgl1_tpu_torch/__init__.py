@@ -1,8 +1,9 @@
 """dgl1_tpu_torch: the PyTorch/CUDA port of dgl1_tpu for NVIDIA Hopper.
 
 It keeps the JAX package's module names (``graph``, ``hub_format``,
-``ops/engine_hub``, ``nn/conv``, ``models/gcn``, ...) and imports neither
-JAX nor ``dgl1_tpu``. Entry points build on ``cuda`` unless the caller
+``ops/engine_hub``, ``sampling``, ``dataloading``, ``nn/conv``,
+``models``, ...; ``ops/engine_tile`` is ``engine_pallas``'s counterpart)
+and imports neither JAX nor ``dgl1_tpu``. Entry points build on ``cuda`` unless the caller
 passes ``device="cpu"``; the hand-written kernels (``csrc/``) are built
 with nvcc at first use.
 """
@@ -10,9 +11,11 @@ with nvcc at first use.
 from dgl1_tpu_torch.graph import Graph, graph, resolve_device
 from dgl1_tpu_torch.transform import (add_self_loop, remove_self_loop,
                                       reorder_graph, to_bidirected)
-from dgl1_tpu_torch import data, models, nn, ops  # noqa: F401
-from dgl1_tpu_torch.train import train
+from dgl1_tpu_torch import (data, dataloading, models, nn,  # noqa: F401
+                            ops, random, sampling)
+from dgl1_tpu_torch.train import train, train_sampled
 
 __all__ = ["Graph", "graph", "resolve_device", "add_self_loop",
            "remove_self_loop", "reorder_graph", "to_bidirected", "data",
-           "models", "nn", "ops", "train"]
+           "dataloading", "models", "nn", "ops", "random", "sampling",
+           "train", "train_sampled"]

@@ -1,10 +1,12 @@
 """Native (C++) graph builders, compiled with g++ and bound via ctypes.
 
-A copy of ``dgl1_tpu/_native``'s loader for the entry points the port's
-layout builders use (``build_adj``, ``plan_ell``, ``fill_ell``). The
-library is compiled on first use into ``dgl1_tpu_torch/_build/`` (keyed by
-a hash of the source) and every caller keeps a pure numpy fallback for
-when it is missing.
+A copy of ``dgl1_tpu/_native``'s loader for the entry points the port
+uses: the layout builders (``build_adj``, ``plan_ell``, ``fill_ell``,
+``plan_tiles``, ``build_tiles``) and the fused neighbor sampler
+(``sample_block``). The library is compiled on first use into
+``dgl1_tpu_torch/_build/`` (keyed by a hash of the source). Every layout
+builder keeps a pure numpy fallback for when it is missing; the sampler
+has none yet and raises.
 """
 
 from __future__ import annotations
@@ -50,6 +52,19 @@ def _compile() -> ctypes.CDLL:
                              ctypes.c_int64, ctypes.c_int64, i32p, i32p,
                              i32p]
     lib.fill_ell.restype = None
+    lib.plan_tiles.argtypes = [i32p, ctypes.c_int64, ctypes.c_int32,
+                               ctypes.c_int32, ctypes.c_int32]
+    lib.plan_tiles.restype = ctypes.c_int64
+    lib.build_tiles.argtypes = [i32p, i32p, i32p, ctypes.c_int64,
+                                ctypes.c_int32, ctypes.c_int32,
+                                ctypes.c_int32, i32p, i32p, i32p, i32p, i32p]
+    lib.build_tiles.restype = None
+    lib.sample_block.argtypes = [i32p, i32p, i32p, ctypes.c_int32, i64p,
+                                 ctypes.c_int64, ctypes.c_int64,
+                                 ctypes.c_int32, ctypes.c_uint64,
+                                 ctypes.c_int64, ctypes.c_int64, i32p, i32p,
+                                 i32p, i64p, i64p]
+    lib.sample_block.restype = ctypes.c_int32
     return lib
 
 

@@ -24,7 +24,8 @@ __all__ = ["SOURCES", "build", "load", "nvcc_path", "BUILD_DIR"]
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 SOURCES = {"hub_kernels": _PKG / "csrc" / "hub_kernels.cu",
-           "attn_kernels": _PKG / "csrc" / "attn_kernels.cu"}
+           "attn_kernels": _PKG / "csrc" / "attn_kernels.cu",
+           "tile_kernels": _PKG / "csrc" / "tile_kernels.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,6 +52,12 @@ _SIGNATURES = {
                           _c_int, _ptr, _c_int, _c_int, _ptr],
         "hub_expand": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _c_int,
                        _ptr],
+    },
+    "tile_kernels": {
+        "tile_sum": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _ptr, _c_int,
+                     _ptr],
+        "tile_minmax": [_c_int, _ptr, _ptr, _ptr, _c_int, _ptr, _c_int,
+                        _ptr, _c_int, _ptr],
     },
 }
 

@@ -2,6 +2,7 @@
 reference's)."""
 
 from dgl1_tpu_torch.data.synthetic import (  # noqa: F401
-    powerlaw_graph, synthetic_classification_graph)
+    minibatch_graph, powerlaw_graph, synthetic_classification_graph)
 
-__all__ = ["powerlaw_graph", "synthetic_classification_graph"]
+__all__ = ["powerlaw_graph", "synthetic_classification_graph",
+           "minibatch_graph"]

@@ -10,7 +10,8 @@ import torch
 from dgl1_tpu_torch.graph import Graph, graph, resolve_device
 from dgl1_tpu_torch.transform import to_bidirected
 
-__all__ = ["synthetic_classification_graph", "powerlaw_graph"]
+__all__ = ["synthetic_classification_graph", "powerlaw_graph",
+           "minibatch_graph"]
 
 
 def synthetic_classification_graph(
@@ -88,3 +89,32 @@ def powerlaw_graph(num_nodes: int, avg_degree: int, alpha: float = 2.1,
     dst = np.searchsorted(cdf, rng.random(num_edges)).astype(np.int64)
     src = rng.integers(0, num_nodes, size=num_edges)
     return graph((src, dst), num_nodes=num_nodes, **kw)
+
+
+# name -> (nodes, edges, feature width, classes, training seeds, Zipf
+# exponent of the in-degrees), as tools/bench_minibatch.py's build_graph.
+MINIBATCH_SCALES = {
+    "reddit": (232_965, 114_615_892, 602, 41, 153_431, 2.2),
+    "smoke": (20_000, 200_000, 32, 7, 4_000, 2.5),
+}
+
+
+def minibatch_graph(scale: str = "reddit", seed: int = 0):
+    """The sampled-training graph of ``tools/bench_minibatch.py``
+    (``build_graph``, same seeds and draws, so both packages sample the
+    same edges): Zipf in-degrees, uniform sources. Returns
+    ``(g, feat_dim, num_classes, train_ids)`` with ``g`` a sampling-only
+    parent on the host (COO and CSC, ``formats=("csc",)``)."""
+    n, e, f, classes, n_train, deg_alpha = MINIBATCH_SCALES[scale]
+    rng = np.random.default_rng(seed)
+    w = rng.zipf(deg_alpha, size=n).astype(np.float64)
+    deg = np.maximum((w * (e / w.sum())).astype(np.int64), 0)
+    dst = np.repeat(np.arange(n, dtype=np.int64), deg)
+    if len(dst) < e:
+        dst = np.concatenate([dst, rng.integers(0, n, size=e - len(dst))])
+    dst = dst[:e]
+    src = rng.integers(0, n, size=e).astype(np.int64)
+    g = graph((src, dst), num_nodes=n, formats=("csc",), device="cpu")
+    train_ids = np.random.default_rng(seed + 1).choice(n, size=n_train,
+                                                       replace=False)
+    return g, f, classes, train_ids

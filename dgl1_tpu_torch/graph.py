@@ -4,18 +4,26 @@ The port's counterpart of ``dgl1_tpu/graph.py``: a (possibly bipartite)
 multigraph whose structure is built once on the host with numpy (or the
 C++ builder in ``_native``) and held as ``torch`` tensors:
 
-``src, dst``            COO endpoints in user edge order.
+``src, dst``            COO endpoints in user edge order; on a padded
+                        block the tail holds the sentinels
+                        ``num_src_nodes`` / ``num_dst_nodes``.
+``edge_mask``           bool, True for real edges; None when every edge
+                        is real.
 ``csr_indptr``          (num_src_nodes+1,) out-edge row pointers;
 ``csr_dst, csr_eid``    dst / user edge id sorted by src; ``csr_src``.
 ``csc_indptr``          (num_dst_nodes+1,) in-edge row pointers;
 ``csc_src, csc_eid``    src / user edge id sorted by dst; ``csc_dst``.
+``tdst, tsrc``          edge-tile layouts of the tile engine
+                        (:func:`_build_tiles`), reduce-by-dst and by-src.
 ``ell_dst, ell_src``    degree-bucketed ELL layouts with static metas.
 ``hub_dst``             the hub-dense layout (``hub_format.py``) and meta.
 
-Only COO/CSR/CSC, ELL and hub are built; the tile layout of the Pallas
-engine is not part of the port yet. ``Graph.to(device)`` moves every
-tensor; entry points build on ``cuda`` unless the caller passes
-``device="cpu"``.
+``graph(formats=...)`` restricts what is built: ``("csc",)`` gives a
+sampling-only parent (COO and CSC, no CSR, tiles, ELL or hub). Blocks
+(``is_block``) come from the fused sampler (``sampling/fused.py``) and
+carry ``srcdata``/``dstdata`` and host bookkeeping in ``meta``.
+``Graph.to(device)`` moves every tensor; entry points build on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -25,9 +33,14 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Graph", "graph", "resolve_device"]
+__all__ = ["Graph", "graph", "resolve_device", "TILE_EDGES", "TILE_ROWS"]
 
 ID_DTYPE = np.int32
+
+# Edge-tile geometry of the tile engine (as ``dgl1_tpu/graph.py``): T edge
+# slots per tile, R output rows per row block.
+TILE_EDGES = 1024
+TILE_ROWS = 128
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,17 +74,22 @@ def _tree_to(x, device):
     return x
 
 
-_ARRAY_FIELDS = ("src", "dst", "csr_indptr", "csr_dst",
+_ARRAY_FIELDS = ("src", "dst", "edge_mask", "csr_indptr", "csr_dst",
                  "csr_eid", "csr_src", "csc_indptr", "csc_src", "csc_eid",
-                 "csc_dst", "ell_dst", "ell_src", "hub_dst")
+                 "csc_dst", "tdst", "tsrc", "ell_dst", "ell_src", "hub_dst")
 
 
 class Graph:
-    """Static-shape graph; see the module docstring for the fields."""
+    """Static-shape graph; see the module docstring for the fields.
+    ``num_edges`` is the count of real edges; the edge arrays may be
+    longer (``num_edges_padded``)."""
 
     def __init__(self, *, src, dst, csr_indptr, csr_dst, csr_eid,
                  csr_src, csc_indptr, csc_src, csc_eid, csc_dst,
                  num_src_nodes: int, num_dst_nodes: int, num_edges: int,
+                 edge_mask=None, is_block: bool = False,
+                 tdst: Optional[Dict[str, Any]] = None,
+                 tsrc: Optional[Dict[str, Any]] = None,
                  ell_dst: Optional[Dict[str, Any]] = None,
                  ell_src: Optional[Dict[str, Any]] = None,
                  ell_dst_meta: Optional[Tuple] = None,
@@ -79,33 +97,44 @@ class Graph:
                  hub_dst: Optional[Dict[str, Any]] = None,
                  hub_dst_meta=None, device="cpu"):
         dev = torch.device(device)
-        self.src = _tree_to(src, dev)
-        self.dst = _tree_to(dst, dev)
-        self.csr_indptr = _tree_to(csr_indptr, dev)
-        self.csr_dst = _tree_to(csr_dst, dev)
-        self.csr_eid = _tree_to(csr_eid, dev)
-        self.csr_src = _tree_to(csr_src, dev)
-        self.csc_indptr = _tree_to(csc_indptr, dev)
-        self.csc_src = _tree_to(csc_src, dev)
-        self.csc_eid = _tree_to(csc_eid, dev)
-        self.csc_dst = _tree_to(csc_dst, dev)
-        self.ell_dst = _tree_to(ell_dst, dev)
-        self.ell_src = _tree_to(ell_src, dev)
+        for k, v in (("src", src), ("dst", dst), ("edge_mask", edge_mask),
+                     ("csr_indptr", csr_indptr), ("csr_dst", csr_dst),
+                     ("csr_eid", csr_eid), ("csr_src", csr_src),
+                     ("csc_indptr", csc_indptr), ("csc_src", csc_src),
+                     ("csc_eid", csc_eid), ("csc_dst", csc_dst),
+                     ("tdst", tdst), ("tsrc", tsrc), ("ell_dst", ell_dst),
+                     ("ell_src", ell_src), ("hub_dst", hub_dst)):
+            setattr(self, k, _tree_to(v, dev))
         self.ell_dst_meta = ell_dst_meta
         self.ell_src_meta = ell_src_meta
-        self.hub_dst = _tree_to(hub_dst, dev)
         self.hub_dst_meta = hub_dst_meta
         self._num_src_nodes = int(num_src_nodes)
         self._num_dst_nodes = int(num_dst_nodes)
         self._num_edges = int(num_edges)
+        self._is_block = bool(is_block)
+        # Host-side bookkeeping (real src/dst counts of a sampled block).
+        self.meta: Dict[str, Any] = {}
         self.ndata: Dict[str, torch.Tensor] = {}
         self.edata: Dict[str, torch.Tensor] = {}
+        if is_block:
+            self.srcdata: Dict[str, torch.Tensor] = {}
+            self.dstdata: Dict[str, torch.Tensor] = {}
+        else:
+            # Homogeneous graph: srcdata/dstdata alias ndata.
+            self.srcdata = self.dstdata = self.ndata
 
     @property
     def device(self) -> torch.device:
         return self.src.device
 
+    @property
+    def is_block(self) -> bool:
+        return self._is_block
+
     def num_nodes(self) -> int:
+        if self._is_block:
+            raise ValueError("num_nodes() is ambiguous on a block; use "
+                             "num_src_nodes() / num_dst_nodes()")
         return self._num_src_nodes
 
     def num_src_nodes(self) -> int:
@@ -115,16 +144,24 @@ class Graph:
         return self._num_dst_nodes
 
     def num_edges(self) -> int:
+        """Number of real (unpadded) edges."""
         return self._num_edges
+
+    def num_edges_padded(self) -> int:
+        """Length of the edge arrays (>= num_edges)."""
+        return int(self.src.shape[0])
 
     def in_degrees(self):
         return torch.diff(self.csc_indptr)
 
     def out_degrees(self):
+        if self.csr_indptr is None:
+            raise ValueError("this graph was built without CSR "
+                             "(formats=); out_degrees needs it")
         return torch.diff(self.csr_indptr)
 
     def edges(self):
-        """(src, dst) in user edge order."""
+        """(src, dst) in user edge order (padded length)."""
         return self.src, self.dst
 
     def to(self, device) -> "Graph":
@@ -133,18 +170,25 @@ class Graph:
         new = Graph(
             **{k: getattr(self, k) for k in _ARRAY_FIELDS},
             ell_dst_meta=self.ell_dst_meta, ell_src_meta=self.ell_src_meta,
-            hub_dst_meta=self.hub_dst_meta,
+            hub_dst_meta=self.hub_dst_meta, is_block=self._is_block,
             num_src_nodes=self._num_src_nodes,
             num_dst_nodes=self._num_dst_nodes, num_edges=self._num_edges,
             device=dev)
-        new.ndata = {k: v.to(dev) for k, v in self.ndata.items()}
-        new.edata = {k: v.to(dev) for k, v in self.edata.items()}
+        new.meta = dict(self.meta)
+        new.ndata.update(_tree_to(self.ndata, dev))
+        new.edata.update(_tree_to(self.edata, dev))
+        if self._is_block:
+            new.srcdata.update(_tree_to(self.srcdata, dev))
+            new.dstdata.update(_tree_to(self.dstdata, dev))
         return new
 
     def __repr__(self):
-        return (f"Graph(num_nodes={self._num_src_nodes}, "
+        kind = "Block" if self._is_block else "Graph"
+        return (f"{kind}(num_src_nodes={self._num_src_nodes}, "
+                f"num_dst_nodes={self._num_dst_nodes}, "
                 f"num_edges={self._num_edges}, device={self.device}, "
-                f"hub={self.hub_dst_meta is not None})")
+                f"hub={self.hub_dst_meta is not None}, "
+                f"tiles={self.tdst is not None})")
 
 
 # ----------------------------------------------------------------------
@@ -153,11 +197,18 @@ class Graph:
 
 def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
                    num_dst: int, num_edges: int, hub=None,
-                   hub_dense_floor: Optional[int] = None):
-    """COO + CSR + CSC, and the ELL and hub layouts. Stable sorts keep
-    edge-id order within a row."""
+                   hub_dense_floor: Optional[int] = None,
+                   formats: Optional[Tuple[str, ...]] = None):
+    """COO + CSC (+ CSR), and the tile, ELL and hub layouts that
+    ``formats`` asks for (None: all). CSR is built whenever ``formats``
+    names it or a derived layout. Stable sorts keep edge-id order within
+    a row."""
+    want = (lambda k: True) if formats is None else (
+        lambda k: k in formats)
+    need_csr = any(want(k) for k in ("csr", "tile", "ell", "hub"))
     coo_src = src.astype(ID_DTYPE)
     coo_dst = dst.astype(ID_DTYPE)
+    csr_indptr = csr_dst = csr_eid = csr_src = None
 
     from dgl1_tpu_torch import _native
 
@@ -174,38 +225,40 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
                              s_other, s_eid, s_key)
             return indptr, s_other, s_eid, s_key
 
-        csr_indptr, csr_dst, csr_eid, csr_src = adj(src32, dst32, num_src)
+        if need_csr:
+            csr_indptr, csr_dst, csr_eid, csr_src = adj(src32, dst32, num_src)
         csc_indptr, csc_src, csc_eid, csc_dst = adj(dst32, src32, num_dst)
     else:
         eid = np.arange(num_edges, dtype=ID_DTYPE)
 
-        order = np.argsort(src, kind="stable").astype(ID_DTYPE)
-        csr_src = src[order].astype(ID_DTYPE)
-        csr_dst = dst[order].astype(ID_DTYPE)
-        csr_eid = eid[order]
-        counts = np.bincount(src, minlength=num_src) if num_edges \
-            else np.zeros(num_src, dtype=np.int64)
-        csr_indptr = np.zeros((num_src + 1,), dtype=ID_DTYPE)
-        np.cumsum(counts, out=csr_indptr[1:])
+        def adj(key, other, num_keys):
+            order = np.argsort(key, kind="stable").astype(ID_DTYPE)
+            counts = np.bincount(key, minlength=num_keys) if num_edges \
+                else np.zeros(num_keys, dtype=np.int64)
+            indptr = np.zeros((num_keys + 1,), dtype=ID_DTYPE)
+            np.cumsum(counts, out=indptr[1:])
+            return (indptr, other[order].astype(ID_DTYPE), eid[order],
+                    key[order].astype(ID_DTYPE))
 
-        order = np.argsort(dst, kind="stable").astype(ID_DTYPE)
-        csc_dst = dst[order].astype(ID_DTYPE)
-        csc_src = src[order].astype(ID_DTYPE)
-        csc_eid = eid[order]
-        counts = np.bincount(dst, minlength=num_dst) if num_edges \
-            else np.zeros(num_dst, dtype=np.int64)
-        csc_indptr = np.zeros((num_dst + 1,), dtype=ID_DTYPE)
-        np.cumsum(counts, out=csc_indptr[1:])
+        if need_csr:
+            csr_indptr, csr_dst, csr_eid, csr_src = adj(src, dst, num_src)
+        csc_indptr, csc_src, csc_eid, csc_dst = adj(dst, src, num_dst)
 
-    ell_dst_meta, ell_dst = _build_ell(
-        csc_indptr, csc_src, csc_eid, num_dst, num_edges)
-    ell_src_meta, ell_src = _build_ell(
-        csr_indptr, csr_dst, csr_eid, num_src, num_edges)
+    ell_dst_meta = ell_dst = ell_src_meta = ell_src = None
+    if want("ell"):
+        ell_dst_meta, ell_dst = _build_ell(
+            csc_indptr, csc_src, csc_eid, num_dst, num_edges)
+        ell_src_meta, ell_src = _build_ell(
+            csr_indptr, csr_dst, csr_eid, num_src, num_edges)
+    tdst = tsrc = None
+    if want("tile"):
+        tdst = _build_tiles(csc_dst, csc_src, csc_eid, num_edges, num_dst)
+        tsrc = _build_tiles(csr_src, csr_dst, csr_eid, num_edges, num_src)
     # Hub layout: auto-built only when the head of the in-degree
     # distribution clears the density bar. hub=True forces it, an int sets
     # the per-group edge floor, hub=False skips.
     hub_dst_meta = hub_dst = None
-    if hub is not False and num_edges > 0:
+    if want("hub") and hub is not False and num_edges > 0:
         from dgl1_tpu_torch import hub_format
 
         if hub is None:
@@ -224,7 +277,7 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
         csr_indptr=csr_indptr, csr_dst=csr_dst, csr_eid=csr_eid,
         csr_src=csr_src,
         csc_indptr=csc_indptr, csc_src=csc_src, csc_eid=csc_eid,
-        csc_dst=csc_dst,
+        csc_dst=csc_dst, tdst=tdst, tsrc=tsrc,
         ell_dst_meta=ell_dst_meta, ell_dst=ell_dst,
         ell_src_meta=ell_src_meta, ell_src=ell_src,
         hub_dst_meta=hub_dst_meta, hub_dst=hub_dst,
@@ -241,6 +294,14 @@ def _make_ell_ladder():
 
 
 _ELL_LADDER = _make_ell_ladder()
+
+
+def _ladder_rung(k: int) -> int:
+    """Smallest ELL ladder rung >= k."""
+    for r in _ELL_LADDER:
+        if r >= k:
+            return r
+    raise ValueError(f"degree {k} above the ELL ladder")
 
 
 def _build_ell(indptr: np.ndarray, nbr_sorted: np.ndarray,
@@ -338,11 +399,167 @@ def _build_ell(indptr: np.ndarray, nbr_sorted: np.ndarray,
     }
 
 
+def _build_ell_uniform(indptr: np.ndarray, nbr_sorted: np.ndarray,
+                       eid_sorted: np.ndarray, num_target: int, k: int):
+    """Uniform single-rung ELL: every row (zero-degree included) gets
+    exactly ``rung(k)`` slots, so the bucket metadata is a function of
+    (num_target, k) alone, the same for every sampled block of an epoch.
+    Returns (meta, arrays) like :func:`_build_ell`; ``inv_perm`` is empty,
+    the engine's marker for "rows already in order"."""
+    k_pad = _ladder_rung(max(int(k), 1))
+    deg = np.diff(indptr[: num_target + 1]).astype(np.int64)
+    if deg.size and int(deg.max(initial=0)) > k_pad:
+        raise ValueError(
+            f"row degree {int(deg.max())} exceeds uniform ELL width {k_pad}")
+    sentinel = np.int64(1 << 30)
+    mat = np.full((num_target, k_pad), sentinel, dtype=np.int64)
+    emat = np.zeros((num_target, k_pad), dtype=np.int64)
+    total = int(deg.sum())
+    if total:
+        flat_rows = np.repeat(np.arange(num_target), deg)
+        flat_cols = np.arange(total) - np.repeat(np.cumsum(deg) - deg, deg)
+        src_pos = np.repeat(indptr[:num_target].astype(np.int64), deg) \
+            + flat_cols
+        mat[flat_rows, flat_cols] = nbr_sorted[src_pos]
+        emat[flat_rows, flat_cols] = eid_sorted[src_pos]
+    meta = ((k_pad, num_target),)
+    return meta, {
+        "idx": mat.reshape(-1).astype(ID_DTYPE),
+        "eid": emat.reshape(-1).astype(ID_DTYPE),
+        "inv_perm": np.zeros((0,), ID_DTYPE),
+    }
+
+
+def static_tile_bound(num_edges_padded: int, num_target: int) -> int:
+    """Static upper bound on the tile count of :func:`_build_tiles`:
+    every row block adds at most one partial tile on top of the
+    edge-count floor."""
+    T, R = TILE_EDGES, TILE_ROWS
+    return max((num_edges_padded + T - 1) // T + (num_target + R - 1) // R,
+               1)
+
+
+def _pad_tiles(tiles: dict, pad_to: int, num_target: int) -> dict:
+    """Pad the tile arrays to a static tile count with no-op tiles (lid =
+    -1 everywhere, ``first`` = 0, row block = the last one), so every
+    sampled block of an epoch has the same layout shapes."""
+    T = TILE_EDGES
+    n = tiles["lid"].shape[0]
+    if n > pad_to:
+        raise ValueError(f"actual tile count {n} exceeds static bound "
+                         f"{pad_to}")
+    if n == pad_to:
+        return tiles
+    extra = pad_to - n
+    n_blocks = max((num_target + TILE_ROWS - 1) // TILE_ROWS, 1)
+    return dict(
+        rows=np.concatenate([tiles["rows"],
+                             np.full((extra,), n_blocks - 1, ID_DTYPE)]),
+        first=np.concatenate([tiles["first"], np.zeros((extra,), ID_DTYPE)]),
+        lid=np.concatenate([tiles["lid"], np.full((extra, T), -1, ID_DTYPE)],
+                           axis=0),
+        gather=np.concatenate([tiles["gather"],
+                               np.zeros((extra * T,), ID_DTYPE)]),
+        eid=np.concatenate([tiles["eid"], np.zeros((extra * T,), ID_DTYPE)]),
+        block_mask=tiles["block_mask"],
+    )
+
+
+def _empty_tiles(block_mask: np.ndarray) -> dict:
+    T = TILE_EDGES
+    return dict(rows=np.zeros((1,), ID_DTYPE), first=np.ones((1,), ID_DTYPE),
+                lid=np.full((1, T), -1, ID_DTYPE),
+                gather=np.zeros((T,), ID_DTYPE), eid=np.zeros((T,), ID_DTYPE),
+                block_mask=block_mask)
+
+
+def _build_tiles(target_sorted: np.ndarray, gather_sorted: np.ndarray,
+                 eid_sorted: np.ndarray, num_edges: int, num_target: int):
+    """Edge-tile layout of the tile engine (``ops/engine_tile.py``).
+
+    Inputs are in target-sorted order (CSC for reduce-by-dst, CSR for
+    reduce-by-src); entries past ``num_edges`` are ignored. Output rows
+    are grouped into blocks of TILE_ROWS; each block's edges fill whole
+    tiles of TILE_EDGES slots, padded with lid = -1, so within a tile lid
+    is sorted and each row's slots are one run. Row blocks with no edges
+    get no tiles (``block_mask`` False; consumers mask their rows).
+
+    Returns dict of numpy arrays:
+      rows   (n_tiles,)       int32 row-block index of each tile
+      first  (n_tiles,)       int32 1 if tile is the first of its block
+      lid    (n_tiles, T)     int32 target id within block, -1 padding
+      gather (n_tiles*T,)     int32 source-side node id per slot (0 pad)
+      eid    (n_tiles*T,)     int32 user edge id per slot (0 pad)
+      block_mask (n_blocks,)  bool, True where the row block has edges
+    """
+    T, R = TILE_EDGES, TILE_ROWS
+    n_blocks = max((num_target + R - 1) // R, 1)
+
+    from dgl1_tpu_torch import _native
+
+    native = _native.lib()
+    if native is not None:
+        tgt32 = np.ascontiguousarray(target_sorted[:num_edges], ID_DTYPE)
+        gat32 = np.ascontiguousarray(gather_sorted[:num_edges], ID_DTYPE)
+        eid32 = np.ascontiguousarray(eid_sorted[:num_edges], ID_DTYPE)
+        n_tiles = int(native.plan_tiles(tgt32, num_edges, num_target, T, R))
+        block_mask = np.bincount(tgt32 // R,
+                                 minlength=n_blocks).astype(np.int64) > 0
+        if n_tiles == 0:
+            return _empty_tiles(block_mask)
+        rows = np.zeros((n_tiles,), ID_DTYPE)
+        first = np.zeros((n_tiles,), ID_DTYPE)
+        lid = np.full((n_tiles * T,), -1, ID_DTYPE)
+        gather = np.zeros((n_tiles * T,), ID_DTYPE)
+        eid_out = np.zeros((n_tiles * T,), ID_DTYPE)
+        native.build_tiles(tgt32, gat32, eid32, num_edges, num_target, T, R,
+                           rows, first, lid, gather, eid_out)
+        return dict(rows=rows, first=first, lid=lid.reshape(n_tiles, T),
+                    gather=gather, eid=eid_out, block_mask=block_mask)
+
+    tgt = target_sorted[:num_edges].astype(np.int64)
+    gat = gather_sorted[:num_edges].astype(np.int64)
+    eid = eid_sorted[:num_edges].astype(np.int64)
+    blk = tgt // R
+    cnt = np.bincount(blk, minlength=n_blocks) if num_edges else np.zeros(
+        n_blocks, dtype=np.int64)
+    tiles_per_block = (cnt + T - 1) // T
+    n_tiles = int(tiles_per_block.sum())
+    if n_tiles == 0:
+        return _empty_tiles(np.zeros((n_blocks,), bool))
+
+    rows = np.repeat(np.arange(n_blocks), tiles_per_block).astype(ID_DTYPE)
+    first = np.zeros((n_tiles,), ID_DTYPE)
+    starts = np.concatenate([[0], np.cumsum(tiles_per_block)[:-1]])
+    # Trailing empty blocks alias past the end; empty blocks elsewhere
+    # alias the next block's start, which is a first tile anyway.
+    first[starts[starts < n_tiles]] = 1
+
+    # Edges of block b fill slots from slot_start[b] on, in edge order.
+    slot_start = np.zeros(n_blocks, dtype=np.int64)
+    np.cumsum(tiles_per_block[:-1] * T, out=slot_start[1:])
+    edge_start = np.zeros(n_blocks, dtype=np.int64)
+    np.cumsum(cnt[:-1], out=edge_start[1:])
+    slot = slot_start[blk] + np.arange(num_edges) - edge_start[blk]
+
+    n_slots = n_tiles * T
+    lid = np.full((n_slots,), -1, dtype=ID_DTYPE)
+    gather = np.zeros((n_slots,), dtype=ID_DTYPE)
+    eid_out = np.zeros((n_slots,), dtype=ID_DTYPE)
+    lid[slot] = (tgt - blk * R).astype(ID_DTYPE)
+    gather[slot] = gat.astype(ID_DTYPE)
+    eid_out[slot] = eid.astype(ID_DTYPE)
+    return dict(rows=rows, first=first, lid=lid.reshape(n_tiles, T),
+                gather=gather, eid=eid_out, block_mask=cnt > 0)
+
+
 def graph(data: Tuple, num_nodes: Optional[int] = None, hub=None,
-          hub_dense_floor: Optional[int] = None, device=None) -> Graph:
+          hub_dense_floor: Optional[int] = None,
+          formats: Optional[Tuple[str, ...]] = None, device=None) -> Graph:
     """Homogeneous graph from an edge list ``(src, dst)`` (numpy arrays or
     tensors), built on the host and placed on ``device`` (default
-    ``cuda``)."""
+    ``cuda``). ``formats`` restricts the layouts built (see
+    :func:`_build_formats`); ``("csc",)`` is the sampling-only parent."""
     dev = resolve_device(device)
     src, dst = data
     src = _as_numpy_ids(src)
@@ -355,7 +572,10 @@ def graph(data: Tuple, num_nodes: Optional[int] = None, hub=None,
     if num_edges and (src.min() < 0 or dst.min() < 0 or
                       src.max() >= num_nodes or dst.max() >= num_nodes):
         raise ValueError("edge endpoint out of range")
+    if isinstance(formats, str):
+        formats = (formats,)
     arrays = _build_formats(src, dst, num_nodes, num_nodes, num_edges,
-                            hub=hub, hub_dense_floor=hub_dense_floor)
+                            hub=hub, hub_dense_floor=hub_dense_floor,
+                            formats=formats)
     return Graph(**arrays, num_src_nodes=num_nodes, num_dst_nodes=num_nodes,
                  num_edges=num_edges, device=dev)

@@ -1,5 +1,5 @@
 """``dgl1_tpu_torch.nn``: graph neural network modules."""
 
-from dgl1_tpu_torch.nn.conv import GATConv, GraphConv
+from dgl1_tpu_torch.nn.conv import GATConv, GraphConv, SAGEConv
 
-__all__ = ["GraphConv", "GATConv"]
+__all__ = ["GraphConv", "GATConv", "SAGEConv"]

@@ -12,7 +12,7 @@ from dgl1_tpu_torch.ops import gspmm, gsddmm
 from dgl1_tpu_torch.ops.attention import can_fuse_attention, gat_attention
 from dgl1_tpu_torch.ops.edge_softmax import edge_softmax
 
-__all__ = ["GraphConv", "GATConv"]
+__all__ = ["GraphConv", "GATConv", "SAGEConv"]
 
 
 def _dropout(x, p: float, generator):
@@ -196,6 +196,86 @@ class GATConv(nn.Module):
             h_dst = (_dropout(feat, self.feat_drop, generator) if drop_f
                      else feat)
             rst = rst + self.res_fc(h_dst).reshape(-1, h, f)
+        if self.bias is not None:
+            rst = rst + self.bias
+        if self.activation is not None:
+            rst = self.activation(rst)
+        return rst
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE layer with the ``mean``, ``gcn`` and ``pool``
+    aggregators (the reference's ``SAGEConv``; ``lstm`` is not ported
+    yet and raises NotImplementedError).
+
+    ``mean``: ``fc_self(h_dst) + fc_neigh(mean of h_src over in-edges)``;
+    ``gcn``: ``fc_neigh((sum + h_dst) / (in_degree + 1))``; ``pool``:
+    ``fc_self(h_dst) + fc_neigh(max of relu(fc_pool(h_src)))``. The bias is
+    a parameter of its own. On a block, ``h_dst`` is the first
+    ``num_dst_nodes`` rows of ``h_src`` (dst nodes come first on the src
+    side). Parameters ``fc_self.weight``, ``fc_neigh.weight`` (out, in),
+    ``fc_pool.weight`` (in, in) with ``fc_pool.bias``, and ``bias`` (out,):
+    :func:`dgl1_tpu_torch.params.from_jax_params` maps the reference's
+    flax tree onto them. Feature dropout draws from the ``generator``
+    passed to :meth:`forward`, only while training."""
+
+    def __init__(self, in_feats: int, out_feats: int,
+                 aggregator_type: str = "mean", feat_drop: float = 0.0,
+                 bias: bool = True, activation: Optional[Callable] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if aggregator_type == "lstm":
+            raise NotImplementedError(
+                "the lstm aggregator is not ported yet")
+        if aggregator_type not in ("mean", "gcn", "pool"):
+            raise ValueError(f"invalid aggregator {aggregator_type!r}")
+        dev = resolve_device(device)
+        self.aggregator_type = aggregator_type
+        self.feat_drop = feat_drop
+        self.activation = activation
+        self.fc_pool = (nn.Linear(in_feats, in_feats, device=dev)
+                        if aggregator_type == "pool" else None)
+        self.fc_self = (nn.Linear(in_feats, out_feats, bias=False, device=dev)
+                        if aggregator_type != "gcn" else None)
+        self.fc_neigh = nn.Linear(in_feats, out_feats, bias=False, device=dev)
+        self.bias = (nn.Parameter(torch.zeros(out_feats, device=dev))
+                     if bias else None)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None):
+        """Xavier-uniform weights with the relu gain (as DGL's SAGEConv),
+        zero biases; drawn on the generator's device and copied."""
+        gain = nn.init.calculate_gain("relu")
+        with torch.no_grad():
+            for lin in (self.fc_pool, self.fc_self, self.fc_neigh):
+                if lin is None:
+                    continue
+                lin.weight.copy_(_init_on(
+                    lin.weight.shape, generator,
+                    lambda t: nn.init.xavier_uniform_(t, gain=gain,
+                                                      generator=generator)))
+                if lin.bias is not None:
+                    lin.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, g: Graph, feat, generator=None):
+        h_src = feat
+        h_dst = h_src[: g.num_dst_nodes()] if g.is_block else h_src
+        if self.training and self.feat_drop > 0:
+            h_src = _dropout(h_src, self.feat_drop, generator)
+            h_dst = _dropout(h_dst, self.feat_drop, generator)
+        agg = self.aggregator_type
+        if agg == "mean":
+            h_neigh = self.fc_neigh(gspmm(g, "copy_lhs", "mean", h_src, None))
+        elif agg == "gcn":
+            s = gspmm(g, "copy_lhs", "sum", h_src, None)
+            deg = g.in_degrees().to(h_src.dtype)[:, None]
+            h_neigh = self.fc_neigh((s + h_dst) / (deg + 1.0))
+        else:
+            h_pool = torch.relu(self.fc_pool(h_src))
+            h_neigh = self.fc_neigh(gspmm(g, "copy_lhs", "max", h_pool, None))
+        rst = h_neigh if agg == "gcn" else self.fc_self(h_dst) + h_neigh
         if self.bias is not None:
             rst = rst + self.bias
         if self.activation is not None:

@@ -6,7 +6,9 @@ matrix, so a reduce is a gather plus a sum over k. Results come back
 bucket-sorted and are restored by one fill-gather through ``inv_perm``.
 The reference runs this in XLA with no Pallas kernel, so no hand kernel
 is owed here. Backward: grad_u is the same reduce over the reverse
-direction (``Graph.ell_src``), grad_e is a gather.
+direction (``Graph.ell_src``), or, on sampled blocks, which carry no
+``ell_src``, K9 over the reverse tiles (``engine_tile._tiled_reduce`` on
+``Graph.tsrc``); grad_e is a gather, zero on padded edges.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ def ell_reduce(meta: Tuple, ell: dict, op: str, reduce_op: str,
     """One reduce over the given ELL direction; meta = ((k, n_rows), ...),
     ell = {idx, eid, inv_perm}."""
     stacked = ell_stack(meta, ell["idx"], ell["eid"], op, reduce_op, u, e)
+    if ell["inv_perm"].shape[0] == 0:
+        # Uniform layout (graph._build_ell_uniform): rows already in order.
+        return stacked
     return take_fill(stacked, ell["inv_perm"])
 
 
@@ -87,6 +92,14 @@ def _sum_to_shape(x, shape):
     return x.reshape(want)
 
 
+def _mask_e(ge, emask):
+    """Zero the cotangent rows of padded edges (they never contributed)."""
+    if emask is None:
+        return ge
+    m = emask.reshape((-1,) + (1,) * (ge.dim() - 1))
+    return torch.where(m, ge, torch.zeros_like(ge))
+
+
 class _EllSum(torch.autograd.Function):
     """Sum-reduce over ``ell_dst`` with the reverse-direction backward of
     the reference's ``custom_vjp``."""
@@ -105,11 +118,19 @@ class _EllSum(torch.autograd.Function):
         ct = ct.contiguous()
 
         def rev(op2, uu, ee):
-            return ell_reduce(g.ell_src_meta, g.ell_src, op2, "sum", uu, ee,
-                              g.num_src_nodes())
+            if g.ell_src is not None:
+                return ell_reduce(g.ell_src_meta, g.ell_src, op2, "sum", uu,
+                                  ee, g.num_src_nodes())
+            # Sampled blocks carry no src-direction ELL: K9 over tsrc.
+            from dgl1_tpu_torch.ops.engine_tile import _tiled_reduce
+
+            return _tiled_reduce(op2, g.tsrc, uu, ee, g.num_src_nodes())
 
         def ct_dst():
             return gather_rows(ct, g.dst)
+
+        def ge_of(x):
+            return _sum_to_shape(_mask_e(x, g.edge_mask), e.shape[1:])
 
         gu = ge = None
         need_u = ctx.needs_input_grad[2]
@@ -117,28 +138,27 @@ class _EllSum(torch.autograd.Function):
         if op in ("copy_lhs", "add", "sub") and need_u:
             gu = _sum_to_shape(rev("copy_lhs", ct, None), u.shape[1:])
         if op == "copy_rhs" and need_e:
-            ge = _sum_to_shape(ct_dst(), e.shape[1:])
+            ge = ge_of(ct_dst())
         elif op in ("add", "sub") and need_e:
             gf = ct_dst() if op == "add" else -ct_dst()
-            ge = _sum_to_shape(gf, e.shape[1:])
+            ge = ge_of(gf)
         elif op == "mul":
             if need_u:
                 gu = _sum_to_shape(rev("mul", ct, e), u.shape[1:])
             if need_e:
-                ge = _sum_to_shape(gather_rows(u, g.src) * ct_dst(),
-                                   e.shape[1:])
+                ge = ge_of(gather_rows(u, g.src) * ct_dst())
         elif op == "div":
             if need_u:
                 gu = _sum_to_shape(rev("mul", ct, 1.0 / e), u.shape[1:])
             if need_e:
-                ge = _sum_to_shape(
-                    -gather_rows(u, g.src) * ct_dst() / (e * e), e.shape[1:])
+                ge = ge_of(-gather_rows(u, g.src) * ct_dst() / (e * e))
         return None, None, gu, ge
 
 
 def gspmm_ell(g: Graph, op: str, reduce_op: str, u, e):
-    """ELL-engine g-SpMM; returns None when not covered."""
-    if g.ell_dst is None or g.ell_src is None:
+    """ELL-engine g-SpMM; returns None when not covered (no dst ELL, or
+    neither a src ELL nor reverse tiles for the backward)."""
+    if g.ell_dst is None or (g.ell_src is None and g.tsrc is None):
         return None
     if op not in _SUPPORTED_OPS or reduce_op not in ("sum", "mean"):
         return None

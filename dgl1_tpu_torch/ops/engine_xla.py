@@ -68,21 +68,23 @@ def gspmm_xla(g: Graph, op: str, reduce_op: str, u: Optional[torch.Tensor],
     if reduce_op not in SPMM_REDUCES:
         raise ValueError(f"gspmm reduce {reduce_op!r} not in {SPMM_REDUCES}")
     num_dst = g.num_dst_nodes()
-    seg = g.csc_dst.long()
+    # Padded edges (sampled blocks) sit past the real ones in CSC order.
+    n_e = g.num_edges()
+    seg = g.csc_dst[:n_e].long()
+    csc_src, csc_eid = g.csc_src[:n_e], g.csc_eid[:n_e]
 
     if op == "copy_lhs":
         if u is None:
             raise ValueError("copy_lhs requires u")
-        msg = gather_rows(u, g.csc_src)
+        msg = gather_rows(u, csc_src)
     elif op == "copy_rhs":
         if e is None:
             raise ValueError("copy_rhs requires e")
-        msg = gather_rows(e, g.csc_eid)
+        msg = gather_rows(e, csc_eid)
     else:
         if u is None or e is None:
             raise ValueError(f"op {op!r} requires both u and e")
-        msg = _binary(op, gather_rows(u, g.csc_src),
-                      gather_rows(e, g.csc_eid))
+        msg = _binary(op, gather_rows(u, csc_src), gather_rows(e, csc_eid))
 
     shape = (num_dst,) + tuple(msg.shape[1:])
     if reduce_op in ("sum", "mean"):

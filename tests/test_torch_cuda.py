@@ -1,6 +1,6 @@
-"""The hub and attention kernels on the card against their plain torch
-versions, and the hub engine and the fused attention against the oracle
-engine on the card.
+"""The hub, attention and tile kernels on the card against their plain
+torch versions, and the hub engine, the fused attention and the tile
+engine against the oracle engine or the plain versions on the card.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. Imports no JAX, so it
 runs on a machine without it:
@@ -161,3 +161,75 @@ def test_fused_attention_matches_plain_on_the_card(dev, drop):
         res.append([out.detach().cpu()] + [x.grad.cpu() for x in ins])
     for name, a, b in zip(("out", "el", "er", "ft"), *res):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def _sampled_blocks(dev):
+    """Two sampled blocks (fanouts [10, 25], 128 seeds of them 120 real)
+    of the smoke-scale mini-batch graph, on the card."""
+    from dgl1_tpu_torch.dataloading import NeighborSampler
+
+    g, _, _, train = tdgl.data.minibatch_graph("smoke")
+    _, _, blocks = NeighborSampler([10, 25]).sample_blocks(
+        g, train[:128], rng=np.random.default_rng(0), num_real=120)
+    return [b.to(dev) for b in blocks]
+
+
+@pytest.mark.parametrize("f", [1, 37, 128, 300])
+@pytest.mark.parametrize("direction", ["tdst", "tsrc"])
+def test_tile_kernels_match_plain_versions(dev, direction, f):
+    """K9 within 1e-5 of its float64 plain version relative to the same
+    sum over |msg| (float32 rounding of at most a row's 25 slots), K10
+    bit for bit, on padded layouts with
+    padding tiles and row blocks with no edges; padding slots hold NaN to
+    show they are never read."""
+    from dgl1_tpu_torch.ops import tile_kernels as TK
+
+    for b in _sampled_blocks(dev):
+        tiles = getattr(b, direction)
+        n_rb = tiles["block_mask"].shape[0]
+        gen = torch.Generator(device=dev).manual_seed(f)
+        msg = torch.randn(tiles["lid"].numel(), f, device=dev, generator=gen)
+        msg[tiles["lid"].reshape(-1) < 0] = float("nan")
+        args = (tiles["rows"], tiles["first"], tiles["lid"])
+        got = TK.tile_sum(*args, msg, n_rb)
+        want = TK.tile_sum_torch(*args, msg.double(), n_rb)
+        scale = TK.tile_sum_torch(*args, msg.abs().double(), n_rb)
+        torch.cuda.synchronize()
+        assert bool(((got.double() - want).abs() <= 1e-5 * scale
+                     + 1e-6).all())
+        ints = torch.randint(-3, 4, msg.shape, device=dev,
+                             generator=gen).float()
+        ints[::97] = float("inf")
+        for is_max in (True, False):
+            a = TK.tile_minmax(is_max, *args, ints, n_rb)
+            e = TK.tile_minmax_torch(is_max, *args, ints, n_rb)
+            torch.cuda.synchronize()
+            assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("red", ["sum", "mean", "max", "min"])
+@pytest.mark.parametrize("op", ["copy_lhs", "mul"])
+def test_tile_engine_matches_plain_on_the_card(dev, op, red):
+    """The tile engine (K9/K10) on a sampled block against the same
+    engine on CPU tensors (the plain versions): values and grads."""
+    b = _sampled_blocks(dev)[0]
+    bc = b.to("cpu")
+    gen = torch.Generator().manual_seed(4)
+    u = torch.randint(-3, 4, (b.num_src_nodes(), 8), generator=gen).float()
+    e = torch.randint(1, 4, (b.num_edges_padded(), 8), generator=gen).float()
+    w = torch.randn(b.num_dst_nodes(), 8, generator=gen)
+    res = []
+    for graph, device in ((b, dev), (bc, "cpu")):
+        uu = u.to(device).requires_grad_(True)
+        ee = e.to(device).requires_grad_(op == "mul")
+        tdgl.ops.set_engine("tile")
+        try:
+            out = tdgl.ops.gspmm(graph, op, red, uu,
+                                 ee if op == "mul" else None)
+            (out * w.to(device)).sum().backward()
+        finally:
+            tdgl.ops.set_engine("auto")
+        res.append([out.detach().cpu(), uu.grad.cpu()]
+                   + ([ee.grad.cpu()] if op == "mul" else []))
+    for a, c in zip(*res):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
