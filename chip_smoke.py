@@ -8,10 +8,17 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
 1. print the card's name and power limit, build the CUDA kernels from
    ``dgl1_tpu_torch/csrc`` (one nvcc per source, started together) and
    print the build time;
-2. each hub kernel (K1 dense_fwd, K2 chunk_sum, K3 expand, K4a
-   dense_bwd_fused, K4b dense_bwd) on the card at the arxiv trainer's
-   shapes (K2 and K4b on a mixed-tier layout at 10^5 nodes whose four
-   chunked groups hold about a third of the edges), then each attention
+2. the R-GCN graphs of tools/bench_models.py --model rgcn
+   (``powerlaw_graph(169343, 26)``, 8 relations per edge from
+   ``default_rng(0)``, the relation-sorted copy and the 8 per-relation
+   subgraphs); each hub kernel (K1 dense_fwd, K2 chunk_sum, K3 expand,
+   K4a dense_bwd_fused, K4b dense_bwd) on the card at the arxiv
+   trainer's shapes (K2 and K4b on a mixed-tier layout at 10^5 nodes
+   whose four chunked groups hold about a third of the edges) against
+   its float64 plain version, with every other width and layout the
+   trainers give it as ``variants`` (GCN layer 2, the weighted GCN's
+   in-degree sum, the per-relation R-GCN's relation-0 subgraph at F=64
+   and 40, K3 after the grouped R-GCN's copy_e); then each attention
    kernel (K6 attn_fwd, K7 attn_bwd_src, K8 ger_reduce) at arxiv layer
    1's shapes (H=8, D=32, one group of 5,292 chunks), with the same
    kernels at dropout 0.6, at layer 2 (H=1, D=40) and on the mixed graph
@@ -25,17 +32,36 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    forward and backward (H=8, D=32) on the arxiv and mixed graphs against
    the composed g-SDDMM -> edge_softmax -> u_mul_e path on the oracle
    engine; edges/s;
+3b. the weighted hub ops (phases 2d and 3c): K2 mul (weighted-GCN layer
+   1: arxiv ``full_fwd``, F=128, one weight per edge), K2 rhs (R-GCN layer
+   1 on the sorted graph, he=64), K5 mul (F=128) and K5 rhs (he=64)
+   against float64 plain versions, with the weighted GCN's layer 2 (F=40,
+   ``full_fwd`` and ``full_bwd``) and in-degree sum (rhs he=1), R-GCN
+   layer 2 (he=40), the GAT shape (he=8, rep=32) and the mixed graph as
+   ``variants``; u_mul_e
+   and copy_e through the hub engine against the oracle at arxiv
+   (forward, grad_u, grad_e); the composed GAT chain on the hub engine
+   against the fused attention;
 4. the trainers at the arxiv configuration of tools/bench_models.py
    (169,343 nodes, ``add_self_loop(powerlaw_graph(., 26))``, Adam 1e-2):
    GCN 128 -> 256 -> 40 for 5 steps (K1, K3, K4a) and 3 on the mixed
    graph (K2, K4b); then the GAT trainer, 128 -> 8 x 32 -> 40 with
    dropout 0: logits against the composed path, 5 steps (K6, K7, K8), 3
    on the mixed graph, and 2 at the model's default dropout 0.6
-   (in-kernel attention dropout). Losses finite (and falling without
-   dropout), the launch counters of each path's kernels above zero;
-   ms/step and peak memory; then a ``torch.profiler`` trace of 3 arxiv
-   GAT steps (device busy time, idle share, top kernels);
-5. the sampled GraphSAGE slice, this slice's main path, at the Reddit
+   (in-kernel attention dropout); then the edge-weighted GCN
+   (``EdgeWeightedGCN``: ``EdgeWeightNorm('both')`` of sigmoid(theta),
+   theta a learnable parameter of the model: K2 mul
+   3, K5 mul 2, K2 rhs 1, K5 rhs 1 per step, exactly). Losses finite (and
+   falling without dropout), the launch counters of each path's kernels
+   above zero; ms/step and peak memory; then a ``torch.profiler`` trace of
+   3 arxiv GAT steps (device busy time, idle share, top kernels);
+4c. R-GCN at configuration #4's shape (128 -> 64 ->
+   40, 8 relations, 4 bases, Adam 1e-2): 5 steps on the per-relation path
+   (K1, K3, K4a per relation, no weighted kernel) and 5 on the
+   grouped-GEMM path (K2 rhs and K5 rhs 2 per step exactly; step-0 logits
+   against the per-relation path and the oracle), then a profile of 3
+   grouped steps;
+5. sampled GraphSAGE at the Reddit
    configuration of tools/bench_minibatch.py (--scale reddit: 232,965
    nodes, 114,615,892 edges, F=602, 41 classes, fanouts [10, 25], batch
    1024, hidden 256, dropout 0.5, Adam 1e-3; parent graph on the host,
@@ -102,7 +128,12 @@ KERNEL_INFO = {
     "ger_reduce": ("K8", _ATT_SRC, f"{_ATT_REF}:612"),
     "tile_sum": ("K9", _TILE_SRC, f"{_TILE_REF}:54"),
     "tile_minmax": ("K10", _TILE_SRC, f"{_TILE_REF}:75"),
+    "chunk_mul": ("K2 mul", _HUB_SRC, f"{_HUB_REF}:68"),
+    "chunk_rhs": ("K2 rhs", _HUB_SRC, f"{_HUB_REF}:68"),
+    "edge_grad_mul": ("K5 mul", _HUB_SRC, f"{_HUB_REF}:364"),
+    "edge_grad_rhs": ("K5 rhs", _HUB_SRC, f"{_HUB_REF}:364"),
 }
+WEIGHTED = ("chunk_mul", "chunk_rhs", "edge_grad_mul", "edge_grad_rhs")
 
 
 def log(*a):
@@ -250,125 +281,221 @@ def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
     return row
 
 
-def phase_kernels(dev, g_arx, g_mix):
+VARIANT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bytes", "flops", "shapes")
+
+
+def with_variants(row, variants):
+    """``row`` with the other shapes its kernel runs at on the trainer
+    paths, each checked and timed as the row (library calls on the row's
+    case only)."""
+    row["variants"] = [{k: v[k] for k in VARIANT_KEYS} for v in variants]
+    return row
+
+
+def dense_fwd_case(case, g, dev, f, seed=0, library=True):
+    """K1 on ``g``'s count matrix at width f against its float64 plain
+    version. Bytes: C, the rows of U that a nonzero of C needs, and the
+    output, once."""
+    from dgl1_tpu_torch.ops import hub_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, n = g.hub_dst["dense_c"], g.num_nodes()
+    kd = c.shape[1]
+    # Rows of U the product needs: those whose row of C is not all zero.
+    u_rows = int((c[:n] != 0).any(dim=1).sum())
+    u = torch.randn(n, f, device=dev, generator=gen)
+    lib = None
+    if library:
+        cf = c[:n].float().t()
+        lib = lambda: torch.mm(cf, u)  # noqa: E731
+    return kernel_row(
+        "dense_fwd", K.dense_fwd(c, u), K.dense_fwd_torch(c, u.double()),
+        K.dense_fwd_torch(c, u.abs().double()),
+        lambda: K.dense_fwd(c, u), lambda: K.dense_fwd_torch(c, u), lib,
+        nbytes(c) + u_rows * f * 4 + kd * f * 4,
+        2 * int((c != 0).sum()) * f,
+        {"case": case, "c": list(c.shape), "c_dtype": str(c.dtype),
+         "u": [n, f], "u_rows_needed": u_rows})
+
+
+def expand_case(case, g, dev, f, seed=0, library=True):
+    """K3 at width f on ``g``'s merged block ``[tail stack | hub block]``
+    (the tail stack of a random U, a random hub block of the layout's
+    groups) against its float64 plain version."""
     from dgl1_tpu_torch.ops import hub_kernels as K
     from dgl1_tpu_torch.ops.engine_ell import ell_stack
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rows = []
-    hub, m = g_arx.hub_dst, g_arx.hub_dst_meta
-    n = g_arx.num_nodes()
-    c = hub["dense_c"]
-    cf = c.float()
-    kd = c.shape[1]
-    nnz_all = int((c != 0).sum())
-    # Rows of U the product needs: those whose row of C is not all zero.
-    u_rows = int((c[:n] != 0).any(dim=1).sum())
-
-    # K1 at layer 1's width (F = 128, the raw features).
-    f1 = 128
-    u = torch.randn(n, f1, device=dev, generator=gen)
-    out = K.dense_fwd(c, u)
-    rows.append(kernel_row(
-        "dense_fwd", out, K.dense_fwd_torch(c, u),
-        K.dense_fwd_torch(c, u.abs()),
-        lambda: K.dense_fwd(c, u), lambda: K.dense_fwd_torch(c, u),
-        lambda: torch.mm(cf[:n].t(), u),
-        nbytes(c) + u_rows * f1 * 4 + kd * f1 * 4, 2 * nnz_all * f1,
-        {"c": list(c.shape), "c_dtype": str(c.dtype), "u": [n, f1],
-         "u_rows_needed": u_rows}))
-
-    # K3 at layer 1's width: merged = [tail stack | hub block].
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hub, m, n = g.hub_dst, g.hub_dst_meta, g.num_nodes()
+    u = torch.randn(n, f, device=dev, generator=gen)
     stacked = ell_stack(m.tail_meta_dst, hub["t_idx"], hub["t_eid"],
                         "copy_lhs", "sum", u, None)
-    merged = torch.cat([stacked, out], dim=0).contiguous()
+    hub_block = torch.randn(m.n_groups * 128, f, device=dev, generator=gen)
+    merged = torch.cat([stacked, hub_block], dim=0).contiguous()
+    del u, stacked, hub_block
     xs, xd = hub["x_starts"], hub["x_desc"]
-    e3 = K.expand(merged, xs, xd, n)
-    ref3 = K.expand_torch(merged, xs, xd, n)
-    t_inv = hub["t_inv"].long()
-    idx_z = torch.where(t_inv < merged.shape[0], t_inv,
-                        torch.full_like(t_inv, merged.shape[0]))
-    merged_z = torch.cat([merged, merged.new_zeros(1, f1)])
+    ref = K.expand_torch(merged.double(), xs, xd, n)
+    lib = None
+    if library:
+        t_inv = hub["t_inv"].long()
+        idx_z = torch.where(t_inv < merged.shape[0], t_inv,
+                            torch.full_like(t_inv, merged.shape[0]))
+        merged_z = torch.cat([merged, merged.new_zeros(1, f)])
+        lib = lambda: torch.index_select(merged_z, 0, idx_z)  # noqa: E731
     n_desc = int(xs[-(-n // 512)])
-    rows.append(kernel_row(
-        "expand", e3, ref3, ref3.abs(),
+    return kernel_row(
+        "expand", K.expand(merged, xs, xd, n), ref, ref.abs(),
         lambda: K.expand(merged, xs, xd, n),
-        lambda: K.expand_torch(merged, xs, xd, n),
-        lambda: torch.index_select(merged_z, 0, idx_z),
-        nbytes(merged) + 4 * (n_desc + -(-n // 512) + 1) + n * f1 * 4, 0,
-        {"merged": list(merged.shape), "num_dst": n}))
+        lambda: K.expand_torch(merged, xs, xd, n), lib,
+        nbytes(merged) + 4 * (n_desc + -(-n // 512) + 1) + n * f * 4, 0,
+        {"case": case, "merged": list(merged.shape), "num_dst": n})
 
-    # K4a at layer 2's width (F = 40: only layer 2 runs a backward).
-    f2 = 40
-    ct = torch.randn(kd, f2, device=dev, generator=gen)
-    ct_full = torch.randn(n, f2, device=dev, generator=gen)
+
+def dense_bwd_fused_case(case, g, dev, f, seed=0, library=True):
+    """K4a at width f on ``g``'s count matrix and tail-src stack against
+    its float64 plain version."""
+    from dgl1_tpu_torch.ops import hub_kernels as K
+    from dgl1_tpu_torch.ops.engine_ell import ell_stack
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hub, m, n = g.hub_dst, g.hub_dst_meta, g.num_nodes()
+    c = hub["dense_c"]
+    kd = c.shape[1]
+    ct = torch.randn(kd, f, device=dev, generator=gen)
+    ct_full = torch.randn(n, f, device=dev, generator=gen)
     tail = ell_stack(m.tail_meta_src, hub["r_idx"], hub["r_eid"],
                      "copy_lhs", "sum", ct_full, None).contiguous()
+    del ct_full
     gs, gd = hub["gb_starts"], hub["gb_desc"]
-    o4 = K.dense_bwd_fused(c, ct, tail, gs, gd, n)
-    ref4 = K.dense_bwd_fused_torch(c, ct, tail, gs, gd, n)
-    scale4 = K.dense_bwd_fused_torch(c, ct.abs(), tail.abs(), gs, gd, n)
-    nnz_n = int((c[:n] != 0).sum())
+    lib = None
+    if library:
+        cf = c[:n].float()
+        lib = lambda: torch.mm(cf, ct)  # noqa: E731
     n_gdesc = int(gs[c.shape[0] // 1024])
-    rows.append(kernel_row(
-        "dense_bwd_fused", o4, ref4, scale4,
+    return kernel_row(
+        "dense_bwd_fused", K.dense_bwd_fused(c, ct, tail, gs, gd, n),
+        K.dense_bwd_fused_torch(c, ct.double(), tail.double(), gs, gd, n),
+        K.dense_bwd_fused_torch(c, ct.abs().double(), tail.abs().double(),
+                                gs, gd, n),
         lambda: K.dense_bwd_fused(c, ct, tail, gs, gd, n),
-        lambda: K.dense_bwd_fused_torch(c, ct, tail, gs, gd, n),
-        lambda: torch.mm(cf[:n], ct),
+        lambda: K.dense_bwd_fused_torch(c, ct, tail, gs, gd, n), lib,
         c[:n].numel() * c.element_size() + nbytes(ct, tail)
-        + 4 * (n_gdesc + c.shape[0] // 1024 + 1) + n * f2 * 4,
-        2 * nnz_n * f2 + n_gdesc * f2,
-        {"c": list(c.shape), "ct": [kd, f2], "tail": list(tail.shape),
-         "n_out": n}))
+        + 4 * (n_gdesc + c.shape[0] // 1024 + 1) + n * f * 4,
+        2 * int((c[:n] != 0).sum()) * f + n_gdesc * f,
+        {"case": case, "c": list(c.shape), "ct": [kd, f],
+         "tail": list(tail.shape), "n_out": n})
 
-    # K2 and K4b on the mixed-tier layout (10^5 nodes, F = 128).
-    hm, mm = g_mix.hub_dst, g_mix.hub_dst_meta
-    nm = g_mix.num_nodes()
-    um = torch.randn(nm, f1, device=dev, generator=gen)
-    lay = hm["part_fwd"]
-    n_out_b = mm.n_groups - mm.n_dense
-    o2 = K.chunk_sum(lay, um, n_out_b)
-    ref2 = K.chunk_sum_torch(lay, um, n_out_b)
-    scale2 = K.chunk_sum_torch(lay, um.abs(), n_out_b)
+
+def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
+    """K1, K3 and K4a at the arxiv GCN's layer-1 (K1, K3) and layer-2 (K4a)
+    widths, each against its float64 plain version, with the other shapes
+    the trainers give them as ``variants``: GCN layer 2 (F=40) and the
+    weighted GCN's in-degree sum (F=1) on arxiv; the per-relation R-GCN's
+    relation-0 subgraph at F=64 and F=40 (layer 1 and 2 projected first);
+    K3 after the grouped R-GCN's copy_e (he=64, 40) on the
+    relation-sorted graph; K1 on the mixed-tier layout. Then K2 and K4b
+    on the mixed-tier layout at F=128, with the mixed GCN's F=40 (K2
+    forward and its window-major grad_u, K4b) as ``variants``."""
+
+    def variants(case_fn, cases):
+        return [case_fn(c, g, dev, f, *more, seed=i + 1, library=False)
+                for i, (c, g, f, *more) in enumerate(cases)]
+
+    rows = [
+        with_variants(dense_fwd_case("arxiv_f128", g_arx, dev, 128),
+                      variants(dense_fwd_case, [
+                          ("arxiv_f40", g_arx, 40),
+                          ("rgcn_rel0_f64", g_rel0, 64),
+                          ("rgcn_rel0_f40", g_rel0, 40),
+                          ("mixed_f128", g_mix, 128),
+                          ("mixed_f40", g_mix, 40)])),
+        with_variants(expand_case("arxiv_f128", g_arx, dev, 128),
+                      variants(expand_case, [
+                          ("arxiv_f40", g_arx, 40), ("arxiv_f1", g_arx, 1),
+                          ("rgcn_rel0_f64", g_rel0, 64),
+                          ("rgcn_rel0_f40", g_rel0, 40),
+                          ("rgcn_sorted_he64", g_sorted, 64),
+                          ("rgcn_sorted_he40", g_sorted, 40)])),
+        with_variants(dense_bwd_fused_case("arxiv_f40", g_arx, dev, 40),
+                      variants(dense_bwd_fused_case, [
+                          ("rgcn_rel0_f64", g_rel0, 64),
+                          ("rgcn_rel0_f40", g_rel0, 40)])),
+        with_variants(chunk_sum_case("mixed_f128", g_mix, dev, 128),
+                      variants(chunk_sum_case, [
+                          ("mixed_f40", g_mix, 40),
+                          ("mixed_grad_u_f40", g_mix, 40, True)])),
+        with_variants(dense_bwd_case("mixed_f128", g_mix, dev, 128),
+                      variants(dense_bwd_case, [("mixed_f40", g_mix, 40)])),
+    ]
+    return {r["name"]: r for r in rows}
+
+
+def chunk_sum_case(case, g, dev, f, bwd=False, seed=0, library=True):
+    """K2 (plain mode) at width f over ``g``'s chunked tier: ``part_fwd``
+    (the forward), or with ``bwd`` the window-major ``part_bwd`` (grad_u:
+    the chunked groups' cotangent rows into source windows), against its
+    float64 plain version."""
+    from dgl1_tpu_torch.ops import hub_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = g.hub_dst_meta
+    lay = g.hub_dst["part_bwd" if bwd else "part_fwd"]
+    n_chunked = (m.n_groups - m.n_dense) * 128
+    n_in = n_chunked if bwd else g.num_nodes()
+    n_out_b = m.n_win if bwd else m.n_groups - m.n_dense
+    u = torch.randn(n_in, f, device=dev, generator=gen)
     rows_in, rows_out, valid = K._chunk_rows(lay)
-    valid = valid & (rows_in < nm)
+    valid = valid & (rows_in < n_in)
     n_real = int(valid.sum())
     # Input rows the real slots gather, each read once.
     n_in_rows = int(torch.unique(rows_in[valid]).numel())
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # sparse CSR is a beta feature
-        s_mat = torch.sparse_coo_tensor(
-            torch.stack([rows_out[valid], rows_in[valid]]),
-            torch.ones(n_real, device=dev), (n_out_b * 128, nm),
-            check_invariants=False).coalesce().to_sparse_csr()
-    rows.append(kernel_row(
-        "chunk_sum", o2, ref2, scale2,
-        lambda: K.chunk_sum(lay, um, n_out_b),
-        lambda: K.chunk_sum_torch(lay, um, n_out_b),
-        lambda: torch.sparse.mm(s_mat, um),
+    lib = None
+    if library:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # sparse CSR is a beta feature
+            s_mat = torch.sparse_coo_tensor(
+                torch.stack([rows_out[valid], rows_in[valid]]),
+                torch.ones(n_real, device=dev), (n_out_b * 128, n_in),
+                check_invariants=False).coalesce().to_sparse_csr()
+        lib = lambda: torch.sparse.mm(s_mat, u)  # noqa: E731
+    return kernel_row(
+        "chunk_sum", K.chunk_sum(lay, u, n_out_b),
+        K.chunk_sum_torch(lay, u.double(), n_out_b),
+        K.chunk_sum_torch(lay, u.abs().double(), n_out_b),
+        lambda: K.chunk_sum(lay, u, n_out_b),
+        lambda: K.chunk_sum_torch(lay, u, n_out_b), lib,
         nbytes(lay["a"], lay["b"], lay["in_id"], lay["out_id"])
-        + n_in_rows * f1 * 4 + n_out_b * 128 * f1 * 4, n_real * f1,
-        {"chunks": int(lay["in_id"].shape[0]),
+        + n_in_rows * f * 4 + n_out_b * 128 * f * 4, n_real * f,
+        {"case": case, "layout": "part_bwd" if bwd else "part_fwd",
+         "chunks": int(lay["in_id"].shape[0]),
          "slots": int(lay["a"].shape[0]), "real_slots": n_real,
          "input_rows_gathered": n_in_rows,
-         "chunked_edge_share": chunked_share(g_mix),
-         "inp": [nm, f1], "out_blocks": n_out_b}))
+         "chunked_edge_share": chunked_share(g),
+         "inp": [n_in, f], "out_blocks": n_out_b})
 
-    cm = hm["dense_c"]
-    cmf = cm.float()
-    ctm = torch.randn(cm.shape[1], f1, device=dev, generator=gen)
-    o5 = K.dense_bwd(cm, ctm, nm)
-    rows.append(kernel_row(
-        "dense_bwd", o5, K.dense_bwd_torch(cm, ctm, nm),
-        K.dense_bwd_torch(cm, ctm.abs(), nm),
-        lambda: K.dense_bwd(cm, ctm, nm),
-        lambda: K.dense_bwd_torch(cm, ctm, nm),
-        lambda: torch.mm(cmf[:nm], ctm),
-        cm[:nm].numel() * cm.element_size() + nbytes(ctm) + nm * f1 * 4,
-        2 * int((cm[:nm] != 0).sum()) * f1,
-        {"c": list(cm.shape), "c_dtype": str(cm.dtype),
-         "ct": list(ctm.shape), "n_out": nm}))
-    return {r["name"]: r for r in rows}
+
+def dense_bwd_case(case, g, dev, f, seed=0, library=True):
+    """K4b at width f on ``g``'s count matrix against its float64 plain
+    version."""
+    from dgl1_tpu_torch.ops import hub_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, n = g.hub_dst["dense_c"], g.num_nodes()
+    ct = torch.randn(c.shape[1], f, device=dev, generator=gen)
+    lib = None
+    if library:
+        cf = c[:n].float()
+        lib = lambda: torch.mm(cf, ct)  # noqa: E731
+    return kernel_row(
+        "dense_bwd", K.dense_bwd(c, ct, n),
+        K.dense_bwd_torch(c, ct.double(), n),
+        K.dense_bwd_torch(c, ct.abs().double(), n),
+        lambda: K.dense_bwd(c, ct, n), lambda: K.dense_bwd_torch(c, ct, n),
+        lib, c[:n].numel() * c.element_size() + nbytes(ct) + n * f * 4,
+        2 * int((c[:n] != 0).sum()) * f,
+        {"case": case, "c": list(c.shape), "c_dtype": str(c.dtype),
+         "ct": list(ct.shape), "n_out": n})
 
 
 SLOPE = 0.2
@@ -493,10 +620,8 @@ def phase_attn_kernels(dev, g_arx, g_mix):
                           plain_iters=1, library=False),
                 attn_case("mixed_layer1_drop0.6", g_mix, dev, 8, 32, 0.6,
                           plain_iters=1, library=False)]
-    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "bytes", "flops", "shapes")
     for name, row in rows.items():
-        row["variants"] = [{k: v[name][k] for k in keep} for v in variants]
+        with_variants(row, [v[name] for v in variants])
     return rows
 
 
@@ -653,6 +778,455 @@ def profile_gat(dev, g, steps=3):
                       wall_ms)
 
 
+# The R-GCN configuration of tools/bench_models.py --model rgcn (lines
+# 49-60, 95-97; BASELINE.json configuration #4's shape).
+RGCN = dict(nodes=169343, deg=26, rels=8, in_f=128, hidden=64, classes=40,
+            bases=4, lr=1e-2)
+
+
+def rgcn_setup(dev):
+    """The typed graph (``powerlaw_graph(169343, 26)``, no self-loops, a
+    relation per edge from ``default_rng(0)``), its relation-sorted copy
+    for the grouped-GEMM path and the 8 per-relation subgraphs, built on
+    the host and moved to the card; host seconds of each."""
+    import dgl1_tpu_torch as dgl
+
+    t0 = time.perf_counter()
+    g, et = dgl.data.typed_powerlaw_graph(RGCN["nodes"], RGCN["deg"],
+                                          RGCN["rels"], seed=0, device=dev)
+    t1 = time.perf_counter()
+    g_sorted, et_sorted, counts = dgl.data.sort_by_relation(g, et,
+                                                            RGCN["rels"])
+    t2 = time.perf_counter()
+    rel = dgl.typed_subgraphs(g, et, RGCN["rels"])
+    t3 = time.perf_counter()
+    log(json.dumps({
+        "phase": "rgcn_graphs", "build_s": t1 - t0, "sorted_copy_s": t2 - t1,
+        "typed_subgraphs_s": t3 - t2, "nodes": g.num_nodes(),
+        "edges": g.num_edges(), "relations": RGCN["rels"],
+        "edges_per_relation": counts.tolist(),
+        "sorted": repr(g_sorted.hub_dst_meta),
+        "relation_0": repr(rel[0].hub_dst_meta),
+        "relations_with_hub": sum(r.hub_dst_meta is not None for r in rel)}))
+    return dict(g=g, g_sorted=g_sorted, rel=rel, counts=counts,
+                et=torch.as_tensor(et[: g.num_edges()], device=dev),
+                et_sorted=torch.as_tensor(et_sorted, device=dev))
+
+
+def weighted_row(name, case, g, dev, he, rep, bwd=False, library=True,
+                 seed=0):
+    """One of K2 mul/rhs (``chunk_*``) or K5 mul/rhs (``edge_grad_*``) on
+    ``g``'s full layout (the window-major ``full_bwd`` with ``bwd``: grad_u
+    of u_mul_e) at he heads of rep features, against its float64 plain
+    version on the same random inputs (plain_ms times the float32 plain
+    version). Bytes: the layout, each input row the real slots need and
+    the output, once. Library calls, timed only: ``torch.sparse.mm`` of a
+    CSR holding the weights (K2 mul, one head), ``index_add_`` of the real
+    slots' edge rows gathered beforehand (K2 rhs),
+    ``torch.sparse.sampled_addmm`` over the slots' (hub row, source) pattern
+    (K5 mul, one head; duplicate edges merge there), ``index_select`` of the
+    cotangent rows (K5 rhs)."""
+    from dgl1_tpu_torch.ops import hub_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hub, m = g.hub_dst, g.hub_dst_meta
+    n, gr, f = g.num_nodes(), m.n_groups * 128, he * rep
+    mode = "mul" if name.endswith("mul") else "rhs"
+    lay = hub["full_bwd" if bwd else "full_fwd"]
+    rows_in, rows_out, valid = K._chunk_rows(lay)
+    real = valid.nonzero().squeeze(1)
+    n_real = int(real.numel())
+    ri, ro = rows_in.index_select(0, real), rows_out.index_select(0, real)
+    shapes = {"case": case, "he": he, "rep": rep,
+              "layout": "full_bwd" if bwd else "full_fwd",
+              "chunks": int(lay["in_id"].shape[0]),
+              "slots": int(lay["a"].shape[0]), "real_slots": n_real,
+              "groups": m.n_groups, "windows": m.n_win}
+    lay_bytes = nbytes(lay["a"], lay["b"], lay["in_id"], lay["out_id"])
+    in_rows = int(torch.unique(ri).numel())
+    lib, note = None, None if library else "timed on the main case only"
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def d(x):
+        return None if x is None else x.double()
+
+    def a(x):
+        return None if x is None else x.abs().double()
+
+    if name.startswith("chunk"):
+        e2 = rnd(g.num_edges(), he)
+        inp = rnd(gr if bwd else n, f) if mode == "mul" else None
+        n_out = m.n_win if bwd else m.n_groups
+        args = (mode, lay, e2, inp, n_out, he, rep)
+        out = K.chunk_weighted(*args)
+        ref = K.chunk_weighted_torch(mode, lay, d(e2), d(inp), n_out, he,
+                                     rep)
+        scale = K.chunk_weighted_torch(mode, lay, a(e2), a(inp), n_out, he,
+                                       rep)
+        fn = lambda: K.chunk_weighted(*args)  # noqa: E731
+        plain = lambda: K.chunk_weighted_torch(*args)  # noqa: E731
+        bytes_moved = (lay_bytes + nbytes(lay["eid"]) + n_real * he * 4
+                       + (in_rows * f * 4 if mode == "mul" else 0)
+                       + nbytes(out))
+        flops = n_real * f * (2 if mode == "mul" else 1)
+        eid_r = lay["eid"].long().index_select(0, real)
+        if library and mode == "mul" and he == 1:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # sparse CSR is beta
+                s_mat = torch.sparse_coo_tensor(
+                    torch.stack([ro, ri]), e2[:, 0].index_select(0, eid_r),
+                    (n_out * 128, inp.shape[0]),
+                    check_invariants=False).coalesce().to_sparse_csr()
+            lib = lambda: torch.sparse.mm(s_mat, inp)  # noqa: E731
+        elif library and mode == "rhs":
+            msg = e2.index_select(0, eid_r)
+            lib_out = torch.zeros_like(out)
+            lib = lambda: lib_out.index_add_(0, ro, msg)  # noqa: E731
+        elif library:
+            note = "no single PyTorch call for per-head weights"
+    else:
+        ct = rnd(gr, f if mode == "mul" else he)
+        u = rnd(n, f) if mode == "mul" else None
+        args = (mode, lay, u, ct, he, rep)
+        out = K.edge_grad(*args)
+        ref = K.edge_grad_torch(mode, lay, d(u), d(ct), he, rep)
+        scale = K.edge_grad_torch(mode, lay, a(u), a(ct), he, rep)
+        fn = lambda: K.edge_grad(*args)  # noqa: E731
+        plain = lambda: K.edge_grad_torch(*args)  # noqa: E731
+        bytes_moved = (lay_bytes + (in_rows * f * 4 if mode == "mul" else 0)
+                       + nbytes(ct, out))
+        flops = 2 * n_real * f if mode == "mul" else 0
+        if library and mode == "mul" and he == 1:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                pattern = torch.sparse_coo_tensor(
+                    torch.stack([ro, ri]), torch.ones(n_real, device=dev),
+                    (gr, n), check_invariants=False).coalesce(
+                ).to_sparse_csr()
+            u_t = u.t().contiguous()
+            lib = lambda: torch.sparse.sampled_addmm(  # noqa: E731
+                pattern, ct, u_t)
+        elif library and mode == "rhs":
+            lib = lambda: ct.index_select(0, ro)  # noqa: E731
+        elif library:
+            note = "no single PyTorch call for per-head dots"
+    shapes["input_rows"] = in_rows
+    row = kernel_row(name, out, ref, scale, fn, plain, lib, bytes_moved,
+                     flops, shapes, note, plain_iters=3)
+    del out, ref, scale
+    return row
+
+
+def phase_weighted_kernels(dev, g_arx, g_mix, g_rel):
+    """K2 mul at weighted-GCN layer 1 (arxiv ``full_fwd``, F=128, one
+    weight per edge), K2 rhs at R-GCN layer 1 (relation-sorted graph,
+    he=64), K5 mul at F=128 and K5 rhs at he=64; as ``variants``: the
+    weighted GCN's layer 2 (K2 mul at F=40 over ``full_fwd`` and, for
+    grad_u, over ``full_bwd``; K5 mul at F=40) and its in-degree sum
+    (K2/K5 rhs at he=1), R-GCN layer 2 (he=40), the GAT shape (he=8,
+    rep=32; rhs he=8, the softmax denominator) and the mixed graph (five
+    groups)."""
+    cases = {
+        "chunk_mul": [("gcnw_layer1_f128", g_arx, 1, 128, False),
+                      ("gcnw_layer2_f40", g_arx, 1, 40, False),
+                      ("gcnw_layer2_grad_u_f40", g_arx, 1, 40, True),
+                      ("gat_h8_d32", g_arx, 8, 32, False),
+                      ("mixed_f128", g_mix, 1, 128, False)],
+        "chunk_rhs": [("rgcn_layer1_he64", g_rel, 64, 1, False),
+                      ("rgcn_layer2_he40", g_rel, 40, 1, False),
+                      ("gcnw_in_w_he1", g_arx, 1, 1, False),
+                      ("gat_den_he8", g_arx, 8, 1, False),
+                      ("mixed_he8", g_mix, 8, 1, False)],
+        "edge_grad_mul": [("gcnw_layer1_f128", g_arx, 1, 128, False),
+                          ("gcnw_layer2_f40", g_arx, 1, 40, False),
+                          ("gat_h8_d32", g_arx, 8, 32, False),
+                          ("mixed_f128", g_mix, 1, 128, False)],
+        "edge_grad_rhs": [("rgcn_layer1_he64", g_rel, 64, 1, False),
+                          ("rgcn_layer2_he40", g_rel, 40, 1, False),
+                          ("gcnw_in_w_he1", g_arx, 1, 1, False),
+                          ("gat_den_he8", g_arx, 8, 1, False),
+                          ("mixed_he8", g_mix, 8, 1, False)],
+    }
+    rows = {}
+    for name, cs in cases.items():
+        (case, g, he, rep, bwd), *rest = cs
+        rows[name] = with_variants(
+            weighted_row(name, case, g, dev, he, rep, bwd),
+            [weighted_row(name, c, gg, dev, h, r, b, library=False,
+                          seed=i + 1)
+             for i, (c, gg, h, r, b) in enumerate(rest)])
+        torch.cuda.empty_cache()
+    return rows
+
+
+def weighted_gspmm_path(name, g, dev, op, width, expect):
+    """u_mul_e (one weight per edge, F=width) or copy_e (he=width) + sum,
+    forward, grad_u and grad_e, through the hub engine against the oracle
+    engine in float64; counters zeroed before and read after. Each result
+    within 1e-4 of the same computation over absolute values."""
+    from dgl1_tpu_torch import ops
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, e = g.num_nodes(), g.num_edges()
+    mul = op == "mul"
+    u = torch.randn(n, width, device=dev, generator=gen) if mul else None
+    ew = torch.randn(e, 1 if mul else width, device=dev, generator=gen)
+    w = torch.randn(n, width, device=dev, generator=gen)
+
+    def run(uu, ee, ww):
+        ins = [x.clone().requires_grad_(True) for x in (uu, ee)
+               if x is not None]
+        out = ops.gspmm(g, op, "sum", *([None] if not mul else []), *ins)
+        grads = torch.autograd.grad((out * ww).sum(), ins)
+        return [out.detach()] + list(grads)
+
+    ops.set_engine("xla")
+    try:
+        ref = run(*f64((u, ew, w)))
+        scale = run(*f64(tuple(None if x is None else x.abs()
+                               for x in (u, ew, w))))
+    finally:
+        ops.set_engine("auto")
+    ops.set_engine("hub")
+    try:
+        reset_all_launches()
+        got = run(u, ew, w)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        expect_launches(name, counts, expect)
+        errs = {k: check(f"{name} {k}", a, b, c) for k, a, b, c in zip(
+            ("fwd", "grad_u", "grad_e") if mul else ("fwd", "grad_e"),
+            got, ref, scale)}
+        del ref, scale
+        ins = [x for x in (u, ew) if x is not None]
+        fwd_ms = cuda_ms(lambda: ops.gspmm(g, op, "sum",
+                                           *([None] if not mul else []),
+                                           *ins))
+        rin = [x.clone().requires_grad_(True) for x in ins]
+        out2 = ops.gspmm(g, op, "sum", *([None] if not mul else []), *rin)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out2, rin, w,
+                                                     retain_graph=True))
+    finally:
+        ops.set_engine("auto")
+    log(json.dumps({
+        "phase": "gspmm_weighted", "path": name, "op": op, "width": width,
+        "nodes": n, "edges": e, "launches": counts, "errors": errs,
+        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "fwd_edges_per_s": e / (fwd_ms * 1e-3),
+        "bwd_edges_per_s": e / (bwd_ms * 1e-3)}))
+
+
+def composed_gat_on_hub(name, g, dev, h=8, d=32):
+    """The composed GAT chain on the hub engine (g-SDDMM, edge_softmax
+    whose denominator is a hub copy_e, then u_mul_e per head) against the
+    fused ``gat_attention`` on the same graph, both float32; counters
+    zeroed before the composed run and read after (K2 mul/rhs, K5
+    mul/rhs). Values within 1e-4 of the fused sums over |ft|, grads within
+    1e-4 of (|ref| + the largest |ref|), as gat_attention_path."""
+    from dgl1_tpu_torch import ops
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n = g.num_nodes()
+    xs = [torch.randn(n, h, device=dev, generator=gen),
+          torch.randn(n, h, device=dev, generator=gen),
+          torch.randn(n, h, d, device=dev, generator=gen)]
+    w = torch.randn(n, h, d, device=dev, generator=gen)
+
+    def composed(el, er, ft):
+        a = ops.edge_softmax(g, torch.nn.functional.leaky_relu(
+            ops.gsddmm(g, "add", el[:, :, None], er[:, :, None]), SLOPE))
+        return ops.gspmm(g, "mul", "sum", ft, a)
+
+    fin = [x.clone().requires_grad_(True) for x in xs]
+    ref = ops.gat_attention(g, *fin, SLOPE)
+    rgrads = torch.autograd.grad((ref * w).sum(), fin)
+    with torch.no_grad():
+        scale = ops.gat_attention(g, xs[0], xs[1], xs[2].abs(), SLOPE)
+    reset_all_launches()
+    cin = [x.clone().requires_grad_(True) for x in xs]
+    out = composed(*cin)
+    cgrads = torch.autograd.grad((out * w).sum(), cin)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    expect_launches(name, counts, WEIGHTED)
+    err_f = check(f"{name} fwd", out, ref, scale)
+    err_b = {k: check(f"{name} grad_{k}", a, b, b.abs() + b.abs().max())
+             for k, a, b in zip(("el", "er", "ft"), cgrads, rgrads)}
+    log(json.dumps({"phase": "composed_gat_hub", "path": name, "h": h,
+                    "d": d, "launches": counts, "fwd_err": err_f,
+                    "bwd_err": err_b}))
+
+
+def train_record(phase, name, g, res, counts, steps, **extra):
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    dev = g.device
+    log(json.dumps(dict({
+        "phase": phase, "path": name, "nodes": g.num_nodes(),
+        "edges": g.num_edges(), "steps": steps, "losses": losses,
+        "ms_per_step": [x * 1e3 for x in res["step_s"]],
+        "ms_per_step_after_first": float(np.mean(res["step_s"][1:]) * 1e3),
+        "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9},
+        **extra)))
+
+
+def logits_vs(name, what, out, ref, rel=1e-3):
+    """|out - ref| <= rel * max|ref| (float32 sums of hub rows of up to
+    ~10^6 terms in two orders, as phase_gcn)."""
+    if out.shape != ref.shape:
+        raise AssertionError(f"{name}: logits shape {tuple(out.shape)}")
+    err, mx = float((out - ref).abs().max()), float(ref.abs().max())
+    if not err <= rel * mx:
+        raise AssertionError(f"{name} logits vs {what}: err {err} > {rel} "
+                             f"* max|logit| ({mx})")
+    return err, mx
+
+
+def phase_gcn_weighted(name, dev, g, steps):
+    """The edge-weighted GCN (``EdgeWeightedGCN``: two
+    ``GraphConv(norm='none')``, 128 -> 256 -> 40, dropout 0, Adam 1e-2)
+    whose weights are ``EdgeWeightNorm('both')`` of sigmoid(theta), theta
+    a learnable logit per edge (zero at the start: the symmetric GCN
+    normalisation); step-0 logits against the oracle engine; per step K2
+    mul 3, K5 mul 2, K2 rhs 1 and K5 rhs 1."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch import ops
+    from dgl1_tpu_torch.models import EdgeWeightedGCN
+
+    n, in_f, hidden, classes = g.num_nodes(), 128, 256, 40
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(n, in_f, device=dev, generator=gen)
+    labels = torch.randint(0, classes, (n,), device=dev, generator=gen)
+    model = EdgeWeightedGCN(g.num_edges_padded(), in_f, hidden, classes,
+                            dropout=0.0, device=dev,
+                            generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ops.set_engine("xla")
+        try:
+            ref = model(g, feat)
+        finally:
+            ops.set_engine("auto")
+        lerr, lmax = logits_vs(name, "oracle", model(g, feat), ref)
+    del ref
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    res = dgl.train(g, feat, labels, model, steps=steps, lr=1e-2)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    per_step = {"chunk_mul": 3, "edge_grad_mul": 2, "chunk_rhs": 1,
+                "edge_grad_rhs": 1}
+    expect_exact(name, {k: counts[k] for k in WEIGHTED},
+                 {k: v * steps for k, v in per_step.items()})
+    train_record("gcn_weighted_train", name, g, res, counts, steps,
+                 dims=[in_f, hidden, classes],
+                 logits_err_vs_oracle=lerr, logits_max_abs=lmax,
+                 theta_abs_mean=float(model.theta.detach().abs().mean()))
+    return counts
+
+
+def rgcn_model(dev):
+    from dgl1_tpu_torch.models import RGCN as RGCNModel
+
+    return RGCNModel(RGCN["nodes"], RGCN["hidden"], RGCN["classes"],
+                     RGCN["rels"], num_bases=RGCN["bases"],
+                     in_feats=RGCN["in_f"], device=dev,
+                     generator=torch.Generator().manual_seed(2))
+
+
+def rgcn_inputs(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(RGCN["nodes"], RGCN["in_f"], device=dev, generator=gen)
+    labels = torch.randint(0, RGCN["classes"], (RGCN["nodes"],), device=dev,
+                           generator=gen)
+    return feat, labels
+
+
+def rgcn_args(r, grouped):
+    """(graph, model keyword arguments) of the grouped-GEMM path (the
+    relation-sorted graph, ``segment_mm``, hub copy_e) or the
+    per-relation path (one projection and one hub copy_u per relation)."""
+    if grouped:
+        return r["g_sorted"], dict(etypes=r["et_sorted"], presorted=True,
+                                   etype_counts=r["counts"])
+    return r["g"], dict(rel_graphs=r["rel"])
+
+
+def phase_rgcn(name, dev, r, steps, grouped):
+    """The R-GCN trainer at the configuration-#4 shape (128 -> 64 -> 40, 8
+    relations, 4 bases, self-loop weight, Adam 1e-2) for ``steps`` steps.
+    Step-0 logits against the oracle engine and, on the grouped path,
+    against the per-relation path with the same parameters. Launches: the
+    grouped path K2 rhs and K5 rhs 2 per step and no K2 mul or K5 mul;
+    the per-relation path K1 and K4 (and no weighted kernel)."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch import ops
+
+    feat, labels = rgcn_inputs(dev)
+    model = rgcn_model(dev)
+    g, kw = rgcn_args(r, grouped)
+    model.eval()
+    with torch.no_grad():
+        ops.set_engine("xla")
+        try:
+            ref = model(g, feat=feat, **kw)
+        finally:
+            ops.set_engine("auto")
+        out = model(g, feat=feat, **kw)
+        lerr, lmax = logits_vs(name, "oracle", out, ref)
+        extra = {"logits_err_vs_oracle": lerr, "logits_max_abs": lmax}
+        if grouped:
+            g2, kw2 = rgcn_args(r, False)
+            extra["logits_err_vs_per_relation"] = logits_vs(
+                name, "per-relation path", out, model(g2, feat=feat,
+                                                      **kw2))[0]
+    del ref, out
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    res = dgl.train(g, feat, labels, model, steps=steps, lr=RGCN["lr"], **kw)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    if grouped:
+        expect_exact(name, {k: counts[k] for k in WEIGHTED},
+                     {"chunk_rhs": 2 * steps, "edge_grad_rhs": 2 * steps})
+    else:
+        expect_exact(name, {k: counts[k] for k in WEIGHTED}, {})
+        any_bwd = counts["dense_bwd"] + counts["dense_bwd_fused"]
+        expect_launches(name, dict(counts, dense_bwd_any=any_bwd),
+                        ("dense_fwd", "dense_bwd_any"))
+    train_record("rgcn_train", name, g, res, counts, steps,
+                 dims=[RGCN["in_f"], RGCN["hidden"], RGCN["classes"]],
+                 relations=RGCN["rels"], bases=RGCN["bases"], **extra)
+    return counts
+
+
+def profile_rgcn(dev, r, steps=3):
+    """Where the grouped R-GCN step's device time goes: ``torch.profiler``
+    over ``steps`` steps after two warm-up steps; as profile_gat."""
+    import dgl1_tpu_torch as dgl
+    from torch.profiler import ProfilerActivity, profile
+
+    feat, labels = rgcn_inputs(dev)
+    model = rgcn_model(dev)
+    g, kw = rgcn_args(r, True)
+    dgl.train(g, feat, labels, model, steps=2, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dgl.train(g, feat, labels, model, steps=steps, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    summarize_profile("rgcn_profile", "rgcn_grouped_train", prof, steps,
+                      wall_ms)
+
+
 REDDIT = dict(batch=1024, fanouts=[10, 25], hidden=256, lr=1e-3)
 
 
@@ -756,20 +1330,17 @@ def phase_tile_kernels(dev, blocks):
     real sampled Reddit batch; K9 at block 0 ``tsrc`` and ``tdst`` and
     K10 min and block 1 ride in ``variants``."""
     b0, b1 = blocks
-    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "bytes", "flops", "shapes")
-    k9 = tile_case("block1_tsrc_f256", b1.tsrc, 256, dev)
-    k9["variants"] = [{k: v[k] for k in keep} for v in (
+    k9 = with_variants(tile_case("block1_tsrc_f256", b1.tsrc, 256, dev), [
         tile_case("block0_tsrc_f602", b0.tsrc, 602, dev, library=False,
                   seed=1),
         tile_case("block0_tdst_f602", b0.tdst, 602, dev, library=False,
-                  seed=2))]
-    k10 = tile_case("block0_tdst_f602_max", b0.tdst, 602, dev, is_max=True)
-    k10["variants"] = [{k: v[k] for k in keep} for v in (
-        tile_case("block0_tdst_f602_min", b0.tdst, 602, dev, is_max=False,
-                  library=False, seed=3),
-        tile_case("block1_tdst_f256_max", b1.tdst, 256, dev, is_max=True,
-                  library=False, seed=4))]
+                  seed=2)])
+    k10 = with_variants(
+        tile_case("block0_tdst_f602_max", b0.tdst, 602, dev, is_max=True), [
+            tile_case("block0_tdst_f602_min", b0.tdst, 602, dev,
+                      is_max=False, library=False, seed=3),
+            tile_case("block1_tdst_f256_max", b1.tdst, 256, dev,
+                      is_max=True, library=False, seed=4)])
     return {"tile_sum": k9, "tile_minmax": k10}
 
 
@@ -1082,8 +1653,13 @@ def main():
                     "mixed_edges": g_mix.num_edges(),
                     "mixed_chunked_edge_share": chunked_share(g_mix)}))
 
-    # Phase 2: each kernel against its plain version.
-    rows = phase_kernels(dev, g_arx, g_mix)
+    # The R-GCN graphs: the typed graph, its relation-sorted copy and the
+    # 8 relation subgraphs, whose shapes phase 2 checks too.
+    r = rgcn_setup(dev)
+
+    # Phase 2: each kernel against its plain version, at the shapes the
+    # trainers give it.
+    rows = phase_kernels(dev, g_arx, g_mix, r["rel"][0], r["g_sorted"])
 
     # Phase 3: g-SpMM through the engine.
     gspmm_path("bench_2e19_relabeled", g_bench, dev, 128,
@@ -1097,6 +1673,17 @@ def main():
     rows.update(phase_attn_kernels(dev, g_arx, g_mix))
     gat_attention_path("gat_attention_arxiv", g_arx, dev)
     gat_attention_path("gat_attention_mixed", g_mix, dev)
+
+    # Phase 2d/3c: the weighted hub kernels (K2 mul/rhs, K5) against their
+    # float64 plain versions, then u_mul_e and copy_e through the hub
+    # engine against the oracle, and the composed GAT chain on the hub
+    # engine against the fused attention.
+    rows.update(phase_weighted_kernels(dev, g_arx, g_mix, r["g_sorted"]))
+    weighted_gspmm_path("gspmm_mul_arxiv_f128", g_arx, dev, "mul", 128,
+                        ("chunk_mul", "edge_grad_mul"))
+    weighted_gspmm_path("gspmm_copy_rhs_arxiv_he64", g_arx, dev,
+                        "copy_rhs", 64, ("chunk_rhs", "edge_grad_rhs"))
+    composed_gat_on_hub("composed_gat_arxiv", g_arx, dev)
 
     # Phase 4: the trainers, each path's counters zeroed before it and
     # read after. GCN: the arxiv graph (K1, K3, K4a), then the mixed-tier
@@ -1119,9 +1706,25 @@ def main():
         ("gat_arxiv_train_drop0.6", phase_gat(
             "gat_arxiv_train_drop0.6", dev, g_arx, 2, attn, drop=0.6,
             check_logits=False)),
+        ("gcn_weighted_train", phase_gcn_weighted(
+            "gcn_weighted_train", dev, g_arx, 5)),
     ]
     profile_gat(dev, g_arx)
     del g_arx, g_mix
+
+    # Phase 4c: R-GCN at the configuration-#4 shape, the slice's main
+    # path: the per-relation path (K1, K3, K4 per relation) and the
+    # grouped-GEMM path (K2 rhs, K5 rhs), then a profile of the grouped
+    # step.
+    main_counts += [
+        ("rgcn_perrel_train", phase_rgcn("rgcn_perrel_train", dev, r, 5,
+                                         grouped=False)),
+        ("rgcn_grouped_train", phase_rgcn("rgcn_grouped_train", dev, r, 5,
+                                          grouped=True)),
+    ]
+    profile_rgcn(dev, r)
+    del r
+    torch.cuda.empty_cache()
 
     # Phase 2c and 4b: the sampled GraphSAGE slice at the Reddit
     # configuration. K9/K10 against their plain versions on a real

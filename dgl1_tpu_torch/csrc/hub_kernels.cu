@@ -17,6 +17,8 @@
 //                          <- _dense_bwd_fused_kernel (engine_hub.py:215)
 //   K4b hub_dense_bwd (no tail)
 //                          <- _dense_bwd_kernel       (engine_hub.py:270)
+//   K2  hub_chunk_weighted <- _chunk_kernel, mul/rhs  (engine_hub.py:68)
+//   K5  hub_edge_grad      <- _edge_grad_kernel       (engine_hub.py:364)
 //
 // The TPU kernels gather and scatter through one-hot matmuls because the
 // TPU has no atomics and a slow gather unit. Here gathers are direct row
@@ -316,6 +318,282 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---------------------------------------------------------------------
+// K2 (mul and rhs modes): for chunk t and real slot s (a[s] >= 0,
+// b[s] >= 0, 0 <= eid[s] < n_e),
+//   out[out_id[t] * 128 + b[s], j] += msg[j]
+// with msg[j] = in[in_id[t] * 128 + a[s], j] * e2[eid[s], j / rep] (mul,
+// j < f = he * rep) or e2[eid[s], j] (rhs, j < f = he).
+//
+// Replaces _chunk_kernel in mul and rhs modes, whose message is the
+// one-hot gather S_a IN times W^T R: the chunk's gathered weights,
+// spread over their features by a 0/1 matmul. Here each slot reads its
+// weight from e2 through eid, so no per-slot weight tensor exists. On
+// the graphs these modes serve, every hub edge (dense groups included)
+// goes through the full_fwd layout, so millions of slots add into the
+// same 128 output rows: one global atomic per slot and feature, as
+// chunk_sum_kernel does, would serialise on 128 x f addresses. Instead a
+// block owns a run of consecutive chunks and a stripe of WSTRIPE
+// features, keeps the 128 x WSTRIPE partial of its current output block
+// in shared memory (shared-memory atomics), and flushes it with one
+// global atomic add per nonzero element when the output block changes or
+// the run ends. Chunks are sorted by output block, so a run sees few
+// changes. A warp owns a contiguous eighth of each chunk and takes 32
+// slots at a time: each lane reads one slot's a, b and eid, a ballot
+// keeps the real ones, and the warp walks those WUNROLL at a time, lanes
+// over the stripe's columns, loading all the rows before adding any. The
+// slots of a (group, window) run come in destination order, so runs of
+// slots share b: the warp sums a run in registers and adds it to shared
+// memory once, when b changes and at the end of the chunk. Padding
+// slots' rows and weights are never read.
+//
+// Bound on the H100: bytes. Each real slot needs its message row (rhs:
+// he floats of e2; mul: f floats of in, which the 128-row window keeps
+// in L2, and its weights) and the layout, each read once; the output is
+// written once. The flush costs 128 x WSTRIPE atomics per run and
+// output block.
+// ---------------------------------------------------------------------
+constexpr int WSTRIPE = 64;   // feature columns per block of weighted K2
+constexpr int WUNROLL = 4;    // slots whose rows a warp loads together
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ void flush_partial(float (&acc)[BLK][WSTRIPE],
+                                              int blk, int f0, int width,
+                                              float* __restrict__ out,
+                                              int n_out_rows, int f) {
+  for (int i = threadIdx.x; i < BLK * WSTRIPE; i += NT) {
+    const int r = i / WSTRIPE, c = i % WSTRIPE;
+    const float v = acc[r][c];
+    if (v != 0.f) {
+      const int64_t row = static_cast<int64_t>(blk) * BLK + r;
+      if (c < width && row < n_out_rows) atomicAdd(out + row * f + f0 + c, v);
+      acc[r][c] = 0.f;
+    }
+  }
+}
+
+template <bool MUL>
+__global__ void __launch_bounds__(NT)
+    chunk_weighted_kernel(const int* __restrict__ a,
+                          const int* __restrict__ b,
+                          const int* __restrict__ eid,
+                          const int* __restrict__ in_id,
+                          const int* __restrict__ out_id, int n_chunks,
+                          int chunk, int run, const float* __restrict__ e2,
+                          int n_e, int he, int rep,
+                          const float* __restrict__ in, int n_in_rows,
+                          float* __restrict__ out, int n_out_rows, int f) {
+  __shared__ float acc[BLK][WSTRIPE];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c_begin = blockIdx.x * run;
+  const int c_end = min(n_chunks, c_begin + run);
+  const int f0 = blockIdx.y * WSTRIPE;
+  const int width = min(WSTRIPE, f - f0);
+  // The lane's two columns and, in mul mode, their heads.
+  const bool has0 = lane < width, has1 = lane + 32 < width;
+  const int head0 = (f0 + lane) / rep, head1 = (f0 + lane + 32) / rep;
+  const int per_warp = (chunk + NT / 32 - 1) / (NT / 32);
+  const int w_begin = warp * per_warp;
+  const int w_end = min(chunk, w_begin + per_warp);
+  for (int i = threadIdx.x; i < BLK * WSTRIPE; i += NT)
+    acc[i / WSTRIPE][i % WSTRIPE] = 0.f;
+  __syncthreads();
+  int cur = out_id[c_begin];
+  for (int t = c_begin; t < c_end; ++t) {
+    const int o = out_id[t];
+    if (o != cur) {  // the same for every thread of the block
+      __syncthreads();
+      flush_partial(acc, cur, f0, width, out, n_out_rows, f);
+      __syncthreads();
+      cur = o;
+    }
+    const int64_t base_in = static_cast<int64_t>(in_id[t]) * BLK;
+    const int64_t slot0 = static_cast<int64_t>(t) * chunk;
+    int run_b = -1;  // the warp's running output row and its partial sums
+    float run0 = 0.f, run1 = 0.f;
+    for (int s0 = w_begin; s0 < w_end; s0 += 32) {
+      const int s = s0 + lane;
+      int as = -1, bs = -1, es = 0;
+      if (s < w_end) {
+        as = a[slot0 + s];
+        bs = b[slot0 + s];
+        es = eid[slot0 + s];
+      }
+      bool ok = as >= 0 && bs >= 0 && es >= 0 && es < n_e;
+      if (MUL) ok = ok && base_in + as < n_in_rows;
+      float w1 = 0.f;  // mul with one head: the slot's weight
+      if (MUL && he == 1 && ok) w1 = e2[es];
+      unsigned todo = __ballot_sync(FULL, ok);
+      while (todo) {  // todo is the same in every lane
+        int ks[WUNROLL];
+        int n = 0;
+#pragma unroll
+        for (int i = 0; i < WUNROLL; ++i) {
+          ks[i] = todo ? __ffs(todo) - 1 : 0;
+          if (todo) {
+            todo &= todo - 1;
+            ++n;
+          }
+        }
+        float v[WUNROLL][2];
+        int rows[WUNROLL];
+#pragma unroll
+        for (int i = 0; i < WUNROLL; ++i) {
+          const int ak = __shfl_sync(FULL, as, ks[i]);
+          const int bk = __shfl_sync(FULL, bs, ks[i]);
+          const int ek = __shfl_sync(FULL, es, ks[i]);
+          const float wk = __shfl_sync(FULL, w1, ks[i]);
+          rows[i] = bk;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = f0 + lane + 32 * j;
+            float x = 0.f;
+            if (i < n && (j == 0 ? has0 : has1)) {
+              if (MUL) {
+                const float wt =
+                    he == 1 ? wk
+                            : e2[static_cast<int64_t>(ek) * he +
+                                 (j == 0 ? head0 : head1)];
+                x = in[(base_in + ak) * f + col] * wt;
+              } else {
+                x = e2[static_cast<int64_t>(ek) * he + col];
+              }
+            }
+            v[i][j] = x;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < WUNROLL; ++i) {
+          if (i >= n) break;
+          if (rows[i] != run_b) {  // the same in every lane
+            if (run_b >= 0) {
+              if (has0) atomicAdd(&acc[run_b][lane], run0);
+              if (has1) atomicAdd(&acc[run_b][lane + 32], run1);
+            }
+            run_b = rows[i];
+            run0 = run1 = 0.f;
+          }
+          run0 += v[i][0];
+          run1 += v[i][1];
+        }
+      }
+    }
+    if (run_b >= 0) {
+      if (has0) atomicAdd(&acc[run_b][lane], run0);
+      if (has1) atomicAdd(&acc[run_b][lane + 32], run1);
+    }
+  }
+  __syncthreads();
+  flush_partial(acc, cur, f0, width, out, n_out_rows, f);
+}
+
+// ---------------------------------------------------------------------
+// K5: per slot s of chunk t and head h, into out (n_slots, he),
+//   mul: sum over j in [h * rep, (h + 1) * rep) of
+//        u[in_id[t] * 128 + a[s], j] * ct[out_id[t] * 128 + b[s], j]
+//   rhs: ct[out_id[t] * 128 + b[s], h]
+// and zero on padding slots (a or b < 0).
+//
+// Replaces _edge_grad_kernel, which gathers both rows by one-hot matmuls
+// and reduces each head's span by a matmul with R into the transposed
+// (H_pad, n_slots) layout so the TPU's lanes stay 1024 wide. Here the
+// output is (n_slots, he), the transpose of the reference's first he
+// rows. mul: one block per chunk stages the chunk's 128-row source
+// window of u and its group's 128 cotangent rows, GSTRIPE columns at a
+// time, in shared memory (rows padded by one float against bank
+// conflicts); a thread owns slots tid, tid + NT, ... and adds each head's
+// partial dot over the stripe into its own output elements (zeroed by
+// the wrapper; no other thread writes them, so no atomics). rhs: a copy
+// of the cotangent rows, a thread per output element, every element of
+// the output written (padding slots as zero), coalesced.
+//
+// Bound on the H100: bytes. mul reads the layout, the source and
+// cotangent rows once and writes n_slots x he floats; rhs reads the
+// layout and the (small) cotangent block and writes n_slots x he floats.
+// ---------------------------------------------------------------------
+constexpr int GSTRIPE = 32;        // feature columns staged per pass
+constexpr int MAX_SLOTS_PER_THREAD = 4;
+
+__global__ void __launch_bounds__(NT)
+    edge_grad_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                         const int* __restrict__ in_id,
+                         const int* __restrict__ out_id, int chunk,
+                         const float* __restrict__ u, int n_u,
+                         const float* __restrict__ ct, int n_ct,
+                         float* __restrict__ out, int he, int rep) {
+  __shared__ float us[BLK][GSTRIPE + 1];
+  __shared__ float cs[BLK][GSTRIPE + 1];
+  const int t = blockIdx.x, tid = threadIdx.x;
+  const int f = he * rep;
+  const int64_t base_u = static_cast<int64_t>(in_id[t]) * BLK;
+  const int64_t base_c = static_cast<int64_t>(out_id[t]) * BLK;
+  const int64_t slot0 = static_cast<int64_t>(t) * chunk;
+  int sa[MAX_SLOTS_PER_THREAD], sb[MAX_SLOTS_PER_THREAD];
+#pragma unroll
+  for (int k = 0; k < MAX_SLOTS_PER_THREAD; ++k) {
+    const int s = tid + k * NT;
+    sa[k] = sb[k] = -1;
+    if (s < chunk) {
+      const int as = a[slot0 + s], bs = b[slot0 + s];
+      if (as >= 0 && bs >= 0 && base_u + as < n_u && base_c + bs < n_ct) {
+        sa[k] = as;
+        sb[k] = bs;
+      }
+    }
+  }
+  for (int f0 = 0; f0 < f; f0 += GSTRIPE) {
+    const int w = min(GSTRIPE, f - f0);
+    __syncthreads();  // the previous stripe's reads are done
+    for (int i = tid; i < BLK * GSTRIPE; i += NT) {
+      const int r = i / GSTRIPE, c = i % GSTRIPE;
+      us[r][c] = (c < w && base_u + r < n_u) ? u[(base_u + r) * f + f0 + c]
+                                             : 0.f;
+      cs[r][c] = (c < w && base_c + r < n_ct)
+                     ? ct[(base_c + r) * f + f0 + c]
+                     : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < MAX_SLOTS_PER_THREAD; ++k) {
+      if (sa[k] < 0) continue;
+      const float* ur = us[sa[k]];
+      const float* cr = cs[sb[k]];
+      float* o = out + (slot0 + tid + k * NT) * he;
+      int h = f0 / rep;
+      int next = (h + 1) * rep - f0;  // first column of head h + 1
+      float p = 0.f;
+      for (int c = 0; c < w; ++c) {
+        if (c == next) {
+          o[h] += p;
+          p = 0.f;
+          ++h;
+          next += rep;
+        }
+        p = fmaf(ur[c], cr[c], p);
+      }
+      o[h] += p;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+    edge_grad_rhs_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                         const int* __restrict__ out_id, int chunk,
+                         const float* __restrict__ ct, int n_ct,
+                         float* __restrict__ out, int he) {
+  const int t = blockIdx.x;
+  const int64_t base_c = static_cast<int64_t>(out_id[t]) * BLK;
+  const int64_t slot0 = static_cast<int64_t>(t) * chunk;
+  const int n = chunk * he;
+  for (int i = threadIdx.x; i < n; i += NT) {
+    const int s = i / he, h = i - s * he;
+    const int as = a[slot0 + s], bs = b[slot0 + s];
+    float v = 0.f;
+    if (as >= 0 && bs >= 0 && base_c + bs < n_ct) v = ct[(base_c + bs) * he + h];
+    out[slot0 * he + i] = v;
+  }
+}
+
 int g_num_sms = 0;
 
 int num_sms() {
@@ -419,6 +697,62 @@ int hub_expand(const int* starts, const int* desc, const float* merged,
   if (n_rb > 0) {
     expand_kernel<<<n_rb, NT, 0, static_cast<cudaStream_t>(stream)>>>(
         starts, desc, merged, m_rows, out, num_dst, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mode: 0 = mul (in has n_in_rows x f, f = he * rep), 1 = rhs (in is
+// null, f = he). `out` (n_out_rows x f) must be zeroed.
+int hub_chunk_weighted(int mode, const int* a, const int* b, const int* eid,
+                       const int* in_id, const int* out_id, int n_chunks,
+                       int chunk, const float* e2, int n_e, int he, int rep,
+                       const float* in, int n_in_rows, float* out,
+                       int n_out_rows, int f, void* stream) {
+  if (n_chunks > 0 && f > 0) {
+    const int stripes = (f + WSTRIPE - 1) / WSTRIPE;
+    // About eight blocks per SM in all, each a run of whole chunks.
+    const int64_t target = 8LL * num_sms();
+    int run = static_cast<int>((static_cast<int64_t>(n_chunks) * stripes +
+                                target - 1) / target);
+    if (run < 1) run = 1;
+    dim3 grid((n_chunks + run - 1) / run, stripes);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (mode == 0) {
+      chunk_weighted_kernel<true><<<grid, NT, 0, s>>>(
+          a, b, eid, in_id, out_id, n_chunks, chunk, run, e2, n_e, he, rep,
+          in, n_in_rows, out, n_out_rows, f);
+    } else if (mode == 1) {
+      chunk_weighted_kernel<false><<<grid, NT, 0, s>>>(
+          a, b, eid, in_id, out_id, n_chunks, chunk, run, e2, n_e, he, 1,
+          nullptr, 0, out, n_out_rows, f);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mode: 0 = mul (u n_u x he * rep, ct n_ct x he * rep; `out` must be
+// zeroed), 1 = rhs (u null, ct n_ct x he; every element of `out` is
+// written). `out` is (n_chunks * chunk) x he.
+int hub_edge_grad(int mode, const int* a, const int* b, const int* in_id,
+                  const int* out_id, int n_chunks, int chunk, const float* u,
+                  int n_u, const float* ct, int n_ct, float* out, int he,
+                  int rep, void* stream) {
+  if (chunk > NT * MAX_SLOTS_PER_THREAD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_chunks > 0 && he > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (mode == 0) {
+      edge_grad_mul_kernel<<<n_chunks, NT, 0, s>>>(
+          a, b, in_id, out_id, chunk, u, n_u, ct, n_ct, out, he, rep);
+    } else if (mode == 1) {
+      edge_grad_rhs_kernel<<<n_chunks, NT, 0, s>>>(a, b, out_id, chunk, ct,
+                                                    n_ct, out, he);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

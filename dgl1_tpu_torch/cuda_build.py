@@ -52,6 +52,12 @@ _SIGNATURES = {
                           _c_int, _ptr, _c_int, _c_int, _ptr],
         "hub_expand": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _c_int,
                        _ptr],
+        "hub_chunk_weighted": [_c_int, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
+                               _c_int, _ptr, _c_int, _c_int, _c_int, _ptr,
+                               _c_int, _ptr, _c_int, _c_int, _ptr],
+        "hub_edge_grad": [_c_int, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
+                          _ptr, _c_int, _ptr, _c_int, _ptr, _c_int, _c_int,
+                          _ptr],
     },
     "tile_kernels": {
         "tile_sum": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _ptr, _c_int,

@@ -2,7 +2,8 @@
 reference's)."""
 
 from dgl1_tpu_torch.data.synthetic import (  # noqa: F401
-    minibatch_graph, powerlaw_graph, synthetic_classification_graph)
+    minibatch_graph, powerlaw_graph, sort_by_relation,
+    synthetic_classification_graph, typed_powerlaw_graph)
 
-__all__ = ["powerlaw_graph", "synthetic_classification_graph",
-           "minibatch_graph"]
+__all__ = ["powerlaw_graph", "typed_powerlaw_graph", "sort_by_relation",
+           "synthetic_classification_graph", "minibatch_graph"]

@@ -11,7 +11,7 @@ from dgl1_tpu_torch.graph import Graph, graph, resolve_device
 from dgl1_tpu_torch.transform import to_bidirected
 
 __all__ = ["synthetic_classification_graph", "powerlaw_graph",
-           "minibatch_graph"]
+           "typed_powerlaw_graph", "sort_by_relation", "minibatch_graph"]
 
 
 def synthetic_classification_graph(
@@ -89,6 +89,33 @@ def powerlaw_graph(num_nodes: int, avg_degree: int, alpha: float = 2.1,
     dst = np.searchsorted(cdf, rng.random(num_edges)).astype(np.int64)
     src = rng.integers(0, num_nodes, size=num_edges)
     return graph((src, dst), num_nodes=num_nodes, **kw)
+
+
+def typed_powerlaw_graph(num_nodes: int, avg_degree: int, num_rels: int,
+                         seed: int = 0, **kw):
+    """The typed graph of ``tools/bench_models.py --model rgcn``:
+    ``powerlaw_graph(num_nodes, avg_degree, seed=seed)`` and relation ids
+    drawn as that script draws them, ``default_rng(0).integers(0,
+    num_rels)`` per edge. Returns ``(g, etypes)``, etypes an int32 numpy
+    array of ``num_edges_padded`` entries."""
+    g = powerlaw_graph(num_nodes, avg_degree, seed=seed, **kw)
+    etypes = np.random.default_rng(0).integers(
+        0, num_rels, size=g.num_edges_padded()).astype(np.int32)
+    return g, etypes
+
+
+def sort_by_relation(g: Graph, etypes, num_rels: int):
+    """The relation-sorted copy of ``examples/train_rgcn.py`` for the
+    grouped-GEMM path: the same edges stably sorted by relation, rebuilt
+    on ``g``'s device. Returns ``(g_sorted, etypes_sorted, counts)``, the
+    per-relation edge counts as an int32 numpy array."""
+    e = g.num_edges()
+    etypes = np.asarray(etypes)[:e]
+    order = np.argsort(etypes, kind="stable")
+    src, dst = (x[:e].cpu().numpy()[order] for x in g.edges())
+    g2 = graph((src, dst), num_nodes=g.num_nodes(), device=g.device)
+    counts = np.bincount(etypes, minlength=num_rels).astype(np.int32)
+    return g2, etypes[order], counts
 
 
 # name -> (nodes, edges, feature width, classes, training seeds, Zipf

@@ -182,6 +182,33 @@ class Graph:
             new.dstdata.update(_tree_to(self.dstdata, dev))
         return new
 
+    def reverse(self, copy_edata: bool = True) -> "Graph":
+        """Every edge reversed: CSR and CSC, the tile and the ELL
+        directions swap roles, no data moves. The hub layout is of the
+        destination side only, so the reverse has none (its g-SpMM goes
+        to ELL)."""
+        g = Graph(
+            src=self.dst, dst=self.src, edge_mask=self.edge_mask,
+            csr_indptr=self.csc_indptr, csr_dst=self.csc_src,
+            csr_eid=self.csc_eid, csr_src=self.csc_dst,
+            csc_indptr=self.csr_indptr, csc_src=self.csr_dst,
+            csc_eid=self.csr_eid, csc_dst=self.csr_src,
+            tdst=self.tsrc, tsrc=self.tdst, ell_dst=self.ell_src,
+            ell_src=self.ell_dst, ell_dst_meta=self.ell_src_meta,
+            ell_src_meta=self.ell_dst_meta,
+            num_src_nodes=self._num_dst_nodes,
+            num_dst_nodes=self._num_src_nodes, num_edges=self._num_edges,
+            is_block=self._is_block, device=self.device)
+        g.meta = dict(self.meta)
+        if copy_edata:
+            g.edata.update(self.edata)
+        if self._is_block:
+            g.srcdata.update(self.dstdata)
+            g.dstdata.update(self.srcdata)
+        else:
+            g.ndata.update(self.ndata)
+        return g
+
     def __repr__(self):
         kind = "Block" if self._is_block else "Graph"
         return (f"{kind}(num_src_nodes={self._num_src_nodes}, "
@@ -198,11 +225,15 @@ class Graph:
 def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
                    num_dst: int, num_edges: int, hub=None,
                    hub_dense_floor: Optional[int] = None,
-                   formats: Optional[Tuple[str, ...]] = None):
+                   formats: Optional[Tuple[str, ...]] = None,
+                   num_padded: Optional[int] = None):
     """COO + CSC (+ CSR), and the tile, ELL and hub layouts that
     ``formats`` asks for (None: all). CSR is built whenever ``formats``
     names it or a derived layout. Stable sorts keep edge-id order within
-    a row."""
+    a row. With ``num_padded`` > ``num_edges`` the edge arrays get a tail
+    of padded edges (the reference's sentinels: node ``num_src`` /
+    ``num_dst``, edge id 0) and an ``edge_mask``; every layout holds the
+    real edges only."""
     want = (lambda k: True) if formats is None else (
         lambda k: k in formats)
     need_csr = any(want(k) for k in ("csr", "tile", "ell", "hub"))
@@ -269,11 +300,23 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
             floor = int(hub)
         hub_dst_meta, hub_dst = hub_format.build_hub_format(
             csc_indptr, csc_src, csc_eid, csc_dst, num_src, num_dst,
-            num_edges, _build_ell,
+            num_edges, _build_ell, num_padded=num_padded,
             min_group_edges=floor, dense_floor=hub_dense_floor,
         )
+    pad = (num_padded or num_edges) - num_edges
+    edge_mask = None
+    if pad:
+        def padded(a, sentinel):
+            return None if a is None else np.concatenate(
+                [a, np.full((pad,), sentinel, dtype=ID_DTYPE)])
+
+        coo_src, coo_dst = padded(coo_src, num_src), padded(coo_dst, num_dst)
+        csr_src, csr_dst = padded(csr_src, num_src), padded(csr_dst, num_dst)
+        csc_src, csc_dst = padded(csc_src, num_src), padded(csc_dst, num_dst)
+        csr_eid, csc_eid = padded(csr_eid, 0), padded(csc_eid, 0)
+        edge_mask = np.arange(num_edges + pad) < num_edges
     return dict(
-        src=coo_src, dst=coo_dst,
+        src=coo_src, dst=coo_dst, edge_mask=edge_mask,
         csr_indptr=csr_indptr, csr_dst=csr_dst, csr_eid=csr_eid,
         csr_src=csr_src,
         csc_indptr=csc_indptr, csc_src=csc_src, csc_eid=csc_eid,
@@ -555,11 +598,14 @@ def _build_tiles(target_sorted: np.ndarray, gather_sorted: np.ndarray,
 
 def graph(data: Tuple, num_nodes: Optional[int] = None, hub=None,
           hub_dense_floor: Optional[int] = None,
-          formats: Optional[Tuple[str, ...]] = None, device=None) -> Graph:
+          formats: Optional[Tuple[str, ...]] = None,
+          pad_edges_to: Optional[int] = None, device=None) -> Graph:
     """Homogeneous graph from an edge list ``(src, dst)`` (numpy arrays or
     tensors), built on the host and placed on ``device`` (default
     ``cuda``). ``formats`` restricts the layouts built (see
-    :func:`_build_formats`); ``("csc",)`` is the sampling-only parent."""
+    :func:`_build_formats`); ``("csc",)`` is the sampling-only parent.
+    ``pad_edges_to`` pads the edge arrays to that length with masked
+    edges (``edge_mask``), as the reference's ``graph(pad_edges_to=)``."""
     dev = resolve_device(device)
     src, dst = data
     src = _as_numpy_ids(src)
@@ -574,8 +620,10 @@ def graph(data: Tuple, num_nodes: Optional[int] = None, hub=None,
         raise ValueError("edge endpoint out of range")
     if isinstance(formats, str):
         formats = (formats,)
+    if pad_edges_to is not None and pad_edges_to < num_edges:
+        raise ValueError("pad_edges_to < num_edges")
     arrays = _build_formats(src, dst, num_nodes, num_nodes, num_edges,
                             hub=hub, hub_dense_floor=hub_dense_floor,
-                            formats=formats)
+                            formats=formats, num_padded=pad_edges_to)
     return Graph(**arrays, num_src_nodes=num_nodes, num_dst_nodes=num_nodes,
                  num_edges=num_edges, device=dev)

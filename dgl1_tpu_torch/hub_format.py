@@ -190,11 +190,16 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
                      csc_eid: np.ndarray, csc_dst: np.ndarray,
                      num_src: int, num_dst: int, num_edges: int, build_ell,
                      min_group_edges: Optional[int] = None,
-                     dense_floor: Optional[int] = None):
+                     dense_floor: Optional[int] = None,
+                     num_padded: Optional[int] = None):
     """Build the three-tier hub layout. Returns (HubMeta, arrays) or
     (None, None) when no hub group clears the density bar (the engine then
     declines and dispatch falls through to ELL). ``build_ell`` is
-    ``graph._build_ell``, reused for the tail in both directions."""
+    ``graph._build_ell``, reused for the tail in both directions. The
+    per-edge maps (``edge_to_fslot``, ``edge_to_tslot``,
+    ``diag_edge_dst``) cover ``num_padded`` edges (default
+    ``num_edges``), the padded ones holding the sentinel."""
+    num_padded = num_edges if num_padded is None else int(num_padded)
     deg = np.diff(csc_indptr[: num_dst + 1]).astype(np.int64)
     n_win = -(-num_src // BLK)
     if min_group_edges is None:
@@ -262,7 +267,7 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
                             n_src_pad, kd)
 
     # Edge-id -> full-layout fwd slot (for grad_e extraction).
-    edge_to_fslot = np.full((num_edges,), SENT, dtype=ID_DTYPE)
+    edge_to_fslot = np.full((num_padded,), SENT, dtype=ID_DTYPE)
     real = full_fa >= 0
     edge_to_fslot[full_fe[real]] = np.flatnonzero(real).astype(ID_DTYPE)
 
@@ -307,11 +312,11 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
         tail_dst_c[:n_tail] = t_dst
         tail_eid_c = np.zeros((t_pad,), dtype=ID_DTYPE)
         tail_eid_c[:n_tail] = t_eid
-        edge_to_tslot = np.full((num_edges,), SENT, dtype=ID_DTYPE)
+        edge_to_tslot = np.full((num_padded,), SENT, dtype=ID_DTYPE)
         edge_to_tslot[t_eid] = np.arange(n_tail, dtype=ID_DTYPE)
 
         def to_compact(eids):
-            c = edge_to_tslot[np.clip(eids, 0, num_edges - 1)]
+            c = edge_to_tslot[np.clip(eids, 0, num_padded - 1)]
             return np.where(c == SENT, 0, c).astype(ID_DTYPE)
 
         return dict(
@@ -340,7 +345,7 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
     has_diag = bool(take.any())
     diag = np.zeros((num_dst,), np.float32)
     diag_eid = np.zeros((num_dst,), ID_DTYPE)
-    diag_edge_dst = np.full((num_edges,), SENT, dtype=ID_DTYPE)
+    diag_edge_dst = np.full((num_padded,), SENT, dtype=ID_DTYPE)
     if has_diag:
         diag[t_dst[take]] = 1.0
         diag_eid[t_dst[take]] = t_eid[take]

@@ -1,7 +1,8 @@
 """``dgl1_tpu_torch.models``: model zoo of the port."""
 
 from dgl1_tpu_torch.models.gat import GAT
-from dgl1_tpu_torch.models.gcn import GCN
+from dgl1_tpu_torch.models.gcn import GCN, EdgeWeightedGCN
 from dgl1_tpu_torch.models.graphsage import GraphSAGE
+from dgl1_tpu_torch.models.rgcn import RGCN
 
-__all__ = ["GCN", "GAT", "GraphSAGE"]
+__all__ = ["GCN", "EdgeWeightedGCN", "GAT", "GraphSAGE", "RGCN"]

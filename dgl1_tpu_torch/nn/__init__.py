@@ -1,5 +1,7 @@
 """``dgl1_tpu_torch.nn``: graph neural network modules."""
 
-from dgl1_tpu_torch.nn.conv import GATConv, GraphConv, SAGEConv
+from dgl1_tpu_torch.nn.conv import (EdgeWeightNorm, GATConv, GraphConv,
+                                    RelGraphConv, SAGEConv)
 
-__all__ = ["GraphConv", "GATConv", "SAGEConv"]
+__all__ = ["GraphConv", "EdgeWeightNorm", "GATConv", "SAGEConv",
+           "RelGraphConv"]

@@ -1,8 +1,12 @@
-"""Graph convolution modules (the port's ``dgl1_tpu/nn/conv.py``)."""
+"""Graph convolution modules (the port's ``dgl1_tpu/nn/conv.py``):
+``GraphConv``, ``EdgeWeightNorm``, ``GATConv``, ``SAGEConv`` and
+``RelGraphConv``."""
 
 from __future__ import annotations
 
 from typing import Callable, Optional
+
+import math
 
 import torch
 from torch import nn
@@ -11,8 +15,11 @@ from dgl1_tpu_torch.graph import Graph, resolve_device
 from dgl1_tpu_torch.ops import gspmm, gsddmm
 from dgl1_tpu_torch.ops.attention import can_fuse_attention, gat_attention
 from dgl1_tpu_torch.ops.edge_softmax import edge_softmax
+from dgl1_tpu_torch.ops.engine_xla import gather_rows
+from dgl1_tpu_torch.ops.segment import gather_mm, segment_mm
 
-__all__ = ["GraphConv", "GATConv", "SAGEConv"]
+__all__ = ["GraphConv", "EdgeWeightNorm", "GATConv", "SAGEConv",
+           "RelGraphConv"]
 
 
 def _dropout(x, p: float, generator):
@@ -38,9 +45,11 @@ class GraphConv(nn.Module):
     When ``in_feats > out_feats`` the features are projected before the
     aggregation, which then runs on the narrower width (the reference's
     mult-order rule). The bias is a parameter of its own, added after the
-    normalisation. Parameters: ``weight.weight`` (out, in) and ``bias``
-    (out,); :func:`dgl1_tpu_torch.params.from_jax_params` maps the
-    reference's flax parameters onto them."""
+    normalisation. ``edge_weight`` (E,), a scalar per edge, turns the
+    aggregation into ``u_mul_e`` (the reference's weighted GCN and the
+    GNNExplainer mask contract). Parameters: ``weight.weight`` (out, in)
+    and ``bias`` (out,); :func:`dgl1_tpu_torch.params.from_jax_params`
+    maps the reference's flax parameters onto them."""
 
     def __init__(self, in_feats: int, out_feats: int, norm: str = "both",
                  weight: bool = True, bias: bool = True,
@@ -76,7 +85,7 @@ class GraphConv(nn.Module):
         deg = deg.to(dtype)
         return torch.where(deg > 0, deg, torch.ones_like(deg)) ** power
 
-    def forward(self, g: Graph, feat):
+    def forward(self, g: Graph, feat, edge_weight=None):
         power = -0.5 if self.norm == "both" else -1.0
         feat_src = feat
         if self.norm in ("both", "left"):
@@ -84,7 +93,10 @@ class GraphConv(nn.Module):
             feat_src = feat * norm[: feat.shape[0], None]
 
         def agg(x):
-            return gspmm(g, "copy_lhs", "sum", x, None)
+            if edge_weight is None:
+                return gspmm(g, "copy_lhs", "sum", x, None)
+            ew = edge_weight.reshape((-1,) + (1,) * (x.dim() - 1))
+            return gspmm(g, "mul", "sum", x, ew)
 
         if self.weight is not None:
             if self.in_feats > self.out_feats:
@@ -102,6 +114,44 @@ class GraphConv(nn.Module):
         if self.activation is not None:
             rst = self.activation(rst)
         return rst
+
+
+class EdgeWeightNorm:
+    """Normalise scalar edge weights for the weighted GCN (the reference's
+    ``EdgeWeightNorm``, a plain callable without parameters):
+
+    ``'both'``: ``c_ij = w_ij / sqrt(out_w(i) * in_w(j))``;
+    ``'right'``: ``c_ij = w_ij / in_w(j)``,
+
+    with ``in_w``/``out_w`` the weighted in/out degrees plus ``eps``
+    (``copy_rhs`` sums over the graph and its reverse). Under ``'both'``
+    a real edge weight <= 0 raises ValueError, as the reference does on
+    concrete weights (one host read of the weights). Padded edges get 0."""
+
+    def __init__(self, norm: str = "both", eps: float = 0.0):
+        if norm not in ("both", "right"):
+            raise ValueError(f"invalid norm {norm!r}")
+        self.norm, self.eps = norm, eps
+
+    def __call__(self, g: Graph, edge_weight):
+        w = edge_weight
+        if self.norm == "both" and bool((w[: g.num_edges()] <= 0).any()):
+            raise ValueError("EdgeWeightNorm: non-positive edge weights are "
+                             "not allowed with norm='both'")
+        in_w = gspmm(g, "copy_rhs", "sum", None, w) + self.eps
+        src, dst = g.edges()
+        if self.norm == "right":
+            out = w / gather_rows(torch.where(in_w > 0, in_w,
+                                              torch.ones_like(in_w)), dst)
+        else:
+            out_w = gspmm(g.reverse(copy_edata=False), "copy_rhs", "sum",
+                          None, w) + self.eps
+            prod = gather_rows(out_w, src) * gather_rows(in_w, dst)
+            out = w / torch.sqrt(torch.where(prod > 0, prod,
+                                             torch.ones_like(prod)))
+        if g.edge_mask is None:
+            return out
+        return torch.where(g.edge_mask, out, torch.zeros_like(out))
 
 
 class GATConv(nn.Module):
@@ -280,4 +330,129 @@ class SAGEConv(nn.Module):
             rst = rst + self.bias
         if self.activation is not None:
             rst = self.activation(rst)
+        return rst
+
+
+def _uniform_(t, bound, generator):
+    return nn.init.uniform_(t, -bound, bound, generator=generator)
+
+
+def _xavier_uniform(shape, generator):
+    """flax's ``xavier_uniform`` on ``shape``: fans over the last two axes
+    times the leading (batch) axes, drawn on the generator's device."""
+    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    bound = math.sqrt(6.0 / ((shape[-2] + shape[-1]) * receptive))
+    return _init_on(shape, generator,
+                    lambda t: _uniform_(t, bound, generator))
+
+
+class RelGraphConv(nn.Module):
+    """Relational GCN layer (the reference's ``RelGraphConv``): messages
+    ``h[src] @ W[etype]``, with ``W`` per relation or from ``num_bases``
+    bases (``regularizer='basis'``: ``W = einsum('rb,bio->rio', coeff,
+    basis)``), summed per destination, plus ``h_dst @ loop_weight``, the
+    bias, the activation and dropout.
+
+    Paths, as the reference takes them:
+
+    * ``rel_graphs=`` (``transform.typed_subgraphs``): per relation one
+      projection and one ``copy_lhs`` g-SpMM, projecting first when
+      ``out <= in``; ``norm`` must then be per destination (num_dst, 1);
+    * otherwise the per-edge path: ``gsddmm copy_lhs`` gathers
+      ``h[src]``, ``segment_mm`` (``presorted``: edges sorted by relation,
+      ``etype_counts`` per relation) or ``gather_mm`` (``etypes``)
+      projects, ``norm`` (E, 1) scales, ``gspmm copy_rhs`` sums.
+
+    ``union_graph=`` (``typed_union_graph``) is not ported and raises
+    NotImplementedError. Parameters keep the reference's layout so
+    :func:`dgl1_tpu_torch.params.from_jax_params` maps them unchanged:
+    ``weight`` (R, in, out) or ``basis`` (B, in, out) and ``coeff`` (R,
+    B), ``loop_weight`` (in, out), ``h_bias`` (out,). Dropout draws from
+    the ``generator`` passed to :meth:`forward`, only while training."""
+
+    def __init__(self, in_feats: int, out_feats: int, num_rels: int,
+                 regularizer: Optional[str] = None, num_bases: int = 0,
+                 bias: bool = True, activation: Optional[Callable] = None,
+                 self_loop: bool = True, dropout: float = 0.0, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if regularizer not in (None, "basis"):
+            raise ValueError(f"unsupported regularizer {regularizer!r}")
+        dev = resolve_device(device)
+        self.in_feats, self.out_feats = in_feats, out_feats
+        self.num_rels, self.regularizer = num_rels, regularizer
+        self.activation, self.dropout = activation, dropout
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, device=dev))
+
+        if regularizer == "basis":
+            self.basis = param(num_bases, in_feats, out_feats)
+            self.coeff = param(num_rels, num_bases)
+        else:
+            self.weight = param(num_rels, in_feats, out_feats)
+        self.loop_weight = param(in_feats, out_feats) if self_loop else None
+        self.h_bias = (nn.Parameter(torch.zeros(out_feats, device=dev))
+                       if bias else None)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None):
+        """flax's xavier-uniform on every weight, zero bias; drawn on the
+        generator's device and copied."""
+        with torch.no_grad():
+            for p in (getattr(self, "weight", None),
+                      getattr(self, "basis", None),
+                      getattr(self, "coeff", None), self.loop_weight):
+                if p is not None:
+                    p.copy_(_xavier_uniform(tuple(p.shape), generator))
+            if self.h_bias is not None:
+                self.h_bias.zero_()
+
+    def _weights(self):
+        """(R, in, out) per-relation weights."""
+        if self.regularizer == "basis":
+            return torch.einsum("rb,bio->rio", self.coeff, self.basis)
+        return self.weight
+
+    def forward(self, g: Graph, feat, etypes=None, norm=None, *,
+                presorted: bool = False, etype_counts=None, rel_graphs=None,
+                union_graph=None, generator=None):
+        if union_graph is not None:
+            raise NotImplementedError(
+                "RelGraphConv(union_graph=) needs typed_union_graph, which "
+                "is not ported yet")
+        weight = self._weights()
+        h_src = feat
+        h_dst = feat[: g.num_dst_nodes()] if g.is_block else feat
+        if rel_graphs is not None:
+            rst = 0.0
+            for r, gr in enumerate(rel_graphs):
+                if self.out_feats <= self.in_feats:
+                    # Project first: the g-SpMM moves the narrower tensor.
+                    rst = rst + gspmm(gr, "copy_lhs", "sum",
+                                      h_src @ weight[r], None)
+                else:
+                    rst = rst + gspmm(gr, "copy_lhs", "sum", h_src,
+                                      None) @ weight[r]
+            if norm is not None:
+                rst = rst * norm
+        else:
+            h_edge = gsddmm(g, "copy_lhs", h_src, None, lhs_target="u")
+            if presorted:
+                if etype_counts is None:
+                    raise ValueError("presorted=True requires etype_counts")
+                msg = segment_mm(h_edge, weight, etype_counts)
+            else:
+                msg = gather_mm(h_edge, weight, etypes)
+            if norm is not None:
+                msg = msg * norm
+            rst = gspmm(g, "copy_rhs", "sum", None, msg)
+        if self.loop_weight is not None:
+            rst = rst + h_dst @ self.loop_weight
+        if self.h_bias is not None:
+            rst = rst + self.h_bias
+        if self.activation is not None:
+            rst = self.activation(rst)
+        if self.training and self.dropout > 0:
+            rst = _dropout(rst, self.dropout, generator)
         return rst

@@ -8,15 +8,28 @@ K2  :func:`chunk_sum`              ``_chunk_kernel`` (plain) / ``_chunk_call``
 K3  :func:`expand`                 ``_expand_kernel`` / ``_expand_call``
 K4a :func:`dense_bwd_fused`        ``_dense_bwd_fused_kernel`` / its call
 K4b :func:`dense_bwd`              ``_dense_bwd_kernel`` / ``_dense_bwd_call``
+K2  :func:`chunk_weighted`         ``_chunk_kernel`` (mul, rhs) / ``_chunk_call``
+K5  :func:`edge_grad`              ``_edge_grad_kernel`` / ``_edge_grad_call``
 
 A wrapper given CPU tensors computes its plain version (``*_torch``);
 given CUDA tensors it launches its kernel or raises. It checks devices,
 types, shapes and contiguity, allocates the output, and adds one to
-``LAUNCHES[name]`` for each kernel launch and nowhere else.
+``LAUNCHES[name]`` for each kernel launch and nowhere else: where there
+is nothing to compute (no chunk, no row or a zero width) it returns the
+output without calling the kernel.
 
 Feature widths need no padding to 128 and the source operands may stop at
 ``num_src`` rows: the kernels mask the ragged edges (the plain versions
 give the same values on the reference's padded arrays).
+
+The weighted modes take the per-edge operand ``e2`` (E, he) and the
+layout's ``eid`` where the reference takes the gathered, transposed
+weights ``wt`` (H_pad, n_slots) and the 0/1 spread matrix ``R``: the
+kernel gathers ``e2[eid]`` itself, so the glue builds no per-slot tensor.
+Head h covers features ``h*rep : (h+1)*rep``. K5 returns (n_slots, he),
+the transpose of the reference's ``(H_pad, n_slots)[:he]``, zero on
+padding slots. Their launches count per mode: ``chunk_mul``,
+``chunk_rhs``, ``edge_grad_mul``, ``edge_grad_rhs``.
 """
 
 from __future__ import annotations
@@ -26,12 +39,15 @@ import torch
 from dgl1_tpu_torch.hub_format import BLK, DENSE_RB, EXPAND_PACK, EXPAND_RB
 
 __all__ = ["dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
-           "dense_bwd", "dense_fwd_torch", "chunk_sum_torch",
-           "expand_torch", "dense_bwd_fused_torch", "dense_bwd_torch",
+           "dense_bwd", "chunk_weighted", "edge_grad", "dense_fwd_torch",
+           "chunk_sum_torch", "expand_torch", "dense_bwd_fused_torch",
+           "dense_bwd_torch", "chunk_weighted_torch", "edge_grad_torch",
            "LAUNCHES", "reset_launches", "KERNELS"]
 
 KERNELS = ("dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
-           "dense_bwd")
+           "dense_bwd", "chunk_mul", "chunk_rhs", "edge_grad_mul",
+           "edge_grad_rhs")
+_MODES = {"mul": 0, "rhs": 1}
 LAUNCHES = {k: 0 for k in KERNELS}
 
 _C_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -48,7 +64,7 @@ def reset_launches() -> None:
 
 def dense_fwd_torch(c, u):
     """K1: (kd, f) = C[:n]^T @ U for U of n <= rows_pad rows."""
-    return c[: u.shape[0]].to(torch.float32).t() @ u
+    return c[: u.shape[0]].to(u.dtype).t() @ u
 
 
 def _chunk_rows(lay):
@@ -69,6 +85,43 @@ def chunk_sum_torch(lay, inp, n_out_blocks: int):
     out = inp.new_zeros((n_out_blocks * BLK, inp.shape[1]))
     return out.index_add_(0, rows_out[valid],
                           inp.index_select(0, rows_in[valid]))
+
+
+def chunk_weighted_torch(mode: str, lay, e2, inp, n_out_blocks: int,
+                         he: int, rep: int):
+    """K2, mul and rhs modes: for every real slot whose edge id lies in
+    ``e2`` (and, in mul mode, whose input row lies in ``inp``),
+    ``out[out_id*128 + b] += msg`` with msg ``inp[in_id*128 + a] *
+    e2[eid]`` spread per head (mul, width he*rep) or ``e2[eid]`` (rhs,
+    width he); (n_out_blocks*128, width), zero where no slot writes."""
+    rows_in, rows_out, valid = _chunk_rows(lay)
+    eid = lay["eid"].long()
+    valid = valid & (eid >= 0) & (eid < e2.shape[0])
+    if mode == "mul":
+        valid = valid & (rows_in < inp.shape[0])
+    msg = e2.index_select(0, eid[valid])
+    if mode == "mul":
+        msg = (inp.index_select(0, rows_in[valid])
+               * msg.repeat_interleave(rep, dim=1))
+    out = msg.new_zeros((n_out_blocks * BLK, msg.shape[1]))
+    return out.index_add_(0, rows_out[valid], msg)
+
+
+def edge_grad_torch(mode: str, lay, u, ct, he: int, rep: int):
+    """K5: per slot and head, ``sum over the head's features of
+    u[in_id*128 + a] * ct[out_id*128 + b]`` (mul) or ``ct[out_id*128 +
+    b, h]`` (rhs); (n_slots, he), zero on padding slots."""
+    rows_in, rows_out, valid = _chunk_rows(lay)
+    valid = valid & (rows_out < ct.shape[0])
+    if mode == "mul":
+        valid = valid & (rows_in < u.shape[0])
+    idx = valid.nonzero().squeeze(1)
+    c = ct.index_select(0, rows_out[idx])
+    if mode == "mul":
+        c = (u.index_select(0, rows_in[idx]) * c).reshape(-1, he, rep).sum(2)
+    out = ct.new_zeros((lay["a"].shape[0], he))
+    out[idx] = c[:, :he]
+    return out
 
 
 def _decode(starts, desc, rows_per_block: int):
@@ -96,7 +149,7 @@ def expand_torch(merged, x_starts, x_desc, num_dst: int):
 def dense_bwd_torch(c, ct, n_out=None):
     """K4b: (n_out, f) = C[:n_out] @ ct."""
     n_out = c.shape[0] if n_out is None else n_out
-    return c[:n_out].to(torch.float32) @ ct
+    return c[:n_out].to(ct.dtype) @ ct
 
 
 def dense_bwd_fused_torch(c, ct, tail, gb_starts, gb_desc, n_out=None):
@@ -161,6 +214,8 @@ def dense_fwd(c, u):
         return dense_fwd_torch(c, u)
     kd, f = c.shape[1], u.shape[1]
     out = torch.zeros((kd, f), dtype=torch.float32, device=dev)
+    if u.shape[0] == 0 or kd == 0 or f == 0:
+        return out
     with torch.cuda.device(dev):
         rc = _lib().hub_dense_fwd(c.data_ptr(), _C_DTYPES[c.dtype],
                                   u.data_ptr(), out.data_ptr(), u.shape[0],
@@ -185,7 +240,9 @@ def chunk_sum(lay, inp, n_out_blocks: int):
     f = inp.shape[1]
     out = torch.zeros((n_out_blocks * BLK, f), dtype=torch.float32,
                       device=dev)
-    chunk = lay["a"].shape[0] // max(n_chunks, 1)
+    if n_chunks == 0 or f == 0:
+        return out  # nothing to launch
+    chunk = lay["a"].shape[0] // n_chunks
     with torch.cuda.device(dev):
         rc = _lib().hub_chunk_sum(
             lay["a"].data_ptr(), lay["b"].data_ptr(),
@@ -209,6 +266,8 @@ def expand(merged, x_starts, x_desc, num_dst: int):
         return expand_torch(merged, x_starts, x_desc, num_dst)
     f = merged.shape[1]
     out = torch.empty((num_dst, f), dtype=torch.float32, device=dev)
+    if num_dst == 0 or f == 0:
+        return out
     with torch.cuda.device(dev):
         rc = _lib().hub_expand(x_starts.data_ptr(), x_desc.data_ptr(),
                                merged.data_ptr(), merged.shape[0],
@@ -237,6 +296,8 @@ def dense_bwd(c, ct, n_out=None):
         return dense_bwd_torch(c, ct, n_out)
     f = ct.shape[1]
     out = torch.empty((n_out, f), dtype=torch.float32, device=dev)
+    if n_out == 0 or f == 0:
+        return out
     with torch.cuda.device(dev):
         rc = _lib().hub_dense_bwd(c.data_ptr(), _C_DTYPES[c.dtype],
                                   ct.data_ptr(), out.data_ptr(), n_out,
@@ -261,6 +322,8 @@ def dense_bwd_fused(c, ct, tail, gb_starts, gb_desc, n_out=None):
         return dense_bwd_fused_torch(c, ct, tail, gb_starts, gb_desc, n_out)
     f = ct.shape[1]
     out = torch.empty((n_out, f), dtype=torch.float32, device=dev)
+    if n_out == 0 or f == 0:
+        return out
     with torch.cuda.device(dev):
         rc = _lib().hub_dense_bwd(c.data_ptr(), _C_DTYPES[c.dtype],
                                   ct.data_ptr(), out.data_ptr(), n_out,
@@ -268,4 +331,99 @@ def dense_bwd_fused(c, ct, tail, gb_starts, gb_desc, n_out=None):
                                   gb_desc.data_ptr(), tail.data_ptr(),
                                   _stream(dev))
     _done("dense_bwd_fused", rc)
+    return out
+
+
+def _chunk_layout(lay, dev, keys=("a", "b", "eid", "in_id", "out_id")):
+    """Check a chunk layout; returns (n_chunks, slots per chunk)."""
+    for k in keys:
+        _int32(k, lay[k], dev)
+    n_chunks, n_slots = lay["in_id"].shape[0], lay["a"].shape[0]
+    per_slot = [k for k in keys if k not in ("in_id", "out_id")]
+    if any(lay[k].shape[0] != n_slots for k in per_slot) \
+            or lay["out_id"].shape[0] != n_chunks \
+            or (n_chunks and n_slots % n_chunks):
+        raise ValueError("chunk layout slots do not match its chunk count")
+    return n_chunks, n_slots // max(n_chunks, 1)
+
+
+def _mode(mode):
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'mul' or 'rhs', got {mode!r}")
+
+
+def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
+                   rep: int):
+    """K2, mul and rhs modes. ``lay``: chunk layout (a, b, eid, in_id,
+    out_id int32); ``e2``: (E, he) f32 per-edge operand; ``inp``:
+    (n_in, he*rep) f32 in mul mode, None in rhs mode. Returns
+    (n_out_blocks*128, he*rep) f32 (mul) or (n_out_blocks*128, he) f32
+    (rhs). Slots whose edge id falls outside ``e2`` are skipped."""
+    _mode(mode)
+    dev = e2.device
+    _f32("e2", e2, dev)
+    if e2.shape[1] != he:
+        raise ValueError(f"e2 has {e2.shape[1]} columns, expected he={he}")
+    if mode == "mul":
+        _f32("inp", inp, dev)
+        if inp.shape[1] != he * rep:
+            raise ValueError("inp width must be he * rep")
+    elif inp is not None:
+        raise ValueError("rhs mode takes no inp")
+    n_chunks, chunk = _chunk_layout(lay, dev)
+    if dev.type == "cpu":
+        return chunk_weighted_torch(mode, lay, e2, inp, n_out_blocks, he,
+                                    rep)
+    width = he * rep if mode == "mul" else he
+    out = torch.zeros((n_out_blocks * BLK, width), dtype=torch.float32,
+                      device=dev)
+    if n_chunks == 0 or width == 0:
+        return out  # the C entry would launch nothing
+    with torch.cuda.device(dev):
+        rc = _lib().hub_chunk_weighted(
+            _MODES[mode], lay["a"].data_ptr(), lay["b"].data_ptr(),
+            lay["eid"].data_ptr(), lay["in_id"].data_ptr(),
+            lay["out_id"].data_ptr(), n_chunks, chunk, e2.data_ptr(),
+            e2.shape[0], he, rep,
+            inp.data_ptr() if mode == "mul" else None,
+            inp.shape[0] if mode == "mul" else 0, out.data_ptr(),
+            out.shape[0], width, _stream(dev))
+    _done(f"chunk_{mode}", rc)
+    return out
+
+
+def edge_grad(mode: str, lay, u, ct, he: int, rep: int):
+    """K5. ``lay``: the forward chunk layout (a, b, in_id, out_id int32);
+    ``u``: (n_src, he*rep) f32 in mul mode, None in rhs mode; ``ct``: the
+    compact hub cotangent rows (n_groups*128, he*rep) f32 (mul) or
+    (n_groups*128, he) f32 (rhs). Returns (n_slots, he) f32, zero on
+    padding slots."""
+    _mode(mode)
+    dev = ct.device
+    _f32("ct", ct, dev)
+    if mode == "mul":
+        _f32("u", u, dev)
+        if u.shape[1] != he * rep or ct.shape[1] != he * rep:
+            raise ValueError("u and ct widths must be he * rep")
+    else:
+        if u is not None:
+            raise ValueError("rhs mode takes no u")
+        if ct.shape[1] != he:
+            raise ValueError("ct width must be he in rhs mode")
+    n_chunks, chunk = _chunk_layout(lay, dev, ("a", "b", "in_id", "out_id"))
+    if dev.type == "cpu":
+        return edge_grad_torch(mode, lay, u, ct, he, rep)
+    # mul adds into its output; rhs writes every element.
+    alloc = torch.zeros if mode == "mul" else torch.empty
+    out = alloc((lay["a"].shape[0], he), dtype=torch.float32, device=dev)
+    if n_chunks == 0 or he == 0:
+        return out  # the C entry would launch nothing
+    with torch.cuda.device(dev):
+        rc = _lib().hub_edge_grad(
+            _MODES[mode], lay["a"].data_ptr(), lay["b"].data_ptr(),
+            lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,
+            chunk, u.data_ptr() if mode == "mul" else None,
+            u.shape[0] if mode == "mul" else 0, ct.data_ptr(), ct.shape[0],
+            out.data_ptr(), he, rep, _stream(dev))
+    _done(f"edge_grad_{mode}", rc)
     return out

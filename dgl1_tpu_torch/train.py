@@ -15,8 +15,11 @@ __all__ = ["train", "train_sampled"]
 
 
 def train(graph, feat, labels, model, steps: int = 5, lr: float = 1e-2,
-          generator=None) -> dict:
-    """Run ``steps`` Adam steps of ``model`` on the whole graph. Returns
+          generator=None, **model_kwargs) -> dict:
+    """Run ``steps`` Adam steps of ``model`` on the whole graph, calling
+    ``model(graph, feat=feat, generator=generator, **model_kwargs)``
+    (``feat`` None for a featureless model; R-GCN takes ``etypes``,
+    ``presorted``, ``etype_counts`` or ``rel_graphs`` here). Returns
     ``{"losses": [...], "step_s": [...]}``: the loss before each update
     and the host time of each step, which ends in a device sync."""
     opt = torch.optim.Adam(model.parameters(), lr=lr)
@@ -25,13 +28,14 @@ def train(graph, feat, labels, model, steps: int = 5, lr: float = 1e-2,
     for _ in range(steps):
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
-        logits = model(graph, feat, generator=generator)
+        logits = model(graph, feat=feat, generator=generator,
+                       **model_kwargs)
         loss = F.cross_entropy(logits, labels.long())
         loss.backward()
         opt.step()
         losses.append(float(loss.detach()))
-        if feat.is_cuda:
-            torch.cuda.synchronize(feat.device)
+        if labels.is_cuda:
+            torch.cuda.synchronize(labels.device)
         step_s.append(time.perf_counter() - t0)
     return {"losses": losses, "step_s": step_s}
 

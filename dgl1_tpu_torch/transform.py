@@ -1,7 +1,8 @@
 """Graph transforms (host side, numpy): the port's counterparts of
 ``dgl1_tpu/transform.py``'s ``add_self_loop``, ``remove_self_loop``,
-``to_bidirected`` and ``reorder_graph`` (algorithms ``'hub'`` and
-``'custom'``). Each returns a new graph on the input graph's device."""
+``to_bidirected``, ``reorder_graph`` (algorithms ``'hub'`` and
+``'custom'``), ``edge_subgraph`` and ``typed_subgraphs``. Each returns a
+new graph on the input graph's device."""
 
 from __future__ import annotations
 
@@ -14,13 +15,14 @@ import torch
 from dgl1_tpu_torch.graph import Graph, graph
 
 __all__ = ["add_self_loop", "remove_self_loop", "to_bidirected",
-           "reorder_graph"]
+           "reorder_graph", "edge_subgraph", "typed_subgraphs"]
 
 
 def _coo(g: Graph):
     """Real (unpadded) COO as numpy."""
     src, dst = g.edges()
-    return src.cpu().numpy(), dst.cpu().numpy()
+    e = g.num_edges()
+    return src[:e].cpu().numpy(), dst[:e].cpu().numpy()
 
 
 def _slice_rows(data: dict, idx: np.ndarray) -> dict:
@@ -120,3 +122,55 @@ def reorder_graph(g: Graph, node_permute_algo: str = "hub",
     new.edata["_ID"] = torch.as_tensor(eperm.astype(np.int32),
                                        device=new.device)
     return new
+
+
+def edge_subgraph(g: Graph, edges, relabel_nodes: bool = True) -> Graph:
+    """Edge-induced subgraph: the edges ``edges`` (ids or a bool mask) in
+    the given order. With ``relabel_nodes`` the nodes they touch are
+    renumbered in id order (old ids in ``ndata['_ID']``), else the parent's
+    node space is kept. Old edge ids land in ``edata['_ID']``."""
+    if isinstance(edges, torch.Tensor):
+        edges = edges.cpu().numpy()
+    edges = np.asarray(edges)
+    if edges.dtype == bool:
+        edges = np.nonzero(edges)[0]
+    edges = edges.astype(np.int64)
+    src, dst = _coo(g)
+    s, d = src[edges], dst[edges]
+    if relabel_nodes:
+        nodes = np.unique(np.concatenate([s, d]))
+        relabel = np.full((g.num_src_nodes(),), -1, dtype=np.int64)
+        relabel[nodes] = np.arange(len(nodes))
+        new = graph((relabel[s], relabel[d]), num_nodes=len(nodes),
+                    device=g.device)
+        new.ndata.update(_slice_rows(g.ndata, nodes))
+        new.ndata["_ID"] = torch.as_tensor(nodes.astype(np.int32),
+                                           device=new.device)
+    else:
+        new = graph((s, d), num_nodes=g.num_src_nodes(), device=g.device)
+        new.ndata.update(g.ndata)
+    new.edata.update(_slice_rows(g.edata, edges))
+    new.edata["_ID"] = torch.as_tensor(edges.astype(np.int32),
+                                       device=new.device)
+    return new
+
+
+def typed_subgraphs(g: Graph, etypes, num_rels: int,
+                    identity: bool = False):
+    """One edge-induced subgraph per relation, all in the parent's node
+    space, for ``RelGraphConv(rel_graphs=...)``: relation r holds the
+    edges with ``etypes == r`` in edge order, with its own hub layout
+    where its in-degrees clear the bar. ``etypes`` is host data (numpy or
+    a tensor, read up to ``num_edges``). ``identity=True`` needs the
+    forced hub geometry of ``build_hub_format(identity_force=)``, which is
+    not ported, and raises NotImplementedError."""
+    if identity:
+        raise NotImplementedError(
+            "typed_subgraphs(identity=True) needs build_hub_format's "
+            "identity_force geometry, which is not ported yet")
+    if isinstance(etypes, torch.Tensor):
+        etypes = etypes.cpu().numpy()
+    etypes = np.asarray(etypes)[: g.num_edges()]
+    return tuple(edge_subgraph(g, np.nonzero(etypes == r)[0],
+                               relabel_nodes=False)
+                 for r in range(int(num_rels)))

@@ -28,6 +28,7 @@ from dgl1_tpu.ops import attention as ref
 from dgl1_tpu_torch.hub_format import BLK
 from dgl1_tpu_torch.ops import attention as port
 from dgl1_tpu_torch.ops import attn_kernels as AK
+from dgl1_tpu_torch.ops import hub_kernels as HK
 
 from torch_parity import engines, make, t
 
@@ -247,17 +248,31 @@ def test_gat_attention_declines_as_the_reference_does():
         port.gat_attention(gt, x[:, :2, 0], x[:, :2, 0], x[:, :2], 0.2, 0.5)
 
 
-def test_composed_path_on_hub_graph_raises_under_the_hub_engine():
-    """H > 128 skips the fused op; the composed chain's copy_rhs/mul
-    aggregations need K2 in mul/rhs mode and K5, which are not ported:
-    the forced hub engine raises instead of falling to another engine."""
+def test_composed_path_on_hub_graph_raises_under_the_hub_engine(monkeypatch):
+    """H > 128 skips the fused op; under the forced hub engine the composed
+    chain's copy_rhs (softmax denominator) and mul (aggregation) run K2 in
+    rhs and mul mode and K5, and nothing falls to another engine. They agree
+    with the oracle engine within 1e-5 (float32, different sum order)."""
     _, gt = make("mixed")
     conv = tdgl.nn.GATConv(4, 1, num_heads=BLK + 1, device="cpu")
-    x = torch.ones((gt.num_nodes(), 4))
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(gt.num_nodes(), 4)).astype(np.float32))
+    with engines("xla", "xla"):
+        want = conv(gt, x).detach()
+    modes = []
+    for fn in ("chunk_weighted", "edge_grad"):
+        orig = getattr(HK, fn)
+        monkeypatch.setattr(HK, fn, lambda mode, *a, _f=orig, _n=fn, **k: (
+            modes.append((_n, mode)), _f(mode, *a, **k))[1])
     with engines("xla", "hub"):
-        with pytest.raises(NotImplementedError, match="K2 mul/rhs") as e:
-            conv(gt, x)
-    assert "K5" in str(e.value)
+        got = conv(gt, x)
+        got.sum().backward()
+    assert ("chunk_weighted", "rhs") in modes
+    assert ("chunk_weighted", "mul") in modes
+    assert ("edge_grad", "mul") in modes
+    assert got.shape == want.shape == (gt.num_nodes(), BLK + 1, 1)
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_wrappers_check_inputs_and_count_only_launches():

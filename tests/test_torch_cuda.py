@@ -1,6 +1,7 @@
-"""The hub, attention and tile kernels on the card against their plain
-torch versions, and the hub engine, the fused attention and the tile
-engine against the oracle engine or the plain versions on the card.
+"""The hub (K1-K5), attention and tile kernels on the card against their
+plain torch versions, and the hub engine (copy_u, u_mul_e, copy_e), the
+fused attention and the tile engine against the oracle engine or the
+plain versions on the card.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. Imports no JAX, so it
 runs on a machine without it:
@@ -161,6 +162,106 @@ def test_fused_attention_matches_plain_on_the_card(dev, drop):
         res.append([out.detach().cpu()] + [x.grad.cpu() for x in ins])
     for name, a, b in zip(("out", "el", "er", "ft"), *res):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("he,rep", [(1, 40), (1, 128), (8, 32), (4, 3),
+                                    (64, 1)])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_weighted_kernels_match_plain_versions(dev, mixed, he, rep):
+    """K2 mul (over full_fwd and the window-major full_bwd) and rhs, and
+    K5 mul, within 1e-4 of their float64 plain versions relative to the
+    same sums over absolute values (hub rows sum ~20k terms); K5 rhs, a
+    copy, exactly."""
+    g = _graph(dev, mixed)
+    hub, m = g.hub_dst, g.hub_dst_meta
+    n, gr, f = g.num_nodes(), m.n_groups * 128, he * rep
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    u, e2, ct, ct_h = rnd(n, f), rnd(g.num_edges(), he), rnd(gr, f), \
+        rnd(gr, he)
+    lf, lb = hub["full_fwd"], hub["full_bwd"]
+
+    def f64(*xs):
+        return [x.double() if x is not None else None for x in xs]
+
+    for mode, lay, inp, n_out in (("mul", lf, u, m.n_groups),
+                                  ("mul", lb, ct, m.n_win),
+                                  ("rhs", lf, None, m.n_groups)):
+        r = rep if mode == "mul" else 1
+        got = K.chunk_weighted(mode, lay, e2, inp, n_out, he, r)
+        want = K.chunk_weighted_torch(mode, lay, *f64(e2, inp), n_out, he, r)
+        scale = K.chunk_weighted_torch(
+            mode, lay, *f64(e2.abs(), None if inp is None else inp.abs()),
+            n_out, he, r)
+        torch.cuda.synchronize()
+        _sum_close(f"chunk_{mode}", got, want, scale)
+    got = K.edge_grad("mul", lf, u, ct, he, rep)
+    want = K.edge_grad_torch("mul", lf, *f64(u, ct), he, rep)
+    scale = K.edge_grad_torch("mul", lf, *f64(u.abs(), ct.abs()), he, rep)
+    torch.cuda.synchronize()
+    _sum_close("edge_grad_mul", got, want, scale)
+    assert torch.equal(K.edge_grad("rhs", lf, None, ct_h, he, 1),
+                       K.edge_grad_torch("rhs", lf, None, ct_h, he, 1))
+
+
+def test_wrappers_count_only_real_launches(dev):
+    """A wrapper with nothing to compute (no chunk, a zero width) returns
+    its zero-filled output without a launch, and its counter stays; a
+    real launch adds one."""
+    g = _graph(dev, False)
+    lf = g.hub_dst["full_fwd"]
+    empty = {k: v[:0] for k, v in lf.items()}
+    e2 = torch.ones(g.num_edges(), 2, device=dev)
+    ct = torch.ones(g.hub_dst_meta.n_groups * 128, 2, device=dev)
+    K.reset_launches()
+    out = K.chunk_weighted("rhs", empty, e2, None, 1, 2, 1)
+    assert out.shape == (128, 2) and not out.any()
+    assert K.edge_grad("rhs", empty, None, ct, 2, 1).shape == (0, 2)
+    assert K.chunk_weighted("rhs", lf, e2[:, :0], None, 1, 0, 1).shape == \
+        (128, 0)
+    assert not K.chunk_sum(empty, e2, 1).any()
+    assert not any(K.LAUNCHES.values()), K.LAUNCHES
+    K.chunk_weighted("rhs", lf, e2, None, g.hub_dst_meta.n_groups, 2, 1)
+    assert K.LAUNCHES["chunk_rhs"] == 1 and sum(K.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("op", ["mul", "copy_rhs"])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_weighted_hub_engine_matches_plain_on_the_card(dev, mixed, op):
+    """gspmm u_mul_e (per head, H=4, D=6) and copy_e on the hub engine
+    with the kernels against the same engine on CPU tensors (the plain
+    versions): values, grad_u and grad_e within 1e-4 of the same sums
+    over absolute values."""
+    g = _graph(dev, mixed)
+    gc = g.to("cpu")
+    gen = torch.Generator().manual_seed(6)
+    n, ne = g.num_nodes(), g.num_edges()
+    u = torch.randn(n, 4, 6, generator=gen)
+    e = torch.randn(ne, 4, 1, generator=gen)
+    w = torch.randn(n, 4, 6 if op == "mul" else 1, generator=gen)
+
+    def run(graph, device, uu, ee, ww):
+        ins = [x.to(device).requires_grad_(True) for x in (uu, ee)]
+        tdgl.ops.set_engine("hub")
+        try:
+            out = tdgl.ops.gspmm(graph, op, "sum",
+                                 ins[0] if op == "mul" else None, ins[1])
+            grads = torch.autograd.grad((out * ww.to(device)).sum(),
+                                        ins if op == "mul" else ins[1:])
+        finally:
+            tdgl.ops.set_engine("auto")
+        return [out.detach().cpu()] + [x.cpu() for x in grads]
+
+    got = run(g, dev, u, e, w)
+    want = run(gc, "cpu", u, e, w)
+    scale = run(gc, "cpu", u.abs(), e.abs(), w.abs())
+    for name, a, b, s in zip(("out", "grad_u", "grad_e"), got, want, scale):
+        if op == "copy_rhs" and name == "grad_u":
+            name = "grad_e"
+        _sum_close(name, a, b, s)
 
 
 def _sampled_blocks(dev):

@@ -91,7 +91,8 @@ def test_hub_kernel_sequence_of_a_training_graph(monkeypatch):
     """On a self-loop hub graph with a dense tier the engine runs K1 and
     K3 forward and K4a backward, as the arxiv GCN does."""
     calls = []
-    for fn in K.KERNELS:
+    for fn in ("dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
+               "dense_bwd", "chunk_weighted", "edge_grad"):
         orig = getattr(K, fn)
         monkeypatch.setattr(K, fn, lambda *a, _f=orig, _n=fn, **k: (
             calls.append(_n), _f(*a, **k))[1])
@@ -100,14 +101,19 @@ def test_hub_kernel_sequence_of_a_training_graph(monkeypatch):
 
 
 def test_hub_declines_and_raises():
+    """Declines (None) where the reference declines; mul and copy_rhs,
+    which raised NotImplementedError before K2 mul/rhs and K5 were
+    ported, now compute; a malformed weight raises."""
     gj, gt = make("mixed")
     u = torch.ones((gt.num_nodes(), 2))
     e = torch.ones((gt.num_edges(), 1))
     assert port_hub.gspmm_hub(gt, "copy_lhs", "max", u, None) is None
-    with pytest.raises(NotImplementedError, match="_edge_grad_kernel"):
-        port_hub.gspmm_hub(gt, "mul", "sum", u, e)
-    with pytest.raises(NotImplementedError, match="mul/rhs"):
-        port_hub.gspmm_hub(gt, "copy_rhs", "sum", None, e)
+    assert port_hub.gspmm_hub(gt, "mul", "sum", u, e).shape == u.shape
+    np.testing.assert_allclose(
+        port_hub.gspmm_hub(gt, "copy_rhs", "sum", None, e)[:, 0].numpy(),
+        gt.in_degrees().numpy())
+    with pytest.raises(ValueError, match="edge data"):  # a row short
+        port_hub.gspmm_hub(gt, "copy_rhs", "sum", None, e[1:])
     plain = tdgl.graph(([0, 1], [1, 2]), num_nodes=3, device="cpu")
     assert port_hub.gspmm_hub(plain, "copy_lhs", "sum",
                               torch.ones((3, 2)), None) is None

@@ -30,7 +30,8 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "ops.attention", "ops.attn_kernels", "random", "sampling",
             "sampling.fused", "dataloading", "dataloading.dataloader",
             "dataloading.neighbor_sampler", "ops.engine_tile",
-            "ops.tile_kernels", "models.graphsage")
+            "ops.tile_kernels", "models.graphsage", "ops.segment",
+            "models.rgcn", "nn.conv", "transform", "data.synthetic")
 
 
 def test_port_imports_no_jax_and_no_reference():
