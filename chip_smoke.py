@@ -76,6 +76,24 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    host sampling ms per batch, device step ms, peak memory); the pool
    trainer for 3 steps (K10 2 and K9 4 per step); a ``torch.profiler``
    trace of 3 mean steps on batches sampled beforehand;
+4d. the block-dense slice on hub-free geometric graphs (bench.py's
+   "geometric" family): ``geometric_graph(2^20, 8)`` and ``(2^17, 8)`` with
+   ``formats=(..., "bdense")`` (build seconds, blocks, coverage, tail),
+   and the RCM route (the 2^17 graph's ids shuffled by
+   ``default_rng(1).permutation``, then ``reorder_graph(..., 'rcm')``,
+   coverage at least 95%); K11 (block_fwd at GCN layer 1, 2^20 nodes,
+   F=128; block_bwd at layer 2's backward, F=40) against its float64 plain
+   version, with the other direction and width, bench.py's matrix (2^17
+   nodes, F=32/128/512) and the RCM graph as ``variants``, the library
+   call ``torch.sparse.mm`` on a CSR of the counts; copy_u sum and mean
+   through "auto" (forward, grad_u) against the oracle, only K11
+   launching; the RCM graph's aggregate against the oracle through
+   ``ndata['_ID']``; the GCN trainer (128 -> 256 -> 40, 5 steps: K11
+   forward 2 and transpose 1 per step exactly, nothing else), the GAT
+   trainer (128 -> 8 x 32 -> 40, 3 steps at dropout 0 through
+   ``bdense_gat_attention``, 2 calls per step and no kernel; 1 step at
+   0.6 on the composed chain); ``torch.profiler`` traces of 3 GCN steps
+   and 1 GAT step;
 6. the ``{"kernels": [...]}`` line: ``launches_by_path`` holds each
    trainer run's count and ``launches`` their sum (every kernel above
    zero), then the last line
@@ -116,6 +134,8 @@ _ATT_SRC, _ATT_REF = ("dgl1_tpu_torch/csrc/attn_kernels.cu",
                       "dgl1_tpu/ops/attention.py")
 _TILE_SRC, _TILE_REF = ("dgl1_tpu_torch/csrc/tile_kernels.cu",
                         "dgl1_tpu/ops/engine_pallas.py")
+_BD_SRC, _BD_REF = ("dgl1_tpu_torch/csrc/bdense_kernels.cu",
+                    "dgl1_tpu/ops/engine_bdense.py")
 # name -> (id, source in this repository, TPU kernel it replaces)
 KERNEL_INFO = {
     "dense_fwd": ("K1", _HUB_SRC, f"{_HUB_REF}:170"),
@@ -132,6 +152,8 @@ KERNEL_INFO = {
     "chunk_rhs": ("K2 rhs", _HUB_SRC, f"{_HUB_REF}:68"),
     "edge_grad_mul": ("K5 mul", _HUB_SRC, f"{_HUB_REF}:364"),
     "edge_grad_rhs": ("K5 rhs", _HUB_SRC, f"{_HUB_REF}:364"),
+    "block_fwd": ("K11", _BD_SRC, f"{_BD_REF}:42"),
+    "block_bwd": ("K11 transpose", _BD_SRC, f"{_BD_REF}:42"),
 }
 WEIGHTED = ("chunk_mul", "chunk_rhs", "edge_grad_mul", "edge_grad_rhs")
 
@@ -1483,12 +1505,367 @@ def summarize_profile(phase, path, prof, steps, wall_ms):
                          "calls_per_step": e.count / steps} for e in top]}))
 
 
+# The block-dense workloads: bench.py --matrix's "geometric" family
+# (bench.py:57-76: geometric_graph(2^17, 8), F in {32, 128, 512}),
+# tools/bench_bdense.py:15 (2^17, degree 8, F=128) and the trainers'
+# geometric graph of 2^20 nodes; the RCM route recovers a shuffled copy.
+BDENSE_FORMATS = ("coo", "csr", "csc", "ell", "bdense")
+
+
+def bdense_layout_record(g, seconds):
+    m, e = g.bdense_meta, g.num_edges()
+    return {"nodes": g.num_nodes(), "edges": e, "build_s": seconds,
+            "blocks": m.n_blocks, "covered_share": m.covered / e,
+            "tail_edges": e - m.covered,
+            "max_row_blocks": m.max_row_blocks,
+            "max_col_blocks": m.max_col_blocks,
+            "a_dtype": str(g.bdense["a"].dtype),
+            "a_mb": nbytes(g.bdense["a"]) / 1e6,
+            "hub": g.hub_dst_meta is not None}
+
+
+def bdense_setup(dev):
+    """The geometric graphs of 2^20 and 2^17 nodes (degree 8, seed 0) with
+    the block-dense layout, then the RCM route: the 2^17 graph's ids
+    shuffled by ``default_rng(1).permutation`` and recovered by
+    ``reorder_graph(..., 'rcm', formats=...)`` (coverage at least 95%)."""
+    import dgl1_tpu_torch as dgl
+
+    out, rec = {}, {"phase": "bdense_graphs"}
+    for name, n in (("g20", 1 << 20), ("g17", 1 << 17)):
+        t0 = time.perf_counter()
+        out[name] = dgl.data.geometric_graph(n, 8, seed=0,
+                                             formats=BDENSE_FORMATS,
+                                             device=dev)
+        rec[name] = bdense_layout_record(out[name],
+                                         time.perf_counter() - t0)
+    n = 1 << 17
+    src, dst = (x.cpu().numpy() for x in out["g17"].edges())
+    shuf = np.random.default_rng(1).permutation(n)
+    t0 = time.perf_counter()
+    out["shuf"] = dgl.graph((shuf[src], shuf[dst]), num_nodes=n,
+                            formats=BDENSE_FORMATS, device=dev)
+    rec["shuffled"] = bdense_layout_record(out["shuf"],
+                                           time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["rcm"] = dgl.reorder_graph(out["shuf"], "rcm",
+                                   formats=BDENSE_FORMATS)
+    rec["rcm"] = bdense_layout_record(out["rcm"], time.perf_counter() - t0)
+    log(json.dumps(rec))
+    for name in ("g20", "g17", "rcm"):
+        if out[name].hub_dst is not None or rec[name]["blocks"] == 0:
+            raise AssertionError(f"{name}: expected a block-dense layout and "
+                                 f"no hub layout: {rec[name]}")
+    if not rec["rcm"]["covered_share"] >= 0.95:
+        raise AssertionError(f"RCM coverage {rec['rcm']['covered_share']}")
+    return out
+
+
+def _block_args(g, transpose):
+    bd = g.bdense
+    if transpose:
+        return (True, bd["ab"], bd["col_ptr"], bd["rbb"])
+    return (False, bd["a"], bd["row_ptr"], bd["cb"])
+
+
+def _block_sparse(g, transpose):
+    """The dense tier as one (n, n) float32 CSR of counts, in the
+    direction K11 multiplies (its transpose for ``transpose``): the
+    library call's operand."""
+    tr, a, ptr, in_blk = _block_args(g, transpose)
+    k = g.bdense_meta.n_blocks
+    n = g.num_nodes()
+    a3 = a[: k * 128].view(k, 128, 128)
+    kk, i, j = (a3 != 0).nonzero(as_tuple=True)
+    ob = torch.repeat_interleave(torch.arange(ptr.shape[0] - 1,
+                                              device=a.device),
+                                 torch.diff(ptr.long()))
+    out_local, in_local = (j, i) if tr else (i, j)
+    rows = ob[kk] * 128 + out_local
+    cols = in_blk.long()[kk] * 128 + in_local
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # sparse CSR is "beta"
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), a3[kk, i, j].float(),
+            (n, n)).coalesce().to_sparse_csr()
+
+
+def block_case(case, g, dev, f, transpose=False, seed=0, library=True):
+    """K11 at width f on ``g``'s layout, forward or transpose, against its
+    float64 plain version. Bytes: the count blocks, the run pointers and
+    input block ids, the rows of x that a nonzero count needs, and the
+    whole output, once each. Operations: 2 per nonzero count and column
+    (the sparse product's need); ``dense_flops`` is the dense work over
+    the kept blocks that the kernel does."""
+    from dgl1_tpu_torch.ops import bdense_kernels as BK
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    args = _block_args(g, transpose)
+    _, a, ptr, in_blk = args
+    n, k = g.num_nodes(), g.bdense_meta.n_blocks
+    x = torch.randn(n, f, device=dev, generator=gen)
+    nz = a[: k * 128].view(k, 128, 128) != 0
+    need = nz.any(dim=2) if transpose else nz.any(dim=1)
+    x_rows = int(torch.unique((in_blk.long()[:k, None] * 128 + torch.arange(
+        128, device=dev))[need]).numel())
+    nnz = int(nz.sum())
+    lib = None
+    if library:
+        csr = _block_sparse(g, transpose)
+        lib = lambda: torch.sparse.mm(csr, x)  # noqa: E731
+    row = kernel_row(
+        "block_bwd" if transpose else "block_fwd", BK.block_mm(*args, x, n),
+        BK.block_mm_torch(*args, x.double(), n),
+        BK.block_mm_torch(*args, x.abs().double(), n),
+        lambda: BK.block_mm(*args, x, n),
+        lambda: BK.block_mm_torch(*args, x, n), lib,
+        nbytes(a, ptr, in_blk) + x_rows * f * 4 + n * f * 4, 2 * nnz * f,
+        {"case": case, "transpose": transpose, "n": n, "f": f, "blocks": k,
+         "nnz": nnz, "x_rows_needed": x_rows, "a_dtype": str(a.dtype)},
+        library_note=("torch.sparse.mm with the dense tier as a CSR of "
+                      "counts" if library else None))
+    row["shapes"]["dense_flops"] = 2 * k * 128 * 128 * f
+    row["shapes"]["dense_flops_bound_ms"] = (2 * k * 128 * 128 * f
+                                             / FP32_FLOPS * 1e3)
+    return row
+
+
+def phase_block_kernels(dev, bg):
+    """K11 forward at GCN layer 1 (2^20 nodes, F=128) and transpose at
+    layer 2's backward (F=40), each against its float64 plain version,
+    with the other shapes as ``variants``: the other direction at the
+    other width on 2^20 nodes, bench.py's matrix (2^17 nodes, F=32, 128,
+    512) and the RCM graph at F=128."""
+
+    def variants(transpose, cases):
+        return [block_case(c, g, dev, f, transpose, seed=i + 1,
+                           library=False)
+                for i, (c, g, f) in enumerate(cases)]
+
+    g20, g17, rcm = bg["g20"], bg["g17"], bg["rcm"]
+    rows = {}
+    for tr, (main_f, other_f) in ((False, (128, 40)), (True, (40, 128))):
+        main = block_case(f"geo2e20_f{main_f}", g20, dev, main_f, tr)
+        rows[main["name"]] = with_variants(main, variants(tr, [
+            (f"geo2e20_f{other_f}", g20, other_f),
+            ("geo2e17_f32", g17, 32), ("geo2e17_f128", g17, 128),
+            ("geo2e17_f512", g17, 512), ("rcm2e17_f128", rcm, 128)]))
+    return rows
+
+
+def bdense_gspmm_path(name, g, dev, f):
+    """copy_u with sum and mean, forward and grad_u, through dispatch
+    "auto" against the oracle engine; K11 forward and transpose must
+    launch and every other kernel stay at 0; edges/s of the sum."""
+    from dgl1_tpu_torch import ops
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, e = g.num_nodes(), g.num_edges()
+    u = torch.randn(n, f, device=dev, generator=gen)
+    w = torch.randn(n, f, device=dev, generator=gen)
+
+    def run(engine, uu, ww, red):
+        ops.set_engine(engine)
+        try:
+            x = uu.clone().requires_grad_(True)
+            out = ops.gspmm(g, "copy_lhs", red, x, None)
+            (gx,) = torch.autograd.grad((out * ww).sum(), x)
+        finally:
+            ops.set_engine("auto")
+        return out.detach(), gx
+
+    rec = {"phase": "bdense_gspmm", "path": name, "nodes": n, "edges": e,
+           "f": f}
+    for red in ("sum", "mean"):
+        ref = run("xla", u, w, red)
+        scale = run("xla", u.abs(), w.abs(), red)
+        reset_all_launches()
+        got = run("auto", u, w, red)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        expect_exact(name, counts, {"block_fwd": 1, "block_bwd": 1})
+        rec[red] = {"fwd_err": check(f"{name} {red} fwd", got[0], ref[0],
+                                     scale[0]),
+                    "bwd_err": check(f"{name} {red} bwd", got[1], ref[1],
+                                     scale[1])}
+        del ref, scale, got
+    fwd_ms = cuda_ms(lambda: ops.gspmm(g, "copy_lhs", "sum", u, None))
+    ur = u.clone().requires_grad_(True)
+    out = ops.gspmm(g, "copy_lhs", "sum", ur, None)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, ur, w,
+                                                 retain_graph=True))
+    rec.update({"launches": counts, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                "fwd_edges_per_s": e / (fwd_ms * 1e-3),
+                "bwd_edges_per_s": e / (bwd_ms * 1e-3)})
+    log(json.dumps(rec))
+
+
+def rcm_route(dev, bg, f=128):
+    """The aggregate on the RCM-reordered graph (through "auto": K11 and
+    the tail) against the oracle on the shuffled graph, mapped through
+    ``ndata['_ID']``."""
+    from dgl1_tpu_torch import ops
+
+    g_shuf, g_rcm = bg["shuf"], bg["rcm"]
+    perm = g_rcm.ndata["_ID"].long()
+    u = torch.randn(g_shuf.num_nodes(), f, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    reset_all_launches()
+    got = ops.gspmm(g_rcm, "copy_lhs", "sum", u[perm], None)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    expect_exact("rcm_route", counts, {"block_fwd": 1})
+    ops.set_engine("xla")
+    try:
+        ref = ops.gspmm(g_shuf, "copy_lhs", "sum", u, None)[perm]
+        scale = ops.gspmm(g_shuf, "copy_lhs", "sum", u.abs(), None)[perm]
+    finally:
+        ops.set_engine("auto")
+    log(json.dumps({"phase": "bdense_rcm_route", "f": f,
+                    "err": check("rcm_route", got, ref, scale),
+                    "covered_share": g_rcm.bdense_meta.covered
+                    / g_rcm.num_edges(), "launches": counts}))
+
+
+def bdense_inputs(g, dev, classes=40, in_f=128):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = g.num_nodes()
+    return (torch.randn(n, in_f, device=dev, generator=gen),
+            torch.randint(0, classes, (n,), device=dev, generator=gen))
+
+
+def phase_bdense_gcn(name, dev, g, steps):
+    """The GCN trainer (the arxiv GCN's widths 128 -> 256 -> 40, dropout
+    0, Adam 1e-2) on the geometric graph: step-0 logits against the oracle
+    engine, losses finite and falling, exactly K11 forward 2 and transpose
+    1 per step and every other kernel 0."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch import ops
+    from dgl1_tpu_torch.models import GCN
+
+    feat, labels = bdense_inputs(g, dev)
+    model = GCN(128, 256, 40, num_layers=2, dropout=0.0, device=dev,
+                generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ops.set_engine("xla")
+        try:
+            ref = model(g, feat)
+        finally:
+            ops.set_engine("auto")
+        lerr, lmax = logits_vs(name, "oracle", model(g, feat), ref, 1e-4)
+    del ref
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    res = dgl.train(g, feat, labels, model, steps=steps, lr=1e-2)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    expect_exact(name, counts, {"block_fwd": 2 * steps,
+                                "block_bwd": steps})
+    train_record("bdense_gcn_train", name, g, res, counts, steps,
+                 dims=[128, 256, 40], logits_err_vs_oracle=lerr,
+                 logits_max_abs=lmax)
+    return counts
+
+
+def phase_bdense_gat(name, dev, g, steps, drop=0.0):
+    """The GAT trainer (the arxiv GAT's widths 128 -> 8 x 32 -> 40, Adam
+    1e-2) on the geometric graph. At dropout 0: step-0 logits against the
+    composed chain on the oracle engine (the same model on the graph
+    without its layout), ``bdense_gat_attention`` called twice per step
+    (``battention.CALLS``), losses falling. At ``drop`` > 0 (features and
+    attention) the composed chain runs and the counter stays. No kernel
+    launches either way."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch import ops
+    from dgl1_tpu_torch.models import GAT
+    from dgl1_tpu_torch.ops import battention
+
+    feat, labels = bdense_inputs(g, dev)
+    model = GAT(128, 32, 40, heads=8, out_heads=1, feat_drop=drop,
+                attn_drop=drop, device=dev,
+                generator=torch.Generator().manual_seed(2))
+    extra = {}
+    if drop == 0.0:
+        gv = copy.copy(g)
+        gv.bdense = gv.bdense_meta = None
+        model.eval()
+        with torch.no_grad():
+            ops.set_engine("xla")
+            try:
+                ref = model(gv, feat)
+            finally:
+                ops.set_engine("auto")
+            lerr, lmax = logits_vs(name, "composed", model(g, feat), ref,
+                                   1e-4)
+        extra = {"logits_err_vs_composed": lerr, "logits_max_abs": lmax}
+        del ref, gv
+        model.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    calls0 = battention.CALLS["bdense_gat_attention"]
+    res = dgl.train(g, feat, labels, model, steps=steps, lr=1e-2,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    counts = all_launches()
+    calls = battention.CALLS["bdense_gat_attention"] - calls0
+    expect_exact(name, counts, {})
+    want_calls = 2 * steps if drop == 0.0 else 0
+    if calls != want_calls:
+        raise AssertionError(f"{name}: bdense_gat_attention ran {calls} "
+                             f"times, expected {want_calls}")
+    losses = res["losses"]
+    if drop == 0.0:
+        train_record("bdense_gat_train", name, g, res, counts, steps,
+                     dims=[128, [8, 32], 40], drop=drop,
+                     battention_calls=calls, **extra)
+    else:
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite loss: {losses}")
+        log(json.dumps({
+            "phase": "bdense_gat_train", "path": name, "drop": drop,
+            "steps": steps, "losses": losses,
+            "ms_per_step": [x * 1e3 for x in res["step_s"]],
+            "battention_calls": calls, "launches": counts,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+    return counts
+
+
+def profile_bdense(dev, g, model_name, steps, warmup):
+    """Where a block-dense trainer step's device time goes:
+    ``torch.profiler`` over ``steps`` steps after ``warmup`` steps of the
+    GCN or the GAT (dropout 0); as profile_gat."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch.models import GAT, GCN
+    from torch.profiler import ProfilerActivity, profile
+
+    feat, labels = bdense_inputs(g, dev)
+    gen = torch.Generator().manual_seed(2)
+    if model_name == "gcn":
+        model = GCN(128, 256, 40, num_layers=2, dropout=0.0, device=dev,
+                    generator=gen)
+    else:
+        model = GAT(128, 32, 40, heads=8, feat_drop=0.0, attn_drop=0.0,
+                    device=dev, generator=gen)
+    dgl.train(g, feat, labels, model, steps=warmup)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dgl.train(g, feat, labels, model, steps=steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    summarize_profile(f"bdense_{model_name}_profile",
+                      f"bdense_{model_name}_geo2e20_train", prof, steps,
+                      wall_ms)
+
+
 def _kernel_modules():
     from dgl1_tpu_torch.ops import attn_kernels as AK
+    from dgl1_tpu_torch.ops import bdense_kernels as BK
     from dgl1_tpu_torch.ops import hub_kernels as K
     from dgl1_tpu_torch.ops import tile_kernels as TK
 
-    return K, AK, TK
+    return K, AK, TK, BK
 
 
 def reset_all_launches():
@@ -1751,6 +2128,33 @@ def main():
             {"tile_sum": 4, "tile_minmax": 2})),
     ]
     profile_sage(dev, r, batches)
+    del r, loader, batches
+    torch.cuda.empty_cache()
+
+    # Phase 4d: the block-dense slice on the geometric graphs. K11 against
+    # its float64 plain version, g-SpMM through "auto", the RCM route, the
+    # GCN trainer (K11 forward 2, transpose 1 per step, nothing else), the
+    # GAT trainer (bdense_gat_attention, no kernel; the composed chain at
+    # dropout 0.6), then profiles of the GCN and GAT steps.
+    t4d = time.perf_counter()
+    bg = bdense_setup(dev)
+    rows.update(phase_block_kernels(dev, bg))
+    bdense_gspmm_path("bdense_geo2e20_f128", bg["g20"], dev, 128)
+    rcm_route(dev, bg)
+    g20 = bg["g20"]
+    del bg
+    main_counts += [
+        ("bdense_gcn_train", phase_bdense_gcn("bdense_gcn_train", dev, g20,
+                                              5)),
+        ("bdense_gat_train", phase_bdense_gat("bdense_gat_train", dev, g20,
+                                              3)),
+        ("bdense_gat_train_drop0.6", phase_bdense_gat(
+            "bdense_gat_train_drop0.6", dev, g20, 1, drop=0.6)),
+    ]
+    profile_bdense(dev, g20, "gcn", steps=3, warmup=2)
+    profile_bdense(dev, g20, "gat", steps=1, warmup=1)
+    log(json.dumps({"phase": "bdense_done",
+                    "seconds": time.perf_counter() - t4d}))
 
     # ``launches`` is one number per kernel: the sum of the trainer runs,
     # each zeroed and read on its own; ``launches_by_path`` keeps them

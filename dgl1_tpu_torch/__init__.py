@@ -10,14 +10,15 @@ with nvcc at first use.
 
 from dgl1_tpu_torch.graph import Graph, graph, resolve_device
 from dgl1_tpu_torch.transform import (add_self_loop, edge_subgraph,
-                                      remove_self_loop, reorder_graph,
-                                      to_bidirected, typed_subgraphs)
+                                      rcm_order, remove_self_loop,
+                                      reorder_graph, to_bidirected,
+                                      typed_subgraphs)
 from dgl1_tpu_torch import (data, dataloading, models, nn,  # noqa: F401
                             ops, random, sampling)
 from dgl1_tpu_torch.train import train, train_sampled
 
 __all__ = ["Graph", "graph", "resolve_device", "add_self_loop",
-           "remove_self_loop", "reorder_graph", "to_bidirected",
+           "remove_self_loop", "reorder_graph", "rcm_order", "to_bidirected",
            "edge_subgraph", "typed_subgraphs", "data",
            "dataloading", "models", "nn", "ops", "random", "sampling",
            "train", "train_sampled"]

@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 SOURCES = {"hub_kernels": _PKG / "csrc" / "hub_kernels.cu",
            "attn_kernels": _PKG / "csrc" / "attn_kernels.cu",
-           "tile_kernels": _PKG / "csrc" / "tile_kernels.cu"}
+           "tile_kernels": _PKG / "csrc" / "tile_kernels.cu",
+           "bdense_kernels": _PKG / "csrc" / "bdense_kernels.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -58,6 +59,10 @@ _SIGNATURES = {
         "hub_edge_grad": [_c_int, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                           _ptr, _c_int, _ptr, _c_int, _ptr, _c_int, _c_int,
                           _ptr],
+    },
+    "bdense_kernels": {
+        "block_mm": [_c_int, _c_int, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
+                     _ptr, _c_int, _c_int, _c_int, _ptr],
     },
     "tile_kernels": {
         "tile_sum": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _ptr, _c_int,

@@ -11,7 +11,8 @@ from dgl1_tpu_torch.graph import Graph, graph, resolve_device
 from dgl1_tpu_torch.transform import to_bidirected
 
 __all__ = ["synthetic_classification_graph", "powerlaw_graph",
-           "typed_powerlaw_graph", "sort_by_relation", "minibatch_graph"]
+           "geometric_graph", "typed_powerlaw_graph", "sort_by_relation",
+           "minibatch_graph"]
 
 
 def synthetic_classification_graph(
@@ -88,6 +89,23 @@ def powerlaw_graph(num_nodes: int, avg_degree: int, alpha: float = 2.1,
     cdf /= cdf[-1]
     dst = np.searchsorted(cdf, rng.random(num_edges)).astype(np.int64)
     src = rng.integers(0, num_nodes, size=num_edges)
+    return graph((src, dst), num_nodes=num_nodes, **kw)
+
+
+def geometric_graph(num_nodes: int, avg_degree: int, seed: int = 0,
+                    **kw) -> Graph:
+    """Local-band "geometric" graph: node ids are positions along a 1-D
+    embedding and edges join nearby ids (Gaussian offsets), the locality
+    of meshes and road networks, where no node is a hub. The hub-free
+    family of bench.py's matrix; ``kw`` goes to :func:`graph` (pass
+    ``formats=(..., "bdense")`` for the block-dense layout)."""
+    rng = np.random.default_rng(seed)
+    num_edges = num_nodes * avg_degree
+    src = rng.integers(0, num_nodes, size=num_edges)
+    off = np.rint(rng.normal(0.0, max(avg_degree, 2), num_edges)
+                  ).astype(np.int64)
+    off = np.where(off == 0, 1, off)
+    dst = np.clip(src + off, 0, num_nodes - 1)
     return graph((src, dst), num_nodes=num_nodes, **kw)
 
 

@@ -17,6 +17,9 @@ C++ builder in ``_native``) and held as ``torch`` tensors:
                         (:func:`_build_tiles`), reduce-by-dst and by-src.
 ``ell_dst, ell_src``    degree-bucketed ELL layouts with static metas.
 ``hub_dst``             the hub-dense layout (``hub_format.py``) and meta.
+``bdense``              the block-dense layout (``bdense_format.py``) and
+                        ``bdense_meta``; built only when ``formats`` names
+                        ``"bdense"``.
 
 ``graph(formats=...)`` restricts what is built: ``("csc",)`` gives a
 sampling-only parent (COO and CSC, no CSR, tiles, ELL or hub). Blocks
@@ -76,7 +79,8 @@ def _tree_to(x, device):
 
 _ARRAY_FIELDS = ("src", "dst", "edge_mask", "csr_indptr", "csr_dst",
                  "csr_eid", "csr_src", "csc_indptr", "csc_src", "csc_eid",
-                 "csc_dst", "tdst", "tsrc", "ell_dst", "ell_src", "hub_dst")
+                 "csc_dst", "tdst", "tsrc", "ell_dst", "ell_src", "hub_dst",
+                 "bdense")
 
 
 class Graph:
@@ -95,7 +99,9 @@ class Graph:
                  ell_dst_meta: Optional[Tuple] = None,
                  ell_src_meta: Optional[Tuple] = None,
                  hub_dst: Optional[Dict[str, Any]] = None,
-                 hub_dst_meta=None, device="cpu"):
+                 hub_dst_meta=None,
+                 bdense: Optional[Dict[str, Any]] = None, bdense_meta=None,
+                 device="cpu"):
         dev = torch.device(device)
         for k, v in (("src", src), ("dst", dst), ("edge_mask", edge_mask),
                      ("csr_indptr", csr_indptr), ("csr_dst", csr_dst),
@@ -103,11 +109,13 @@ class Graph:
                      ("csc_indptr", csc_indptr), ("csc_src", csc_src),
                      ("csc_eid", csc_eid), ("csc_dst", csc_dst),
                      ("tdst", tdst), ("tsrc", tsrc), ("ell_dst", ell_dst),
-                     ("ell_src", ell_src), ("hub_dst", hub_dst)):
+                     ("ell_src", ell_src), ("hub_dst", hub_dst),
+                     ("bdense", bdense)):
             setattr(self, k, _tree_to(v, dev))
         self.ell_dst_meta = ell_dst_meta
         self.ell_src_meta = ell_src_meta
         self.hub_dst_meta = hub_dst_meta
+        self.bdense_meta = bdense_meta
         self._num_src_nodes = int(num_src_nodes)
         self._num_dst_nodes = int(num_dst_nodes)
         self._num_edges = int(num_edges)
@@ -170,8 +178,8 @@ class Graph:
         new = Graph(
             **{k: getattr(self, k) for k in _ARRAY_FIELDS},
             ell_dst_meta=self.ell_dst_meta, ell_src_meta=self.ell_src_meta,
-            hub_dst_meta=self.hub_dst_meta, is_block=self._is_block,
-            num_src_nodes=self._num_src_nodes,
+            hub_dst_meta=self.hub_dst_meta, bdense_meta=self.bdense_meta,
+            is_block=self._is_block, num_src_nodes=self._num_src_nodes,
             num_dst_nodes=self._num_dst_nodes, num_edges=self._num_edges,
             device=dev)
         new.meta = dict(self.meta)
@@ -184,9 +192,9 @@ class Graph:
 
     def reverse(self, copy_edata: bool = True) -> "Graph":
         """Every edge reversed: CSR and CSC, the tile and the ELL
-        directions swap roles, no data moves. The hub layout is of the
-        destination side only, so the reverse has none (its g-SpMM goes
-        to ELL)."""
+        directions swap roles, no data moves. The hub and block-dense
+        layouts are of the destination side only, so the reverse has
+        neither (its g-SpMM goes to ELL)."""
         g = Graph(
             src=self.dst, dst=self.src, edge_mask=self.edge_mask,
             csr_indptr=self.csc_indptr, csr_dst=self.csc_src,
@@ -215,6 +223,7 @@ class Graph:
                 f"num_dst_nodes={self._num_dst_nodes}, "
                 f"num_edges={self._num_edges}, device={self.device}, "
                 f"hub={self.hub_dst_meta is not None}, "
+                f"bdense={self.bdense_meta is not None}, "
                 f"tiles={self.tdst is not None})")
 
 
@@ -228,7 +237,9 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
                    formats: Optional[Tuple[str, ...]] = None,
                    num_padded: Optional[int] = None):
     """COO + CSC (+ CSR), and the tile, ELL and hub layouts that
-    ``formats`` asks for (None: all). CSR is built whenever ``formats``
+    ``formats`` asks for (None: all of these). The block-dense layout is
+    built only when ``formats`` names ``"bdense"``, as in the reference:
+    ``None`` does not include it. CSR is built whenever ``formats``
     names it or a derived layout. Stable sorts keep edge-id order within
     a row. With ``num_padded`` > ``num_edges`` the edge arrays get a tail
     of padded edges (the reference's sentinels: node ``num_src`` /
@@ -303,6 +314,13 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
             num_edges, _build_ell, num_padded=num_padded,
             min_group_edges=floor, dense_floor=hub_dense_floor,
         )
+    bdense_meta = bdense = None
+    if formats is not None and "bdense" in formats and num_edges > 0:
+        from dgl1_tpu_torch.bdense_format import build_block_dense
+
+        bdense_meta, bdense = build_block_dense(
+            np.asarray(src, np.int64), np.asarray(dst, np.int64),
+            num_src, num_dst, _build_ell)
     pad = (num_padded or num_edges) - num_edges
     edge_mask = None
     if pad:
@@ -324,6 +342,7 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
         ell_dst_meta=ell_dst_meta, ell_dst=ell_dst,
         ell_src_meta=ell_src_meta, ell_src=ell_src,
         hub_dst_meta=hub_dst_meta, hub_dst=hub_dst,
+        bdense_meta=bdense_meta, bdense=bdense,
     )
 
 

@@ -14,6 +14,7 @@ from torch import nn
 from dgl1_tpu_torch.graph import Graph, resolve_device
 from dgl1_tpu_torch.ops import gspmm, gsddmm
 from dgl1_tpu_torch.ops.attention import can_fuse_attention, gat_attention
+from dgl1_tpu_torch.ops.battention import bdense_gat_attention
 from dgl1_tpu_torch.ops.edge_softmax import edge_softmax
 from dgl1_tpu_torch.ops.engine_xla import gather_rows
 from dgl1_tpu_torch.ops.segment import gather_mm, segment_mm
@@ -160,10 +161,10 @@ class GATConv(nn.Module):
 
     The path is chosen as the reference chooses it: the fused hub
     attention (:func:`dgl1_tpu_torch.ops.gat_attention`) when the graph
-    has a hub layout, else the composed g-SDDMM -> edge_softmax -> u_mul_e
-    chain. The reference's middle choice, block-dense attention, needs the
-    block-dense layout, which is not ported yet (ROADMAP item 9); hub-free
-    graphs take the composed chain.
+    has a hub layout; else, when the graph has a block-dense layout and
+    no attention dropout applies (``attn_drop`` 0 or not training), the
+    block-dense attention (:func:`dgl1_tpu_torch.ops.bdense_gat_attention`);
+    else the composed g-SDDMM -> edge_softmax -> u_mul_e chain.
 
     Parameters, named so :func:`dgl1_tpu_torch.params.from_jax_params`
     maps the reference's flax tree unchanged: ``fc.weight`` (H*F, in),
@@ -234,6 +235,9 @@ class GATConv(nn.Module):
                             else "cpu"))
             rst = gat_attention(g, el, er, feat_src, self.negative_slope,
                                 attn_drop, seed)
+        if rst is None and attn_drop == 0.0:
+            rst = bdense_gat_attention(g, el, er, feat_src,
+                                       self.negative_slope)
         if rst is None:
             e = gsddmm(g, "add", el, er, lhs_target="u", rhs_target="v")
             e = torch.nn.functional.leaky_relu(e, self.negative_slope)

@@ -1,9 +1,10 @@
 """Engine dispatch for g-SpMM (the port's ``dgl1_tpu/ops/dispatch.py``).
 
-Engines: ``"xla"`` (the oracle, always available), ``"ell"``, ``"hub"``
-and ``"tile"``. ``"auto"`` tries ``hub``, ``ell``, then ``tile`` on CUDA
-tensors and uses the oracle on the CPU, as the reference uses its oracle
-off the TPU. An
+Engines: ``"xla"`` (the oracle, always available), ``"bdense"``,
+``"hub"``, ``"ell"`` and ``"tile"``. ``"auto"`` tries ``bdense``, ``hub``,
+``ell``, then ``tile`` on CUDA tensors (the reference's order, with the
+tile engine last) and uses the oracle on the CPU, as the reference uses
+its oracle off the TPU. An
 engine returns ``None`` for a call it does not cover and dispatch falls
 through. The starting engine is ``"auto"``.
 """
@@ -17,7 +18,7 @@ _ENGINE = "auto"
 # name -> gspmm fn; the fn returns None when the call is not covered.
 _ENGINES: Dict[str, Callable] = {}
 
-_AUTO_ORDER = ["hub", "ell", "tile"]
+_AUTO_ORDER = ["bdense", "hub", "ell", "tile"]
 
 
 def set_engine(name: str) -> None:

@@ -1,8 +1,8 @@
 """Graph transforms (host side, numpy): the port's counterparts of
 ``dgl1_tpu/transform.py``'s ``add_self_loop``, ``remove_self_loop``,
-``to_bidirected``, ``reorder_graph`` (algorithms ``'hub'`` and
-``'custom'``), ``edge_subgraph`` and ``typed_subgraphs``. Each returns a
-new graph on the input graph's device."""
+``to_bidirected``, ``rcm_order``, ``reorder_graph`` (algorithms ``'rcm'``,
+``'hub'`` and ``'custom'``), ``edge_subgraph`` and ``typed_subgraphs``.
+Each returns a new graph on the input graph's device."""
 
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 from dgl1_tpu_torch.graph import Graph, graph
 
 __all__ = ["add_self_loop", "remove_self_loop", "to_bidirected",
-           "reorder_graph", "edge_subgraph", "typed_subgraphs"]
+           "rcm_order", "reorder_graph", "edge_subgraph", "typed_subgraphs"]
 
 
 def _coo(g: Graph):
@@ -66,18 +66,74 @@ def to_bidirected(g: Graph) -> Graph:
     return graph((key // n, key % n), num_nodes=n, device=g.device)
 
 
+def rcm_order(g: Graph) -> np.ndarray:
+    """Reverse Cuthill-McKee node order over the undirected adjacency,
+    ``perm[new_id] = old_id``. Per connected component: BFS from a
+    minimum-degree seed, neighbours expanded in ascending-degree order,
+    then the whole order reversed. After it the adjacency concentrates
+    near the diagonal, so the block-dense layout's 128 x 128 blocks fill
+    up (``reorder_graph(g, 'rcm', formats=(..., 'bdense'))``)."""
+    n = g.num_nodes()
+    src, dst = _coo(g)
+    us = np.concatenate([src, dst])
+    vs = np.concatenate([dst, src])
+    order = np.argsort(us, kind="stable")
+    us, vs = us[order], vs[order]
+    deg = np.bincount(us, minlength=n)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+
+    visited = np.zeros(n, bool)
+    out = np.empty(n, np.int64)
+    pos = 0
+    for seed in np.argsort(deg, kind="stable"):  # min-degree seeds first
+        if visited[seed]:
+            continue
+        visited[seed] = True
+        out[pos] = seed
+        head, pos = pos, pos + 1
+        while head < pos:
+            u = out[head]
+            head += 1
+            nbr = vs[indptr[u]:indptr[u + 1]]
+            nbr = nbr[~visited[nbr]]
+            if len(nbr):
+                nbr = np.unique(nbr)  # sorted + deduped
+                nbr = nbr[np.argsort(deg[nbr], kind="stable")]
+                visited[nbr] = True
+                out[pos:pos + len(nbr)] = nbr
+                pos += len(nbr)
+    return out[::-1].copy()
+
+
 def reorder_graph(g: Graph, node_permute_algo: str = "hub",
-                  permute_config: Optional[dict] = None) -> Graph:
-    """Relabel nodes and sort edges by new source id (stable). ``'hub'``
-    applies the hub-first identity-expand relabel
-    (:func:`hub_format.hub_order`) and rebuilds the hub layout; pass
-    non-default hub floors through
-    ``permute_config={'hub': ..., 'hub_dense_floor': ...}``. ``'custom'``
-    takes ``permute_config={'nodes_perm': perm}`` with ``perm[new] = old``.
-    The old ids land in ``ndata['_ID']`` and ``edata['_ID']``."""
+                  edge_permute_algo: str = "src",
+                  permute_config: Optional[dict] = None,
+                  formats=None) -> Graph:
+    """Relabel nodes and sort edges for locality (``dgl.reorder_graph``).
+
+    ``node_permute_algo``: ``'rcm'`` (:func:`rcm_order`); ``'hub'``, the
+    hub-first identity-expand relabel (:func:`hub_format.hub_order`) with
+    the hub layout rebuilt (pass non-default hub floors through
+    ``permute_config={'hub': ..., 'hub_dense_floor': ...}``);
+    ``'custom'`` with ``permute_config={'nodes_perm': perm}``, ``perm[new]
+    = old``. ``'metis'`` needs the reference's partitioner, which is not
+    ported, and raises NotImplementedError. ``edge_permute_algo``:
+    ``'src'`` or ``'dst'`` (stable sort by the new id) or ``'custom'``
+    (``permute_config={'edges_perm': ...}``). ``formats`` goes to
+    :func:`graph`: ``('coo', 'csr', 'csc', 'ell', 'bdense')`` builds the
+    block-dense layout on the reordered graph. The old ids land in
+    ``ndata['_ID']`` and ``edata['_ID']``."""
     cfg = permute_config or {}
     n = g.num_nodes()
-    if node_permute_algo == "hub":
+    if node_permute_algo == "rcm":
+        perm = rcm_order(g)
+    elif node_permute_algo == "metis":
+        raise NotImplementedError(
+            "reorder_graph(node_permute_algo='metis') needs "
+            "parallel/partition.py::metis_partition_assignment, which is "
+            "not ported yet")
+    elif node_permute_algo == "hub":
         from dgl1_tpu_torch.hub_format import hub_order
 
         if "hub" in cfg or "hub_dense_floor" in cfg:
@@ -102,12 +158,20 @@ def reorder_graph(g: Graph, node_permute_algo: str = "hub",
     src, dst = _coo(g)
     new_src, new_dst = relabel[src], relabel[dst]
 
-    eperm = np.argsort(new_src, kind="stable")
+    if edge_permute_algo == "src":
+        eperm = np.argsort(new_src, kind="stable")
+    elif edge_permute_algo == "dst":
+        eperm = np.argsort(new_dst, kind="stable")
+    elif edge_permute_algo == "custom":
+        eperm = np.asarray(cfg["edges_perm"], np.int64)
+    else:
+        raise ValueError(f"unknown edge_permute_algo {edge_permute_algo!r}")
     new_src, new_dst = new_src[eperm], new_dst[eperm]
 
     gkw = {k: cfg[k] for k in ("hub", "hub_dense_floor")
            if node_permute_algo == "hub" and k in cfg}
-    new = graph((new_src, new_dst), num_nodes=n, device=g.device, **gkw)
+    new = graph((new_src, new_dst), num_nodes=n, formats=formats,
+                device=g.device, **gkw)
     if (node_permute_algo == "hub" and new.hub_dst_meta is not None
             and not new.hub_dst_meta.identity_expand):
         warnings.warn(

@@ -1,6 +1,7 @@
-"""The hub (K1-K5), attention and tile kernels on the card against their
-plain torch versions, and the hub engine (copy_u, u_mul_e, copy_e), the
-fused attention and the tile engine against the oracle engine or the
+"""The hub (K1-K5), attention, tile and block-dense (K11) kernels on the
+card against their plain torch versions, and the hub engine (copy_u,
+u_mul_e, copy_e), the fused attention, the tile engine, the block-dense
+engine and the block-dense attention against the oracle engine or the
 plain versions on the card.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. Imports no JAX, so it
@@ -334,3 +335,103 @@ def test_tile_engine_matches_plain_on_the_card(dev, op, red):
                    + ([ee.grad.cpu()] if op == "mul" else []))
     for a, c in zip(*res):
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+_BDENSE = ("coo", "csr", "csc", "ell", "bdense")
+
+
+def _bdense_graph(dev, heavy=False):
+    """A geometric graph of 20,001 nodes (a ragged last block row); with
+    ``heavy``, 300 more copies of one edge, so a count passes 256 and the
+    blocks are float32."""
+    g = tdgl.data.geometric_graph(20_001, 8, seed=1, device="cpu")
+    src, dst = (x.numpy() for x in g.edges())
+    if heavy:
+        src = np.concatenate([src, np.full(300, 5)])
+        dst = np.concatenate([dst, np.full(300, 7)])
+    return tdgl.graph((src, dst), num_nodes=20_001, formats=_BDENSE,
+                      device=dev)
+
+
+@pytest.mark.parametrize("heavy", [False, True])
+@pytest.mark.parametrize("f", [1, 40, 200])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_block_mm_matches_plain_version(dev, transpose, f, heavy):
+    """K11, forward and transpose, within 1e-5 of its float64 plain version
+    relative to the same sums over |x| (float32 sums of at most 3 x 128
+    terms); F=1, 40 and 200 are ragged against the 32/64-column stripes."""
+    from dgl1_tpu_torch.ops import bdense_kernels as BK
+
+    g = _bdense_graph(dev, heavy)
+    bd, n = g.bdense, g.num_nodes()
+    assert bd["a"].dtype == (torch.float32 if heavy else torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(f)
+    x = torch.randn(n, f, device=dev, generator=gen)
+    if transpose:
+        args = (True, bd["ab"], bd["col_ptr"], bd["rbb"])
+    else:
+        args = (False, bd["a"], bd["row_ptr"], bd["cb"])
+    BK.reset_launches()
+    got = BK.block_mm(*args, x, n)
+    assert BK.LAUNCHES["block_bwd" if transpose else "block_fwd"] == 1
+    want = BK.block_mm_torch(*args, x.double(), n)
+    scale = BK.block_mm_torch(*args, x.abs().double(), n)
+    torch.cuda.synchronize()
+    assert got.shape == (n, f) and got.dtype == torch.float32
+    assert bool(((got.double() - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("red", ["sum", "mean"])
+def test_bdense_engine_matches_plain_on_the_card(dev, red):
+    """copy_u through "auto" on the card takes the block-dense engine (K11
+    launches, no other kernel) and agrees with the same engine on CPU
+    tensors: values and grad_u within 1e-5 of the same sums over |u|."""
+    from dgl1_tpu_torch.ops import bdense_kernels as BK
+    from dgl1_tpu_torch.ops import tile_kernels as TK
+
+    g = _bdense_graph(dev)
+    gc = g.to("cpu")
+    gen = torch.Generator().manual_seed(7)
+    u = torch.randn(g.num_nodes(), 24, generator=gen)
+    w = torch.randn(g.num_nodes(), 24, generator=gen)
+
+    def run(graph, device, engine, uu, ww):
+        x = uu.to(device).requires_grad_(True)
+        tdgl.ops.set_engine(engine)
+        try:
+            out = tdgl.ops.gspmm(graph, "copy_lhs", red, x, None)
+            (gx,) = torch.autograd.grad((out * ww.to(device)).sum(), x)
+        finally:
+            tdgl.ops.set_engine("auto")
+        return out.detach().cpu(), gx.cpu()
+
+    for m in (K, AK, BK, TK):
+        m.reset_launches()
+    got = run(g, dev, "auto", u, w)
+    torch.cuda.synchronize()
+    assert BK.LAUNCHES == {"block_fwd": 1, "block_bwd": 1}
+    assert not any(v for m in (K, AK, TK) for v in m.LAUNCHES.values())
+    want = run(gc, "cpu", "bdense", u, w)
+    scale = run(gc, "cpu", "bdense", u.abs(), w.abs())
+    for a, b, s in zip(got, want, scale):
+        assert bool(((a - b).abs() <= 1e-5 * s + 1e-6).all())
+
+
+def test_bdense_attention_matches_plain_on_the_card(dev):
+    """bdense_gat_attention values and grads on the card against the same
+    op on CPU tensors."""
+    g = _bdense_graph(dev)
+    gc = g.to("cpu")
+    n, h, d = g.num_nodes(), 4, 16
+    gen = torch.Generator().manual_seed(8)
+    xs = [torch.randn(n, h, generator=gen), torch.randn(n, h, generator=gen),
+          torch.randn(n, h, d, generator=gen)]
+    w = torch.randn(n, h, d, generator=gen)
+    res = []
+    for graph, device in ((g, dev), (gc, "cpu")):
+        ins = [x.to(device).requires_grad_(True) for x in xs]
+        out = tdgl.ops.bdense_gat_attention(graph, *ins)
+        (out * w.to(device)).sum().backward()
+        res.append([out.detach().cpu()] + [x.grad.cpu() for x in ins])
+    for name, a, b in zip(("out", "el", "er", "ft"), *res):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)

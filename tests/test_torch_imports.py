@@ -31,7 +31,9 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "sampling.fused", "dataloading", "dataloading.dataloader",
             "dataloading.neighbor_sampler", "ops.engine_tile",
             "ops.tile_kernels", "models.graphsage", "ops.segment",
-            "models.rgcn", "nn.conv", "transform", "data.synthetic")
+            "models.rgcn", "nn.conv", "transform", "data.synthetic",
+            "bdense_format", "ops.bdense_kernels", "ops.engine_bdense",
+            "ops.battention")
 
 
 def test_port_imports_no_jax_and_no_reference():
