@@ -19,13 +19,21 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    trainers give it as ``variants`` (GCN layer 2, the weighted GCN's
    in-degree sum, the per-relation R-GCN's relation-0 subgraph at F=64
    and 40, K3 after the grouped R-GCN's copy_e); then each attention
-   kernel (K6 attn_fwd, K7 attn_bwd_src, K8 ger_reduce) at arxiv layer
-   1's shapes (H=8, D=32, one group of 5,292 chunks), with the same
-   kernels at dropout 0.6, at layer 2 (H=1, D=40) and on the mixed graph
-   (five groups) as each row's ``variants``; every kernel held against its
-   plain torch version; one JSON line per kernel with its error, time,
-   bound (the bytes and operations this run's data needs), plain time and
-   a library call's time (or why there is none);
+   kernel (K6 attn_fwd, K7 attn_bwd_src, K7 g-major attn_bwd_grp, K8
+   ger_reduce) at arxiv layer 1's shapes (H=8, D=32, one group of 5,292
+   chunks), with the same kernels at dropout 0.6, at layer 2 (H=1, D=40)
+   and on the mixed graph (five groups) as each row's ``variants``; every
+   kernel held against its plain torch version; one JSON line per kernel
+   with its error, time, bound (the bytes and operations this run's data
+   needs), plain time and a library call's time (or why there is none).
+   Every bf16 instantiation (the bf16 matmul mode, ``ops/precision.py``)
+   is held against its float64 plain version in bf16 mode, the f32
+   kernel's output must fail the same check, and the two must differ
+   somewhere (see FLIP_SHARE): K1, K4a, K6 and K7, which the bf16
+   trainers launch, as rows ``<name>.bf16`` at every shape those trainers
+   give them; K2 (plain, mul, rhs), K4b, K5, K11 and K7 g-major (at
+   dropout 0 and 0.6, and layer 2) as ``variants`` marked
+   ``"bf16": true`` at their f32 row's main shape;
 3. g-SpMM copy_u+sum forward and backward on bench.py's workload
    (``powerlaw_graph(2^19, 8)`` after the hub relabel, F=128) and on the
    mixed-tier graph, against the oracle engine; then ``gat_attention``
@@ -53,14 +61,24 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    theta a learnable parameter of the model: K2 mul
    3, K5 mul 2, K2 rhs 1, K5 rhs 1 per step, exactly). Losses finite (and
    falling without dropout), the launch counters of each path's kernels
-   above zero; ms/step and peak memory; then a ``torch.profiler`` trace of
-   3 arxiv GAT steps (device busy time, idle share, top kernels);
+   above zero; ms/step and peak memory. Then the g-major route: the arxiv
+   GAT trainer on the layout with gperm/gout/gfirst removed from
+   ``full_bwd`` (step-0 grads of every parameter against the normal
+   route's within 1e-4 relative; 3 steps with exactly K7 g-major 2, K6 2,
+   K7 2 and K8 0 per step). Then the port of tools/bench_models.py
+   (``dgl1_tpu_torch.tools.bench_models.bench``) for GCN and GAT at arxiv
+   on the arxiv graph above, 5 timed epochs after a warm-up step, in f32
+   and in bf16: exact launches (the trainer runs' per step, bf16
+   instantiations only in bf16), step-0 losses within 2e-2, ms per epoch
+   and peak memory; then a ``torch.profiler`` trace of 3 arxiv GAT steps
+   (device busy time, idle share, top kernels);
 4c. R-GCN at configuration #4's shape (128 -> 64 ->
    40, 8 relations, 4 bases, Adam 1e-2): 5 steps on the per-relation path
    (K1, K3, K4a per relation, no weighted kernel) and 5 on the
    grouped-GEMM path (K2 rhs and K5 rhs 2 per step exactly; step-0 logits
-   against the per-relation path and the oracle), then a profile of 3
-   grouped steps;
+   against the per-relation path and the oracle); bench_models' R-GCN in
+   f32 and bf16 on the same graphs (as for GCN and GAT above); then a
+   profile of 3 grouped steps;
 5. sampled GraphSAGE at the Reddit
    configuration of tools/bench_minibatch.py (--scale reddit: 232,965
    nodes, 114,615,892 edges, F=602, 41 classes, fanouts [10, 25], batch
@@ -106,6 +124,7 @@ or when the package is not beside this script.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import subprocess
@@ -127,6 +146,26 @@ FP32_FLOPS = 67e12
 # changes between runs), so |kernel - plain| <= RTOL * (|A| |B|) + ATOL,
 # with |A| |B| the same product over absolute values.
 RTOL, ATOL = 1e-4, 1e-6
+# The bf16 mode (ops/precision.py) rounds operands to bfloat16 in the
+# kernel and in its float64 plain version alike, so a bf16 instantiation
+# is held to RTOL like its float32 one. Where the rounded values include
+# exp values (K6, K7), the kernel takes exp in float32 and the plain
+# version in float64; where the two straddle a bfloat16 rounding boundary
+# they round to neighbours one bf16 ulp apart (at most 2^-7 of the value),
+# a product of it rounded again can take a second ulp and K6's rescale a
+# third. Such a flip stays within RTOL of its row's sum over absolute
+# values unless the row has few terms. Those checks therefore let at most
+# FLIP_SHARE of an output's elements past RTOL, each within BF16_FLIPS of
+# that sum. Every bf16 check has a negative control: the float32 kernel's
+# output, held to the same check against the same bf16 plain version,
+# must fail it wherever it differs from the bf16 output, so a kernel that
+# rounds nothing, or not where the plain version does, fails. Both counts
+# are in each bf16 row (``past_rtol``, ``past_rtol_f32``). A bf16
+# instantiation must also differ from its float32 one by more than
+# BF16_LIVE relative somewhere.
+FLIP_SHARE = 1e-3
+BF16_FLIPS = 3 * 2.0 ** -7
+BF16_LIVE = 1e-4
 
 _HUB_SRC, _HUB_REF = ("dgl1_tpu_torch/csrc/hub_kernels.cu",
                       "dgl1_tpu/ops/engine_hub.py")
@@ -145,6 +184,7 @@ KERNEL_INFO = {
     "dense_bwd": ("K4b", _HUB_SRC, f"{_HUB_REF}:270"),
     "attn_fwd": ("K6", _ATT_SRC, f"{_ATT_REF}:152"),
     "attn_bwd_src": ("K7", _ATT_SRC, f"{_ATT_REF}:307"),
+    "attn_bwd_grp": ("K7 g-major", _ATT_SRC, f"{_ATT_REF}:307"),
     "ger_reduce": ("K8", _ATT_SRC, f"{_ATT_REF}:612"),
     "tile_sum": ("K9", _TILE_SRC, f"{_TILE_REF}:54"),
     "tile_minmax": ("K10", _TILE_SRC, f"{_TILE_REF}:75"),
@@ -188,7 +228,7 @@ def bound(bytes_moved, flops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def check(name, out, ref, scale):
+def _shape_finite(name, out, ref, scale):
     torch.cuda.synchronize()
     out, ref, scale = out.detach(), ref.detach(), scale.detach()
     if out.shape != ref.shape:
@@ -196,6 +236,11 @@ def check(name, out, ref, scale):
                              f"{tuple(ref.shape)}")
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
+    return out, ref, scale
+
+
+def check(name, out, ref, scale):
+    out, ref, scale = _shape_finite(name, out, ref, scale)
     err = (out - ref).abs()
     tol = RTOL * scale + ATOL
     if not bool((err <= tol).all()):
@@ -204,6 +249,34 @@ def check(name, out, ref, scale):
             f"{name}: kernel disagrees with its plain version: err "
             f"{err.reshape(-1)[i].item()} > tol {tol.reshape(-1)[i].item()}")
     return float(err.max())
+
+
+def check_bf16(name, out, ref, scale, f32_out, flips):
+    """A bf16 output against its plain version in the bf16 mode: within
+    RTOL, or with ``flips`` all but FLIP_SHARE of its elements within RTOL
+    and those within BF16_FLIPS (see FLIP_SHARE); and, where the float32
+    kernel's output differs from it, that output must fail the same check.
+    Returns (max abs err, elements past RTOL, the float32 output's)."""
+    out, ref, scale = _shape_finite(name, out, ref, scale)
+    tol = RTOL * scale + ATOL
+    allowed = int(FLIP_SHARE * out.numel()) if flips else 0
+    cap = tol + (BF16_FLIPS * scale if flips else 0.0)
+    err = (out - ref).abs()
+    n_past = int((err > tol).sum())
+    if n_past > allowed or not bool((err <= cap).all()):
+        i = int((err / cap).argmax())
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version: {n_past} "
+            f"elements past RTOL (at most {allowed}); err "
+            f"{err.reshape(-1)[i].item()} against tol "
+            f"{tol.reshape(-1)[i].item()}")
+    n_f32 = int(((f32_out.detach() - ref).abs() > tol).sum())
+    if not torch.equal(f32_out, out) and n_f32 <= allowed:
+        raise AssertionError(
+            f"{name}: the float32 kernel's output passes the bf16 check "
+            f"({n_f32} elements past RTOL, at most {allowed}): the check "
+            f"does not see the mode's rounding")
+    return float(err.max()), n_past, n_f32
 
 
 def phase_build():
@@ -266,14 +339,31 @@ def chunked_share(g):
 
 def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
                flops, shapes, library_note=None, plain_iters=20,
-               exact=False):
+               exact=False, f32_out=None, flips=False):
     """Check one kernel against its plain version and time both. ``out``,
     ``ref`` and ``scale`` may be tuples (one entry per output). ``exact``:
     the outputs must be equal element for element (infinities included)
-    and ``scale`` is unused."""
+    and ``scale`` is unused. ``f32_out``: the float32 instantiation's
+    output when ``out`` is the bf16 one (the row is then ``name.bf16``,
+    checked by :func:`check_bf16`); ``flips``: its outputs include rounded
+    exp values (FLIP_SHARE)."""
+    bf16 = f32_out is not None
     if not isinstance(out, tuple):
         out, ref, scale = (out,), (ref,), (scale,)
-    if exact:
+        f32_out = (f32_out,) if bf16 else None
+    extra = {}
+    if bf16:
+        torch.cuda.synchronize()
+        if not any(bool(((o - f).abs() > BF16_LIVE * f.abs()).any())
+                   for o, f in zip(out, f32_out)):
+            raise AssertionError(f"{name}.bf16: no output differs from "
+                                 f"the float32 kernel's")
+        res = [check_bf16(f"{name}.bf16[{i}]", *a, flips)
+               for i, a in enumerate(zip(out, ref, scale, f32_out))]
+        err = max(r[0] for r in res)
+        extra = {"past_rtol": [r[1] for r in res],
+                 "past_rtol_f32": [r[2] for r in res]}
+    elif exact:
         torch.cuda.synchronize()
         for i, (o, r) in enumerate(zip(out, ref)):
             if not torch.equal(o, r):
@@ -289,37 +379,48 @@ def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
     lib_ms = cuda_ms(library) if library is not None else None
     b_ms, b_by = bound(bytes_moved, flops)
     tag, src, replaces = KERNEL_INFO[name]
-    row = {"name": name, "id": tag, "route": "cuda", "source": src,
-           "replaces": replaces, "launches": 0,
+    row = {"name": f"{name}.bf16" if bf16 else name,
+           "id": f"{tag} bf16" if bf16 else tag, "route": "cuda",
+           "source": src, "replaces": replaces, "launches": 0,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
            "bytes": int(bytes_moved), "flops": int(flops),
            "tolerance": ("max abs difference 0" if exact else
-                         f"|err| <= {RTOL} * |A||B| + {ATOL}"),
-           "shapes": shapes, "ok": True}
+                         f"|err| <= {RTOL} * |A||B| + {ATOL}"
+                         + (f" but for at most {FLIP_SHARE} of the elements"
+                            f" (each <= {BF16_FLIPS} * |A||B| more); the "
+                            f"float32 kernel must fail it" if flips and bf16
+                            else "; the float32 kernel must fail it"
+                            if bf16 else "")),
+           "bf16": bf16, "shapes": shapes, "ok": True, **extra}
     if library_note:
         row["library_note"] = library_note
     log(json.dumps(row))
     return row
 
 
-VARIANT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "bytes", "flops", "shapes")
+VARIANT_KEYS = ("bf16", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "bytes", "flops", "shapes", "past_rtol",
+                "past_rtol_f32")
 
 
 def with_variants(row, variants):
     """``row`` with the other shapes its kernel runs at on the trainer
     paths, each checked and timed as the row (library calls on the row's
     case only)."""
-    row["variants"] = [{k: v[k] for k in VARIANT_KEYS} for v in variants]
+    row["variants"] = [{k: v[k] for k in VARIANT_KEYS if k in v}
+                       for v in variants]
     return row
 
 
-def dense_fwd_case(case, g, dev, f, seed=0, library=True):
+def dense_fwd_case(case, g, dev, f, seed=0, library=True, bf16=False):
     """K1 on ``g``'s count matrix at width f against its float64 plain
-    version. Bytes: C, the rows of U that a nonzero of C needs, and the
-    output, once."""
+    version (with ``bf16``, both in the bf16 mode). Bytes: C, the rows of U
+    that a nonzero of C needs, and the output, once."""
     from dgl1_tpu_torch.ops import hub_kernels as K
+
+    kern = functools.partial(K.dense_fwd, bf16=bf16)
+    plain = functools.partial(K.dense_fwd_torch, bf16=bf16)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     c, n = g.hub_dst["dense_c"], g.num_nodes()
@@ -332,13 +433,14 @@ def dense_fwd_case(case, g, dev, f, seed=0, library=True):
         cf = c[:n].float().t()
         lib = lambda: torch.mm(cf, u)  # noqa: E731
     return kernel_row(
-        "dense_fwd", K.dense_fwd(c, u), K.dense_fwd_torch(c, u.double()),
-        K.dense_fwd_torch(c, u.abs().double()),
-        lambda: K.dense_fwd(c, u), lambda: K.dense_fwd_torch(c, u), lib,
+        "dense_fwd", kern(c, u), plain(c, u.double()),
+        plain(c, u.abs().double()),
+        lambda: kern(c, u), lambda: plain(c, u), lib,
         nbytes(c) + u_rows * f * 4 + kd * f * 4,
         2 * int((c != 0).sum()) * f,
         {"case": case, "c": list(c.shape), "c_dtype": str(c.dtype),
-         "u": [n, f], "u_rows_needed": u_rows})
+         "u": [n, f], "u_rows_needed": u_rows},
+        f32_out=K.dense_fwd(c, u) if bf16 else None)
 
 
 def expand_case(case, g, dev, f, seed=0, library=True):
@@ -374,10 +476,14 @@ def expand_case(case, g, dev, f, seed=0, library=True):
         {"case": case, "merged": list(merged.shape), "num_dst": n})
 
 
-def dense_bwd_fused_case(case, g, dev, f, seed=0, library=True):
+def dense_bwd_fused_case(case, g, dev, f, seed=0, library=True,
+                         bf16=False):
     """K4a at width f on ``g``'s count matrix and tail-src stack against
-    its float64 plain version."""
+    its float64 plain version (with ``bf16``, both in the bf16 mode)."""
     from dgl1_tpu_torch.ops import hub_kernels as K
+
+    kern = functools.partial(K.dense_bwd_fused, bf16=bf16)
+    plain = functools.partial(K.dense_bwd_fused_torch, bf16=bf16)
     from dgl1_tpu_torch.ops.engine_ell import ell_stack
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -396,17 +502,17 @@ def dense_bwd_fused_case(case, g, dev, f, seed=0, library=True):
         lib = lambda: torch.mm(cf, ct)  # noqa: E731
     n_gdesc = int(gs[c.shape[0] // 1024])
     return kernel_row(
-        "dense_bwd_fused", K.dense_bwd_fused(c, ct, tail, gs, gd, n),
-        K.dense_bwd_fused_torch(c, ct.double(), tail.double(), gs, gd, n),
-        K.dense_bwd_fused_torch(c, ct.abs().double(), tail.abs().double(),
-                                gs, gd, n),
-        lambda: K.dense_bwd_fused(c, ct, tail, gs, gd, n),
-        lambda: K.dense_bwd_fused_torch(c, ct, tail, gs, gd, n), lib,
+        "dense_bwd_fused", kern(c, ct, tail, gs, gd, n),
+        plain(c, ct.double(), tail.double(), gs, gd, n),
+        plain(c, ct.abs().double(), tail.abs().double(), gs, gd, n),
+        lambda: kern(c, ct, tail, gs, gd, n),
+        lambda: plain(c, ct, tail, gs, gd, n), lib,
         c[:n].numel() * c.element_size() + nbytes(ct, tail)
         + 4 * (n_gdesc + c.shape[0] // 1024 + 1) + n * f * 4,
         2 * int((c[:n] != 0).sum()) * f + n_gdesc * f,
         {"case": case, "c": list(c.shape), "ct": [kd, f],
-         "tail": list(tail.shape), "n_out": n})
+         "tail": list(tail.shape), "n_out": n},
+        f32_out=K.dense_bwd_fused(c, ct, tail, gs, gd, n) if bf16 else None)
 
 
 def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
@@ -418,12 +524,18 @@ def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
     K3 after the grouped R-GCN's copy_e (he=64, 40) on the
     relation-sorted graph; K1 on the mixed-tier layout. Then K2 and K4b
     on the mixed-tier layout at F=128, with the mixed GCN's F=40 (K2
-    forward and its window-major grad_u, K4b) as ``variants``."""
+    forward and its window-major grad_u, K4b) as ``variants``. The bf16
+    instantiations: K1 and K4a, which the bf16 trainers launch, as rows
+    of their own at every shape those trainers give them (GCN layers 1
+    and 2, the R-GCN relation subgraph at F=64 and F=40); K2 and K4b as
+    variants at their row's main shape."""
 
-    def variants(case_fn, cases):
-        return [case_fn(c, g, dev, f, *more, seed=i + 1, library=False)
+    def variants(case_fn, cases, **kw):
+        return [case_fn(c, g, dev, f, *more, seed=i + 1, library=False,
+                        **kw)
                 for i, (c, g, f, *more) in enumerate(cases)]
 
+    bf = dict(seed=9, library=False, bf16=True)
     rows = [
         with_variants(dense_fwd_case("arxiv_f128", g_arx, dev, 128),
                       variants(dense_fwd_case, [
@@ -432,6 +544,15 @@ def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
                           ("rgcn_rel0_f40", g_rel0, 40),
                           ("mixed_f128", g_mix, 128),
                           ("mixed_f40", g_mix, 40)])),
+        with_variants(dense_fwd_case("arxiv_f128", g_arx, dev, 128, **bf),
+                      variants(dense_fwd_case, [
+                          ("arxiv_f40", g_arx, 40),
+                          ("rgcn_rel0_f64", g_rel0, 64),
+                          ("rgcn_rel0_f40", g_rel0, 40)], bf16=True)),
+        with_variants(dense_bwd_fused_case("arxiv_f40", g_arx, dev, 40, **bf),
+                      variants(dense_bwd_fused_case, [
+                          ("rgcn_rel0_f64", g_rel0, 64),
+                          ("rgcn_rel0_f40", g_rel0, 40)], bf16=True)),
         with_variants(expand_case("arxiv_f128", g_arx, dev, 128),
                       variants(expand_case, [
                           ("arxiv_f40", g_arx, 40), ("arxiv_f1", g_arx, 1),
@@ -446,19 +567,27 @@ def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
         with_variants(chunk_sum_case("mixed_f128", g_mix, dev, 128),
                       variants(chunk_sum_case, [
                           ("mixed_f40", g_mix, 40),
-                          ("mixed_grad_u_f40", g_mix, 40, True)])),
+                          ("mixed_grad_u_f40", g_mix, 40, True)])
+                      + [chunk_sum_case("mixed_f128", g_mix, dev, 128,
+                                        **bf)]),
         with_variants(dense_bwd_case("mixed_f128", g_mix, dev, 128),
-                      variants(dense_bwd_case, [("mixed_f40", g_mix, 40)])),
+                      variants(dense_bwd_case, [("mixed_f40", g_mix, 40)])
+                      + [dense_bwd_case("mixed_f128", g_mix, dev, 128,
+                                        **bf)]),
     ]
     return {r["name"]: r for r in rows}
 
 
-def chunk_sum_case(case, g, dev, f, bwd=False, seed=0, library=True):
+def chunk_sum_case(case, g, dev, f, bwd=False, seed=0, library=True,
+                   bf16=False):
     """K2 (plain mode) at width f over ``g``'s chunked tier: ``part_fwd``
     (the forward), or with ``bwd`` the window-major ``part_bwd`` (grad_u:
     the chunked groups' cotangent rows into source windows), against its
-    float64 plain version."""
+    float64 plain version (with ``bf16``, both in the bf16 mode)."""
     from dgl1_tpu_torch.ops import hub_kernels as K
+
+    kern = functools.partial(K.chunk_sum, bf16=bf16)
+    plain = functools.partial(K.chunk_sum_torch, bf16=bf16)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     m = g.hub_dst_meta
@@ -482,11 +611,11 @@ def chunk_sum_case(case, g, dev, f, bwd=False, seed=0, library=True):
                 check_invariants=False).coalesce().to_sparse_csr()
         lib = lambda: torch.sparse.mm(s_mat, u)  # noqa: E731
     return kernel_row(
-        "chunk_sum", K.chunk_sum(lay, u, n_out_b),
-        K.chunk_sum_torch(lay, u.double(), n_out_b),
-        K.chunk_sum_torch(lay, u.abs().double(), n_out_b),
-        lambda: K.chunk_sum(lay, u, n_out_b),
-        lambda: K.chunk_sum_torch(lay, u, n_out_b), lib,
+        "chunk_sum", kern(lay, u, n_out_b),
+        plain(lay, u.double(), n_out_b),
+        plain(lay, u.abs().double(), n_out_b),
+        lambda: kern(lay, u, n_out_b),
+        lambda: plain(lay, u, n_out_b), lib,
         nbytes(lay["a"], lay["b"], lay["in_id"], lay["out_id"])
         + n_in_rows * f * 4 + n_out_b * 128 * f * 4, n_real * f,
         {"case": case, "layout": "part_bwd" if bwd else "part_fwd",
@@ -494,13 +623,17 @@ def chunk_sum_case(case, g, dev, f, bwd=False, seed=0, library=True):
          "slots": int(lay["a"].shape[0]), "real_slots": n_real,
          "input_rows_gathered": n_in_rows,
          "chunked_edge_share": chunked_share(g),
-         "inp": [n_in, f], "out_blocks": n_out_b})
+         "inp": [n_in, f], "out_blocks": n_out_b},
+        f32_out=K.chunk_sum(lay, u, n_out_b) if bf16 else None)
 
 
-def dense_bwd_case(case, g, dev, f, seed=0, library=True):
+def dense_bwd_case(case, g, dev, f, seed=0, library=True, bf16=False):
     """K4b at width f on ``g``'s count matrix against its float64 plain
-    version."""
+    version (with ``bf16``, both in the bf16 mode)."""
     from dgl1_tpu_torch.ops import hub_kernels as K
+
+    kern = functools.partial(K.dense_bwd, bf16=bf16)
+    plain = functools.partial(K.dense_bwd_torch, bf16=bf16)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     c, n = g.hub_dst["dense_c"], g.num_nodes()
@@ -510,14 +643,14 @@ def dense_bwd_case(case, g, dev, f, seed=0, library=True):
         cf = c[:n].float()
         lib = lambda: torch.mm(cf, ct)  # noqa: E731
     return kernel_row(
-        "dense_bwd", K.dense_bwd(c, ct, n),
-        K.dense_bwd_torch(c, ct.double(), n),
-        K.dense_bwd_torch(c, ct.abs().double(), n),
-        lambda: K.dense_bwd(c, ct, n), lambda: K.dense_bwd_torch(c, ct, n),
+        "dense_bwd", kern(c, ct, n), plain(c, ct.double(), n),
+        plain(c, ct.abs().double(), n),
+        lambda: kern(c, ct, n), lambda: plain(c, ct, n),
         lib, c[:n].numel() * c.element_size() + nbytes(ct) + n * f * 4,
         2 * int((c[:n] != 0).sum()) * f,
         {"case": case, "c": list(c.shape), "c_dtype": str(c.dtype),
-         "ct": list(ct.shape), "n_out": n})
+         "ct": list(ct.shape), "n_out": n},
+        f32_out=K.dense_bwd(c, ct, n) if bf16 else None)
 
 
 SLOPE = 0.2
@@ -531,11 +664,14 @@ def f64(args):
                  and a.is_floating_point() else a for a in args)
 
 
-def attn_case(case, g, dev, h, d, drop, plain_iters=3, library=True):
-    """K6, K7 and K8 on the card against their plain versions at one
-    layer's shapes; one row per kernel. Inputs are random from a fixed
-    seed; K7's lse is K6's own softmax log-normaliser of the hub rows, so
-    its coefficients have the sizes training gives them.
+def attn_case(case, g, dev, h, d, drop, plain_iters=3, library=True,
+              bf16=False):
+    """K6, K7 (both modes) and K8 on the card against their plain versions
+    at one layer's shapes; one row per kernel. Inputs are random from a
+    fixed seed; K7's lse is K6's own softmax log-normaliser of the hub
+    rows, so its coefficients have the sizes training gives them. With
+    ``bf16`` the kernels and their plain versions run in the bf16 mode
+    (rows ``<name>.bf16``; K8 has none).
 
     The plain version that a kernel is held against runs in float64 on
     the same inputs: an arxiv hub row sums ~10^5 terms, and float32
@@ -560,54 +696,69 @@ def attn_case(case, g, dev, h, d, drop, plain_iters=3, library=True):
               "chunks": int(lf["in_id"].shape[0]),
               "slots": int(lf["a"].shape[0]), "groups": m.n_groups,
               "windows": m.n_win}
+    bf = {"bf16": True} if bf16 else {}
+    sfx = ".bf16" if bf16 else ""
     rows = {}
+
+    def row(name, fn, plain, args, abs_args, bytes_moved, flops, shp,
+            scale_fix=None):
+        out = fn(*args, **bf)
+        ref = plain(*f64(args), **bf)
+        sc = plain(*f64(abs_args), **bf)
+        if scale_fix is not None:
+            sc = scale_fix(sc, ref)
+        rows[name + sfx] = kernel_row(
+            name, out, ref, sc, lambda: fn(*args, **bf),
+            lambda: plain(*args, **bf), None, bytes_moved + nbytes(*(
+                out if isinstance(out, tuple) else (out,))), flops, shp,
+            NO_LIBRARY, plain_iters, f32_out=fn(*args) if bf16 else None,
+            flips=True)
+        return out
 
     # K6.
     fa = (lf, el, er_g, ft, h, d, SLOPE, drop, seed, m.n_groups)
-    out = AK.attn_fwd(*fa)
-    ref = AK.attn_fwd_torch(*f64(fa))
-    sc = AK.attn_fwd_torch(*f64((lf, el, er_g, ft.abs(), h, d, SLOPE, drop,
-                                 seed, m.n_groups)))
     rows_in, _, valid = K._chunk_rows(lf)
     n_real = int(valid.sum())
     src_rows = int(torch.unique(rows_in[valid]).numel())
     shapes.update(real_slots=n_real, source_rows=src_rows)
-    rows["attn_fwd"] = kernel_row(
-        "attn_fwd", out, ref, (sc[0], ref[1], torch.zeros_like(ref[2])),
-        lambda: AK.attn_fwd(*fa), lambda: AK.attn_fwd_torch(*fa), None,
+    num, den, mraw = row(
+        "attn_fwd", AK.attn_fwd, AK.attn_fwd_torch, fa,
+        (lf, el, er_g, ft.abs()) + fa[4:],
         nbytes(lf["a"], lf["b"], lf["in_id"], lf["out_id"]) + drop_bytes(lf)
-        + src_rows * (h + f) * 4 + nbytes(er_g) + nbytes(*out),
-        n_real * (2 * f + 8 * h), dict(shapes), NO_LIBRARY, plain_iters)
-    num, den, mraw = out
-    del ref, sc
+        + src_rows * (h + f) * 4 + nbytes(er_g), n_real * (2 * f + 8 * h),
+        dict(shapes),
+        scale_fix=lambda sc, ref: (sc[0], ref[1], torch.zeros_like(ref[2])))
 
-    # K7 (to_src=True).
+    # K7 (to_src=True). Sums over absolute values bound each output's
+    # terms: |ft|, |ct| and -|rho| make every term of g, q and acoef * ct
+    # non-negative.
     lse_g = (torch.nn.functional.leaky_relu(er_g + mraw, SLOPE)
              + torch.log(den.clamp_min(1e-30))).contiguous()
     rho_g = torch.randn(gr, h, device=dev, generator=gen)
     ct_g = torch.randn(gr, f, device=dev, generator=gen)
-    ba = (lb, el, er_g, lse_g, rho_g, ft, ct_g, h, d, SLOPE, drop, seed,
-          m.n_win)
-    out = AK.attn_bwd_src(*ba)
-    ref = AK.attn_bwd_src_torch(*f64(ba))
-    # Sums over absolute values bound each output's terms: |ft|, |ct| and
-    # -|rho| make every term of g, q and acoef * ct non-negative.
-    sc = AK.attn_bwd_src_torch(*f64((lb, el, er_g, lse_g, -rho_g.abs(),
-                                     ft.abs(), ct_g.abs(), h, d, SLOPE, drop,
-                                     seed, m.n_win)))
+    group = (er_g, lse_g, rho_g)
+    abs_group = (er_g, lse_g, -rho_g.abs())
+    tail = (h, d, SLOPE, drop, seed)
     _, rows_w, valid_b = K._chunk_rows(lb)
     win_rows = int(torch.unique(rows_w[valid_b]).numel())
-    rows["attn_bwd_src"] = kernel_row(
-        "attn_bwd_src", out, ref, sc,
-        lambda: AK.attn_bwd_src(*ba), lambda: AK.attn_bwd_src_torch(*ba),
-        None,
-        nbytes(lb["a"], lb["b"], lb["in_id"], lb["out_id"]) + drop_bytes(lb)
-        + win_rows * (h + f) * 4 + nbytes(er_g, lse_g, rho_g, ct_g)
-        + nbytes(*out),
-        n_real * (4 * f + 12 * h), dict(shapes, source_rows=win_rows),
-        NO_LIBRARY, plain_iters)
+    out = row("attn_bwd_src", AK.attn_bwd_src, AK.attn_bwd_src_torch,
+              (lb, el, *group, ft, ct_g, *tail, m.n_win),
+              (lb, el, *abs_group, ft.abs(), ct_g.abs(), *tail, m.n_win),
+              nbytes(lb["a"], lb["b"], lb["in_id"], lb["out_id"])
+              + drop_bytes(lb) + win_rows * (h + f) * 4
+              + nbytes(*group, ct_g), n_real * (4 * f + 12 * h),
+              dict(shapes, source_rows=win_rows))
     gerp = out[2]
-    del ref, sc
+
+    # K7 g-major over the forward layout: grad_er per hub row.
+    row("attn_bwd_grp", AK.attn_bwd_grp, AK.attn_bwd_grp_torch,
+        (lf, el, *group, ft, ct_g, *tail, m.n_groups),
+        (lf, el, *abs_group, ft.abs(), ct_g.abs(), *tail, m.n_groups),
+        nbytes(lf["a"], lf["b"], lf["in_id"], lf["out_id"]) + drop_bytes(lf)
+        + src_rows * (h + f) * 4 + nbytes(*group, ct_g),
+        n_real * (2 * f + 12 * h), dict(shapes))
+    if bf16:
+        return rows
 
     # K8 on K7's partials.
     ger = AK.ger_reduce(lb, gerp, m.n_groups)
@@ -632,7 +783,9 @@ def phase_attn_kernels(dev, g_arx, g_mix):
     """The attention rows at arxiv layer 1 (H=8, D=32, dropout 0); the
     same kernels at dropout 0.6, at layer 2 (H=1, D=40) and on the mixed
     graph (several groups, which K8 folds) ride in each row's
-    ``variants``."""
+    ``variants``. The bf16 mode at arxiv layer 1 (dropout 0 and 0.6) and
+    layer 2, the shapes the bf16 GAT trainer gives K6 and K7: K6 and K7
+    rows of their own, K7 g-major as variants of its row."""
     rows = attn_case("arxiv_layer1", g_arx, dev, 8, 32, 0.0)
     variants = [attn_case("arxiv_layer1_drop0.6", g_arx, dev, 8, 32, 0.6,
                           plain_iters=1, library=False),
@@ -644,6 +797,15 @@ def phase_attn_kernels(dev, g_arx, g_mix):
                           plain_iters=1, library=False)]
     for name, row in rows.items():
         with_variants(row, [v[name] for v in variants])
+    bf = [attn_case(c, g_arx, dev, h, d, p, plain_iters=1, library=False,
+                    bf16=True)
+          for c, h, d, p in (("arxiv_layer1", 8, 32, 0.0),
+                             ("arxiv_layer1_drop0.6", 8, 32, 0.6),
+                             ("arxiv_layer2", 1, 40, 0.0))]
+    for name in ("attn_fwd.bf16", "attn_bwd_src.bf16"):
+        rows[name] = with_variants(bf[0][name], [v[name] for v in bf[1:]])
+    rows["attn_bwd_grp"]["variants"] += [
+        {k: v["attn_bwd_grp.bf16"][k] for k in VARIANT_KEYS} for v in bf]
     return rows
 
 
@@ -836,7 +998,7 @@ def rgcn_setup(dev):
 
 
 def weighted_row(name, case, g, dev, he, rep, bwd=False, library=True,
-                 seed=0):
+                 seed=0, bf16=False):
     """One of K2 mul/rhs (``chunk_*``) or K5 mul/rhs (``edge_grad_*``) on
     ``g``'s full layout (the window-major ``full_bwd`` with ``bwd``: grad_u
     of u_mul_e) at he heads of rep features, against its float64 plain
@@ -847,8 +1009,11 @@ def weighted_row(name, case, g, dev, he, rep, bwd=False, library=True,
     slots' edge rows gathered beforehand (K2 rhs),
     ``torch.sparse.sampled_addmm`` over the slots' (hub row, source) pattern
     (K5 mul, one head; duplicate edges merge there), ``index_select`` of the
-    cotangent rows (K5 rhs)."""
+    cotangent rows (K5 rhs). With ``bf16`` the kernel and its plain
+    version run in the bf16 mode."""
     from dgl1_tpu_torch.ops import hub_kernels as K
+
+    bf = {"bf16": True} if bf16 else {}
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     hub, m = g.hub_dst, g.hub_dst_meta
@@ -882,13 +1047,14 @@ def weighted_row(name, case, g, dev, he, rep, bwd=False, library=True,
         inp = rnd(gr if bwd else n, f) if mode == "mul" else None
         n_out = m.n_win if bwd else m.n_groups
         args = (mode, lay, e2, inp, n_out, he, rep)
-        out = K.chunk_weighted(*args)
+        out = K.chunk_weighted(*args, **bf)
+        f32_out = K.chunk_weighted(*args) if bf16 else None
         ref = K.chunk_weighted_torch(mode, lay, d(e2), d(inp), n_out, he,
-                                     rep)
+                                     rep, **bf)
         scale = K.chunk_weighted_torch(mode, lay, a(e2), a(inp), n_out, he,
-                                       rep)
-        fn = lambda: K.chunk_weighted(*args)  # noqa: E731
-        plain = lambda: K.chunk_weighted_torch(*args)  # noqa: E731
+                                       rep, **bf)
+        fn = lambda: K.chunk_weighted(*args, **bf)  # noqa: E731
+        plain = lambda: K.chunk_weighted_torch(*args, **bf)  # noqa: E731
         bytes_moved = (lay_bytes + nbytes(lay["eid"]) + n_real * he * 4
                        + (in_rows * f * 4 if mode == "mul" else 0)
                        + nbytes(out))
@@ -912,11 +1078,12 @@ def weighted_row(name, case, g, dev, he, rep, bwd=False, library=True,
         ct = rnd(gr, f if mode == "mul" else he)
         u = rnd(n, f) if mode == "mul" else None
         args = (mode, lay, u, ct, he, rep)
-        out = K.edge_grad(*args)
-        ref = K.edge_grad_torch(mode, lay, d(u), d(ct), he, rep)
-        scale = K.edge_grad_torch(mode, lay, a(u), a(ct), he, rep)
-        fn = lambda: K.edge_grad(*args)  # noqa: E731
-        plain = lambda: K.edge_grad_torch(*args)  # noqa: E731
+        out = K.edge_grad(*args, **bf)
+        f32_out = K.edge_grad(*args) if bf16 else None
+        ref = K.edge_grad_torch(mode, lay, d(u), d(ct), he, rep, **bf)
+        scale = K.edge_grad_torch(mode, lay, a(u), a(ct), he, rep, **bf)
+        fn = lambda: K.edge_grad(*args, **bf)  # noqa: E731
+        plain = lambda: K.edge_grad_torch(*args, **bf)  # noqa: E731
         bytes_moved = (lay_bytes + (in_rows * f * 4 if mode == "mul" else 0)
                        + nbytes(ct, out))
         flops = 2 * n_real * f if mode == "mul" else 0
@@ -936,8 +1103,8 @@ def weighted_row(name, case, g, dev, he, rep, bwd=False, library=True,
             note = "no single PyTorch call for per-head dots"
     shapes["input_rows"] = in_rows
     row = kernel_row(name, out, ref, scale, fn, plain, lib, bytes_moved,
-                     flops, shapes, note, plain_iters=3)
-    del out, ref, scale
+                     flops, shapes, note, plain_iters=3, f32_out=f32_out)
+    del out, ref, scale, f32_out
     return row
 
 
@@ -949,7 +1116,7 @@ def phase_weighted_kernels(dev, g_arx, g_mix, g_rel):
     grad_u, over ``full_bwd``; K5 mul at F=40) and its in-degree sum
     (K2/K5 rhs at he=1), R-GCN layer 2 (he=40), the GAT shape (he=8,
     rep=32; rhs he=8, the softmax denominator) and the mixed graph (five
-    groups)."""
+    groups); last, each at its main case in the bf16 mode."""
     cases = {
         "chunk_mul": [("gcnw_layer1_f128", g_arx, 1, 128, False),
                       ("gcnw_layer2_f40", g_arx, 1, 40, False),
@@ -978,7 +1145,9 @@ def phase_weighted_kernels(dev, g_arx, g_mix, g_rel):
             weighted_row(name, case, g, dev, he, rep, bwd),
             [weighted_row(name, c, gg, dev, h, r, b, library=False,
                           seed=i + 1)
-             for i, (c, gg, h, r, b) in enumerate(rest)])
+             for i, (c, gg, h, r, b) in enumerate(rest)]
+            + [weighted_row(name, case, g, dev, he, rep, bwd, library=False,
+                            seed=9, bf16=True)])
         torch.cuda.empty_cache()
     return rows
 
@@ -1590,9 +1759,11 @@ def _block_sparse(g, transpose):
             (n, n)).coalesce().to_sparse_csr()
 
 
-def block_case(case, g, dev, f, transpose=False, seed=0, library=True):
+def block_case(case, g, dev, f, transpose=False, seed=0, library=True,
+               bf16=False):
     """K11 at width f on ``g``'s layout, forward or transpose, against its
-    float64 plain version. Bytes: the count blocks, the run pointers and
+    float64 plain version (with ``bf16``, both in the bf16 mode). Bytes:
+    the count blocks, the run pointers and
     input block ids, the rows of x that a nonzero count needs, and the
     whole output, once each. Operations: 2 per nonzero count and column
     (the sparse product's need); ``dense_flops`` is the dense work over
@@ -1613,17 +1784,18 @@ def block_case(case, g, dev, f, transpose=False, seed=0, library=True):
     if library:
         csr = _block_sparse(g, transpose)
         lib = lambda: torch.sparse.mm(csr, x)  # noqa: E731
+    kern = functools.partial(BK.block_mm, bf16=bf16)
+    plain = functools.partial(BK.block_mm_torch, bf16=bf16)
     row = kernel_row(
-        "block_bwd" if transpose else "block_fwd", BK.block_mm(*args, x, n),
-        BK.block_mm_torch(*args, x.double(), n),
-        BK.block_mm_torch(*args, x.abs().double(), n),
-        lambda: BK.block_mm(*args, x, n),
-        lambda: BK.block_mm_torch(*args, x, n), lib,
+        "block_bwd" if transpose else "block_fwd", kern(*args, x, n),
+        plain(*args, x.double(), n), plain(*args, x.abs().double(), n),
+        lambda: kern(*args, x, n), lambda: plain(*args, x, n), lib,
         nbytes(a, ptr, in_blk) + x_rows * f * 4 + n * f * 4, 2 * nnz * f,
         {"case": case, "transpose": transpose, "n": n, "f": f, "blocks": k,
          "nnz": nnz, "x_rows_needed": x_rows, "a_dtype": str(a.dtype)},
         library_note=("torch.sparse.mm with the dense tier as a CSR of "
-                      "counts" if library else None))
+                      "counts" if library else None),
+        f32_out=BK.block_mm(*args, x, n) if bf16 else None)
     row["shapes"]["dense_flops"] = 2 * k * 128 * 128 * f
     row["shapes"]["dense_flops_bound_ms"] = (2 * k * 128 * 128 * f
                                              / FP32_FLOPS * 1e3)
@@ -1635,7 +1807,7 @@ def phase_block_kernels(dev, bg):
     layer 2's backward (F=40), each against its float64 plain version,
     with the other shapes as ``variants``: the other direction at the
     other width on 2^20 nodes, bench.py's matrix (2^17 nodes, F=32, 128,
-    512) and the RCM graph at F=128."""
+    512), the RCM graph at F=128 and the main shape in the bf16 mode."""
 
     def variants(transpose, cases):
         return [block_case(c, g, dev, f, transpose, seed=i + 1,
@@ -1649,7 +1821,9 @@ def phase_block_kernels(dev, bg):
         rows[main["name"]] = with_variants(main, variants(tr, [
             (f"geo2e20_f{other_f}", g20, other_f),
             ("geo2e17_f32", g17, 32), ("geo2e17_f128", g17, 128),
-            ("geo2e17_f512", g17, 512), ("rcm2e17_f128", rcm, 128)]))
+            ("geo2e17_f512", g17, 512), ("rcm2e17_f128", rcm, 128)])
+            + [block_case(f"geo2e20_f{main_f}", g20, dev, main_f, tr,
+                          seed=9, library=False, bf16=True)])
     return rows
 
 
@@ -1857,6 +2031,120 @@ def profile_bdense(dev, g, model_name, steps, warmup):
     summarize_profile(f"bdense_{model_name}_profile",
                       f"bdense_{model_name}_geo2e20_train", prof, steps,
                       wall_ms)
+
+
+def strip_gperm(g):
+    """A view of ``g`` whose backward layout has no gperm descriptors, as
+    a layout built before them would: the attention then takes grad_er
+    from K7 g-major over the forward layout, as the reference does."""
+    gs = copy.copy(g)
+    gs.hub_dst = dict(g.hub_dst)
+    gs.hub_dst["full_bwd"] = {k: v for k, v in g.hub_dst["full_bwd"].items()
+                              if k not in ("gperm", "gout", "gfirst")}
+    return gs
+
+
+def phase_gat_gmajor(name, dev, g, steps):
+    """The GAT trainer (128 -> 8 x 32 -> 40, dropout 0, Adam 1e-2) on
+    ``g`` with gperm/gout/gfirst removed from ``full_bwd``. Step-0 grads of
+    every parameter against the normal route's (K7 + K8): max |diff| <=
+    1e-4 * max |grad| per parameter (the same terms summed in another
+    order). Then ``steps`` steps with exact launches per step: K7 g-major
+    2, K6 2, K7 2, K8 0 and every other kernel 0."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch.models import GAT
+
+    n, in_f, classes = g.num_nodes(), 128, 40
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(n, in_f, device=dev, generator=gen)
+    labels = torch.randint(0, classes, (n,), device=dev, generator=gen)
+    model = GAT(in_f, 32, classes, heads=8, out_heads=1, feat_drop=0.0,
+                attn_drop=0.0, device=dev,
+                generator=torch.Generator().manual_seed(2))
+    gs = strip_gperm(g)
+    grads = []
+    for graph in (g, gs):
+        model.zero_grad(set_to_none=True)
+        torch.nn.functional.cross_entropy(model(graph, feat),
+                                          labels.long()).backward()
+        grads.append({k: p.grad.clone() for k, p in model.named_parameters()})
+    rel = {k: float((a - grads[1][k]).abs().max()
+                    / a.abs().max().clamp_min(1e-30))
+           for k, a in grads[0].items()}
+    bad = {k: v for k, v in rel.items() if not v <= 1e-4}
+    if bad:
+        raise AssertionError(f"{name}: step-0 grads differ from the gperm "
+                             f"route's: {bad}")
+    del grads
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    res = dgl.train(gs, feat, labels, model, steps=steps, lr=1e-2)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    expect_exact(name, counts, {"attn_fwd": 2 * steps,
+                                "attn_bwd_src": 2 * steps,
+                                "attn_bwd_grp": 2 * steps})
+    train_record("gat_train", name, gs, res, counts, steps,
+                 dims=[in_f, [8, 32], classes],
+                 step0_grad_rel_err_vs_gperm_route=rel)
+    return counts
+
+
+def per_step(counts, steps):
+    """A trainer run's launches per step (each a whole multiple)."""
+    out = {}
+    for k, v in counts.items():
+        if v % steps:
+            raise AssertionError(f"{k}: {v} launches in {steps} steps")
+        if v:
+            out[k] = v // steps
+    return out
+
+
+def phase_bench_models(dev, model, graph, step_counts, epochs=5):
+    """``dgl1_tpu_torch.tools.bench_models.bench(model, 'arxiv')`` on the
+    prebuilt ``graph`` for ``epochs`` timed steps after its warm-up step,
+    in f32 and then in bf16 (its ``--precision bf16`` mode), counters
+    zeroed before each run and read after. Launches exact: the same
+    model's trainer run above per step (``step_counts``) times the steps
+    bench takes; in bf16 every kernel with a bf16 instantiation (K1, K4a,
+    K6, K7 here) launches only that one. Step-0 losses of the two
+    precisions within 2e-2. Returns the two runs' (path, counts)."""
+    from dgl1_tpu_torch.ops import matmul_precision
+    from dgl1_tpu_torch.tools.bench_models import bench
+
+    runs, losses = [], {}
+    for prec in ("f32", "bf16"):
+        torch.cuda.empty_cache()
+        reset_all_launches()
+        with matmul_precision(prec):
+            rec = bench(model, "arxiv", epochs=epochs, device=dev,
+                        graph=graph)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        path = f"bench_{model}_arxiv_{prec}"
+        want = {}
+        for k, v in step_counts.items():
+            if prec == "bf16" and f"{k}.bf16" in counts:
+                k = f"{k}.bf16"
+            want[k] = v * rec["steps"]
+        expect_exact(path, counts, want)
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            raise AssertionError(f"{path}: non-finite loss {rec['losses']}")
+        losses[prec] = rec["losses"]
+        log(json.dumps(dict(rec, phase="bench_models", path=path,
+                            precision=prec,
+                            launches={k: v for k, v in counts.items() if v},
+                            launches_per_step=per_step(counts,
+                                                       rec["steps"]))))
+        runs.append((path, counts))
+    d0 = abs(losses["bf16"][0] - losses["f32"][0])
+    if not d0 <= 2e-2:
+        raise AssertionError(f"bench {model}: step-0 loss bf16 "
+                             f"{losses['bf16'][0]} vs f32 {losses['f32'][0]}")
+    log(json.dumps({"phase": "bench_models_bf16_vs_f32", "model": model,
+                    "step0_loss_diff": d0}))
+    return runs
 
 
 def _kernel_modules():
@@ -2086,6 +2374,17 @@ def main():
         ("gcn_weighted_train", phase_gcn_weighted(
             "gcn_weighted_train", dev, g_arx, 5)),
     ]
+    # The g-major route: the arxiv GAT trainer on a layout without the
+    # gperm descriptors (K7 g-major instead of K8).
+    main_counts.append(("gat_arxiv_train_gmajor", phase_gat_gmajor(
+        "gat_arxiv_train_gmajor", dev, g_arx, 3)))
+    # The bench_models counterpart, the slice's main path: GCN and GAT at
+    # arxiv in f32 and bf16 on the arxiv graph above.
+    steps = dict(main_counts)
+    for model, path in (("gcn", "gcn_arxiv_train"),
+                        ("gat", "gat_arxiv_train")):
+        main_counts += phase_bench_models(dev, model, g_arx,
+                                          per_step(steps[path], 5))
     profile_gat(dev, g_arx)
     del g_arx, g_mix
 
@@ -2099,6 +2398,9 @@ def main():
         ("rgcn_grouped_train", phase_rgcn("rgcn_grouped_train", dev, r, 5,
                                           grouped=True)),
     ]
+    main_counts += phase_bench_models(
+        dev, "rgcn", (r["g"], r["rel"]),
+        per_step(dict(main_counts)["rgcn_perrel_train"], 5))
     profile_rgcn(dev, r)
     del r
     torch.cuda.empty_cache()

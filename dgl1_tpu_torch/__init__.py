@@ -8,7 +8,7 @@ passes ``device="cpu"``; the hand-written kernels (``csrc/``) are built
 with nvcc at first use.
 """
 
-from dgl1_tpu_torch.graph import Graph, graph, resolve_device
+from dgl1_tpu_torch.graph import Graph, graph, rand_graph, resolve_device
 from dgl1_tpu_torch.transform import (add_self_loop, edge_subgraph,
                                       rcm_order, remove_self_loop,
                                       reorder_graph, to_bidirected,
@@ -17,7 +17,7 @@ from dgl1_tpu_torch import (data, dataloading, models, nn,  # noqa: F401
                             ops, random, sampling)
 from dgl1_tpu_torch.train import train, train_sampled
 
-__all__ = ["Graph", "graph", "resolve_device", "add_self_loop",
+__all__ = ["Graph", "graph", "rand_graph", "resolve_device", "add_self_loop",
            "remove_self_loop", "reorder_graph", "rcm_order", "to_bidirected",
            "edge_subgraph", "typed_subgraphs", "data",
            "dataloading", "models", "nn", "ops", "random", "sampling",

@@ -44,6 +44,11 @@
 // then the 128 terms in order), so the result does not change from run to
 // run. Tensor cores, skipping zero sub-tiles and TMA staging are later
 // work.
+//
+// BF16 (the reference's bf16 matmul mode, dgl1_tpu/ops/precision.py, which
+// casts A and x to bfloat16 before the block product) rounds each count
+// and each input value to bfloat16, nearest even, as it is staged; the
+// sums stay float32 and so do the tensors in and out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +86,12 @@ __device__ __forceinline__ void load8<float>(const float* p, float v[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// bf16 mode: round to bfloat16, nearest even, and back.
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
 template <int FS>
 struct Tile {
   static constexpr int THREADS = ROW_GROUPS * (FS / TN);
@@ -88,7 +99,7 @@ struct Tile {
   static constexpr size_t SMEM = sizeof(float) * (size_t)BLK * (BLK + FS);
 };
 
-template <typename AT, int FS, bool TRANSPOSE>
+template <typename AT, int FS, bool TRANSPOSE, bool BF16>
 __global__ void __launch_bounds__(Tile<FS>::THREADS)
 block_mm_kernel(const AT* __restrict__ a, const int* __restrict__ ptr,
                 const int* __restrict__ in_blk, const float* __restrict__ x,
@@ -122,6 +133,8 @@ block_mm_kernel(const AT* __restrict__ a, const int* __restrict__ ptr,
         // sA[i][j] = A[i][j]: row i, eight columns, two float4 stores.
         const int i = idx / (BLK / 8), c8 = idx % (BLK / 8);
         load8<AT>(ak + i * BLK + c8 * 8, v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = rnd<BF16>(v[e]);
         float4* d = reinterpret_cast<float4*>(sA + i * BLK + c8 * 8);
         d[0] = make_float4(v[0], v[1], v[2], v[3]);
         d[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -131,15 +144,17 @@ block_mm_kernel(const AT* __restrict__ a, const int* __restrict__ ptr,
         const int i = idx % BLK, c8 = idx / BLK;
         load8<AT>(ak + i * BLK + c8 * 8, v);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) sA[(c8 * 8 + e) * BLK + i] = v[e];
+        for (int e = 0; e < 8; ++e)
+          sA[(c8 * 8 + e) * BLK + i] = rnd<BF16>(v[e]);
       }
     }
     const int row0 = ib * BLK;
     for (int idx = tid; idx < BLK * FS; idx += THREADS) {
       const int r = idx / FS, c = idx % FS;
       const int row = row0 + r, col = col0 + c;
-      sX[idx] = (row < n_in && col < f) ? __ldg(x + (size_t)row * f + col)
-                                        : 0.0f;
+      sX[idx] = (row < n_in && col < f)
+                    ? rnd<BF16>(__ldg(x + (size_t)row * f + col))
+                    : 0.0f;
     }
     __syncthreads();
 
@@ -171,11 +186,11 @@ block_mm_kernel(const AT* __restrict__ a, const int* __restrict__ ptr,
   }
 }
 
-template <typename AT, int FS, bool TRANSPOSE>
+template <typename AT, int FS, bool TRANSPOSE, bool BF16>
 int launch(const void* a, const int* ptr, const int* in_blk, const float* x,
            int n_in, int f, float* out, int n_out, int n_out_blocks,
            cudaStream_t stream) {
-  auto kern = block_mm_kernel<AT, FS, TRANSPOSE>;
+  auto kern = block_mm_kernel<AT, FS, TRANSPOSE, BF16>;
   constexpr size_t smem = Tile<FS>::SMEM;  // above 48 KB: opt in
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -186,25 +201,39 @@ int launch(const void* a, const int* ptr, const int* in_blk, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename AT, int FS>
+template <typename AT, int FS, bool BF16>
 int launch_dir(int transpose, const void* a, const int* ptr,
                const int* in_blk, const float* x, int n_in, int f,
                float* out, int n_out, int n_out_blocks, cudaStream_t s) {
   return transpose
-             ? launch<AT, FS, true>(a, ptr, in_blk, x, n_in, f, out, n_out,
-                                    n_out_blocks, s)
-             : launch<AT, FS, false>(a, ptr, in_blk, x, n_in, f, out, n_out,
-                                     n_out_blocks, s);
+             ? launch<AT, FS, true, BF16>(a, ptr, in_blk, x, n_in, f, out,
+                                          n_out, n_out_blocks, s)
+             : launch<AT, FS, false, BF16>(a, ptr, in_blk, x, n_in, f, out,
+                                           n_out, n_out_blocks, s);
 }
 
-template <typename AT>
+template <typename AT, bool BF16>
 int launch_fs(int fs, int transpose, const void* a, const int* ptr,
               const int* in_blk, const float* x, int n_in, int f, float* out,
               int n_out, int n_out_blocks, cudaStream_t s) {
-  return fs == 32 ? launch_dir<AT, 32>(transpose, a, ptr, in_blk, x, n_in, f,
-                                       out, n_out, n_out_blocks, s)
-                  : launch_dir<AT, 64>(transpose, a, ptr, in_blk, x, n_in, f,
-                                       out, n_out, n_out_blocks, s);
+  return fs == 32
+             ? launch_dir<AT, 32, BF16>(transpose, a, ptr, in_blk, x, n_in, f,
+                                        out, n_out, n_out_blocks, s)
+             : launch_dir<AT, 64, BF16>(transpose, a, ptr, in_blk, x, n_in, f,
+                                        out, n_out, n_out_blocks, s);
+}
+
+template <bool BF16>
+int launch_at(int a_is_bf16, int fs, int transpose, const void* a,
+              const int* ptr, const int* in_blk, const float* x, int n_in,
+              int f, float* out, int n_out, int n_out_blocks,
+              cudaStream_t s) {
+  return a_is_bf16
+             ? launch_fs<__nv_bfloat16, BF16>(fs, transpose, a, ptr, in_blk,
+                                              x, n_in, f, out, n_out,
+                                              n_out_blocks, s)
+             : launch_fs<float, BF16>(fs, transpose, a, ptr, in_blk, x, n_in,
+                                      f, out, n_out, n_out_blocks, s);
 }
 
 }  // namespace
@@ -214,17 +243,16 @@ extern "C" {
 // a: (K*128, 128) counts, bf16 when a_is_bf16 else float32; ptr:
 // (n_out_blocks + 1,) run pointers; in_blk: (K,) input block per block; x:
 // (n_in, f) float32; out: (n_out, f) float32, every element written.
-// fs: the stripe width, 32 or 64.
+// fs: the stripe width, 32 or 64. bf16: 1 for the bf16 mode.
 int block_mm(int transpose, int a_is_bf16, const void* a, const int* ptr,
              const int* in_blk, const float* x, int n_in, int f, float* out,
-             int n_out, int n_out_blocks, int fs, void* stream) {
+             int n_out, int n_out_blocks, int fs, int bf16, void* stream) {
   if (fs != 32 && fs != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a_is_bf16
-             ? launch_fs<__nv_bfloat16>(fs, transpose, a, ptr, in_blk, x,
-                                        n_in, f, out, n_out, n_out_blocks, s)
-             : launch_fs<float>(fs, transpose, a, ptr, in_blk, x, n_in, f,
-                                out, n_out, n_out_blocks, s);
+  return bf16 ? launch_at<true>(a_is_bf16, fs, transpose, a, ptr, in_blk, x,
+                                n_in, f, out, n_out, n_out_blocks, s)
+              : launch_at<false>(a_is_bf16, fs, transpose, a, ptr, in_blk, x,
+                                 n_in, f, out, n_out, n_out_blocks, s);
 }
 
 }  // extern "C"

@@ -22,8 +22,12 @@
 //
 // The TPU kernels gather and scatter through one-hot matmuls because the
 // TPU has no atomics and a slow gather unit. Here gathers are direct row
-// loads and scatters are float atomics. All arithmetic is float32 with
-// float32 accumulation (the counts in C are small exact integers).
+// loads and scatters are float atomics. Arithmetic is float32 with float32
+// accumulation (the counts in C are small exact integers). Every kernel but
+// K3 has a BF16 instantiation, the reference's bf16 matmul mode
+// (dgl1_tpu/ops/precision.py): it rounds to bfloat16 (nearest even, in
+// registers, rnd() below) exactly the values the reference casts to dt
+// before a matmul, and nothing else; inputs, outputs and sums stay float32.
 //
 // Feature widths are not padded to 128: every kernel takes the row width
 // f and masks the ragged edge itself, and the source operand may have
@@ -49,6 +53,12 @@ constexpr int BM = 128;
 constexpr int BN = 128;
 constexpr int BK = 32;
 constexpr int NT = 256;
+
+// bf16 mode: round to bfloat16, nearest even, and back.
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -93,6 +103,9 @@ __device__ __forceinline__ void tile_fma(const float (&As)[BK][BM + 1],
 // adds varies from run to run, so results agree with a sequential sum to
 // float32 rounding of the partial sums, not bit for bit.
 //
+// BF16 rounds C (counts above 256 lose bits, as in the reference) and U as
+// they are staged.
+//
 // Bound on the H100: at arxiv scale (Kd = 128, f = 128) it reads 22 MB of
 // int8 C and 87 MB of U (33 us at 3.35 TB/s) and does 5.6 GFLOP (84 us
 // on the 67 TFLOP/s of float32 CUDA cores), so exact float32 over the
@@ -101,7 +114,7 @@ __device__ __forceinline__ void tile_fma(const float (&As)[BK][BM + 1],
 // puts about two blocks on every SM; with only one output tile a row
 // loop in one block would leave the card idle.
 // ---------------------------------------------------------------------
-template <typename CT>
+template <typename CT, bool BF16>
 __global__ void __launch_bounds__(NT)
     dense_fwd_kernel(const CT* __restrict__ c, const float* __restrict__ u,
                      float* __restrict__ out, int n_rows, int kd, int f,
@@ -123,14 +136,15 @@ __global__ void __launch_bounds__(NT)
       const int kk = i / BM, mm = i % BM;
       const int r = k0 + kk, m = m0 + mm;
       As[kk][mm] = (r < r_end && m < kd)
-                       ? to_f32(c[static_cast<size_t>(r) * kd + m])
+                       ? rnd<BF16>(to_f32(c[static_cast<size_t>(r) * kd + m]))
                        : 0.f;
     }
     for (int i = tid; i < BK * BN; i += NT) {
       const int kk = i / BN, nn = i % BN;
       const int r = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (r < r_end && n < f) ? u[static_cast<size_t>(r) * f + n]
-                                         : 0.f;
+      Bs[kk][nn] = (r < r_end && n < f)
+                       ? rnd<BF16>(u[static_cast<size_t>(r) * f + n])
+                       : 0.f;
     }
     __syncthreads();
     tile_fma(As, Bs, acc, ty, tx);
@@ -163,10 +177,12 @@ __global__ void __launch_bounds__(NT)
 // layout emits one descriptor per source row (hub_format.py: gvalid is
 // a set of distinct rows; tests/test_torch_layout.py checks it).
 //
+// BF16 rounds C and ct as they are staged (not the tail rows).
+//
 // Bound on the H100: the same count matrix and flops as K1, with an
 // output of n_out x f floats written once instead of U read once.
 // ---------------------------------------------------------------------
-template <typename CT, bool FUSED>
+template <typename CT, bool FUSED, bool BF16>
 __global__ void __launch_bounds__(NT)
     dense_bwd_kernel(const CT* __restrict__ c, const float* __restrict__ ct,
                      float* __restrict__ out, int n_out, int kd, int f,
@@ -201,14 +217,15 @@ __global__ void __launch_bounds__(NT)
       const int mm = i / BK, kk = i % BK;
       const int m = m0 + mm, k = k0 + kk;
       As[kk][mm] = (m < n_out && k < kd)
-                       ? to_f32(c[static_cast<size_t>(m) * kd + k])
+                       ? rnd<BF16>(to_f32(c[static_cast<size_t>(m) * kd + k]))
                        : 0.f;
     }
     for (int i = tid; i < BK * BN; i += NT) {
       const int kk = i / BN, nn = i % BN;
       const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < kd && n < f) ? ct[static_cast<size_t>(k) * f + n]
-                                      : 0.f;
+      Bs[kk][nn] = (k < kd && n < f)
+                       ? rnd<BF16>(ct[static_cast<size_t>(k) * f + n])
+                       : 0.f;
     }
     __syncthreads();
     tile_fma(As, Bs, acc, ty, tx);
@@ -243,11 +260,14 @@ __global__ void __launch_bounds__(NT)
 // chunk adds, which gives the same values on every block that a chunk
 // covers. Blocks no chunk covers are zero here and unspecified there.
 //
+// BF16 rounds the gathered row.
+//
 // Bound on the H100: memory for the work itself (each real slot reads
 // one f-float row and adds one), but this design is held by its atomics,
 // which resolve in L2 and serialise where thousands of slots share an
 // output row, as they do on a chunked tier with few output blocks.
 // ---------------------------------------------------------------------
+template <bool BF16>
 __global__ void __launch_bounds__(NT)
     chunk_sum_kernel(const int* __restrict__ a, const int* __restrict__ b,
                      const int* __restrict__ in_id,
@@ -268,7 +288,7 @@ __global__ void __launch_bounds__(NT)
     if (ri >= n_in_rows || ro >= n_out_rows) continue;
     const float* src = in + ri * f;
     float* dst = out + ro * f;
-    for (int j = lane; j < f; j += 32) atomicAdd(dst + j, src[j]);
+    for (int j = lane; j < f; j += 32) atomicAdd(dst + j, rnd<BF16>(src[j]));
   }
 }
 
@@ -347,6 +367,9 @@ __global__ void __launch_bounds__(NT)
 // memory once, when b changes and at the end of the chunk. Padding
 // slots' rows and weights are never read.
 //
+// BF16 rounds the message before its sum and, in mul mode, the input
+// value before the product (the weight is not rounded).
+//
 // Bound on the H100: bytes. Each real slot needs its message row (rhs:
 // he floats of e2; mul: f floats of in, which the 128-row window keeps
 // in L2, and its weights) and the layout, each read once; the output is
@@ -372,7 +395,7 @@ __device__ __forceinline__ void flush_partial(float (&acc)[BLK][WSTRIPE],
   }
 }
 
-template <bool MUL>
+template <bool MUL, bool BF16>
 __global__ void __launch_bounds__(NT)
     chunk_weighted_kernel(const int* __restrict__ a,
                           const int* __restrict__ b,
@@ -454,9 +477,9 @@ __global__ void __launch_bounds__(NT)
                     he == 1 ? wk
                             : e2[static_cast<int64_t>(ek) * he +
                                  (j == 0 ? head0 : head1)];
-                x = in[(base_in + ak) * f + col] * wt;
+                x = rnd<BF16>(rnd<BF16>(in[(base_in + ak) * f + col]) * wt);
               } else {
-                x = e2[static_cast<int64_t>(ek) * he + col];
+                x = rnd<BF16>(e2[static_cast<int64_t>(ek) * he + col]);
               }
             }
             v[i][j] = x;
@@ -507,6 +530,9 @@ __global__ void __launch_bounds__(NT)
 // of the cotangent rows, a thread per output element, every element of
 // the output written (padding slots as zero), coalesced.
 //
+// BF16 rounds the staged u and ct values and, in mul mode, each product
+// before the head sum.
+//
 // Bound on the H100: bytes. mul reads the layout, the source and
 // cotangent rows once and writes n_slots x he floats; rhs reads the
 // layout and the (small) cotangent block and writes n_slots x he floats.
@@ -514,6 +540,7 @@ __global__ void __launch_bounds__(NT)
 constexpr int GSTRIPE = 32;        // feature columns staged per pass
 constexpr int MAX_SLOTS_PER_THREAD = 4;
 
+template <bool BF16>
 __global__ void __launch_bounds__(NT)
     edge_grad_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
                          const int* __restrict__ in_id,
@@ -546,10 +573,11 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();  // the previous stripe's reads are done
     for (int i = tid; i < BLK * GSTRIPE; i += NT) {
       const int r = i / GSTRIPE, c = i % GSTRIPE;
-      us[r][c] = (c < w && base_u + r < n_u) ? u[(base_u + r) * f + f0 + c]
-                                             : 0.f;
+      us[r][c] = (c < w && base_u + r < n_u)
+                     ? rnd<BF16>(u[(base_u + r) * f + f0 + c])
+                     : 0.f;
       cs[r][c] = (c < w && base_c + r < n_ct)
-                     ? ct[(base_c + r) * f + f0 + c]
+                     ? rnd<BF16>(ct[(base_c + r) * f + f0 + c])
                      : 0.f;
     }
     __syncthreads();
@@ -569,13 +597,14 @@ __global__ void __launch_bounds__(NT)
           ++h;
           next += rep;
         }
-        p = fmaf(ur[c], cr[c], p);
+        p = BF16 ? p + rnd<true>(ur[c] * cr[c]) : fmaf(ur[c], cr[c], p);
       }
       o[h] += p;
     }
   }
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NT)
     edge_grad_rhs_kernel(const int* __restrict__ a, const int* __restrict__ b,
                          const int* __restrict__ out_id, int chunk,
@@ -589,7 +618,8 @@ __global__ void __launch_bounds__(NT)
     const int s = i / he, h = i - s * he;
     const int as = a[slot0 + s], bs = b[slot0 + s];
     float v = 0.f;
-    if (as >= 0 && bs >= 0 && base_c + bs < n_ct) v = ct[(base_c + bs) * he + h];
+    if (as >= 0 && bs >= 0 && base_c + bs < n_ct)
+      v = rnd<BF16>(ct[(base_c + bs) * he + h]);
     out[slot0 * he + i] = v;
   }
 }
@@ -606,7 +636,7 @@ int num_sms() {
   return g_num_sms;
 }
 
-template <typename CT>
+template <typename CT, bool BF16>
 void launch_dense_fwd(const void* c, const float* u, float* out, int n_rows,
                       int kd, int f, cudaStream_t stream) {
   const int tiles_m = (kd + BM - 1) / BM, tiles_n = (f + BN - 1) / BN;
@@ -621,24 +651,60 @@ void launch_dense_fwd(const void* c, const float* u, float* out, int n_rows,
   splits = (n_rows + rows_per_split - 1) / rows_per_split;
   if (splits < 1) return;
   dim3 grid(tiles_m, tiles_n, splits);
-  dense_fwd_kernel<CT><<<grid, NT, 0, stream>>>(
+  dense_fwd_kernel<CT, BF16><<<grid, NT, 0, stream>>>(
       static_cast<const CT*>(c), u, out, n_rows, kd, f, rows_per_split);
 }
 
-template <typename CT>
+template <typename CT, bool BF16>
 void launch_dense_bwd(const void* c, const float* ct, float* out, int n_out,
                       int kd, int f, const int* starts, const int* desc,
                       const float* tail, cudaStream_t stream) {
   dim3 grid((n_out + BM - 1) / BM, (f + BN - 1) / BN);
   if (grid.x == 0 || grid.y == 0) return;
   if (starts != nullptr) {
-    dense_bwd_kernel<CT, true><<<grid, NT, 0, stream>>>(
+    dense_bwd_kernel<CT, true, BF16><<<grid, NT, 0, stream>>>(
         static_cast<const CT*>(c), ct, out, n_out, kd, f, starts, desc, tail);
   } else {
-    dense_bwd_kernel<CT, false><<<grid, NT, 0, stream>>>(
+    dense_bwd_kernel<CT, false, BF16><<<grid, NT, 0, stream>>>(
         static_cast<const CT*>(c), ct, out, n_out, kd, f, nullptr, nullptr,
         nullptr);
   }
+}
+
+template <bool BF16>
+int dense_fwd_by_type(const void* c, int c_dtype, const float* u, float* out,
+                      int n_rows, int kd, int f, cudaStream_t s) {
+  switch (c_dtype) {
+    case 0: launch_dense_fwd<int8_t, BF16>(c, u, out, n_rows, kd, f, s); break;
+    case 1:
+      launch_dense_fwd<__nv_bfloat16, BF16>(c, u, out, n_rows, kd, f, s);
+      break;
+    case 2: launch_dense_fwd<float, BF16>(c, u, out, n_rows, kd, f, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BF16>
+int dense_bwd_by_type(const void* c, int c_dtype, const float* ct, float* out,
+                      int n_out, int kd, int f, const int* starts,
+                      const int* desc, const float* tail, cudaStream_t s) {
+  switch (c_dtype) {
+    case 0:
+      launch_dense_bwd<int8_t, BF16>(c, ct, out, n_out, kd, f, starts, desc,
+                                     tail, s);
+      break;
+    case 1:
+      launch_dense_bwd<__nv_bfloat16, BF16>(c, ct, out, n_out, kd, f, starts,
+                                            desc, tail, s);
+      break;
+    case 2:
+      launch_dense_bwd<float, BF16>(c, ct, out, n_out, kd, f, starts, desc,
+                                    tail, s);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -646,46 +712,37 @@ void launch_dense_bwd(const void* c, const float* ct, float* out, int n_out,
 extern "C" {
 
 // c_dtype: 0 = int8, 1 = bfloat16, 2 = float32. `out` must be zeroed.
+// bf16: 1 for the bf16 mode.
 int hub_dense_fwd(const void* c, int c_dtype, const float* u, float* out,
-                  int n_rows, int kd, int f, void* stream) {
+                  int n_rows, int kd, int f, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c_dtype) {
-    case 0: launch_dense_fwd<int8_t>(c, u, out, n_rows, kd, f, s); break;
-    case 1: launch_dense_fwd<__nv_bfloat16>(c, u, out, n_rows, kd, f, s); break;
-    case 2: launch_dense_fwd<float>(c, u, out, n_rows, kd, f, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? dense_fwd_by_type<true>(c, c_dtype, u, out, n_rows, kd, f, s)
+              : dense_fwd_by_type<false>(c, c_dtype, u, out, n_rows, kd, f, s);
 }
 
 // starts/desc/tail all null: K4b; all set: K4a.
 int hub_dense_bwd(const void* c, int c_dtype, const float* ct, float* out,
                   int n_out, int kd, int f, const int* starts,
-                  const int* desc, const float* tail, void* stream) {
+                  const int* desc, const float* tail, int bf16,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c_dtype) {
-    case 0:
-      launch_dense_bwd<int8_t>(c, ct, out, n_out, kd, f, starts, desc, tail, s);
-      break;
-    case 1:
-      launch_dense_bwd<__nv_bfloat16>(c, ct, out, n_out, kd, f, starts, desc,
-                                      tail, s);
-      break;
-    case 2:
-      launch_dense_bwd<float>(c, ct, out, n_out, kd, f, starts, desc, tail, s);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? dense_bwd_by_type<true>(c, c_dtype, ct, out, n_out, kd, f,
+                                        starts, desc, tail, s)
+              : dense_bwd_by_type<false>(c, c_dtype, ct, out, n_out, kd, f,
+                                         starts, desc, tail, s);
 }
 
 // `out` must be zeroed.
 int hub_chunk_sum(const int* a, const int* b, const int* in_id,
                   const int* out_id, int n_chunks, int chunk, const float* in,
-                  int n_in_rows, float* out, int n_out_rows, int f,
+                  int n_in_rows, float* out, int n_out_rows, int f, int bf16,
                   void* stream) {
-  if (n_chunks > 0) {
-    chunk_sum_kernel<<<n_chunks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_chunks > 0 && bf16) {
+    chunk_sum_kernel<true><<<n_chunks, NT, 0, s>>>(
+        a, b, in_id, out_id, in, n_in_rows, out, n_out_rows, f, chunk);
+  } else if (n_chunks > 0) {
+    chunk_sum_kernel<false><<<n_chunks, NT, 0, s>>>(
         a, b, in_id, out_id, in, n_in_rows, out, n_out_rows, f, chunk);
   }
   return static_cast<int>(cudaGetLastError());
@@ -702,12 +759,14 @@ int hub_expand(const int* starts, const int* desc, const float* merged,
 }
 
 // mode: 0 = mul (in has n_in_rows x f, f = he * rep), 1 = rhs (in is
-// null, f = he). `out` (n_out_rows x f) must be zeroed.
+// null, f = he). `out` (n_out_rows x f) must be zeroed. bf16: 1 for the
+// bf16 mode (as in every entry below but hub_expand).
 int hub_chunk_weighted(int mode, const int* a, const int* b, const int* eid,
                        const int* in_id, const int* out_id, int n_chunks,
                        int chunk, const float* e2, int n_e, int he, int rep,
                        const float* in, int n_in_rows, float* out,
-                       int n_out_rows, int f, void* stream) {
+                       int n_out_rows, int f, int bf16, void* stream) {
+  if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_chunks > 0 && f > 0) {
     const int stripes = (f + WSTRIPE - 1) / WSTRIPE;
     // About eight blocks per SM in all, each a run of whole chunks.
@@ -718,15 +777,17 @@ int hub_chunk_weighted(int mode, const int* a, const int* b, const int* eid,
     dim3 grid((n_chunks + run - 1) / run, stripes);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (mode == 0) {
-      chunk_weighted_kernel<true><<<grid, NT, 0, s>>>(
+      auto kern = bf16 ? chunk_weighted_kernel<true, true>
+                       : chunk_weighted_kernel<true, false>;
+      kern<<<grid, NT, 0, s>>>(
           a, b, eid, in_id, out_id, n_chunks, chunk, run, e2, n_e, he, rep,
           in, n_in_rows, out, n_out_rows, f);
-    } else if (mode == 1) {
-      chunk_weighted_kernel<false><<<grid, NT, 0, s>>>(
+    } else {
+      auto kern = bf16 ? chunk_weighted_kernel<false, true>
+                       : chunk_weighted_kernel<false, false>;
+      kern<<<grid, NT, 0, s>>>(
           a, b, eid, in_id, out_id, n_chunks, chunk, run, e2, n_e, he, 1,
           nullptr, 0, out, n_out_rows, f);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -738,20 +799,22 @@ int hub_chunk_weighted(int mode, const int* a, const int* b, const int* eid,
 int hub_edge_grad(int mode, const int* a, const int* b, const int* in_id,
                   const int* out_id, int n_chunks, int chunk, const float* u,
                   int n_u, const float* ct, int n_ct, float* out, int he,
-                  int rep, void* stream) {
-  if (chunk > NT * MAX_SLOTS_PER_THREAD) {
+                  int rep, int bf16, void* stream) {
+  if (chunk > NT * MAX_SLOTS_PER_THREAD || (mode != 0 && mode != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_chunks > 0 && he > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (mode == 0) {
-      edge_grad_mul_kernel<<<n_chunks, NT, 0, s>>>(
+      auto kern =
+          bf16 ? edge_grad_mul_kernel<true> : edge_grad_mul_kernel<false>;
+      kern<<<n_chunks, NT, 0, s>>>(
           a, b, in_id, out_id, chunk, u, n_u, ct, n_ct, out, he, rep);
-    } else if (mode == 1) {
-      edge_grad_rhs_kernel<<<n_chunks, NT, 0, s>>>(a, b, out_id, chunk, ct,
-                                                    n_ct, out, he);
     } else {
-      return static_cast<int>(cudaErrorInvalidValue);
+      auto kern =
+          bf16 ? edge_grad_rhs_kernel<true> : edge_grad_rhs_kernel<false>;
+      kern<<<n_chunks, NT, 0, s>>>(
+          a, b, out_id, chunk, ct, n_ct, out, he);
     }
   }
   return static_cast<int>(cudaGetLastError());

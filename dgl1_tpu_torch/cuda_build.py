@@ -37,32 +37,36 @@ _SIGNATURES = {
     "attn_kernels": {
         "attn_fwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int, _ptr,
                      _ptr, _ptr, _c_int, _c_int, _f, _ptr, _c_int, _f,
-                     _c_int, _ptr, _ptr, _ptr, _ptr, _ptr],
+                     _c_int, _ptr, _c_int, _ptr, _ptr, _ptr, _ptr, _ptr,
+                     _ptr, _ptr, _ptr],
         "attn_bwd_src": [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                          _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
-                         _f, _ptr, _c_int, _f, _c_int, _ptr, _ptr, _ptr,
-                         _ptr],
+                         _f, _ptr, _c_int, _f, _c_int, _c_int, _ptr, _ptr,
+                         _ptr, _ptr],
+        "attn_bwd_grp": [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
+                         _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
+                         _f, _ptr, _c_int, _f, _c_int, _ptr, _ptr],
         "attn_ger_reduce": [_ptr, _ptr, _c_int, _ptr, _c_int, _ptr, _ptr],
     },
     "hub_kernels": {
         "hub_dense_fwd": [_ptr, _c_int, _ptr, _ptr, _c_int, _c_int, _c_int,
-                          _ptr],
+                          _c_int, _ptr],
         "hub_dense_bwd": [_ptr, _c_int, _ptr, _ptr, _c_int, _c_int, _c_int,
-                          _ptr, _ptr, _ptr, _ptr],
+                          _ptr, _ptr, _ptr, _c_int, _ptr],
         "hub_chunk_sum": [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int, _ptr,
-                          _c_int, _ptr, _c_int, _c_int, _ptr],
+                          _c_int, _ptr, _c_int, _c_int, _c_int, _ptr],
         "hub_expand": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _c_int,
                        _ptr],
         "hub_chunk_weighted": [_c_int, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
                                _c_int, _ptr, _c_int, _c_int, _c_int, _ptr,
-                               _c_int, _ptr, _c_int, _c_int, _ptr],
+                               _c_int, _ptr, _c_int, _c_int, _c_int, _ptr],
         "hub_edge_grad": [_c_int, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                           _ptr, _c_int, _ptr, _c_int, _ptr, _c_int, _c_int,
-                          _ptr],
+                          _c_int, _ptr],
     },
     "bdense_kernels": {
         "block_mm": [_c_int, _c_int, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
-                     _ptr, _c_int, _c_int, _c_int, _ptr],
+                     _ptr, _c_int, _c_int, _c_int, _c_int, _ptr],
     },
     "tile_kernels": {
         "tile_sum": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _ptr, _c_int,

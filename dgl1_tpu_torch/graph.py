@@ -36,7 +36,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Graph", "graph", "resolve_device", "TILE_EDGES", "TILE_ROWS"]
+__all__ = ["Graph", "graph", "rand_graph", "resolve_device", "TILE_EDGES",
+           "TILE_ROWS"]
 
 ID_DTYPE = np.int32
 
@@ -646,3 +647,13 @@ def graph(data: Tuple, num_nodes: Optional[int] = None, hub=None,
                             formats=formats, num_padded=pad_edges_to)
     return Graph(**arrays, num_src_nodes=num_nodes, num_dst_nodes=num_nodes,
                  num_edges=num_edges, device=dev)
+
+
+def rand_graph(num_nodes: int, num_edges: int, seed: int = 0, **kw) -> Graph:
+    """Uniform random multigraph (``dgl.rand_graph``): ``num_edges`` edges
+    with both ends drawn from ``default_rng(seed)``, as the reference draws
+    them; ``kw`` goes to :func:`graph`."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, num_nodes, size=num_edges)
+    dst = rng.integers(0, num_nodes, size=num_edges)
+    return graph((src, dst), num_nodes=num_nodes, **kw)

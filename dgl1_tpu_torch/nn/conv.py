@@ -161,7 +161,9 @@ class GATConv(nn.Module):
 
     The path is chosen as the reference chooses it: the fused hub
     attention (:func:`dgl1_tpu_torch.ops.gat_attention`) when the graph
-    has a hub layout; else, when the graph has a block-dense layout and
+    has a hub layout and a head is at most ``MAX_HEAD_DIM`` (384)
+    features wide (the port's kernels stage a head's features in one
+    shared-memory stripe; the reference takes any width); else, when the graph has a block-dense layout and
     no attention dropout applies (``attn_drop`` 0 or not training), the
     block-dense attention (:func:`dgl1_tpu_torch.ops.bdense_gat_attention`);
     else the composed g-SDDMM -> edge_softmax -> u_mul_e chain.
@@ -225,7 +227,7 @@ class GATConv(nn.Module):
         attn_drop = self.attn_drop if self.training else 0.0
 
         rst = None
-        if can_fuse_attention(g):
+        if can_fuse_attention(g, f):
             seed = None
             if attn_drop > 0.0:
                 seed = torch.randint(

@@ -1,6 +1,7 @@
 """``dgl1_tpu_torch.ops``: the g-SpMM and g-SDDMM front ends, engine
 dispatch, the engines (oracle, block-dense, ELL, hub, tile), edge softmax,
-the fused GAT attention (hub and block-dense) and the segment matmuls."""
+the fused GAT attention (hub and block-dense), the segment matmuls and
+the kernels' matmul precision mode."""
 
 from dgl1_tpu_torch.ops.dispatch import (get_engine, register_engine,
                                          set_engine)
@@ -12,6 +13,9 @@ from dgl1_tpu_torch.ops.battention import (bdense_gat_attention,
                                            can_fuse_battention)
 from dgl1_tpu_torch.ops.segment import (gather_mm, segment_ids_from_lengths,
                                         segment_mm)
+from dgl1_tpu_torch.ops.precision import (get_matmul_precision,
+                                          matmul_precision,
+                                          set_matmul_precision)
 from dgl1_tpu_torch.ops import engine_bdense as _engine_bdense
 from dgl1_tpu_torch.ops import engine_ell as _engine_ell
 from dgl1_tpu_torch.ops import engine_hub as _engine_hub
@@ -26,4 +30,5 @@ __all__ = ["gspmm", "gsddmm", "edge_softmax", "gat_attention",
            "can_fuse_attention", "bdense_gat_attention",
            "can_fuse_battention", "segment_mm", "gather_mm",
            "segment_ids_from_lengths", "set_engine", "get_engine",
-           "register_engine"]
+           "register_engine", "set_matmul_precision",
+           "get_matmul_precision", "matmul_precision"]

@@ -20,17 +20,23 @@ mirroring the reference's ``custom_vjp`` (``_attn_forward`` and ``_bwd``):
 * backward recomputes p: K7 (:func:`attn_kernels.attn_bwd_src`) gives
   grad_ft, grad_el and per-chunk grad_er partials over the window-major
   layout, K8 (:func:`attn_kernels.ger_reduce`) folds the partials per
-  group, and the tail and diagonal mirror the forward.
+  group, and the tail and diagonal mirror the forward. A layout whose
+  ``full_bwd`` has no ``gperm`` descriptors takes grad_er from K7's
+  g-major mode (:func:`attn_kernels.attn_bwd_grp`) over ``full_fwd``
+  instead, as the reference does; the port's builder always emits
+  ``gperm``, so only a stripped layout goes that way.
 
 Attention dropout masks the numerator terms with per-(edge, head) masks
 hashed from a seed and the original edge id (``attn_kernels.drop_mask``),
-the same bits in the kernels, the tail and the diagonal.
+the same bits in the kernels, the tail and the diagonal. The bf16 matmul
+mode (``ops/precision.py``), read when the forward runs and kept for its
+backward, reaches K6 and K7 as the reference's ``dt`` does; the tail, the
+diagonal and K8 stay float32.
 
 Not ported: ``el_in_ft`` lane packing and the backward split/streaming
-options (TPU memory-residency tricks), the bf16 matmul mode, and the
-group-major ``_attn_bwd_kernel(to_src=False)`` pass used by layouts
-without ``gperm`` (raises NotImplementedError; the port's builder always
-emits ``gperm``).
+options (TPU memory-residency tricks). Heads wider than ``MAX_HEAD_DIM``
+features decline (the layer then takes the block-dense or composed
+path).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from dgl1_tpu_torch.hub_format import BLK, SENT
 from dgl1_tpu_torch.ops import attn_kernels as AK
 from dgl1_tpu_torch.ops.engine_ell import ell_reduce, ell_stack
 from dgl1_tpu_torch.ops.engine_xla import take_fill
+from dgl1_tpu_torch.ops.precision import get_matmul_precision
 
 __all__ = ["gat_attention", "can_fuse_attention"]
 
@@ -65,14 +72,15 @@ def _merge_t_inv(meta, hub, stacked, hub_block, num_dst: int, fill: float):
                      fill)
 
 
-def _attn_forward(g: Graph, slope, drop, h, d, el2, er2, ft2, seed):
+def _attn_forward(g: Graph, slope, drop, h, d, el2, er2, ft2, seed, bf16):
     m = g.hub_dst_meta
     hub = g.hub_dst
     num_dst = g.num_dst_nodes()
     f = h * d
     er_g = take_fill(er2, hub["hub_ids"])
     num_hub, den_hub, mraw_hub = AK.attn_fwd(
-        hub["full_fwd"], el2, er_g, ft2, h, d, slope, drop, seed, m.n_groups)
+        hub["full_fwd"], el2, er_g, ft2, h, d, slope, drop, seed, m.n_groups,
+        bf16)
 
     # Node-level shift: hub rows take K6's group max, tail rows the exact
     # per-destination ELL max, and the diagonal joins node-wise.
@@ -120,7 +128,7 @@ def _attn_forward(g: Graph, slope, drop, h, d, el2, er2, ft2, seed):
 
 
 def _attn_backward(g: Graph, slope, drop, h, d, el2, er2, ft2, seed, mz,
-                   den, out, ct):
+                   den, out, ct, bf16):
     m = g.hub_dst_meta
     hub = g.hub_dst
     num_src, num_dst = g.num_src_nodes(), g.num_dst_nodes()
@@ -132,20 +140,20 @@ def _attn_backward(g: Graph, slope, drop, h, d, el2, er2, ft2, seed, mz,
     lse = mz + torch.log(den)  # den is already floored at 1e-30
     ids = hub["hub_ids"]
     lay = hub["full_bwd"]
+    group_rows = (take_fill(er2, ids), take_fill(lse, ids),
+                  take_fill(rho, ids))
+    ft_ct = (ft2, take_fill(ct2, ids))
     gft_hub, gel_hub, gerp = AK.attn_bwd_src(
-        lay, el2, take_fill(er2, ids), take_fill(lse, ids),
-        take_fill(rho, ids), ft2, take_fill(ct2, ids), h, d, slope, drop,
-        seed, m.n_win)
+        lay, el2, *group_rows, *ft_ct, h, d, slope, drop, seed, m.n_win,
+        bf16)
     win_rows = hub["win_mask_full"].repeat_interleave(BLK)[:, None]
     gft_hub = torch.where(win_rows, gft_hub, torch.zeros_like(gft_hub))
     gel_hub = torch.where(win_rows, gel_hub, torch.zeros_like(gel_hub))
-    if "gperm" not in lay:
-        raise NotImplementedError(
-            "this hub layout has no gperm descriptors: its grad_er needs "
-            "_attn_bwd_kernel(to_src=False) (dgl1_tpu/ops/attention.py), "
-            "which is not ported; rebuild the graph with "
-            "dgl1_tpu_torch.graph")
-    ger_hub = AK.ger_reduce(lay, gerp, m.n_groups)
+    if "gperm" in lay:
+        ger_hub = AK.ger_reduce(lay, gerp, m.n_groups)
+    else:  # the reference's route for layouts without gperm descriptors
+        ger_hub = AK.attn_bwd_grp(hub["full_fwd"], el2, *group_rows, *ft_ct,
+                                  h, d, slope, drop, seed, m.n_groups, bf16)
 
     # Tail, compact slot space: one src-side and one dst-side gather.
     ts, td = hub["tail_src"], hub["tail_dst"]
@@ -201,23 +209,28 @@ def _attn_backward(g: Graph, slope, drop, h, d, el2, er2, ft2, seed, mz,
 
 class _GatAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, g, slope, drop, h, d, el2, er2, ft2, seed):
+    def forward(ctx, g, slope, drop, h, d, el2, er2, ft2, seed, bf16):
         out, mz, den = _attn_forward(g, slope, drop, h, d, el2, er2, ft2,
-                                     seed)
-        ctx.g, ctx.cfg = g, (slope, drop, h, d)
+                                     seed, bf16)
+        ctx.g, ctx.cfg = g, (slope, drop, h, d, bf16)
         ctx.save_for_backward(el2, er2, ft2, seed, mz, den, out)
         return out
 
     @staticmethod
     def backward(ctx, ct):
         el2, er2, ft2, seed, mz, den, out = ctx.saved_tensors
-        slope, drop, h, d = ctx.cfg
+        slope, drop, h, d, bf16 = ctx.cfg
         gel, ger, gft = _attn_backward(ctx.g, slope, drop, h, d, el2, er2,
-                                       ft2, seed, mz, den, out, ct)
-        return None, None, None, None, None, gel, ger, gft, None
+                                       ft2, seed, mz, den, out, ct, bf16)
+        return None, None, None, None, None, gel, ger, gft, None, None
 
 
-def can_fuse_attention(g: Graph) -> bool:
+def can_fuse_attention(g: Graph, head_dim=None) -> bool:
+    """Whether the fused attention takes ``g`` (a hub layout with the
+    compact tail ids) and, given ``head_dim``, heads that wide: at most
+    :data:`attn_kernels.MAX_HEAD_DIM` features."""
+    if head_dim is not None and head_dim > AK.MAX_HEAD_DIM:
+        return False
     return (g.hub_dst is not None and g.hub_dst_meta is not None
             and "t_eid_c" in g.hub_dst)
 
@@ -228,12 +241,12 @@ def gat_attention(g: Graph, el, er, ft, negative_slope: float = 0.2,
 
     el: (num_src, H) or (num_src, H, 1); er likewise over destinations;
     ft: (num_src, H, D). Returns (num_dst, H, D), or None where the
-    reference declines (no hub layout, H > 128, mismatched heads); callers
-    then take the composed path. ``attn_drop`` > 0 needs ``seed``, an
-    int32 (1,) tensor on ft's device: masks are hashed from it and the
-    edge ids inside the kernels.
+    reference declines (no hub layout, H > 128, mismatched heads) or D
+    passes ``MAX_HEAD_DIM``; callers then take another path.
+    ``attn_drop`` > 0 needs ``seed``, an int32 (1,) tensor on ft's device:
+    masks are hashed from it and the edge ids inside the kernels.
     """
-    if not can_fuse_attention(g):
+    if not can_fuse_attention(g, ft.shape[2]):
         return None
     if attn_drop > 0.0:
         if seed is None:
@@ -252,5 +265,6 @@ def gat_attention(g: Graph, el, er, ft, negative_slope: float = 0.2,
     seed = seed.to(device=ft.device, dtype=torch.int32).reshape(1)
     ft2 = ft.reshape(ft.shape[0], h * d).to(torch.float32).contiguous()
     out = _GatAttention.apply(g, float(negative_slope), float(attn_drop), h,
-                              d, el2, er2, ft2, seed)
+                              d, el2, er2, ft2, seed,
+                              get_matmul_precision() == "bf16")
     return out.reshape(g.num_dst_nodes(), h, d).to(ft.dtype)

@@ -14,7 +14,10 @@ the run of blocks of each dst block row. Transpose (over ``ab``,
 x[rbb_k*128 + i]`` over each src block column's run. ``x`` is unpadded
 (rows past its end count as zero) and the result has ``num_out`` rows and
 exactly ``x``'s columns, zero on rows no block reaches (the reference's
-mask pass). Counts are bf16 or float32; the sums are float32.
+mask pass). Counts are bf16 or float32; the sums are float32. ``bf16``
+(the bf16 matmul mode, ``ops/precision.py``) rounds A and x to bfloat16
+as the reference's ``dt`` cast does; such launches count under
+``"block_fwd.bf16"`` and ``"block_bwd.bf16"``.
 
 What bounds it, and what the kernel does about it: see the note at the
 top of ``csrc/bdense_kernels.cu`` (dense float32 FMA over the blocks, one
@@ -34,11 +37,12 @@ from __future__ import annotations
 import torch
 
 from dgl1_tpu_torch.bdense_format import BLK
+from dgl1_tpu_torch.ops.precision import round_bf16
 
 __all__ = ["block_mm", "block_mm_torch", "LAUNCHES", "reset_launches",
            "KERNELS"]
 
-KERNELS = ("block_fwd", "block_bwd")
+KERNELS = ("block_fwd", "block_bwd", "block_fwd.bf16", "block_bwd.bf16")
 LAUNCHES = {k: 0 for k in KERNELS}
 
 
@@ -47,10 +51,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def block_mm_torch(transpose: bool, a, ptr, in_blocks, x, num_out: int):
+def block_mm_torch(transpose: bool, a, ptr, in_blocks, x, num_out: int,
+                   bf16: bool = False):
     """K11's plain version, in ``x``'s dtype: one batched product of the
     blocks with their input blocks, summed into the output block rows by
-    ``index_add_``."""
+    ``index_add_``. ``bf16`` rounds A (exact up to 256) and x."""
+    if bf16:
+        x = round_bf16(x)
     n_out_b = ptr.shape[0] - 1
     n_blocks = int(ptr[-1])
     f = x.shape[1]
@@ -62,6 +69,8 @@ def block_mm_torch(transpose: bool, a, ptr, in_blocks, x, num_out: int):
         xp[: x.shape[0]] = x
         xb = xp.view(n_in_b, BLK, f).index_select(0, ib)
         a3 = a[: n_blocks * BLK].view(n_blocks, BLK, BLK).to(x.dtype)
+        if bf16:
+            a3 = round_bf16(a3)
         if transpose:
             a3 = a3.transpose(1, 2)
         ob = torch.repeat_interleave(
@@ -94,13 +103,14 @@ def _stripe(f: int) -> int:
     return 64 if -(-f // 64) * 64 == -(-f // 32) * 32 else 32
 
 
-def block_mm(transpose: bool, a, ptr, in_blocks, x, num_out: int):
+def block_mm(transpose: bool, a, ptr, in_blocks, x, num_out: int,
+             bf16: bool = False):
     """K11. ``a``: (K*128, 128) bf16/float32 count blocks in iteration
     order (``a`` forward, ``ab`` transpose); ``ptr``: (n_out_blocks+1,)
     int32 run pointers (``row_ptr`` / ``col_ptr``), n_out_blocks =
     ceil(num_out/128); ``in_blocks``: (K,) int32 input block of each block
     (``cb`` / ``rbb``); ``x``: (n_in, f) float32. Returns (num_out, f)
-    float32."""
+    float32. ``bf16``: see :func:`block_mm_torch`."""
     dev = x.device
     _check("x", x, (torch.float32,), 2, dev)
     _check("a", a, (torch.bfloat16, torch.float32), 2, dev)
@@ -113,7 +123,8 @@ def block_mm(transpose: bool, a, ptr, in_blocks, x, num_out: int):
         raise ValueError(f"ptr has {ptr.shape[0] - 1} runs for {num_out} "
                          f"output rows")
     if dev.type == "cpu":
-        return block_mm_torch(transpose, a, ptr, in_blocks, x, num_out)
+        return block_mm_torch(transpose, a, ptr, in_blocks, x, num_out,
+                              bf16)
     f = x.shape[1]
     out = torch.empty((num_out, f), dtype=torch.float32, device=dev)
     if f == 0 or num_out == 0:
@@ -123,10 +134,11 @@ def block_mm(transpose: bool, a, ptr, in_blocks, x, num_out: int):
             int(bool(transpose)), int(a.dtype == torch.bfloat16),
             a.data_ptr(), ptr.data_ptr(), in_blocks.data_ptr(),
             x.data_ptr(), x.shape[0], f, out.data_ptr(), num_out,
-            ptr.shape[0] - 1, _stripe(f),
+            ptr.shape[0] - 1, _stripe(f), int(bf16),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bdense kernel block_mm: CUDA error {rc} at "
                            f"launch")
-    LAUNCHES["block_bwd" if transpose else "block_fwd"] += 1
+    name = "block_bwd" if transpose else "block_fwd"
+    LAUNCHES[f"{name}.bf16" if bf16 else name] += 1
     return out

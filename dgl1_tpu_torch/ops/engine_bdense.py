@@ -9,7 +9,9 @@ order) plus the tail's reverse direction (``r_*``). The function keeps no
 tensor for its backward: grad_u of a sum depends on the cotangent alone.
 ``mean`` divides by the in-degree clipped at 1. Every other call
 declines (returns None) and dispatch falls through. Sums are float32;
-the reference's bf16 matmul mode is not ported.
+under the bf16 matmul mode (``ops/precision.py``, read when the forward
+runs and kept for its backward) K11 rounds A and x to bfloat16, as the
+reference passes ``dt`` to ``_block_call``; the ELL tail stays float32.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from dgl1_tpu_torch.graph import Graph
 from dgl1_tpu_torch.ops import bdense_kernels as K
 from dgl1_tpu_torch.ops.engine_ell import ell_reduce
+from dgl1_tpu_torch.ops.precision import get_matmul_precision
 
 __all__ = ["gspmm_bdense"]
 
@@ -28,7 +31,7 @@ def _tail(bd, prefix: str):
             "inv_perm": bd[f"{prefix}_inv"]}
 
 
-def _sum_dir(g: Graph, x2, transpose: bool):
+def _sum_dir(g: Graph, x2, transpose: bool, bf16: bool):
     """One direction of the sum: forward (by dst) or, transposed, by src."""
     m, bd = g.bdense_meta, g.bdense
     if transpose:
@@ -40,10 +43,10 @@ def _sum_dir(g: Graph, x2, transpose: bool):
     if m.n_blocks:
         if transpose:
             dense = K.block_mm(True, bd["ab"], bd["col_ptr"], bd["rbb"], x2,
-                               n_out)
+                               n_out, bf16)
         else:
             dense = K.block_mm(False, bd["a"], bd["row_ptr"], bd["cb"], x2,
-                               n_out)
+                               n_out, bf16)
         out = dense + out
     return out
 
@@ -54,11 +57,11 @@ class _BDenseSum(torch.autograd.Function):
     tail). Saves nothing."""
 
     @staticmethod
-    def forward(ctx, g, u):
-        ctx.g = g
+    def forward(ctx, g, u, bf16):
+        ctx.g, ctx.bf16 = g, bf16
         ctx.u_meta = (u.shape, u.dtype)
         u2 = u.reshape(u.shape[0], -1).to(torch.float32).contiguous()
-        out = _sum_dir(g, u2, transpose=False)
+        out = _sum_dir(g, u2, transpose=False, bf16=bf16)
         return out.to(u.dtype).reshape((g.num_dst_nodes(),)
                                        + tuple(u.shape[1:]))
 
@@ -66,8 +69,8 @@ class _BDenseSum(torch.autograd.Function):
     def backward(ctx, ct):
         shape, dtype = ctx.u_meta
         ct2 = ct.reshape(ct.shape[0], -1).to(torch.float32).contiguous()
-        gu = _sum_dir(ctx.g, ct2, transpose=True)
-        return None, gu.to(dtype).reshape(shape)
+        gu = _sum_dir(ctx.g, ct2, transpose=True, bf16=ctx.bf16)
+        return None, gu.to(dtype).reshape(shape), None
 
 
 def gspmm_bdense(g: Graph, op: str, reduce_op: str, u, e):
@@ -80,7 +83,7 @@ def gspmm_bdense(g: Graph, op: str, reduce_op: str, u, e):
         return None
     if u is None or not u.is_floating_point():
         return None
-    out = _BDenseSum.apply(g, u)
+    out = _BDenseSum.apply(g, u, get_matmul_precision() == "bf16")
     if reduce_op == "mean":
         deg = g.in_degrees().to(out.dtype).clamp(min=1.0)
         out = out / deg.reshape((out.shape[0],) + (1,) * (out.dim() - 1))

@@ -25,8 +25,11 @@ by the identity concat (hub-relabeled graphs), the descriptor expand (K3)
 or a fill-gather through ``t_inv``, under the reference's gates, and adds
 the extracted self-loop diagonal. The kernels live in ``hub_kernels.py``:
 on CPU tensors they run their plain torch versions. They compute in
-float32 with float32 accumulation; the reference's bf16 matmul mode
-(``set_matmul_precision``) is not ported.
+float32 with float32 accumulation; under the bf16 matmul mode
+(``ops/precision.py``, read when the forward runs and kept for its
+backward) K1, K2, K4 and K5 round what the reference casts to bf16, as
+the reference passes ``dt`` to them; K3, the ELL tail and the diagonal
+stay float32.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from dgl1_tpu_torch.hub_format import BLK, EXPAND_PACK, HubMeta
 from dgl1_tpu_torch.ops import hub_kernels as K
 from dgl1_tpu_torch.ops.engine_ell import ell_reduce, ell_stack
 from dgl1_tpu_torch.ops.engine_xla import take_fill
+from dgl1_tpu_torch.ops.precision import get_matmul_precision
 
 __all__ = ["gspmm_hub"]
 
@@ -79,7 +83,7 @@ def _ell_operands(op, x2, e2, he: int, rep: int):
     return x2.reshape(x2.shape[0], he, rep), e2.reshape(e2.shape[0], he, 1)
 
 
-def _hub_block(g: Graph, op, u2, e2, he: int, rep: int):
+def _hub_block(g: Graph, op, u2, e2, he: int, rep: int, bf16: bool):
     """The hub rows (n_groups*128, width) of the sum, in slot order."""
     m: HubMeta = g.hub_dst_meta
     hub = g.hub_dst
@@ -87,13 +91,13 @@ def _hub_block(g: Graph, op, u2, e2, he: int, rep: int):
         mode = "mul" if op == "mul" else "rhs"
         return K.chunk_weighted(mode, hub["full_fwd"], e2,
                                 u2 if op == "mul" else None, m.n_groups,
-                                he, rep)
+                                he, rep, bf16)
     parts = []
     if m.n_dense:
-        parts.append(K.dense_fwd(hub["dense_c"], u2))
+        parts.append(K.dense_fwd(hub["dense_c"], u2, bf16))
     if m.n_groups > m.n_dense:
         parts.append(K.chunk_sum(hub["part_fwd"], u2,
-                                 m.n_groups - m.n_dense))
+                                 m.n_groups - m.n_dense, bf16))
     return torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
 
 
@@ -115,14 +119,14 @@ def _diag_term(g: Graph, op, u2, e2, he: int, rep: int):
     return (u2[:nd].reshape(nd, he, rep) * ed[:, :, None]).reshape(nd, -1)
 
 
-def _hub_forward(g: Graph, op, u2, e2, he: int, rep: int):
+def _hub_forward(g: Graph, op, u2, e2, he: int, rep: int, bf16: bool):
     """(num_dst, width) sum over in-edges of copy_lhs (width f of u2),
     u_mul_e (f = he*rep) or copy_e (he); u2 (num_src, f) and e2 (E, he)
     are f32."""
     m: HubMeta = g.hub_dst_meta
     hub = g.hub_dst
     num_dst = g.num_dst_nodes()
-    hub_block = _hub_block(g, op, u2, e2, he, rep)
+    hub_block = _hub_block(g, op, u2, e2, he, rep, bf16)
     stacked = ell_stack(m.tail_meta_dst, hub["t_idx"], hub["t_eid"], op,
                         "sum", *_ell_operands(op, u2, e2, he, rep))
     stacked = stacked.reshape(stacked.shape[0], hub_block.shape[1])
@@ -142,17 +146,17 @@ def _hub_forward(g: Graph, op, u2, e2, he: int, rep: int):
     return out
 
 
-def _chunk_grad(g: Graph, ct_part):
+def _chunk_grad(g: Graph, ct_part, bf16: bool):
     """Chunked-tier grad_u over the window-major layout, rows of windows
     no chunk writes masked to zero (the reference's win_mask_part)."""
     m: HubMeta = g.hub_dst_meta
-    out = K.chunk_sum(g.hub_dst["part_bwd"], ct_part, m.n_win)
+    out = K.chunk_sum(g.hub_dst["part_bwd"], ct_part, m.n_win, bf16)
     win_rows = g.hub_dst["win_mask_part"].repeat_interleave(BLK)
     out = torch.where(win_rows[:, None], out, torch.zeros_like(out))
     return out[: g.num_src_nodes()]
 
 
-def _hub_backward(g: Graph, ct2):
+def _hub_backward(g: Graph, ct2, bf16: bool):
     """grad_u (num_src, f) of the copy_lhs sum for the cotangent ct2
     (num_dst, f)."""
     m: HubMeta = g.hub_dst_meta
@@ -165,17 +169,17 @@ def _hub_backward(g: Graph, ct2):
                          "copy_lhs", "sum", ct2, None)
         gu = K.dense_bwd_fused(hub["dense_c"], ct_hubs[:kd].contiguous(),
                                tail, hub["gb_starts"], hub["gb_desc"],
-                               num_src)
+                               num_src, bf16)
         if m.n_groups > m.n_dense:
-            gu = gu + _chunk_grad(g, ct_hubs[kd:].contiguous())
+            gu = gu + _chunk_grad(g, ct_hubs[kd:].contiguous(), bf16)
     else:
         gu = ell_reduce(m.tail_meta_src, _tail_src_ell(hub), "copy_lhs",
                         "sum", ct2, None, num_src)
         if m.n_dense:
             gu = gu + K.dense_bwd(hub["dense_c"], ct_hubs[:kd].contiguous(),
-                                  num_src)
+                                  num_src, bf16)
         if m.n_groups > m.n_dense:
-            gu = gu + _chunk_grad(g, ct_hubs[kd:].contiguous())
+            gu = gu + _chunk_grad(g, ct_hubs[kd:].contiguous(), bf16)
     if m.has_diag:
         gu[:num_dst] += hub["diag"][:, None] * ct2[:num_dst]  # gu is fresh
     return gu
@@ -186,7 +190,8 @@ def _tail_src_ell(hub):
             "inv_perm": hub["r_inv"]}
 
 
-def _weighted_grad_u(g: Graph, ct2, ct_hubs, e2, he: int, rep: int):
+def _weighted_grad_u(g: Graph, ct2, ct_hubs, e2, he: int, rep: int,
+                     bf16: bool):
     """grad_u (num_src, f) of u_mul_e: K2 mul over the window-major full
     layout, the tail's reverse reduce and the diagonal. Rows of windows no
     chunk writes stay zero (the kernel's output starts zeroed), so the
@@ -195,7 +200,7 @@ def _weighted_grad_u(g: Graph, ct2, ct_hubs, e2, he: int, rep: int):
     hub = g.hub_dst
     num_src, nd = g.num_src_nodes(), g.num_dst_nodes()
     gu = K.chunk_weighted("mul", hub["full_bwd"], e2, ct_hubs, m.n_win, he,
-                          rep)[:num_src]
+                          rep, bf16)[:num_src]
     tail = ell_reduce(m.tail_meta_src, _tail_src_ell(hub), "mul", "sum",
                       *_ell_operands("mul", ct2, e2, he, rep), num_src)
     gu = gu + tail.reshape(num_src, -1)
@@ -205,7 +210,8 @@ def _weighted_grad_u(g: Graph, ct2, ct_hubs, e2, he: int, rep: int):
     return gu
 
 
-def _weighted_grad_e(g: Graph, op, u2, ct2, ct_hubs, he: int, rep: int):
+def _weighted_grad_e(g: Graph, op, u2, ct2, ct_hubs, he: int, rep: int,
+                     bf16: bool):
     """grad_e (E, he) of u_mul_e or copy_e: K5 on the hub slots, gathered
     to edge order through ``edge_to_fslot`` (zero for tail, diagonal and
     padded edges), plus the tail's per-edge dot (mul) or gather (rhs) and
@@ -218,7 +224,7 @@ def _weighted_grad_e(g: Graph, op, u2, ct2, ct_hubs, he: int, rep: int):
     nd = g.num_dst_nodes()
     mul = op == "mul"
     ge_hub = K.edge_grad("mul" if mul else "rhs", hub["full_fwd"],
-                         u2 if mul else None, ct_hubs, he, rep)
+                         u2 if mul else None, ct_hubs, he, rep, bf16)
     if mul:
         us = take_fill(u2.reshape(-1, he, rep), hub["tail_src"])
         cs = take_fill(ct2.reshape(-1, he, rep), hub["tail_dst"])
@@ -245,11 +251,12 @@ def _flat32(x, cols):
 class _HubSum(torch.autograd.Function):
     """Sum over in-edges of copy_lhs, u_mul_e or copy_e on the hub layout,
     with the reference's backward (``_bwd``); gradients that
-    ``needs_input_grad`` does not ask for are skipped."""
+    ``needs_input_grad`` does not ask for are skipped. ``bf16``: the
+    matmul mode, for the forward and its backward."""
 
     @staticmethod
-    def forward(ctx, g, op, he, rep, u, e):
-        ctx.g, ctx.op, ctx.he, ctx.rep = g, op, he, rep
+    def forward(ctx, g, op, he, rep, u, e, bf16):
+        ctx.g, ctx.op, ctx.he, ctx.rep, ctx.bf16 = g, op, he, rep, bf16
         ctx.u_meta = None if u is None else (u.shape, u.dtype)
         ctx.e_meta = None if e is None else (e.shape, e.dtype)
         u2 = None if u is None else _flat32(u, -1)
@@ -260,32 +267,33 @@ class _HubSum(torch.autograd.Function):
             need_u, need_e = ctx.needs_input_grad[4], ctx.needs_input_grad[5]
             ctx.save_for_backward(u2 if need_e else None,
                                   e2 if need_u else None)
-        out = _hub_forward(g, op, u2, e2, he, rep)
+        out = _hub_forward(g, op, u2, e2, he, rep, bf16)
         x = e if op == "copy_rhs" else u
         return out.to(x.dtype).reshape((g.num_dst_nodes(),)
                                        + tuple(x.shape[1:]))
 
     @staticmethod
     def backward(ctx, ct):
-        g, op, he, rep = ctx.g, ctx.op, ctx.he, ctx.rep
+        g, op, he, rep, bf16 = ctx.g, ctx.op, ctx.he, ctx.rep, ctx.bf16
         u2, e2 = ctx.saved_tensors if op == "mul" else (None, None)
         ct2 = _flat32(ct, -1)
         need_u, need_e = ctx.needs_input_grad[4], ctx.needs_input_grad[5]
         gu = ge = None
         if op == "copy_lhs":
             if need_u:
-                gu = _hub_backward(g, ct2)
+                gu = _hub_backward(g, ct2, bf16)
         else:
             ct_hubs = take_fill(ct2, g.hub_dst["hub_ids"])
             if op == "mul" and need_u:
-                gu = _weighted_grad_u(g, ct2, ct_hubs, e2, he, rep)
+                gu = _weighted_grad_u(g, ct2, ct_hubs, e2, he, rep, bf16)
             if need_e:
-                ge = _weighted_grad_e(g, op, u2, ct2, ct_hubs, he, rep)
+                ge = _weighted_grad_e(g, op, u2, ct2, ct_hubs, he, rep,
+                                      bf16)
         if gu is not None:
             gu = gu.to(ctx.u_meta[1]).reshape(ctx.u_meta[0])
         if ge is not None:
             ge = ge.to(ctx.e_meta[1]).reshape(ctx.e_meta[0])
-        return None, None, None, None, gu, ge
+        return None, None, None, None, gu, ge, None
 
 
 def _weight_heads(u_feat, e_feat):
@@ -341,7 +349,8 @@ def gspmm_hub(g: Graph, op: str, reduce_op: str, u, e):
         # past e's end, so a short e would silently drop edges.
         raise ValueError(f"edge data has {e.shape[0]} rows, the graph "
                          f"{g.num_edges_padded()} edges")
-    out = _HubSum.apply(g, op, he, rep, u, e)
+    out = _HubSum.apply(g, op, he, rep, u, e,
+                        get_matmul_precision() == "bf16")
     if reduce_op == "mean":
         deg = g.in_degrees().to(out.dtype).clamp(min=1.0)
         out = out / deg.reshape((out.shape[0],) + (1,) * (out.dim() - 1))

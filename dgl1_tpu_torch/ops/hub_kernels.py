@@ -30,6 +30,11 @@ Head h covers features ``h*rep : (h+1)*rep``. K5 returns (n_slots, he),
 the transpose of the reference's ``(H_pad, n_slots)[:he]``, zero on
 padding slots. Their launches count per mode: ``chunk_mul``,
 ``chunk_rhs``, ``edge_grad_mul``, ``edge_grad_rhs``.
+
+Every kernel but K3 takes ``bf16`` (``ops/precision.py``'s bf16 mode): it
+rounds to bfloat16 exactly what the reference casts to ``dt`` (each plain
+version says what) and accumulates in float32; such launches count under
+``"<name>.bf16"``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from dgl1_tpu_torch.hub_format import BLK, DENSE_RB, EXPAND_PACK, EXPAND_RB
+from dgl1_tpu_torch.ops.precision import rounding as _rnd
 
 __all__ = ["dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
            "dense_bwd", "chunk_weighted", "edge_grad", "dense_fwd_torch",
@@ -44,9 +50,10 @@ __all__ = ["dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
            "dense_bwd_torch", "chunk_weighted_torch", "edge_grad_torch",
            "LAUNCHES", "reset_launches", "KERNELS"]
 
-KERNELS = ("dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
-           "dense_bwd", "chunk_mul", "chunk_rhs", "edge_grad_mul",
-           "edge_grad_rhs")
+# Every kernel but K3 has a bf16 instantiation, counted as "<name>.bf16".
+_BASE = ("dense_fwd", "chunk_sum", "expand", "dense_bwd_fused", "dense_bwd",
+         "chunk_mul", "chunk_rhs", "edge_grad_mul", "edge_grad_rhs")
+KERNELS = _BASE + tuple(f"{k}.bf16" for k in _BASE if k != "expand")
 _MODES = {"mul": 0, "rhs": 1}
 LAUNCHES = {k: 0 for k in KERNELS}
 
@@ -62,9 +69,11 @@ def reset_launches() -> None:
 # Plain torch versions
 # ----------------------------------------------------------------------
 
-def dense_fwd_torch(c, u):
-    """K1: (kd, f) = C[:n]^T @ U for U of n <= rows_pad rows."""
-    return c[: u.shape[0]].to(u.dtype).t() @ u
+def dense_fwd_torch(c, u, bf16: bool = False):
+    """K1: (kd, f) = C[:n]^T @ U for U of n <= rows_pad rows; ``bf16``
+    rounds C (counts above 256 lose bits, as in the reference) and U."""
+    r = _rnd(bf16)
+    return r(c[: u.shape[0]].to(u.dtype)).t() @ r(u)
 
 
 def _chunk_rows(lay):
@@ -77,23 +86,27 @@ def _chunk_rows(lay):
     return rows_in, rows_out, (a >= 0) & (b >= 0)
 
 
-def chunk_sum_torch(lay, inp, n_out_blocks: int):
+def chunk_sum_torch(lay, inp, n_out_blocks: int, bf16: bool = False):
     """K2, plain mode: out[out_id*128 + b] += in[in_id*128 + a] over the
-    real slots; (n_out_blocks*128, f), zero where no chunk writes."""
+    real slots; (n_out_blocks*128, f), zero where no chunk writes.
+    ``bf16`` rounds the gathered rows."""
     rows_in, rows_out, valid = _chunk_rows(lay)
     valid = valid & (rows_in < inp.shape[0])
     out = inp.new_zeros((n_out_blocks * BLK, inp.shape[1]))
     return out.index_add_(0, rows_out[valid],
-                          inp.index_select(0, rows_in[valid]))
+                          _rnd(bf16)(inp.index_select(0, rows_in[valid])))
 
 
 def chunk_weighted_torch(mode: str, lay, e2, inp, n_out_blocks: int,
-                         he: int, rep: int):
+                         he: int, rep: int, bf16: bool = False):
     """K2, mul and rhs modes: for every real slot whose edge id lies in
     ``e2`` (and, in mul mode, whose input row lies in ``inp``),
     ``out[out_id*128 + b] += msg`` with msg ``inp[in_id*128 + a] *
     e2[eid]`` spread per head (mul, width he*rep) or ``e2[eid]`` (rhs,
-    width he); (n_out_blocks*128, width), zero where no slot writes."""
+    width he); (n_out_blocks*128, width), zero where no slot writes.
+    ``bf16`` rounds the message before its sum and, in mul mode, the
+    gathered input row before the product (not the weight)."""
+    r = _rnd(bf16)
     rows_in, rows_out, valid = _chunk_rows(lay)
     eid = lay["eid"].long()
     valid = valid & (eid >= 0) & (eid < e2.shape[0])
@@ -101,24 +114,29 @@ def chunk_weighted_torch(mode: str, lay, e2, inp, n_out_blocks: int,
         valid = valid & (rows_in < inp.shape[0])
     msg = e2.index_select(0, eid[valid])
     if mode == "mul":
-        msg = (inp.index_select(0, rows_in[valid])
+        msg = (r(inp.index_select(0, rows_in[valid]))
                * msg.repeat_interleave(rep, dim=1))
     out = msg.new_zeros((n_out_blocks * BLK, msg.shape[1]))
-    return out.index_add_(0, rows_out[valid], msg)
+    return out.index_add_(0, rows_out[valid], r(msg))
 
 
-def edge_grad_torch(mode: str, lay, u, ct, he: int, rep: int):
+def edge_grad_torch(mode: str, lay, u, ct, he: int, rep: int,
+                    bf16: bool = False):
     """K5: per slot and head, ``sum over the head's features of
     u[in_id*128 + a] * ct[out_id*128 + b]`` (mul) or ``ct[out_id*128 +
-    b, h]`` (rhs); (n_slots, he), zero on padding slots."""
+    b, h]`` (rhs); (n_slots, he), zero on padding slots. ``bf16`` rounds
+    the gathered ct and u rows and, in mul mode, their product before the
+    head sum."""
+    r = _rnd(bf16)
     rows_in, rows_out, valid = _chunk_rows(lay)
     valid = valid & (rows_out < ct.shape[0])
     if mode == "mul":
         valid = valid & (rows_in < u.shape[0])
     idx = valid.nonzero().squeeze(1)
-    c = ct.index_select(0, rows_out[idx])
+    c = r(ct.index_select(0, rows_out[idx]))
     if mode == "mul":
-        c = (u.index_select(0, rows_in[idx]) * c).reshape(-1, he, rep).sum(2)
+        c = r(r(u.index_select(0, rows_in[idx])) * c).reshape(
+            -1, he, rep).sum(2)
     out = ct.new_zeros((lay["a"].shape[0], he))
     out[idx] = c[:, :he]
     return out
@@ -146,15 +164,18 @@ def expand_torch(merged, x_starts, x_desc, num_dst: int):
     return out
 
 
-def dense_bwd_torch(c, ct, n_out=None):
-    """K4b: (n_out, f) = C[:n_out] @ ct."""
+def dense_bwd_torch(c, ct, n_out=None, bf16: bool = False):
+    """K4b: (n_out, f) = C[:n_out] @ ct; ``bf16`` rounds C and ct."""
     n_out = c.shape[0] if n_out is None else n_out
-    return c[:n_out].to(ct.dtype) @ ct
+    r = _rnd(bf16)
+    return r(c[:n_out].to(ct.dtype)) @ r(ct)
 
 
-def dense_bwd_fused_torch(c, ct, tail, gb_starts, gb_desc, n_out=None):
-    """K4a: K4b plus tail[t] on every row a descriptor names."""
-    out = dense_bwd_torch(c, ct, n_out)
+def dense_bwd_fused_torch(c, ct, tail, gb_starts, gb_desc, n_out=None,
+                          bf16: bool = False):
+    """K4a: K4b plus tail[t] on every row a descriptor names (the tail is
+    not rounded in bf16 mode)."""
+    out = dense_bwd_torch(c, ct, n_out, bf16)
     n_rb = c.shape[0] // DENSE_RB
     rows, src = _decode(gb_starts[: n_rb + 1], gb_desc, DENSE_RB)
     keep = rows < out.shape[0]
@@ -196,22 +217,23 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _done(name, rc):
+def _done(name, rc, bf16=False):
     if rc != 0:
         raise RuntimeError(f"hub kernel {name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}.bf16" if bf16 else name] += 1
 
 
-def dense_fwd(c, u):
+def dense_fwd(c, u, bf16: bool = False):
     """K1. ``c``: (rows_pad, kd) int8/bf16/f32 counts; ``u``: (n, f) f32,
-    n <= rows_pad. Returns (kd, f) f32."""
+    n <= rows_pad. Returns (kd, f) f32. ``bf16``: see
+    :func:`dense_fwd_torch`."""
     dev = u.device
     _check("c", c, tuple(_C_DTYPES), 2, dev)
     _f32("u", u, dev)
     if u.shape[0] > c.shape[0]:
         raise ValueError("u has more rows than the count matrix")
     if dev.type == "cpu":
-        return dense_fwd_torch(c, u)
+        return dense_fwd_torch(c, u, bf16)
     kd, f = c.shape[1], u.shape[1]
     out = torch.zeros((kd, f), dtype=torch.float32, device=dev)
     if u.shape[0] == 0 or kd == 0 or f == 0:
@@ -219,14 +241,15 @@ def dense_fwd(c, u):
     with torch.cuda.device(dev):
         rc = _lib().hub_dense_fwd(c.data_ptr(), _C_DTYPES[c.dtype],
                                   u.data_ptr(), out.data_ptr(), u.shape[0],
-                                  kd, f, _stream(dev))
-    _done("dense_fwd", rc)
+                                  kd, f, int(bf16), _stream(dev))
+    _done("dense_fwd", rc, bf16)
     return out
 
 
-def chunk_sum(lay, inp, n_out_blocks: int):
+def chunk_sum(lay, inp, n_out_blocks: int, bf16: bool = False):
     """K2, plain mode. ``lay``: chunk layout (a, b, in_id, out_id int32);
-    ``inp``: (n_in, f) f32. Returns (n_out_blocks*128, f) f32."""
+    ``inp``: (n_in, f) f32. Returns (n_out_blocks*128, f) f32. ``bf16``:
+    see :func:`chunk_sum_torch`."""
     dev = inp.device
     _f32("inp", inp, dev)
     for k in ("a", "b", "in_id", "out_id"):
@@ -236,7 +259,7 @@ def chunk_sum(lay, inp, n_out_blocks: int):
             n_chunks and lay["a"].shape[0] % n_chunks):
         raise ValueError("chunk layout slots do not match its chunk count")
     if dev.type == "cpu":
-        return chunk_sum_torch(lay, inp, n_out_blocks)
+        return chunk_sum_torch(lay, inp, n_out_blocks, bf16)
     f = inp.shape[1]
     out = torch.zeros((n_out_blocks * BLK, f), dtype=torch.float32,
                       device=dev)
@@ -248,8 +271,8 @@ def chunk_sum(lay, inp, n_out_blocks: int):
             lay["a"].data_ptr(), lay["b"].data_ptr(),
             lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,
             chunk, inp.data_ptr(), inp.shape[0], out.data_ptr(),
-            out.shape[0], f, _stream(dev))
-    _done("chunk_sum", rc)
+            out.shape[0], f, int(bf16), _stream(dev))
+    _done("chunk_sum", rc, bf16)
     return out
 
 
@@ -288,12 +311,13 @@ def _dense_bwd_args(c, ct, n_out):
     return dev, n_out
 
 
-def dense_bwd(c, ct, n_out=None):
+def dense_bwd(c, ct, n_out=None, bf16: bool = False):
     """K4b. ``c``: (rows_pad, kd); ``ct``: (kd, f) f32. Returns
-    (n_out, f) f32, n_out defaulting to rows_pad."""
+    (n_out, f) f32, n_out defaulting to rows_pad. ``bf16``: see
+    :func:`dense_bwd_torch`."""
     dev, n_out = _dense_bwd_args(c, ct, n_out)
     if dev.type == "cpu":
-        return dense_bwd_torch(c, ct, n_out)
+        return dense_bwd_torch(c, ct, n_out, bf16)
     f = ct.shape[1]
     out = torch.empty((n_out, f), dtype=torch.float32, device=dev)
     if n_out == 0 or f == 0:
@@ -302,14 +326,16 @@ def dense_bwd(c, ct, n_out=None):
         rc = _lib().hub_dense_bwd(c.data_ptr(), _C_DTYPES[c.dtype],
                                   ct.data_ptr(), out.data_ptr(), n_out,
                                   c.shape[1], f, None, None, None,
-                                  _stream(dev))
-    _done("dense_bwd", rc)
+                                  int(bf16), _stream(dev))
+    _done("dense_bwd", rc, bf16)
     return out
 
 
-def dense_bwd_fused(c, ct, tail, gb_starts, gb_desc, n_out=None):
+def dense_bwd_fused(c, ct, tail, gb_starts, gb_desc, n_out=None,
+                    bf16: bool = False):
     """K4a. As :func:`dense_bwd`, plus the compact tail-src stack rows
-    ``tail`` (m, f) f32 added through the packed descriptors."""
+    ``tail`` (m, f) f32 added through the packed descriptors (not rounded
+    in bf16 mode)."""
     dev, n_out = _dense_bwd_args(c, ct, n_out)
     _f32("tail", tail, dev)
     _int32("gb_starts", gb_starts, dev)
@@ -319,7 +345,8 @@ def dense_bwd_fused(c, ct, tail, gb_starts, gb_desc, n_out=None):
     if gb_starts.shape[0] < c.shape[0] // DENSE_RB + 1:
         raise ValueError("gb_starts is shorter than the row blocks")
     if dev.type == "cpu":
-        return dense_bwd_fused_torch(c, ct, tail, gb_starts, gb_desc, n_out)
+        return dense_bwd_fused_torch(c, ct, tail, gb_starts, gb_desc, n_out,
+                                     bf16)
     f = ct.shape[1]
     out = torch.empty((n_out, f), dtype=torch.float32, device=dev)
     if n_out == 0 or f == 0:
@@ -329,8 +356,8 @@ def dense_bwd_fused(c, ct, tail, gb_starts, gb_desc, n_out=None):
                                   ct.data_ptr(), out.data_ptr(), n_out,
                                   c.shape[1], f, gb_starts.data_ptr(),
                                   gb_desc.data_ptr(), tail.data_ptr(),
-                                  _stream(dev))
-    _done("dense_bwd_fused", rc)
+                                  int(bf16), _stream(dev))
+    _done("dense_bwd_fused", rc, bf16)
     return out
 
 
@@ -353,12 +380,13 @@ def _mode(mode):
 
 
 def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
-                   rep: int):
+                   rep: int, bf16: bool = False):
     """K2, mul and rhs modes. ``lay``: chunk layout (a, b, eid, in_id,
     out_id int32); ``e2``: (E, he) f32 per-edge operand; ``inp``:
     (n_in, he*rep) f32 in mul mode, None in rhs mode. Returns
     (n_out_blocks*128, he*rep) f32 (mul) or (n_out_blocks*128, he) f32
-    (rhs). Slots whose edge id falls outside ``e2`` are skipped."""
+    (rhs). Slots whose edge id falls outside ``e2`` are skipped.
+    ``bf16``: see :func:`chunk_weighted_torch`."""
     _mode(mode)
     dev = e2.device
     _f32("e2", e2, dev)
@@ -373,7 +401,7 @@ def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
     n_chunks, chunk = _chunk_layout(lay, dev)
     if dev.type == "cpu":
         return chunk_weighted_torch(mode, lay, e2, inp, n_out_blocks, he,
-                                    rep)
+                                    rep, bf16)
     width = he * rep if mode == "mul" else he
     out = torch.zeros((n_out_blocks * BLK, width), dtype=torch.float32,
                       device=dev)
@@ -387,17 +415,18 @@ def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
             e2.shape[0], he, rep,
             inp.data_ptr() if mode == "mul" else None,
             inp.shape[0] if mode == "mul" else 0, out.data_ptr(),
-            out.shape[0], width, _stream(dev))
-    _done(f"chunk_{mode}", rc)
+            out.shape[0], width, int(bf16), _stream(dev))
+    _done(f"chunk_{mode}", rc, bf16)
     return out
 
 
-def edge_grad(mode: str, lay, u, ct, he: int, rep: int):
+def edge_grad(mode: str, lay, u, ct, he: int, rep: int,
+              bf16: bool = False):
     """K5. ``lay``: the forward chunk layout (a, b, in_id, out_id int32);
     ``u``: (n_src, he*rep) f32 in mul mode, None in rhs mode; ``ct``: the
     compact hub cotangent rows (n_groups*128, he*rep) f32 (mul) or
     (n_groups*128, he) f32 (rhs). Returns (n_slots, he) f32, zero on
-    padding slots."""
+    padding slots. ``bf16``: see :func:`edge_grad_torch`."""
     _mode(mode)
     dev = ct.device
     _f32("ct", ct, dev)
@@ -412,7 +441,7 @@ def edge_grad(mode: str, lay, u, ct, he: int, rep: int):
             raise ValueError("ct width must be he in rhs mode")
     n_chunks, chunk = _chunk_layout(lay, dev, ("a", "b", "in_id", "out_id"))
     if dev.type == "cpu":
-        return edge_grad_torch(mode, lay, u, ct, he, rep)
+        return edge_grad_torch(mode, lay, u, ct, he, rep, bf16)
     # mul adds into its output; rhs writes every element.
     alloc = torch.zeros if mode == "mul" else torch.empty
     out = alloc((lay["a"].shape[0], he), dtype=torch.float32, device=dev)
@@ -424,6 +453,6 @@ def edge_grad(mode: str, lay, u, ct, he: int, rep: int):
             lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,
             chunk, u.data_ptr() if mode == "mul" else None,
             u.shape[0] if mode == "mul" else 0, ct.data_ptr(), ct.shape[0],
-            out.data_ptr(), he, rep, _stream(dev))
-    _done(f"edge_grad_{mode}", rc)
+            out.data_ptr(), he, rep, int(bf16), _stream(dev))
+    _done(f"edge_grad_{mode}", rc, bf16)
     return out

@@ -106,8 +106,8 @@ def rcm_order(g: Graph) -> np.ndarray:
     return out[::-1].copy()
 
 
-def reorder_graph(g: Graph, node_permute_algo: str = "hub",
-                  edge_permute_algo: str = "src",
+def reorder_graph(g: Graph, node_permute_algo: str = "metis",
+                  edge_permute_algo: str = "src", store_ids: bool = True,
                   permute_config: Optional[dict] = None,
                   formats=None) -> Graph:
     """Relabel nodes and sort edges for locality (``dgl.reorder_graph``).
@@ -122,8 +122,9 @@ def reorder_graph(g: Graph, node_permute_algo: str = "hub",
     ``'src'`` or ``'dst'`` (stable sort by the new id) or ``'custom'``
     (``permute_config={'edges_perm': ...}``). ``formats`` goes to
     :func:`graph`: ``('coo', 'csr', 'csc', 'ell', 'bdense')`` builds the
-    block-dense layout on the reordered graph. The old ids land in
-    ``ndata['_ID']`` and ``edata['_ID']``."""
+    block-dense layout on the reordered graph. With ``store_ids`` the old
+    ids land in ``ndata['_ID']`` and ``edata['_ID']``. The signature is
+    the reference's, so its default, ``'metis'``, raises here too."""
     cfg = permute_config or {}
     n = g.num_nodes()
     if node_permute_algo == "rcm":
@@ -181,10 +182,11 @@ def reorder_graph(g: Graph, node_permute_algo: str = "hub",
             stacklevel=2)
     new.ndata.update(_slice_rows(g.ndata, perm))
     new.edata.update(_slice_rows(g.edata, eperm))
-    new.ndata["_ID"] = torch.as_tensor(perm.astype(np.int32),
-                                       device=new.device)
-    new.edata["_ID"] = torch.as_tensor(eperm.astype(np.int32),
-                                       device=new.device)
+    if store_ids:
+        new.ndata["_ID"] = torch.as_tensor(perm.astype(np.int32),
+                                           device=new.device)
+        new.edata["_ID"] = torch.as_tensor(eperm.astype(np.int32),
+                                           device=new.device)
     return new
 
 

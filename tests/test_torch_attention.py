@@ -14,6 +14,8 @@
   reference's and against the port's composed path (g-SDDMM ->
   edge_softmax -> u_mul_e on the oracle engine): rtol/atol 1e-4 on
   values, 2e-3 on grads (tests/test_attention.py's tolerances).
+* Heads wider than ``MAX_HEAD_DIM`` decline the fused path, and
+  ``edge_softmax`` masks padded edges as the reference does.
 """
 
 import numpy as np
@@ -23,8 +25,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import dgl1_tpu as jdgl
 import dgl1_tpu_torch as tdgl
+from dgl1_tpu.dataloading import NeighborSampler as JSampler
 from dgl1_tpu.ops import attention as ref
+from dgl1_tpu_torch.dataloading import NeighborSampler
 from dgl1_tpu_torch.hub_format import BLK
 from dgl1_tpu_torch.ops import attention as port
 from dgl1_tpu_torch.ops import attn_kernels as AK
@@ -297,3 +302,85 @@ def test_wrappers_check_inputs_and_count_only_launches():
                     None, m.n_groups)
     with pytest.raises(ValueError):
         AK.ger_reduce(hub["full_bwd"], torch.zeros((5, h)), m.n_groups)
+
+
+def test_wide_heads_decline_the_fused_path(monkeypatch):
+    """Heads wider than MAX_HEAD_DIM features decline the fused attention
+    (the kernels stage a head in one shared-memory stripe), so GATConv
+    takes the composed path, which computes the same function."""
+    _, gt = make("mixed", self_loops=True)
+    d = AK.MAX_HEAD_DIM + 1
+    assert port.can_fuse_attention(gt) and port.can_fuse_attention(gt, d - 1)
+    assert not port.can_fuse_attention(gt, d)
+    x = torch.zeros((gt.num_nodes(), 1, d))
+    assert port.gat_attention(gt, x[..., 0], x[..., 0], x) is None
+    conv = tdgl.nn.GATConv(6, d, num_heads=1, device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+    feat = t(np.random.default_rng(6).normal(
+        size=(gt.num_nodes(), 6)).astype(np.float32))
+    calls = []
+    monkeypatch.setattr(port, "_attn_forward",
+                        lambda *a: calls.append(1) or None)
+    with engines("xla", "xla"):
+        got = conv(gt, feat)
+        g_view = gt.to("cpu")
+        g_view.hub_dst = g_view.hub_dst_meta = None
+        want = conv(g_view, feat)
+    assert not calls and got.shape == (gt.num_nodes(), 1, d)
+    np.testing.assert_array_equal(got.detach().numpy(),
+                                  want.detach().numpy())
+
+
+def _edge_softmax_both(gj, gt, logits, ct):
+    """Values and grads of sum(edge_softmax * ct) in both packages."""
+    def jf(x):
+        return jnp.sum(jdgl.ops.edge_softmax(gj, x) * ct)
+
+    jval = np.asarray(jdgl.ops.edge_softmax(gj, jnp.asarray(logits)))
+    jgrad = np.asarray(jax.grad(jf)(jnp.asarray(logits)))
+    x = t(logits).requires_grad_(True)
+    val = tdgl.ops.edge_softmax(gt, x)
+    (val * t(ct)).sum().backward()
+    return jval, jgrad, val.detach().numpy(), x.grad.numpy()
+
+
+@pytest.mark.parametrize("graph", ["padded", "block"])
+def test_edge_softmax_masks_padded_edges(graph):
+    """Padded edges take -inf in the max and 0 in exp, as in the
+    reference: values and grads at the full padded length within 1e-6, on
+    ``graph(pad_edges_to=400)`` (N=50, E=300 uniform, 2 heads) and on a
+    sampled block; with padded logits of 100 the values still match (the
+    port gave inf before) and the port's grads there are 0, where the
+    reference's masked exp of an overflowed value gives NaN."""
+    rng = np.random.default_rng(0)
+    if graph == "padded":
+        src, dst = rng.integers(0, 50, 300), rng.integers(0, 50, 300)
+        gj = jdgl.graph((src, dst), num_nodes=50, pad_edges_to=400)
+        gt = tdgl.graph((src, dst), num_nodes=50, pad_edges_to=400,
+                        device="cpu")
+    else:
+        src, dst = rng.integers(0, 500, 4000), rng.integers(0, 500, 4000)
+        seeds = np.arange(0, 500, 7)
+        _, _, (gj,) = JSampler([5]).sample_blocks(
+            jdgl.graph((src, dst), num_nodes=500, formats=("csc",)), seeds,
+            rng=np.random.default_rng(1), num_real=60)
+        _, _, (gt,) = NeighborSampler([5]).sample_blocks(
+            tdgl.graph((src, dst), num_nodes=500, formats=("csc",),
+                       device="cpu"), seeds, rng=np.random.default_rng(1),
+            num_real=60)
+    mask = gt.edge_mask.numpy()
+    e_pad = gt.num_edges_padded()
+    assert e_pad > gt.num_edges() == int(mask.sum())
+    ct = rng.normal(size=(e_pad, 2)).astype(np.float32)
+    logits = rng.normal(size=(e_pad, 2)).astype(np.float32)
+    jval, jgrad, val, grad = _edge_softmax_both(gj, gt, logits, ct)
+    np.testing.assert_allclose(val, jval, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(grad, jgrad, rtol=0, atol=1e-6)
+    assert not val[~mask].any()
+
+    logits[~mask] = 100.0
+    jval, jgrad, val, grad = _edge_softmax_both(gj, gt, logits, ct)
+    assert np.isfinite(val).all() and np.isfinite(grad).all()
+    np.testing.assert_allclose(val, jval, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(grad[mask], jgrad[mask], rtol=0, atol=1e-6)
+    assert not val[~mask].any() and not grad[~mask].any()

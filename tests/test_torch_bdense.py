@@ -437,3 +437,25 @@ def test_gcn_adam_steps_on_bdense_graph_match_reference():
     for k, v in tmodel.state_dict().items():
         np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=0,
                                    atol=1e-5, err_msg=k)
+
+
+def test_reorder_graph_takes_the_reference_signature():
+    """The reference's parameters in its order and with its defaults
+    (``'metis'`` first, which raises until the partitioner is ported);
+    ``store_ids=False`` leaves no ``_ID``."""
+    import inspect
+
+    sig_t = inspect.signature(tdgl.reorder_graph)
+    sig_j = inspect.signature(jdgl.reorder_graph)
+    assert [(p.name, p.default) for p in sig_t.parameters.values()] == [
+        (p.name, p.default) for p in sig_j.parameters.values()]
+    src, dst = band_edges()
+    g = tdgl.graph((src, dst), num_nodes=N, device="cpu")
+    with pytest.raises(NotImplementedError, match="metis"):
+        tdgl.reorder_graph(g)
+    kept = tdgl.reorder_graph(g, "rcm")
+    bare = tdgl.reorder_graph(g, "rcm", "src", False)
+    assert "_ID" in kept.ndata and "_ID" in kept.edata
+    assert "_ID" not in bare.ndata and "_ID" not in bare.edata
+    np.testing.assert_array_equal(bare.src.numpy(), kept.src.numpy())
+    np.testing.assert_array_equal(bare.dst.numpy(), kept.dst.numpy())

@@ -33,7 +33,7 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "ops.tile_kernels", "models.graphsage", "ops.segment",
             "models.rgcn", "nn.conv", "transform", "data.synthetic",
             "bdense_format", "ops.bdense_kernels", "ops.engine_bdense",
-            "ops.battention")
+            "ops.battention", "ops.precision", "tools.bench_models")
 
 
 def test_port_imports_no_jax_and_no_reference():
