@@ -22,9 +22,11 @@
 //
 // The TPU kernels gather and scatter through one-hot matmuls because the
 // TPU has no atomics and a slow gather unit. Here gathers are direct row
-// loads and scatters are float atomics. Arithmetic is float32 with float32
-// accumulation (the counts in C are small exact integers). Every kernel but
-// K3 has a BF16 instantiation, the reference's bf16 matmul mode
+// loads (K2 mul's from a window staged in shared memory), scatters are
+// float atomics, and K4 walks only the nonzero counts of its count
+// matrix instead of multiplying the dense tiles. Arithmetic is float32
+// with float32 accumulation (the counts in C are small exact integers).
+// Every kernel but K3 has a BF16 instantiation, the reference's bf16 mode
 // (dgl1_tpu/ops/precision.py): it rounds to bfloat16 (nearest even, in
 // registers, rnd() below) exactly the values the reference casts to dt
 // before a matmul, and nothing else; inputs, outputs and sums stay float32.
@@ -45,7 +47,7 @@ constexpr int DENSE_RB = 1024;         // rows per fused-backward descriptor blo
 constexpr int EXPAND_RB = 512;         // rows per expand descriptor block
 constexpr int EXPAND_PACK = 1 << 20;   // descriptor p = local_row * PACK + row
 
-// Dense-tier GEMM tiling: a 256-thread block owns a BM x BN output tile;
+// K1's GEMM tiling: a 256-thread block owns a BM x BN output tile;
 // thread (ty, tx) of a 16 x 16 grid holds rows ty + 16 i and columns
 // tx + 16 j (i, j < 8), so shared-memory reads are broadcasts or
 // consecutive and global stores of a half-warp are consecutive.
@@ -58,6 +60,26 @@ constexpr int NT = 256;
 template <bool BF16>
 __device__ __forceinline__ float rnd(float x) {
   return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+// cp.async: copy 4 or 16 bytes from global to shared memory without
+// passing through registers; commit_group closes a batch and wait_all
+// waits for every batch this thread committed.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 template <typename T>
@@ -167,83 +189,200 @@ __global__ void __launch_bounds__(NT)
 // compact tail-src stack row tail[t] on every row r that a descriptor
 // p = (r % DENSE_RB) * EXPAND_PACK + t names.
 //
-// Replaces _dense_bwd_fused_kernel and _dense_bwd_kernel. The product is
-// a tall matrix times a small one (Kd = 128 at arxiv scale) and every
-// output tile is independent, so there is no reduction across blocks.
-// The fused form reads the block's descriptors into shared memory first
-// (tail_row[local row] = stack row) and adds the tail rows in registers
-// before the single store. The reference applies descriptors one after
-// another; here each row takes at most one, which holds because the
-// layout emits one descriptor per source row (hub_format.py: gvalid is
-// a set of distinct rows; tests/test_torch_layout.py checks it).
+// Replaces _dense_bwd_fused_kernel (engine_hub.py:215) and
+// _dense_bwd_kernel (:270), which run the product as dense 128 x 128 MXU
+// tiles. On this card a dense tile GEMM is the wrong shape for it: at
+// arxiv scale C is (169,984 x 128) int8 with 4.6% nonzeros (about six a
+// row) and f is 40, so a register-tiled GEMM spends 70x the operations
+// the nonzeros need, most of them on zero counts and padded columns.
 //
-// BF16 rounds C and ct as they are staged (not the tail rows).
+// Design: a row-sparse walk. A 256-thread block owns rows_per_block rows
+// (a DENSE_RB descriptor block or a power-of-two part of one, chosen by
+// the launcher to fill the SMs) and a stripe of SW = 32 * NC columns. It
+// copies the stripe of ct (kd x SW floats) into shared memory once with
+// cp.async, and meanwhile maps its descriptors to tail_row[local row]
+// (the layout emits at most one descriptor per source row: gvalid is a
+// set of distinct rows, tests/test_torch_layout.py checks it). A warp
+// then takes its rows RW_ROWS at a time, with the next group's counts
+// and this group's tail values in flight while it walks: lane l loads
+// counts 4l .. 4l + 3 of each 128-column segment of a row (4, 8 or 16
+// bytes for int8, bf16 or float C). A ballot for each of a lane's four
+// counts finds the lanes where it is nonzero; the warp walks them,
+// broadcasts each count with __shfl_sync, and every lane adds count *
+// ct_s[k][col] for its NC columns (col = lane + 32 j: conflict-free
+// shared reads, coalesced stores), a few instructions a nonzero. The
+// tail row is added in registers and the row is stored once. No atomics
+// and a fixed order of summation, so results are the same on every run.
+// Rows without a nonzero count store zeros (or their tail row).
 //
-// Bound on the H100: the same count matrix and flops as K1, with an
-// output of n_out x f floats written once instead of U read once.
+// BF16 rounds ct as it is staged and C as it is read (not the tail rows).
+//
+// Bound on the H100: bytes. At arxiv layer 2 C (21.8 MB), the output
+// (27.1 MB) and the tail rows read once: about 49 MB, 15 us at 3.35
+// TB/s; the nonzeros need 80 MFLOP. The walk runs at about 4x that bound
+// (PERF.md, section 6): each row is a chain of ballots, shuffles, shared loads
+// and FMAs whose latency five blocks an SM do not hide.
 // ---------------------------------------------------------------------
-template <typename CT, bool FUSED, bool BF16>
-__global__ void __launch_bounds__(NT)
+constexpr int RW_THREADS = 256;  // threads of a row-walk block (8 warps)
+constexpr int RW_ROWS = 4;       // rows whose counts a warp loads together
+constexpr int RW_MIN_ROWS = 128; // smallest rows_per_block
+constexpr unsigned FULL = 0xffffffffu;
+
+// Four consecutive counts of a row as one lane loads them: sizeof(CT)
+// 32-bit words (int8: 4 bytes, bf16: 8, float: 16).
+template <typename CT>
+struct Quad {
+  static constexpr int W = sizeof(CT);
+  uint32_t v[W];
+};
+
+template <typename CT>
+__device__ __forceinline__ Quad<CT> load_quad(const CT* p, bool live) {
+  Quad<CT> q;
+  if constexpr (Quad<CT>::W == 1) {
+    q.v[0] = live ? __ldg(reinterpret_cast<const unsigned int*>(p)) : 0u;
+  } else if constexpr (Quad<CT>::W == 2) {
+    const uint2 x = live ? __ldg(reinterpret_cast<const uint2*>(p))
+                         : make_uint2(0u, 0u);
+    q.v[0] = x.x;
+    q.v[1] = x.y;
+  } else {
+    const uint4 x = live ? __ldg(reinterpret_cast<const uint4*>(p))
+                         : make_uint4(0u, 0u, 0u, 0u);
+    q.v[0] = x.x;
+    q.v[1] = x.y;
+    q.v[2] = x.z;
+    q.v[3] = x.w;
+  }
+  return q;
+}
+
+// Count j (0..3) of a quad as float.
+template <typename CT>
+__device__ __forceinline__ float quad_count(const uint32_t (&v)[sizeof(CT)],
+                                            int j) {
+  if constexpr (sizeof(CT) == 1) {
+    return static_cast<float>(static_cast<int8_t>((v[0] >> (8 * j)) & 0xff));
+  } else if constexpr (sizeof(CT) == 2) {
+    return __uint_as_float(((v[j / 2] >> (16 * (j % 2))) & 0xffffu) << 16);
+  } else {
+    return __uint_as_float(v[j]);
+  }
+}
+
+// acc[q] += sum over the nonzero counts of one 128-column segment (from
+// column k0) of count[k] * ct_s[k][lane + 32 q]: for j = 0 .. 3 a ballot
+// finds the lanes whose count 4 lane + j is nonzero, and the warp walks
+// them in ascending lane order, each count broadcast with __shfl_sync.
+template <typename CT, int NC, bool BF16>
+__device__ __forceinline__ void walk_segment(const Quad<CT>& quad, int k0,
+                                             const float* __restrict__ ct_s,
+                                             int lane, float (&acc)[NC]) {
+  constexpr int SW = 32 * NC;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float cnt = rnd<BF16>(quad_count<CT>(quad.v, j));
+    unsigned lanes = __ballot_sync(FULL, cnt != 0.f);
+    while (lanes) {  // the same in every lane
+      const int src = __ffs(lanes) - 1;
+      lanes &= lanes - 1;
+      const float cv = __shfl_sync(FULL, cnt, src);
+      const float* row =
+          ct_s + static_cast<size_t>(k0 + 4 * src + j) * SW + lane;
+#pragma unroll
+      for (int q = 0; q < NC; ++q) acc[q] = fmaf(cv, row[32 * q], acc[q]);
+    }
+  }
+}
+
+template <typename CT, int NC, bool FUSED, bool BF16>
+__global__ void __launch_bounds__(RW_THREADS)
     dense_bwd_kernel(const CT* __restrict__ c, const float* __restrict__ ct,
                      float* __restrict__ out, int n_out, int kd, int f,
-                     const int* __restrict__ starts,
+                     int rows_per_block, const int* __restrict__ starts,
                      const int* __restrict__ desc,
                      const float* __restrict__ tail) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-  __shared__ int tail_row[BM];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  if (FUSED) {
-    for (int i = tid; i < BM; i += NT) tail_row[i] = -1;
+  constexpr int SW = 32 * NC;
+  extern __shared__ __align__(16) float ct_s[];  // [kd][SW], then tail_row
+  int* tail_row = reinterpret_cast<int*>(ct_s + static_cast<size_t>(kd) * SW);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int m0 = blockIdx.x * rows_per_block;
+  const int f0 = blockIdx.y * SW;
+  const int width = min(SW, f - f0);
+  for (int i = tid; i < kd * SW; i += RW_THREADS) {
+    const int k = i / SW, col = i % SW;
+    const float* src = ct + static_cast<size_t>(k) * f + f0 + col;
+    if (col >= width) {
+      ct_s[i] = 0.f;
+    } else if (BF16) {
+      ct_s[i] = rnd<true>(__ldg(src));
+    } else {
+      cp_async4(ct_s + i, src);
+    }
+  }
+  cp_async_commit();
+  if (FUSED) {  // overlaps the copy of ct
+    for (int i = tid; i < rows_per_block; i += RW_THREADS) tail_row[i] = -1;
     __syncthreads();
     const int rb = m0 / DENSE_RB;
     const int s = starts[rb], e = starts[rb + 1];
-    for (int i = s + tid; i < e; i += NT) {
+    for (int i = s + tid; i < e; i += RW_THREADS) {
       const int p = desc[i];
       const int lr = rb * DENSE_RB + p / EXPAND_PACK - m0;
-      if (lr >= 0 && lr < BM) tail_row[lr] = p % EXPAND_PACK;
+      if (lr >= 0 && lr < rows_per_block) tail_row[lr] = p % EXPAND_PACK;
     }
-    __syncthreads();
   }
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
 
-  for (int k0 = 0; k0 < kd; k0 += BK) {
-    for (int i = tid; i < BK * BM; i += NT) {
-      const int mm = i / BK, kk = i % BK;
-      const int m = m0 + mm, k = k0 + kk;
-      As[kk][mm] = (m < n_out && k < kd)
-                       ? rnd<BF16>(to_f32(c[static_cast<size_t>(m) * kd + k]))
-                       : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int kk = i / BN, nn = i % BN;
-      const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < kd && n < f)
-                       ? rnd<BF16>(ct[static_cast<size_t>(k) * f + n])
-                       : 0.f;
-    }
-    __syncthreads();
-    tile_fma(As, Bs, acc, ty, tx);
-    __syncthreads();
-  }
+  const int rows_per_warp = rows_per_block / (RW_THREADS / 32);
+  const int r_begin = m0 + warp * rows_per_warp;
+  const int r_end = min(n_out, r_begin + rows_per_warp);
+  const int n_seg = (kd + BLK - 1) / BLK;
+  const int k_lane = 4 * lane;
+  // Segment 0 of the counts of RW_ROWS rows, the next group's loaded
+  // while this group is walked.
+  auto load_group = [&](int r0, Quad<CT> (&q)[RW_ROWS]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= n_out) continue;
-    const int t = FUSED ? tail_row[ty + 16 * i] : -1;
+    for (int u = 0; u < RW_ROWS; ++u)
+      q[u] = load_quad(c + static_cast<size_t>(r0 + u) * kd + k_lane,
+                       r0 + u < r_end && k_lane < kd);
+  };
+  Quad<CT> cur[RW_ROWS], nxt[RW_ROWS];
+  load_group(r_begin, cur);
+  for (int r0 = r_begin; r0 < r_end; r0 += RW_ROWS) {
+    load_group(r0 + RW_ROWS, nxt);
+    // The rows' tail values, loaded before the walk.
+    float tv[RW_ROWS][NC];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= f) continue;
-      float v = acc[i][j];
-      if (t >= 0) v += tail[static_cast<size_t>(t) * f + n];
-      out[static_cast<size_t>(m) * f + n] = v;
+    for (int u = 0; u < RW_ROWS; ++u) {
+      const int t = FUSED && r0 + u < r_end ? tail_row[r0 + u - m0] : -1;
+      const float* tr = tail + static_cast<size_t>(t < 0 ? 0 : t) * f + f0;
+#pragma unroll
+      for (int q = 0; q < NC; ++q)
+        tv[u][q] = t >= 0 && lane + 32 * q < width ? tr[lane + 32 * q] : 0.f;
     }
+#pragma unroll
+    for (int u = 0; u < RW_ROWS; ++u) {
+      const int r = r0 + u;
+      if (r >= r_end) break;  // the same in every lane
+      float acc[NC];
+#pragma unroll
+      for (int q = 0; q < NC; ++q) acc[q] = 0.f;
+      walk_segment<CT, NC, BF16>(cur[u], 0, ct_s, lane, acc);
+      for (int sg = 1; sg < n_seg; ++sg) {
+        const int k = sg * BLK + k_lane;
+        walk_segment<CT, NC, BF16>(
+            load_quad(c + static_cast<size_t>(r) * kd + k, k < kd),
+            sg * BLK, ct_s, lane, acc);
+      }
+      float* o = out + static_cast<size_t>(r) * f + f0;
+#pragma unroll
+      for (int q = 0; q < NC; ++q)
+        if (lane + 32 * q < width) o[lane + 32 * q] = acc[q] + tv[u][q];
+    }
+#pragma unroll
+    for (int u = 0; u < RW_ROWS; ++u) cur[u] = nxt[u];
   }
 }
 
@@ -345,92 +484,451 @@ __global__ void __launch_bounds__(NT)
 // with msg[j] = in[in_id[t] * 128 + a[s], j] * e2[eid[s], j / rep] (mul,
 // j < f = he * rep) or e2[eid[s], j] (rhs, j < f = he).
 //
-// Replaces _chunk_kernel in mul and rhs modes, whose message is the
-// one-hot gather S_a IN times W^T R: the chunk's gathered weights,
-// spread over their features by a 0/1 matmul. Here each slot reads its
-// weight from e2 through eid, so no per-slot weight tensor exists. On
-// the graphs these modes serve, every hub edge (dense groups included)
-// goes through the full_fwd layout, so millions of slots add into the
-// same 128 output rows: one global atomic per slot and feature, as
-// chunk_sum_kernel does, would serialise on 128 x f addresses. Instead a
-// block owns a run of consecutive chunks and a stripe of WSTRIPE
-// features, keeps the 128 x WSTRIPE partial of its current output block
-// in shared memory (shared-memory atomics), and flushes it with one
-// global atomic add per nonzero element when the output block changes or
-// the run ends. Chunks are sorted by output block, so a run sees few
-// changes. A warp owns a contiguous eighth of each chunk and takes 32
-// slots at a time: each lane reads one slot's a, b and eid, a ballot
-// keeps the real ones, and the warp walks those WUNROLL at a time, lanes
-// over the stripe's columns, loading all the rows before adding any. The
-// slots of a (group, window) run come in destination order, so runs of
-// slots share b: the warp sums a run in registers and adds it to shared
-// memory once, when b changes and at the end of the chunk. Padding
-// slots' rows and weights are never read.
+// Replaces _chunk_kernel (engine_hub.py:68) in mul and rhs modes, whose
+// message is the one-hot gather S_a IN times W^T R: the chunk's gathered
+// weights, spread over their features by a 0/1 matmul. Here each slot
+// reads its weight from e2 through eid, so no per-slot weight tensor
+// exists. On the graphs these modes serve, every hub edge (dense groups
+// included) goes through the full_fwd layout, so millions of slots add
+// into the same 128 output rows: one global atomic per slot and feature
+// would serialise on 128 x f addresses. Both kernels below therefore let
+// a block own a run of consecutive chunks and a feature stripe, keep the
+// 128-row partial of its current output block in shared memory and flush
+// it with one global atomic add per nonzero element when the output block
+// changes or the run ends. Chunks are sorted by output block, so a run
+// sees few changes. A warp sums each run of slots with equal b in
+// registers and adds it to the partial once. Padding slots' rows and
+// weights are never read.
 //
 // BF16 rounds the message before its sum and, in mul mode, the input
 // value before the product (the weight is not rounded).
-//
-// Bound on the H100: bytes. Each real slot needs its message row (rhs:
-// he floats of e2; mul: f floats of in, which the 128-row window keeps
-// in L2, and its weights) and the layout, each read once; the output is
-// written once. The flush costs 128 x WSTRIPE atomics per run and
-// output block.
 // ---------------------------------------------------------------------
-constexpr int WSTRIPE = 64;   // feature columns per block of weighted K2
-constexpr int WUNROLL = 4;    // slots whose rows a warp loads together
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int CW_UNROLL = 4;   // slots whose rows a warp reads together
 
-__device__ __forceinline__ void flush_partial(float (&acc)[BLK][WSTRIPE],
-                                              int blk, int f0, int width,
+// Threads tid, tid + n, ... add the 128 x sw partial of output block blk
+// to the output (its nonzero elements, one atomic each) and zero it.
+__device__ __forceinline__ void flush_partial(float* __restrict__ acc,
+                                              int sw, int blk, int f0,
+                                              int width,
                                               float* __restrict__ out,
-                                              int n_out_rows, int f) {
-  for (int i = threadIdx.x; i < BLK * WSTRIPE; i += NT) {
-    const int r = i / WSTRIPE, c = i % WSTRIPE;
-    const float v = acc[r][c];
+                                              int n_out_rows, int f, int tid,
+                                              int n) {
+  for (int i = tid; i < BLK * sw; i += n) {
+    const float v = acc[i];
     if (v != 0.f) {
+      const int r = i / sw, c = i % sw;
       const int64_t row = static_cast<int64_t>(blk) * BLK + r;
       if (c < width && row < n_out_rows) atomicAdd(out + row * f + f0 + c, v);
-      acc[r][c] = 0.f;
+      acc[i] = 0.f;
     }
   }
 }
 
-template <bool MUL, bool BF16>
+// ---------------------------------------------------------------------
+// K2 mul: chunk_mul_kernel<VEC, ONE_HEAD, BF16>.
+//
+// Bound on the H100: bytes. At the weighted GCN's layer 1 (arxiv
+// full_fwd, F = 128, one weight per edge: 5,292 chunks, 4.39 M real
+// slots, 1,323 input windows, one output block) the layout (65 MB), the
+// weights the slots gather and the input windows (87 MB) read once and
+// the output written once: 0.0506 ms at 3.35 TB/s.
+//
+// The first design read every slot's input row and weight from global
+// memory inside the walk (three dependent L2 round trips per 32 slots,
+// each window row fetched about 26 times) and added each run of equal b
+// to the shared partial with float atomics, which shared memory runs as
+// compare-and-swap loops. This one walks each chunk from shared memory
+// without atomics, and splits a block's warps into producers and
+// consumers. In step i the CM_PRODUCERS producer warps stage chunk i:
+//   - its layout, loaded into registers during step i - 1 (16-byte loads);
+//   - its real slots, counting-sorted by b (a warp-aggregated histogram, a
+//     scan, a scatter), each as (b << 16 | a * SW, the weight e2[eid], or
+//     for several heads the edge id, whose head weights the walk then
+//     reads from e2), into one of two buffers;
+//   - its 128-row input window at the block's stripe of SW = 32 * VEC
+//     columns, only when in_id changes, into one of two buffers, by
+//     16-byte cp.async copies (the input's rows are ld floats apart, ld a
+//     multiple of 4; the wrapper pads a narrower input).
+// Meanwhile the CM_CONSUMERS consumer warps walk chunk i - 1: warp w takes
+// the w-th share of the sorted real slots, a run of equal b at a time
+// (its end found by a ballot), lanes over the stripe's columns (VEC
+// contiguous ones a lane: one vector load a slot) summing in registers.
+// Sorted, every b is one run of the chunk, so a run that starts and ends
+// in a warp's share is added to the shared partial by that warp alone (a
+// plain read-modify-write). A run that crosses into later warps' shares
+// is added by the warp where it starts, after the consumers' barrier,
+// together with the later warps' pieces (each left in bnd[warp]). One
+// block barrier ends each step. The partial is flushed to the output with
+// one global atomic add per nonzero element when out_id changes or the
+// run of chunks ends. F = 128 takes one 128-column stripe (two 64 KB
+// windows, the 64 KB partial, 16 KB of sorted slots); F <= 64 one of 64
+// or 32.
+//
+// What holds it back on the H100 (PERF.md, section 6): each real slot reads
+// its 512-byte window row from shared memory, and the producers' random
+// weight gathers (one 4-byte load a slot, no locality in eid) share the
+// SM's load/store pipeline with those reads.
+// ---------------------------------------------------------------------
+constexpr int CM_THREADS = 512;    // threads of a chunk_mul block
+constexpr int CM_PRODUCERS = 4;    // its warps that stage chunks
+constexpr int CM_CONSUMERS = CM_THREADS / 32 - CM_PRODUCERS;  // walkers
+constexpr int CM_CTHREADS = 32 * CM_CONSUMERS;
+constexpr int CM_PTHREADS = 32 * CM_PRODUCERS;
+constexpr int CM_SLOTS = 8;        // slots a producer thread stages
+constexpr int CM_MAX_CHUNK = CM_PTHREADS * CM_SLOTS;  // 1024
+
+// The block's barrier, reached from the producers' and the consumers'
+// code, and the named barriers of each.
+__device__ __forceinline__ void bar_all() {
+  asm volatile("bar.sync 0, %0;" ::"n"(CM_THREADS) : "memory");
+}
+__device__ __forceinline__ void bar_consumers() {
+  asm volatile("bar.sync 1, %0;" ::"n"(CM_CTHREADS) : "memory");
+}
+__device__ __forceinline__ void bar_producers() {
+  asm volatile("bar.sync 2, %0;" ::"n"(CM_PTHREADS) : "memory");
+}
+
+// VEC consecutive floats from or to shared memory in one access.
+template <int VEC>
+__device__ __forceinline__ void ld_vec(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (VEC == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void add_vec(float* p, const float (&v)[VEC]) {
+  float a[VEC];
+  ld_vec<VEC>(p, a);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) a[i] += v[i];
+  st_vec<VEC>(p, a);
+}
+
+template <int VEC, bool ONE_HEAD, bool BF16>
+__global__ void __launch_bounds__(CM_THREADS, 1)
+    chunk_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                     const int* __restrict__ eid,
+                     const int* __restrict__ in_id,
+                     const int* __restrict__ out_id, int n_chunks, int chunk,
+                     int run, const float* __restrict__ e2, int n_e, int he,
+                     int rep, const float* __restrict__ in, int n_in_rows,
+                     int ld, float* __restrict__ out, int n_out_rows, int f) {
+  constexpr int SW = 32 * VEC;
+  constexpr int NW = CM_CONSUMERS;
+  extern __shared__ __align__(16) float smem[];
+  float* win = smem;                    // [2][BLK][SW] input windows
+  float* acc = win + 2 * BLK * SW;      // [BLK][SW] output partial
+  float* bnd = acc + BLK * SW;          // [NW][SW] pieces of crossing runs
+  int2* sp = reinterpret_cast<int2*>(bnd + NW * SW);  // [2][chunk] slots
+  int* cnt = reinterpret_cast<int*>(sp + 2 * chunk);  // [BLK] per b
+  int* first = cnt + BLK;               // [BLK] b's first sorted slot
+  int* meta = first + BLK;              // [2][3] real slots, window, out
+  int* pass = meta + 6;                 // [NW] share is one crossing run
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int c_begin = blockIdx.x * run;
+  const int c_end = min(n_chunks, c_begin + run);
+  const int f0 = blockIdx.y * SW;
+  const int width = min(SW, f - f0);
+  if (c_begin >= c_end) return;
+
+  // Columns past the stripe's width are never copied: zero them once.
+  for (int i = tid; i < BLK * SW; i += CM_THREADS) acc[i] = 0.f;
+  for (int i = tid; i < 2 * BLK * SW; i += CM_THREADS)
+    if (i % SW >= width) win[i] = 0.f;
+  for (int i = tid; i < BLK; i += CM_THREADS) cnt[i] = 0;
+  __syncthreads();
+
+  // Step i stages chunk i (producers, i < c_end) while chunk i - 1 is
+  // walked (consumers, i > c_begin); one block barrier ends each step.
+  if (warp >= CM_CONSUMERS) {
+    // ---- producers: chunk i's layout (loaded during step i - 1) ->
+    // sorted real slots with their weights, and its window.
+    const int ptid = tid - CM_CTHREADS, pwarp = warp - CM_CONSUMERS;
+    int ra[CM_SLOTS], rb[CM_SLOTS], re[CM_SLOTS], r_in = 0, r_out = 0;
+    // Thread ptid takes slots 4 ptid + 4 CM_PTHREADS g + j (j < 4): four
+    // consecutive slots in one 16-byte load (chunk % 4 == 0).
+    auto load = [&](int t) {  // chunk t's layout into registers
+      const int64_t s0 = static_cast<int64_t>(t) * chunk;
+      r_in = in_id[t];
+      r_out = out_id[t];
+#pragma unroll
+      for (int g = 0; g < CM_SLOTS / 4; ++g) {
+        const int s = 4 * (ptid + g * CM_PTHREADS);
+        int4 qa = make_int4(-1, -1, -1, -1), qb = qa, qe = qa;
+        if (s < chunk) {
+          qa = *reinterpret_cast<const int4*>(a + s0 + s);
+          qb = *reinterpret_cast<const int4*>(b + s0 + s);
+          qe = *reinterpret_cast<const int4*>(eid + s0 + s);
+        }
+        ra[4 * g] = qa.x, ra[4 * g + 1] = qa.y, ra[4 * g + 2] = qa.z,
+        ra[4 * g + 3] = qa.w;
+        rb[4 * g] = qb.x, rb[4 * g + 1] = qb.y, rb[4 * g + 2] = qb.z,
+        rb[4 * g + 3] = qb.w;
+        re[4 * g] = qe.x, re[4 * g + 1] = qe.y, re[4 * g + 2] = qe.z,
+        re[4 * g + 3] = qe.w;
+      }
+    };
+    load(c_begin);
+    int wb = 1, prev_in = -1;
+    for (int i = c_begin; i <= c_end; ++i) {
+      if (i < c_end) {
+        const int buf = (i - c_begin) & 1;
+        const int64_t base_in = static_cast<int64_t>(r_in) * BLK;
+        int ca[CM_SLOTS], cb[CM_SLOTS], cw[CM_SLOTS];
+#pragma unroll
+        for (int k = 0; k < CM_SLOTS; ++k) {  // real slots; weight gathers
+          const bool ok = rb[k] >= 0 && ra[k] >= 0 && re[k] >= 0 &&
+                          re[k] < n_e && base_in + ra[k] < n_in_rows;
+          ca[k] = ra[k];
+          cb[k] = ok ? rb[k] : -1;
+          cw[k] = !ok ? 0
+                      : ONE_HEAD ? __float_as_int(__ldg(e2 + re[k])) : re[k];
+        }
+        const int c_in = r_in, c_out = r_out;
+        if (i + 1 < c_end) load(i + 1);  // lands during this step
+        if (c_in != prev_in) {  // the window, into the buffer not in use
+          wb ^= 1;
+          const int64_t base = static_cast<int64_t>(c_in) * BLK;
+          float* dst = win + wb * BLK * SW;
+          for (int j = ptid; j < BLK * SW / 4; j += CM_PTHREADS) {
+            const int r = j / (SW / 4), c = 4 * (j % (SW / 4));
+            if (c < width && base + r < n_in_rows)
+              cp_async16(dst + r * SW + c, in + (base + r) * ld + f0 + c);
+          }
+          cp_async_commit();
+          prev_in = c_in;
+        }
+        // Counting sort by b: a warp-aggregated histogram, a scan, a
+        // scatter.
+        int pos[CM_SLOTS];
+#pragma unroll
+        for (int k = 0; k < CM_SLOTS; ++k) {
+          const unsigned peers = __match_any_sync(FULL, cb[k]);
+          const int leader = __ffs(peers) - 1;
+          int base = 0;  // one atomic for each run of equal b in the warp
+          if (cb[k] >= 0 && lane == leader)
+            base = atomicAdd(cnt + cb[k], __popc(peers));
+          base = __shfl_sync(FULL, base, leader);
+          pos[k] = base + __popc(peers & ((1u << lane) - 1));
+        }
+        bar_producers();
+        if (pwarp == 0) {  // exclusive scan of the 128 counts, four a lane
+          int c[4], sum = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            c[j] = cnt[4 * lane + j];
+            sum += c[j];
+          }
+          int incl = sum;
+#pragma unroll
+          for (int d = 1; d < 32; d *= 2) {
+            const int y = __shfl_up_sync(FULL, incl, d);
+            if (lane >= d) incl += y;
+          }
+          int run_sum = incl - sum;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            first[4 * lane + j] = run_sum;
+            run_sum += c[j];
+            cnt[4 * lane + j] = 0;
+          }
+          if (lane == 31) {
+            meta[3 * buf] = incl;
+            meta[3 * buf + 1] = wb;
+            meta[3 * buf + 2] = c_out;
+          }
+        }
+        bar_producers();
+        int2* dst = sp + buf * chunk;
+#pragma unroll
+        for (int k = 0; k < CM_SLOTS; ++k) {
+          if (cb[k] >= 0)
+            dst[first[cb[k]] + pos[k]] =
+                make_int2((cb[k] << 16) | (ca[k] * SW), cw[k]);
+        }
+        cp_async_wait_all();
+      }
+      bar_all();
+    }
+    return;
+  }
+
+  // ---- consumers: walk chunk i - 1, warp w over the w-th share of its
+  // sorted real slots, a run of equal b at a time.
+  const int col0 = lane * VEC;  // the lane's first column in the stripe
+  int head[VEC];  // the heads of the lane's columns (several heads only)
+#pragma unroll
+  for (int v = 0; v < VEC; ++v)
+    head[v] = col0 + v < width ? (f0 + col0 + v) / rep : 0;
+  // sum += the message of slot q (the window row a, times the weight).
+  auto add_slot = [&](int2 q, const float* wn, float (&sum)[VEC]) {
+    float x[VEC];
+    ld_vec<VEC>(wn + (q.x & 0xffff), x);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const float wt =
+          ONE_HEAD ? __int_as_float(q.y)
+                   : (col0 + v < width
+                          ? __ldg(e2 + static_cast<int64_t>(q.y) * he + head[v])
+                          : 0.f);
+      sum[v] = BF16 ? sum[v] + rnd<true>(rnd<true>(x[v]) * wt)
+                    : fmaf(x[v], wt, sum[v]);
+    }
+  };
+  int cur = -1;
+  bar_all();  // step c_begin: chunk c_begin is staged
+  for (int i = c_begin + 1; i <= c_end; ++i) {
+    const int buf = (i - 1 - c_begin) & 1;
+    const int n = meta[3 * buf], wbuf = meta[3 * buf + 1];
+    const int out_t = meta[3 * buf + 2];
+    if (out_t != cur) {  // the same for every consumer
+      if (cur >= 0) {
+        flush_partial(acc, SW, cur, f0, width, out, n_out_rows, f, tid,
+                      CM_CTHREADS);
+        bar_consumers();
+      }
+      cur = out_t;
+    }
+    const int2* sq = sp + buf * chunk;
+    const float* wn = win + wbuf * BLK * SW + col0;
+    float* piece = bnd + warp * SW + col0;
+    const int r0 = static_cast<int>(static_cast<int64_t>(n) * warp / NW);
+    const int r1 = static_cast<int>(static_cast<int64_t>(n) * (warp + 1) / NW);
+    // The first run continues the previous warp's last one.
+    const bool cont_in =
+        r0 > 0 && r0 < r1 && (sq[r0 - 1].x >> 16) == (sq[r0].x >> 16);
+    int pass_w = r0 == r1;  // an empty share passes a crossing run on
+    float own[VEC];         // a run that crosses into later warps' shares
+    int own_b = -1;
+    for (int s = r0; s < r1;) {
+      const int rb = sq[s].x >> 16;
+      int e = s + 1;  // the run's end: the first slot with another b
+      for (;;) {
+        const int j = e + lane;
+        const unsigned ends =
+            __ballot_sync(FULL, j >= r1 || (sq[j].x >> 16) != rb);
+        if (ends) {
+          e += __ffs(ends) - 1;
+          break;
+        }
+        e += 32;
+      }
+      float sum[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) sum[v] = 0.f;
+      int j = s;
+      for (; j + CW_UNROLL <= e; j += CW_UNROLL) {
+        int2 q[CW_UNROLL];
+#pragma unroll
+        for (int u = 0; u < CW_UNROLL; ++u) q[u] = sq[j + u];
+#pragma unroll
+        for (int u = 0; u < CW_UNROLL; ++u) add_slot(q[u], wn, sum);
+      }
+      for (; j < e; ++j) add_slot(sq[j], wn, sum);
+      const bool cont_out = e == r1 && r1 < n && (sq[r1].x >> 16) == rb;
+      if (s == r0 && cont_in) {
+        st_vec<VEC>(piece, sum);
+        pass_w = cont_out;
+      } else if (cont_out) {
+        own_b = rb;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) own[v] = sum[v];
+      } else {
+        add_vec<VEC>(acc + rb * SW + col0, sum);
+      }
+      s = e;
+    }
+    if (r0 == r1) {
+      float zero[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) zero[v] = 0.f;
+      st_vec<VEC>(piece, zero);
+    }
+    if (lane == 0) pass[warp] = pass_w;
+    bar_consumers();
+    if (own_b >= 0) {  // the crossing run and the later warps' pieces
+      for (int k = warp + 1; k < NW; ++k) {
+        float p[VEC];
+        ld_vec<VEC>(bnd + k * SW + col0, p);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) own[v] += p[v];
+        if (!pass[k]) break;
+      }
+      add_vec<VEC>(acc + own_b * SW + col0, own);
+    }
+    bar_all();
+  }
+  bar_consumers();
+  flush_partial(acc, SW, cur, f0, width, out, n_out_rows, f, tid,
+                CM_CTHREADS);
+}
+
+// ---------------------------------------------------------------------
+// K2 rhs: chunk_rhs_kernel<BF16>, the first weighted design, kept for
+// rhs mode, which it serves at 28x the speed of its library call.
+//
+// A block owns a run of chunks and a stripe of RSTRIPE features; a warp
+// owns a contiguous eighth of each chunk and takes 32 slots at a time:
+// each lane reads one slot's a, b and eid, a ballot keeps the real ones,
+// and the warp walks those CW_UNROLL at a time, lanes over the stripe's
+// columns, loading every message before adding any; each run of equal b
+// goes to the shared partial with one shared atomic a column.
+//
+// Bound on the H100: bytes. Each real slot needs its he floats of e2 and
+// the layout, each read once; the output is written once. The flush
+// costs 128 x RSTRIPE atomics per run and output block.
+// ---------------------------------------------------------------------
+constexpr int RSTRIPE = 64;   // feature columns per block of K2 rhs
+
+template <bool BF16>
 __global__ void __launch_bounds__(NT)
-    chunk_weighted_kernel(const int* __restrict__ a,
-                          const int* __restrict__ b,
-                          const int* __restrict__ eid,
-                          const int* __restrict__ in_id,
-                          const int* __restrict__ out_id, int n_chunks,
-                          int chunk, int run, const float* __restrict__ e2,
-                          int n_e, int he, int rep,
-                          const float* __restrict__ in, int n_in_rows,
-                          float* __restrict__ out, int n_out_rows, int f) {
-  __shared__ float acc[BLK][WSTRIPE];
+    chunk_rhs_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                     const int* __restrict__ eid,
+                     const int* __restrict__ out_id, int n_chunks,
+                     int chunk, int run, const float* __restrict__ e2,
+                     int n_e, int he, float* __restrict__ out,
+                     int n_out_rows, int f) {
+  __shared__ float acc[BLK * RSTRIPE];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c_begin = blockIdx.x * run;
   const int c_end = min(n_chunks, c_begin + run);
-  const int f0 = blockIdx.y * WSTRIPE;
-  const int width = min(WSTRIPE, f - f0);
-  // The lane's two columns and, in mul mode, their heads.
+  const int f0 = blockIdx.y * RSTRIPE;
+  const int width = min(RSTRIPE, f - f0);
   const bool has0 = lane < width, has1 = lane + 32 < width;
-  const int head0 = (f0 + lane) / rep, head1 = (f0 + lane + 32) / rep;
   const int per_warp = (chunk + NT / 32 - 1) / (NT / 32);
   const int w_begin = warp * per_warp;
   const int w_end = min(chunk, w_begin + per_warp);
-  for (int i = threadIdx.x; i < BLK * WSTRIPE; i += NT)
-    acc[i / WSTRIPE][i % WSTRIPE] = 0.f;
+  for (int i = threadIdx.x; i < BLK * RSTRIPE; i += NT) acc[i] = 0.f;
   __syncthreads();
   int cur = out_id[c_begin];
   for (int t = c_begin; t < c_end; ++t) {
     const int o = out_id[t];
     if (o != cur) {  // the same for every thread of the block
       __syncthreads();
-      flush_partial(acc, cur, f0, width, out, n_out_rows, f);
+      flush_partial(acc, RSTRIPE, cur, f0, width, out, n_out_rows, f,
+                    threadIdx.x, NT);
       __syncthreads();
       cur = o;
     }
-    const int64_t base_in = static_cast<int64_t>(in_id[t]) * BLK;
     const int64_t slot0 = static_cast<int64_t>(t) * chunk;
     int run_b = -1;  // the warp's running output row and its partial sums
     float run0 = 0.f, run1 = 0.f;
@@ -442,56 +940,41 @@ __global__ void __launch_bounds__(NT)
         bs = b[slot0 + s];
         es = eid[slot0 + s];
       }
-      bool ok = as >= 0 && bs >= 0 && es >= 0 && es < n_e;
-      if (MUL) ok = ok && base_in + as < n_in_rows;
-      float w1 = 0.f;  // mul with one head: the slot's weight
-      if (MUL && he == 1 && ok) w1 = e2[es];
+      const bool ok = as >= 0 && bs >= 0 && es >= 0 && es < n_e;
       unsigned todo = __ballot_sync(FULL, ok);
       while (todo) {  // todo is the same in every lane
-        int ks[WUNROLL];
+        int ks[CW_UNROLL];
         int n = 0;
 #pragma unroll
-        for (int i = 0; i < WUNROLL; ++i) {
+        for (int i = 0; i < CW_UNROLL; ++i) {
           ks[i] = todo ? __ffs(todo) - 1 : 0;
           if (todo) {
             todo &= todo - 1;
             ++n;
           }
         }
-        float v[WUNROLL][2];
-        int rows[WUNROLL];
+        float v[CW_UNROLL][2];
+        int rows[CW_UNROLL];
 #pragma unroll
-        for (int i = 0; i < WUNROLL; ++i) {
-          const int ak = __shfl_sync(FULL, as, ks[i]);
+        for (int i = 0; i < CW_UNROLL; ++i) {
           const int bk = __shfl_sync(FULL, bs, ks[i]);
           const int ek = __shfl_sync(FULL, es, ks[i]);
-          const float wk = __shfl_sync(FULL, w1, ks[i]);
           rows[i] = bk;
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int col = f0 + lane + 32 * j;
-            float x = 0.f;
-            if (i < n && (j == 0 ? has0 : has1)) {
-              if (MUL) {
-                const float wt =
-                    he == 1 ? wk
-                            : e2[static_cast<int64_t>(ek) * he +
-                                 (j == 0 ? head0 : head1)];
-                x = rnd<BF16>(rnd<BF16>(in[(base_in + ak) * f + col]) * wt);
-              } else {
-                x = rnd<BF16>(e2[static_cast<int64_t>(ek) * he + col]);
-              }
-            }
-            v[i][j] = x;
+            v[i][j] = i < n && (j == 0 ? has0 : has1)
+                          ? rnd<BF16>(e2[static_cast<int64_t>(ek) * he + col])
+                          : 0.f;
           }
         }
 #pragma unroll
-        for (int i = 0; i < WUNROLL; ++i) {
+        for (int i = 0; i < CW_UNROLL; ++i) {
           if (i >= n) break;
           if (rows[i] != run_b) {  // the same in every lane
             if (run_b >= 0) {
-              if (has0) atomicAdd(&acc[run_b][lane], run0);
-              if (has1) atomicAdd(&acc[run_b][lane + 32], run1);
+              if (has0) atomicAdd(&acc[run_b * RSTRIPE + lane], run0);
+              if (has1) atomicAdd(&acc[run_b * RSTRIPE + lane + 32], run1);
             }
             run_b = rows[i];
             run0 = run1 = 0.f;
@@ -502,12 +985,13 @@ __global__ void __launch_bounds__(NT)
       }
     }
     if (run_b >= 0) {
-      if (has0) atomicAdd(&acc[run_b][lane], run0);
-      if (has1) atomicAdd(&acc[run_b][lane + 32], run1);
+      if (has0) atomicAdd(&acc[run_b * RSTRIPE + lane], run0);
+      if (has1) atomicAdd(&acc[run_b * RSTRIPE + lane + 32], run1);
     }
   }
   __syncthreads();
-  flush_partial(acc, cur, f0, width, out, n_out_rows, f);
+  flush_partial(acc, RSTRIPE, cur, f0, width, out, n_out_rows, f,
+                threadIdx.x, NT);
 }
 
 // ---------------------------------------------------------------------
@@ -655,20 +1139,171 @@ void launch_dense_fwd(const void* c, const float* u, float* out, int n_rows,
       static_cast<const CT*>(c), u, out, n_rows, kd, f, rows_per_split);
 }
 
-template <typename CT, bool BF16>
-void launch_dense_bwd(const void* c, const float* ct, float* out, int n_out,
-                      int kd, int f, const int* starts, const int* desc,
-                      const float* tail, cudaStream_t stream) {
-  dim3 grid((n_out + BM - 1) / BM, (f + BN - 1) / BN);
-  if (grid.x == 0 || grid.y == 0) return;
-  if (starts != nullptr) {
-    dense_bwd_kernel<CT, true, BF16><<<grid, NT, 0, stream>>>(
-        static_cast<const CT*>(c), ct, out, n_out, kd, f, starts, desc, tail);
-  } else {
-    dense_bwd_kernel<CT, false, BF16><<<grid, NT, 0, stream>>>(
-        static_cast<const CT*>(c), ct, out, n_out, kd, f, nullptr, nullptr,
-        nullptr);
+// Dynamic shared memory a block may use on the H100 (227 KB), and the cap
+// on K4's staged ct stripe that leaves room for two blocks an SM.
+constexpr size_t SMEM_LIMIT = 232448;
+constexpr size_t RW_CT_CAP = 112 * 1024;
+
+template <typename K>
+cudaError_t allow_smem(K* kern, size_t bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(kern,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(bytes))
+             : cudaSuccess;
+}
+
+template <typename CT, int NC, bool FUSED, bool BF16>
+int launch_dense_bwd_nc(const CT* c, const float* ct, float* out, int n_out,
+                        int kd, int f, int rows_per_block, dim3 grid,
+                        size_t smem, const int* starts, const int* desc,
+                        const float* tail, cudaStream_t stream) {
+  auto kern = dense_bwd_kernel<CT, NC, FUSED, BF16>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<grid, RW_THREADS, smem, stream>>>(c, ct, out, n_out, kd, f,
+                                            rows_per_block, starts, desc,
+                                            tail);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename CT, bool FUSED, bool BF16>
+int launch_dense_bwd_fused(const CT* c, const float* ct, float* out,
+                           int n_out, int kd, int f, int nc,
+                           int rows_per_block, dim3 grid, size_t smem,
+                           const int* starts, const int* desc,
+                           const float* tail, cudaStream_t stream) {
+  switch (nc) {
+    case 1:
+      return launch_dense_bwd_nc<CT, 1, FUSED, BF16>(
+          c, ct, out, n_out, kd, f, rows_per_block, grid, smem, starts, desc,
+          tail, stream);
+    case 2:
+      return launch_dense_bwd_nc<CT, 2, FUSED, BF16>(
+          c, ct, out, n_out, kd, f, rows_per_block, grid, smem, starts, desc,
+          tail, stream);
+    default:
+      return launch_dense_bwd_nc<CT, 4, FUSED, BF16>(
+          c, ct, out, n_out, kd, f, rows_per_block, grid, smem, starts, desc,
+          tail, stream);
   }
+}
+
+// The row walk needs kd % 4 == 0 and C aligned to 16 bytes (a lane's four
+// counts in one load); kd is 128 x the dense groups in every layout.
+template <typename CT, bool BF16>
+int launch_dense_bwd(const void* c, const float* ct, float* out, int n_out,
+                     int kd, int f, const int* starts, const int* desc,
+                     const float* tail, cudaStream_t stream) {
+  if (n_out <= 0 || f <= 0) return static_cast<int>(cudaSuccess);
+  if (kd % 4 != 0 || reinterpret_cast<uintptr_t>(c) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Columns a lane: as few stripes as the width needs, narrower where the
+  // staged ct stripe would crowd the SM.
+  int nc = f <= 32 ? 1 : f <= 64 ? 2 : 4;
+  while (nc > 1 && static_cast<size_t>(kd) * 32 * nc * 4 > RW_CT_CAP) nc /= 2;
+  const int stripes = (f + 32 * nc - 1) / (32 * nc);
+  // Rows a block: a DENSE_RB descriptor block, halved while that leaves
+  // fewer than about four blocks an SM.
+  int rows_per_block = DENSE_RB;
+  while (rows_per_block > RW_MIN_ROWS &&
+         static_cast<int64_t>((n_out + rows_per_block - 1) / rows_per_block) *
+                 stripes <
+             4LL * num_sms()) {
+    rows_per_block /= 2;
+  }
+  const size_t smem = static_cast<size_t>(kd) * 32 * nc * sizeof(float) +
+                      (starts != nullptr ? rows_per_block * sizeof(int) : 0);
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n_out + rows_per_block - 1) / rows_per_block, stripes);
+  const CT* cc = static_cast<const CT*>(c);
+  return starts != nullptr
+             ? launch_dense_bwd_fused<CT, true, BF16>(
+                   cc, ct, out, n_out, kd, f, nc, rows_per_block, grid, smem,
+                   starts, desc, tail, stream)
+             : launch_dense_bwd_fused<CT, false, BF16>(
+                   cc, ct, out, n_out, kd, f, nc, rows_per_block, grid, smem,
+                   nullptr, nullptr, nullptr, stream);
+}
+
+template <int VEC, bool ONE_HEAD, bool BF16>
+int launch_chunk_mul(const int* a, const int* b, const int* eid,
+                     const int* in_id, const int* out_id, int n_chunks,
+                     int chunk, const float* e2, int n_e, int he, int rep,
+                     const float* in, int n_in_rows, int ld, float* out,
+                     int n_out_rows, int f, cudaStream_t stream) {
+  constexpr int SW = 32 * VEC;
+  auto kern = chunk_mul_kernel<VEC, ONE_HEAD, BF16>;
+  // Two windows, the partial and the crossing runs' pieces (floats), two
+  // buffers of sorted slots (int2), the counts, first slots, two chunks'
+  // (real slots, window, out_id) and the pass flags (ints).
+  const size_t smem = (3 * BLK + CM_CONSUMERS) * SW * sizeof(float) +
+                      2 * static_cast<size_t>(chunk) * sizeof(int2) +
+                      (2 * BLK + 6 + CM_CONSUMERS) * sizeof(int);
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, CM_THREADS,
+                                                    smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) per_sm = 1;
+  // One wave: as many blocks as fit on the card, each a run of chunks.
+  const int stripes = (f + SW - 1) / SW;
+  const int64_t target = static_cast<int64_t>(per_sm) * num_sms();
+  int run = static_cast<int>(
+      (static_cast<int64_t>(n_chunks) * stripes + target - 1) / target);
+  if (run < 1) run = 1;
+  const dim3 grid((n_chunks + run - 1) / run, stripes);
+  kern<<<grid, CM_THREADS, smem, stream>>>(
+      a, b, eid, in_id, out_id, n_chunks, chunk, run, e2, n_e, he, rep, in,
+      n_in_rows, ld, out, n_out_rows, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC, bool BF16>
+int chunk_mul_by_heads(const int* a, const int* b, const int* eid,
+                       const int* in_id, const int* out_id, int n_chunks,
+                       int chunk, const float* e2, int n_e, int he, int rep,
+                       const float* in, int n_in_rows, int ld, float* out,
+                       int n_out_rows, int f, cudaStream_t s) {
+  return he == 1 ? launch_chunk_mul<VEC, true, BF16>(
+                       a, b, eid, in_id, out_id, n_chunks, chunk, e2, n_e, he,
+                       rep, in, n_in_rows, ld, out, n_out_rows, f, s)
+                 : launch_chunk_mul<VEC, false, BF16>(
+                       a, b, eid, in_id, out_id, n_chunks, chunk, e2, n_e, he,
+                       rep, in, n_in_rows, ld, out, n_out_rows, f, s);
+}
+
+template <bool BF16>
+int chunk_mul_by_width(const int* a, const int* b, const int* eid,
+                       const int* in_id, const int* out_id, int n_chunks,
+                       int chunk, const float* e2, int n_e, int he, int rep,
+                       const float* in, int n_in_rows, int ld, float* out,
+                       int n_out_rows, int f, cudaStream_t s) {
+  // The producers load four slots at a time and copy the input's rows 16
+  // bytes at a time, each from a 16-byte boundary.
+  if (chunk > CM_MAX_CHUNK || chunk % 4 != 0 || ld % 4 != 0 || ld < f ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(eid) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(in) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (f <= 32) {
+    return chunk_mul_by_heads<1, BF16>(a, b, eid, in_id, out_id, n_chunks,
+                                       chunk, e2, n_e, he, rep, in, n_in_rows,
+                                       ld, out, n_out_rows, f, s);
+  }
+  if (f <= 64) {
+    return chunk_mul_by_heads<2, BF16>(a, b, eid, in_id, out_id, n_chunks,
+                                       chunk, e2, n_e, he, rep, in, n_in_rows,
+                                       ld, out, n_out_rows, f, s);
+  }
+  return chunk_mul_by_heads<4, BF16>(a, b, eid, in_id, out_id, n_chunks,
+                                     chunk, e2, n_e, he, rep, in, n_in_rows,
+                                     ld, out, n_out_rows, f, s);
 }
 
 template <bool BF16>
@@ -691,20 +1326,16 @@ int dense_bwd_by_type(const void* c, int c_dtype, const float* ct, float* out,
                       const int* desc, const float* tail, cudaStream_t s) {
   switch (c_dtype) {
     case 0:
-      launch_dense_bwd<int8_t, BF16>(c, ct, out, n_out, kd, f, starts, desc,
-                                     tail, s);
-      break;
-    case 1:
-      launch_dense_bwd<__nv_bfloat16, BF16>(c, ct, out, n_out, kd, f, starts,
+      return launch_dense_bwd<int8_t, BF16>(c, ct, out, n_out, kd, f, starts,
                                             desc, tail, s);
-      break;
+    case 1:
+      return launch_dense_bwd<__nv_bfloat16, BF16>(c, ct, out, n_out, kd, f,
+                                                   starts, desc, tail, s);
     case 2:
-      launch_dense_bwd<float, BF16>(c, ct, out, n_out, kd, f, starts, desc,
-                                    tail, s);
-      break;
+      return launch_dense_bwd<float, BF16>(c, ct, out, n_out, kd, f, starts,
+                                           desc, tail, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -758,38 +1389,38 @@ int hub_expand(const int* starts, const int* desc, const float* merged,
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 = mul (in has n_in_rows x f, f = he * rep), 1 = rhs (in is
+// mode: 0 = mul (in has n_in_rows rows of f = he * rep floats, ld floats
+// apart: ld a multiple of 4 and in on a 16-byte boundary), 1 = rhs (in is
 // null, f = he). `out` (n_out_rows x f) must be zeroed. bf16: 1 for the
 // bf16 mode (as in every entry below but hub_expand).
 int hub_chunk_weighted(int mode, const int* a, const int* b, const int* eid,
                        const int* in_id, const int* out_id, int n_chunks,
                        int chunk, const float* e2, int n_e, int he, int rep,
-                       const float* in, int n_in_rows, float* out,
+                       const float* in, int n_in_rows, int ld, float* out,
                        int n_out_rows, int f, int bf16, void* stream) {
   if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_chunks > 0 && f > 0) {
-    const int stripes = (f + WSTRIPE - 1) / WSTRIPE;
-    // About eight blocks per SM in all, each a run of whole chunks.
-    const int64_t target = 8LL * num_sms();
-    int run = static_cast<int>((static_cast<int64_t>(n_chunks) * stripes +
-                                target - 1) / target);
-    if (run < 1) run = 1;
-    dim3 grid((n_chunks + run - 1) / run, stripes);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (mode == 0) {
-      auto kern = bf16 ? chunk_weighted_kernel<true, true>
-                       : chunk_weighted_kernel<true, false>;
-      kern<<<grid, NT, 0, s>>>(
-          a, b, eid, in_id, out_id, n_chunks, chunk, run, e2, n_e, he, rep,
-          in, n_in_rows, out, n_out_rows, f);
-    } else {
-      auto kern = bf16 ? chunk_weighted_kernel<false, true>
-                       : chunk_weighted_kernel<false, false>;
-      kern<<<grid, NT, 0, s>>>(
-          a, b, eid, in_id, out_id, n_chunks, chunk, run, e2, n_e, he, 1,
-          nullptr, 0, out, n_out_rows, f);
-    }
+  if (n_chunks <= 0 || f <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0) {
+    return bf16 ? chunk_mul_by_width<true>(a, b, eid, in_id, out_id, n_chunks,
+                                           chunk, e2, n_e, he, rep, in,
+                                           n_in_rows, ld, out, n_out_rows, f,
+                                           s)
+                : chunk_mul_by_width<false>(a, b, eid, in_id, out_id,
+                                            n_chunks, chunk, e2, n_e, he, rep,
+                                            in, n_in_rows, ld, out,
+                                            n_out_rows, f, s);
   }
+  const int stripes = (f + RSTRIPE - 1) / RSTRIPE;
+  // About eight blocks per SM in all, each a run of whole chunks.
+  const int64_t target = 8LL * num_sms();
+  int run = static_cast<int>(
+      (static_cast<int64_t>(n_chunks) * stripes + target - 1) / target);
+  if (run < 1) run = 1;
+  dim3 grid((n_chunks + run - 1) / run, stripes);
+  auto kern = bf16 ? chunk_rhs_kernel<true> : chunk_rhs_kernel<false>;
+  kern<<<grid, NT, 0, s>>>(a, b, eid, out_id, n_chunks, chunk, run, e2, n_e,
+                           he, out, n_out_rows, f);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,7 +59,8 @@ _SIGNATURES = {
                        _ptr],
         "hub_chunk_weighted": [_c_int, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
                                _c_int, _ptr, _c_int, _c_int, _c_int, _ptr,
-                               _c_int, _ptr, _c_int, _c_int, _c_int, _ptr],
+                               _c_int, _c_int, _ptr, _c_int, _c_int, _c_int,
+                               _ptr],
         "hub_edge_grad": [_c_int, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                           _ptr, _c_int, _ptr, _c_int, _ptr, _c_int, _c_int,
                           _c_int, _ptr],

@@ -41,7 +41,8 @@ from __future__ import annotations
 
 import torch
 
-from dgl1_tpu_torch.hub_format import BLK, DENSE_RB, EXPAND_PACK, EXPAND_RB
+from dgl1_tpu_torch.hub_format import (BLK, CHUNK, DENSE_RB, EXPAND_PACK,
+                                       EXPAND_RB)
 from dgl1_tpu_torch.ops.precision import rounding as _rnd
 
 __all__ = ["dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
@@ -385,7 +386,10 @@ def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
     out_id int32); ``e2``: (E, he) f32 per-edge operand; ``inp``:
     (n_in, he*rep) f32 in mul mode, None in rhs mode. Returns
     (n_out_blocks*128, he*rep) f32 (mul) or (n_out_blocks*128, he) f32
-    (rhs). Slots whose edge id falls outside ``e2`` are skipped.
+    (rhs). Slots whose edge id falls outside ``e2`` are skipped. On the
+    card, mul mode takes chunks of at most 1024 slots, a multiple of 4,
+    and copies an ``inp`` whose width is not a multiple of 4, or that
+    starts off a 16-byte boundary, once into padded rows.
     ``bf16``: see :func:`chunk_weighted_torch`."""
     _mode(mode)
     dev = e2.device
@@ -402,7 +406,21 @@ def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
     if dev.type == "cpu":
         return chunk_weighted_torch(mode, lay, e2, inp, n_out_blocks, he,
                                     rep, bf16)
+    if mode == "mul" and (chunk > CHUNK or chunk % 4):
+        raise ValueError(f"K2 mul takes chunks of at most {CHUNK} slots, "
+                         f"a multiple of 4")
+    if mode == "mul" and any(lay[k].data_ptr() % 16 for k in ("a", "b", "eid")):
+        raise ValueError("K2 mul loads a, b and eid 16 bytes at a time: "
+                         "each must start on a 16-byte boundary")
     width = he * rep if mode == "mul" else he
+    ld = width
+    if mode == "mul" and (width % 4 or inp.data_ptr() % 16):
+        # K2 mul copies input rows 16 bytes at a time: give it rows of a
+        # multiple of 4 floats on a 16-byte boundary.
+        ld = -(-width // 4) * 4
+        padded = torch.zeros((inp.shape[0], ld), dtype=inp.dtype, device=dev)
+        padded[:, :width] = inp
+        inp = padded
     out = torch.zeros((n_out_blocks * BLK, width), dtype=torch.float32,
                       device=dev)
     if n_chunks == 0 or width == 0:
@@ -414,7 +432,7 @@ def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
             lay["out_id"].data_ptr(), n_chunks, chunk, e2.data_ptr(),
             e2.shape[0], he, rep,
             inp.data_ptr() if mode == "mul" else None,
-            inp.shape[0] if mode == "mul" else 0, out.data_ptr(),
+            inp.shape[0] if mode == "mul" else 0, ld, out.data_ptr(),
             out.shape[0], width, int(bf16), _stream(dev))
     _done(f"chunk_{mode}", rc, bf16)
     return out

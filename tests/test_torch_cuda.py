@@ -652,3 +652,202 @@ def test_wide_head_gat_layer_falls_through_on_the_card(dev):
                    + [p.grad.cpu() for p in layer.parameters()])
     for a, b in zip(*res):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# The edges of K4's row walk and K2 mul's staged walk, on layouts made
+# here so that every edge is present at any card size.
+# ----------------------------------------------------------------------
+
+_CMAX = {torch.int8: 127, torch.bfloat16: 256, torch.float32: 1000}
+
+
+def _dense_case(dev, ctype, kd, f, n_out, rows_pad, seed=0):
+    """A count matrix (rows_pad, kd) of type ``ctype``: about 5% small
+    counts, a few up to the type's largest (int8 127, bf16 256, float32
+    1000), a fifth of the rows without any; rows past n_out nonzero too
+    (the kernels must not read them); tail rows for a third of the first
+    n_out rows through packed descriptors, as the layout emits them."""
+    from dgl1_tpu_torch.hub_format import DENSE_RB, EXPAND_PACK
+
+    rng = np.random.default_rng(seed)
+    c = np.where(rng.random((rows_pad, kd)) < 0.05,
+                 rng.integers(1, 4, (rows_pad, kd)), 0).astype(np.float32)
+    big = rng.random((rows_pad, kd)) < 0.002
+    c[big] = rng.integers(1, _CMAX[ctype] + 1, int(big.sum()))
+    c[rng.random(rows_pad) < 0.2] = 0
+    rows = np.sort(rng.choice(n_out, n_out // 3, replace=False))
+    t_row = rng.permutation(rows.size)
+    desc = (rows % DENSE_RB) * EXPAND_PACK + t_row
+    starts = np.concatenate([[0], np.cumsum(np.bincount(
+        rows // DENSE_RB, minlength=rows_pad // DENSE_RB))])
+
+    def on(x, dtype):
+        return torch.as_tensor(x).to(dtype).to(dev).contiguous()
+
+    return (on(c, ctype), on(rng.normal(size=(kd, f)), torch.float32),
+            on(rng.normal(size=(rows.size, f)), torch.float32),
+            on(starts, torch.int32), on(desc, torch.int32))
+
+
+@pytest.mark.parametrize("ctype", [torch.int8, torch.bfloat16,
+                                   torch.float32])
+@pytest.mark.parametrize("f", [1, 33, 40, 128, 200])
+def test_dense_bwd_row_walk_edges(dev, f, ctype):
+    """K4a and K4b against their float64 plain versions at widths of one
+    to several stripes, one and two dense groups (kd 128, 256), n_out not
+    a multiple of any row block; rows without a count store zeros, or
+    their tail row exactly."""
+    for kd in (128, 256):
+        n_out = 2500
+        c, ct, tail, gs, gd = _dense_case(dev, ctype, kd, f, n_out, 3072,
+                                          seed=kd + f)
+        for fused in (True, False):
+            args = (c, ct, tail, gs, gd) if fused else (c, ct)
+            kern = K.dense_bwd_fused if fused else K.dense_bwd
+            plain = K.dense_bwd_fused_torch if fused else K.dense_bwd_torch
+            got = kern(*args, n_out)
+            want = plain(*_f64(*args), n_out)
+            scale = plain(*_f64(*(x.abs() if x.is_floating_point() else x
+                                  for x in args)), n_out)
+            torch.cuda.synchronize()
+            _sum_close(f"dense_bwd fused={fused} kd={kd}", got.double(),
+                       want, scale)
+            empty = ~(c[:n_out] != 0).any(dim=1)
+            base = want - (K.dense_bwd_torch(*_f64(c, ct), n_out)
+                           if fused else 0)
+            assert torch.equal(got[empty].double(), base[empty])
+
+
+def test_dense_bwd_row_walk_full_descriptor_blocks(dev):
+    """K4a at 600,000 rows, where a block owns a whole DENSE_RB
+    descriptor block, against its float64 plain version."""
+    n_out = 600_000
+    c, ct, tail, gs, gd = _dense_case(dev, torch.int8, 128, 40, n_out,
+                                      600 * 1024, seed=3)
+    args = (c, ct, tail, gs, gd)
+    got = K.dense_bwd_fused(*args, n_out)
+    want = K.dense_bwd_fused_torch(*_f64(*args), n_out)
+    scale = K.dense_bwd_fused_torch(*_f64(c, ct.abs(), tail.abs(), gs, gd),
+                                    n_out)
+    torch.cuda.synchronize()
+    _sum_close("dense_bwd_fused 600k", got.double(), want, scale)
+
+
+@pytest.mark.parametrize("ctype", [torch.int8, torch.bfloat16,
+                                   torch.float32])
+def test_dense_bwd_row_walk_bf16(dev, ctype):
+    """K4a and K4b in the bf16 mode (two dense groups, F=40) against their
+    float64 plain versions in the same mode; the float32 kernels fail the
+    same check."""
+    n_out = 2500
+    c, ct, tail, gs, gd = _dense_case(dev, ctype, 256, 40, n_out, 3072,
+                                      seed=7)
+    for kern, plain, args, abs_args in (
+            (K.dense_bwd_fused, K.dense_bwd_fused_torch,
+             (c, ct, tail, gs, gd), (c, ct.abs(), tail.abs(), gs, gd)),
+            (K.dense_bwd, K.dense_bwd_torch, (c, ct), (c, ct.abs()))):
+        got = kern(*args, n_out, bf16=True)
+        want = plain(*_f64(*args), n_out, bf16=True)
+        scale = plain(*_f64(*abs_args), n_out, bf16=True)
+        torch.cuda.synchronize()
+        _bf16_close(kern.__name__, got, kern(*args, n_out), want, scale)
+
+
+def _chunk_case(dev, order, n_chunks=1500, chunk=1024, n_e=50_000, seed=0):
+    """A chunk layout of n_chunks chunks: with ``order`` "fwd" as full_fwd
+    (slots sorted by destination, long runs of b, a new input window every
+    3 chunks, a new output block every 50), with "bwd" as full_bwd (one
+    input window, b random at every slot, a new output window every 4
+    chunks). Every 7th chunk is all padding, 1% of the slots name an edge
+    outside e2, and the last input window is cut at 60 rows (slots past
+    it are skipped). Returns (layout, n_in rows, output blocks)."""
+    rng = np.random.default_rng(seed)
+    shape = (n_chunks, chunk)
+    a = rng.integers(0, 128, shape)
+    b = rng.integers(0, 128, shape)
+    if order == "fwd":
+        b = np.sort(b, axis=1)
+        in_id, out_id = np.arange(n_chunks) // 3, np.arange(n_chunks) // 50
+    else:
+        in_id, out_id = np.zeros(n_chunks, np.int64), np.arange(n_chunks) // 4
+    pad = rng.random(shape) < 0.2
+    pad[::7] = True
+    a[pad], b[pad] = -1, -1
+    eid = rng.integers(0, n_e, shape)
+    eid[rng.random(shape) < 0.01] = n_e + 5
+    lay = {k: torch.as_tensor(v.reshape(-1) if v.ndim > 1 else v,
+                              dtype=torch.int32).to(dev)
+           for k, v in (("a", a), ("b", b), ("eid", eid), ("in_id", in_id),
+                        ("out_id", out_id))}
+    return lay, int(in_id.max()) * 128 + 60, int(out_id.max()) + 2
+
+
+@pytest.mark.parametrize("he,rep", [(1, 40), (1, 128), (8, 32), (3, 5)])
+@pytest.mark.parametrize("order", ["fwd", "bwd"])
+def test_chunk_mul_staged_walk_edges(dev, order, he, rep):
+    """K2 mul against its float64 plain version on full_fwd- and
+    full_bwd-like layouts long enough that every block's run of chunks
+    changes input window and output block, with all-padding chunks, edge
+    ids outside e2 and a cut last window; in the bf16 mode too."""
+    lay, n_in, n_out = _chunk_case(dev, order, seed=he * rep)
+    gen = torch.Generator(device=dev).manual_seed(he + rep)
+    e2 = torch.randn(50_000, he, device=dev, generator=gen)
+    inp = torch.randn(n_in, he * rep, device=dev, generator=gen)
+    args = ("mul", lay, e2, inp, n_out, he, rep)
+    want = K.chunk_weighted_torch(*_f64(*args))
+    scale = K.chunk_weighted_torch("mul", lay, *_f64(e2.abs(), inp.abs()),
+                                   n_out, he, rep)
+    got = K.chunk_weighted(*args)
+    torch.cuda.synchronize()
+    _sum_close(f"chunk_mul {order}", got.double(), want, scale)
+    got16 = K.chunk_weighted(*args, bf16=True)
+    want16 = K.chunk_weighted_torch(*_f64(*args), bf16=True)
+    scale16 = K.chunk_weighted_torch("mul", lay, *_f64(e2.abs(), inp.abs()),
+                                     n_out, he, rep, bf16=True)
+    torch.cuda.synchronize()
+    _bf16_close(f"chunk_mul.bf16 {order}", got16, got, want16, scale16)
+
+
+@pytest.mark.parametrize("he,rep,shift", [(1, 40, 1), (1, 128, 2)])
+def test_chunk_mul_input_off_16_bytes(dev, he, rep, shift):
+    """K2 mul copies input rows 16 bytes at a time: an input view that
+    starts ``shift`` floats past a 16-byte boundary gives what its float64
+    plain version gives (widths not a multiple of 4: he=3, rep=5 above)."""
+    lay, n_in, n_out = _chunk_case(dev, "fwd", n_chunks=300, seed=rep)
+    gen = torch.Generator(device=dev).manual_seed(rep)
+    e2 = torch.randn(50_000, he, device=dev, generator=gen)
+    flat = torch.randn(n_in * he * rep + shift, device=dev, generator=gen)
+    inp = flat[shift:].view(n_in, he * rep)
+    assert inp.data_ptr() % 16 == 4 * shift
+    args = ("mul", lay, e2, inp, n_out, he, rep)
+    want = K.chunk_weighted_torch(*_f64(*args))
+    scale = K.chunk_weighted_torch("mul", lay, *_f64(e2.abs(), inp.abs()),
+                                   n_out, he, rep)
+    got = K.chunk_weighted(*args)
+    torch.cuda.synchronize()
+    _sum_close(f"chunk_mul shift {shift}", got.double(), want, scale)
+
+
+def test_chunk_mul_refuses_layouts_it_cannot_load(dev):
+    """K2 mul raises, naming the input, for chunks over 1024 slots or not
+    a multiple of 4 and for a layout array off a 16-byte boundary; it
+    launches nothing."""
+    e2 = torch.randn(100, 1, device=dev)
+    inp = torch.randn(128, 8, device=dev)
+    before = dict(K.LAUNCHES)
+    for chunk in (2048, 6):
+        lay = {k: torch.zeros(2 * chunk, dtype=torch.int32, device=dev)
+               for k in ("a", "b", "eid")}
+        lay |= {k: torch.zeros(2, dtype=torch.int32, device=dev)
+                for k in ("in_id", "out_id")}
+        with pytest.raises(ValueError, match="chunks of at most 1024"):
+            K.chunk_weighted("mul", lay, e2, inp, 1, 1, 8)
+    lay = {k: torch.zeros(2048, dtype=torch.int32, device=dev)
+           for k in ("a", "b", "eid")}
+    lay |= {k: torch.zeros(2, dtype=torch.int32, device=dev)
+            for k in ("in_id", "out_id")}
+    lay["eid"] = torch.zeros(2049, dtype=torch.int32, device=dev)[1:]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        K.chunk_weighted("mul", lay, e2, inp, 1, 1, 8)
+    assert K.LAUNCHES == before

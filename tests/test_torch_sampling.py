@@ -23,6 +23,8 @@ from dgl1_tpu_torch.dataloading import NeighborSampler, NodeDataLoader
 from dgl1_tpu_torch.sampling import sample_block_fused
 
 from tools.bench_minibatch import build_graph
+# The reference's sampler needs its native library, loaded under a lock.
+from torch_parity import reference_native  # noqa: F401
 
 _ARRAYS = ("src", "dst", "edge_mask", "csr_indptr", "csr_dst", "csr_eid",
            "csr_src", "csc_indptr", "csc_src", "csc_eid", "csc_dst")

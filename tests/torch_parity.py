@@ -1,18 +1,66 @@
 """Shared inputs of the port's parity tests (``test_torch_*.py``): edge
 lists and features made with numpy from a seed, handed to both the JAX
-package and ``dgl1_tpu_torch``."""
+package and ``dgl1_tpu_torch``.
+
+Importing this module also makes sure the reference's native library is
+loaded in this process (:func:`reference_native`): several parity tests
+compare the port's native sampler and layout builders with the
+reference's, whose numpy fallbacks draw other random streams.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import fcntl
+import os
+import subprocess
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import dgl1_tpu as jdgl
 import dgl1_tpu_torch as tdgl
+from dgl1_tpu import _native as jnative
 
 N, E = 300, 3000
+
+
+def reference_native():
+    """The reference's native library (``dgl1_tpu._native.lib()``), built
+    and loaded under an exclusive ``flock`` on a lock file in its cache
+    directory (``DGL1_TPU_CACHE``, or ``~/.cache/dgl1_tpu``); None when
+    ``DGL1_TPU_NO_NATIVE`` is set.
+
+    The reference compiles into one temporary name shared by every
+    process (``graph_builder_<hash>.so.tmp``) and renames it into place.
+    Test workers that start on a cold cache race there: a loser's rename
+    raises, and ``lib()`` caches None for the rest of the process, so the
+    reference silently takes its numpy fallbacks. Under the lock only one
+    process builds at a time; a process whose first try failed retries
+    ``_compile()`` (three tries, a second apart) and stores the library
+    where ``lib()`` returns it."""
+    if os.environ.get("DGL1_TPU_NO_NATIVE"):
+        return None
+    cache = Path(os.environ.get("DGL1_TPU_CACHE",
+                                os.path.expanduser("~/.cache/dgl1_tpu")))
+    cache.mkdir(parents=True, exist_ok=True)
+    with open(cache / "graph_builder.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if jnative.lib() is not None:
+            return jnative.lib()
+        for attempt in range(3):
+            try:
+                jnative._LIB = jnative._compile()
+                return jnative._LIB
+            except (OSError, subprocess.CalledProcessError):
+                if attempt < 2:
+                    time.sleep(1.0)
+    return None
+
+
+reference_native()
 
 # min_group_edges, dense_floor: the tier combinations of tests/test_hub.py
 CONFIGS = {
