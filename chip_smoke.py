@@ -400,14 +400,14 @@ def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
 
 
 VARIANT_KEYS = ("bf16", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "bytes", "flops", "shapes", "past_rtol",
-                "past_rtol_f32")
+                "bound_by", "library_ms", "bytes", "flops", "shapes",
+                "past_rtol", "past_rtol_f32")
 
 
 def with_variants(row, variants):
     """``row`` with the other shapes its kernel runs at on the trainer
     paths, each checked and timed as the row (library calls on the row's
-    case only)."""
+    case and the variants that ask for one, else null)."""
     row["variants"] = [{k: v[k] for k in VARIANT_KEYS if k in v}
                        for v in variants]
     return row
@@ -530,9 +530,9 @@ def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
     and 2, the R-GCN relation subgraph at F=64 and F=40); K2 and K4b as
     variants at their row's main shape."""
 
-    def variants(case_fn, cases, **kw):
-        return [case_fn(c, g, dev, f, *more, seed=i + 1, library=False,
-                        **kw)
+    def variants(case_fn, cases, library=(), **kw):
+        return [case_fn(c, g, dev, f, *more, seed=i + 1,
+                        library=c in library, **kw)
                 for i, (c, g, f, *more) in enumerate(cases)]
 
     bf = dict(seed=9, library=False, bf16=True)
@@ -543,7 +543,8 @@ def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
                           ("rgcn_rel0_f64", g_rel0, 64),
                           ("rgcn_rel0_f40", g_rel0, 40),
                           ("mixed_f128", g_mix, 128),
-                          ("mixed_f40", g_mix, 40)])),
+                          ("mixed_f40", g_mix, 40)],
+                          library=("arxiv_f40",))),
         with_variants(dense_fwd_case("arxiv_f128", g_arx, dev, 128, **bf),
                       variants(dense_fwd_case, [
                           ("arxiv_f40", g_arx, 40),
@@ -567,7 +568,8 @@ def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
         with_variants(chunk_sum_case("mixed_f128", g_mix, dev, 128),
                       variants(chunk_sum_case, [
                           ("mixed_f40", g_mix, 40),
-                          ("mixed_grad_u_f40", g_mix, 40, True)])
+                          ("mixed_grad_u_f40", g_mix, 40, True)],
+                          library=("mixed_f40",))
                       + [chunk_sum_case("mixed_f128", g_mix, dev, 128,
                                         **bf)]),
         with_variants(dense_bwd_case("mixed_f128", g_mix, dev, 128),

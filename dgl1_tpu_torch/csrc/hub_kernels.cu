@@ -21,24 +21,32 @@
 //   K5  hub_edge_grad      <- _edge_grad_kernel       (engine_hub.py:364)
 //
 // The TPU kernels gather and scatter through one-hot matmuls because the
-// TPU has no atomics and a slow gather unit. Here gathers are direct row
-// loads (K2 mul's from a window staged in shared memory), scatters are
-// float atomics, and K4 walks only the nonzero counts of its count
-// matrix instead of multiplying the dense tiles. Arithmetic is float32
-// with float32 accumulation (the counts in C are small exact integers).
+// TPU has no atomics and a slow gather unit, and multiply the dense-tier
+// count matrix C as dense 128 x 128 MXU tiles. On this card C (95% zeros
+// at arxiv scale) is walked instead: K1 column by column, K4 row by row,
+// each over its nonzero counts only. The chunked tier's K2 (plain and mul)
+// stages a chunk's slots sorted by destination and its input window in
+// shared memory, sums each destination's slots in registers and keeps the
+// 128-row partial of its output block in registers (plain) or shared
+// memory (mul). Scatters into the output are float atomics only where
+// blocks share output rows (K1, K2 and K5 mul). Arithmetic is float32 with
+// float32 accumulation (the counts in C are small exact integers).
 // Every kernel but K3 has a BF16 instantiation, the reference's bf16 mode
 // (dgl1_tpu/ops/precision.py): it rounds to bfloat16 (nearest even, in
 // registers, rnd() below) exactly the values the reference casts to dt
 // before a matmul, and nothing else; inputs, outputs and sums stay float32.
 //
 // Feature widths are not padded to 128: every kernel takes the row width
-// f and masks the ragged edge itself, and the source operand may have
-// fewer rows than the padded count matrix (missing rows read as zero).
+// f and masks the ragged edge itself (K1 and K2 copy rows 16 bytes at a
+// time, so their wrappers pad an input whose rows are not a multiple of 4
+// floats on a 16-byte boundary), and the source operand may have fewer
+// rows than the padded count matrix (missing rows read as zero).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -47,14 +55,8 @@ constexpr int DENSE_RB = 1024;         // rows per fused-backward descriptor blo
 constexpr int EXPAND_RB = 512;         // rows per expand descriptor block
 constexpr int EXPAND_PACK = 1 << 20;   // descriptor p = local_row * PACK + row
 
-// K1's GEMM tiling: a 256-thread block owns a BM x BN output tile;
-// thread (ty, tx) of a 16 x 16 grid holds rows ty + 16 i and columns
-// tx + 16 j (i, j < 8), so shared-memory reads are broadcasts or
-// consecutive and global stores of a half-warp are consecutive.
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int NT = 256;
+constexpr int NT = 256;               // threads of a K3 / K2 rhs / K5 block
+constexpr unsigned FULL = 0xffffffffu;
 
 // bf16 mode: round to bfloat16, nearest even, and back.
 template <bool BF16>
@@ -81,107 +83,9 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
-  return static_cast<float>(x);
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-
-// acc[i][j] += sum_kk As[kk][ty + 16 i] * Bs[kk][tx + 16 j]
-__device__ __forceinline__ void tile_fma(const float (&As)[BK][BM + 1],
-                                         const float (&Bs)[BK][BN],
-                                         float (&acc)[8][8], int ty, int tx) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    float a[8], b[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------------
-// K1: out (kd, f) = C^T @ U over the first n_rows rows.
-//
-// Replaces _dense_fwd_kernel, which accumulates over the row-block grid
-// axis in order. GPU blocks run in no order, so this is split-K: block z
-// reduces rows [z * rows_per_split, ...) into a register tile and adds it
-// to the zero-initialised output with float atomics. The order of those
-// adds varies from run to run, so results agree with a sequential sum to
-// float32 rounding of the partial sums, not bit for bit.
-//
-// BF16 rounds C (counts above 256 lose bits, as in the reference) and U as
-// they are staged.
-//
-// Bound on the H100: at arxiv scale (Kd = 128, f = 128) it reads 22 MB of
-// int8 C and 87 MB of U (33 us at 3.35 TB/s) and does 5.6 GFLOP (84 us
-// on the 67 TFLOP/s of float32 CUDA cores), so exact float32 over the
-// dense C is bound by arithmetic. (The data needs only C's nonzeros, ~5%
-// at arxiv scale; skipping zero tiles is later work.) The split-K grid
-// puts about two blocks on every SM; with only one output tile a row
-// loop in one block would leave the card idle.
-// ---------------------------------------------------------------------
-template <typename CT, bool BF16>
-__global__ void __launch_bounds__(NT)
-    dense_fwd_kernel(const CT* __restrict__ c, const float* __restrict__ u,
-                     float* __restrict__ out, int n_rows, int kd, int f,
-                     int rows_per_split) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(n_rows, r_begin + rows_per_split);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = r_begin; k0 < r_end; k0 += BK) {
-    for (int i = tid; i < BK * BM; i += NT) {
-      const int kk = i / BM, mm = i % BM;
-      const int r = k0 + kk, m = m0 + mm;
-      As[kk][mm] = (r < r_end && m < kd)
-                       ? rnd<BF16>(to_f32(c[static_cast<size_t>(r) * kd + m]))
-                       : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int kk = i / BN, nn = i % BN;
-      const int r = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (r < r_end && n < f)
-                       ? rnd<BF16>(u[static_cast<size_t>(r) * f + n])
-                       : 0.f;
-    }
-    __syncthreads();
-    tile_fma(As, Bs, acc, ty, tx);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= kd) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < f) atomicAdd(&out[static_cast<size_t>(m) * f + n], acc[i][j]);
-    }
-  }
+// Waits until at most the newest batch this thread committed is pending.
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------
@@ -226,8 +130,6 @@ __global__ void __launch_bounds__(NT)
 constexpr int RW_THREADS = 256;  // threads of a row-walk block (8 warps)
 constexpr int RW_ROWS = 4;       // rows whose counts a warp loads together
 constexpr int RW_MIN_ROWS = 128; // smallest rows_per_block
-constexpr unsigned FULL = 0xffffffffu;
-
 // Four consecutive counts of a row as one lane loads them: sizeof(CT)
 // 32-bit words (int8: 4 bytes, bf16: 8, float: 16).
 template <typename CT>
@@ -236,23 +138,24 @@ struct Quad {
   uint32_t v[W];
 };
 
+// A lane's quad of counts, read from global memory where the call stands:
+// the load is volatile, so the compiler cannot sink it towards its use and
+// the next rows' counts stay in flight during a walk.
 template <typename CT>
 __device__ __forceinline__ Quad<CT> load_quad(const CT* p, bool live) {
   Quad<CT> q;
+#pragma unroll
+  for (int w = 0; w < Quad<CT>::W; ++w) q.v[w] = 0u;
+  if (!live) return q;
   if constexpr (Quad<CT>::W == 1) {
-    q.v[0] = live ? __ldg(reinterpret_cast<const unsigned int*>(p)) : 0u;
+    asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(q.v[0]) : "l"(p));
   } else if constexpr (Quad<CT>::W == 2) {
-    const uint2 x = live ? __ldg(reinterpret_cast<const uint2*>(p))
-                         : make_uint2(0u, 0u);
-    q.v[0] = x.x;
-    q.v[1] = x.y;
+    asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(q.v[0]), "=r"(q.v[1]) : "l"(p));
   } else {
-    const uint4 x = live ? __ldg(reinterpret_cast<const uint4*>(p))
-                         : make_uint4(0u, 0u, 0u, 0u);
-    q.v[0] = x.x;
-    q.v[1] = x.y;
-    q.v[2] = x.z;
-    q.v[3] = x.w;
+    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(q.v[0]), "=r"(q.v[1]), "=r"(q.v[2]), "=r"(q.v[3])
+                 : "l"(p));
   }
   return q;
 }
@@ -387,51 +290,6 @@ __global__ void __launch_bounds__(RW_THREADS)
 }
 
 // ---------------------------------------------------------------------
-// K2 (plain mode): for chunk t and slot s with a[s] >= 0 and b[s] >= 0,
-//   out[out_id[t] * 128 + b[s]] += in[in_id[t] * 128 + a[s]].
-//
-// Replaces _chunk_kernel in plain mode, which builds the one-hots S_a and
-// S_b of a chunk and computes S_b^T @ (S_a @ in_window) on the MXU. Here
-// the one-hot product is a row gather and the transposed one a float
-// atomic add: one block per chunk, one warp per slot, lanes over the
-// feature row. The reference's first-chunk flag overwrites an output
-// block; the output here is zero-initialised by the wrapper and every
-// chunk adds, which gives the same values on every block that a chunk
-// covers. Blocks no chunk covers are zero here and unspecified there.
-//
-// BF16 rounds the gathered row.
-//
-// Bound on the H100: memory for the work itself (each real slot reads
-// one f-float row and adds one), but this design is held by its atomics,
-// which resolve in L2 and serialise where thousands of slots share an
-// output row, as they do on a chunked tier with few output blocks.
-// ---------------------------------------------------------------------
-template <bool BF16>
-__global__ void __launch_bounds__(NT)
-    chunk_sum_kernel(const int* __restrict__ a, const int* __restrict__ b,
-                     const int* __restrict__ in_id,
-                     const int* __restrict__ out_id,
-                     const float* __restrict__ in, int n_in_rows,
-                     float* __restrict__ out, int n_out_rows, int f,
-                     int chunk) {
-  const int t = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = NT / 32;
-  const int64_t base_in = static_cast<int64_t>(in_id[t]) * BLK;
-  const int64_t base_out = static_cast<int64_t>(out_id[t]) * BLK;
-  const int64_t slot0 = static_cast<int64_t>(t) * chunk;
-  for (int s = warp; s < chunk; s += n_warps) {
-    const int as = a[slot0 + s], bs = b[slot0 + s];
-    if (as < 0 || bs < 0) continue;
-    const int64_t ri = base_in + as, ro = base_out + bs;
-    if (ri >= n_in_rows || ro >= n_out_rows) continue;
-    const float* src = in + ri * f;
-    float* dst = out + ro * f;
-    for (int j = lane; j < f; j += 32) atomicAdd(dst + j, rnd<BF16>(src[j]));
-  }
-}
-
-// ---------------------------------------------------------------------
 // K3: out[v] = merged[t_inv[v]], zero rows elsewhere, from descriptors
 // p = (v % EXPAND_RB) * EXPAND_PACK + merged_row with per-block
 // [starts[rb], starts[rb + 1]).
@@ -478,30 +336,42 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---------------------------------------------------------------------
-// K2 (mul and rhs modes): for chunk t and real slot s (a[s] >= 0,
-// b[s] >= 0, 0 <= eid[s] < n_e),
+// K2 (all modes): for chunk t and real slot s (a[s] >= 0, b[s] >= 0, the
+// input row in_id[t] * 128 + a[s] present, and in the weighted modes
+// 0 <= eid[s] < n_e),
 //   out[out_id[t] * 128 + b[s], j] += msg[j]
-// with msg[j] = in[in_id[t] * 128 + a[s], j] * e2[eid[s], j / rep] (mul,
-// j < f = he * rep) or e2[eid[s], j] (rhs, j < f = he).
+// with msg[j] = in[in_id[t] * 128 + a[s], j] (plain), that times
+// e2[eid[s], j / rep] (mul, j < f = he * rep) or e2[eid[s], j] (rhs,
+// j < f = he).
 //
-// Replaces _chunk_kernel (engine_hub.py:68) in mul and rhs modes, whose
-// message is the one-hot gather S_a IN times W^T R: the chunk's gathered
-// weights, spread over their features by a 0/1 matmul. Here each slot
-// reads its weight from e2 through eid, so no per-slot weight tensor
-// exists. On the graphs these modes serve, every hub edge (dense groups
-// included) goes through the full_fwd layout, so millions of slots add
-// into the same 128 output rows: one global atomic per slot and feature
-// would serialise on 128 x f addresses. Both kernels below therefore let
-// a block own a run of consecutive chunks and a feature stripe, keep the
-// 128-row partial of its current output block in shared memory and flush
-// it with one global atomic add per nonzero element when the output block
-// changes or the run ends. Chunks are sorted by output block, so a run
-// sees few changes. A warp sums each run of slots with equal b in
-// registers and adds it to the partial once. Padding slots' rows and
-// weights are never read.
+// Replaces _chunk_kernel (engine_hub.py:68), which builds the one-hots S_a
+// and S_b of a chunk and computes S_b^T @ (S_a @ in_window), times the
+// chunk's gathered weights spread over their features (W^T R) in mul and
+// rhs modes, on the MXU. Its first-chunk flag overwrites an output block;
+// here the output is zero-initialised by the wrapper and every chunk adds,
+// which gives the same values on every block that a chunk covers. Blocks
+// no chunk covers are zero here and unspecified there.
 //
-// BF16 rounds the message before its sum and, in mul mode, the input
-// value before the product (the weight is not rounded).
+// On the graphs these layouts serve, millions of slots add into few output
+// blocks: the mixed tier's four chunked groups (part_fwd) or, in the
+// weighted modes, every hub edge (full_fwd) into the same 128 rows. One
+// global atomic per slot and feature, the first plain design, serialised
+// in L2 on those 128 x f addresses. So a block owns a run of consecutive
+// chunks and a feature stripe, keeps the 128-row partial of its current
+// output block in shared memory and flushes it with one global atomic add
+// per nonzero element when the output block changes or the run ends.
+// Chunks are sorted by output block (part_fwd in (group, window) order,
+// part_bwd in (window, group) order, full_fwd by group), so a run sees few
+// changes. A warp sums each run of slots with equal b in registers and
+// adds it to the partial once. Padding slots' rows and weights are never
+// read.
+//
+// BF16 rounds the gathered input value (plain: the reference's
+// in_ref.astype(dt); its second cast, of the message, is exact there; each
+// window is rounded once in shared memory, by the threads that copied it,
+// once it has landed) or, in the weighted modes, the message before its
+// sum and, in mul mode, the input value before the product (the weight is
+// not rounded).
 // ---------------------------------------------------------------------
 constexpr int CW_UNROLL = 4;   // slots whose rows a warp reads together
 
@@ -525,57 +395,84 @@ __device__ __forceinline__ void flush_partial(float* __restrict__ acc,
 }
 
 // ---------------------------------------------------------------------
-// K2 mul: chunk_mul_kernel<VEC, ONE_HEAD, BF16>.
+// K2 plain and mul: chunk_walk_kernel<VEC, MODE, BF16>, MODE kPlain
+// (hub_chunk_sum), kOneHead or kHeads (hub_chunk_weighted, mul mode).
 //
-// Bound on the H100: bytes. At the weighted GCN's layer 1 (arxiv
+// Bound on the H100: bytes. The layout, the input rows the real slots
+// gather (and in mul mode their weights) read once and the output written
+// once. Mixed tier part_fwd at F = 128 (~1.66 M real slots, four output
+// blocks): 0.0230 ms at 3.35 TB/s. The weighted GCN's layer 1 (arxiv
 // full_fwd, F = 128, one weight per edge: 5,292 chunks, 4.39 M real
-// slots, 1,323 input windows, one output block) the layout (65 MB), the
-// weights the slots gather and the input windows (87 MB) read once and
-// the output written once: 0.0506 ms at 3.35 TB/s.
+// slots, 1,323 input windows, one output block): 0.0506 ms.
 //
-// The first design read every slot's input row and weight from global
+// The first mul design read every slot's input row and weight from global
 // memory inside the walk (three dependent L2 round trips per 32 slots,
 // each window row fetched about 26 times) and added each run of equal b
 // to the shared partial with float atomics, which shared memory runs as
-// compare-and-swap loops. This one walks each chunk from shared memory
+// compare-and-swap loops. This design walks each chunk from shared memory
 // without atomics, and splits a block's warps into producers and
 // consumers. In step i the CM_PRODUCERS producer warps stage chunk i:
 //   - its layout, loaded into registers during step i - 1 (16-byte loads);
-//   - its real slots, counting-sorted by b (a warp-aggregated histogram, a
-//     scan, a scatter), each as (b << 16 | a * SW, the weight e2[eid], or
-//     for several heads the edge id, whose head weights the walk then
-//     reads from e2), into one of two buffers;
+//   - its real slots, counting-sorted by b (a histogram, a scan, a
+//     scatter), each as b << 16 | a * SW, in the weighted modes
+//     with the weight e2[eid] or, for several heads, the edge id, whose
+//     head weights the walk then reads from e2, into one of two buffers;
 //   - its 128-row input window at the block's stripe of SW = 32 * VEC
 //     columns, only when in_id changes, into one of two buffers, by
 //     16-byte cp.async copies (the input's rows are ld floats apart, ld a
 //     multiple of 4; the wrapper pads a narrower input).
-// Meanwhile the CM_CONSUMERS consumer warps walk chunk i - 1: warp w takes
-// the w-th share of the sorted real slots, a run of equal b at a time
-// (its end found by a ballot), lanes over the stripe's columns (VEC
-// contiguous ones a lane: one vector load a slot) summing in registers.
-// Sorted, every b is one run of the chunk, so a run that starts and ends
-// in a warp's share is added to the shared partial by that warp alone (a
-// plain read-modify-write). A run that crosses into later warps' shares
-// is added by the warp where it starts, after the consumers' barrier,
-// together with the later warps' pieces (each left in bnd[warp]). One
-// block barrier ends each step. The partial is flushed to the output with
-// one global atomic add per nonzero element when out_id changes or the
-// run of chunks ends. F = 128 takes one 128-column stripe (two 64 KB
-// windows, the 64 KB partial, 16 KB of sorted slots); F <= 64 one of 64
-// or 32.
+// Meanwhile the CM_CONSUMERS consumer warps walk chunk i - 1. In the
+// weighted modes warp w takes the w-th share of the sorted real slots, a
+// run of equal b at a time (its end found by a ballot), lanes over the
+// stripe's columns (VEC contiguous ones a lane: one vector load a slot)
+// summing in registers. Sorted, every b is one run of the chunk, so a run
+// that starts and ends in a warp's share is added to the shared partial by
+// that warp alone (a plain read-modify-write). A run that crosses into
+// later warps' shares is added by the warp where it starts, after the
+// consumers' barrier, together with the later warps' pieces (each left in
+// bnd[warp]). The partial is flushed to the output with one global atomic
+// add per nonzero element when out_id changes or the run of chunks ends.
+// F = 128 takes one 128-column stripe (two 64 KB windows, the 64 KB
+// partial, 16 KB of sorted slots); F <= 64 one of 64 or 32.
+// The plain mode has no shared partial: warp w owns the output rows
+// b = w + CM_CONSUMERS o and sums their slots (contiguous once sorted)
+// into registers over the block's whole run, flushing them with vector
+// atomics when out_id changes. One block barrier ends each step.
+// The weighted modes need the shared partial: full_fwd's layout orders a
+// group's hubs by falling in-degree, so owned rows would leave the
+// heaviest destinations' slots to a few warps, while equal shares of the
+// sorted slots keep the warps level. Owned rows took 3.0x as long at
+// arxiv full_fwd F = 128 and 14x at he = 8 (and 0.70x on the window-major
+// full_bwd, where destinations are spread); tools/chunk_walk_variants.py
+// times both choices, PERF.md section 6 holds the numbers.
 //
-// What holds it back on the H100 (PERF.md, section 6): each real slot reads
-// its 512-byte window row from shared memory, and the producers' random
-// weight gathers (one 4-byte load a slot, no locality in eid) share the
-// SM's load/store pipeline with those reads.
+// What holds it back on the H100 (PERF.md, section 6): in mul mode, the
+// producers' random weight gathers (one 4-byte load a slot, no locality in
+// eid) share the SM's load/store pipeline with the walk's 512-byte window
+// reads. In plain mode, the windows: on part_fwd a window serves only the
+// few hundred real slots of one (group, window) run, so nearly every chunk
+// stages a new one (~200 MB of copies at F = 128 on the mixed tier, each
+// window once per group), and the copies reach an SM at about 15-30 bytes
+// a cycle; the consumers' walk of ~4 slots per output row takes as long.
 // ---------------------------------------------------------------------
-constexpr int CM_THREADS = 512;    // threads of a chunk_mul block
+constexpr int CM_THREADS = 512;    // threads of a chunk walk block
 constexpr int CM_PRODUCERS = 4;    // its warps that stage chunks
 constexpr int CM_CONSUMERS = CM_THREADS / 32 - CM_PRODUCERS;  // walkers
 constexpr int CM_CTHREADS = 32 * CM_CONSUMERS;
 constexpr int CM_PTHREADS = 32 * CM_PRODUCERS;
 constexpr int CM_SLOTS = 8;        // slots a producer thread stages
 constexpr int CM_MAX_CHUNK = CM_PTHREADS * CM_SLOTS;  // 1024
+constexpr int PW_OWN = (BLK + CM_CONSUMERS - 1) / CM_CONSUMERS;  // rows a
+                                   // plain consumer owns (11)
+
+enum ChunkMode { kPlain = 0, kOneHead = 1, kHeads = 2 };
+
+// A sorted slot: its key b << 16 | a * SW, and in the weighted modes the
+// weight's bits (kOneHead) or the edge id (kHeads).
+template <int MODE>
+using ChunkSlot = std::conditional_t<MODE == kPlain, int, int2>;
+__device__ __forceinline__ int slot_key(int q) { return q; }
+__device__ __forceinline__ int slot_key(int2 q) { return q.x; }
 
 // The block's barrier, reached from the producers' and the consumers'
 // code, and the named barriers of each.
@@ -623,25 +520,65 @@ __device__ __forceinline__ void add_vec(float* p, const float (&v)[VEC]) {
   st_vec<VEC>(p, a);
 }
 
-template <int VEC, bool ONE_HEAD, bool BF16>
+// bf16 mode: round four floats in shared memory in place.
+__device__ __forceinline__ void round4(float* p) {
+  float4 v = *reinterpret_cast<float4*>(p);
+  v.x = rnd<true>(v.x), v.y = rnd<true>(v.y), v.z = rnd<true>(v.z),
+  v.w = rnd<true>(v.w);
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// p[0 .. n) += v[0 .. n) (n <= VEC) in global memory, skipping zeros: one
+// vector atomic where the whole vector is live and p is aligned to it
+// (vec), else one float atomic an element.
+template <int VEC>
+__device__ __forceinline__ void add_out(float* p, const float (&v)[VEC],
+                                        int n, bool vec) {
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) any |= i < n && v[i] != 0.f;
+  if (!any) return;
+  if constexpr (VEC == 4) {
+    if (vec && n >= 4) {
+      atomicAdd(reinterpret_cast<float4*>(p),
+                make_float4(v[0], v[1], v[2], v[3]));
+      return;
+    }
+  } else if constexpr (VEC == 2) {
+    if (vec && n >= 2) {
+      atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i)
+    if (i < n && v[i] != 0.f) atomicAdd(p + i, v[i]);
+}
+
+template <int VEC, int MODE, bool BF16>
 __global__ void __launch_bounds__(CM_THREADS, 1)
-    chunk_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
-                     const int* __restrict__ eid,
-                     const int* __restrict__ in_id,
-                     const int* __restrict__ out_id, int n_chunks, int chunk,
-                     int run, const float* __restrict__ e2, int n_e, int he,
-                     int rep, const float* __restrict__ in, int n_in_rows,
-                     int ld, float* __restrict__ out, int n_out_rows, int f) {
+    chunk_walk_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                      const int* __restrict__ eid,
+                      const int* __restrict__ in_id,
+                      const int* __restrict__ out_id, int n_chunks,
+                      int chunk, int run, const float* __restrict__ e2,
+                      int n_e, int he, int rep, const float* __restrict__ in,
+                      int n_in_rows, int ld, float* __restrict__ out,
+                      int n_out_rows, int f) {
+  constexpr bool PLAIN = MODE == kPlain;
+  using Slot = ChunkSlot<MODE>;
   constexpr int SW = 32 * VEC;
   constexpr int NW = CM_CONSUMERS;
   extern __shared__ __align__(16) float smem[];
   float* win = smem;                    // [2][BLK][SW] input windows
+  // The weighted modes' shared partial and crossing runs' pieces; the
+  // plain mode keeps its partial in registers.
   float* acc = win + 2 * BLK * SW;      // [BLK][SW] output partial
-  float* bnd = acc + BLK * SW;          // [NW][SW] pieces of crossing runs
-  int2* sp = reinterpret_cast<int2*>(bnd + NW * SW);  // [2][chunk] slots
+  float* bnd = acc + (PLAIN ? 0 : BLK * SW);  // [NW][SW] crossing runs
+  Slot* sp = reinterpret_cast<Slot*>(bnd + (PLAIN ? 0 : NW * SW));
   int* cnt = reinterpret_cast<int*>(sp + 2 * chunk);  // [BLK] per b
-  int* first = cnt + BLK;               // [BLK] b's first sorted slot
-  int* meta = first + BLK;              // [2][3] real slots, window, out
+  int* first = cnt + BLK;               // [2][BLK + 1] b's first slot
+  int* meta = first + 2 * (BLK + 1);    // [2][3] real slots, window, out
   int* pass = meta + 6;                 // [NW] share is one crossing run
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int c_begin = blockIdx.x * run;
@@ -651,7 +588,8 @@ __global__ void __launch_bounds__(CM_THREADS, 1)
   if (c_begin >= c_end) return;
 
   // Columns past the stripe's width are never copied: zero them once.
-  for (int i = tid; i < BLK * SW; i += CM_THREADS) acc[i] = 0.f;
+  if (!PLAIN)
+    for (int i = tid; i < BLK * SW; i += CM_THREADS) acc[i] = 0.f;
   for (int i = tid; i < 2 * BLK * SW; i += CM_THREADS)
     if (i % SW >= width) win[i] = 0.f;
   for (int i = tid; i < BLK; i += CM_THREADS) cnt[i] = 0;
@@ -661,7 +599,7 @@ __global__ void __launch_bounds__(CM_THREADS, 1)
   // walked (consumers, i > c_begin); one block barrier ends each step.
   if (warp >= CM_CONSUMERS) {
     // ---- producers: chunk i's layout (loaded during step i - 1) ->
-    // sorted real slots with their weights, and its window.
+    // sorted real slots (with their weights), and its window.
     const int ptid = tid - CM_CTHREADS, pwarp = warp - CM_CONSUMERS;
     int ra[CM_SLOTS], rb[CM_SLOTS], re[CM_SLOTS], r_in = 0, r_out = 0;
     // Thread ptid takes slots 4 ptid + 4 CM_PTHREADS g + j (j < 4): four
@@ -677,7 +615,8 @@ __global__ void __launch_bounds__(CM_THREADS, 1)
         if (s < chunk) {
           qa = *reinterpret_cast<const int4*>(a + s0 + s);
           qb = *reinterpret_cast<const int4*>(b + s0 + s);
-          qe = *reinterpret_cast<const int4*>(eid + s0 + s);
+          if constexpr (!PLAIN)
+            qe = *reinterpret_cast<const int4*>(eid + s0 + s);
         }
         ra[4 * g] = qa.x, ra[4 * g + 1] = qa.y, ra[4 * g + 2] = qa.z,
         ra[4 * g + 3] = qa.w;
@@ -685,6 +624,22 @@ __global__ void __launch_bounds__(CM_THREADS, 1)
         rb[4 * g + 3] = qb.w;
         re[4 * g] = qe.x, re[4 * g + 1] = qe.y, re[4 * g + 2] = qe.z,
         re[4 * g + 3] = qe.w;
+      }
+    };
+    // Window in_blk into buffer b; with round, instead, bf16 mode's
+    // rounding of the values this thread copied there, once they landed
+    // (plain mode: the reference rounds the gathered input values).
+    auto copy_window = [&](int in_blk, int b, bool round) {
+      const int64_t base = static_cast<int64_t>(in_blk) * BLK;
+      float* dst = win + b * BLK * SW;
+      for (int j = ptid; j < BLK * SW / 4; j += CM_PTHREADS) {
+        const int r = j / (SW / 4), c = 4 * (j % (SW / 4));
+        if (c < width && base + r < n_in_rows) {
+          if (round)
+            round4(dst + r * SW + c);
+          else
+            cp_async16(dst + r * SW + c, in + (base + r) * ld + f0 + c);
+        }
       }
     };
     load(c_begin);
@@ -696,39 +651,46 @@ __global__ void __launch_bounds__(CM_THREADS, 1)
         int ca[CM_SLOTS], cb[CM_SLOTS], cw[CM_SLOTS];
 #pragma unroll
         for (int k = 0; k < CM_SLOTS; ++k) {  // real slots; weight gathers
-          const bool ok = rb[k] >= 0 && ra[k] >= 0 && re[k] >= 0 &&
-                          re[k] < n_e && base_in + ra[k] < n_in_rows;
+          const bool ok =
+              rb[k] >= 0 && ra[k] >= 0 && base_in + ra[k] < n_in_rows &&
+              (PLAIN || (re[k] >= 0 && re[k] < n_e));
           ca[k] = ra[k];
           cb[k] = ok ? rb[k] : -1;
-          cw[k] = !ok ? 0
-                      : ONE_HEAD ? __float_as_int(__ldg(e2 + re[k])) : re[k];
+          cw[k] = PLAIN || !ok ? 0
+                  : MODE == kOneHead ? __float_as_int(__ldg(e2 + re[k]))
+                                     : re[k];
         }
         const int c_in = r_in, c_out = r_out;
         if (i + 1 < c_end) load(i + 1);  // lands during this step
-        if (c_in != prev_in) {  // the window, into the buffer not in use
+        const bool fresh = c_in != prev_in;
+        if (fresh) {  // the window, into the buffer not in use
           wb ^= 1;
-          const int64_t base = static_cast<int64_t>(c_in) * BLK;
-          float* dst = win + wb * BLK * SW;
-          for (int j = ptid; j < BLK * SW / 4; j += CM_PTHREADS) {
-            const int r = j / (SW / 4), c = 4 * (j % (SW / 4));
-            if (c < width && base + r < n_in_rows)
-              cp_async16(dst + r * SW + c, in + (base + r) * ld + f0 + c);
-          }
+          copy_window(c_in, wb, false);
           cp_async_commit();
           prev_in = c_in;
         }
-        // Counting sort by b: a warp-aggregated histogram, a scan, a
-        // scatter.
+        // Counting sort by b: a histogram, a scan, a scatter. The
+        // histogram takes one shared atomic a slot in plain mode and one a
+        // run of equal b in a warp (__match_any_sync) in the weighted
+        // modes, where full_fwd's heaviest hubs put long runs of one b into
+        // a warp. Each is the faster for its mode on the H100: the match
+        // costs plain mode, whose b are spread, 6-17%, and one atomic a
+        // slot costs mul mode 3-5% on full_fwd, no more than 1% elsewhere
+        // (tools/chunk_walk_variants.py, PERF.md section 6).
         int pos[CM_SLOTS];
 #pragma unroll
         for (int k = 0; k < CM_SLOTS; ++k) {
-          const unsigned peers = __match_any_sync(FULL, cb[k]);
-          const int leader = __ffs(peers) - 1;
-          int base = 0;  // one atomic for each run of equal b in the warp
-          if (cb[k] >= 0 && lane == leader)
-            base = atomicAdd(cnt + cb[k], __popc(peers));
-          base = __shfl_sync(FULL, base, leader);
-          pos[k] = base + __popc(peers & ((1u << lane) - 1));
+          if constexpr (PLAIN) {
+            pos[k] = cb[k] >= 0 ? atomicAdd(cnt + cb[k], 1) : 0;
+          } else {
+            const unsigned peers = __match_any_sync(FULL, cb[k]);
+            const int leader = __ffs(peers) - 1;
+            int base = 0;  // one atomic for each run of equal b in the warp
+            if (cb[k] >= 0 && lane == leader)
+              base = atomicAdd(cnt + cb[k], __popc(peers));
+            base = __shfl_sync(FULL, base, leader);
+            pos[k] = base + __popc(peers & ((1u << lane) - 1));
+          }
         }
         bar_producers();
         if (pwarp == 0) {  // exclusive scan of the 128 counts, four a lane
@@ -745,141 +707,525 @@ __global__ void __launch_bounds__(CM_THREADS, 1)
             if (lane >= d) incl += y;
           }
           int run_sum = incl - sum;
+          int* fst = first + buf * (BLK + 1);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            first[4 * lane + j] = run_sum;
+            fst[4 * lane + j] = run_sum;
             run_sum += c[j];
             cnt[4 * lane + j] = 0;
           }
           if (lane == 31) {
+            fst[BLK] = incl;
             meta[3 * buf] = incl;
             meta[3 * buf + 1] = wb;
             meta[3 * buf + 2] = c_out;
           }
         }
         bar_producers();
-        int2* dst = sp + buf * chunk;
+        Slot* dst = sp + buf * chunk;
+        const int* fst = first + buf * (BLK + 1);
 #pragma unroll
         for (int k = 0; k < CM_SLOTS; ++k) {
-          if (cb[k] >= 0)
-            dst[first[cb[k]] + pos[k]] =
-                make_int2((cb[k] << 16) | (ca[k] * SW), cw[k]);
+          if (cb[k] >= 0) {
+            const int key = (cb[k] << 16) | (ca[k] * SW);
+            if constexpr (PLAIN)
+              dst[fst[cb[k]] + pos[k]] = key;
+            else
+              dst[fst[cb[k]] + pos[k]] = make_int2(key, cw[k]);
+          }
         }
         cp_async_wait_all();
+        if (PLAIN && BF16 && fresh) copy_window(c_in, wb, true);
       }
       bar_all();
     }
     return;
   }
 
-  // ---- consumers: walk chunk i - 1, warp w over the w-th share of its
-  // sorted real slots, a run of equal b at a time.
   const int col0 = lane * VEC;  // the lane's first column in the stripe
-  int head[VEC];  // the heads of the lane's columns (several heads only)
+  if constexpr (PLAIN) {
+    // ---- consumers, plain mode: warp w owns the output rows b = w + NW o
+    // and sums their slots of every chunk of the run in registers (the
+    // slots of one b are contiguous once sorted: first[b] .. first[b + 1]);
+    // lane l reads 32 of them at a time and the warp walks them CW_UNROLL
+    // at a time, every window row loaded before any sum.
+    float part[PW_OWN][VEC];
 #pragma unroll
-  for (int v = 0; v < VEC; ++v)
-    head[v] = col0 + v < width ? (f0 + col0 + v) / rep : 0;
-  // sum += the message of slot q (the window row a, times the weight).
-  auto add_slot = [&](int2 q, const float* wn, float (&sum)[VEC]) {
-    float x[VEC];
-    ld_vec<VEC>(wn + (q.x & 0xffff), x);
+    for (int o = 0; o < PW_OWN; ++o)
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const float wt =
-          ONE_HEAD ? __int_as_float(q.y)
-                   : (col0 + v < width
-                          ? __ldg(e2 + static_cast<int64_t>(q.y) * he + head[v])
-                          : 0.f);
-      sum[v] = BF16 ? sum[v] + rnd<true>(rnd<true>(x[v]) * wt)
-                    : fmaf(x[v], wt, sum[v]);
+      for (int v = 0; v < VEC; ++v) part[o][v] = 0.f;
+    // Adds the owned rows of output block blk to the output, one atomic per
+    // nonzero element, and zeroes them.
+    auto flush = [&](int blk) {
+#pragma unroll
+      for (int o = 0; o < PW_OWN; ++o) {
+        const int64_t row = static_cast<int64_t>(blk) * BLK + warp + NW * o;
+        if (warp + NW * o < BLK && row < n_out_rows)
+          add_out<VEC>(out + row * f + f0 + col0, part[o], width - col0,
+                       f % VEC == 0);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) part[o][v] = 0.f;
+      }
+    };
+    int cur = -1;
+    bar_all();  // step c_begin: chunk c_begin is staged
+    for (int i = c_begin + 1; i <= c_end; ++i) {
+      const int buf = (i - 1 - c_begin) & 1;
+      const int wbuf = meta[3 * buf + 1], out_t = meta[3 * buf + 2];
+      if (out_t != cur) {  // the same for every consumer
+        if (cur >= 0) flush(cur);
+        cur = out_t;
+      }
+      const Slot* sq = sp + buf * chunk;
+      const int* fst = first + buf * (BLK + 1);
+      const float* wn = win + wbuf * BLK * SW + col0;
+#pragma unroll
+      for (int o = 0; o < PW_OWN; ++o) {
+        const int bo = warp + NW * o;
+        if (bo < BLK) {  // the same in every lane
+          const int s0 = fst[bo], n_b = fst[bo + 1] - s0;
+          for (int k = 0; k < n_b; k += 32) {
+            const int key = k + lane < n_b ? slot_key(sq[s0 + k + lane]) : 0;
+            const int m = min(32, n_b - k);
+            for (int t = 0; t < m; t += CW_UNROLL) {
+              float x[CW_UNROLL][VEC];
+#pragma unroll
+              for (int u = 0; u < CW_UNROLL; ++u)
+                ld_vec<VEC>(wn + (__shfl_sync(FULL, key, t + u) & 0xffff),
+                            x[u]);
+#pragma unroll
+              for (int u = 0; u < CW_UNROLL; ++u) {
+                if (t + u >= m) break;  // the same in every lane
+#pragma unroll
+                for (int v = 0; v < VEC; ++v) part[o][v] += x[u][v];
+              }
+            }
+          }
+        }
+      }
+      bar_all();
+    }
+    if (cur >= 0) flush(cur);
+  } else {
+    // ---- consumers, weighted modes: walk chunk i - 1, warp w over the w-th
+    // share of its sorted real slots, a run of equal b at a time.
+    int head[VEC];  // the heads of the lane's columns (several heads only)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      head[v] = MODE == kHeads && col0 + v < width ? (f0 + col0 + v) / rep : 0;
+    // sum += the message of slot q (the window row a, times the weight).
+    auto add_slot = [&](Slot q, const float* wn, float (&sum)[VEC]) {
+      float x[VEC];
+      ld_vec<VEC>(wn + (slot_key(q) & 0xffff), x);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float wt =
+            MODE == kOneHead
+                ? __int_as_float(q.y)
+                : (col0 + v < width
+                       ? __ldg(e2 + static_cast<int64_t>(q.y) * he + head[v])
+                       : 0.f);
+        sum[v] = BF16 ? sum[v] + rnd<true>(rnd<true>(x[v]) * wt)
+                      : fmaf(x[v], wt, sum[v]);
+      }
+    };
+    auto b_of = [&](const Slot* sq, int j) { return slot_key(sq[j]) >> 16; };
+    int cur = -1;
+    bar_all();  // step c_begin: chunk c_begin is staged
+    for (int i = c_begin + 1; i <= c_end; ++i) {
+      const int buf = (i - 1 - c_begin) & 1;
+      const int n = meta[3 * buf], wbuf = meta[3 * buf + 1];
+      const int out_t = meta[3 * buf + 2];
+      if (out_t != cur) {  // the same for every consumer
+        if (cur >= 0) {
+          flush_partial(acc, SW, cur, f0, width, out, n_out_rows, f, tid,
+                        CM_CTHREADS);
+          bar_consumers();
+        }
+        cur = out_t;
+      }
+      const Slot* sq = sp + buf * chunk;
+      const float* wn = win + wbuf * BLK * SW + col0;
+      float* piece = bnd + warp * SW + col0;
+      const int r0 = static_cast<int>(static_cast<int64_t>(n) * warp / NW);
+      const int r1 =
+          static_cast<int>(static_cast<int64_t>(n) * (warp + 1) / NW);
+      // The first run continues the previous warp's last one.
+      const bool cont_in =
+          r0 > 0 && r0 < r1 && b_of(sq, r0 - 1) == b_of(sq, r0);
+      int pass_w = r0 == r1;  // an empty share passes a crossing run on
+      float own[VEC];         // a run that crosses into later warps' shares
+      int own_b = -1;
+      for (int s = r0; s < r1;) {
+        const int rb = b_of(sq, s);
+        int e = s + 1;  // the run's end: the first slot with another b
+        for (;;) {
+          const int j = e + lane;
+          const unsigned ends =
+              __ballot_sync(FULL, j >= r1 || b_of(sq, j) != rb);
+          if (ends) {
+            e += __ffs(ends) - 1;
+            break;
+          }
+          e += 32;
+        }
+        float sum[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) sum[v] = 0.f;
+        int j = s;
+        for (; j + CW_UNROLL <= e; j += CW_UNROLL) {
+          Slot q[CW_UNROLL];
+#pragma unroll
+          for (int u = 0; u < CW_UNROLL; ++u) q[u] = sq[j + u];
+#pragma unroll
+          for (int u = 0; u < CW_UNROLL; ++u) add_slot(q[u], wn, sum);
+        }
+        for (; j < e; ++j) add_slot(sq[j], wn, sum);
+        const bool cont_out = e == r1 && r1 < n && b_of(sq, r1) == rb;
+        if (s == r0 && cont_in) {
+          st_vec<VEC>(piece, sum);
+          pass_w = cont_out;
+        } else if (cont_out) {
+          own_b = rb;
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) own[v] = sum[v];
+        } else {
+          add_vec<VEC>(acc + rb * SW + col0, sum);
+        }
+        s = e;
+      }
+      if (r0 == r1) {
+        float zero[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) zero[v] = 0.f;
+        st_vec<VEC>(piece, zero);
+      }
+      if (lane == 0) pass[warp] = pass_w;
+      bar_consumers();
+      if (own_b >= 0) {  // the crossing run and the later warps' pieces
+        for (int k = warp + 1; k < NW; ++k) {
+          float p[VEC];
+          ld_vec<VEC>(bnd + k * SW + col0, p);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) own[v] += p[v];
+          if (!pass[k]) break;
+        }
+        add_vec<VEC>(acc + own_b * SW + col0, own);
+      }
+      bar_all();
+    }
+    bar_consumers();
+    flush_partial(acc, SW, cur, f0, width, out, n_out_rows, f, tid,
+                  CM_CTHREADS);
+  }
+}
+
+// ---------------------------------------------------------------------
+// K1: out (kd, f) = C[:n_rows]^T @ U, for U of n_rows rows (rows of C
+// past n_rows read as zero counts).
+//
+// Replaces _dense_fwd_kernel (engine_hub.py:170), which multiplies C^T's
+// dense 128 x 128 tiles into U on the MXU and carries the sum over the
+// row blocks of its sequential grid. At arxiv scale C is (169,984 x 128)
+// int8 with 4.6% nonzeros (about six a row): the first design here, a
+// split-K register-tiled SGEMM, did the dense tile's 5.6 GFLOP at every
+// width, 95% of it on zero counts.
+//
+// Design: a walk over C's nonzeros, column by column. A 512-thread block
+// owns a run of 128-row tiles of C, one 128-column group of it (output
+// rows m0 .. m0 + 127) and a stripe of SW = 32 * VEC columns of U. For
+// each tile it
+//   - copies the tile's rows of U's stripe into shared memory with
+//     16-byte cp.async (U's rows are ld floats apart, ld a multiple of 4;
+//     the wrapper pads a narrower U), double-buffered: tile t + 1's rows
+//     are in flight while tile t is walked;
+//   - loads the tile's counts a tile ahead into registers (lane l reads
+//     counts 4l .. 4l + 3 of a row, 4, 8 or 16 bytes: one coalesced load a
+//     row, as K4 does) and stores them transposed, four rows of one column
+//     a quad, into cq_s[m][row quad] (the quads of column m rotated by
+//     m / 4, so that neither these stores nor the walk's loads conflict);
+//   - walks it: each warp owns a few output rows (see CF_SPLIT), their
+//     partial sums in registers (acc[i][VEC], indexed by unrolled loops,
+//     so nothing spills). For an owned column, lane l reads the quad of
+//     rows 4l .. 4l + 3; a ballot finds the lanes whose quad holds a
+//     nonzero count, and the warp takes each such quad whole, broadcast
+//     with __shfl_sync, every lane adding count * U_s[row][its VEC
+//     columns] (one vector load from shared memory) for each nonzero count
+//     in it. The heavy columns' quarters and halves are walked a count
+//     position at a time instead, four nonzeros together, every load
+//     before any product.
+// No shared-memory atomics. At the end a block adds its partial sums to
+// the zeroed output, one float4 (float2, float) atomic per vector with a
+// nonzero element: blocks run in no order, so results agree with a
+// sequential sum to float32 rounding of the partial sums, not bit for bit.
+//
+// BF16 rounds the counts (counts above 256 lose bits, as in the
+// reference) as they are read and U's values once, in shared memory, by
+// the threads that copied them, once they have landed.
+//
+// Bound on the H100: bytes. At arxiv (F = 128) C (21.8 MB), the rows of U
+// that a nonzero needs (86.7 MB) and the output, once: 0.0324 ms at
+// 3.35 TB/s; the nonzeros need 0.26 GFLOP. What holds it back (PERF.md,
+// section 6): instructions. Every owned column of every tile costs a quad
+// load, a ballot and a shuffle and four uniform branches per nonzero quad,
+// whatever its counts, and the static split of the heavy columns by
+// position balances the warps only roughly.
+// ---------------------------------------------------------------------
+constexpr int CF_THREADS = 512;                 // threads of a K1 block
+constexpr int CF_WARPS = CF_THREADS / 32;       // 16
+// The layout orders a group's hub slots by falling in-degree
+// (hub_format.py), so its first few columns hold most of the nonzeros
+// (on a power-law graph the first is nonzero in nearly every row). Each
+// of the first CF_QUARTERS columns is walked by four warps, one count
+// position each, and each of the next CF_HALVES by two, two positions
+// each; every warp owns one quarter, one half and up to CF_OWN whole
+// columns of the rest, dealt in alternating order so that no warp holds
+// the heaviest of each round.
+constexpr int CF_QUARTERS = CF_WARPS / 4;       // 4
+constexpr int CF_HALVES = CF_WARPS / 2;         // 8
+constexpr int CF_SPLIT = CF_QUARTERS + CF_HALVES;
+constexpr int CF_OWN = (BLK - CF_SPLIT + CF_WARPS - 1) / CF_WARPS;  // 8
+constexpr int CF_RQ = BLK / 4;                  // row quads of a tile (32)
+constexpr int CF_STAGE = CF_RQ / CF_WARPS;      // row quads a warp stages
+constexpr int CF_UNROLL = 4;                    // nonzeros walked together
+
+// The four counts of column j (0..3) in four rows' quads, as one quad.
+template <typename CT>
+__device__ __forceinline__ Quad<CT> quad_column(const Quad<CT> (&q)[4],
+                                                int j) {
+  Quad<CT> o;
+  if constexpr (sizeof(CT) == 1) {
+    const unsigned sel = j | ((j + 4) << 4);  // byte j of x, byte j of y
+    const unsigned lo = __byte_perm(q[0].v[0], q[1].v[0], sel);
+    const unsigned hi = __byte_perm(q[2].v[0], q[3].v[0], sel);
+    o.v[0] = __byte_perm(lo, hi, 0x5410);
+  } else if constexpr (sizeof(CT) == 2) {
+    const unsigned sel = j % 2 ? 0x7632 : 0x5410;  // high or low halves
+    o.v[0] = __byte_perm(q[0].v[j / 2], q[1].v[j / 2], sel);
+    o.v[1] = __byte_perm(q[2].v[j / 2], q[3].v[j / 2], sel);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o.v[i] = q[i].v[j];
+  }
+  return o;
+}
+
+// Quad slot (m, row quad rq) of the transposed tile: column m's quads are
+// rotated by m / 4.
+template <typename CT>
+__device__ __forceinline__ uint32_t* quad_slot(uint32_t* cq, int m, int rq) {
+  return cq + (m * CF_RQ + ((rq + m / 4) & (CF_RQ - 1))) * Quad<CT>::W;
+}
+
+template <typename CT>
+__device__ __forceinline__ void st_quad(uint32_t* p, const Quad<CT>& q) {
+  if constexpr (Quad<CT>::W == 1) {
+    p[0] = q.v[0];
+  } else if constexpr (Quad<CT>::W == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(q.v[0], q.v[1]);
+  } else {
+    *reinterpret_cast<uint4*>(p) = make_uint4(q.v[0], q.v[1], q.v[2], q.v[3]);
+  }
+}
+
+template <typename CT>
+__device__ __forceinline__ Quad<CT> ld_quad(const uint32_t* p) {
+  Quad<CT> q;
+  if constexpr (Quad<CT>::W == 1) {
+    q.v[0] = p[0];
+  } else if constexpr (Quad<CT>::W == 2) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    q.v[0] = x.x, q.v[1] = x.y;
+  } else {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    q.v[0] = x.x, q.v[1] = x.y, q.v[2] = x.z, q.v[3] = x.w;
+  }
+  return q;
+}
+
+template <typename CT, int VEC, bool BF16>
+__global__ void __launch_bounds__(CF_THREADS, 1)
+    dense_fwd_walk_kernel(const CT* __restrict__ c,
+                          const float* __restrict__ u, int ld,
+                          float* __restrict__ out, int n_rows, int kd, int f) {
+  constexpr int SW = 32 * VEC;
+  extern __shared__ __align__(16) float smem[];
+  float* win = smem;  // [2][BLK][SW] the tiles' rows of U
+  uint32_t* cq = reinterpret_cast<uint32_t*>(win + 2 * BLK * SW);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int stripes = (f + SW - 1) / SW;
+  const int m0 = (blockIdx.y / stripes) * BLK;
+  const int f0 = (blockIdx.y % stripes) * SW;
+  const int width = min(SW, f - f0);
+  const int n_tiles = (n_rows + BLK - 1) / BLK;
+  const int t_begin =
+      static_cast<int>(static_cast<int64_t>(n_tiles) * blockIdx.x / gridDim.x);
+  const int t_end = static_cast<int>(static_cast<int64_t>(n_tiles) *
+                                     (blockIdx.x + 1) / gridDim.x);
+  if (t_begin >= t_end) return;
+
+  // Columns past the stripe's width are never copied: zero them once.
+  for (int i = tid; i < 2 * BLK * SW; i += CF_THREADS)
+    if (i % SW >= width) win[i] = 0.f;
+
+  // Thread (warp, lane) stages row quads warp + CF_WARPS * k of a tile at
+  // columns m0 + 4 lane .. + 3.
+  const int k_col = m0 + 4 * lane;
+  Quad<CT> rows[CF_STAGE][4];
+  auto load_counts = [&](int t) {
+#pragma unroll
+    for (int k = 0; k < CF_STAGE; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = t * BLK + 4 * (warp + CF_WARPS * k) + i;
+        rows[k][i] = load_quad(c + static_cast<size_t>(r) * kd + k_col,
+                               r < n_rows && k_col < kd);
+      }
+  };
+  auto store_counts = [&]() {
+#pragma unroll
+    for (int k = 0; k < CF_STAGE; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        st_quad<CT>(quad_slot<CT>(cq, 4 * lane + j, warp + CF_WARPS * k),
+                    quad_column<CT>(rows[k], j));
+  };
+  // Tile t's rows of U into buffer buf; with round, instead, bf16 mode's
+  // rounding of the values this thread copied there, once they landed.
+  auto stage_rows = [&](int t, int buf, bool round) {
+    float* dst = win + buf * BLK * SW;
+    const int64_t r0 = static_cast<int64_t>(t) * BLK;
+    for (int j = tid; j < BLK * SW / 4; j += CF_THREADS) {
+      const int r = j / (SW / 4), cc = 4 * (j % (SW / 4));
+      if (cc < width && r0 + r < n_rows) {
+        if (round)
+          round4(dst + r * SW + cc);
+        else
+          cp_async16(dst + r * SW + cc, u + (r0 + r) * ld + f0 + cc);
+      }
+    }
+    if (!round) cp_async_commit();
+  };
+
+  // acc[0]: column warp % 4 at count position warp / 4; acc[1]: column
+  // CF_QUARTERS + warp / 2 at positions 2 (warp % 2) and 2 (warp % 2) + 1;
+  // acc[2 + i]: column own_col(i).
+  float acc[2 + CF_OWN][VEC];
+#pragma unroll
+  for (int i = 0; i < 2 + CF_OWN; ++i)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[i][v] = 0.f;
+  const int col0 = lane * VEC;
+  auto own_col = [&](int i) {
+    return CF_SPLIT + CF_WARPS * i + (i % 2 ? warp : CF_WARPS - 1 - warp);
+  };
+  // acc_m += the products of the counts cnt (position j of every lane's
+  // quad: rows 4 l + j of the tile) with their rows of U, CF_UNROLL
+  // nonzeros at a time, every load before any product. For a column whose
+  // nonzeros crowd one position (the heavy columns' quarters).
+  auto walk_position = [&](float cnt, int j, const float* wn,
+                           float (&acc_m)[VEC]) {
+    unsigned lanes = __ballot_sync(FULL, cnt != 0.f);
+    while (lanes) {  // the same in every lane
+      int src[CF_UNROLL], n = 0;
+#pragma unroll
+      for (int k = 0; k < CF_UNROLL; ++k) {
+        src[k] = lanes ? __ffs(lanes) - 1 : src[0];
+        if (lanes) {
+          lanes &= lanes - 1;
+          ++n;
+        }
+      }
+      float cv[CF_UNROLL], x[CF_UNROLL][VEC];
+#pragma unroll
+      for (int k = 0; k < CF_UNROLL; ++k) {
+        cv[k] = __shfl_sync(FULL, cnt, src[k]);
+        ld_vec<VEC>(wn + (4 * src[k] + j) * SW, x[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < CF_UNROLL; ++k) {
+        if (k >= n) break;  // the same in every lane
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          acc_m[v] = fmaf(cv[k], x[k][v], acc_m[v]);
+      }
     }
   };
-  int cur = -1;
-  bar_all();  // step c_begin: chunk c_begin is staged
-  for (int i = c_begin + 1; i <= c_end; ++i) {
-    const int buf = (i - 1 - c_begin) & 1;
-    const int n = meta[3 * buf], wbuf = meta[3 * buf + 1];
-    const int out_t = meta[3 * buf + 2];
-    if (out_t != cur) {  // the same for every consumer
-      if (cur >= 0) {
-        flush_partial(acc, SW, cur, f0, width, out, n_out_rows, f, tid,
-                      CM_CTHREADS);
-        bar_consumers();
-      }
-      cur = out_t;
-    }
-    const int2* sq = sp + buf * chunk;
-    const float* wn = win + wbuf * BLK * SW + col0;
-    float* piece = bnd + warp * SW + col0;
-    const int r0 = static_cast<int>(static_cast<int64_t>(n) * warp / NW);
-    const int r1 = static_cast<int>(static_cast<int64_t>(n) * (warp + 1) / NW);
-    // The first run continues the previous warp's last one.
-    const bool cont_in =
-        r0 > 0 && r0 < r1 && (sq[r0 - 1].x >> 16) == (sq[r0].x >> 16);
-    int pass_w = r0 == r1;  // an empty share passes a crossing run on
-    float own[VEC];         // a run that crosses into later warps' shares
-    int own_b = -1;
-    for (int s = r0; s < r1;) {
-      const int rb = sq[s].x >> 16;
-      int e = s + 1;  // the run's end: the first slot with another b
-      for (;;) {
-        const int j = e + lane;
-        const unsigned ends =
-            __ballot_sync(FULL, j >= r1 || (sq[j].x >> 16) != rb);
-        if (ends) {
-          e += __ffs(ends) - 1;
-          break;
+  // The same over all four positions of a light column: one ballot finds
+  // the lanes whose quad holds a nonzero count, and the warp takes each
+  // such quad whole (broadcast with __shfl_sync), one uniform branch a
+  // count.
+  auto walk_quads = [&](const Quad<CT>& q, const float* wn,
+                        float (&acc_m)[VEC]) {
+    uint32_t any = 0;
+#pragma unroll
+    for (int w = 0; w < Quad<CT>::W; ++w) any |= q.v[w];
+    unsigned lanes = __ballot_sync(FULL, any != 0u);
+    while (lanes) {  // the same in every lane
+      const int src = __ffs(lanes) - 1;
+      lanes &= lanes - 1;
+      Quad<CT> qs;
+#pragma unroll
+      for (int w = 0; w < Quad<CT>::W; ++w)
+        qs.v[w] = __shfl_sync(FULL, q.v[w], src);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float cv = rnd<BF16>(quad_count<CT>(qs.v, j));
+        if (cv != 0.f) {  // the same in every lane
+          float x[VEC];
+          ld_vec<VEC>(wn + (4 * src + j) * SW, x);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            acc_m[v] = fmaf(cv, x[v], acc_m[v]);
         }
-        e += 32;
       }
-      float sum[VEC];
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) sum[v] = 0.f;
-      int j = s;
-      for (; j + CW_UNROLL <= e; j += CW_UNROLL) {
-        int2 q[CW_UNROLL];
-#pragma unroll
-        for (int u = 0; u < CW_UNROLL; ++u) q[u] = sq[j + u];
-#pragma unroll
-        for (int u = 0; u < CW_UNROLL; ++u) add_slot(q[u], wn, sum);
-      }
-      for (; j < e; ++j) add_slot(sq[j], wn, sum);
-      const bool cont_out = e == r1 && r1 < n && (sq[r1].x >> 16) == rb;
-      if (s == r0 && cont_in) {
-        st_vec<VEC>(piece, sum);
-        pass_w = cont_out;
-      } else if (cont_out) {
-        own_b = rb;
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) own[v] = sum[v];
-      } else {
-        add_vec<VEC>(acc + rb * SW + col0, sum);
-      }
-      s = e;
     }
-    if (r0 == r1) {
-      float zero[VEC];
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) zero[v] = 0.f;
-      st_vec<VEC>(piece, zero);
+  };
+  load_counts(t_begin);
+  stage_rows(t_begin, 0, false);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    store_counts();  // the previous walk is done (barrier below)
+    if (t + 1 < t_end) {
+      load_counts(t + 1);  // lands during this walk
+      stage_rows(t + 1, buf ^ 1, false);
+    } else {
+      cp_async_commit();  // an empty batch keeps the count of pending ones
     }
-    if (lane == 0) pass[warp] = pass_w;
-    bar_consumers();
-    if (own_b >= 0) {  // the crossing run and the later warps' pieces
-      for (int k = warp + 1; k < NW; ++k) {
-        float p[VEC];
-        ld_vec<VEC>(bnd + k * SW + col0, p);
+    cp_async_wait_prev();  // this tile's rows have landed
+    if (BF16) stage_rows(t, buf, true);
+    __syncthreads();
+    const float* wn = win + buf * BLK * SW + col0;
+    {
+      const Quad<CT> q = ld_quad<CT>(quad_slot<CT>(cq, warp % 4, lane));
+      const Quad<CT> h =
+          ld_quad<CT>(quad_slot<CT>(cq, CF_QUARTERS + warp / 2, lane));
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) own[v] += p[v];
-        if (!pass[k]) break;
+      for (int j = 0; j < 4; ++j) {
+        if (j == warp / 4)
+          walk_position(rnd<BF16>(quad_count<CT>(q.v, j)), j, wn, acc[0]);
+        if (j / 2 == warp % 2)
+          walk_position(rnd<BF16>(quad_count<CT>(h.v, j)), j, wn, acc[1]);
       }
-      add_vec<VEC>(acc + own_b * SW + col0, own);
     }
-    bar_all();
+#pragma unroll
+    for (int i = 0; i < CF_OWN; ++i) {
+      const int m = own_col(i);
+      if (m < BLK) {  // the same in every lane
+        walk_quads(ld_quad<CT>(quad_slot<CT>(cq, m, lane)), wn, acc[2 + i]);
+      }
+    }
+    __syncthreads();
   }
-  bar_consumers();
-  flush_partial(acc, SW, cur, f0, width, out, n_out_rows, f, tid,
-                CM_CTHREADS);
+#pragma unroll
+  for (int i = 0; i < 2 + CF_OWN; ++i) {
+    const int m = m0 + (i == 0   ? warp % 4
+                        : i == 1 ? CF_QUARTERS + warp / 2
+                                 : own_col(i - 2));
+    if (m < min(kd, m0 + BLK))
+      add_out<VEC>(out + static_cast<size_t>(m) * f + f0 + col0, acc[i],
+                   width - col0, f % VEC == 0);
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -1120,25 +1466,6 @@ int num_sms() {
   return g_num_sms;
 }
 
-template <typename CT, bool BF16>
-void launch_dense_fwd(const void* c, const float* u, float* out, int n_rows,
-                      int kd, int f, cudaStream_t stream) {
-  const int tiles_m = (kd + BM - 1) / BM, tiles_n = (f + BN - 1) / BN;
-  // About two blocks per SM in all; each split a multiple of BK rows.
-  int splits = (2 * num_sms() + tiles_m * tiles_n - 1) / (tiles_m * tiles_n);
-  const int max_splits = (n_rows + BK - 1) / BK;
-  if (splits > max_splits) splits = max_splits;
-  if (splits < 1) splits = 1;
-  int rows_per_split = (n_rows + splits - 1) / splits;
-  rows_per_split = ((rows_per_split + BK - 1) / BK) * BK;
-  if (rows_per_split < BK) rows_per_split = BK;
-  splits = (n_rows + rows_per_split - 1) / rows_per_split;
-  if (splits < 1) return;
-  dim3 grid(tiles_m, tiles_n, splits);
-  dense_fwd_kernel<CT, BF16><<<grid, NT, 0, stream>>>(
-      static_cast<const CT*>(c), u, out, n_rows, kd, f, rows_per_split);
-}
-
 // Dynamic shared memory a block may use on the H100 (227 KB), and the cap
 // on K4's staged ct stripe that leaves room for two blocks an SM.
 constexpr size_t SMEM_LIMIT = 232448;
@@ -1151,6 +1478,64 @@ cudaError_t allow_smem(K* kern, size_t bytes) {
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     static_cast<int>(bytes))
              : cudaSuccess;
+}
+
+template <typename CT, int VEC, bool BF16>
+int launch_dense_fwd(const CT* c, const float* u, int ld, float* out,
+                     int n_rows, int kd, int f, cudaStream_t stream) {
+  constexpr int SW = 32 * VEC;
+  auto kern = dense_fwd_walk_kernel<CT, VEC, BF16>;
+  // U's rows of two tiles (floats) and the transposed counts of one.
+  const size_t smem = 2 * static_cast<size_t>(BLK) * SW * sizeof(float) +
+                      static_cast<size_t>(BLK) * CF_RQ * 4 * sizeof(CT);
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // One wave of one block an SM: the (group, stripe) pairs, each split
+  // into runs of whole tiles.
+  const int pairs = ((kd + BLK - 1) / BLK) * ((f + SW - 1) / SW);
+  const int n_tiles = (n_rows + BLK - 1) / BLK;
+  int splits = (num_sms() + pairs - 1) / pairs;
+  if (splits > n_tiles) splits = n_tiles;
+  const dim3 grid(splits, pairs);
+  kern<<<grid, CF_THREADS, smem, stream>>>(c, u, ld, out, n_rows, kd, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename CT, bool BF16>
+int dense_fwd_by_width(const void* c, const float* u, int ld, float* out,
+                       int n_rows, int kd, int f, cudaStream_t s) {
+  const CT* cc = static_cast<const CT*>(c);
+  if (f <= 32)
+    return launch_dense_fwd<CT, 1, BF16>(cc, u, ld, out, n_rows, kd, f, s);
+  if (f <= 64)
+    return launch_dense_fwd<CT, 2, BF16>(cc, u, ld, out, n_rows, kd, f, s);
+  return launch_dense_fwd<CT, 4, BF16>(cc, u, ld, out, n_rows, kd, f, s);
+}
+
+// K1 loads four counts of a row at a time from a 16-byte boundary (kd is
+// 128 x the dense groups in every layout) and copies U's rows 16 bytes at
+// a time, each from a 16-byte boundary.
+template <bool BF16>
+int dense_fwd_by_type(const void* c, int c_dtype, const float* u, int ld,
+                      float* out, int n_rows, int kd, int f, cudaStream_t s) {
+  if (n_rows <= 0 || kd <= 0 || f <= 0) return static_cast<int>(cudaSuccess);
+  if (kd % 4 != 0 || ld % 4 != 0 || ld < f ||
+      reinterpret_cast<uintptr_t>(c) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(u) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (c_dtype) {
+    case 0:
+      return dense_fwd_by_width<int8_t, BF16>(c, u, ld, out, n_rows, kd, f,
+                                              s);
+    case 1:
+      return dense_fwd_by_width<__nv_bfloat16, BF16>(c, u, ld, out, n_rows,
+                                                     kd, f, s);
+    case 2:
+      return dense_fwd_by_width<float, BF16>(c, u, ld, out, n_rows, kd, f,
+                                             s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename CT, int NC, bool FUSED, bool BF16>
@@ -1227,20 +1612,22 @@ int launch_dense_bwd(const void* c, const float* ct, float* out, int n_out,
                    nullptr, nullptr, nullptr, stream);
 }
 
-template <int VEC, bool ONE_HEAD, bool BF16>
-int launch_chunk_mul(const int* a, const int* b, const int* eid,
-                     const int* in_id, const int* out_id, int n_chunks,
-                     int chunk, const float* e2, int n_e, int he, int rep,
-                     const float* in, int n_in_rows, int ld, float* out,
-                     int n_out_rows, int f, cudaStream_t stream) {
+template <int VEC, int MODE, bool BF16>
+int launch_chunk_walk(const int* a, const int* b, const int* eid,
+                      const int* in_id, const int* out_id, int n_chunks,
+                      int chunk, const float* e2, int n_e, int he, int rep,
+                      const float* in, int n_in_rows, int ld, float* out,
+                      int n_out_rows, int f, cudaStream_t stream) {
   constexpr int SW = 32 * VEC;
-  auto kern = chunk_mul_kernel<VEC, ONE_HEAD, BF16>;
+  auto kern = chunk_walk_kernel<VEC, MODE, BF16>;
   // Two windows, the partial and the crossing runs' pieces (floats), two
-  // buffers of sorted slots (int2), the counts, first slots, two chunks'
-  // (real slots, window, out_id) and the pass flags (ints).
-  const size_t smem = (3 * BLK + CM_CONSUMERS) * SW * sizeof(float) +
-                      2 * static_cast<size_t>(chunk) * sizeof(int2) +
-                      (2 * BLK + 6 + CM_CONSUMERS) * sizeof(int);
+  // buffers of sorted slots, the counts, first slots, two chunks' (real
+  // slots, window, out_id) and the pass flags (ints).
+  const size_t smem =
+      (MODE == kPlain ? 2 * BLK : 3 * BLK + CM_CONSUMERS) * SW *
+          sizeof(float) +
+      2 * static_cast<size_t>(chunk) * sizeof(ChunkSlot<MODE>) +
+      (3 * BLK + 2 + 6 + CM_CONSUMERS) * sizeof(int);
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1262,62 +1649,57 @@ int launch_chunk_mul(const int* a, const int* b, const int* eid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// plain: K2 plain (eid and e2 null); else mul, one weight per edge
+// (he == 1) or several heads.
 template <int VEC, bool BF16>
-int chunk_mul_by_heads(const int* a, const int* b, const int* eid,
-                       const int* in_id, const int* out_id, int n_chunks,
-                       int chunk, const float* e2, int n_e, int he, int rep,
-                       const float* in, int n_in_rows, int ld, float* out,
-                       int n_out_rows, int f, cudaStream_t s) {
-  return he == 1 ? launch_chunk_mul<VEC, true, BF16>(
+int chunk_walk_by_mode(bool plain, const int* a, const int* b,
+                       const int* eid, const int* in_id, const int* out_id,
+                       int n_chunks, int chunk, const float* e2, int n_e,
+                       int he, int rep, const float* in, int n_in_rows,
+                       int ld, float* out, int n_out_rows, int f,
+                       cudaStream_t s) {
+  if (plain) {
+    return launch_chunk_walk<VEC, kPlain, BF16>(
+        a, b, eid, in_id, out_id, n_chunks, chunk, e2, n_e, he, rep, in,
+        n_in_rows, ld, out, n_out_rows, f, s);
+  }
+  return he == 1 ? launch_chunk_walk<VEC, kOneHead, BF16>(
                        a, b, eid, in_id, out_id, n_chunks, chunk, e2, n_e, he,
                        rep, in, n_in_rows, ld, out, n_out_rows, f, s)
-                 : launch_chunk_mul<VEC, false, BF16>(
+                 : launch_chunk_walk<VEC, kHeads, BF16>(
                        a, b, eid, in_id, out_id, n_chunks, chunk, e2, n_e, he,
                        rep, in, n_in_rows, ld, out, n_out_rows, f, s);
 }
 
 template <bool BF16>
-int chunk_mul_by_width(const int* a, const int* b, const int* eid,
-                       const int* in_id, const int* out_id, int n_chunks,
-                       int chunk, const float* e2, int n_e, int he, int rep,
-                       const float* in, int n_in_rows, int ld, float* out,
-                       int n_out_rows, int f, cudaStream_t s) {
+int chunk_walk_by_width(bool plain, const int* a, const int* b,
+                        const int* eid, const int* in_id, const int* out_id,
+                        int n_chunks, int chunk, const float* e2, int n_e,
+                        int he, int rep, const float* in, int n_in_rows,
+                        int ld, float* out, int n_out_rows, int f,
+                        cudaStream_t s) {
   // The producers load four slots at a time and copy the input's rows 16
   // bytes at a time, each from a 16-byte boundary.
   if (chunk > CM_MAX_CHUNK || chunk % 4 != 0 || ld % 4 != 0 || ld < f ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(eid) % 16 != 0 ||
+      (!plain && reinterpret_cast<uintptr_t>(eid) % 16 != 0) ||
       reinterpret_cast<uintptr_t>(in) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (f <= 32) {
-    return chunk_mul_by_heads<1, BF16>(a, b, eid, in_id, out_id, n_chunks,
-                                       chunk, e2, n_e, he, rep, in, n_in_rows,
-                                       ld, out, n_out_rows, f, s);
+    return chunk_walk_by_mode<1, BF16>(plain, a, b, eid, in_id, out_id,
+                                       n_chunks, chunk, e2, n_e, he, rep, in,
+                                       n_in_rows, ld, out, n_out_rows, f, s);
   }
   if (f <= 64) {
-    return chunk_mul_by_heads<2, BF16>(a, b, eid, in_id, out_id, n_chunks,
-                                       chunk, e2, n_e, he, rep, in, n_in_rows,
-                                       ld, out, n_out_rows, f, s);
+    return chunk_walk_by_mode<2, BF16>(plain, a, b, eid, in_id, out_id,
+                                       n_chunks, chunk, e2, n_e, he, rep, in,
+                                       n_in_rows, ld, out, n_out_rows, f, s);
   }
-  return chunk_mul_by_heads<4, BF16>(a, b, eid, in_id, out_id, n_chunks,
-                                     chunk, e2, n_e, he, rep, in, n_in_rows,
-                                     ld, out, n_out_rows, f, s);
-}
-
-template <bool BF16>
-int dense_fwd_by_type(const void* c, int c_dtype, const float* u, float* out,
-                      int n_rows, int kd, int f, cudaStream_t s) {
-  switch (c_dtype) {
-    case 0: launch_dense_fwd<int8_t, BF16>(c, u, out, n_rows, kd, f, s); break;
-    case 1:
-      launch_dense_fwd<__nv_bfloat16, BF16>(c, u, out, n_rows, kd, f, s);
-      break;
-    case 2: launch_dense_fwd<float, BF16>(c, u, out, n_rows, kd, f, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return chunk_walk_by_mode<4, BF16>(plain, a, b, eid, in_id, out_id,
+                                     n_chunks, chunk, e2, n_e, he, rep, in,
+                                     n_in_rows, ld, out, n_out_rows, f, s);
 }
 
 template <bool BF16>
@@ -1342,13 +1724,17 @@ int dense_bwd_by_type(const void* c, int c_dtype, const float* ct, float* out,
 
 extern "C" {
 
-// c_dtype: 0 = int8, 1 = bfloat16, 2 = float32. `out` must be zeroed.
-// bf16: 1 for the bf16 mode.
+// c_dtype: 0 = int8, 1 = bfloat16, 2 = float32; c (rows x kd, kd a
+// multiple of 4) on a 16-byte boundary. u has n_rows rows of f floats, ld
+// floats apart (ld a multiple of 4, u on a 16-byte boundary). `out` (kd x
+// f) must be zeroed. bf16: 1 for the bf16 mode.
 int hub_dense_fwd(const void* c, int c_dtype, const float* u, float* out,
-                  int n_rows, int kd, int f, int bf16, void* stream) {
+                  int n_rows, int kd, int f, int ld, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dense_fwd_by_type<true>(c, c_dtype, u, out, n_rows, kd, f, s)
-              : dense_fwd_by_type<false>(c, c_dtype, u, out, n_rows, kd, f, s);
+  return bf16 ? dense_fwd_by_type<true>(c, c_dtype, u, ld, out, n_rows, kd,
+                                        f, s)
+              : dense_fwd_by_type<false>(c, c_dtype, u, ld, out, n_rows, kd,
+                                         f, s);
 }
 
 // starts/desc/tail all null: K4b; all set: K4a.
@@ -1363,20 +1749,24 @@ int hub_dense_bwd(const void* c, int c_dtype, const float* ct, float* out,
                                          starts, desc, tail, s);
 }
 
-// `out` must be zeroed.
+// in has n_in_rows rows of f floats, ld floats apart (ld a multiple of
+// 4, in on a 16-byte boundary); chunks of at most 1024 slots, a multiple
+// of 4, with a and b on 16-byte boundaries. `out` (n_out_rows x f) must be
+// zeroed.
 int hub_chunk_sum(const int* a, const int* b, const int* in_id,
                   const int* out_id, int n_chunks, int chunk, const float* in,
-                  int n_in_rows, float* out, int n_out_rows, int f, int bf16,
-                  void* stream) {
+                  int n_in_rows, int ld, float* out, int n_out_rows, int f,
+                  int bf16, void* stream) {
+  if (n_chunks <= 0 || f <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_chunks > 0 && bf16) {
-    chunk_sum_kernel<true><<<n_chunks, NT, 0, s>>>(
-        a, b, in_id, out_id, in, n_in_rows, out, n_out_rows, f, chunk);
-  } else if (n_chunks > 0) {
-    chunk_sum_kernel<false><<<n_chunks, NT, 0, s>>>(
-        a, b, in_id, out_id, in, n_in_rows, out, n_out_rows, f, chunk);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? chunk_walk_by_width<true>(true, a, b, nullptr, in_id, out_id,
+                                          n_chunks, chunk, nullptr, 0, 1, 1,
+                                          in, n_in_rows, ld, out, n_out_rows,
+                                          f, s)
+              : chunk_walk_by_width<false>(true, a, b, nullptr, in_id, out_id,
+                                           n_chunks, chunk, nullptr, 0, 1, 1,
+                                           in, n_in_rows, ld, out, n_out_rows,
+                                           f, s);
 }
 
 int hub_expand(const int* starts, const int* desc, const float* merged,
@@ -1402,14 +1792,14 @@ int hub_chunk_weighted(int mode, const int* a, const int* b, const int* eid,
   if (n_chunks <= 0 || f <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
-    return bf16 ? chunk_mul_by_width<true>(a, b, eid, in_id, out_id, n_chunks,
-                                           chunk, e2, n_e, he, rep, in,
-                                           n_in_rows, ld, out, n_out_rows, f,
-                                           s)
-                : chunk_mul_by_width<false>(a, b, eid, in_id, out_id,
+    return bf16 ? chunk_walk_by_width<true>(false, a, b, eid, in_id, out_id,
                                             n_chunks, chunk, e2, n_e, he, rep,
                                             in, n_in_rows, ld, out,
-                                            n_out_rows, f, s);
+                                            n_out_rows, f, s)
+                : chunk_walk_by_width<false>(false, a, b, eid, in_id, out_id,
+                                             n_chunks, chunk, e2, n_e, he,
+                                             rep, in, n_in_rows, ld, out,
+                                             n_out_rows, f, s);
   }
   const int stripes = (f + RSTRIPE - 1) / RSTRIPE;
   // About eight blocks per SM in all, each a run of whole chunks.

@@ -50,11 +50,11 @@ _SIGNATURES = {
     },
     "hub_kernels": {
         "hub_dense_fwd": [_ptr, _c_int, _ptr, _ptr, _c_int, _c_int, _c_int,
-                          _c_int, _ptr],
+                          _c_int, _c_int, _ptr],
         "hub_dense_bwd": [_ptr, _c_int, _ptr, _ptr, _c_int, _c_int, _c_int,
                           _ptr, _ptr, _ptr, _c_int, _ptr],
         "hub_chunk_sum": [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int, _ptr,
-                          _c_int, _ptr, _c_int, _c_int, _c_int, _ptr],
+                          _c_int, _c_int, _ptr, _c_int, _c_int, _c_int, _ptr],
         "hub_expand": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _c_int,
                        _ptr],
         "hub_chunk_weighted": [_c_int, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,

@@ -224,10 +224,32 @@ def _done(name, rc, bf16=False):
     LAUNCHES[f"{name}.bf16" if bf16 else name] += 1
 
 
+def _rows16(x):
+    """``x`` (n, f) f32 and its row stride: as it is where its rows are a
+    multiple of 4 floats on a 16-byte boundary, else copied once into
+    zero-padded rows that are (K1 and K2 copy rows 16 bytes at a time)."""
+    f = x.shape[1]
+    if f % 4 == 0 and x.data_ptr() % 16 == 0:
+        return x, f
+    ld = -(-f // 4) * 4
+    padded = torch.zeros((x.shape[0], ld), dtype=x.dtype, device=x.device)
+    padded[:, :f] = x
+    return padded, ld
+
+
+def _aligned16(what, *ts):
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what} 16 bytes at a time: each must start on a "
+                         f"16-byte boundary")
+
+
 def dense_fwd(c, u, bf16: bool = False):
     """K1. ``c``: (rows_pad, kd) int8/bf16/f32 counts; ``u``: (n, f) f32,
-    n <= rows_pad. Returns (kd, f) f32. ``bf16``: see
-    :func:`dense_fwd_torch`."""
+    n <= rows_pad. Returns (kd, f) f32. On the card ``c`` must start on a
+    16-byte boundary with kd a multiple of 4 (every layout's kd is 128 x
+    its dense groups); a ``u`` whose width is not a multiple of 4, or that
+    starts off a 16-byte boundary, is copied once into padded rows.
+    ``bf16``: see :func:`dense_fwd_torch`."""
     dev = u.device
     _check("c", c, tuple(_C_DTYPES), 2, dev)
     _f32("u", u, dev)
@@ -239,26 +261,29 @@ def dense_fwd(c, u, bf16: bool = False):
     out = torch.zeros((kd, f), dtype=torch.float32, device=dev)
     if u.shape[0] == 0 or kd == 0 or f == 0:
         return out
+    if kd % 4:
+        raise ValueError("K1 loads four counts of a row at a time: the "
+                         "count matrix needs a multiple of 4 columns")
+    _aligned16("K1 loads the count matrix", c)
+    u, ld = _rows16(u)
     with torch.cuda.device(dev):
         rc = _lib().hub_dense_fwd(c.data_ptr(), _C_DTYPES[c.dtype],
                                   u.data_ptr(), out.data_ptr(), u.shape[0],
-                                  kd, f, int(bf16), _stream(dev))
+                                  kd, f, ld, int(bf16), _stream(dev))
     _done("dense_fwd", rc, bf16)
     return out
 
 
 def chunk_sum(lay, inp, n_out_blocks: int, bf16: bool = False):
     """K2, plain mode. ``lay``: chunk layout (a, b, in_id, out_id int32);
-    ``inp``: (n_in, f) f32. Returns (n_out_blocks*128, f) f32. ``bf16``:
-    see :func:`chunk_sum_torch`."""
+    ``inp``: (n_in, f) f32. Returns (n_out_blocks*128, f) f32. On the
+    card it takes chunks of at most 1024 slots, a multiple of 4, with
+    ``a`` and ``b`` on 16-byte boundaries, and copies an ``inp`` whose
+    width is not a multiple of 4, or that starts off a 16-byte boundary,
+    once into padded rows. ``bf16``: see :func:`chunk_sum_torch`."""
     dev = inp.device
     _f32("inp", inp, dev)
-    for k in ("a", "b", "in_id", "out_id"):
-        _int32(k, lay[k], dev)
-    n_chunks = lay["in_id"].shape[0]
-    if lay["a"].shape[0] != lay["b"].shape[0] or (
-            n_chunks and lay["a"].shape[0] % n_chunks):
-        raise ValueError("chunk layout slots do not match its chunk count")
+    n_chunks, chunk = _chunk_layout(lay, dev, ("a", "b", "in_id", "out_id"))
     if dev.type == "cpu":
         return chunk_sum_torch(lay, inp, n_out_blocks, bf16)
     f = inp.shape[1]
@@ -266,12 +291,13 @@ def chunk_sum(lay, inp, n_out_blocks: int, bf16: bool = False):
                       device=dev)
     if n_chunks == 0 or f == 0:
         return out  # nothing to launch
-    chunk = lay["a"].shape[0] // n_chunks
+    _walkable("K2", lay, chunk, ("a", "b"))
+    inp, ld = _rows16(inp)
     with torch.cuda.device(dev):
         rc = _lib().hub_chunk_sum(
             lay["a"].data_ptr(), lay["b"].data_ptr(),
             lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,
-            chunk, inp.data_ptr(), inp.shape[0], out.data_ptr(),
+            chunk, inp.data_ptr(), inp.shape[0], ld, out.data_ptr(),
             out.shape[0], f, int(bf16), _stream(dev))
     _done("chunk_sum", rc, bf16)
     return out
@@ -380,6 +406,15 @@ def _mode(mode):
         raise ValueError(f"mode must be 'mul' or 'rhs', got {mode!r}")
 
 
+def _walkable(name, lay, chunk, keys):
+    """The staged chunk walk (K2 plain and mul) loads four slots at a time
+    from each of ``keys``."""
+    if chunk > CHUNK or chunk % 4:
+        raise ValueError(f"{name} takes chunks of at most {CHUNK} slots, "
+                         f"a multiple of 4")
+    _aligned16(f"{name} loads {', '.join(keys)}", *(lay[k] for k in keys))
+
+
 def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
                    rep: int, bf16: bool = False):
     """K2, mul and rhs modes. ``lay``: chunk layout (a, b, eid, in_id,
@@ -406,21 +441,11 @@ def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
     if dev.type == "cpu":
         return chunk_weighted_torch(mode, lay, e2, inp, n_out_blocks, he,
                                     rep, bf16)
-    if mode == "mul" and (chunk > CHUNK or chunk % 4):
-        raise ValueError(f"K2 mul takes chunks of at most {CHUNK} slots, "
-                         f"a multiple of 4")
-    if mode == "mul" and any(lay[k].data_ptr() % 16 for k in ("a", "b", "eid")):
-        raise ValueError("K2 mul loads a, b and eid 16 bytes at a time: "
-                         "each must start on a 16-byte boundary")
     width = he * rep if mode == "mul" else he
     ld = width
-    if mode == "mul" and (width % 4 or inp.data_ptr() % 16):
-        # K2 mul copies input rows 16 bytes at a time: give it rows of a
-        # multiple of 4 floats on a 16-byte boundary.
-        ld = -(-width // 4) * 4
-        padded = torch.zeros((inp.shape[0], ld), dtype=inp.dtype, device=dev)
-        padded[:, :width] = inp
-        inp = padded
+    if mode == "mul":
+        _walkable("K2 mul", lay, chunk, ("a", "b", "eid"))
+        inp, ld = _rows16(inp)
     out = torch.zeros((n_out_blocks * BLK, width), dtype=torch.float32,
                       device=dev)
     if n_chunks == 0 or width == 0:

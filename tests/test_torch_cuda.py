@@ -851,3 +851,171 @@ def test_chunk_mul_refuses_layouts_it_cannot_load(dev):
     with pytest.raises(ValueError, match="16-byte boundary"):
         K.chunk_weighted("mul", lay, e2, inp, 1, 1, 8)
     assert K.LAUNCHES == before
+
+
+# ----------------------------------------------------------------------
+# The edges of K1's column walk and K2 plain's staged walk.
+# ----------------------------------------------------------------------
+
+def _fwd_counts(dev, ctype, kd, rows_pad, seed=0):
+    """A count matrix (rows_pad, kd) of type ``ctype``: about 5% small
+    counts, a few up to 127 (int8), 256 (bf16) or 300 (float32), a fifth
+    of the rows without any, an all-zero 128-row tile (rows 128..255) and
+    one row whose 128 counts of the first group are all nonzero."""
+    rng = np.random.default_rng(seed)
+    c = np.where(rng.random((rows_pad, kd)) < 0.05,
+                 rng.integers(1, 4, (rows_pad, kd)), 0).astype(np.float32)
+    big = rng.random((rows_pad, kd)) < 0.002
+    c[big] = rng.integers(1, min(_CMAX[ctype], 300) + 1, int(big.sum()))
+    c[rng.random(rows_pad) < 0.2] = 0
+    c[128:256] = 0
+    c[300, :128] = rng.integers(1, 5, 128)
+    return torch.as_tensor(c).to(ctype).to(dev).contiguous()
+
+
+def _fwd_check(name, c, u, bf16=False):
+    got = K.dense_fwd(c, u, bf16=bf16)
+    want = K.dense_fwd_torch(c, u.double(), bf16=bf16)
+    scale = K.dense_fwd_torch(c, u.abs().double(), bf16=bf16)
+    torch.cuda.synchronize()
+    if bf16:
+        _bf16_close(name, got, K.dense_fwd(c, u), want, scale)
+    else:
+        _sum_close(name, got.double(), want, scale)
+    return got
+
+
+@pytest.mark.parametrize("ctype", [torch.int8, torch.bfloat16,
+                                   torch.float32])
+@pytest.mark.parametrize("f", [1, 3, 40, 64, 128, 200])
+def test_dense_fwd_column_walk_edges(dev, f, ctype):
+    """K1 against its float64 plain version at widths of one to several
+    stripes, one and two dense groups (kd 128, 256), with all-zero rows,
+    an all-zero tile, a row of 128 nonzero counts, the type's largest
+    counts and ``u`` shorter than the count matrix (its missing rows read
+    as zero); one launch a call."""
+    for kd in (128, 256):
+        c = _fwd_counts(dev, ctype, kd, 3072, seed=kd + f)
+        gen = torch.Generator(device=dev).manual_seed(f)
+        u = torch.randn(2900, f, device=dev, generator=gen)
+        K.reset_launches()
+        got = _fwd_check(f"dense_fwd kd={kd}", c, u)
+        assert K.LAUNCHES["dense_fwd"] == 1
+        assert got.shape == (kd, f)
+
+
+@pytest.mark.parametrize("f", [40, 128])
+def test_dense_fwd_column_walk_long_runs(dev, f):
+    """K1 at 150,000 rows, where every block walks a run of several tiles
+    (the double-buffered rows and counts), against its float64 plain
+    version."""
+    c = _fwd_counts(dev, torch.int8, 128, 150_016, seed=f)
+    gen = torch.Generator(device=dev).manual_seed(f)
+    u = torch.randn(150_000, f, device=dev, generator=gen)
+    _fwd_check("dense_fwd 150k", c, u)
+
+
+@pytest.mark.parametrize("ctype", [torch.int8, torch.bfloat16,
+                                   torch.float32])
+def test_dense_fwd_column_walk_bf16(dev, ctype):
+    """K1 in the bf16 mode (two dense groups, F=40 and 128: counts over
+    256 and U rounded) against its float64 plain version in the same mode;
+    the float32 kernel fails the same check."""
+    c = _fwd_counts(dev, ctype, 256, 3072, seed=11)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for f in (40, 128):
+        u = torch.randn(3000, f, device=dev, generator=gen)
+        _fwd_check(f"dense_fwd.bf16 f={f}", c, u, bf16=True)
+
+
+def _plain_layout(lay):
+    return {k: lay[k] for k in ("a", "b", "in_id", "out_id")}
+
+
+def _sum_check(name, lay, inp, n_out, bf16=False):
+    got = K.chunk_sum(lay, inp, n_out, bf16=bf16)
+    want = K.chunk_sum_torch(lay, inp.double(), n_out, bf16=bf16)
+    scale = K.chunk_sum_torch(lay, inp.abs().double(), n_out, bf16=bf16)
+    torch.cuda.synchronize()
+    if bf16:
+        _bf16_close(name, got, K.chunk_sum(lay, inp, n_out), want, scale)
+    else:
+        _sum_close(name, got.double(), want, scale)
+    return got
+
+
+@pytest.mark.parametrize("chunk", [1024, 256])
+@pytest.mark.parametrize("f", [1, 3, 40, 128, 200])
+@pytest.mark.parametrize("order", ["fwd", "bwd"])
+def test_chunk_sum_staged_walk_edges(dev, order, f, chunk):
+    """K2 plain against its float64 plain version on part_fwd- and
+    part_bwd-like layouts (see _chunk_case) long enough that every block's
+    run of chunks changes input window and output block, with all-padding
+    chunks, a cut last window and chunks of 1024 or 256 slots; the output
+    block no chunk covers stays zero; in the bf16 mode too."""
+    lay, n_in, n_out = _chunk_case(dev, order, n_chunks=1500 * 1024 // chunk,
+                                   chunk=chunk, seed=f + chunk)
+    lay = _plain_layout(lay)
+    gen = torch.Generator(device=dev).manual_seed(f)
+    inp = torch.randn(n_in, f, device=dev, generator=gen)
+    K.reset_launches()
+    got = _sum_check(f"chunk_sum {order}", lay, inp, n_out)
+    assert K.LAUNCHES["chunk_sum"] == 1
+    assert not bool(got[(n_out - 1) * 128:].any())
+    _sum_check(f"chunk_sum.bf16 {order}", lay, inp, n_out, bf16=True)
+
+
+def test_chunk_sum_empty_layout_launches_nothing(dev):
+    """An empty layout gives zeros of the output's shape, no launch."""
+    lay = {k: torch.zeros(0, dtype=torch.int32, device=dev)
+           for k in ("a", "b", "in_id", "out_id")}
+    K.reset_launches()
+    out = K.chunk_sum(lay, torch.randn(300, 40, device=dev), 3)
+    assert out.shape == (384, 40) and not bool(out.any())
+    assert not any(K.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("f,shift", [(40, 1), (128, 2), (3, 0)])
+def test_walks_take_inputs_off_16_bytes(dev, f, shift):
+    """K1 and K2 plain copy input rows 16 bytes at a time: an input view
+    that starts ``shift`` floats past a 16-byte boundary, or whose width
+    is not a multiple of 4, gives what its float64 plain version gives."""
+    gen = torch.Generator(device=dev).manual_seed(f)
+    lay, n_in, n_out = _chunk_case(dev, "fwd", n_chunks=300, seed=f)
+    flat = torch.randn(n_in * f + shift, device=dev, generator=gen)
+    inp = flat[shift:].view(n_in, f)
+    assert inp.data_ptr() % 16 == 4 * shift
+    _sum_check(f"chunk_sum shift {shift}", _plain_layout(lay), inp, n_out)
+    c = _fwd_counts(dev, torch.int8, 128, 3072, seed=f)
+    flat = torch.randn(3000 * f + shift, device=dev, generator=gen)
+    _fwd_check(f"dense_fwd shift {shift}", c, flat[shift:].view(3000, f))
+
+
+def test_walks_refuse_layouts_they_cannot_load(dev):
+    """K2 plain raises for chunks over 1024 slots or not a multiple of 4
+    and for ``a`` or ``b`` off a 16-byte boundary; K1 for a count matrix
+    off a 16-byte boundary or whose width is not a multiple of 4. Neither
+    launches."""
+    inp = torch.randn(128, 8, device=dev)
+    before = dict(K.LAUNCHES)
+    for chunk in (2048, 6):
+        lay = {k: torch.zeros(2 * chunk, dtype=torch.int32, device=dev)
+               for k in ("a", "b")}
+        lay |= {k: torch.zeros(2, dtype=torch.int32, device=dev)
+                for k in ("in_id", "out_id")}
+        with pytest.raises(ValueError, match="chunks of at most 1024"):
+            K.chunk_sum(lay, inp, 1)
+    lay = {k: torch.zeros(2048, dtype=torch.int32, device=dev)
+           for k in ("a", "b")}
+    lay |= {k: torch.zeros(2, dtype=torch.int32, device=dev)
+            for k in ("in_id", "out_id")}
+    lay["b"] = torch.zeros(2049, dtype=torch.int32, device=dev)[1:]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        K.chunk_sum(lay, inp, 1)
+    c = torch.zeros(1024 * 128 + 1, dtype=torch.int8, device=dev)[1:]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        K.dense_fwd(c.view(1024, 128), inp)
+    with pytest.raises(ValueError, match="multiple of 4 columns"):
+        K.dense_fwd(torch.zeros(1024, 126, dtype=torch.int8, device=dev),
+                    inp)
+    assert K.LAUNCHES == before

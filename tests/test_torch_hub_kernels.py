@@ -161,3 +161,54 @@ def test_wrappers_check_inputs_and_count_only_launches():
     with pytest.raises(TypeError):
         K.expand(torch.ones((3, 4)), torch.zeros(3, dtype=torch.int64),
                  torch.zeros(3, dtype=torch.int32), 10)
+
+
+@pytest.mark.parametrize("f,shift", [(1, 0), (3, 1), (40, 0), (40, 2),
+                                     (128, 3)])
+def test_rows16_pads_rows_for_16_byte_copies(f, shift):
+    """K1 and K2 copy input rows 16 bytes at a time: ``_rows16`` hands an
+    input on as it is when its rows are a multiple of 4 floats on a
+    16-byte boundary, else a zero-padded copy of a width that is."""
+    flat = torch.arange(7 * f + shift, dtype=torch.float32)
+    x = flat[shift:].view(7, f)
+    y, ld = K._rows16(x)
+    assert ld % 4 == 0 and ld >= f and y.shape == (7, ld)
+    assert y.data_ptr() % 16 == 0
+    assert torch.equal(y[:, :f], x) and not bool(y[:, f:].any())
+    if f % 4 == 0 and x.data_ptr() % 16 == 0:
+        assert y is x
+
+
+@pytest.mark.parametrize("chunk,ok", [(1024, True), (256, True), (4, True),
+                                      (2048, False), (6, False)])
+def test_walkable_names_the_layout_rule(chunk, ok):
+    """The staged chunk walk takes chunks of at most 1024 slots, a
+    multiple of 4, with its slot arrays on 16-byte boundaries; anything
+    else raises a ValueError naming the rule."""
+    lay = {k: torch.zeros(2 * chunk, dtype=torch.int32) for k in ("a", "b")}
+    if ok:
+        K._walkable("K2", lay, chunk, ("a", "b"))
+    else:
+        with pytest.raises(ValueError, match="chunks of at most 1024"):
+            K._walkable("K2", lay, chunk, ("a", "b"))
+    lay["b"] = torch.zeros(2 * chunk + 1, dtype=torch.int32)[1:]
+    with pytest.raises(ValueError, match="16-byte boundary|chunks of"):
+        K._walkable("K2", lay, chunk, ("a", "b"))
+
+
+def test_chunk_walk_variants_source_applies():
+    """``tools/chunk_walk_variants.py`` times the chunk walk's choices on
+    a card from a variant of ``hub_kernels.cu`` made by replacing fixed
+    snippets: each must still be found once, the variant keeps every C
+    entry and adds its switch, and a source without a snippet raises."""
+    from dgl1_tpu_torch import cuda_build
+    from dgl1_tpu_torch.tools.chunk_walk_variants import variant_source
+
+    src = cuda_build.SOURCES["hub_kernels"].read_text()
+    out = variant_source(src)
+    for entry in cuda_build._SIGNATURES["hub_kernels"]:
+        assert out.count(f"int {entry}(") == 1, entry
+    assert "int hub_chunk_walk_variant(int hist_warp, int rows_owned)" in out
+    assert "HIST_WARP" not in src and "ROWS_OWNED" not in src
+    with pytest.raises(ValueError, match="no longer holds"):
+        variant_source(src.replace("chunk_walk_kernel(", "walk_kernel(", 1))

@@ -33,7 +33,8 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "ops.tile_kernels", "models.graphsage", "ops.segment",
             "models.rgcn", "nn.conv", "transform", "data.synthetic",
             "bdense_format", "ops.bdense_kernels", "ops.engine_bdense",
-            "ops.battention", "ops.precision", "tools.bench_models")
+            "ops.battention", "ops.precision", "tools.bench_models",
+            "tools.chunk_walk_variants")
 
 
 def test_port_imports_no_jax_and_no_reference():
