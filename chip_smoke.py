@@ -103,7 +103,9 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    F=128; block_bwd at layer 2's backward, F=40) against its float64 plain
    version, with the other direction and width, bench.py's matrix (2^17
    nodes, F=32/128/512) and the RCM graph as ``variants``, the library
-   call ``torch.sparse.mm`` on a CSR of the counts; copy_u sum and mean
+   call ``torch.sparse.mm`` on a CSR of the counts, and the MMA work the
+   kernel does (occupied 16 x 16 sub-tiles x planes x 2 x 16 x 16 x F,
+   F rounded up to 8) beside the dense work; copy_u sum and mean
    through "auto" (forward, grad_u) against the oracle, only K11
    launching; the RCM graph's aggregate against the oracle through
    ``ndata['_ID']``; the GCN trainer (128 -> 256 -> 40, 5 steps: K11
@@ -138,9 +140,12 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
-# CUDA-core FLOP/s. Every kernel here computes in float32.
+# CUDA-core FLOP/s. Every kernel's function is float32 arithmetic (K11
+# reaches it through exact bf16 tensor-core products, see below).
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+# Dense bf16 tensor-core FLOP/s (same data sheet): the rate of K11's MMAs.
+BF16_TC_FLOPS = 989e12
 # Elementwise tolerance of a kernel against its plain version: the sums
 # run in another order (and K1/K2 add with atomics, in an order that
 # changes between runs), so |kernel - plain| <= RTOL * (|A| |B|) + ATOL,
@@ -1801,7 +1806,26 @@ def block_case(case, g, dev, f, transpose=False, seed=0, library=True,
     row["shapes"]["dense_flops"] = 2 * k * 128 * 128 * f
     row["shapes"]["dense_flops_bound_ms"] = (2 * k * 128 * 128 * f
                                              / FP32_FLOPS * 1e3)
+    tiles = occupied_sub_tiles(a[: k * 128].view(k, 128, 128), bf16)
+    mma = tiles * (1 if bf16 else 3) * 2 * 16 * 16 * (-(-f // 8) * 8)
+    row["shapes"].update(occupied_sub_tiles=tiles, sub_tiles=k * 64,
+                         mma_flops=mma,
+                         mma_flops_bound_ms=mma / BF16_TC_FLOPS * 1e3)
     return row
+
+
+def occupied_sub_tiles(a3, bf16):
+    """The 16 x 16 sub-tiles with a nonzero count that K11 multiplies,
+    summed over the bf16 planes it stages (one for bf16 counts or the bf16
+    mode; hi, mid and lo of float32 counts otherwise)."""
+    planes = [a3.to(torch.bfloat16)]
+    if a3.dtype == torch.float32 and not bf16:
+        rest = a3 - planes[0].float()
+        planes.append(rest.to(torch.bfloat16))
+        planes.append((rest - planes[1].float()).to(torch.bfloat16))
+    k = a3.shape[0]
+    return sum(int((p.view(k, 8, 16, 8, 16) != 0).any(dim=4).any(dim=2)
+                   .sum()) for p in planes)
 
 
 def phase_block_kernels(dev, bg):

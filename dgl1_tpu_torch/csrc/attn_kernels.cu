@@ -412,32 +412,563 @@ __global__ void __launch_bounds__(NT)
 //
 // Replaces _attn_bwd_kernel(to_src=True), which recomputes p per chunk,
 // accumulates gft/gel per window over consecutive chunks in VMEM and
-// writes one per-chunk (128, 128) block of group-side q partials. Here a
-// block owns one (window, head stripe): it finds its window's chunks by
-// binary search of the sorted out_id and accumulates gft (128 x stripe)
-// and gel (128 x nh) in shared memory with no device-memory atomics, and
-// each chunk's partial (128 x nh) in shared memory, stored once per chunk.
-// Per real slot and head it recomputes
-//   acoef = exp(leaky(el_s + er_b) - lse_b)      (lse = mz + log den)
-//   g     = <ft_s, ct_b> over the head's D features
-//   q     = acoef * (g * mask - rho_b) * leaky'(el_s + er_b)
-// then gel_s += q, partial_b += q, and gft_s += acoef * mask * ct_b. The
-// slots of a window are not sorted by source, so gft takes one shared
-// atomic add per slot and column.
+// writes one per-chunk (128, 128) block of group-side q partials. Per
+// real slot (hub row a of group in_id[t], window row b of window
+// out_id[t]) and head it recomputes
+//   acoef = exp(leaky(el_s + er_a) - lse_a)      (lse = mz + log den)
+//   g     = <ft_s, ct_a> over the head's D features
+//   q     = acoef * (g * mask - rho_a) * leaky'(el_s + er_a)
+// then gel_s += q, the chunk's partial gerp[t, a] += q, and gft_s +=
+// acoef * mask * ct_a.
 //
-// Bound on the H100: bytes. At arxiv layer 1 the data are a and b
-// (43.4 MB), ft (173.4 MB) and el read once, the group rows (small), gft
-// (173.4 MB) and gel written once, and the narrow partials (21.7 MB):
-// ~126 us at 3.35 TB/s. This design gathers each slot's ft and ct rows
-// (twice for ct) from L1/L2 and pays D shared atomics per slot and head;
-// those, not HBM, hold it.
+// Bound on the H100: bytes. At arxiv layer 1 (H=8, D=32) the data are a
+// and b (43.4 MB), ft (173.4 MB) and el read once, the group rows (small),
+// gft (173.4 MB) and gel written once, and the narrow partials (21.7 MB):
+// ~126 us at 3.35 TB/s. A thread per (slot, head) gathering ft and ct rows
+// from L2 and adding gft with a shared atomic per slot and column (the
+// earlier design) waits on those gathers and atomics. This design:
+//
+// * A block owns one (window, stripe of heads) and walks the window's
+//   chunks in batches of consecutive chunks of one group (up to 4,096
+//   slots). It stages the group's ct rows of its stripe (128 rows, by
+//   16-byte cp.async) and their er, lse and rho in shared memory once per
+//   group, so no ct row is gathered from L2 per slot.
+// * The batch's real slots are counting-sorted by window row b in shared
+//   memory, stably (ranks within each 32-slot step from seven ballots on
+//   b's bits), so within a row they keep the layout's order by hub row:
+//   the slots of one (b, a) pair of one chunk are one run. The power-law
+//   generator repeats edges (the arxiv layout's 4.39 M real slots form
+//   1.25 M runs); all slots of a run share ft_b, ct_a, acoef and the dot,
+//   and differ only in the dropout mask.
+// * Warps own window rows, split by equal shares of the sorted slots. A
+//   warp walks a row's runs R at a time: lane (run j, head k, part p)
+//   holds up to 32 of head k's features (G parts a head, G a power of two
+//   with 32 G >= D; R = 32 / (heads x G), 8 at H=8, D=32), takes its
+//   run's dot from registers and shared memory and G-part shuffles, and
+//   adds its run's terms to its registers: n_kept * acoef * inv_keep *
+//   ct_a to gft, n_kept * q_kept + n_dropped * q_dropped to gel and to the
+//   chunk's partial (one shared atomic per run and head; stored once per
+//   chunk). At the row's end a reduce-scatter over the R lanes of each
+//   (head, part) leaves each lane 32 / R summed features, stored once (the
+//   first batch of a window stores, later ones add: no atomics).
+// * 95 KB of shared memory a block at arxiv layer 1 (111 KB with
+//   dropout), so two blocks share an SM and one's staging and sort run
+//   under the other's walk.
 //
 // BF16 rounds ft and ct, each product ft * ct before the head sum, acoef *
 // mask, its product with ct and q (before every sum it enters), and lse
 // and rho only when 3H > 128 (below that the reference packs [er | lse |
-// rho] into one float32 block it does not round).
+// rho] into one float32 block it does not round). The slots of a run give
+// equal rounded terms, so n * term is the sum the reference takes.
 // ---------------------------------------------------------------------
+constexpr int SRC_SORT = 4096;       // slots sorted per batch
+constexpr int SRC_SORT_WIDE = 1024;  // ... when ct rows are over 128 wide
+constexpr int SRC_GP = 8192;         // floats of chunk partials per batch
+constexpr int SRC_SPL = SRC_SORT / NT;  // slots a lane loads for the sort
+constexpr int SRC_COLS = 32;         // features a lane holds
+constexpr size_t SRC_SMEM_MAX = 227 * 1024;  // sm_90's opt-in per block
 
+// A K7 block's plan: G lanes per head part (32 G >= d), cpl features per
+// part (a multiple of 4, at most 32), hs heads per stripe, R runs walked
+// together, ct rows of w floats (the stripe's hs * d) at stride ws, maxs
+// slots and nb chunks per batch.
+struct SrcPlan {
+  int g, cpl, hs, r, w, ws, maxs, nb;
+};
+
+size_t src_smem(const SrcPlan& p, bool drop) {
+  return sizeof(float) * (static_cast<size_t>(BLK) * p.ws +
+                          static_cast<size_t>(3 + p.nb) * BLK * p.hs) +
+         sizeof(int) * (NWARPS * BLK + BLK + 1 + 4 + NWARPS * 33 +
+                        (drop ? p.maxs : 0)) +
+         sizeof(uint16_t) * p.maxs;
+}
+
+SrcPlan src_plan(int h, int d, int chunk, bool drop) {
+  SrcPlan p;
+  p.g = 1;
+  while (SRC_COLS * p.g < d) p.g *= 2;
+  p.cpl = ((d + p.g - 1) / p.g + 3) / 4 * 4;
+  // Heads share a stripe only while it stays 128 wide (one head when d >
+  // 128), so the staged ct rows fit in shared memory up to MAX_COLS.
+  int cap = 32 / p.g;
+  const int by_w = d < BLK ? BLK / d : 1;
+  if (by_w < cap) cap = by_w;
+  if (h < cap) cap = h;
+  p.hs = 1;
+  while (2 * p.hs <= cap) p.hs *= 2;
+  p.r = 32 / (p.hs * p.g);
+  p.w = p.hs * d;
+  p.ws = (p.w + 3) / 4 * 4 + 4;  // +4: rows start in other bank groups
+  p.maxs = p.w > BLK ? SRC_SORT_WIDE : SRC_SORT;
+  const int by_gp = SRC_GP / (BLK * p.hs);
+  p.nb = chunk > 0 ? p.maxs / chunk : 0;
+  if (p.nb > (by_gp > 1 ? by_gp : 1)) p.nb = by_gp > 1 ? by_gp : 1;
+  // Fewer chunks a batch where small chunks would pass the opt-in limit.
+  while (p.nb > 1 && src_smem(p, drop) > SRC_SMEM_MAX) --p.nb;
+  return p;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// cp.async of 16 or 4 bytes; `bytes` below the size zero-fills the rest.
+__device__ __forceinline__ void cp_async16(void* s, const void* g, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(s)),
+               "l"(g), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(void* s, const void* g, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(s)),
+               "l"(g), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// The lanes of this step whose window row equals this lane's (7 bits).
+__device__ __forceinline__ unsigned row_peers(bool real, int bb) {
+  unsigned peers = __ballot_sync(0xffffffffu, real);
+#pragma unroll
+  for (int bit = 0; bit < 7; ++bit) {
+    const bool on = (bb >> bit) & 1;
+    const unsigned m = __ballot_sync(0xffffffffu, real && on);
+    peers &= on ? m : ~m;
+  }
+  return peers;
+}
+
+// The first n (<= 32) features of a row segment; absent ones read 0.
+template <bool BF16>
+__device__ __forceinline__ void load_cols(const float* __restrict__ p, int n,
+                                          bool vec, float (&v)[SRC_COLS]) {
+#pragma unroll
+  for (int c = 0; c < SRC_COLS; c += 4) {
+    if (vec && c + 4 <= n) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p + c));
+      v[c] = x.x; v[c + 1] = x.y; v[c + 2] = x.z; v[c + 3] = x.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[c + e] = c + e < n ? __ldg(p + c + e) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < SRC_COLS; ++c) v[c] = rnd<BF16>(v[c]);
+}
+
+// Four staged ct features from shared memory (16-byte aligned when vec,
+// else the first n of them, the rest 0).
+__device__ __forceinline__ float4 ct4(const float* p, bool vec, int n) {
+  return vec ? *reinterpret_cast<const float4*>(p)
+             : make_float4(p[0], n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f,
+                           n > 3 ? p[3] : 0.f);
+}
+
+// One step of a reduce-scatter over lanes o apart (none when o < 1):
+// the lane keeps the half of v[0, 2 HALF) its bit o selects, summed with
+// its partner's, in v[0, HALF).
+template <int HALF>
+__device__ __forceinline__ void halve(float (&v)[SRC_COLS], int lj, int o) {
+  if (o < 1) return;
+  const bool up = (lj & o) != 0;
+#pragma unroll
+  for (int c = 0; c < HALF; ++c) {
+    const float send = up ? v[c] : v[c + HALF];
+    const float keep = up ? v[c + HALF] : v[c];
+    v[c] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+template <bool DROP, bool BF16>
+__global__ void __launch_bounds__(NT, 2)
+    attn_bwd_src_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                        const int* __restrict__ eid,
+                        const int* __restrict__ in_id,
+                        const int* __restrict__ out_id, int n_chunks,
+                        int chunk, const float* __restrict__ el,
+                        const float* __restrict__ er_g,
+                        const float* __restrict__ lse_g,
+                        const float* __restrict__ rho_g,
+                        const float* __restrict__ ft,
+                        const float* __restrict__ ct_g, int h, int d,
+                        SrcPlan pl, float slope, const int* __restrict__ seed,
+                        int thresh, float inv_keep, float* __restrict__ gft,
+                        float* __restrict__ gel, float* __restrict__ gerp) {
+  extern __shared__ __align__(16) float smem[];
+  const int hs = pl.hs, R = pl.r, ws = pl.ws;
+  float* ct_sh = smem;                             // BLK x ws
+  float* st_sh = ct_sh + BLK * ws;                 // er, lse, rho: 3 x BLK x hs
+  float* gp_sh = st_sh + 3 * BLK * hs;             // nb x BLK x hs
+  int* cnt_sh = reinterpret_cast<int*>(gp_sh + pl.nb * BLK * hs);  // 8 x BLK
+  int* start_sh = cnt_sh + NWARPS * BLK;           // BLK + 1
+  int* wsum_sh = start_sh + BLK + 1;               // 4
+  int* runs_sh = wsum_sh + 4;                      // 8 x 33 run starts
+  int* eid_sh = runs_sh + NWARPS * 33;             // maxs (DROP)
+  uint16_t* key_sh =
+      reinterpret_cast<uint16_t*>(eid_sh + (DROP ? pl.maxs : 0));  // maxs
+
+  const Stripe st = stripe_of(blockIdx.y, hs, h, d);
+  const int F = h * d;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // Lane (run j, part p, head k): j fastest.
+  const int lj = lane % R, lp = (lane / R) % pl.g, lk = lane / (R * pl.g);
+  const bool live = lk < st.nh;
+  const int hc0 = lp * pl.cpl;                     // first feature of part
+  const int ncol = live ? max(0, min(pl.cpl, d - hc0)) : 0;
+  const int w = blockIdx.x;
+  const int64_t win0 = static_cast<int64_t>(w) * BLK;
+  const int sd = DROP ? seed[0] : 0;
+  const bool rstats = BF16 && 3 * h > BLK;
+  const bool vec = (d & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(ft) |
+                     reinterpret_cast<uintptr_t>(ct_g)) & 15) == 0;
+  int* my_runs = runs_sh + warp * 33;
+
+  // This window's chunks: [lower_bound(w), lower_bound(w + 1)).
+  const int t0 = first_chunk(out_id, n_chunks, w);
+  const int t1 = first_chunk(out_id, n_chunks, w + 1);
+
+  int staged = -1;
+  bool first = true;
+  for (int tb = t0;;) {
+    // A batch: up to nb consecutive chunks of one group (none when the
+    // window has no chunk: every row is then written as zeros).
+    const int grp = tb < t1 ? in_id[tb] : -1;
+    int te = tb;
+    if (tb < t1) {
+      te = tb + 1;
+      while (te < t1 && te - tb < pl.nb && in_id[te] == grp) ++te;
+    }
+    const int nbc = te - tb, ns = nbc * chunk;
+    const bool restage = grp >= 0 && grp != staged;
+    if (restage) {
+      staged = grp;
+      const int64_t grp0 = static_cast<int64_t>(grp) * BLK;
+      const int units = pl.w / 4;
+      if (vec) {
+        for (int idx = tid; idx < BLK * units; idx += NT) {
+          const int r = idx / units, c = (idx - r * units) * 4;
+          const bool ok = c < st.nf;
+          cp_async16(ct_sh + r * ws + c,
+                     ok ? ct_g + (grp0 + r) * F + st.c0 + c : ct_g,
+                     ok ? 16 : 0);
+        }
+      } else {
+        for (int idx = tid; idx < BLK * pl.w; idx += NT) {
+          const int r = idx / pl.w, c = idx - r * pl.w;
+          const bool ok = c < st.nf;
+          cp_async4(ct_sh + r * ws + c,
+                    ok ? ct_g + (grp0 + r) * F + st.c0 + c : ct_g, ok ? 4 : 0);
+        }
+      }
+      for (int idx = tid; idx < BLK * hs; idx += NT) {
+        const int r = idx / hs, k = idx - r * hs;
+        float er = 0.f, lse = 0.f, rho = 0.f;
+        if (k < st.nh) {
+          const int64_t o = (grp0 + r) * h + st.h0 + k;
+          er = er_g[o];
+          lse = lse_g[o];
+          rho = rho_g[o];
+          if (rstats) {
+            lse = rnd<true>(lse);
+            rho = rnd<true>(rho);
+          }
+        }
+        st_sh[idx] = er;
+        st_sh[BLK * hs + idx] = lse;
+        st_sh[2 * BLK * hs + idx] = rho;
+      }
+    }
+    for (int i = tid; i < nbc * BLK * hs; i += NT) gp_sh[i] = 0.f;
+    for (int i = tid; i < NWARPS * BLK; i += NT) cnt_sh[i] = 0;
+
+    // Stable counting sort of the batch's real slots by window row b:
+    // warp w takes the slots [w ns / 8, (w+1) ns / 8) in order, counts
+    // them per b, and later scatters them after the counts of the warps
+    // before it, ranked within each 32-slot step by row_peers.
+    const int64_t slot0 = static_cast<int64_t>(tb) * chunk;
+    const int s_lo = static_cast<int>(static_cast<int64_t>(warp) * ns / NWARPS);
+    const int s_hi =
+        static_cast<int>(static_cast<int64_t>(warp + 1) * ns / NWARPS);
+    // The warp's slots, loaded together: (b << 7 | a), or -1 for padding.
+    int pk[SRC_SPL], ek[DROP ? SRC_SPL : 1];
+#pragma unroll
+    for (int u = 0; u < SRC_SPL; ++u) {
+      const int i = s_lo + 32 * u + lane;
+      pk[u] = -1;
+      if (i < s_hi) {
+        const int aa = a[slot0 + i], bb = b[slot0 + i];
+        if (aa >= 0 && bb >= 0) pk[u] = bb << 7 | aa;
+        if constexpr (DROP) ek[u] = eid[slot0 + i];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < SRC_SPL; ++u) {
+      if (s_lo + 32 * u >= s_hi) break;
+      const bool real = pk[u] >= 0;
+      const int bb = pk[u] >> 7;
+      const unsigned peers = row_peers(real, bb);
+      if (real && lane == __ffs(peers) - 1)
+        cnt_sh[warp * BLK + bb] += __popc(peers);
+    }
+    __syncthreads();
+    int tot = 0, incl = 0;
+    if (tid < BLK) {
+      for (int v = 0; v < NWARPS; ++v) tot += cnt_sh[v * BLK + tid];
+      incl = tot;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (lane == 31) wsum_sh[warp] = incl;
+    }
+    __syncthreads();
+    if (tid < BLK) {
+      int run = incl - tot;
+      for (int v = 0; v < warp; ++v) run += wsum_sh[v];
+      start_sh[tid] = run;
+      for (int v = 0; v < NWARPS; ++v) {
+        const int c = cnt_sh[v * BLK + tid];
+        cnt_sh[v * BLK + tid] = run;
+        run += c;
+      }
+      if (tid == BLK - 1) start_sh[BLK] = run;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < SRC_SPL; ++u) {
+      if (s_lo + 32 * u >= s_hi) break;
+      const bool real = pk[u] >= 0;
+      const int bb = pk[u] >> 7;
+      const unsigned peers = row_peers(real, bb);
+      if (real) {
+        const int i = s_lo + 32 * u + lane;
+        const int dst =
+            cnt_sh[warp * BLK + bb] + __popc(peers & ((1u << lane) - 1u));
+        key_sh[dst] = static_cast<uint16_t>(((i / chunk) << 7) |
+                                            (pk[u] & (BLK - 1)));
+        if constexpr (DROP) eid_sh[dst] = ek[u];
+      }
+      __syncwarp();
+      if (real && lane == __ffs(peers) - 1)
+        cnt_sh[warp * BLK + bb] += __popc(peers);
+      __syncwarp();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (BF16 && restage) {
+      for (int i = tid; i < BLK * ws; i += NT) ct_sh[i] = rnd<true>(ct_sh[i]);
+      __syncthreads();
+    }
+
+    // Warp w's rows: those whose sorted slots start in its equal share.
+    const int S = start_sh[BLK];
+    const int want_lo = static_cast<int>(static_cast<int64_t>(warp) * S / NWARPS);
+    const int want_hi =
+        warp == NWARPS - 1
+            ? S + 1
+            : static_cast<int>(static_cast<int64_t>(warp + 1) * S / NWARPS);
+    int rb = 0, re = 0;
+    for (int v = BLK; v > 0; v >>= 1) {  // first r with start[r] >= want
+      if (rb + v <= BLK && start_sh[rb + v - 1] < want_lo) rb += v;
+      if (re + v <= BLK && start_sh[re + v - 1] < want_hi) re += v;
+    }
+    for (int r = rb; r < re; ++r) {
+      const int s0 = start_sh[r], s1 = start_sh[r + 1];
+      if (s0 == s1 && !first) continue;
+      const int64_t row = win0 + r;
+      float acc[SRC_COLS];
+#pragma unroll
+      for (int c = 0; c < SRC_COLS; ++c) acc[c] = 0.f;
+      float gacc = 0.f;
+      if (s0 < s1) {
+        float fv[SRC_COLS];
+        load_cols<BF16>(ft + row * F + st.c0 + lk * d + hc0, ncol, vec, fv);
+        const float elv = live ? el[row * h + st.h0 + lk] : 0.f;
+        for (int pos = s0; pos < s1;) {
+          // The runs of equal (chunk, hub row) keys that start in
+          // [pos, pos + 32) and end by s1 or inside that window.
+          const int i = pos + lane;
+          const int kk = i < s1 ? key_sh[i] : -1;
+          const int prev = __shfl_up_sync(0xffffffffu, kk, 1);
+          const unsigned starts =
+              __ballot_sync(0xffffffffu, i < s1 && (lane == 0 || kk != prev));
+          if (starts & (1u << lane))
+            my_runs[__popc(starts & ((1u << lane) - 1u))] = lane;
+          const int nr = __popc(starts);
+          const bool tail_open = pos + 32 < s1;  // the last run may go on
+          if (!tail_open && lane == 0) my_runs[nr] = s1 - pos;
+          __syncwarp();
+          const int take = min(R, tail_open ? nr - 1 : nr);
+          int s = 0, n = 0, next;
+          if (take == 0) {
+            // One run of 32 slots or more from pos: find its end.
+            const int k0 = __shfl_sync(0xffffffffu, kk, 0);
+            int e = pos + 32;
+            for (;;) {
+              const int ii = e + lane;
+              const unsigned m =
+                  __ballot_sync(0xffffffffu, ii < s1 && key_sh[ii] == k0);
+              const int c = m == 0xffffffffu ? 32 : __ffs(~m) - 1;
+              e += c;
+              if (c < 32) break;
+            }
+            next = e;
+            if (lj == 0) {
+              s = pos;
+              n = e - pos;
+            }
+          } else {
+            next = pos + my_runs[take];
+            if (lj < take) {
+              s = pos + my_runs[lj];
+              n = my_runs[lj + 1] - my_runs[lj];
+            }
+          }
+          __syncwarp();
+          // This lane's run: the dot over its part, then over the parts.
+          const int key = key_sh[n > 0 ? s : pos];
+          const int aa = key & (BLK - 1);
+          const float* crow = ct_sh + aa * ws + lk * d + hc0;
+          // Four partial sums: the 32 terms are not one dependent chain.
+          float pp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int c = 0; c < SRC_COLS; c += 4) {
+            if (c < ncol) {
+              const float4 v = ct4(crow + c, vec, ncol - c);
+              const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                pp[e] = BF16 ? pp[e] + rnd<true>(fv[c + e] * vv[e])
+                             : fmaf(fv[c + e], vv[e], pp[e]);
+            }
+          }
+          float p = (pp[0] + pp[1]) + (pp[2] + pp[3]);
+          for (int o = R; o < R * pl.g; o <<= 1)
+            p += __shfl_xor_sync(0xffffffffu, p, o);
+          if (n > 0 && live) {
+            const int hr = aa * hs + lk;
+            const float sv = elv + st_sh[hr];
+            const float acoef = expf(leaky(sv, slope) - st_sh[BLK * hs + hr]);
+            const float rho = st_sh[2 * BLK * hs + hr];
+            const float dl = sv >= 0.f ? 1.f : slope;
+            int kept = n;
+            if (DROP) {
+              kept = 0;
+              for (int j = 0; j < n; ++j)
+                kept += drop_scale(eid_sh[s + j], st.h0 + lk, sd, thresh,
+                                   inv_keep) != 0.f;
+            }
+            const float m1 = DROP ? inv_keep : 1.f;
+            float qs = static_cast<float>(kept) *
+                       rnd<BF16>(acoef * (p * m1 - rho) * dl);
+            if (DROP && kept < n)
+              qs += static_cast<float>(n - kept) *
+                    rnd<BF16>(acoef * (0.f - rho) * dl);
+            const float am = rnd<BF16>(acoef * m1);
+            const float wk = static_cast<float>(kept);
+            gacc += qs;
+            if (lp == 0) atomicAdd(&gp_sh[((key >> 7) * BLK + aa) * hs + lk], qs);
+#pragma unroll
+            for (int c = 0; c < SRC_COLS; c += 4) {
+              if (c < ncol) {
+                const float4 v = ct4(crow + c, vec, ncol - c);
+                acc[c] = fmaf(wk, rnd<BF16>(am * v.x), acc[c]);
+                acc[c + 1] = fmaf(wk, rnd<BF16>(am * v.y), acc[c + 1]);
+                acc[c + 2] = fmaf(wk, rnd<BF16>(am * v.z), acc[c + 2]);
+                acc[c + 3] = fmaf(wk, rnd<BF16>(am * v.w), acc[c + 3]);
+              }
+            }
+          }
+          pos = next;
+        }
+      }
+      // Reduce-scatter over the R run lanes of each (head, part): lane j
+      // ends with the features [j * 32 / R, (j + 1) * 32 / R) of its part
+      // in acc[0 ..], and gel's sum.
+      halve<16>(acc, lj, R >> 1);
+      halve<8>(acc, lj, R >> 2);
+      halve<4>(acc, lj, R >> 3);
+      halve<2>(acc, lj, R >> 4);
+      halve<1>(acc, lj, R >> 5);
+      for (int o = 1; o < R; o <<= 1)
+        gacc += __shfl_xor_sync(0xffffffffu, gacc, o);
+      // gft_b and gel_b: the first batch stores, later ones add.
+      if (live) {
+        const int per = SRC_COLS / R, c0 = lj * per;
+        float* gr = gft + row * F + st.c0 + lk * d + hc0 + c0;
+        const int nc = min(per, ncol - c0);
+        if (vec && per >= 4 && nc == per) {
+#pragma unroll
+          for (int c = 0; c < SRC_COLS; c += 4) {
+            if (c < per) {
+              float4* p4 = reinterpret_cast<float4*>(gr + c);
+              float4 v = make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+              if (!first) {
+                const float4 o = *p4;
+                v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
+              }
+              *p4 = v;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < SRC_COLS; ++c)
+            if (c < nc) gr[c] = first ? acc[c] : gr[c] + acc[c];
+        }
+        if (lj == 0 && lp == 0) {
+          float* gp = gel + row * h + st.h0 + lk;
+          *gp = first ? gacc : *gp + gacc;
+        }
+      }
+    }
+    __syncthreads();
+    // The batch's chunk partials: every (row, head) of the stripe, once.
+    for (int idx = tid; idx < nbc * BLK * st.nh; idx += NT) {
+      const int rr = idx / st.nh, k = idx - rr * st.nh;
+      gerp[(static_cast<int64_t>(tb) * BLK + rr) * h + st.h0 + k] =
+          gp_sh[rr * hs + k];
+    }
+    first = false;
+    tb = te;
+    if (tb >= t1) break;
+    __syncthreads();  // gp_sh, the sort arrays and the stage are reused
+  }
+}
+
+
+// ---------------------------------------------------------------------
+// K7 g-major: GAT backward, to_src=False, over the forward layout.
+//
+// Replaces _attn_bwd_kernel(to_src=False), which the reference runs when
+// the backward layout has no gperm descriptors: it computes grad_er
+// straight from the group-major forward layout, carrying each group's
+// (128, 128) output block across its consecutive chunks in VMEM. In this
+// layout a slot's a is the source row within window in_id[t] and b the
+// hub row within group out_id[t]. Per real slot and head it recomputes
+// K7's q (acoef, the full-width per-head dot <ft_s, ct_b> and the
+// jacobian row term rho_b; see attn_bwd_src_kernel) and adds it to
+// grad_er[b]. A group's chunks are consecutive, as in K6, but at arxiv
+// scale one group holds all 5,292 chunks, so a block per group would run
+// on one SM. A block owns a run of consecutive chunks instead (about four
+// blocks per SM) and all heads: a thread per (slot, head) computes q from
+// the ft and ct rows (16-byte loads) and adds it to the group's (128 x H)
+// block in shared memory; when the run moves to another group, and at its
+// end, the block adds the block's nonzero entries to grad_er with one
+// atomic each.
+//
+// Bound on the H100: bytes. At arxiv layer 1 (H=8, D=32) the data are a
+// and b (43.4 MB), ft (173.4 MB) and el read once, the group rows (er,
+// lse, rho, ct: small) and grad_er (n_groups * 128 * H) written once:
+// ~67 us at 3.35 TB/s. This design waits on the row gathers (ft and ct
+// rows from L1/L2), not on HBM.
+//
+// BF16: as attn_bwd_src_kernel (ft, ct, their products, q; lse and rho
+// when 3H > 128).
+// ---------------------------------------------------------------------
 // One term of the per-head dot <ft_s, ct_b>.
 template <bool BF16>
 __device__ __forceinline__ float dot_term(float x, float y, float acc) {
@@ -465,161 +996,6 @@ __device__ __forceinline__ float head_dot(const float* fr, const float* cr,
   return gv;
 }
 
-template <bool DROP, bool BF16>
-__global__ void __launch_bounds__(NT)
-    attn_bwd_src_kernel(const int* __restrict__ a, const int* __restrict__ b,
-                        const int* __restrict__ eid,
-                        const int* __restrict__ in_id,
-                        const int* __restrict__ out_id, int n_chunks,
-                        int chunk, const float* __restrict__ el,
-                        const float* __restrict__ er_g,
-                        const float* __restrict__ lse_g,
-                        const float* __restrict__ rho_g,
-                        const float* __restrict__ ft,
-                        const float* __restrict__ ct_g, int h, int d, int hs,
-                        int sub, float slope, const int* __restrict__ seed,
-                        int thresh, float inv_keep, float* __restrict__ gft,
-                        float* __restrict__ gel, float* __restrict__ gerp) {
-  extern __shared__ float smem[];
-  const int fs = hs * d, F = h * d;
-  float* gft_sh = smem;                  // BLK * fs
-  float* gel_sh = gft_sh + BLK * fs;     // BLK * hs
-  float* gp_sh = gel_sh + BLK * hs;      // BLK * hs (this chunk's partial)
-  float* am_sh = gp_sh + BLK * hs;       // sub * hs  (acoef * mask)
-  int* grow_sh = reinterpret_cast<int*>(am_sh + sub * hs);  // sub
-  int* wl_sh = grow_sh + sub;                               // sub
-  int* al_sh = wl_sh + sub;                                 // sub
-  const Stripe st = stripe_of(blockIdx.y, hs, h, d);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int w = blockIdx.x;
-  const int sd = DROP ? seed[0] : 0;
-  const bool rstats = BF16 && 3 * h > BLK;
-  for (int i = tid; i < BLK * fs; i += NT) gft_sh[i] = 0.f;
-  for (int i = tid; i < 2 * BLK * hs; i += NT) gel_sh[i] = 0.f;
-
-  // This window's chunks: [lower_bound(w), lower_bound(w + 1)).
-  int lo = 0, hi = n_chunks;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (out_id[mid] < w) lo = mid + 1; else hi = mid;
-  }
-  const int t0 = lo;
-  hi = n_chunks;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (out_id[mid] <= w) lo = mid + 1; else hi = mid;
-  }
-  const int t1 = lo;
-  const int64_t win0 = static_cast<int64_t>(w) * BLK;
-  // 16-byte loads for the per-head dot when every row start is aligned.
-  const bool vec4 = ((d | F) & 3) == 0 &&
-                    ((reinterpret_cast<uintptr_t>(ft) |
-                      reinterpret_cast<uintptr_t>(ct_g)) & 15) == 0;
-  __syncthreads();
-
-  for (int t = t0; t < t1; ++t) {
-    const int64_t grp0 = static_cast<int64_t>(in_id[t]) * BLK;
-    for (int s0 = 0; s0 < chunk; s0 += sub) {
-      const int ns = min(sub, chunk - s0);
-      const int64_t slot0 = static_cast<int64_t>(t) * chunk + s0;
-      for (int j = tid; j < ns; j += NT) {
-        const int aa = a[slot0 + j], bb = b[slot0 + j];
-        grow_sh[j] = (aa >= 0 && bb >= 0) ? static_cast<int>(grp0 + aa) : -1;
-        wl_sh[j] = bb;
-        al_sh[j] = aa;
-      }
-      __syncthreads();
-      for (int idx = tid; idx < ns * st.nh; idx += NT) {
-        const int j = idx / st.nh, k = idx - j * st.nh;
-        const int grow = grow_sh[j];
-        float am = 0.f;
-        if (grow >= 0) {
-          const int hd = st.h0 + k, wl = wl_sh[j];
-          const int64_t src = win0 + wl;
-          const float elv = el[src * h + hd];
-          const float erv = er_g[static_cast<int64_t>(grow) * h + hd];
-          const float sv = elv + erv;
-          float lse = lse_g[static_cast<int64_t>(grow) * h + hd];
-          float rho = rho_g[static_cast<int64_t>(grow) * h + hd];
-          if (rstats) {
-            lse = rnd<true>(lse);
-            rho = rnd<true>(rho);
-          }
-          const float acoef = expf(leaky(sv, slope) - lse);
-          const float dl = sv >= 0.f ? 1.f : slope;
-          const float gv = head_dot<BF16>(
-              ft + src * F + hd * d,
-              ct_g + static_cast<int64_t>(grow) * F + hd * d, d, vec4);
-          const float m =
-              DROP ? drop_scale(eid[slot0 + j], hd, sd, thresh, inv_keep)
-                   : 1.f;
-          const float q = rnd<BF16>(acoef * (gv * m - rho) * dl);
-          am = rnd<BF16>(acoef * m);
-          atomicAdd(&gel_sh[wl * hs + k], q);
-          atomicAdd(&gp_sh[al_sh[j] * hs + k], q);
-        }
-        am_sh[j * hs + k] = am;
-      }
-      __syncthreads();
-      for (int j = warp; j < ns; j += NWARPS) {
-        const int grow = grow_sh[j];
-        if (grow < 0) continue;
-        const float* cr = ct_g + static_cast<int64_t>(grow) * F + st.c0;
-        float* dst = gft_sh + wl_sh[j] * fs;
-        const float* am = am_sh + j * hs;
-        for (int c = lane; c < st.nf; c += 32)
-          atomicAdd(&dst[c], rnd<BF16>(am[c / d] * rnd<BF16>(cr[c])));
-      }
-      __syncthreads();
-    }
-    // This chunk's partial: stored once, then cleared.
-    for (int idx = tid; idx < BLK * st.nh; idx += NT) {
-      const int r = idx / st.nh, k = idx - r * st.nh;
-      gerp[(static_cast<int64_t>(t) * BLK + r) * h + st.h0 + k] =
-          gp_sh[r * hs + k];
-      gp_sh[r * hs + k] = 0.f;
-    }
-    __syncthreads();
-  }
-  for (int idx = tid; idx < BLK * st.nf; idx += NT) {
-    const int r = idx / st.nf, c = idx - r * st.nf;
-    gft[(win0 + r) * F + st.c0 + c] = gft_sh[r * fs + c];
-  }
-  for (int idx = tid; idx < BLK * st.nh; idx += NT) {
-    const int r = idx / st.nh, k = idx - r * st.nh;
-    gel[(win0 + r) * h + st.h0 + k] = gel_sh[r * hs + k];
-  }
-}
-
-// ---------------------------------------------------------------------
-// K7 g-major: GAT backward, to_src=False, over the forward layout.
-//
-// Replaces _attn_bwd_kernel(to_src=False), which the reference runs when
-// the backward layout has no gperm descriptors: it computes grad_er
-// straight from the group-major forward layout, carrying each group's
-// (128, 128) output block across its consecutive chunks in VMEM. In this
-// layout a slot's a is the source row within window in_id[t] and b the
-// hub row within group out_id[t]. Per real slot and head it recomputes
-// K7's q (acoef, the full-width per-head dot <ft_s, ct_b> and the
-// jacobian row term rho_b; see attn_bwd_src_kernel) and adds it to
-// grad_er[b]. A group's chunks are consecutive, as in K6, but at arxiv
-// scale one group holds all 5,292 chunks, so a block per group would run
-// on one SM. A block owns a run of consecutive chunks instead (about four
-// blocks per SM) and all heads: a thread per (slot, head) computes q from
-// the ft and ct rows (16-byte loads) and adds it to the group's (128 x H)
-// block in shared memory; when the run moves to another group, and at its
-// end, the block adds the block's nonzero entries to grad_er with one
-// atomic each.
-//
-// Bound on the H100: bytes. At arxiv layer 1 (H=8, D=32) the data are a
-// and b (43.4 MB), ft (173.4 MB) and el read once, the group rows (er,
-// lse, rho, ct: small) and grad_er (n_groups * 128 * H) written once:
-// ~67 us at 3.35 TB/s. Like K7 src this design waits on the row gathers
-// (ft and ct rows from L1/L2), not on HBM.
-//
-// BF16: as attn_bwd_src_kernel (ft, ct, their products, q; lse and rho
-// when 3H > 128).
-// ---------------------------------------------------------------------
 __device__ void grp_flush(float* gq_sh, int g, int h,
                           float* __restrict__ ger) {
   __syncthreads();
@@ -849,7 +1225,7 @@ int attn_fwd(const int* a, const int* b, const int* eid, const int* in_id,
 
 // Writes every element of gft (n_win*128, h*d), gel (n_win*128, h) and
 // gerp (n_chunks*128, h). seed null: no dropout. bf16: 1 for the bf16
-// mode.
+// mode. Chunks of more than 4,096 slots (1,024 when d > 128) are refused.
 int attn_bwd_src(const int* a, const int* b, const int* eid, const int* in_id,
                  const int* out_id, int n_chunks, int chunk, const float* el,
                  const float* er_g, const float* lse_g, const float* rho_g,
@@ -861,20 +1237,18 @@ int attn_bwd_src(const int* a, const int* b, const int* eid, const int* in_id,
   if (h < 1 || h > BLK || d < 1 || d > MAX_COLS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_win > 0) {
-    int hs, sub;
-    stripe_plan(h, d, &hs, &sub);
-    const int n_stripes = (h + hs - 1) / hs;
-    const size_t smem =
-        sizeof(float) * (static_cast<size_t>(BLK) * hs * d + 2 * BLK * hs +
-                         static_cast<size_t>(sub) * hs) +
-        sizeof(int) * 3 * sub;
-    dim3 grid(n_win, n_stripes);
+    SrcPlan pl = src_plan(h, d, chunk, seed != nullptr);
+    if (n_chunks > 0 && (chunk < 1 || pl.nb < 1))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (pl.nb < 1) pl.nb = 1;
+    const size_t smem = src_smem(pl, seed != nullptr);
+    dim3 grid(n_win, (h + pl.hs - 1) / pl.hs);
     auto kern = PICK(attn_bwd_src_kernel, seed != nullptr, bf16);
     cudaError_t e = set_smem(kern, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<grid, NT, smem, s>>>(
         a, b, eid, in_id, out_id, n_chunks, chunk, el, er_g, lse_g, rho_g, ft,
-        ct_g, h, d, hs, sub, slope, seed, seed != nullptr ? thresh : 0,
+        ct_g, h, d, pl, slope, seed, seed != nullptr ? thresh : 0,
         seed != nullptr ? inv_keep : 1.f, gft, gel, gerp);
   }
   return static_cast<int>(cudaGetLastError());

@@ -59,6 +59,11 @@ NEG = -1e30  # the reference's -inf stand-in
 # declines wider heads (``attention.can_fuse_attention``).
 MAX_HEAD_DIM = 384
 
+# Largest chunk K7 (attn_bwd_src) takes on the card: it sorts a batch of
+# a window's chunks (4,096 slots, 1,024 for heads wider than 128) by
+# window row in shared memory. The layouts' chunks hold 1,024.
+MAX_SRC_CHUNK = 1024
+
 _M32 = 0xFFFFFFFF
 
 
@@ -410,6 +415,10 @@ def attn_bwd_src(lay, el, er_g, lse_g, rho_g, ft, ct_g, h: int, d: int,
     :func:`_bwd_terms`."""
     dev, n_chunks, chunk, seed_p, thresh, inv_keep = _check_bwd(
         lay, el, er_g, lse_g, rho_g, ft, ct_g, h, d, drop, seed)
+    if dev.type == "cuda" and chunk > MAX_SRC_CHUNK:
+        raise ValueError(
+            f"attn_bwd_src sorts each batch of chunks in shared memory: "
+            f"chunks of at most {MAX_SRC_CHUNK} slots, got {chunk}")
     if dev.type == "cpu":
         return attn_bwd_src_torch(lay, el, er_g, lse_g, rho_g, ft, ct_g, h,
                                   d, slope, drop, seed, n_win, bf16)

@@ -20,10 +20,11 @@ as the reference's ``dt`` cast does; such launches count under
 ``"block_fwd.bf16"`` and ``"block_bwd.bf16"``.
 
 What bounds it, and what the kernel does about it: see the note at the
-top of ``csrc/bdense_kernels.cu`` (dense float32 FMA over the blocks, one
-thread block per output block row and 32- or 64-column stripe, A and the
-input stripe staged in shared memory, no atomics, a fixed order of
-summation).
+top of ``csrc/bdense_kernels.cu`` (bytes; bf16 tensor-core products over
+the occupied 16 x 16 sub-tiles with x split into three exact bf16 planes,
+one thread block per output block row and stripe of up to 128 columns, A
+and the input stripe staged in shared memory by ``cp.async``, no atomics,
+a fixed order of summation).
 
 The wrapper given CPU tensors computes the plain version
 (:func:`block_mm_torch`); given CUDA tensors it launches the kernel or
@@ -99,8 +100,11 @@ def _lib():
 
 
 def _stripe(f: int) -> int:
-    """64 columns a block unless 32 cover ``f`` in fewer padded columns."""
-    return 64 if -(-f // 64) * 64 == -(-f // 32) * 32 else 32
+    """The columns a thread block covers: 64 up to F=64 (half the
+    accumulators and shared memory; faster than 128 at F=32 and 40 on
+    the H100), else 128 (wider inputs take several 128-column
+    stripes)."""
+    return 64 if f <= 64 else 128
 
 
 def block_mm(transpose: bool, a, ptr, in_blocks, x, num_out: int,
@@ -125,6 +129,9 @@ def block_mm(transpose: bool, a, ptr, in_blocks, x, num_out: int,
     if dev.type == "cpu":
         return block_mm_torch(transpose, a, ptr, in_blocks, x, num_out,
                               bf16)
+    if a.data_ptr() % 16:
+        raise ValueError("a must start on a 16-byte boundary: the kernel "
+                         "stages count blocks by 16-byte copies")
     f = x.shape[1]
     out = torch.empty((num_out, f), dtype=torch.float32, device=dev)
     if f == 0 or num_out == 0:

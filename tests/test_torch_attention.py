@@ -35,7 +35,8 @@ from dgl1_tpu_torch.ops import attention as port
 from dgl1_tpu_torch.ops import attn_kernels as AK
 from dgl1_tpu_torch.ops import hub_kernels as HK
 
-from torch_parity import engines, make, t
+from torch_parity import (CONFIGS, N, both_graphs, engines, make,
+                          skewed_edges, t)
 
 SLOPE = 0.2
 
@@ -147,6 +148,51 @@ def test_kernels_plain_match_reference_calls(name, h, d, drop):
     tger = AK.ger_reduce(_tlay(hub, "full_bwd"),
                          t(np.asarray(gerp)[:, :h]), m.n_groups)
     _close(tger.numpy(), np.asarray(ger)[:, :h], "ger")
+
+
+def test_bwd_src_plain_matches_reference_on_repeated_pairs():
+    """K7's plain version against the reference's
+    ``_attn_bwd_call(to_src=True)`` at dropout 0.6 on a layout whose
+    (hub row, source row) pairs repeat: the "mixed" edges plus 80 copies of
+    one edge into the heaviest destination and three more copies of each
+    of the first 300 edges, so the kernel's runs of equal pairs hold slots
+    whose masks differ."""
+    src, dst = skewed_edges()
+    heavy = int(np.bincount(dst).argmax())
+    src = np.concatenate([src, np.full(80, 3), np.tile(src[:300], 3)])
+    dst = np.concatenate([dst, np.full(80, heavy), np.tile(dst[:300], 3)])
+    gj, gt = both_graphs(src, dst, N, **dict(zip(
+        ("hub", "hub_dense_floor"), CONFIGS["mixed"])))
+    hub, m = gj.hub_dst, gj.hub_dst_meta
+    lb = _tlay(hub, "full_bwd")
+    rows_g, rows_w, valid = HK._chunk_rows(lb)
+    _, runs = torch.unique(torch.stack([rows_g[valid], rows_w[valid]]),
+                           dim=1, return_counts=True)
+    assert int(runs.max()) >= 64 and int((runs > 1).sum()) >= 100
+    h, d, drop = 8, 32, 0.6
+    n, f = gj.num_nodes(), h * d
+    rows_pad, g_rows = hub["dense_c"].shape[0], m.n_groups * BLK
+    rng = np.random.default_rng(9)
+    el, ft, ct = (rng.normal(size=(n, c)).astype(np.float32)
+                  for c in (h, f, f))
+    er, rho = (rng.normal(size=(n, h)).astype(np.float32) for _ in range(2))
+    lse = (rng.normal(size=(n, h)) + 3.0).astype(np.float32)
+    er_g, lse_g, rho_g, ct_g = (_hub_rows(x, hub["hub_ids"], m.n_groups)
+                                for x in (er, lse, rho, ct))
+    blocks = (jnp.asarray(_pad(np.concatenate([er_g, lse_g, rho_g], 1),
+                               g_rows, BLK)),)
+    gft, gel, gerp = ref._attn_bwd_call(
+        SLOPE, True, _jlay(hub, "full_bwd"),
+        jnp.asarray(_pad(el, rows_pad, BLK)), blocks,
+        jnp.asarray(_pad(ft, rows_pad, f)), jnp.asarray(_pad(ct_g, g_rows, f)),
+        h, d, m.n_win, f, jnp.float32, drop, jnp.asarray(SEED))
+    tgft, tgel, tgerp = AK.attn_bwd_src(
+        lb, t(el), t(er_g), t(lse_g), t(rho_g), t(ft), t(ct_g), h, d, SLOPE,
+        drop, t(SEED), m.n_win)
+    win = np.repeat(np.asarray(hub["win_mask_full"]), BLK)
+    _close(tgft.numpy()[win], np.asarray(gft)[win, :f], "gft")
+    _close(tgel.numpy()[win], np.asarray(gel)[win, :h], "gel")
+    _close(tgerp.numpy(), np.asarray(gerp)[:, :h], "gerp")
 
 
 @pytest.mark.parametrize("seed", [0, -1, 2 ** 31 - 1, -2 ** 31, 987654321])

@@ -30,18 +30,26 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _graph(dev, mixed):
+def _edges():
+    """3000 nodes: 40,000 edges into half Zipf, half uniform destinations,
+    then a self-loop per node."""
     rng = np.random.default_rng(0)
     n, e = 3000, 40000
     src = rng.integers(0, n, e)
     dst = np.concatenate([rng.zipf(1.7, e // 2) % n,
                           rng.integers(0, n, e - e // 2)])
     loops = np.arange(n)
-    kw = dict(hub=500, hub_dense_floor=10000) if mixed else \
+    return np.concatenate([src, loops]), np.concatenate([dst, loops]), n
+
+
+def _hub_kw(mixed):
+    return dict(hub=500, hub_dense_floor=10000) if mixed else \
         dict(hub=2000, hub_dense_floor=1)
-    return tdgl.graph((np.concatenate([src, loops]),
-                       np.concatenate([dst, loops])), num_nodes=n,
-                      device=dev, **kw)
+
+
+def _graph(dev, mixed):
+    src, dst, n = _edges()
+    return tdgl.graph((src, dst), num_nodes=n, device=dev, **_hub_kw(mixed))
 
 
 def _close(a, b):
@@ -355,12 +363,14 @@ def _bdense_graph(dev, heavy=False):
 
 
 @pytest.mark.parametrize("heavy", [False, True])
-@pytest.mark.parametrize("f", [1, 40, 200])
+@pytest.mark.parametrize("f", [1, 8, 40, 128, 200, 512])
 @pytest.mark.parametrize("transpose", [False, True])
 def test_block_mm_matches_plain_version(dev, transpose, f, heavy):
     """K11, forward and transpose, within 1e-5 of its float64 plain version
     relative to the same sums over |x| (float32 sums of at most 3 x 128
-    terms); F=1, 40 and 200 are ragged against the 32/64-column stripes."""
+    terms); F=1, 40 and 200 are ragged against the 8-column MMA tiles and
+    the 64/128-column stripes, 512 takes four stripes, and the heavy
+    graph's float32 counts go through three bf16 planes."""
     from dgl1_tpu_torch.ops import bdense_kernels as BK
 
     g = _bdense_graph(dev, heavy)
@@ -380,6 +390,52 @@ def test_block_mm_matches_plain_version(dev, transpose, f, heavy):
     torch.cuda.synchronize()
     assert got.shape == (n, f) and got.dtype == torch.float32
     assert bool(((got.double() - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def _crafted_blocks(dev, dtype, seed=0):
+    """Five count blocks over four output block rows whose runs hold 3, 0,
+    1 and 1 blocks (n_out ragged, the last input block partly past x):
+    block 0 a checkerboard of wholly full and wholly empty 16 x 16
+    sub-tiles, block 1 full, block 2 one nonzero count, block 3 all zeros,
+    block 4 5% nonzero. Counts up to 256 as bf16, up to 1000 as float32."""
+    rng = np.random.default_rng(seed)
+    cmax = 256 if dtype == torch.bfloat16 else 1000
+
+    def counts():
+        return rng.integers(1, cmax + 1, (128, 128)).astype(np.float32)
+
+    a = np.zeros((5, 128, 128), np.float32)
+    board = np.add.outer(np.arange(8), np.arange(8)) % 2 == 0
+    a[0] = np.kron(board, np.ones((16, 16), np.float32)) * counts()
+    a[1] = counts()
+    a[2, 37, 101] = cmax
+    a[4] = (rng.random((128, 128)) < 0.05) * counts()
+    return (torch.tensor(a.reshape(5 * 128, 128), device=dev).to(dtype),
+            torch.tensor([0, 3, 3, 4, 5], dtype=torch.int32, device=dev),
+            torch.tensor([2, 0, 1, 3, 2], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f", [1, 8, 40, 128, 200])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_block_mm_sub_tiles_and_runs(dev, transpose, f, dtype):
+    """K11 on hand-made blocks (see _crafted_blocks): skipped and full
+    sub-tiles side by side, an empty run (its rows are zeros), a run of 3
+    blocks, an all-zero block, within 1e-5 of the float64 plain version
+    relative to the same sums over |x|."""
+    from dgl1_tpu_torch.ops import bdense_kernels as BK
+
+    a, ptr, ib = _crafted_blocks(dev, dtype, seed=f)
+    n_out, n_in = 4 * 128 - 5, 3 * 128 + 50
+    x = torch.randn(n_in, f, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(f))
+    got = BK.block_mm(transpose, a, ptr, ib, x, n_out)
+    want = BK.block_mm_torch(transpose, a, ptr, ib, x.double(), n_out)
+    scale = BK.block_mm_torch(transpose, a, ptr, ib, x.abs().double(), n_out)
+    torch.cuda.synchronize()
+    assert got.shape == (n_out, f)
+    assert bool(((got.double() - want).abs() <= 1e-5 * scale + 1e-6).all())
+    assert bool((got[128: 256] == 0).all())
 
 
 @pytest.mark.parametrize("red", ["sum", "mean"])
@@ -581,6 +637,89 @@ def test_attention_kernels_bf16_match_plain_versions(dev, h, d):
     assert {k: v for k, v in AK.LAUNCHES.items() if v} == {
         "attn_fwd.bf16": 1, "attn_fwd": 1, "attn_bwd_src.bf16": 1,
         "attn_bwd_src": 1, "attn_bwd_grp.bf16": 1, "attn_bwd_grp": 1}
+
+
+def _repeated_pairs_graph(dev, mixed):
+    """_graph's edges plus 100 copies of the edge 5 -> the heaviest
+    destination, so one (hub row, source row) pair holds 100 slots, and
+    without any edge out of node 11 (its self-loop too), so its window row
+    has no slot."""
+    src, dst, n = _edges()
+    heavy = int(np.bincount(dst, minlength=n).argmax())
+    src = np.concatenate([src, np.full(100, 5)])
+    dst = np.concatenate([dst, np.full(100, heavy)])
+    keep = src != 11
+    return tdgl.graph((src[keep], dst[keep]), num_nodes=n, device=dev,
+                      **_hub_kw(mixed))
+
+
+@pytest.mark.parametrize("h,d", [(8, 32), (1, 384), (2, 256), (4, 160)])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_attn_bwd_src_repeated_pairs(dev, mixed, h, d):
+    """K7 at dropout 0.6 on runs of equal (hub row, source row) slots (one
+    of 100, whose per-slot masks differ), with a source row of no slot
+    (zeros), within 1e-4 of its float64 plain version relative to the
+    same sums over |ft|, |ct| and -|rho|."""
+    g = _repeated_pairs_graph(dev, mixed)
+    m, lb = g.hub_dst_meta, g.hub_dst["full_bwd"]
+    rows_g, rows_w, valid = K._chunk_rows(lb)
+    _, runs = torch.unique(torch.stack([rows_g[valid], rows_w[valid]]),
+                           dim=1, return_counts=True)
+    assert int(runs.max()) >= 64
+    assert not bool((rows_w[valid] == 11).any())
+    el, er_g, lse_g, rho_g, ft, ct_g = _attn_inputs(g, dev, h, d)
+    seed = torch.tensor([987654321], dtype=torch.int32, device=dev)
+    args = (lb, el, er_g, lse_g, rho_g, ft, ct_g, h, d, 0.2, 0.6, seed,
+            m.n_win)
+    AK.reset_launches()
+    got = AK.attn_bwd_src(*args)
+    assert AK.LAUNCHES["attn_bwd_src"] == 1
+    want = AK.attn_bwd_src_torch(*_f64(*args))
+    scale = AK.attn_bwd_src_torch(*_f64(lb, el, er_g, lse_g, -rho_g.abs(),
+                                        ft.abs(), ct_g.abs(), *args[7:]))
+    torch.cuda.synchronize()
+    for name, a, b, s in zip(("gft", "gel", "gerp"), got, want, scale):
+        _sum_close(name, a.double(), b, s)
+    assert not bool(got[0][11].any()) and not bool(got[1][11].any())
+
+
+@pytest.mark.parametrize("h,d", [(1, 384), (2, 256)])
+def test_attn_bwd_src_small_chunks_wide_heads(dev, h, d):
+    """K7 on full_bwd cut into chunks of 16 slots (64 a layout chunk), so a
+    batch of wide heads would take more chunks than shared memory holds, at
+    dropout 0.6, within 1e-4 of its float64 plain version."""
+    g = _repeated_pairs_graph(dev, True)
+    m, lb = g.hub_dst_meta, g.hub_dst["full_bwd"]
+    cut = lb["a"].shape[0] // lb["in_id"].shape[0] // 16
+    lay = {k: lb[k] for k in ("a", "b", "eid")}
+    lay.update({k: lb[k].repeat_interleave(cut) for k in ("in_id", "out_id")})
+    el, er_g, lse_g, rho_g, ft, ct_g = _attn_inputs(g, dev, h, d)
+    seed = torch.tensor([987654321], dtype=torch.int32, device=dev)
+    args = (lay, el, er_g, lse_g, rho_g, ft, ct_g, h, d, 0.2, 0.6, seed,
+            m.n_win)
+    got = AK.attn_bwd_src(*args)
+    want = AK.attn_bwd_src_torch(*_f64(*args))
+    scale = AK.attn_bwd_src_torch(*_f64(lay, el, er_g, lse_g, -rho_g.abs(),
+                                        ft.abs(), ct_g.abs(), *args[7:]))
+    torch.cuda.synchronize()
+    for name, a, b, s in zip(("gft", "gel", "gerp"), got, want, scale):
+        _sum_close(name, a.double(), b, s)
+
+
+def test_attn_bwd_src_refuses_chunks_it_cannot_sort(dev):
+    """A chunk of more than MAX_SRC_CHUNK slots raises a ValueError that
+    names the rule, before any launch."""
+    g = _graph(dev, False)
+    lb = g.hub_dst["full_bwd"]
+    n = 2 * AK.MAX_SRC_CHUNK
+    lay = {k: lb[k][:n] for k in ("a", "b", "eid")}
+    lay.update({k: lb[k][:1] for k in ("in_id", "out_id")})
+    el, er_g, lse_g, rho_g, ft, ct_g = _attn_inputs(g, dev, 8, 32)
+    AK.reset_launches()
+    with pytest.raises(ValueError, match="at most 1024 slots"):
+        AK.attn_bwd_src(lay, el, er_g, lse_g, rho_g, ft, ct_g, 8, 32, 0.2,
+                        n_win=g.hub_dst_meta.n_win)
+    assert not any(AK.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("transpose", [False, True])
