@@ -17,22 +17,25 @@
 //   K8 attn_ger_reduce <- _ger_reduce_kernel              (attention.py:612)
 //
 // The TPU kernels gather and scatter through one-hot matmuls and carry
-// sums across an in-order grid in VMEM. Here gathers are row loads, sums
-// live in shared memory, and blocks that share an output combine with one
-// float atomic add per element at the end. Outputs are narrow: H columns
+// sums across an in-order grid in VMEM. Here rows are staged in shared
+// memory or loaded, sums live in registers and shared memory, and blocks
+// that share an output combine at the end (K6: per-block partials that a
+// second kernel sums; K7 g-major: float atomics). Outputs are narrow: H columns
 // for den/mraw/gel/partials and H*D for num/gft (the reference pads both
 // to 128-lane multiples and its callers read these columns only).
 //
 // Layout (hub_format.py): chunks of CHUNK slots. In the forward layout a
 // slot's a is the source row within window in_id[t] and b the hub row
-// within group out_id[t]; chunks are sorted by (group, window) and the
-// slots of a chunk by b. In the backward layout a is the hub row within
+// within group out_id[t]; chunks are sorted by (group, window) and a
+// window's slots come in runs of equal b (each destination's edges
+// together, the runs in no order of b). In the backward layout a is the hub row within
 // group in_id[t], b the source row within window out_id[t]; chunks are
 // sorted by (window, group). Padding slots have a = b = -1.
 //
 // Heads are processed in stripes of hs = max(1, 128 / D) heads (at most
-// 128 feature columns; one head of up to 384 columns when D > 128): a
-// block owns one stripe, so every per-head quantity it needs stays inside.
+// 128 feature columns; one head of up to 384 columns when D > 128; K6
+// cuts such a head into 128-column pieces): a block owns one stripe, so
+// every per-head quantity it needs stays inside.
 //
 // K6 and both K7 modes have a BF16 instantiation, the reference's bf16
 // matmul mode (dgl1_tpu/ops/precision.py): it rounds to bfloat16 (nearest
@@ -52,7 +55,6 @@ constexpr int BLK = 128;         // hub group rows / window rows
 constexpr int NT = 256;          // threads per block
 constexpr int NWARPS = NT / 32;
 constexpr int MAX_COLS = 384;    // widest stripe (one head)
-constexpr int MAX_Q = MAX_COLS / 32;
 constexpr float NEG = -1e30f;    // the reference's -inf stand-in
 
 __device__ __forceinline__ float leaky(float x, float slope) {
@@ -100,81 +102,29 @@ __device__ __forceinline__ Stripe stripe_of(int y, int hs, int h, int d) {
   return s;
 }
 
-// ---------------------------------------------------------------------
-// K6: fused GAT forward over the forward layout.
-//
-// Replaces _attn_fwd_kernel, whose in-order grid carries each group's
-// running max (mraw) and its num/den in VMEM from chunk to chunk with an
-// online rescale. At arxiv scale every chunk (5,292) belongs to one
-// group, so a block per group would run the whole forward on one SM.
-// Two passes instead:
-//   1. attn_max_kernel, one block per chunk: the chunk's max of el over
-//      its real slots per head, then atomicMax of the float's ordered int
-//      image into mkey[group, head]: the group's exact max, the value the
-//      reference's running max ends at.
-//   2. attn_fwd_kernel, a block per (run of consecutive chunks, head
-//      stripe): p = exp(leaky(el_s + er_b) - leaky(er_b + mraw)) per slot
-//      and head into shared memory, den += p and num += p * mask * ft_s
-//      accumulated in a (128 x stripe) shared block. Slots of a chunk are
-//      sorted by b, so a warp sums a run of equal-b slots in registers and
-//      adds it to shared memory once. When the run of chunks moves to
-//      another group, and at its end, the block adds its nonzero block
-//      entries to num/den in device memory with one atomic each.
-// No (E, H) or (E, H*D) array exists; p lives in shared memory per slot
-// sub-block.
-//
-// BF16. The reference's online softmax rounds each chunk's p against the
-// running max of the group's chunks so far, and rescales what came
-// before by a scale that it rounds for num (not for den). Both sums
-// depend on that order, so this mode reproduces it: attn_max_kernel also
-// writes each chunk's max (cmax), attn_run_kernel takes the running max
-// of each group's chunks in layout order (run), and attn_scale_kernel
-// walks each group's chunks backwards and gives every (chunk, hub row,
-// head) the product of the later chunks' scales exp(leaky(er + run_prev)
-// - leaky(er + run)): fden in float32, fnum rounded per factor. Then
-// p = exp(leaky(el + er) - leaky(er + run_t)); den takes rnd(p) * fden,
-// num rnd(rnd(p * mask) * rnd(ft)) * fnum, the terms the reference's
-// chunk-by-chunk rescale leaves in its sums. The scratch (run, fden,
-// fnum; 2 * n_chunks * 128 * H floats) exists only in this mode.
-//
-// Bound on the H100: bytes. At arxiv layer 1 (H=8, D=32, no dropout) the
-// data are a and b (43.4 MB), ft (173.4 MB), el (5.4 MB): ~66 us at
-// 3.35 TB/s; the exps and FMAs are a few GFLOP. This design reads each
-// slot's ft row from L1/L2 (the slots of a window are consecutive, so a
-// row is reused while cached) and pays one shared-memory add per run of
-// equal-b slots; its time is held by those gathers, not by HBM.
-// ---------------------------------------------------------------------
-__global__ void __launch_bounds__(NT)
-    attn_init_kernel(int* __restrict__ mkey, int n) {
-  const int i = blockIdx.x * NT + threadIdx.x;
-  if (i < n) mkey[i] = f2key(NEG);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-
-__global__ void __launch_bounds__(NT)
-    attn_max_kernel(const int* __restrict__ a, const int* __restrict__ b,
-                    const int* __restrict__ in_id,
-                    const int* __restrict__ out_id, int chunk,
-                    const float* __restrict__ el, int h,
-                    int* __restrict__ mkey, float* __restrict__ cmax) {
-  __shared__ int smax[BLK];
-  const int t = blockIdx.x;
-  for (int k = threadIdx.x; k < h; k += NT) smax[k] = f2key(NEG);
-  __syncthreads();
-  const int64_t win0 = static_cast<int64_t>(in_id[t]) * BLK;
-  const int64_t slot0 = static_cast<int64_t>(t) * chunk;
-  for (int idx = threadIdx.x; idx < chunk * h; idx += NT) {
-    const int j = idx / h, k = idx - j * h;
-    const int aa = a[slot0 + j], bb = b[slot0 + j];
-    if (aa < 0 || bb < 0) continue;
-    atomicMax(&smax[k], f2key(el[(win0 + aa) * h + k]));
-  }
-  __syncthreads();
-  const int g = out_id[t];
-  for (int k = threadIdx.x; k < h; k += NT) {
-    atomicMax(&mkey[static_cast<int64_t>(g) * h + k], smax[k]);
-    if (cmax != nullptr)
-      cmax[static_cast<int64_t>(t) * h + k] = key2f(smax[k]);
-  }
+// cp.async of 16 or 4 bytes; `bytes` below the size zero-fills the rest.
+__device__ __forceinline__ void cp_async16(void* s, const void* g, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(s)),
+               "l"(g), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(void* s, const void* g, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(s)),
+               "l"(g), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+// Waits until at most the newest group this thread committed is pending.
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // First chunk of group g in the group-sorted out_id: lower_bound(g).
@@ -188,53 +138,329 @@ __device__ __forceinline__ int first_chunk(const int* __restrict__ out_id,
   return lo;
 }
 
-// bf16 mode: run[t, k], the running max of cmax over group out_id[t]'s
-// chunks up to and including t. A thread per (group, head).
+// ---------------------------------------------------------------------
+// K6: fused GAT forward over the forward layout.
+//
+// Replaces _attn_fwd_kernel (dgl1_tpu/ops/attention.py:152), whose
+// in-order grid carries each group's running max (mraw) and its num/den
+// in VMEM from chunk to chunk with an online rescale. Per real slot (a
+// the source row within window in_id[t], b the hub row within group
+// out_id[t]) and head: p = exp(leaky(el_a + er_b) - leaky(er_b + mraw)),
+// den_b += p, num_b += p * mask * ft_a, where mraw is the group's max of
+// el over its real slots (the value the reference's running max ends at).
+//
+// Bound on the H100: bytes. At arxiv layer 1 (H=8, D=32, no dropout; one
+// group, 5,292 chunks over 1,323 windows, 4.39 M real slots) the data are
+// a and b (43.4 MB), ft (173.4 MB) and el (5.4 MB) read once and small
+// outputs: ~66 us at 3.35 TB/s (the exps and FMAs, 2.3 GFLOP, ~35 us at
+// 67 TFLOP/s). The earlier design (a block per run of chunks, a thread per
+// (slot, head) gathering el, er and ft rows from L1/L2, shared atomics
+// into a (128 x stripe) block, a serial bf16 walk) lost its time as
+// follows; this one:
+//
+// * The max (attn_max_kernel). A block walks a run of chunks, marks the
+//   window rows that its real slots name, and per head takes the max of
+//   el over the marked rows with a warp reduction of the float's ordered
+//   int image: one shared atomic per warp and head, then one device
+//   atomicMax per head and group (exact: max is order-free). Before, each
+//   (slot, head) did a shared atomicMax onto H words.
+// * The rows (attn_fwd_kernel). A block owns a stripe of at most 128
+//   feature columns (whole heads, or a 128-column piece of a head wider
+//   than that) and a run of consecutive chunks, taken in batches of the
+//   chunks that share a (group, window). It stages the next batch's
+//   window, the stripe of ft for 128 rows and their el, by 16-byte
+//   cp.async into one of two buffers while it walks the current one, and
+//   the group's er and leaky(er + mraw) once per group. No slot gathers a
+//   row from L2.
+// * The walk. Warp w takes the batch's rounds of 32 slots w, w + 16, ...
+//   (a window's slots come as a few long runs of one hub row, then many
+//   short ones; interleaved rounds give every warp its share of both,
+//   where equal contiguous shares left one warp with all the short runs
+//   to set the block's time). In a round a lane first takes a slot: p for each head of
+//   the stripe, computed once (not once per column), into shared memory.
+//   Then lanes run over the columns, four a lane: where the round's slots
+//   share a hub row (most rounds) a branch-free loop reads each
+//   slot's ft row with one 16-byte shared load a lane and adds p * ft into
+//   registers; else one slot at a time. A warp keeps a hub row's sums in
+//   registers across rounds and batches and adds them only when its row
+//   changes: one 16-byte red.global.add a lane (den: one per head, after
+//   a segmented warp sum of each run of rows). Duplicate (b, a) pairs are
+//   not adjacent in the layout (arxiv: 4,357,535 adjacent runs among
+//   4,390,906 real slots, 1,248,457 distinct (chunk, b, a)), so no slot is
+//   folded.
+// * The flush. The adds go into the block's own zeroed partial of its
+//   group; attn_fold_kernel then sums the partials per group in block
+//   order into num and den, writing every element. Adding straight into
+//   zeroed num and den measured as fast at layer 1 and a third slower at
+//   layer 2 (H=1: every block's adds meet on 128 x 40 floats). The earlier
+//   design added a shared (128 x 128) block per flush with one scalar
+//   atomic per nonzero; on this card a shared float atomic is a
+//   compare-and-swap loop, which is why none is left on the walk.
+// * BF16 (the reference's dt=bfloat16). Its online softmax rounds each
+//   chunk's p against the running max of the group's chunks so far, and
+//   rescales what came before by a scale it rounds for num (not for den).
+//   attn_max_kernel then also writes each chunk's max (cmax);
+//   attn_run_kernel scans each group's chunks in parallel for the running
+//   max (run: max is exact, so any order gives the serial values); and
+//   per (chunk t, hub row, head) fden, the product of the later chunks'
+//   scales exp(leaky(er + run_{u-1}) - leaky(er + run_u)), and fnum, the
+//   product of the same scales each rounded to bf16, come from a segmented
+//   suffix product in three passes over segments of FWD_SEG chunks
+//   (attn_seg_kernel: each segment's product; attn_segscan_kernel: the
+//   products over segments; attn_segapply_kernel: each chunk's within its
+//   segment), in place of a thread per (group, row, head) walking the
+//   group's 5,292 chunks. The factors are the serial walk's; only the
+//   association of their product differs: the walk took ((s_{n-1} s_{n-2})
+//   ...) s_{t+1} from the group's end, this takes each segment's product
+//   from its end and multiplies the later segments' product in at the
+//   segment boundary. Then p = exp(leaky(el + er) - leaky(er + run_t)); a
+//   hub row's run of slots of one chunk sums rnd(p) * fden into den and
+//   rnd(rnd(p * mask) * rnd(ft)) into num, and multiplies num's sums by
+//   fnum when it adds them (the reference scales each term). The scratch
+//   (cmax, run, fden, fnum and the segment products) exists only in this
+//   mode.
+// ---------------------------------------------------------------------
+constexpr int FWD_NT = 512;                // threads of a K6 block
+constexpr int FWD_NW = FWD_NT / 32;
+constexpr int FWD_COLS = 128;              // widest stripe
+constexpr int FWD_SEG = 32;                // chunks a bf16 scan segment
+constexpr size_t FWD_SMEM_MAX = 227 * 1024;  // sm_90's opt-in per block
+
+// A K6 plan (made by the wrapper, ops/attn_kernels.py fwd_plan): nhs heads
+// a stripe (1 when d > 128, each head then cut into nsub pieces of up to
+// 128 columns), staged rows ws floats apart (the widest stripe rounded up
+// to 4, plus 4), g lanes a slot (a power of two, 4 g >= the widest
+// stripe).
+struct FwdPlan {
+  int nhs, nsub, ws, g;
+};
+
+size_t fwd_smem(const FwdPlan& p) {
+  // Two ft and two el windows, er and the shift, and each warp's p and
+  // staged rows of 32 slots.
+  return sizeof(float) * (static_cast<size_t>(BLK) * (2 * p.ws + 4 * p.nhs) +
+                          static_cast<size_t>(FWD_NW) * 32 * (p.nhs + 1));
+}
+
+int fwd_stripes(const FwdPlan& p, int h, int d) {
+  return d > FWD_COLS ? h * p.nsub : (h + p.nhs - 1) / p.nhs;
+}
+
+struct FwdStripe {
+  int h0, nh, c0, nc;  // first head, heads, first column, columns
+};
+
+__device__ __forceinline__ FwdStripe fwd_stripe(int y, int h, int d,
+                                                const FwdPlan& p) {
+  FwdStripe s;
+  if (d > FWD_COLS) {
+    const int hd = y / p.nsub, sub = y - hd * p.nsub;
+    s.h0 = hd;
+    s.nh = 1;
+    s.c0 = hd * d + sub * FWD_COLS;
+    s.nc = min(FWD_COLS, d - sub * FWD_COLS);
+  } else {
+    s.h0 = y * p.nhs;
+    s.nh = min(p.nhs, h - s.h0);
+    s.c0 = s.h0 * d;
+    s.nc = s.nh * d;
+  }
+  return s;
+}
+
 __global__ void __launch_bounds__(NT)
-    attn_run_kernel(const int* __restrict__ out_id, int n_chunks,
-                    const float* __restrict__ cmax, int n_groups, int h,
-                    float* __restrict__ run) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
-  if (i >= static_cast<int64_t>(n_groups) * h) return;
-  const int g = static_cast<int>(i / h), k = static_cast<int>(i % h);
-  const int t0 = first_chunk(out_id, n_chunks, g);
-  const int t1 = first_chunk(out_id, n_chunks, g + 1);
-  float r = NEG;
+    attn_init_kernel(int* __restrict__ mkey, int n) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i < n) mkey[i] = f2key(NEG);
+}
+
+// PER_CHUNK (bf16 mode): each chunk's max is taken and written to cmax;
+// else a run of chunks that share a (group, window) is taken at once.
+template <bool PER_CHUNK>
+__global__ void __launch_bounds__(NT)
+    attn_max_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                    const int* __restrict__ in_id,
+                    const int* __restrict__ out_id, int n_chunks, int chunk,
+                    int cpb, const float* __restrict__ el, int n_src, int h,
+                    int* __restrict__ mkey, float* __restrict__ cmax) {
+  __shared__ int mark[BLK];  // window rows a real slot names
+  __shared__ int cm[BLK];    // this segment's max per head
+  __shared__ int gm[BLK];    // this group's max per head
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int neg = f2key(NEG);
+  for (int i = tid; i < BLK; i += NT) {
+    mark[i] = 0;
+    cm[i] = gm[i] = neg;
+  }
+  __syncthreads();
+  const int t0 = blockIdx.x * cpb, t1 = min(n_chunks, t0 + cpb);
   for (int t = t0; t < t1; ++t) {
-    const float c = cmax[static_cast<int64_t>(t) * h + k];
-    r = t == t0 ? c : fmaxf(r, c);
-    run[static_cast<int64_t>(t) * h + k] = r;
+    const int64_t slot0 = static_cast<int64_t>(t) * chunk;
+    for (int j = tid; j < chunk; j += NT) {
+      const int aa = a[slot0 + j], bb = b[slot0 + j];
+      if (aa >= 0 && bb >= 0) mark[aa] = 1;
+    }
+    const int w = in_id[t], g = out_id[t];
+    const bool g_end = t + 1 == t1 || out_id[t + 1] != g;
+    if (!PER_CHUNK && !g_end && in_id[t + 1] == w) continue;
+    __syncthreads();
+    // A warp covers 32 rows of one head (128 h is a multiple of 32).
+    const int64_t win0 = static_cast<int64_t>(w) * BLK;
+    for (int idx = tid; idx < BLK * h; idx += NT) {
+      const int k = idx / BLK, r = idx - k * BLK;
+      int v = neg;
+      if (mark[r] && win0 + r < n_src) v = f2key(el[(win0 + r) * h + k]);
+      v = __reduce_max_sync(0xffffffffu, v);
+      if (lane == 0 && v != neg) atomicMax(&cm[k], v);
+    }
+    __syncthreads();
+    for (int k = tid; k < h; k += NT) {
+      if (PER_CHUNK) cmax[static_cast<int64_t>(t) * h + k] = key2f(cm[k]);
+      gm[k] = max(gm[k], cm[k]);
+      cm[k] = neg;
+      if (g_end) {
+        if (gm[k] != neg) atomicMax(&mkey[static_cast<int64_t>(g) * h + k], gm[k]);
+        gm[k] = neg;
+      }
+    }
+    for (int i = tid; i < BLK; i += NT) mark[i] = 0;
+    __syncthreads();
   }
 }
 
-// bf16 mode: per (chunk t, hub row r of its group, head k), the product of
-// the scales the reference's later chunks u of the group apply, scale_u =
-// exp(leaky(er + run_{u-1}) - leaky(er + run_u)): fden in float32, fnum of
-// the scales rounded to bf16. A thread per (group, row, head) walks the
-// group's chunks backwards.
+// bf16 mode: run[t, k], the running max of cmax over group out_id[t]'s
+// chunks up to and including t. A block per (group, head) scans them 256
+// at a time (max is exact, so this is the serial walk's value).
 __global__ void __launch_bounds__(NT)
-    attn_scale_kernel(const int* __restrict__ out_id, int n_chunks,
-                      const float* __restrict__ run,
-                      const float* __restrict__ er_g, int n_groups, int h,
-                      float slope, float* __restrict__ fden,
-                      float* __restrict__ fnum) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
-  if (i >= static_cast<int64_t>(n_groups) * BLK * h) return;
-  const int64_t row = i / h;  // group * BLK + r
-  const int k = static_cast<int>(i % h);
-  const int g = static_cast<int>(row / BLK), r = static_cast<int>(row % BLK);
+    attn_run_kernel(const int* __restrict__ out_id, int n_chunks,
+                    const float* __restrict__ cmax, int h,
+                    float* __restrict__ run) {
+  __shared__ float wmax[NWARPS];
+  const int g = blockIdx.x, k = blockIdx.y;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int t0 = first_chunk(out_id, n_chunks, g);
   const int t1 = first_chunk(out_id, n_chunks, g + 1);
-  const float erv = er_g[row * h + k];
+  float carry = -INFINITY;
+  for (int base = t0; base < t1; base += NT) {
+    const int t = base + threadIdx.x;
+    float v = t < t1 ? cmax[static_cast<int64_t>(t) * h + k] : -INFINITY;
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v = fmaxf(v, y);
+    }
+    if (lane == 31) wmax[warp] = v;
+    __syncthreads();
+    float pre = carry, tot = carry;
+    for (int w = 0; w < NWARPS; ++w) {
+      if (w < warp) pre = fmaxf(pre, wmax[w]);
+      tot = fmaxf(tot, wmax[w]);
+    }
+    if (t < t1) run[static_cast<int64_t>(t) * h + k] = fmaxf(v, pre);
+    carry = tot;
+    __syncthreads();
+  }
+}
+
+// bf16 mode: the scale chunk u applies to its group's earlier terms,
+// exp(leaky(er + run_{u-1}) - leaky(er + run_u)); exactly 1 where the
+// running max did not move and at the group's first chunk.
+__device__ __forceinline__ float online_scale(const int* __restrict__ out_id,
+                                              const float* __restrict__ run,
+                                              int u, int h, int k, float erv,
+                                              float slope) {
+  if (u == 0 || out_id[u - 1] != out_id[u]) return 1.f;
+  const float r0 = run[static_cast<int64_t>(u - 1) * h + k];
+  const float r1 = run[static_cast<int64_t>(u) * h + k];
+  return r0 == r1 ? 1.f
+                  : expf(leaky(erv + r0, slope) - leaky(erv + r1, slope));
+}
+
+// bf16 mode, pass 1: per (segment j of FWD_SEG chunks, hub row r, head k),
+// the product of the scales of the segment's chunks of its first chunk's
+// group, from the last of them down: float32 (lden) and rounded (lnum).
+__global__ void __launch_bounds__(NT)
+    attn_seg_kernel(const int* __restrict__ out_id, int n_chunks,
+                    const float* __restrict__ run,
+                    const float* __restrict__ er_g, int h, float slope,
+                    float* __restrict__ lden, float* __restrict__ lnum) {
+  const int n_seg = (n_chunks + FWD_SEG - 1) / FWD_SEG;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+  if (i >= static_cast<int64_t>(n_seg) * BLK * h) return;
+  const int j = static_cast<int>(i / (BLK * h));
+  const int rk = static_cast<int>(i - static_cast<int64_t>(j) * BLK * h);
+  const int r = rk / h, k = rk - r * h;
+  const int s0 = j * FWD_SEG, e = min(n_chunks, s0 + FWD_SEG);
+  const int g = out_id[s0];
+  int ge = s0 + 1;
+  while (ge < e && out_id[ge] == g) ++ge;
+  const float erv = er_g[(static_cast<int64_t>(g) * BLK + r) * h + k];
   float ad = 1.f, an = 1.f;
-  for (int t = t1 - 1; t >= t0; --t) {
-    const int64_t o = (static_cast<int64_t>(t) * BLK + r) * h + k;
+  for (int u = ge - 1; u >= s0; --u) {
+    const float s = online_scale(out_id, run, u, h, k, erv, slope);
+    ad *= s;
+    an *= rnd<true>(s);
+  }
+  lden[i] = ad;
+  lnum[i] = an;
+}
+
+// bf16 mode, pass 2: per (hub row, head), over the segments from the last:
+// the product of a segment's first group's scales from the segment's
+// start to the group's end (the segment's own times the next segment's
+// while the group runs on), in place.
+__global__ void __launch_bounds__(NT)
+    attn_segscan_kernel(const int* __restrict__ out_id, int n_chunks, int h,
+                        float* __restrict__ lden, float* __restrict__ lnum) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= BLK * h) return;
+  const int n_seg = (n_chunks + FWD_SEG - 1) / FWD_SEG;
+  float gd = 1.f, gn = 1.f;
+#pragma unroll 4
+  for (int j = n_seg - 1; j >= 0; --j) {
+    const int e = (j + 1) * FWD_SEG;
+    const bool cont = e < n_chunks && out_id[e] == out_id[j * FWD_SEG];
+    const int64_t o = static_cast<int64_t>(j) * BLK * h + i;
+    gd = lden[o] * (cont ? gd : 1.f);
+    gn = lnum[o] * (cont ? gn : 1.f);
+    lden[o] = gd;
+    lnum[o] = gn;
+  }
+}
+
+// bf16 mode, pass 3: per (segment, hub row, head), each chunk's fden and
+// fnum, walking the segment down from the next segment's product.
+__global__ void __launch_bounds__(NT)
+    attn_segapply_kernel(const int* __restrict__ out_id, int n_chunks,
+                         const float* __restrict__ run,
+                         const float* __restrict__ er_g, int h, float slope,
+                         const float* __restrict__ gden,
+                         const float* __restrict__ gnum,
+                         float* __restrict__ fden, float* __restrict__ fnum) {
+  const int n_seg = (n_chunks + FWD_SEG - 1) / FWD_SEG;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+  if (i >= static_cast<int64_t>(n_seg) * BLK * h) return;
+  const int j = static_cast<int>(i / (BLK * h));
+  const int rk = static_cast<int>(i - static_cast<int64_t>(j) * BLK * h);
+  const int r = rk / h, k = rk - r * h;
+  const int s0 = j * FWD_SEG, e = min(n_chunks, s0 + FWD_SEG);
+  const bool cont = e < n_chunks && out_id[e] == out_id[e - 1];
+  const int64_t nx = i + static_cast<int64_t>(BLK) * h;  // segment j + 1
+  float ad = cont ? gden[nx] : 1.f, an = cont ? gnum[nx] : 1.f;
+  int g = -1;
+  float erv = 0.f;
+  for (int u = e - 1; u >= s0; --u) {
+    const int gu = out_id[u];
+    if (gu != g) {
+      g = gu;
+      erv = er_g[(static_cast<int64_t>(g) * BLK + r) * h + k];
+    }
+    const int64_t o = (static_cast<int64_t>(u) * BLK + r) * h + k;
     fden[o] = ad;
     fnum[o] = an;
-    if (t > t0) {
-      const float r0 = run[static_cast<int64_t>(t - 1) * h + k];
-      const float r1 = run[static_cast<int64_t>(t) * h + k];
-      const float s = expf(leaky(erv + r0, slope) - leaky(erv + r1, slope));
+    if (u == 0 || out_id[u - 1] != gu) {
+      ad = an = 1.f;
+    } else {
+      const float s = online_scale(out_id, run, u, h, k, erv, slope);
       ad *= s;
       an *= rnd<true>(s);
     }
@@ -250,161 +476,356 @@ __global__ void __launch_bounds__(NT)
   mraw[i] = key2f(mkey[(row / BLK) * h + k]);
 }
 
-// Adds the shared (128 x stripe) num block and (128 x nh) den block of
-// group g to device memory, skipping zeros, and clears them.
-__device__ void fwd_flush(float* num_sh, float* den_sh, int fs, int hs,
-                          const Stripe& st, int g, int h, int F,
-                          float* __restrict__ num, float* __restrict__ den) {
-  __syncthreads();
-  const int64_t row0 = static_cast<int64_t>(g) * BLK;
-  for (int idx = threadIdx.x; idx < BLK * st.nf; idx += NT) {
-    const int r = idx / st.nf, c = idx - r * st.nf;
-    const float v = num_sh[r * fs + c];
-    if (v != 0.f) atomicAdd(&num[(row0 + r) * F + st.c0 + c], v);
-    num_sh[r * fs + c] = 0.f;
+// Stages window w's 128 rows of the stripe's ft columns (zeros past n_src
+// and past the stripe) and their el into one buffer, and commits.
+__device__ void fwd_stage(float* wbuf, float* ebuf, int w,
+                          const float* __restrict__ ft,
+                          const float* __restrict__ el, int n_src, int h,
+                          int F, const FwdStripe& st, const FwdPlan& pl,
+                          bool vec) {
+  const int64_t row0 = static_cast<int64_t>(w) * BLK;
+  const int nacc = pl.ws - 4;
+  if (vec) {
+    const int units = nacc / 4;
+    for (int idx = threadIdx.x; idx < BLK * units; idx += FWD_NT) {
+      const int r = idx / units, c = (idx - r * units) * 4;
+      const bool ok = c < st.nc && row0 + r < n_src;
+      cp_async16(wbuf + r * pl.ws + c,
+                 ok ? ft + (row0 + r) * F + st.c0 + c : ft, ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < BLK * nacc; idx += FWD_NT) {
+      const int r = idx / nacc, c = idx - r * nacc;
+      const bool ok = c < st.nc && row0 + r < n_src;
+      cp_async4(wbuf + r * pl.ws + c,
+                ok ? ft + (row0 + r) * F + st.c0 + c : ft, ok ? 4 : 0);
+    }
   }
-  for (int idx = threadIdx.x; idx < BLK * st.nh; idx += NT) {
-    const int r = idx / st.nh, k = idx - r * st.nh;
-    const float v = den_sh[r * hs + k];
-    if (v != 0.f) atomicAdd(&den[(row0 + r) * h + st.h0 + k], v);
-    den_sh[r * hs + k] = 0.f;
+  for (int idx = threadIdx.x; idx < BLK * pl.nhs; idx += FWD_NT) {
+    const int r = idx / pl.nhs, k = idx - r * pl.nhs;
+    const bool ok = k < st.nh && row0 + r < n_src;
+    cp_async4(ebuf + idx, ok ? el + (row0 + r) * h + st.h0 + k : el,
+              ok ? 4 : 0);
   }
-  __syncthreads();
+  cp_async_commit();
 }
 
-template <bool DROP, bool BF16>
-__global__ void __launch_bounds__(NT)
+template <bool DROP, bool BF16, bool HEAD4>
+__global__ void __launch_bounds__(FWD_NT, 1)
     attn_fwd_kernel(const int* __restrict__ a, const int* __restrict__ b,
                     const int* __restrict__ eid,
                     const int* __restrict__ in_id,
                     const int* __restrict__ out_id, int n_chunks, int chunk,
-                    int cpc, const float* __restrict__ el,
+                    int cpb, const float* __restrict__ el,
                     const float* __restrict__ er_g,
-                    const float* __restrict__ ft,
+                    const float* __restrict__ ft, int n_src,
                     const int* __restrict__ mkey,
                     const float* __restrict__ run,
                     const float* __restrict__ fden,
-                    const float* __restrict__ fnum, int h, int d, int hs,
-                    int sub, float slope, const int* __restrict__ seed,
-                    int thresh, float inv_keep, float* __restrict__ num,
-                    float* __restrict__ den) {
-  extern __shared__ float smem[];
-  const int fs = hs * d, F = h * d;
-  float* num_sh = smem;                 // BLK * fs
-  float* den_sh = num_sh + BLK * fs;    // BLK * hs
-  float* pm_sh = den_sh + BLK * hs;     // sub * hs
-  float* fn_sh = pm_sh + sub * hs;      // sub * hs (BF16: fnum per slot)
-  int* src_sh = reinterpret_cast<int*>(fn_sh + (BF16 ? sub * hs : 0));  // sub
-  int* b_sh = src_sh + sub;                                // sub
-  const Stripe st = stripe_of(blockIdx.y, hs, h, d);
+                    const float* __restrict__ fnum, int h, int d, FwdPlan pl,
+                    float slope, const int* __restrict__ seed, int thresh,
+                    float inv_keep, int n_seg, float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  const int ws = pl.ws, nacc = ws - 4, nhs = pl.nhs, F = h * d;
+  float* wbuf = smem;                    // 2 x BLK x ws: ft windows
+  float* ebuf = wbuf + 2 * BLK * ws;     // 2 x BLK x nhs: el windows
+  float* er_sh = ebuf + 2 * BLK * nhs;   // BLK x nhs: the group's er
+  float* mz_sh = er_sh + BLK * nhs;      // BLK x nhs: leaky(er + mraw)
+  const FwdStripe st = fwd_stripe(blockIdx.y, h, d, pl);
+  // This warp's p * mask of its 32 current slots, per head (32 x nhs),
+  // and their staged rows' offsets (32).
+  float* pm_sh = mz_sh + BLK * nhs + (threadIdx.x / 32) * 32 * nhs;
+  int* ro_sh = reinterpret_cast<int*>(mz_sh + BLK * nhs + FWD_NW * 32 * nhs) +
+               (threadIdx.x / 32) * 32;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = pl.g, R = 32 / G, lj = lane / G, lu = lane % G;
+  const unsigned FULL = 0xffffffffu;
   const int sd = DROP ? seed[0] : 0;
-  for (int i = tid; i < BLK * fs; i += NT) num_sh[i] = 0.f;
-  for (int i = tid; i < BLK * hs; i += NT) den_sh[i] = 0.f;
-  // Head of each column this lane owns (column lane + 32 q).
-  int hq[MAX_Q];
+  const bool vec = (d & 3) == 0 && (reinterpret_cast<uintptr_t>(ft) & 15) == 0;
+  // This lane's four columns: whether they lie in the stripe, and their
+  // heads within it.
+  int hl[4];
+  bool live[4];
 #pragma unroll
-  for (int q = 0; q < MAX_Q; ++q) hq[q] = (lane + 32 * q) / d;
-  __syncthreads();
-
-  const int t0 = blockIdx.x * cpc, t1 = min(n_chunks, t0 + cpc);
-  int cur = -1;
-  for (int t = t0; t < t1; ++t) {
-    const int g = out_id[t];
-    if (g != cur) {
-      if (cur >= 0) fwd_flush(num_sh, den_sh, fs, hs, st, cur, h, F, num, den);
-      cur = g;
-    }
-    const int64_t win0 = static_cast<int64_t>(in_id[t]) * BLK;
-    const int64_t grp0 = static_cast<int64_t>(g) * BLK;
-    for (int s0 = 0; s0 < chunk; s0 += sub) {
-      const int ns = min(sub, chunk - s0);
-      const int64_t slot0 = static_cast<int64_t>(t) * chunk + s0;
-      for (int j = tid; j < ns; j += NT) {
-        const int aa = a[slot0 + j], bb = b[slot0 + j];
-        src_sh[j] = (aa >= 0 && bb >= 0) ? static_cast<int>(win0 + aa) : -1;
-        b_sh[j] = bb;
-      }
-      __syncthreads();
-      // p per (slot, head of the stripe); den takes p, num p * mask.
-      for (int idx = tid; idx < ns * st.nh; idx += NT) {
-        const int j = idx / st.nh, k = idx - j * st.nh;
-        const int src = src_sh[j];
-        float pm = 0.f;
-        float fn = 1.f;
-        if (src >= 0) {
-          const int hd = st.h0 + k, bb = b_sh[j];
-          const float erv = er_g[(grp0 + bb) * h + hd];
-          const float elv = el[static_cast<int64_t>(src) * h + hd];
-          const float mx =
-              BF16 ? run[static_cast<int64_t>(t) * h + hd]
-                   : key2f(mkey[static_cast<int64_t>(g) * h + hd]);
-          const float p = expf(leaky(elv + erv, slope) - leaky(erv + mx, slope));
-          if (BF16) {
-            const int64_t o = (static_cast<int64_t>(t) * BLK + bb) * h + hd;
-            atomicAdd(&den_sh[bb * hs + k], rnd<true>(p) * fden[o]);
-            fn = fnum[o];
-          } else {
-            atomicAdd(&den_sh[bb * hs + k], p);
-          }
-          pm = rnd<BF16>(
-              DROP ? p * drop_scale(eid[slot0 + j], hd, sd, thresh, inv_keep)
-                   : p);
-        }
-        pm_sh[j * hs + k] = pm;
-        if (BF16) fn_sh[j * hs + k] = fn;
-      }
-      __syncthreads();
-      // num: each warp walks a contiguous run of slots; runs of equal b
-      // sum in registers and go to shared memory once.
-      const int per = (ns + NWARPS - 1) / NWARPS;
-      const int j0 = warp * per, j1 = min(ns, j0 + per);
-      float acc[MAX_Q];
-#pragma unroll
-      for (int q = 0; q < MAX_Q; ++q) acc[q] = 0.f;
-      int prev = -1;
-      for (int j = j0; j < j1; ++j) {
-        const int src = src_sh[j];
-        if (src < 0) continue;
-        const int bb = b_sh[j];
-        if (bb != prev) {
-          if (prev >= 0) {
-#pragma unroll
-            for (int q = 0; q < MAX_Q; ++q) {
-              const int c = lane + 32 * q;
-              if (c < st.nf) atomicAdd(&num_sh[prev * fs + c], acc[q]);
-              acc[q] = 0.f;
-            }
-          }
-          prev = bb;
-        }
-        const float* frow = ft + static_cast<int64_t>(src) * F + st.c0;
-        const float* prow = pm_sh + j * hs;
-        const float* fnrow = fn_sh + j * hs;
-#pragma unroll
-        for (int q = 0; q < MAX_Q; ++q) {
-          const int c = lane + 32 * q;
-          if (c < st.nf) {
-            if (BF16) {
-              acc[q] += rnd<true>(prow[hq[q]] * rnd<true>(frow[c])) *
-                        fnrow[hq[q]];
-            } else {
-              acc[q] = fmaf(prow[hq[q]], frow[c], acc[q]);
-            }
-          }
-        }
-      }
-      if (prev >= 0) {
-#pragma unroll
-        for (int q = 0; q < MAX_Q; ++q) {
-          const int c = lane + 32 * q;
-          if (c < st.nf) atomicAdd(&num_sh[prev * fs + c], acc[q]);
-        }
-      }
-      __syncthreads();
-    }
+  for (int e = 0; e < 4; ++e) {
+    const int lc = 4 * lu + e;
+    live[e] = lc < st.nc;
+    hl[e] = live[e] ? (st.c0 + lc) / d - st.h0 : 0;
   }
-  if (cur >= 0) fwd_flush(num_sh, den_sh, fs, hs, st, cur, h, F, num, den);
+  // Only the stripe that holds its heads' first columns sums den.
+  const bool sums_den = st.c0 % d == 0;
+
+  const int t0 = blockIdx.x * cpb, t1 = min(n_chunks, t0 + cpb);
+  const int g_first = out_id[0];
+  // A batch: the chunks from tb on that share its (group, window).
+  auto batch_end = [&](int tb) {
+    const int w = in_id[tb], g = out_id[tb];
+    int te = tb + 1;
+    while (te < t1 && in_id[te] == w && out_id[te] == g) ++te;
+    return te;
+  };
+  // Each warp sums a hub row's run in registers (acc: its lanes' columns;
+  // dreg: lane k, head k's den) across batches, and adds the sums, when
+  // the row changes, with one float4 (or float) red.global.add a lane
+  // into the block's zeroed partial of the group (the num block, rows
+  // nacc floats apart, then the den block).
+  float acc[4] = {0.f, 0.f, 0.f, 0.f}, fn[4] = {1.f, 1.f, 1.f, 1.f};
+  float dreg = 0.f;
+  int cur = -1;   // (chunk from tb if BF16) << 7 | hub row of acc
+  int dcur = -1;  // hub row of dreg
+  int64_t ctb = 0;  // tb of cur's chunk numbers (BF16)
+  float *sum_n = nullptr, *sum_d = nullptr;
+  auto flush_row = [&]() {
+    if (cur >= 0) {
+      float* q = sum_n + (cur & (BLK - 1)) * nacc + 4 * lu;
+      if (live[3]) {
+        atomicAdd(reinterpret_cast<float4*>(q),
+                  make_float4(acc[0] * fn[0], acc[1] * fn[HEAD4 ? 0 : 1],
+                              acc[2] * fn[HEAD4 ? 0 : 2],
+                              acc[3] * fn[HEAD4 ? 0 : 3]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (live[e]) atomicAdd(q + e, acc[e] * fn[HEAD4 ? 0 : e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] = 0.f;
+  };
+  auto flush_den = [&]() {
+    if (dcur >= 0 && lane < st.nh) atomicAdd(sum_d + dcur * nhs + lane, dreg);
+    dreg = 0.f;
+  };
+  int tb = t0, te = batch_end(t0), buf = 0, cur_g = -1, acc_g = -1;
+  fwd_stage(wbuf, ebuf, in_id[tb], ft, el, n_src, h, F, st, pl, vec);
+  while (tb < t1) {
+    const int tn = te, tne = tn < t1 ? batch_end(tn) : tn;
+    // The next batch's window goes into the other buffer meanwhile.
+    if (tn < t1)
+      fwd_stage(wbuf + (buf ^ 1) * BLK * ws, ebuf + (buf ^ 1) * BLK * nhs,
+                in_id[tn], ft, el, n_src, h, F, st, pl, vec);
+    else
+      cp_async_commit();
+    const int g = out_id[tb];
+    if (g != cur_g) {
+      cur_g = g;
+      for (int idx = tid; idx < BLK * nhs; idx += FWD_NT) {
+        const int r = idx / nhs, k = idx - r * nhs;
+        float er = 0.f, mz = 0.f;
+        if (k < st.nh) {
+          const int hk = st.h0 + k;
+          er = er_g[(static_cast<int64_t>(g) * BLK + r) * h + hk];
+          if (!BF16)
+            mz = leaky(er + key2f(mkey[static_cast<int64_t>(g) * h + hk]),
+                       slope);
+        }
+        er_sh[idx] = er;
+        mz_sh[idx] = mz;
+      }
+    }
+    cp_async_wait_prev();
+    __syncthreads();
+
+    // The walk: warp w takes the batch's rounds of 32 slots w, w + 16,
+    // ... (where a window's slots come as long runs of one hub row, then
+    // many short ones, every warp gets its share of both).
+    // First a lane a slot: p for each head of the stripe into pm_sh (0 on
+    // padding) and the slot's staged row into ro_sh; den's terms summed
+    // over the warp where the 32 share a hub row, kept by lane k for head
+    // k until the row changes. Then lanes over columns, lane group lj the
+    // slots lj, lj + R, ...: where the 32 share a row (and chunk, BF16),
+    // a walk without branches (each slot's ft row times its p * mask,
+    // padding adding 0), else one slot at a time.
+    const float* wb = wbuf + buf * BLK * ws + 4 * lu;
+    const float* eb = ebuf + buf * BLK * nhs;
+    const int64_t slot0 = static_cast<int64_t>(tb) * chunk;
+    const int S = (te - tb) * chunk;
+    constexpr int STEP = 32 * FWD_NW;  // slots from one round to a warp's next
+    if (g != acc_g) {  // the sums so far belong to the last group's rows
+      flush_row();
+      cur = -1;
+      if (sums_den) flush_den();
+      dcur = -1;
+      acc_g = g;
+      sum_n = part + (static_cast<int64_t>(blockIdx.y) * n_seg + blockIdx.x +
+                      g - g_first) * BLK * (nacc + nhs);
+      sum_d = sum_n + BLK * nacc;
+    }
+    if (BF16) {  // chunk numbers in cur count from this batch's tb
+      if (cur >= 0) {
+        flush_row();
+        cur = -1;
+      }
+      ctb = tb;
+    }
+    // The next 32 slots' a and b (and edge ids), loaded a round ahead.
+    int na = -1, nb = -1, ne = 0;
+    if (32 * warp + lane < S) {
+      na = a[slot0 + 32 * warp + lane];
+      nb = b[slot0 + 32 * warp + lane];
+      if (DROP) ne = eid[slot0 + 32 * warp + lane];
+    }
+    for (int base = 32 * warp; base < S; base += STEP) {
+      const int i = base + lane;
+      const int aa = na, bb = nb, ev = ne;
+      if (i + STEP < S) {
+        na = a[slot0 + i + STEP];
+        nb = b[slot0 + i + STEP];
+        if (DROP) ne = eid[slot0 + i + STEP];
+      }
+      const bool real = i < S && aa >= 0 && bb >= 0;
+      const int ci = BF16 ? i / chunk : 0;
+      const int key = real ? (ci << 14 | bb << 7 | aa) : -1;
+      const unsigned reals = __ballot_sync(FULL, real);
+      if (reals == 0u) continue;
+      const int r0 = __shfl_sync(FULL, key >> 7, __ffs(reals) - 1);
+      const bool one_row = __all_sync(FULL, !real || (key >> 7) == r0);
+      const int a0 = real ? aa : 0, b0 = real ? bb : 0;
+      const int64_t t = tb + ci;
+      ro_sh[lane] = a0 * ws;
+      if (sums_den && one_row && (r0 & (BLK - 1)) != dcur) {
+        flush_den();
+        dcur = r0 & (BLK - 1);
+      }
+      // Where the 32 hold several rows: each run of equal rows (lanes
+      // [run head, e]) sums its den terms, and its head adds them.
+      const int rk = real ? bb : -1;
+      const int rk_next = __shfl_down_sync(FULL, rk, 1);
+      const int rk_prev = __shfl_up_sync(FULL, rk, 1);
+      const unsigned ends = __ballot_sync(FULL, lane == 31 || rk_next != rk);
+      const int e = lane + __ffs(ends >> lane) - 1;
+      const bool run_head = real && (lane == 0 || rk_prev != rk);
+#pragma unroll 4
+      for (int k = 0; k < st.nh; ++k) {
+        const int hk = st.h0 + k;
+        const float er = er_sh[b0 * nhs + k];
+        const float mz = BF16 ? leaky(er + run[t * h + hk], slope)
+                              : mz_sh[b0 * nhs + k];
+        const float p = expf(leaky(eb[a0 * nhs + k] + er, slope) - mz);
+        const float pm = rnd<BF16>(
+            DROP ? p * drop_scale(ev, hk, sd, thresh, inv_keep) : p);
+        float dt = BF16 ? rnd<true>(p) * fden[(t * BLK + b0) * h + hk] : p;
+        pm_sh[lane * nhs + k] = real ? pm : 0.f;
+        dt = real ? dt : 0.f;
+        if (sums_den) {
+          if (one_row) {
+            for (int o = 16; o > 0; o >>= 1)
+              dt += __shfl_xor_sync(FULL, dt, o);
+            if (lane == k) dreg += dt;
+          } else {
+            for (int o = 1; o < 32; o <<= 1) {
+              const float y = __shfl_down_sync(FULL, dt, o);
+              if (lane + o <= e) dt += y;
+            }
+            if (run_head) atomicAdd(sum_d + bb * nhs + k, dt);
+          }
+        }
+      }
+      __syncwarp();
+      if (one_row) {
+        if (r0 != cur) {
+          if (cur >= 0) flush_row();
+          cur = r0;
+          if (BF16) {
+            const int64_t o = ((ctb + (r0 >> 7)) * BLK + (r0 & (BLK - 1))) * h;
+#pragma unroll
+            for (int e = 0; e < (HEAD4 ? 1 : 4); ++e)
+              fn[e] = fnum[o + st.h0 + hl[e]];
+          }
+        }
+        if (live[0]) {
+#pragma unroll 8
+          for (int s = lj; s < 32; s += R) {
+            const float4 v4 = *reinterpret_cast<const float4*>(wb + ro_sh[s]);
+            const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+            const float* pr = pm_sh + s * nhs;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float pm = pr[hl[HEAD4 ? 0 : e]];
+              acc[e] = BF16 ? acc[e] + rnd<true>(pm * rnd<true>(v[e]))
+                            : fmaf(pm, v[e], acc[e]);
+            }
+          }
+        }
+      } else {
+        for (int s = lj; s < 32; s += R) {
+          const int k = __shfl_sync(FULL, key, s);
+          if (k < 0 || !live[0]) continue;
+          const int row = k >> 7;
+          if (row != cur) {
+            if (cur >= 0) flush_row();
+            cur = row;
+            if (BF16) {
+              const int64_t o =
+                  ((ctb + (row >> 7)) * BLK + (row & (BLK - 1))) * h;
+#pragma unroll
+              for (int e = 0; e < (HEAD4 ? 1 : 4); ++e)
+                fn[e] = fnum[o + st.h0 + hl[e]];
+            }
+          }
+          const float4 v4 = *reinterpret_cast<const float4*>(wb + ro_sh[s]);
+          const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+          const float* pr = pm_sh + s * nhs;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pm = pr[hl[HEAD4 ? 0 : e]];
+            acc[e] = BF16 ? acc[e] + rnd<true>(pm * rnd<true>(v[e]))
+                          : fmaf(pm, v[e], acc[e]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    tb = tn;
+    te = tne;
+    buf ^= 1;
+  }
+  flush_row();
+  if (sums_den) flush_den();
+}
+
+// Sums the partials of the blocks whose run of chunks met each group, in
+// block order, into every element of num and den (zero where no chunk
+// names the group). A thread per output element.
+__global__ void __launch_bounds__(NT)
+    attn_fold_kernel(const int* __restrict__ out_id, int n_chunks, int cpb,
+                     int n_groups, int h, int d, FwdPlan pl, int n_seg,
+                     const float* __restrict__ part, float* __restrict__ num,
+                     float* __restrict__ den) {
+  const int F = h * d, W = F + h, nacc = pl.ws - 4;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+  if (i >= static_cast<int64_t>(n_groups) * BLK * W) return;
+  const int64_t row = i / W;
+  const int c = static_cast<int>(i - row * W);
+  const int g = static_cast<int>(row / BLK), r = static_cast<int>(row % BLK);
+  // The column's stripe and its place in the stripe's partial.
+  int y, off;
+  if (c < F) {
+    const int hdc = c / d, in_head = c - hdc * d;
+    if (d > FWD_COLS) {
+      const int sub = in_head / FWD_COLS;
+      y = hdc * pl.nsub + sub;
+      off = r * nacc + in_head - sub * FWD_COLS;
+    } else {
+      y = hdc / pl.nhs;
+      off = r * nacc + c - y * pl.nhs * d;
+    }
+  } else {
+    const int k = c - F;
+    y = d > FWD_COLS ? k * pl.nsub : k / pl.nhs;
+    off = BLK * nacc + r * pl.nhs + (d > FWD_COLS ? 0 : k - y * pl.nhs);
+  }
+  const int t0 = first_chunk(out_id, n_chunks, g);
+  const int t1 = first_chunk(out_id, n_chunks, g + 1);
+  float s = 0.f;
+  if (t0 < t1) {
+    const int64_t blk = static_cast<int64_t>(BLK) * (nacc + pl.nhs);
+    const int seg0 = g - out_id[0];
+    for (int x = t0 / cpb; x <= (t1 - 1) / cpb; ++x)
+      s += part[(static_cast<int64_t>(y) * n_seg + x + seg0) * blk + off];
+  }
+  if (c < F) num[row * F + c] = s; else den[row * h + (c - F)] = s;
 }
 
 // ---------------------------------------------------------------------
@@ -507,24 +928,6 @@ SrcPlan src_plan(int h, int d, int chunk, bool drop) {
   // Fewer chunks a batch where small chunks would pass the opt-in limit.
   while (p.nb > 1 && src_smem(p, drop) > SRC_SMEM_MAX) --p.nb;
   return p;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// cp.async of 16 or 4 bytes; `bytes` below the size zero-fills the rest.
-__device__ __forceinline__ void cp_async16(void* s, const void* g, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(s)),
-               "l"(g), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(void* s, const void* g, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(s)),
-               "l"(g), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
 }
 
 // The lanes of this step whose window row equals this lane's (7 bits).
@@ -1134,15 +1537,6 @@ int num_sms() {
   return g_num_sms;
 }
 
-// Heads per stripe and slots per shared sub-block.
-void stripe_plan(int h, int d, int* hs, int* sub) {
-  *hs = d >= BLK ? 1 : BLK / d;
-  if (*hs > h) *hs = h;
-  int s = 1024;
-  while (s > 32 && s * *hs > 4096) s /= 2;
-  *sub = s;
-}
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -1164,57 +1558,183 @@ int chunks_per_block(int n_chunks, int n_stripes) {
   return cpc < 1 ? 1 : cpc;
 }
 
+// K6's instantiation: template <bool DROP, bool BF16, bool HEAD4>.
+using FwdKernel = void (*)(const int*, const int*, const int*, const int*,
+                           const int*, int, int, int, const float*,
+                           const float*, const float*, int, const int*,
+                           const float*, const float*, const float*, int, int,
+                           FwdPlan, float, const int*, int, float, int,
+                           float*);
+
+template <bool DROP, bool BF16>
+FwdKernel pick_fwd2(bool head4) {
+  return head4 ? attn_fwd_kernel<DROP, BF16, true>
+               : attn_fwd_kernel<DROP, BF16, false>;
+}
+
+FwdKernel pick_fwd(bool drop, bool bf16, bool head4) {
+  return drop ? (bf16 ? pick_fwd2<true, true>(head4)
+                      : pick_fwd2<true, false>(head4))
+              : (bf16 ? pick_fwd2<false, true>(head4)
+                      : pick_fwd2<false, false>(head4));
+}
+
+// K6's grid: about as many blocks as the card holds at once, split over
+// the stripes, each a run of cpb chunks; n_seg partials a stripe (the
+// blocks' segments are block + group - out_id[0]).
+struct FwdLaunch {
+  size_t smem;
+  int n_stripes, cpb, nblk, n_seg;
+};
+
+bool fwd_plan_ok(const FwdPlan& p, int h, int d) {
+  const int widest = d > FWD_COLS ? FWD_COLS : p.nhs * d;
+  return p.nhs >= 1 && p.nhs <= h && p.nhs <= 32 && p.nsub >= 1 &&
+         (d > FWD_COLS ? p.nhs == 1 && p.nsub * FWD_COLS >= d
+                       : p.nhs * d <= FWD_COLS) &&
+         p.g >= 1 && p.g <= 32 && (p.g & (p.g - 1)) == 0 &&
+         4 * p.g >= widest && p.ws % 4 == 0 && p.ws - 4 >= widest &&
+         fwd_smem(p) <= FWD_SMEM_MAX;
+}
+
+cudaError_t fwd_launch(int n_chunks, int n_groups, int h, int d,
+                       const FwdPlan& pl, FwdKernel kern, FwdLaunch* out) {
+  out->smem = fwd_smem(pl);
+  out->n_stripes = fwd_stripes(pl, h, d);
+  cudaError_t e = set_smem(kern, out->smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, FWD_NT,
+                                                    out->smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) per_sm = 1;
+  int per_stripe = per_sm * num_sms() / out->n_stripes;
+  if (per_stripe < 1) per_stripe = 1;
+  out->cpb = (n_chunks + per_stripe - 1) / per_stripe;
+  if (out->cpb < 1) out->cpb = 1;
+  out->nblk = (n_chunks + out->cpb - 1) / out->cpb;
+  out->n_seg = out->nblk + n_groups;
+  return cudaSuccess;
+}
+
+// Floats of K6's scratch: in the bf16 mode cmax and run (n_chunks x h),
+// fden and fnum (n_chunks x 128 x h) and the segment products (2 x n_seg
+// x 128 x h); then the partials (stripes x n_seg x 128 x (ws - 4 + nhs));
+// each part rounded up to 4 floats.
+int64_t fwd_scratch(int n_chunks, int h, int bf16, const FwdPlan& pl,
+                    const FwdLaunch& ln) {
+  auto r4 = [](int64_t n) { return (n + 3) / 4 * 4; };
+  int64_t n = r4(static_cast<int64_t>(ln.n_stripes) * ln.n_seg * BLK *
+                 (pl.ws - 4 + pl.nhs));
+  if (bf16) {
+    const int64_t n_seg = (n_chunks + FWD_SEG - 1) / FWD_SEG;
+    n += 2 * r4(static_cast<int64_t>(n_chunks) * h) +
+         2 * r4(static_cast<int64_t>(n_chunks) * BLK * h) +
+         2 * r4(n_seg * BLK * h);
+  }
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
 
-// `num` and `den` must be zeroed; mkey is (n_groups, h) int32 scratch.
-// seed null: no dropout. bf16: 1 for the bf16 mode, which needs the
-// float32 scratch cmax and run (n_chunks, h) and fden and fnum
-// (n_chunks * 128, h); null otherwise.
+// K6's scratch in floats for this call (see fwd_scratch); -1 for a plan
+// the kernel does not take.
+long long attn_fwd_scratch(int n_chunks, int h, int d, int nhs, int nsub,
+                           int ws, int g, int n_groups, int drop, int bf16) {
+  const FwdPlan pl{nhs, nsub, ws, g};
+  if (h < 1 || h > BLK || d < 1 || d > MAX_COLS || !fwd_plan_ok(pl, h, d))
+    return -1;
+  if (n_chunks <= 0) return 0;
+  FwdLaunch ln;
+  if (fwd_launch(n_chunks, n_groups, h, d, pl,
+                 pick_fwd(drop, bf16, (d & 3) == 0),
+                 &ln) != cudaSuccess)
+    return -1;
+  return fwd_scratch(n_chunks, h, bf16, pl, ln);
+}
+
+// The plan (nhs, nsub, ws, g) is ops/attn_kernels.py's fwd_plan. el and
+// ft have n_src rows. Every element of num, den and mraw is written. mkey
+// is (n_groups, h) int32 scratch, scratch attn_fwd_scratch's floats. seed
+// null: no dropout. bf16: 1 for the bf16 mode.
 int attn_fwd(const int* a, const int* b, const int* eid, const int* in_id,
              const int* out_id, int n_chunks, int chunk, const float* el,
-             const float* er_g, const float* ft, int h, int d, float slope,
-             const int* seed, int thresh, float inv_keep, int n_groups,
-             int* mkey, int bf16, float* cmax, float* run, float* fden,
-             float* fnum, float* num, float* den, float* mraw, void* stream) {
+             int n_src, const float* er_g, const float* ft, int h, int d,
+             int nhs, int nsub, int ws, int g, float slope, const int* seed,
+             int thresh, float inv_keep, int n_groups, int* mkey, int bf16,
+             float* scratch, float* num, float* den, float* mraw,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h < 1 || h > BLK || d < 1 || d > MAX_COLS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16 && (cmax == nullptr || run == nullptr || fden == nullptr ||
-               fnum == nullptr))
+  const FwdPlan pl{nhs, nsub, ws, g};
+  if (h < 1 || h > BLK || d < 1 || d > MAX_COLS || !fwd_plan_ok(pl, h, d))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_keys = n_groups * h;
   if (n_keys > 0)
     attn_init_kernel<<<(n_keys + NT - 1) / NT, NT, 0, s>>>(mkey, n_keys);
   if (n_chunks > 0) {
-    attn_max_kernel<<<n_chunks, NT, 0, s>>>(a, b, in_id, out_id, chunk, el,
-                                            h, mkey, bf16 ? cmax : nullptr);
-    if (bf16) {
-      attn_run_kernel<<<(n_keys + NT - 1) / NT, NT, 0, s>>>(
-          out_id, n_chunks, cmax, n_groups, h, run);
-      const int64_t n_rows = static_cast<int64_t>(n_keys) * BLK;
-      attn_scale_kernel<<<static_cast<int>((n_rows + NT - 1) / NT), NT, 0,
-                          s>>>(out_id, n_chunks, run, er_g, n_groups, h,
-                               slope, fden, fnum);
-    }
-    int hs, sub;
-    stripe_plan(h, d, &hs, &sub);
-    const int n_stripes = (h + hs - 1) / hs;
-    const size_t smem =
-        sizeof(float) * (static_cast<size_t>(BLK) * hs * d + BLK * hs +
-                         static_cast<size_t>(bf16 ? 2 : 1) * sub * hs) +
-        sizeof(int) * 2 * sub;
-    const int cpc = chunks_per_block(n_chunks, n_stripes);
-    dim3 grid((n_chunks + cpc - 1) / cpc, n_stripes);
-    auto kern = PICK(attn_fwd_kernel, seed != nullptr, bf16);
-    cudaError_t e = set_smem(kern, smem);
+    const bool drop = seed != nullptr;
+    FwdKernel kern = pick_fwd(drop, bf16, (d & 3) == 0);
+    FwdLaunch ln;
+    cudaError_t e = fwd_launch(n_chunks, n_groups, h, d, pl, kern, &ln);
     if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<grid, NT, smem, s>>>(
-        a, b, eid, in_id, out_id, n_chunks, chunk, cpc, el, er_g, ft, mkey,
-        run, fden, fnum, h, d, hs, sub, slope, seed,
-        seed != nullptr ? thresh : 0, seed != nullptr ? inv_keep : 1.f, num,
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    // The scratch's parts, in fwd_scratch's order.
+    float* p = scratch;
+    auto take = [&p](int64_t n) {
+      float* q = p;
+      p += (n + 3) / 4 * 4;
+      return q;
+    };
+    const int n_seg = (n_chunks + FWD_SEG - 1) / FWD_SEG;
+    float *cmax = nullptr, *run = nullptr, *fden = nullptr, *fnum = nullptr;
+    if (bf16) {
+      cmax = take(static_cast<int64_t>(n_chunks) * h);
+      run = take(static_cast<int64_t>(n_chunks) * h);
+      fden = take(static_cast<int64_t>(n_chunks) * BLK * h);
+      fnum = take(static_cast<int64_t>(n_chunks) * BLK * h);
+    }
+    float* lden = bf16 ? take(static_cast<int64_t>(n_seg) * BLK * h) : nullptr;
+    float* lnum = bf16 ? take(static_cast<int64_t>(n_seg) * BLK * h) : nullptr;
+    float* part = p;
+    const int cpb_max = chunks_per_block(n_chunks, 1);
+    const int grid_max = (n_chunks + cpb_max - 1) / cpb_max;
+    if (bf16) {
+      attn_max_kernel<true><<<grid_max, NT, 0, s>>>(
+          a, b, in_id, out_id, n_chunks, chunk, cpb_max, el, n_src, h, mkey,
+          cmax);
+      attn_run_kernel<<<dim3(n_groups, h), NT, 0, s>>>(out_id, n_chunks,
+                                                       cmax, h, run);
+      const int64_t n_sk = static_cast<int64_t>(n_seg) * BLK * h;
+      const int sblocks = static_cast<int>((n_sk + NT - 1) / NT);
+      attn_seg_kernel<<<sblocks, NT, 0, s>>>(out_id, n_chunks, run, er_g, h,
+                                             slope, lden, lnum);
+      attn_segscan_kernel<<<(BLK * h + NT - 1) / NT, NT, 0, s>>>(
+          out_id, n_chunks, h, lden, lnum);
+      attn_segapply_kernel<<<sblocks, NT, 0, s>>>(
+          out_id, n_chunks, run, er_g, h, slope, lden, lnum, fden, fnum);
+    } else {
+      attn_max_kernel<false><<<grid_max, NT, 0, s>>>(
+          a, b, in_id, out_id, n_chunks, chunk, cpb_max, el, n_src, h, mkey,
+          nullptr);
+    }
+    cudaMemsetAsync(part, 0,
+                    sizeof(float) * ln.n_stripes * ln.n_seg * BLK *
+                        (pl.ws - 4 + pl.nhs),
+                    s);
+    kern<<<dim3(ln.nblk, ln.n_stripes), FWD_NT, ln.smem, s>>>(
+        a, b, eid, in_id, out_id, n_chunks, chunk, ln.cpb, el, er_g, ft,
+        n_src, mkey, run, fden, fnum, h, d, pl, slope, seed,
+        drop ? thresh : 0, drop ? inv_keep : 1.f, ln.n_seg, part);
+    const int64_t n_out = static_cast<int64_t>(n_groups) * BLK * (h * d + h);
+    attn_fold_kernel<<<static_cast<int>((n_out + NT - 1) / NT), NT, 0, s>>>(
+        out_id, n_chunks, ln.cpb, n_groups, h, d, pl, ln.n_seg, part, num,
         den);
+  } else if (n_groups > 0) {
+    const size_t rows = static_cast<size_t>(n_groups) * BLK;
+    cudaMemsetAsync(num, 0, sizeof(float) * rows * h * d, s);
+    cudaMemsetAsync(den, 0, sizeof(float) * rows * h, s);
   }
   const int64_t n_out = static_cast<int64_t>(n_groups) * BLK * h;
   if (n_out > 0)

@@ -29,7 +29,7 @@
 // shared memory, sums each destination's slots in registers and keeps the
 // 128-row partial of its output block in registers (plain) or shared
 // memory (mul). Scatters into the output are float atomics only where
-// blocks share output rows (K1, K2 and K5 mul). Arithmetic is float32 with
+// blocks share output rows (K1, K2). Arithmetic is float32 with
 // float32 accumulation (the counts in C are small exact integers).
 // Every kernel but K3 has a BF16 instantiation, the reference's bf16 mode
 // (dgl1_tpu/ops/precision.py): it rounds to bfloat16 (nearest even, in
@@ -1347,90 +1347,181 @@ __global__ void __launch_bounds__(NT)
 //   rhs: ct[out_id[t] * 128 + b[s], h]
 // and zero on padding slots (a or b < 0).
 //
-// Replaces _edge_grad_kernel, which gathers both rows by one-hot matmuls
-// and reduces each head's span by a matmul with R into the transposed
-// (H_pad, n_slots) layout so the TPU's lanes stay 1024 wide. Here the
-// output is (n_slots, he), the transpose of the reference's first he
-// rows. mul: one block per chunk stages the chunk's 128-row source
-// window of u and its group's 128 cotangent rows, GSTRIPE columns at a
-// time, in shared memory (rows padded by one float against bank
-// conflicts); a thread owns slots tid, tid + NT, ... and adds each head's
-// partial dot over the stripe into its own output elements (zeroed by
-// the wrapper; no other thread writes them, so no atomics). rhs: a copy
-// of the cotangent rows, a thread per output element, every element of
-// the output written (padding slots as zero), coalesced.
+// Replaces _edge_grad_kernel (dgl1_tpu/ops/engine_hub.py:364), which
+// gathers both rows by one-hot matmuls and reduces each head's span by a
+// matmul with R into the transposed (H_pad, n_slots) layout so the TPU's
+// lanes stay 1024 wide. Here the output is (n_slots, he), the transpose
+// of the reference's first he rows. rhs: a copy of the cotangent rows, a
+// thread per output element, every element written, coalesced.
 //
-// BF16 rounds the staged u and ct values and, in mul mode, each product
-// before the head sum.
+// mul's bound on the H100: bytes. At the weighted GCN's layer 1 (arxiv
+// full_fwd, F=128, he=1) it reads a and b (43.4 MB) and the u rows its
+// real slots name (86.7 MB) once and writes n_slots floats (21.7 MB):
+// ~45 us at 3.35 TB/s; its 1.1 GFLOP take ~17 us at 67 TFLOP/s. The
+// earlier design (a block per chunk restaging both 128-row blocks 32
+// columns at a time with a __syncthreads each, a thread's serial dot over
+// rows 33 floats apart, and a read-modify-write of its output per stripe
+// into zeroed memory) waited on its stages and on chains of dependent L2
+// loads. This one (edge_grad_mul_kernel):
+// * A block (16 warps; two an SM where the rows are narrow enough, so
+//   registers are held to 64 a thread) walks a run of consecutive chunks. It
+//   stages u's 128-row window, full width, by 16-byte cp.async only when
+//   in_id changes (one window serves ~4 chunks at arxiv), and the group's
+//   128 cotangent rows once per group (rows of up to 216 floats; wider
+//   ones are read through L1, one hub row's for a run of slots).
+// * A lane takes a slot (warp w the chunk's rounds of 32 slots w, w + 16,
+//   ...): per head, its dot over 16-byte shared loads of the u and
+//   cotangent rows, four partial sums (the terms are not one chain); no
+//   shuffles, no reductions across lanes, no branch but the padding.
+//   Lanes over columns with a reduction per slot (butterfly or
+//   reduce-scatter over each head's lanes, as the port tried first) cost
+//   several times the instructions a slot. The dot reads the u row at
+//   random rows, so a warp's loads meet bank conflicts that contiguous
+//   rows would not; the cotangent row is the same for a run of slots and
+//   is read as a broadcast.
+// * Each output element is written once, padding slots as 0 (a warp's 32
+//   slots are 32 consecutive rows of out), so the wrapper allocates with
+//   torch.empty. Duplicate (a, b) pairs are rarely adjacent in the layout
+//   (arxiv: 4,357,535 adjacent runs among 4,390,906 real slots), so each
+//   slot takes its own dot.
+// Shapes it does not take (rows wider than 384 floats, or several heads
+// whose rep is not a multiple of 4) go to edge_grad_items_kernel: a
+// thread per (slot, head), both rows read from L1/L2, every output
+// written once.
 //
-// Bound on the H100: bytes. mul reads the layout, the source and
-// cotangent rows once and writes n_slots x he floats; rhs reads the
-// layout and the (small) cotangent block and writes n_slots x he floats.
+// BF16 rounds u and ct and each product before the head sum (a lane adds
+// its products into four partial sums: only the order of the sum differs
+// from the reference's).
 // ---------------------------------------------------------------------
-constexpr int GSTRIPE = 32;        // feature columns staged per pass
-constexpr int MAX_SLOTS_PER_THREAD = 4;
+constexpr int EG_NT = 512;          // threads of a K5 mul block
+constexpr int EG_NW = EG_NT / 32;
+constexpr int EG_MAX_COLS = 384;    // widest row the staged walk takes
+constexpr int EG_CT_COLS = 216;     // widest row whose group is staged too
 
+// A lane's running dot: four partial sums (the terms are not one chain).
 template <bool BF16>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void dot4_add(float4 u4, float4 c4,
+                                         float (&p)[4]) {
+  if (BF16) {
+    p[0] += rnd<true>(rnd<true>(u4.x) * rnd<true>(c4.x));
+    p[1] += rnd<true>(rnd<true>(u4.y) * rnd<true>(c4.y));
+    p[2] += rnd<true>(rnd<true>(u4.z) * rnd<true>(c4.z));
+    p[3] += rnd<true>(rnd<true>(u4.w) * rnd<true>(c4.w));
+  } else {
+    p[0] = fmaf(u4.x, c4.x, p[0]);
+    p[1] = fmaf(u4.y, c4.y, p[1]);
+    p[2] = fmaf(u4.z, c4.z, p[2]);
+    p[3] = fmaf(u4.w, c4.w, p[3]);
+  }
+}
+
+// Stages 128 rows of `units` float4s (zeros past n_rows) at ws floats
+// apart, by 16-byte cp.async, and waits for them.
+__device__ void eg_stage(float* dst, const float* __restrict__ src,
+                         int64_t row0, int n_rows, int ld, int units,
+                         int ws) {
+  for (int idx = threadIdx.x; idx < BLK * units; idx += EG_NT) {
+    const int r = idx / units, c = (idx - r * units) * 4;
+    const bool ok = row0 + r < n_rows;
+    const unsigned d =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + r * ws + c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(ok ? src + (row0 + r) * ld + c : src), "r"(ok ? 16 : 0));
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+}
+
+// CT_SH: the group's cotangent rows staged too (rows of at most
+// EG_CT_COLS floats), else read through L1.
+template <bool BF16, bool CT_SH>
+__global__ void __launch_bounds__(EG_NT, 2)
     edge_grad_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
                          const int* __restrict__ in_id,
-                         const int* __restrict__ out_id, int chunk,
-                         const float* __restrict__ u, int n_u,
-                         const float* __restrict__ ct, int n_ct,
-                         float* __restrict__ out, int he, int rep) {
-  __shared__ float us[BLK][GSTRIPE + 1];
-  __shared__ float cs[BLK][GSTRIPE + 1];
-  const int t = blockIdx.x, tid = threadIdx.x;
-  const int f = he * rep;
-  const int64_t base_u = static_cast<int64_t>(in_id[t]) * BLK;
-  const int64_t base_c = static_cast<int64_t>(out_id[t]) * BLK;
-  const int64_t slot0 = static_cast<int64_t>(t) * chunk;
-  int sa[MAX_SLOTS_PER_THREAD], sb[MAX_SLOTS_PER_THREAD];
-#pragma unroll
-  for (int k = 0; k < MAX_SLOTS_PER_THREAD; ++k) {
-    const int s = tid + k * NT;
-    sa[k] = sb[k] = -1;
-    if (s < chunk) {
-      const int as = a[slot0 + s], bs = b[slot0 + s];
-      if (as >= 0 && bs >= 0 && base_u + as < n_u && base_c + bs < n_ct) {
-        sa[k] = as;
-        sb[k] = bs;
+                         const int* __restrict__ out_id, int n_chunks,
+                         int chunk, int cpb, const float* __restrict__ u,
+                         int n_u, int ldu, const float* __restrict__ ct,
+                         int n_ct, int ldc, float* __restrict__ out, int he,
+                         int rep, int ws) {
+  extern __shared__ __align__(16) float smem[];
+  float* us = smem;             // BLK x ws: u's window
+  float* cs = us + BLK * ws;    // BLK x ws: the group's cotangent rows
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // Four-column units a head spans, and of a row.
+  const int hu = (rep + 3) / 4, units = he * hu;
+  const int t0 = blockIdx.x * cpb, t1 = min(n_chunks, t0 + cpb);
+  int staged_w = -1, staged_g = -1;
+  for (int t = t0; t < t1; ++t) {
+    const int w = in_id[t], g = out_id[t];
+    const int64_t win0 = static_cast<int64_t>(w) * BLK;
+    const int64_t grp0 = static_cast<int64_t>(g) * BLK;
+    if (w != staged_w || (CT_SH && g != staged_g)) {
+      __syncthreads();  // the last rows' reads are done
+      if (w != staged_w) eg_stage(us, u, win0, n_u, ldu, units, ws);
+      if (CT_SH && g != staged_g) eg_stage(cs, ct, grp0, n_ct, ldc, units, ws);
+      __syncthreads();
+      staged_w = w;
+      staged_g = g;
+    }
+    // A lane a slot: warp w takes the chunk's rounds of 32 slots w, w +
+    // 16, ... and each lane its slot's dots, one head after another.
+    const int64_t slot0 = static_cast<int64_t>(t) * chunk;
+    for (int base = 32 * warp; base < chunk; base += 32 * EG_NW) {
+      const int i = base + lane;
+      if (i >= chunk) break;
+      const int aa = a[slot0 + i], bb = b[slot0 + i];
+      const bool real = aa >= 0 && bb >= 0 && win0 + aa < n_u &&
+                        grp0 + bb < n_ct;
+      const float* ur = us + (real ? aa : 0) * ws;
+      const float* cr =
+          CT_SH ? cs + (real ? bb : 0) * ws : ct + (grp0 + (real ? bb : 0)) * ldc;
+      float* o = out + (slot0 + i) * he;
+      for (int hd = 0; hd < he; ++hd) {
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        if (real) {
+#pragma unroll 8
+          for (int j = hd * hu; j < (hd + 1) * hu; ++j) {
+            const float4 c4 =
+                CT_SH ? *reinterpret_cast<const float4*>(cr + 4 * j)
+                      : __ldg(reinterpret_cast<const float4*>(cr + 4 * j));
+            dot4_add<BF16>(*reinterpret_cast<const float4*>(ur + 4 * j), c4,
+                           p);
+          }
+        }
+        o[hd] = (p[0] + p[1]) + (p[2] + p[3]);
       }
     }
   }
-  for (int f0 = 0; f0 < f; f0 += GSTRIPE) {
-    const int w = min(GSTRIPE, f - f0);
-    __syncthreads();  // the previous stripe's reads are done
-    for (int i = tid; i < BLK * GSTRIPE; i += NT) {
-      const int r = i / GSTRIPE, c = i % GSTRIPE;
-      us[r][c] = (c < w && base_u + r < n_u)
-                     ? rnd<BF16>(u[(base_u + r) * f + f0 + c])
-                     : 0.f;
-      cs[r][c] = (c < w && base_c + r < n_ct)
-                     ? rnd<BF16>(ct[(base_c + r) * f + f0 + c])
-                     : 0.f;
+}
+
+// K5 mul for the shapes the staged walk does not take: a thread per (slot,
+// head), both rows from L1/L2.
+template <bool BF16>
+__global__ void __launch_bounds__(NT)
+    edge_grad_items_kernel(const int* __restrict__ a,
+                           const int* __restrict__ b,
+                           const int* __restrict__ in_id,
+                           const int* __restrict__ out_id, int chunk,
+                           const float* __restrict__ u, int n_u, int ldu,
+                           const float* __restrict__ ct, int n_ct, int ldc,
+                           float* __restrict__ out, int he, int rep) {
+  const int t = blockIdx.x;
+  const int64_t win0 = static_cast<int64_t>(in_id[t]) * BLK;
+  const int64_t grp0 = static_cast<int64_t>(out_id[t]) * BLK;
+  const int64_t slot0 = static_cast<int64_t>(t) * chunk;
+  for (int i = threadIdx.x; i < chunk * he; i += NT) {
+    const int s = i / he, hd = i - s * he;
+    const int aa = a[slot0 + s], bb = b[slot0 + s];
+    float p = 0.f;
+    if (aa >= 0 && bb >= 0 && win0 + aa < n_u && grp0 + bb < n_ct) {
+      const float* ur = u + (win0 + aa) * ldu + hd * rep;
+      const float* cr = ct + (grp0 + bb) * ldc + hd * rep;
+      for (int c = 0; c < rep; ++c)
+        p = BF16 ? p + rnd<true>(rnd<true>(__ldg(ur + c)) *
+                                 rnd<true>(__ldg(cr + c)))
+                 : fmaf(__ldg(ur + c), __ldg(cr + c), p);
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < MAX_SLOTS_PER_THREAD; ++k) {
-      if (sa[k] < 0) continue;
-      const float* ur = us[sa[k]];
-      const float* cr = cs[sb[k]];
-      float* o = out + (slot0 + tid + k * NT) * he;
-      int h = f0 / rep;
-      int next = (h + 1) * rep - f0;  // first column of head h + 1
-      float p = 0.f;
-      for (int c = 0; c < w; ++c) {
-        if (c == next) {
-          o[h] += p;
-          p = 0.f;
-          ++h;
-          next += rep;
-        }
-        p = BF16 ? p + rnd<true>(ur[c] * cr[c]) : fmaf(ur[c], cr[c], p);
-      }
-      o[h] += p;
-    }
+    out[slot0 * he + i] = p;
   }
 }
 
@@ -1814,30 +1905,62 @@ int hub_chunk_weighted(int mode, const int* a, const int* b, const int* eid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 = mul (u n_u x he * rep, ct n_ct x he * rep; `out` must be
-// zeroed), 1 = rhs (u null, ct n_ct x he; every element of `out` is
-// written). `out` is (n_chunks * chunk) x he.
+// mode: 0 = mul (u n_u rows and ct n_ct rows of he * rep floats, ldu and
+// ldc floats apart), 1 = rhs (u null, ct n_ct x he). Every element of
+// `out` ((n_chunks * chunk) x he) is written. mul: ws > 0 takes the staged
+// walk with rows ws floats apart (ops/hub_kernels.py's edge_grad_plan; u
+// and ct on 16-byte boundaries, ldu and ldc multiples of 4), ws = 0 the
+// thread-per-item kernel.
 int hub_edge_grad(int mode, const int* a, const int* b, const int* in_id,
                   const int* out_id, int n_chunks, int chunk, const float* u,
-                  int n_u, const float* ct, int n_ct, float* out, int he,
-                  int rep, int bf16, void* stream) {
-  if (chunk > NT * MAX_SLOTS_PER_THREAD || (mode != 0 && mode != 1)) {
+                  int n_u, int ldu, const float* ct, int n_ct, int ldc,
+                  float* out, int he, int rep, int ws, int bf16,
+                  void* stream) {
+  if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_chunks <= 0 || he <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 1) {
+    auto kern =
+        bf16 ? edge_grad_rhs_kernel<true> : edge_grad_rhs_kernel<false>;
+    kern<<<n_chunks, NT, 0, s>>>(a, b, out_id, chunk, ct, n_ct, out, he);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (ws == 0) {
+    auto kern =
+        bf16 ? edge_grad_items_kernel<true> : edge_grad_items_kernel<false>;
+    kern<<<n_chunks, NT, 0, s>>>(a, b, in_id, out_id, chunk, u, n_u, ldu, ct,
+                                 n_ct, ldc, out, he, rep);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int f = he * rep, hu = (rep + 3) / 4;
+  // Rows of whole heads: each head's units start on a 16-byte boundary.
+  if (f > EG_MAX_COLS || (he > 1 && rep % 4 != 0) ||
+      ws != 4 * he * hu + 4 || ldu % 4 != 0 || ldc % 4 != 0 ||
+      ldu < 4 * he * hu || ldc < 4 * he * hu ||
+      reinterpret_cast<uintptr_t>(u) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(ct) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n_chunks > 0 && he > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (mode == 0) {
-      auto kern =
-          bf16 ? edge_grad_mul_kernel<true> : edge_grad_mul_kernel<false>;
-      kern<<<n_chunks, NT, 0, s>>>(
-          a, b, in_id, out_id, chunk, u, n_u, ct, n_ct, out, he, rep);
-    } else {
-      auto kern =
-          bf16 ? edge_grad_rhs_kernel<true> : edge_grad_rhs_kernel<false>;
-      kern<<<n_chunks, NT, 0, s>>>(
-          a, b, out_id, chunk, ct, n_ct, out, he);
-    }
-  }
+  const bool ct_sh = f <= EG_CT_COLS;
+  auto kern = ct_sh ? (bf16 ? edge_grad_mul_kernel<true, true>
+                            : edge_grad_mul_kernel<false, true>)
+                    : (bf16 ? edge_grad_mul_kernel<true, false>
+                            : edge_grad_mul_kernel<false, false>);
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(BLK) * ws * (ct_sh ? 2 : 1);
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, EG_NT,
+                                                    smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) per_sm = 1;
+  // One wave: as many blocks as fit on the card, each a run of chunks.
+  const int target = per_sm * num_sms();
+  const int cpb = (n_chunks + target - 1) / target;
+  kern<<<(n_chunks + cpb - 1) / cpb, EG_NT, smem, s>>>(
+      a, b, in_id, out_id, n_chunks, chunk, cpb, u, n_u, ldu, ct, n_ct, ldc,
+      out, he, rep, ws);
   return static_cast<int>(cudaGetLastError());
 }
 

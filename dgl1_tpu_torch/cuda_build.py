@@ -35,10 +35,11 @@ _c_int, _ptr, _f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 # floats as c_float.
 _SIGNATURES = {
     "attn_kernels": {
+        "attn_fwd_scratch": [_c_int] * 10,
         "attn_fwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int, _ptr,
-                     _ptr, _ptr, _c_int, _c_int, _f, _ptr, _c_int, _f,
-                     _c_int, _ptr, _c_int, _ptr, _ptr, _ptr, _ptr, _ptr,
-                     _ptr, _ptr, _ptr],
+                     _c_int, _ptr, _ptr, _c_int, _c_int, _c_int, _c_int,
+                     _c_int, _c_int, _f, _ptr, _c_int, _f, _c_int, _ptr,
+                     _c_int, _ptr, _ptr, _ptr, _ptr, _ptr],
         "attn_bwd_src": [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                          _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                          _f, _ptr, _c_int, _f, _c_int, _c_int, _ptr, _ptr,
@@ -62,8 +63,8 @@ _SIGNATURES = {
                                _c_int, _c_int, _ptr, _c_int, _c_int, _c_int,
                                _ptr],
         "hub_edge_grad": [_c_int, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
-                          _ptr, _c_int, _ptr, _c_int, _ptr, _c_int, _c_int,
-                          _c_int, _ptr],
+                          _ptr, _c_int, _c_int, _ptr, _c_int, _c_int, _ptr,
+                          _c_int, _c_int, _c_int, _c_int, _ptr],
     },
     "bdense_kernels": {
         "block_mm": [_c_int, _c_int, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
@@ -76,6 +77,9 @@ _SIGNATURES = {
                         _ptr, _c_int, _ptr],
     },
 }
+
+# Entries that return other than an int error code.
+_RESTYPES = {"attn_fwd_scratch": ctypes.c_longlong}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds, nvcc output) of builds made by this process.
@@ -136,6 +140,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
         _LIBS[name] = lib
     return lib

@@ -36,6 +36,7 @@ under ``"<name>.bf16"``. K8 has no ``dt`` in the reference.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch.nn.functional import leaky_relu
@@ -47,7 +48,7 @@ from dgl1_tpu_torch.ops.precision import round_bf16, rounding
 __all__ = ["attn_fwd", "attn_bwd_src", "attn_bwd_grp", "ger_reduce",
            "attn_fwd_torch", "attn_bwd_src_torch", "attn_bwd_grp_torch",
            "ger_reduce_torch", "drop_mask", "LAUNCHES", "reset_launches",
-           "KERNELS", "MAX_HEAD_DIM"]
+           "KERNELS", "MAX_HEAD_DIM", "fwd_plan"]
 
 _BF16 = ("attn_fwd", "attn_bwd_src", "attn_bwd_grp")
 KERNELS = _BF16 + ("ger_reduce",) + tuple(f"{k}.bf16" for k in _BF16)
@@ -344,6 +345,58 @@ def _check_heads(h, d, dev):
             f"features, got {d}")
 
 
+# K6 on the card (csrc/attn_kernels.cu): a block owns a stripe of at most
+# FWD_COLS feature columns and stages 128-row windows of it in shared
+# memory, two at a time; it may opt into FWD_SMEM_MAX bytes.
+FWD_COLS = 128
+FWD_SMEM_MAX = 227 * 1024
+
+
+class FwdPlan(NamedTuple):
+    """K6's stripes: ``nhs`` heads a stripe (1 when d > 128, each head then
+    cut into ``nsub`` pieces of up to 128 columns), staged rows ``ws``
+    floats apart, ``g`` lanes a slot, ``n_stripes`` stripes and the
+    block's ``smem`` bytes."""
+    nhs: int
+    nsub: int
+    ws: int
+    g: int
+    n_stripes: int
+    smem: int
+
+
+_FWD_WARPS = 16  # warps of a K6 block
+
+
+def _fwd_smem(nhs: int, ws: int) -> int:
+    # Two ft and two el windows, er and the shift, and each warp's p and
+    # staged rows of 32 slots.
+    return 4 * (BLK * (2 * ws + 4 * nhs) + _FWD_WARPS * 32 * (nhs + 1))
+
+
+def fwd_plan(h: int, d: int) -> FwdPlan:
+    """K6's plan for h heads of d features: whole heads a stripe (at most
+    32) while they fit FWD_COLS columns, halved while the block would pass
+    FWD_SMEM_MAX
+    (narrow heads bring per-head arrays); a head wider than FWD_COLS is
+    cut into FWD_COLS-column pieces."""
+    if d > FWD_COLS:
+        nhs, nsub, widest = 1, -(-d // FWD_COLS), FWD_COLS
+    else:
+        # At most 32 heads: lane k of a warp keeps head k's den.
+        nhs, nsub = min(h, FWD_COLS // d, 32), 1
+        while nhs > 1 and _fwd_smem(nhs, -(-nhs * d // 4) * 4 + 4) \
+                > FWD_SMEM_MAX:
+            nhs = (nhs + 1) // 2
+        widest = nhs * d
+    ws = -(-widest // 4) * 4 + 4
+    g = 1
+    while 4 * g < widest:
+        g *= 2
+    stripes = h * nsub if d > FWD_COLS else -(-h // nhs)
+    return FwdPlan(nhs, nsub, ws, g, stripes, _fwd_smem(nhs, ws))
+
+
 def attn_fwd(lay, el, er_g, ft, h: int, d: int, slope: float,
              drop: float = 0.0, seed=None, n_groups: int = 1,
              bf16: bool = False):
@@ -352,7 +405,8 @@ def attn_fwd(lay, el, er_g, ft, h: int, d: int, slope: float,
     (num_src, h*d) float32; ``seed`` an int32 (1,) tensor when
     ``drop`` > 0. Returns (num, den, mraw) as :func:`attn_fwd_torch`.
     ``bf16``: see :func:`attn_fwd_torch`; on the card it needs scratch of
-    2 * n_chunks * 128 * h floats for the rescale factors."""
+    2 * n_chunks * 128 * h floats for the rescale factors (and a little
+    more for their segment products)."""
     dev = ft.device
     n_chunks, chunk = _check_layout(lay, dev, ("a", "b", "eid", "in_id",
                                                "out_id"))
@@ -364,27 +418,30 @@ def attn_fwd(lay, el, er_g, ft, h: int, d: int, slope: float,
     if dev.type == "cpu":
         return attn_fwd_torch(lay, el, er_g, ft, h, d, slope, drop, seed,
                               n_groups, bf16)
-    num = torch.zeros((n_groups * BLK, h * d), dtype=torch.float32,
+    pl = fwd_plan(h, d)
+    # Every element of the outputs is written.
+    num = torch.empty((n_groups * BLK, h * d), dtype=torch.float32,
                       device=dev)
-    den = torch.zeros((n_groups * BLK, h), dtype=torch.float32, device=dev)
+    den = torch.empty((n_groups * BLK, h), dtype=torch.float32, device=dev)
     mraw = torch.empty((n_groups * BLK, h), dtype=torch.float32, device=dev)
     mkey = torch.empty((n_groups, h), dtype=torch.int32, device=dev)
-    # bf16 scratch: each chunk's max and running max, and the online
-    # rescale factors per (chunk, hub row, head).
-    scratch = [None] * 4
-    if bf16:
-        scratch = [torch.empty((n, h), dtype=torch.float32, device=dev)
-                   for n in (n_chunks, n_chunks, n_chunks * BLK,
-                             n_chunks * BLK)]
-    ptrs = [None if x is None else x.data_ptr() for x in scratch]
+    plan = (pl.nhs, pl.nsub, pl.ws, pl.g)
     with torch.cuda.device(dev):
-        rc = _lib().attn_fwd(
+        lib = _lib()
+        n = lib.attn_fwd_scratch(n_chunks, h, d, *plan, n_groups,
+                                 int(drop > 0.0), int(bf16))
+        if n < 0:
+            raise RuntimeError(f"attention kernel attn_fwd: no launch for "
+                               f"h={h}, d={d}")
+        scratch = torch.empty((max(n, 1),), dtype=torch.float32, device=dev)
+        rc = lib.attn_fwd(
             lay["a"].data_ptr(), lay["b"].data_ptr(), lay["eid"].data_ptr(),
             lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,
-            chunk, el.data_ptr(), er_g.data_ptr(), ft.data_ptr(), h, d,
-            ctypes.c_float(slope), seed_p, thresh, ctypes.c_float(inv_keep),
-            n_groups, mkey.data_ptr(), int(bf16), *ptrs, num.data_ptr(),
-            den.data_ptr(), mraw.data_ptr(), _stream(dev))
+            chunk, el.data_ptr(), el.shape[0], er_g.data_ptr(),
+            ft.data_ptr(), h, d, *plan, ctypes.c_float(slope), seed_p,
+            thresh, ctypes.c_float(inv_keep), n_groups, mkey.data_ptr(),
+            int(bf16), scratch.data_ptr(), num.data_ptr(), den.data_ptr(),
+            mraw.data_ptr(), _stream(dev))
     _done("attn_fwd", rc, bf16)
     return num, den, mraw
 

@@ -49,7 +49,7 @@ __all__ = ["dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
            "dense_bwd", "chunk_weighted", "edge_grad", "dense_fwd_torch",
            "chunk_sum_torch", "expand_torch", "dense_bwd_fused_torch",
            "dense_bwd_torch", "chunk_weighted_torch", "edge_grad_torch",
-           "LAUNCHES", "reset_launches", "KERNELS"]
+           "LAUNCHES", "reset_launches", "KERNELS", "edge_grad_plan"]
 
 # Every kernel but K3 has a bf16 instantiation, counted as "<name>.bf16".
 _BASE = ("dense_fwd", "chunk_sum", "expand", "dense_bwd_fused", "dense_bwd",
@@ -463,13 +463,32 @@ def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
     return out
 
 
+# K5 mul's staged walk (csrc/hub_kernels.cu edge_grad_mul_kernel) stages
+# u's 128-row windows full width: rows of at most EG_MAX_COLS floats.
+EG_MAX_COLS = 384
+
+
+def edge_grad_plan(he: int, rep: int) -> int:
+    """K5 mul's launch on the card: the floats between staged rows (each
+    head's columns padded to a multiple of 4, plus 4) for the staged walk,
+    or 0 for the thread-per-(slot, head) kernel. The walk takes rows of at
+    most EG_MAX_COLS floats of one head, or of heads whose rep is a
+    multiple of 4 (each head's columns then start on a 16-byte
+    boundary)."""
+    if he * rep > EG_MAX_COLS or (he > 1 and rep % 4):
+        return 0
+    return 4 * he * -(-rep // 4) + 4
+
+
 def edge_grad(mode: str, lay, u, ct, he: int, rep: int,
               bf16: bool = False):
     """K5. ``lay``: the forward chunk layout (a, b, in_id, out_id int32);
     ``u``: (n_src, he*rep) f32 in mul mode, None in rhs mode; ``ct``: the
     compact hub cotangent rows (n_groups*128, he*rep) f32 (mul) or
     (n_groups*128, he) f32 (rhs). Returns (n_slots, he) f32, zero on
-    padding slots. ``bf16``: see :func:`edge_grad_torch`."""
+    padding slots. On the card, mul mode copies a ``u`` or ``ct`` whose
+    width is not a multiple of 4, or that starts off a 16-byte boundary,
+    once into padded rows. ``bf16``: see :func:`edge_grad_torch`."""
     _mode(mode)
     dev = ct.device
     _f32("ct", ct, dev)
@@ -485,17 +504,23 @@ def edge_grad(mode: str, lay, u, ct, he: int, rep: int,
     n_chunks, chunk = _chunk_layout(lay, dev, ("a", "b", "in_id", "out_id"))
     if dev.type == "cpu":
         return edge_grad_torch(mode, lay, u, ct, he, rep, bf16)
-    # mul adds into its output; rhs writes every element.
-    alloc = torch.zeros if mode == "mul" else torch.empty
-    out = alloc((lay["a"].shape[0], he), dtype=torch.float32, device=dev)
+    # Both modes write every element, padding slots as 0.
+    out = torch.empty((lay["a"].shape[0], he), dtype=torch.float32,
+                      device=dev)
     if n_chunks == 0 or he == 0:
-        return out  # the C entry would launch nothing
+        return out.zero_()  # the C entry would launch nothing
+    ws = ldu = ldc = 0
+    if mode == "mul":
+        ws = edge_grad_plan(he, rep)
+        u, ldu = _rows16(u)
+        ct, ldc = _rows16(ct)
     with torch.cuda.device(dev):
         rc = _lib().hub_edge_grad(
             _MODES[mode], lay["a"].data_ptr(), lay["b"].data_ptr(),
             lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,
             chunk, u.data_ptr() if mode == "mul" else None,
-            u.shape[0] if mode == "mul" else 0, ct.data_ptr(), ct.shape[0],
-            out.data_ptr(), he, rep, int(bf16), _stream(dev))
+            u.shape[0] if mode == "mul" else 0, ldu, ct.data_ptr(),
+            ct.shape[0], ldc, out.data_ptr(), he, rep, ws, int(bf16),
+            _stream(dev))
     _done(f"edge_grad_{mode}", rc, bf16)
     return out

@@ -1158,3 +1158,162 @@ def test_walks_refuse_layouts_they_cannot_load(dev):
         K.dense_fwd(torch.zeros(1024, 126, dtype=torch.int8, device=dev),
                     inp)
     assert K.LAUNCHES == before
+
+
+def _fwd_layout(dev, chunk=1024, seed=0):
+    """A forward (group-major) chunk layout built on the host, as the
+    builders lay one out: runs of (group, window) in order, each padded to
+    whole chunks, within a run the slots in runs of equal hub row b (the
+    rows in no order) and source rows a at random. Three groups; runs
+    spanning up to five chunks (a window over three or more); one run of a
+    single slot; a block of 300 equal (b, a) slots in a row and 200 more
+    copies of another pair spread through their b run; an all-padding
+    chunk; the last window cut at 80 rows. Returns (layout, n_src,
+    n_groups)."""
+    rng = np.random.default_rng(seed)
+    plan = [(0, 0, 3 * 1024 + 17), (0, 1, 40), (0, 3, 2048),
+            (0, 7, 5 * 1024 - 3), (1, 2, 700), (1, 7, 3 * 1024 + 5),
+            (2, 0, 1), (2, 5, 1024)]
+    n_src = 7 * 128 + 80
+    cols = {k: [] for k in ("a", "b", "in_id", "out_id")}
+    for i, (g, w, n) in enumerate(plan):
+        k = int(rng.integers(1, min(n, 12) + 1))
+        cuts = np.sort(rng.choice(np.arange(1, n), k - 1, replace=False)) \
+            if k > 1 else np.zeros(0, np.int64)
+        lens = np.diff(np.concatenate([[0], cuts, [n]]))
+        b = np.repeat(rng.permutation(128)[:k], lens)
+        a = rng.integers(0, 128 if w < 7 else 80, n)
+        if i == 0:
+            a[500:800], b[500:800] = 5, b[500]
+            run = np.flatnonzero(b == b[2000])
+            a[rng.choice(run, min(200, run.size), replace=False)] = 9
+        pad = -n % 1024 + (1024 if i == 3 else 0)
+        cols["a"].append(np.concatenate([a, np.full(pad, -1)]))
+        cols["b"].append(np.concatenate([b, np.full(pad, -1)]))
+        n_ch = (n + pad) // 1024
+        cols["in_id"].append(np.full(n_ch, w))
+        cols["out_id"].append(np.full(n_ch, g))
+    lay = {k: np.concatenate(v) for k, v in cols.items()}
+    cut = 1024 // chunk
+    lay["in_id"] = np.repeat(lay["in_id"], cut)
+    lay["out_id"] = np.repeat(lay["out_id"], cut)
+    lay["eid"] = rng.permutation(lay["a"].size)
+    return ({k: torch.as_tensor(v, dtype=torch.int32).to(dev)
+             for k, v in lay.items()}, n_src, 3)
+
+
+def _attn_fwd_check(lay, n_src, n_groups, dev, h, d, drop, bf16=False):
+    """K6 on ``lay`` against its float64 plain version: num and den within
+    1e-4 of the sums over |ft| (and den's own), mraw bit for bit; in the
+    bf16 mode with the rounded exp values' flips (FLIP_SHARE), the float32
+    kernel failing the same check."""
+    gen = torch.Generator(device=dev).manual_seed(h * d)
+    el = torch.randn(n_src, h, device=dev, generator=gen)
+    er_g = torch.randn(n_groups * 128, h, device=dev, generator=gen)
+    ft = torch.randn(n_src, h * d, device=dev, generator=gen)
+    seed = torch.tensor([987654321], dtype=torch.int32, device=dev)
+    args = (lay, el, er_g, ft, h, d, 0.2, drop, seed, n_groups)
+    AK.reset_launches()
+    got = AK.attn_fwd(*args, bf16=bf16)
+    assert AK.LAUNCHES["attn_fwd.bf16" if bf16 else "attn_fwd"] == 1
+    want = AK.attn_fwd_torch(*_f64(*args), bf16=bf16)
+    scale = AK.attn_fwd_torch(*_f64(lay, el, er_g, ft.abs(), *args[4:]),
+                              bf16=bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2].float())
+    if bf16:
+        f32 = AK.attn_fwd(*args)
+        torch.cuda.synchronize()
+        _bf16_close("num", got[0], f32[0], want[0], scale[0], flips=True)
+        _bf16_close("den", got[1], f32[1], want[1], want[1], flips=True)
+    else:
+        _sum_close("num", got[0].double(), want[0], scale[0])
+        _sum_close("den", got[1].double(), want[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("chunk", [1024, 16])
+@pytest.mark.parametrize("drop", [0.0, 0.6])
+@pytest.mark.parametrize("h,d", [(8, 32), (1, 40), (50, 4), (2, 256),
+                                 (4, 160), (1, 384), (5, 3)])
+def test_attn_fwd_staged_walk_edges(dev, h, d, drop, chunk):
+    """K6 on _fwd_layout's chunks of 1024 or 16 slots (a window over three
+    or more chunks, a block's run changing group, an all-padding chunk,
+    long runs of one (b, a) pair, a cut last window) at every head shape
+    the plan cuts differently: several heads a stripe, one narrow head,
+    per-head arrays that halve the stripe, heads wider than 128 columns in
+    128-column pieces, and d not a multiple of 4."""
+    lay, n_src, n_groups = _fwd_layout(dev, chunk=chunk, seed=h + d)
+    got = _attn_fwd_check(lay, n_src, n_groups, dev, h, d, drop)
+    # Rows no slot names stay zero (group 2 names few rows).
+    rows_out = K._chunk_rows(lay)[1][K._chunk_rows(lay)[2]]
+    idle = torch.ones(n_groups * 128, dtype=torch.bool, device=dev)
+    idle[rows_out] = False
+    assert not bool(got[0][idle].any()) and not bool(got[1][idle].any())
+
+
+@pytest.mark.parametrize("h,d,drop", [(8, 32, 0.0), (8, 32, 0.6),
+                                      (1, 40, 0.0)])
+def test_attn_fwd_bf16_staged_walk(dev, h, d, drop):
+    """K6 in the bf16 mode (layer 1 at dropout 0 and 0.6, layer 2) on
+    _fwd_layout, whose groups' running maxima move from chunk to chunk, so
+    the segmented products of the online rescale cross segment and group
+    boundaries."""
+    lay, n_src, n_groups = _fwd_layout(dev, chunk=16, seed=d)
+    _attn_fwd_check(lay, n_src, n_groups, dev, h, d, drop, bf16=True)
+
+
+def test_attn_fwd_on_the_repeated_pairs_graph(dev):
+    """K6 on a builder's layout where one (hub row, source row) pair holds
+    100 slots, at dropout 0.6, against its float64 plain version."""
+    g = _repeated_pairs_graph(dev, True)
+    m = g.hub_dst_meta
+    _attn_fwd_check(g.hub_dst["full_fwd"], g.num_nodes(), m.n_groups, dev, 8, 32,
+               0.6)
+
+
+def _nan_pool(dev, n):
+    """Leaves a freed block of NaNs in the caching allocator, so that the
+    next torch.empty of up to n floats shows any element a kernel skips."""
+    torch.full((n,), float("nan"), device=dev)
+
+
+@pytest.mark.parametrize("he,rep", [(1, 128), (1, 40), (1, 3), (8, 32),
+                                    (2, 12)])
+@pytest.mark.parametrize("kind", ["graph", "mixed", "chunks16"])
+def test_edge_grad_mul_staged_walk_edges(dev, kind, he, rep):
+    """K5 mul against its float64 plain version on the hub graph's
+    full_fwd, the mixed graph's (five groups), and _fwd_layout cut into
+    16-slot chunks (windows over three or more chunks, runs of one (b, a)
+    pair, an all-padding chunk, rows past u's end), in float32 and in the
+    bf16 mode; every padding slot is exactly 0 although the output comes
+    from torch.empty."""
+    if kind == "chunks16":
+        lay, n_u, n_groups = _fwd_layout(dev, chunk=16, seed=rep)
+    else:
+        g = _graph(dev, kind == "mixed")
+        lay, n_u, n_groups = (g.hub_dst["full_fwd"], g.num_nodes(),
+                              g.hub_dst_meta.n_groups)
+    f = he * rep
+    gen = torch.Generator(device=dev).manual_seed(f)
+    u = torch.randn(n_u - 3, f, device=dev, generator=gen)
+    ct = torch.randn(n_groups * 128, f, device=dev, generator=gen)
+    rows_in, rows_out, valid = K._chunk_rows(lay)
+    pad = ~(valid & (rows_in < u.shape[0]))
+    for bf16 in (False, True):
+        args = ("mul", lay, u, ct, he, rep)
+        _nan_pool(dev, lay["a"].shape[0] * he)
+        K.reset_launches()
+        got = K.edge_grad(*args, bf16=bf16)
+        assert K.LAUNCHES["edge_grad_mul.bf16" if bf16 else
+                          "edge_grad_mul"] == 1
+        want = K.edge_grad_torch(*_f64(*args), bf16=bf16)
+        scale = K.edge_grad_torch("mul", lay, *_f64(u.abs(), ct.abs()), he,
+                                  rep, bf16=bf16)
+        torch.cuda.synchronize()
+        assert not bool(got[pad].any()) and bool(torch.isfinite(got).all())
+        if bf16:
+            _bf16_close(f"edge_grad_mul.bf16 {kind}", got,
+                        K.edge_grad(*args), want, scale)
+        else:
+            _sum_close(f"edge_grad_mul {kind}", got.double(), want, scale)
