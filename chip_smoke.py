@@ -18,14 +18,20 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    its float64 plain version, with every other width and layout the
    trainers give it as ``variants`` (GCN layer 2, the weighted GCN's
    in-degree sum, the per-relation R-GCN's relation-0 subgraph at F=64
-   and 40, K3 after the grouped R-GCN's copy_e); then each attention
+   and 40, K3 after the grouped R-GCN's copy_e, and K3 at a row of 37
+   floats; the arxiv shapes again with the diagonal epilogue their path
+   gives K3, timed beside the unfused pair it replaces, and the R-GCN
+   shapes with it checked only, as ``epilogue_checked``); then each attention
    kernel (K6 attn_fwd, K7 attn_bwd_src, K7 g-major attn_bwd_grp, K8
    ger_reduce) at arxiv layer 1's shapes (H=8, D=32, one group of 5,292
    chunks), with the same kernels at dropout 0.6, at layer 2 (H=1, D=40)
    and on the mixed graph (five groups) as each row's ``variants``; every
    kernel held against its plain torch version; one JSON line per kernel
-   with its error, time, bound (the bytes and operations this run's data
-   needs), plain time and a library call's time (or why there is none).
+   with its error, time (``ms``: launches back to back on a held stream,
+   the device's time; ``host_paced_ms``: calls as the host issues them,
+   which paces kernels shorter than their wrapper), bound (the bytes and
+   operations this run's data needs), plain time and a library call's
+   time (or why there is none).
    Every bf16 instantiation (the bf16 matmul mode, ``ops/precision.py``)
    is held against its float64 plain version in bf16 mode, the f32
    kernel's output must fail the same check, and the two must differ
@@ -70,8 +76,8 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    on the arxiv graph above, 5 timed epochs after a warm-up step, in f32
    and in bf16: exact launches (the trainer runs' per step, bf16
    instantiations only in bf16), step-0 losses within 2e-2, ms per epoch
-   and peak memory; then a ``torch.profiler`` trace of 3 arxiv GAT steps
-   (device busy time, idle share, top kernels);
+   and peak memory; then ``torch.profiler`` traces of 3 arxiv GAT steps
+   and 3 arxiv GCN steps (device busy time, idle share, top kernels);
 4c. R-GCN at configuration #4's shape (128 -> 64 ->
    40, 8 relations, 4 bases, Adam 1e-2): 5 steps on the per-relation path
    (K1, K3, K4a per relation, no weighted kernel) and 5 on the
@@ -207,9 +213,36 @@ def log(*a):
     print(*a, flush=True)
 
 
+# Cycles of the sleep kernel that holds the stream while the host enqueues
+# a timed loop (about 20 ms at the H100's clock).
+HOLD_CYCLES = 40_000_000
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     """Mean device time of ``fn`` over ``iters`` launches (CUDA events,
-    warm L2)."""
+    warm L2). A sleep kernel holds the stream while the host enqueues the
+    loop, so the launches run back to back and the events time the device
+    alone; without it a kernel shorter than its wrapper's host time (tens
+    of microseconds) is timed at the host's pace (:func:`host_paced_ms`)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_paced_ms(fn, iters=20, warmup=3):
+    """``fn``'s time per call as the host issues it: CUDA events around
+    ``iters`` calls on an idle stream, so a kernel that takes less device
+    time than its wrapper's host work is timed at the host's pace (the
+    ``host_paced_ms`` of each row)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -344,14 +377,14 @@ def chunked_share(g):
 
 def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
                flops, shapes, library_note=None, plain_iters=20,
-               exact=False, f32_out=None, flips=False):
+               exact=False, f32_out=None, flips=False, more=None):
     """Check one kernel against its plain version and time both. ``out``,
     ``ref`` and ``scale`` may be tuples (one entry per output). ``exact``:
     the outputs must be equal element for element (infinities included)
     and ``scale`` is unused. ``f32_out``: the float32 instantiation's
     output when ``out`` is the bf16 one (the row is then ``name.bf16``,
     checked by :func:`check_bf16`); ``flips``: its outputs include rounded
-    exp values (FLIP_SHARE)."""
+    exp values (FLIP_SHARE). ``more``: further keys of the row."""
     bf16 = f32_out is not None
     if not isinstance(out, tuple):
         out, ref, scale = (out,), (ref,), (scale,)
@@ -379,6 +412,7 @@ def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
         err = max(check(f"{name}[{i}]", o, r, s)
                   for i, (o, r, s) in enumerate(zip(out, ref, scale)))
     ms = cuda_ms(fn)
+    paced_ms = host_paced_ms(fn)
     plain_ms = cuda_ms(plain, iters=plain_iters,
                        warmup=min(3, plain_iters))
     lib_ms = cuda_ms(library) if library is not None else None
@@ -387,7 +421,8 @@ def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
     row = {"name": f"{name}.bf16" if bf16 else name,
            "id": f"{tag} bf16" if bf16 else tag, "route": "cuda",
            "source": src, "replaces": replaces, "launches": 0,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": err, "ms": ms, "host_paced_ms": paced_ms,
+           "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
            "bytes": int(bytes_moved), "flops": int(flops),
            "tolerance": ("max abs difference 0" if exact else
@@ -397,16 +432,18 @@ def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
                             f"float32 kernel must fail it" if flips and bf16
                             else "; the float32 kernel must fail it"
                             if bf16 else "")),
-           "bf16": bf16, "shapes": shapes, "ok": True, **extra}
+           "bf16": bf16, "shapes": shapes, "ok": True, **extra,
+           **(more or {})}
     if library_note:
         row["library_note"] = library_note
     log(json.dumps(row))
     return row
 
 
-VARIANT_KEYS = ("bf16", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "bytes", "flops", "shapes",
-                "past_rtol", "past_rtol_f32")
+VARIANT_KEYS = ("bf16", "max_abs_err", "ms", "host_paced_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "bytes", "flops",
+                "shapes", "past_rtol", "past_rtol_f32", "epilogue",
+                "unfused_ms")
 
 
 def with_variants(row, variants):
@@ -448,10 +485,17 @@ def dense_fwd_case(case, g, dev, f, seed=0, library=True, bf16=False):
         f32_out=K.dense_fwd(c, u) if bf16 else None)
 
 
-def expand_case(case, g, dev, f, seed=0, library=True):
+def expand_case(case, g, dev, f, seed=0, library=True, epilogue=None,
+                timed=True):
     """K3 at width f on ``g``'s merged block ``[tail stack | hub block]``
     (the tail stack of a random U, a random hub block of the layout's
-    groups) against its float64 plain version."""
+    groups) against its float64 plain version. ``epilogue``: the diagonal
+    in K3's output pass, "u" as copy_lhs and u_mul_e give it (a weight a
+    row, the graph's diagonal where it has one, times U's row) or "w" as
+    copy_e gives it (f weights a row, alone); its bytes count U's rows and
+    the weights, and ``unfused_ms`` times what it replaces: K3 without it,
+    then the engine's torch passes. Without ``timed`` the kernel is only
+    checked, and the case and its error are returned."""
     from dgl1_tpu_torch.ops import hub_kernels as K
     from dgl1_tpu_torch.ops.engine_ell import ell_stack
 
@@ -462,9 +506,30 @@ def expand_case(case, g, dev, f, seed=0, library=True):
                         "copy_lhs", "sum", u, None)
     hub_block = torch.randn(m.n_groups * 128, f, device=dev, generator=gen)
     merged = torch.cat([stacked, hub_block], dim=0).contiguous()
-    del u, stacked, hub_block
+    del stacked, hub_block
     xs, xd = hub["x_starts"], hub["x_desc"]
-    ref = K.expand_torch(merged.double(), xs, xd, n)
+    diag, diag_bytes, more = (), 0, {}
+    if epilogue == "u":
+        w = (hub["diag"][:, None] if m.has_diag else
+             torch.randn(n, 1, device=dev, generator=gen))
+        diag, diag_bytes = (w, u), nbytes(w, u)
+        unfused = lambda: K.expand(merged, xs, xd, n) + w * u  # noqa: E731
+    elif epilogue == "w":
+        w = torch.randn(n, f, device=dev, generator=gen)
+        diag, diag_bytes = (w,), nbytes(w)
+        unfused = lambda: K.expand(merged, xs, xd, n) + w  # noqa: E731
+    if epilogue and timed:
+        more = {"epilogue": epilogue, "unfused_ms": cuda_ms(unfused)}
+    del u
+    d64 = tuple(x.double() for x in diag)
+    ref = K.expand_torch(merged.double(), xs, xd, n, *d64)
+    scale = K.expand_torch(merged.double().abs(), xs, xd, n,
+                           *(x.abs() for x in d64))
+    del d64
+    if not timed:
+        err = check(f"expand[{case}]", K.expand(merged, xs, xd, n, *diag),
+                    ref, scale)
+        return {"case": case, "epilogue": epilogue, "max_abs_err": err}
     lib = None
     if library:
         t_inv = hub["t_inv"].long()
@@ -474,11 +539,13 @@ def expand_case(case, g, dev, f, seed=0, library=True):
         lib = lambda: torch.index_select(merged_z, 0, idx_z)  # noqa: E731
     n_desc = int(xs[-(-n // 512)])
     return kernel_row(
-        "expand", K.expand(merged, xs, xd, n), ref, ref.abs(),
-        lambda: K.expand(merged, xs, xd, n),
-        lambda: K.expand_torch(merged, xs, xd, n), lib,
-        nbytes(merged) + 4 * (n_desc + -(-n // 512) + 1) + n * f * 4, 0,
-        {"case": case, "merged": list(merged.shape), "num_dst": n})
+        "expand", K.expand(merged, xs, xd, n, *diag), ref, scale,
+        lambda: K.expand(merged, xs, xd, n, *diag),
+        lambda: K.expand_torch(merged, xs, xd, n, *diag), lib,
+        nbytes(merged) + 4 * (n_desc + -(-n // 512) + 1) + n * f * 4
+        + diag_bytes, 0,
+        {"case": case, "merged": list(merged.shape), "num_dst": n},
+        more=more)
 
 
 def dense_bwd_fused_case(case, g, dev, f, seed=0, library=True,
@@ -541,6 +608,22 @@ def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
                 for i, (c, g, f, *more) in enumerate(cases)]
 
     bf = dict(seed=9, library=False, bf16=True)
+    # K3's shapes: GCN layer 2, the weighted GCN's in-degree sum, the
+    # per-relation R-GCN, the grouped R-GCN's copy_e, a row of 37 floats.
+    k3 = [("arxiv_f40", g_arx, 40), ("arxiv_f1", g_arx, 1),
+          ("rgcn_rel0_f64", g_rel0, 64), ("rgcn_rel0_f40", g_rel0, 40),
+          ("rgcn_sorted_he64", g_sorted, 64),
+          ("rgcn_sorted_he40", g_sorted, 40), ("arxiv_f37", g_arx, 37)]
+    # The diagonal epilogue, timed where a path gives K3 one: the arxiv
+    # GCN's copy_lhs at both layers, the weighted GCN's copy_e in-degree
+    # sum, and the tail path. The R-GCN graphs have no extracted self-loop,
+    # so their shapes are only checked with it.
+    k3_diag = [("arxiv_f128", g_arx, 128, "u"), ("arxiv_f40", g_arx, 40, "u"),
+               ("arxiv_f1", g_arx, 1, "w"), ("arxiv_f37", g_arx, 37, "u")]
+    k3_checked = [("rgcn_rel0_f64", g_rel0, 64, "u"),
+                  ("rgcn_rel0_f40", g_rel0, 40, "u"),
+                  ("rgcn_sorted_he64", g_sorted, 64, "w"),
+                  ("rgcn_sorted_he40", g_sorted, 40, "w")]
     rows = [
         with_variants(dense_fwd_case("arxiv_f128", g_arx, dev, 128),
                       variants(dense_fwd_case, [
@@ -560,12 +643,10 @@ def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
                           ("rgcn_rel0_f64", g_rel0, 64),
                           ("rgcn_rel0_f40", g_rel0, 40)], bf16=True)),
         with_variants(expand_case("arxiv_f128", g_arx, dev, 128),
-                      variants(expand_case, [
-                          ("arxiv_f40", g_arx, 40), ("arxiv_f1", g_arx, 1),
-                          ("rgcn_rel0_f64", g_rel0, 64),
-                          ("rgcn_rel0_f40", g_rel0, 40),
-                          ("rgcn_sorted_he64", g_sorted, 64),
-                          ("rgcn_sorted_he40", g_sorted, 40)])),
+                      variants(expand_case, k3)
+                      + [expand_case(c + "_diag", g, dev, f, seed=20 + i,
+                                     library=False, epilogue=e)
+                         for i, (c, g, f, e) in enumerate(k3_diag)]),
         with_variants(dense_bwd_fused_case("arxiv_f40", g_arx, dev, 40),
                       variants(dense_bwd_fused_case, [
                           ("rgcn_rel0_f64", g_rel0, 64),
@@ -582,6 +663,11 @@ def phase_kernels(dev, g_arx, g_mix, g_rel0, g_sorted):
                       + [dense_bwd_case("mixed_f128", g_mix, dev, 128,
                                         **bf)]),
     ]
+    k3_row = next(r for r in rows if r["name"] == "expand")
+    k3_row["epilogue_checked"] = [
+        expand_case(c + "_diag", g, dev, f, seed=30 + i, epilogue=e,
+                    timed=False)
+        for i, (c, g, f, e) in enumerate(k3_checked)]
     return {r["name"]: r for r in rows}
 
 
@@ -812,7 +898,8 @@ def phase_attn_kernels(dev, g_arx, g_mix):
     for name in ("attn_fwd.bf16", "attn_bwd_src.bf16"):
         rows[name] = with_variants(bf[0][name], [v[name] for v in bf[1:]])
     rows["attn_bwd_grp"]["variants"] += [
-        {k: v["attn_bwd_grp.bf16"][k] for k in VARIANT_KEYS} for v in bf]
+        {k: v["attn_bwd_grp.bf16"][k] for k in VARIANT_KEYS
+         if k in v["attn_bwd_grp.bf16"]} for v in bf]
     return rows
 
 
@@ -966,6 +1053,32 @@ def profile_gat(dev, g, steps=3):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     summarize_profile("gat_profile", "gat_arxiv_train", prof, steps,
+                      wall_ms)
+
+
+def profile_gcn(dev, g, steps=3):
+    """Where the arxiv GCN step's device time goes, as :func:`profile_gat`
+    measures the GAT step: ``torch.profiler`` over ``steps`` Adam steps
+    (128 -> 256 -> 40, lr 1e-2) after two warm-up steps."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch.models import GCN
+    from torch.profiler import ProfilerActivity, profile
+
+    n, classes = g.num_nodes(), 40
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(n, 128, device=dev, generator=gen)
+    labels = torch.randint(0, classes, (n,), device=dev, generator=gen)
+    model = GCN(128, 256, classes, num_layers=2, dropout=0.0, device=dev,
+                generator=torch.Generator().manual_seed(2))
+    dgl.train(g, feat, labels, model, steps=2, lr=1e-2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dgl.train(g, feat, labels, model, steps=steps, lr=1e-2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    summarize_profile("gcn_profile", "gcn_arxiv_train", prof, steps,
                       wall_ms)
 
 
@@ -2304,6 +2417,14 @@ def phase_gcn(name, dev, g, steps, expect):
     return counts
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2321,11 +2442,7 @@ def main():
     t_start = time.perf_counter()
 
     # Phase 1: card and build.
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card_line())
     log(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                     "python": sys.version.split()[0]}))
     phase_build()
@@ -2412,6 +2529,7 @@ def main():
         main_counts += phase_bench_models(dev, model, g_arx,
                                           per_step(steps[path], 5))
     profile_gat(dev, g_arx)
+    profile_gcn(dev, g_arx)
     del g_arx, g_mix
 
     # Phase 4c: R-GCN at the configuration-#4 shape, the slice's main

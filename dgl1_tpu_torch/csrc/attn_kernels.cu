@@ -1487,42 +1487,180 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---------------------------------------------------------------------
-// K8: out[gout[k]] += gerp[gperm[k]] over (128 x H) blocks.
+// K8: out[g] = the sum of gerp[gperm[k]] over the chunks k with
+// gout[k] = g, blocks of (128 x H) floats; zero for a group no chunk
+// reaches.
 //
-// Replaces _ger_reduce_kernel, an in-order sweep over the chunks in
-// gperm order with gfirst init flags. Here the output is zeroed by the
-// wrapper; a thread owns one element of the (128 x H) block and a slice
-// of cps consecutive chunks in gperm order, sums its slice in a register
-// (gout is sorted, so a slice spans few groups) and adds each group's sum
-// with one atomic. Reads are coalesced (consecutive threads, consecutive
-// elements of one partial block).
+// Replaces _ger_reduce_kernel (attention.py:612), an in-order sweep over
+// the chunks in gperm order that adds each partial block to its group's
+// accumulator and flushes it at the next group's gfirst.
 //
 // Bound on the H100: bytes, one read of the partials (21.7 MB at arxiv
-// layer 1: 6.5 us) and one write of the output.
+// layer 1: 6.5 us) and one write of the output. At arxiv every chunk
+// folds into one group, so the fold is a column sum of a 5,292 x 1,024
+// matrix: it has to be split along the chunks and the pieces summed
+// again, without 5,292 / n adds landing on one address.
+//
+// Design: two passes, no atomics and a fixed order of summation, so every
+// run gives the same bits. Pass 1 (ger_part_kernel): n_parts blocks (two
+// an SM, ger_parts), block b over the chunks [b * cpb, (b + 1)
+// * cpb) in gperm order, whose gperm and gout entries it stages in
+// shared memory first (one round of loads). The (128 x H) block is read
+// as float4 columns, W = min(32 H, NT) columns a pass, so at H = 1 a
+// block's 256 threads take 8 chunks at a time (NT / W sub-streams)
+// rather than idling half of them. gout is sorted, so the range splits
+// into group segments where it changes; a thread sums its column over
+// its sub-stream's chunks of a segment in registers, X8_UNROLL 16-byte
+// loads in flight, and the sub-streams are added in shared memory in
+// order. A segment that holds its whole group is written to out; any
+// other to the scratch slot part[b + g], distinct for every (block,
+// group) pair since consecutive ranges share at most one group. Pass 2
+// (ger_fold_kernel): a block per (group, FOLD_W float4 columns) finds the
+// group's chunks by a search of the whole block over gout (NT samples a
+// round), then adds the slots of the blocks whose ranges split the
+// group, in block order (NT / FOLD_W sub-streams, then shared memory),
+// writes zeros for a group no chunk reaches and leaves the groups pass 1
+// wrote. Pass 2 is a programmatic dependent launch, so its launch and its
+// search overlap pass 1.
 // ---------------------------------------------------------------------
-__global__ void __launch_bounds__(NT)
-    ger_reduce_kernel(const int* __restrict__ gperm,
-                      const int* __restrict__ gout, int n_chunks, int cps,
-                      const float* __restrict__ gerp, int h,
-                      float* __restrict__ out) {
-  const int e = blockIdx.x * NT + threadIdx.x;
-  const int blk = BLK * h;
-  if (e >= blk) return;
-  const int k0 = blockIdx.y * cps, k1 = min(n_chunks, k0 + cps);
-  float acc = 0.f;
-  int cur = -1;
-  for (int k = k0; k < k1; ++k) {
-    const int g = gout[k];
-    if (g != cur) {
-      if (cur >= 0 && acc != 0.f)
-        atomicAdd(&out[static_cast<int64_t>(cur) * blk + e], acc);
-      acc = 0.f;
-      cur = g;
-    }
-    acc += gerp[static_cast<int64_t>(gperm[k]) * blk + e];
+constexpr int X8_UNROLL = 8;
+constexpr int FOLD_W = 8;
+// Chunks a pass-1 block takes at most: its gperm and gout entries are
+// staged in shared memory (8 bytes a chunk). ger_parts sizes n_parts so.
+constexpr int GER_CPB_MAX = 4096;
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// First index in [lo, hi) whose gout exceeds g (gout sorted).
+__device__ __forceinline__ int group_end(const int* gout, int lo, int hi,
+                                         int g) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (gout[mid] <= g)
+      lo = mid + 1;
+    else
+      hi = mid;
   }
-  if (cur >= 0 && acc != 0.f)
-    atomicAdd(&out[static_cast<int64_t>(cur) * blk + e], acc);
+  return lo;
+}
+
+// The group's chunks [lo, hi) in the sorted gout[0, n), found by the
+// whole block: each round loads NT samples at once and keeps the slices
+// that hold the two boundaries, so n = 5,292 takes two rounds of loads.
+__device__ int2 block_group_range(const int* __restrict__ gout, int n,
+                                  int g) {
+  int lo0 = 0, hi0 = n, lo1 = 0, hi1 = n;  // ranges of lo and of hi
+  while (hi0 - lo0 > NT || hi1 - lo1 > NT) {
+    const int s0 = max(1, (hi0 - lo0 + NT - 1) / NT);
+    const int s1 = max(1, (hi1 - lo1 + NT - 1) / NT);
+    const int i0 = lo0 + (threadIdx.x + 1) * s0 - 1;
+    const int i1 = lo1 + (threadIdx.x + 1) * s1 - 1;
+    const int v0 = i0 < hi0 ? gout[i0] : 0, v1 = i1 < hi1 ? gout[i1] : 0;
+    const int c0 = __syncthreads_count(i0 < hi0 && v0 < g);
+    const int c1 = __syncthreads_count(i1 < hi1 && v1 <= g);
+    hi0 = min(hi0, lo0 + (c0 + 1) * s0);
+    lo0 += c0 * s0;
+    hi1 = min(hi1, lo1 + (c1 + 1) * s1);
+    lo1 += c1 * s1;
+  }
+  const int i0 = lo0 + threadIdx.x, i1 = lo1 + threadIdx.x;
+  const int v0 = i0 < hi0 ? gout[i0] : 0, v1 = i1 < hi1 ? gout[i1] : 0;
+  const int c0 = __syncthreads_count(i0 < hi0 && v0 < g);
+  const int c1 = __syncthreads_count(i1 < hi1 && v1 <= g);
+  return make_int2(lo0 + c0, lo1 + c1);
+}
+
+__global__ void __launch_bounds__(NT)
+    ger_part_kernel(const int* __restrict__ gperm,
+                    const int* __restrict__ gout, int n_chunks, int cpb,
+                    int n_groups, const float4* __restrict__ gerp, int blk4,
+                    float4* __restrict__ part, float4* __restrict__ out) {
+  extern __shared__ int stage[];  // gperm[k0, k1), then gout[k0 - 1, k1]
+  __shared__ float4 sh[NT];
+  // Pass 2 may start now: it searches gout, then waits for this grid.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  const int b = blockIdx.x;
+  const int k0 = b * cpb, nk = min(n_chunks, k0 + cpb) - k0;
+  int* perm_s = stage;
+  int* gout_s = stage + cpb + 1;  // gout_s[i] = gout[k0 + i], -1 off the ends
+  for (int i = threadIdx.x; i < nk; i += NT) perm_s[i] = gperm[k0 + i];
+  for (int i = static_cast<int>(threadIdx.x) - 1; i <= nk; i += NT)
+    gout_s[i] = k0 + i >= 0 && k0 + i < n_chunks ? gout[k0 + i] : -1;
+  __syncthreads();
+  const int w = min(blk4, NT), n_sub = NT / w;
+  const int sub = threadIdx.x / w, col = threadIdx.x % w;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int cbase = 0; cbase < blk4; cbase += w) {
+    const int c = cbase + col;
+    const bool live = sub < n_sub && c < blk4;
+    for (int ks = 0; ks < nk;) {
+      const int g = gout_s[ks];
+      const int ke = group_end(gout_s, ks, nk, g);
+      float4 acc = zero;
+      if (live) {
+        for (int k = ks + sub; k < ke; k += X8_UNROLL * n_sub) {
+          float4 v[X8_UNROLL];
+#pragma unroll
+          for (int u = 0; u < X8_UNROLL; ++u) {
+            const int kk = k + u * n_sub;
+            v[u] = kk < ke ? gerp[static_cast<size_t>(perm_s[kk]) * blk4 + c]
+                           : zero;
+          }
+#pragma unroll
+          for (int u = 0; u < X8_UNROLL; ++u) acc = add4(acc, v[u]);
+        }
+      }
+      const bool whole = gout_s[ks - 1] != g && gout_s[ke] != g;
+      float4* dst = whole ? out + static_cast<size_t>(g) * blk4
+                          : part + static_cast<size_t>(b + g) * blk4;
+      const bool valid = g >= 0 && g < n_groups;
+      if (n_sub == 1) {
+        if (live && valid) dst[c] = acc;
+      } else {
+        sh[threadIdx.x] = acc;
+        __syncthreads();
+        if (sub == 0 && c < blk4 && valid) {
+          float4 r = sh[col];
+          for (int q = 1; q < n_sub; ++q) r = add4(r, sh[q * w + col]);
+          dst[c] = r;
+        }
+        __syncthreads();
+      }
+      ks = ke;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+    ger_fold_kernel(const int* __restrict__ gout, int n_chunks, int cpb,
+                    int blk4, const float4* __restrict__ part,
+                    float4* __restrict__ out) {
+  __shared__ float4 sh[NT];
+  constexpr int n_sub = NT / FOLD_W;
+  const int g = blockIdx.y;
+  const int col = threadIdx.x % FOLD_W, sub = threadIdx.x / FOLD_W;
+  const int c = blockIdx.x * FOLD_W + col;
+  // The group's chunks [lo, hi) and the pass-1 blocks b0..b1 over them.
+  const int2 r = block_group_range(gout, n_chunks, g);
+  const int lo = r.x, hi = r.y;
+  const int b0 = lo / cpb, b1 = hi > lo ? (hi - 1) / cpb : b0 - 1;
+  if (b0 == b1) return;  // one block held the whole group and wrote it
+  // Pass 1 (the grid launched before this one) has finished and its
+  // slots are visible.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c < blk4)
+    for (int b = b0 + sub; b <= b1; b += n_sub)
+      acc = add4(acc, part[static_cast<size_t>(b + g) * blk4 + c]);
+  sh[threadIdx.x] = acc;
+  __syncthreads();
+  if (sub == 0 && c < blk4) {
+    float4 r = sh[col];
+    for (int q = 1; q < n_sub; ++q) r = add4(r, sh[q * FOLD_W + col]);
+    out[static_cast<size_t>(g) * blk4 + c] = r;
+  }
 }
 
 int g_num_sms = 0;
@@ -1535,6 +1673,15 @@ int num_sms() {
     if (g_num_sms <= 0) g_num_sms = 132;
   }
   return g_num_sms;
+}
+
+// K8's pass-1 blocks: two an SM, more where a block would stage more than
+// GER_CPB_MAX chunks, never more than the chunks.
+int ger_parts(int n_chunks) {
+  int n = (n_chunks + GER_CPB_MAX - 1) / GER_CPB_MAX;
+  if (n < 2 * num_sms()) n = 2 * num_sms();
+  if (n > n_chunks) n = n_chunks;
+  return n < 1 ? 1 : n;
 }
 
 template <typename K>
@@ -1802,17 +1949,49 @@ int attn_bwd_grp(const int* a, const int* b, const int* eid, const int* in_id,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `out` (n_groups*128, h) must be zeroed.
+// K8's scratch in floats: a (128 x h) slot for each pass-1 block and each
+// group (see ger_part_kernel).
+long long attn_ger_scratch(int n_chunks, int n_groups, int h) {
+  return (static_cast<long long>(ger_parts(n_chunks)) + n_groups) * BLK * h;
+}
+
+// gerp (n_chunks*128, h) and out (n_groups*128, h) on 16-byte boundaries;
+// part: attn_ger_scratch's floats. Every element of out is written.
 int attn_ger_reduce(const int* gperm, const int* gout, int n_chunks,
-                    const float* gerp, int h, float* out, void* stream) {
+                    int n_groups, const float* gerp, int h, float* part,
+                    float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blk = BLK * h;
-  if (n_chunks > 0 && blk > 0) {
-    const int cps = 16;
-    dim3 grid((blk + NT - 1) / NT, (n_chunks + cps - 1) / cps);
-    ger_reduce_kernel<<<grid, NT, 0, s>>>(gperm, gout, n_chunks, cps, gerp, h,
-                                          out);
-  }
+  const int blk4 = 32 * h;
+  if (n_groups <= 0 || blk4 <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_parts = ger_parts(n_chunks);
+  const int cpb = n_chunks > 0 ? (n_chunks + n_parts - 1) / n_parts : 1;
+  const float4* g4 = reinterpret_cast<const float4*>(gerp);
+  float4* p4 = reinterpret_cast<float4*>(part);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  if (n_chunks > 0)
+    ger_part_kernel<<<(n_chunks + cpb - 1) / cpb, NT,
+                      sizeof(int) * (2 * static_cast<size_t>(cpb) + 2), s>>>(
+        gperm, gout, n_chunks, cpb, n_groups, g4, blk4, p4, o4);
+  // Pass 2 as a programmatic dependent launch: its blocks start while
+  // pass 1 runs (pass 1 lets them at once) and wait for it only after
+  // their search of gout, which hides the launch gap and the search.
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((blk4 + FOLD_W - 1) / FOLD_W, n_groups);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ger_fold_kernel, static_cast<const int*>(gout),
+                         n_chunks, cpb, blk4,
+                         static_cast<const float4*>(p4), o4);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -292,46 +292,162 @@ __global__ void __launch_bounds__(RW_THREADS)
 // ---------------------------------------------------------------------
 // K3: out[v] = merged[t_inv[v]], zero rows elsewhere, from descriptors
 // p = (v % EXPAND_RB) * EXPAND_PACK + merged_row with per-block
-// [starts[rb], starts[rb + 1]).
+// [starts[rb], starts[rb + 1]). With the diagonal epilogue, each row
+// v < n_diag also gets the extracted self-loop edges' share,
+//   + diag_w[v, j / rep] * diag_u[v, j]   (EPI == 2: copy_lhs, u_mul_e)
+//   + diag_w[v, j / rep]                  (EPI == 1: copy_e)
+// for column j < f = he * rep, rounded as torch rounds w * u, then +.
 //
-// Replaces _expand_kernel, which zero-fills an output block and then
-// copies its rows one descriptor at a time out of VMEM. Here a block
-// first maps each of its EXPAND_RB rows to a source row in shared memory
-// (descriptors name each row at most once), then writes every output row
-// exactly once: a copy or zeros. No atomics.
+// Replaces _expand_kernel (engine_hub.py:303), which zero-fills an output
+// block and then copies its rows one descriptor at a time out of VMEM;
+// the epilogue replaces the glue's two passes after it (the product, then
+// the add), each a full read and write of the output.
 //
-// Bound on the H100: memory, one write of num_dst x f floats plus one
-// read of the rows that exist.
+// Bound on the H100: bytes. At arxiv the merged block holds 2,052 of
+// 169,343 rows, so K3 is a write pass: num_dst x f floats written once,
+// the rows that exist read once, and with the epilogue diag_u's rows and
+// diag_w read once.
+//
+// Design: a write-rate design. A block owns X_ROWS = 128 output rows (a
+// quarter of a descriptor block) at a time, and the grid holds as many
+// blocks as the SMs run at once, each walking tiles grid-stride. A block
+// maps its rows to source rows in shared memory from its descriptor block
+// (descriptors name each row at most once), then stores the tile, whose
+// rows are one contiguous run of n_rows * f floats, 16 bytes a thread,
+// consecutive threads on consecutive addresses and X_UNROLL pieces in
+// flight a thread: at F <= 64 a warp covers two or more rows, wider rows
+// split across lanes. Where rows are a multiple of 4 floats the stores
+// are streaming (st.global.cs: at arxiv and F = 128 the output, 86.7 MB,
+// is larger than L2). Each 16-byte piece's first float maps
+// to (row, column) by an incremental divide. Where rows are a multiple of
+// 4 floats and merged and diag_u start on 16-byte boundaries (VEC), a
+// piece is four columns of one row and its loads are 16 bytes too; else
+// (rows of 1, 3, 37 floats: the tail path) each float finds its row and
+// is loaded alone, and the stores stay 16 bytes: out starts on a 16-byte
+// boundary (the wrapper allocates it) and so does every tile (X_ROWS * f
+// * 4 bytes), and a run that is not a multiple of 4 floats ends in scalar
+// stores. Each output element is written exactly once, with no atomics,
+// so out may come from torch.empty.
 // ---------------------------------------------------------------------
+constexpr int X_ROWS = 128;
+constexpr int X_UNROLL = 4;
+
+// One float of K3's output: row v, column j, source row m (or -1).
+template <int EPI>
+__device__ __forceinline__ float expand_value(
+    const float* __restrict__ merged, int m, int v, int j, int f,
+    const float* __restrict__ diag_w, int he, int rep,
+    const float* __restrict__ diag_u, int n_diag) {
+  float x = m >= 0 ? merged[static_cast<size_t>(m) * f + j] : 0.f;
+  if (EPI > 0 && v < n_diag) {
+    const float w =
+        diag_w[static_cast<size_t>(v) * he + (he == 1 ? 0 : j / rep)];
+    x = __fadd_rn(
+        x, EPI == 2 ? __fmul_rn(w, diag_u[static_cast<size_t>(v) * f + j])
+                    : w);
+  }
+  return x;
+}
+
+template <int EPI, bool VEC>
 __global__ void __launch_bounds__(NT)
     expand_kernel(const int* __restrict__ starts,
                   const int* __restrict__ desc,
                   const float* __restrict__ merged, int m_rows,
-                  float* __restrict__ out, int num_dst, int f) {
-  __shared__ int src_row[EXPAND_RB];
-  const int rb = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = NT / 32;
-  for (int i = threadIdx.x; i < EXPAND_RB; i += NT) src_row[i] = -1;
-  __syncthreads();
-  const int s = starts[rb], e = starts[rb + 1];
-  for (int i = s + threadIdx.x; i < e; i += NT) {
-    const int p = desc[i];
-    const int r = p / EXPAND_PACK;
-    src_row[r] = p - r * EXPAND_PACK;
-  }
-  __syncthreads();
-  const int row0 = rb * EXPAND_RB;
-  const int n_rows = min(EXPAND_RB, num_dst - row0);
-  for (int r = warp; r < n_rows; r += n_warps) {
-    const int m = src_row[r];
-    float* dst = out + static_cast<size_t>(row0 + r) * f;
-    if (m >= 0 && m < m_rows) {
-      const float* src = merged + static_cast<size_t>(m) * f;
-      for (int j = lane; j < f; j += 32) dst[j] = src[j];
-    } else {
-      for (int j = lane; j < f; j += 32) dst[j] = 0.f;
+                  float* __restrict__ out, int num_dst, int f,
+                  const float* __restrict__ diag_w, int he, int rep,
+                  const float* __restrict__ diag_u, int n_diag) {
+  __shared__ int src_row[X_ROWS];
+  const int n_tiles = (num_dst + X_ROWS - 1) / X_ROWS;
+  // A thread's pieces are NT apart: 4 * NT floats, dr rows and dj columns.
+  const int dr = 4 * NT / f, dj = 4 * NT - dr * f;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * X_ROWS;
+    const int rb = row0 / EXPAND_RB, lo = row0 - rb * EXPAND_RB;
+    if (threadIdx.x < X_ROWS) src_row[threadIdx.x] = -1;
+    __syncthreads();
+    const int s = starts[rb], e = starts[rb + 1];
+    for (int i = s + threadIdx.x; i < e; i += NT) {
+      const int p = desc[i];
+      const int r = p / EXPAND_PACK - lo;
+      const int m = p % EXPAND_PACK;
+      if (r >= 0 && r < X_ROWS) src_row[r] = m < m_rows ? m : -1;
     }
+    __syncthreads();
+    const int n_rows = min(X_ROWS, num_dst - row0);
+    const int n_el = n_rows * f, n_pc = n_el / 4;
+    float* o = out + static_cast<size_t>(row0) * f;
+    int r = 4 * threadIdx.x / f, j = 4 * threadIdx.x - r * f;
+    for (int k = threadIdx.x; k < n_pc; k += X_UNROLL * NT) {
+      float4 val[X_UNROLL];
+#pragma unroll
+      for (int u = 0; u < X_UNROLL; ++u) {
+        if (k + u * NT < n_pc) {
+          if (VEC) {
+            const int m = src_row[r], v = row0 + r;
+            float4 x = m >= 0 ? *reinterpret_cast<const float4*>(
+                                    merged + static_cast<size_t>(m) * f + j)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+            if (EPI > 0 && v < n_diag) {
+              const float* w = diag_w + static_cast<size_t>(v) * he;
+              float4 wv;
+              if (he == 1) {
+                wv = make_float4(w[0], w[0], w[0], w[0]);
+              } else {
+                wv = make_float4(w[j / rep], w[(j + 1) / rep],
+                                 w[(j + 2) / rep], w[(j + 3) / rep]);
+              }
+              if (EPI == 2) {
+                const float4 uv = *reinterpret_cast<const float4*>(
+                    diag_u + static_cast<size_t>(v) * f + j);
+                wv = make_float4(__fmul_rn(wv.x, uv.x), __fmul_rn(wv.y, uv.y),
+                                 __fmul_rn(wv.z, uv.z), __fmul_rn(wv.w, uv.w));
+              }
+              x = make_float4(__fadd_rn(x.x, wv.x), __fadd_rn(x.y, wv.y),
+                              __fadd_rn(x.z, wv.z), __fadd_rn(x.w, wv.w));
+            }
+            val[u] = x;
+          } else {
+            float x[4];
+            int rr = r, jj = j;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              x[c] = expand_value<EPI>(merged, src_row[rr], row0 + rr, jj, f,
+                                       diag_w, he, rep, diag_u, n_diag);
+              if (++jj == f) {
+                jj = 0;
+                ++rr;
+              }
+            }
+            val[u] = make_float4(x[0], x[1], x[2], x[3]);
+          }
+        }
+        r += dr;
+        j += dj;
+        if (j >= f) {
+          j -= f;
+          ++r;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < X_UNROLL; ++u) {
+        if (k + u * NT >= n_pc) continue;
+        float4* dst = reinterpret_cast<float4*>(o) + k + u * NT;
+        if (VEC)
+          __stcs(dst, val[u]);  // streaming: no reuse from L2
+        else
+          *dst = val[u];
+      }
+    }
+    // The last n_el % 4 floats of the run (rows that are not a multiple
+    // of 4 floats only).
+    const int tail = n_pc * 4 + threadIdx.x;
+    if (tail < n_el) {
+      const int rr = tail / f, jj = tail - rr * f;
+      o[tail] = expand_value<EPI>(merged, src_row[rr], row0 + rr, jj, f,
+                                  diag_w, he, rep, diag_u, n_diag);
+    }
+    __syncthreads();  // src_row is rewritten for the next tile
   }
 }
 
@@ -1811,6 +1927,42 @@ int dense_bwd_by_type(const void* c, int c_dtype, const float* ct, float* out,
   }
 }
 
+template <int EPI, bool VEC>
+cudaError_t launch_expand(const int* starts, const int* desc,
+                          const float* merged, int m_rows, float* out,
+                          int num_dst, int f, const float* diag_w, int he,
+                          int rep, const float* diag_u, int n_diag,
+                          cudaStream_t s) {
+  static int per_sm = 0;
+  auto kern = expand_kernel<EPI, VEC>;
+  if (per_sm == 0) {
+    cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, 0);
+    if (e != cudaSuccess) return e;
+    if (per_sm <= 0) per_sm = 1;
+  }
+  const int n_tiles = (num_dst + X_ROWS - 1) / X_ROWS;
+  const int grid = n_tiles < per_sm * num_sms() ? n_tiles
+                                                : per_sm * num_sms();
+  kern<<<grid, NT, 0, s>>>(starts, desc, merged, m_rows, out, num_dst, f,
+                           diag_w, he, rep, diag_u, n_diag);
+  return cudaGetLastError();
+}
+
+template <int EPI>
+cudaError_t expand_by_vec(bool vec, const int* starts, const int* desc,
+                          const float* merged, int m_rows, float* out,
+                          int num_dst, int f, const float* diag_w, int he,
+                          int rep, const float* diag_u, int n_diag,
+                          cudaStream_t s) {
+  return vec ? launch_expand<EPI, true>(starts, desc, merged, m_rows, out,
+                                        num_dst, f, diag_w, he, rep, diag_u,
+                                        n_diag, s)
+             : launch_expand<EPI, false>(starts, desc, merged, m_rows, out,
+                                         num_dst, f, diag_w, he, rep, diag_u,
+                                         n_diag, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1860,14 +2012,31 @@ int hub_chunk_sum(const int* a, const int* b, const int* in_id,
                                            f, s);
 }
 
+// diag_w: null (no epilogue) or n_diag x he floats, f = he * rep;
+// diag_u: null (EPI 1) or at least n_diag rows of f floats (EPI 2). out
+// must start on a 16-byte boundary.
 int hub_expand(const int* starts, const int* desc, const float* merged,
-               int m_rows, float* out, int num_dst, int f, void* stream) {
-  const int n_rb = (num_dst + EXPAND_RB - 1) / EXPAND_RB;
-  if (n_rb > 0) {
-    expand_kernel<<<n_rb, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-        starts, desc, merged, m_rows, out, num_dst, f);
-  }
-  return static_cast<int>(cudaGetLastError());
+               int m_rows, float* out, int num_dst, int f,
+               const float* diag_w, int he, int rep, const float* diag_u,
+               int n_diag, void* stream) {
+  if (num_dst <= 0 || f <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = f % 4 == 0 && aligned(merged) &&
+                   (diag_u == nullptr || aligned(diag_u));
+  cudaError_t e;
+  if (diag_w == nullptr)
+    e = expand_by_vec<0>(vec, starts, desc, merged, m_rows, out, num_dst, f,
+                         nullptr, 1, f, nullptr, 0, s);
+  else if (diag_u == nullptr)
+    e = expand_by_vec<1>(vec, starts, desc, merged, m_rows, out, num_dst, f,
+                         diag_w, he, rep, nullptr, n_diag, s);
+  else
+    e = expand_by_vec<2>(vec, starts, desc, merged, m_rows, out, num_dst, f,
+                         diag_w, he, rep, diag_u, n_diag, s);
+  return static_cast<int>(e);
 }
 
 // mode: 0 = mul (in has n_in_rows rows of f = he * rep floats, ld floats

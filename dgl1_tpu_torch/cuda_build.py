@@ -47,7 +47,9 @@ _SIGNATURES = {
         "attn_bwd_grp": [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                          _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                          _f, _ptr, _c_int, _f, _c_int, _ptr, _ptr],
-        "attn_ger_reduce": [_ptr, _ptr, _c_int, _ptr, _c_int, _ptr, _ptr],
+        "attn_ger_scratch": [_c_int] * 3,
+        "attn_ger_reduce": [_ptr, _ptr, _c_int, _c_int, _ptr, _c_int, _ptr,
+                            _ptr, _ptr],
     },
     "hub_kernels": {
         "hub_dense_fwd": [_ptr, _c_int, _ptr, _ptr, _c_int, _c_int, _c_int,
@@ -56,8 +58,8 @@ _SIGNATURES = {
                           _ptr, _ptr, _ptr, _c_int, _ptr],
         "hub_chunk_sum": [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int, _ptr,
                           _c_int, _c_int, _ptr, _c_int, _c_int, _c_int, _ptr],
-        "hub_expand": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _c_int,
-                       _ptr],
+        "hub_expand": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _c_int, _ptr,
+                       _c_int, _c_int, _ptr, _c_int, _ptr],
         "hub_chunk_weighted": [_c_int, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
                                _c_int, _ptr, _c_int, _c_int, _c_int, _ptr,
                                _c_int, _c_int, _ptr, _c_int, _c_int, _c_int,
@@ -79,7 +81,8 @@ _SIGNATURES = {
 }
 
 # Entries that return other than an int error code.
-_RESTYPES = {"attn_fwd_scratch": ctypes.c_longlong}
+_RESTYPES = {"attn_fwd_scratch": ctypes.c_longlong,
+             "attn_ger_scratch": ctypes.c_longlong}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds, nvcc output) of builds made by this process.

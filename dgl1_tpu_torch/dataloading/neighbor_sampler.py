@@ -24,13 +24,21 @@ class NeighborSampler:
     without replacement with a positive fanout on a homogeneous graph.
     Edge exclusion, ``prob``, ``replace``, full neighborhoods (a negative
     fanout) and heterographs need the numpy sampler and ``to_block``,
-    which are not ported yet, and raise NotImplementedError."""
+    which are not ported yet, and raise NotImplementedError.
+    ``static_shapes`` is the reference's argument with its default, True:
+    every block is padded to its static bound. False (unpadded blocks)
+    is the numpy sampler's path and raises NotImplementedError."""
 
     def __init__(self, fanouts: Sequence[int], replace: bool = False,
-                 prob: Optional[str] = None):
+                 prob: Optional[str] = None, static_shapes: bool = True):
         self.fanouts = list(fanouts)
         self.replace = replace
         self.prob = prob
+        self.static_shapes = static_shapes
+        if not static_shapes:
+            raise NotImplementedError(
+                "static_shapes=False needs the numpy sampler, which is not "
+                "ported yet")
         if any(int(f) <= 0 for f in self.fanouts):
             raise NotImplementedError(
                 "full-neighborhood (negative) fanouts need the numpy "

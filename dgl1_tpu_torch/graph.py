@@ -616,16 +616,24 @@ def _build_tiles(target_sorted: np.ndarray, gather_sorted: np.ndarray,
                 gather=gather, eid=eid_out, block_mask=cnt > 0)
 
 
-def graph(data: Tuple, num_nodes: Optional[int] = None, hub=None,
+def graph(data: Tuple, num_nodes: Optional[int] = None,
+          pad_edges_to: Optional[int] = None,
+          pad_edges_multiple: Optional[int] = None,
+          device_arrays: bool = False, hub=None,
           hub_dense_floor: Optional[int] = None,
-          formats: Optional[Tuple[str, ...]] = None,
-          pad_edges_to: Optional[int] = None, device=None) -> Graph:
+          formats: Optional[Tuple[str, ...]] = None, *,
+          device=None) -> Graph:
     """Homogeneous graph from an edge list ``(src, dst)`` (numpy arrays or
     tensors), built on the host and placed on ``device`` (default
-    ``cuda``). ``formats`` restricts the layouts built (see
-    :func:`_build_formats`); ``("csc",)`` is the sampling-only parent.
-    ``pad_edges_to`` pads the edge arrays to that length with masked
-    edges (``edge_mask``), as the reference's ``graph(pad_edges_to=)``."""
+    ``cuda``). The positional order is the reference's. ``formats``
+    restricts the layouts built (see :func:`_build_formats`);
+    ``("csc",)`` is the sampling-only parent. ``pad_edges_to`` pads the
+    edge arrays to that length with masked edges (``edge_mask``), or else
+    ``pad_edges_multiple`` to the next multiple of it (at least one), as
+    the reference's ``graph(pad_edges_to=, pad_edges_multiple=)``.
+    ``device_arrays`` is accepted for the reference's signature: the
+    port's arrays always live on ``device``."""
+    del device_arrays
     dev = resolve_device(device)
     src, dst = data
     src = _as_numpy_ids(src)
@@ -640,11 +648,17 @@ def graph(data: Tuple, num_nodes: Optional[int] = None, hub=None,
         raise ValueError("edge endpoint out of range")
     if isinstance(formats, str):
         formats = (formats,)
-    if pad_edges_to is not None and pad_edges_to < num_edges:
-        raise ValueError("pad_edges_to < num_edges")
+    num_padded = num_edges
+    if pad_edges_to is not None:
+        if pad_edges_to < num_edges:
+            raise ValueError("pad_edges_to < num_edges")
+        num_padded = int(pad_edges_to)
+    elif pad_edges_multiple:
+        m = int(pad_edges_multiple)
+        num_padded = max(-(-num_edges // m) * m, m)
     arrays = _build_formats(src, dst, num_nodes, num_nodes, num_edges,
                             hub=hub, hub_dense_floor=hub_dense_floor,
-                            formats=formats, num_padded=pad_edges_to)
+                            formats=formats, num_padded=num_padded)
     return Graph(**arrays, num_src_nodes=num_nodes, num_dst_nodes=num_nodes,
                  num_edges=num_edges, device=dev)
 

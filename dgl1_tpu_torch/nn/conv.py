@@ -267,7 +267,8 @@ class SAGEConv(nn.Module):
     ``mean``: ``fc_self(h_dst) + fc_neigh(mean of h_src over in-edges)``;
     ``gcn``: ``fc_neigh((sum + h_dst) / (in_degree + 1))``; ``pool``:
     ``fc_self(h_dst) + fc_neigh(max of relu(fc_pool(h_src)))``. The bias is
-    a parameter of its own. On a block, ``h_dst`` is the first
+    a parameter of its own; ``norm``, a callable, is applied last, after
+    the activation, as in the reference. On a block, ``h_dst`` is the first
     ``num_dst_nodes`` rows of ``h_src`` (dst nodes come first on the src
     side). Parameters ``fc_self.weight``, ``fc_neigh.weight`` (out, in),
     ``fc_pool.weight`` (in, in) with ``fc_pool.bias``, and ``bias`` (out,):
@@ -277,7 +278,8 @@ class SAGEConv(nn.Module):
 
     def __init__(self, in_feats: int, out_feats: int,
                  aggregator_type: str = "mean", feat_drop: float = 0.0,
-                 bias: bool = True, activation: Optional[Callable] = None,
+                 bias: bool = True, norm: Optional[Callable] = None,
+                 activation: Optional[Callable] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if aggregator_type == "lstm":
@@ -288,6 +290,7 @@ class SAGEConv(nn.Module):
         dev = resolve_device(device)
         self.aggregator_type = aggregator_type
         self.feat_drop = feat_drop
+        self.norm = norm
         self.activation = activation
         self.fc_pool = (nn.Linear(in_feats, in_feats, device=dev)
                         if aggregator_type == "pool" else None)
@@ -336,6 +339,8 @@ class SAGEConv(nn.Module):
             rst = rst + self.bias
         if self.activation is not None:
             rst = self.activation(rst)
+        if self.norm is not None:
+            rst = self.norm(rst)
         return rst
 
 

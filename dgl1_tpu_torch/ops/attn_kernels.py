@@ -523,9 +523,11 @@ def attn_bwd_grp(lay, el, er_g, lse_g, rho_g, ft, ct_g, h: int, d: int,
 
 def ger_reduce(lay, gerp, n_groups: int):
     """K8. ``lay``: the backward layout's gperm/gout (int32, one entry per
-    chunk); ``gerp`` (n_chunks*128, h) float32. Returns (n_groups*128, h);
-    groups no chunk reaches are zero (the reference leaves them
-    unspecified)."""
+    chunk, gout sorted); ``gerp`` (n_chunks*128, h) float32. Returns
+    (n_groups*128, h); groups no chunk reaches are zero (the reference
+    leaves them unspecified). On the card the kernel reads ``gerp`` 16
+    bytes at a time (a ``gerp`` off a 16-byte boundary is copied once) and
+    writes every output element, summing in a fixed order."""
     dev = gerp.device
     _int32("gperm", lay["gperm"], dev)
     _int32("gout", lay["gout"], dev)
@@ -536,11 +538,21 @@ def ger_reduce(lay, gerp, n_groups: int):
     if dev.type == "cpu":
         return ger_reduce_torch(lay, gerp, n_groups)
     h = gerp.shape[1]
-    out = torch.zeros((n_groups * BLK, h), dtype=torch.float32, device=dev)
+    if n_groups == 0 or h == 0:
+        return gerp.new_empty((n_groups * BLK, h))
+    if gerp.data_ptr() % 16:
+        gerp = gerp.clone()
+    n_out = n_groups * BLK * h
     with torch.cuda.device(dev):
-        rc = _lib().attn_ger_reduce(lay["gperm"].data_ptr(),
-                                    lay["gout"].data_ptr(), n_chunks,
-                                    gerp.data_ptr(), h, out.data_ptr(),
-                                    _stream(dev))
+        lib = _lib()
+        # The output, then the scratch slots, in one allocation.
+        buf = torch.empty((n_out + lib.attn_ger_scratch(n_chunks, n_groups,
+                                                        h),),
+                          dtype=torch.float32, device=dev)
+        out, part = buf[:n_out].view(n_groups * BLK, h), buf[n_out:]
+        rc = lib.attn_ger_reduce(lay["gperm"].data_ptr(),
+                                 lay["gout"].data_ptr(), n_chunks, n_groups,
+                                 gerp.data_ptr(), h, part.data_ptr(),
+                                 out.data_ptr(), _stream(dev))
     _done("ger_reduce", rc)
     return out

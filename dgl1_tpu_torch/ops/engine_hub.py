@@ -23,7 +23,8 @@ weights are a scalar per edge or one per head, ``(H, 1, ...)`` against
 The forward merges ``[tail stack | hub block]`` back to destination order
 by the identity concat (hub-relabeled graphs), the descriptor expand (K3)
 or a fill-gather through ``t_inv``, under the reference's gates, and adds
-the extracted self-loop diagonal. The kernels live in ``hub_kernels.py``:
+the extracted self-loop diagonal: K3 adds it in its output pass, the
+other two merges in torch. The kernels live in ``hub_kernels.py``:
 on CPU tensors they run their plain torch versions. They compute in
 float32 with float32 accumulation; under the bf16 matmul mode
 (``ops/precision.py``, read when the forward runs and kept for its
@@ -119,6 +120,16 @@ def _diag_term(g: Graph, op, u2, e2, he: int, rep: int):
     return (u2[:nd].reshape(nd, he, rep) * ed[:, :, None]).reshape(nd, -1)
 
 
+def _diag_operands(g: Graph, op, u2, e2):
+    """(diag_w, diag_u) of K3's epilogue: the same term as
+    :func:`_diag_term`, weight (num_dst, he) times u2's rows (copy_lhs,
+    mul) or the weight alone (copy_rhs)."""
+    if op == "copy_lhs":
+        return g.hub_dst["diag"][:, None], u2
+    ed = _diag_weight(g, e2)
+    return (ed, None) if op == "copy_rhs" else (ed, u2)
+
+
 def _hub_forward(g: Graph, op, u2, e2, he: int, rep: int, bf16: bool):
     """(num_dst, width) sum over in-edges of copy_lhs (width f of u2),
     u_mul_e (f = he*rep) or copy_e (he); u2 (num_src, f) and e2 (E, he)
@@ -138,9 +149,11 @@ def _hub_forward(g: Graph, op, u2, e2, he: int, rep: int, bf16: bool):
     else:
         merged = torch.cat([stacked, hub_block], dim=0)
         if _use_expand(m, hub, merged.shape[0]):
-            out = K.expand(merged, hub["x_starts"], hub["x_desc"], num_dst)
-        else:
-            out = take_fill(merged, hub["t_inv"])
+            # K3 adds the diagonal in its output pass.
+            diag = _diag_operands(g, op, u2, e2) if m.has_diag else ()
+            return K.expand(merged, hub["x_starts"], hub["x_desc"], num_dst,
+                            *diag)
+        out = take_fill(merged, hub["t_inv"])
     if m.has_diag:
         out = out + _diag_term(g, op, u2, e2, he, rep)
     return out

@@ -155,14 +155,32 @@ def _decode(starts, desc, rows_per_block: int):
     return block * rows_per_block + local, d - local * EXPAND_PACK
 
 
-def expand_torch(merged, x_starts, x_desc, num_dst: int):
+def expand_torch(merged, x_starts, x_desc, num_dst: int, diag_w=None,
+                 diag_u=None):
     """K3: out[v] = merged[t_inv[v]] through the packed descriptors, zero
-    rows elsewhere; (num_dst, f)."""
+    rows elsewhere; (num_dst, f). With ``diag_w`` (n, he), the diagonal
+    epilogue on the first n rows: plus ``diag_w[v, j // rep] *
+    diag_u[v, j]`` (rep = f // he), or ``diag_w[v, j // rep]`` without
+    ``diag_u``: the engine's extracted self-loop term, rounded as the
+    engine rounded it (product, then sum)."""
     n_rb = -(-num_dst // EXPAND_RB)
     rows, src = _decode(x_starts[: n_rb + 1], x_desc, EXPAND_RB)
     out = merged.new_zeros((num_dst, merged.shape[1]))
     out[rows] = merged.index_select(0, src)
+    if diag_w is not None:
+        out[: diag_w.shape[0]] += _diag_share(diag_w, diag_u,
+                                              merged.shape[1])
     return out
+
+
+def _diag_share(diag_w, diag_u, f: int):
+    """(n, f): ``diag_w`` (n, he) spread over rep = f // he columns a
+    head, times ``diag_u[:n]`` where given."""
+    n, he = diag_w.shape
+    if diag_u is None:
+        return diag_w.repeat_interleave(f // he, dim=1)
+    return (diag_u[:n].reshape(n, he, f // he)
+            * diag_w[:, :, None]).reshape(n, f)
 
 
 def dense_bwd_torch(c, ct, n_out=None, bf16: bool = False):
@@ -303,25 +321,49 @@ def chunk_sum(lay, inp, n_out_blocks: int, bf16: bool = False):
     return out
 
 
-def expand(merged, x_starts, x_desc, num_dst: int):
+def expand(merged, x_starts, x_desc, num_dst: int, diag_w=None,
+           diag_u=None):
     """K3. ``merged``: (m, f) f32; packed descriptors as
-    ``hub_format.build_hub_format`` emits them. Returns (num_dst, f) f32."""
+    ``hub_format.build_hub_format`` emits them. Returns (num_dst, f) f32.
+    ``diag_w`` (n <= num_dst, he) f32 with he dividing f, and optionally
+    ``diag_u`` (>= n, f) f32: the diagonal epilogue of
+    :func:`expand_torch`, added in the kernel's output pass. On the card
+    rows that are not a multiple of 4 floats, or operands off a 16-byte
+    boundary, take the kernel's scalar-load path."""
     dev = merged.device
     _f32("merged", merged, dev)
     _int32("x_starts", x_starts, dev)
     _int32("x_desc", x_desc, dev)
     if x_starts.shape[0] < -(-num_dst // EXPAND_RB) + 1:
         raise ValueError("x_starts is shorter than the output blocks")
-    if dev.type == "cpu":
-        return expand_torch(merged, x_starts, x_desc, num_dst)
     f = merged.shape[1]
+    n_diag = he = 0
+    if diag_w is not None:
+        _f32("diag_w", diag_w, dev)
+        n_diag, he = diag_w.shape
+        if n_diag > num_dst or he == 0 or f % he:
+            raise ValueError("diag_w must be (n <= num_dst, he) with he "
+                             "dividing the row width")
+        if diag_u is not None:
+            _f32("diag_u", diag_u, dev)
+            if diag_u.shape[1] != f or diag_u.shape[0] < n_diag:
+                raise ValueError("diag_u must have the output's width and "
+                                 "at least diag_w's rows")
+    elif diag_u is not None:
+        raise ValueError("diag_u needs diag_w")
+    if dev.type == "cpu":
+        return expand_torch(merged, x_starts, x_desc, num_dst, diag_w,
+                            diag_u)
     out = torch.empty((num_dst, f), dtype=torch.float32, device=dev)
     if num_dst == 0 or f == 0:
         return out
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         rc = _lib().hub_expand(x_starts.data_ptr(), x_desc.data_ptr(),
                                merged.data_ptr(), merged.shape[0],
-                               out.data_ptr(), num_dst, f, _stream(dev))
+                               out.data_ptr(), num_dst, f, ptr(diag_w),
+                               max(he, 1), f // max(he, 1), ptr(diag_u),
+                               n_diag, _stream(dev))
     _done("expand", rc)
     return out
 

@@ -1317,3 +1317,118 @@ def test_edge_grad_mul_staged_walk_edges(dev, kind, he, rep):
                         K.edge_grad(*args), want, scale)
         else:
             _sum_close(f"edge_grad_mul {kind}", got.double(), want, scale)
+
+
+def _expand_inputs(dev, g, f, epilogue, seed=0):
+    """Merged rows and the epilogue operands of K3 at width f: "u" a weight
+    a row times u's row, "w" f weights a row alone, "heads" 3 weights a row
+    spread over f / 3 columns each, times u's row."""
+    hub, m, n = g.hub_dst, g.hub_dst_meta, g.num_nodes()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    merged = torch.randn(m.n_tail_rows + m.n_groups * 128, f, device=dev,
+                         generator=gen)
+    u = torch.randn(n + 5, f, device=dev, generator=gen)
+    he = {"u": 1, "w": f, "heads": 3}.get(epilogue, 0)
+    w = torch.randn(n, he, device=dev, generator=gen) if he else None
+    diag = () if w is None else (w,) if epilogue == "w" else (w, u)
+    return merged, (hub["x_starts"], hub["x_desc"], n), diag
+
+
+@pytest.mark.parametrize("epilogue", [None, "u", "w", "heads"])
+@pytest.mark.parametrize("f", [1, 3, 37, 40, 64, 128, 201, 1500])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_expand_write_pass_edges(dev, mixed, f, epilogue):
+    """K3 against its plain version in float32 on the card, bit for bit
+    (a copy, and the epilogue rounds as torch does), at widths that are
+    and are not a multiple of 4 floats and wider than a block's stride,
+    with and without each epilogue; every element is written although the
+    output comes from torch.empty over a pool of NaNs."""
+    if epilogue == "heads" and f % 3:
+        f = f * 3
+    g = _graph(dev, mixed)
+    merged, xa, diag = _expand_inputs(dev, g, f, epilogue)
+    _nan_pool(dev, g.num_nodes() * f)
+    K.reset_launches()
+    got = K.expand(merged, *xa, *diag)
+    assert K.LAUNCHES["expand"] == 1
+    want = K.expand_torch(merged, *xa, *diag)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("which", ["merged", "diag_u"])
+@pytest.mark.parametrize("f", [40, 128])
+def test_expand_operands_off_16_bytes(dev, f, which):
+    """A merged block or a diag_u off a 16-byte boundary takes K3's scalar
+    loads, with the same values."""
+    g = _graph(dev, False)
+    merged, xa, (w, u) = _expand_inputs(dev, g, f, "u", seed=1)
+    if which == "merged":
+        merged = torch.cat([merged.new_zeros(1), merged.reshape(-1)])[1:]
+        merged = merged.view(-1, f)
+    else:
+        u = torch.cat([u.new_zeros(1), u.reshape(-1)])[1:].view(-1, f)
+    assert (merged if which == "merged" else u).data_ptr() % 16
+    _nan_pool(dev, g.num_nodes() * f)
+    got = K.expand(merged, *xa, w, u)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.expand_torch(merged, *xa, w, u))
+
+
+def _ger_layout(dev, sizes, seed=0):
+    """gperm / gout of hand-made groups of ``sizes`` chunks (gout sorted,
+    gperm a random permutation), on the card."""
+    rng = np.random.default_rng(seed)
+    gout = np.repeat(np.arange(len(sizes)), sizes)
+    gperm = rng.permutation(len(gout))
+    return {"gperm": torch.tensor(gperm, dtype=torch.int32, device=dev),
+            "gout": torch.tensor(gout, dtype=torch.int32, device=dev)}
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 8, 9, 50])
+@pytest.mark.parametrize("sizes", [(5292,), (1100, 0, 900, 40, 1, 2300),
+                                   (3, 0, 2), (0, 0), (700,) * 9])
+def test_ger_reduce_two_passes(dev, sizes, h):
+    """K8 against its float64 plain version: one group over every pass-1
+    block (arxiv's shape), groups split between blocks and held by one, an
+    empty group, fewer chunks than blocks, no chunk at all; every element
+    written over a pool of NaNs (zeros for empty groups), the same bits on
+    a second run, and a gerp off a 16-byte boundary copied first."""
+    lay = _ger_layout(dev, sizes)
+    n_groups, n = len(sizes), sum(sizes)
+    gen = torch.Generator(device=dev).manual_seed(h)
+    p = torch.randn(n * 128, h, device=dev, generator=gen)
+    _nan_pool(dev, n_groups * 128 * h)
+    AK.reset_launches()
+    got = AK.ger_reduce(lay, p, n_groups)
+    assert AK.LAUNCHES["ger_reduce"] == 1
+    want = AK.ger_reduce_torch(lay, p.double(), n_groups)
+    scale = AK.ger_reduce_torch(lay, p.abs().double(), n_groups)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _sum_close("ger", got.double(), want, scale)
+    empty = torch.tensor(sizes, device=dev).repeat_interleave(128) == 0
+    assert not bool(got[empty].any())
+    assert torch.equal(AK.ger_reduce(lay, p, n_groups), got)
+    off = torch.cat([p.new_zeros(1), p.reshape(-1)])[1:].view(-1, h)
+    assert off.data_ptr() % 16 or n == 0
+    assert torch.equal(AK.ger_reduce(lay, off, n_groups), got)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_ger_reduce_on_the_hub_layouts(dev, mixed):
+    """K8 on the hub graph's and the mixed graph's backward layouts at
+    the GAT widths (H = 8 and 1) over a pool of NaNs."""
+    g = _graph(dev, mixed)
+    lb, m = g.hub_dst["full_bwd"], g.hub_dst_meta
+    for h in (8, 1):
+        gen = torch.Generator(device=dev).manual_seed(h)
+        p = torch.randn(lb["gperm"].shape[0] * 128, h, device=dev,
+                        generator=gen)
+        _nan_pool(dev, m.n_groups * 128 * h)
+        got = AK.ger_reduce(lb, p, m.n_groups)
+        torch.cuda.synchronize()
+        _sum_close("ger", got.double(),
+                   AK.ger_reduce_torch(lb, p.double(), m.n_groups),
+                   AK.ger_reduce_torch(lb, p.abs().double(), m.n_groups))

@@ -100,6 +100,61 @@ def test_hub_kernel_sequence_of_a_training_graph(monkeypatch):
     assert calls == ["dense_fwd", "expand", "dense_bwd_fused"]
 
 
+@pytest.mark.parametrize("red", ["sum", "mean"])
+def test_diag_rides_in_the_expand_kernel(monkeypatch, red):
+    """On a self-looped hub graph (``has_diag``, the expand gate open)
+    copy_u's forward passes the diagonal to K3 and runs no torch pass for
+    it: with ``_diag_term`` made to raise, values and grad_u still equal
+    the reference's and the oracle's."""
+    gj, gt = make("powerlaw", self_loops=True)
+    m = gt.hub_dst_meta
+    assert m.has_diag and not m.identity_expand
+    n_merged = m.n_tail_rows + m.n_groups * 128
+    assert port_hub._use_expand(m, gt.hub_dst, n_merged)
+    args = []
+    orig = K.expand
+    monkeypatch.setattr(K, "expand", lambda *a, **k: (
+        args.append(len(a) + len(k)), orig(*a, **k))[1])
+
+    def no_torch_pass(*a, **k):
+        raise AssertionError("the diagonal took a torch pass")
+
+    monkeypatch.setattr(port_hub, "_diag_term", no_torch_pass)
+    n = gt.num_nodes()
+    u, w = feats(n, F, seed=1, shift=1.0), feats(n, F, seed=2)
+    got = _port(gt, red, u, w, "hub")
+    for a, b, c in zip(got, _port(gt, red, u, w, "xla"),
+                       _reference(gj, red, u, w)):
+        np.testing.assert_allclose(a, b, **TOL)
+        np.testing.assert_allclose(a, c, **TOL)
+    assert args == [6]  # merged, x_starts, x_desc, num_dst, diag_w, diag_u
+
+
+@pytest.mark.parametrize("op,he", [("copy_lhs", 1), ("mul", 1), ("mul", 3),
+                                   ("copy_rhs", 1), ("copy_rhs", 3)])
+def test_expand_epilogue_equals_expand_plus_diag_term(op, he):
+    """``expand_torch`` with the epilogue (K3's plain version) equals
+    ``expand_torch`` without it plus the engine's ``_diag_term``, bit for
+    bit, for each op's operands: the fused diagonal changes nothing."""
+    _, gt = make("powerlaw", self_loops=True)
+    hub, m = gt.hub_dst, gt.hub_dst_meta
+    n = gt.num_nodes()
+    rep = 4
+    rng = np.random.default_rng(3)
+    u2 = t(rng.normal(size=(n, he * rep)).astype(np.float32))
+    e2 = t(rng.normal(size=(gt.num_edges(), he)).astype(np.float32))
+    f = he if op == "copy_rhs" else he * rep
+    merged = t(rng.normal(size=(m.n_tail_rows + m.n_groups * 128, f))
+               .astype(np.float32))
+    xs, xd = hub["x_starts"], hub["x_desc"]
+    fused = K.expand_torch(merged, xs, xd, n,
+                           *port_hub._diag_operands(gt, op, u2, e2))
+    plain = K.expand_torch(merged, xs, xd, n) + port_hub._diag_term(
+        gt, op, u2, e2, he, 1 if op == "copy_rhs" else rep)
+    assert torch.equal(fused, plain)
+    assert not torch.equal(fused, K.expand_torch(merged, xs, xd, n))
+
+
 def test_hub_declines_and_raises():
     """Declines (None) where the reference declines; mul and copy_rhs,
     which raised NotImplementedError before K2 mul/rhs and K5 were

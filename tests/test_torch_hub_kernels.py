@@ -1,7 +1,15 @@
 """Each hub kernel's plain torch version (the wrapper on CPU tensors)
 against the reference's Pallas call in interpret mode, on the same
-arrays. Tolerance: rtol 1e-5, atol 1e-5 in float32 (the sums run in
-another order)."""
+arrays.
+
+Tolerance of the sums (K1, K2, K4): the reference's and the port's
+float32 outputs are each held against the same sum in float64, within
+REL times the float64 sum over absolute values (``|C|^T |u|`` for K1).
+The two packages add in orders that depend on the CPU's matmul blocking,
+so a fixed absolute tolerance fails on sums of hundreds: at 1e-5 one
+element of 1,280 missed by 2.0e-4 on a sum of ~700, with both packages
+within 1.1e-7 of the abs sum. K3 copies rows, so it must agree
+exactly."""
 
 import numpy as np
 import pytest
@@ -15,7 +23,7 @@ from dgl1_tpu_torch.ops import hub_kernels as K
 
 from torch_parity import feats, make, t
 
-TOL = dict(rtol=1e-5, atol=1e-5)
+REL = 1e-6
 F = 10
 F_PAD = 128
 
@@ -24,6 +32,24 @@ def _pad(x, rows, cols=F_PAD):
     out = np.zeros((rows, cols), np.float32)
     out[: x.shape[0], : x.shape[1]] = x
     return out
+
+
+def _held(what, got, want64, abs64):
+    """Elementwise ``|got - want64| <= REL * abs64`` (see the module)."""
+    err = np.abs(np.asarray(got, np.float64) - want64)
+    bad = err > REL * abs64
+    assert not bad.any(), (
+        f"{what}: {int(bad.sum())} of {bad.size} elements past "
+        f"{REL} of the abs sum; max err {err.max()}")
+
+
+def _both_held(got, want, want64, abs64):
+    _held("port", got, want64, abs64)
+    _held("reference", want, want64, abs64)
+
+
+def _f64(x):
+    return torch.from_numpy(np.asarray(x, np.float64))
 
 
 def _lay(hub, name):
@@ -49,11 +75,14 @@ def test_dense_fwd_matches_reference(case):
     u = _pad(feats(g.num_nodes(), F), c.shape[0])
     want = np.asarray(ref._dense_fwd_call(jnp.asarray(c), jnp.asarray(u)))
     got = K.dense_fwd(t(c, np.float32).to(K_dtype(c)), t(u))
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    c64 = np.asarray(c).astype(np.float64)
+    want64 = c64.T @ u.astype(np.float64)
+    abs64 = np.abs(c64).T @ np.abs(u).astype(np.float64)
+    _both_held(got.numpy(), want, want64, abs64)
     # Unpadded operands give the same values (the kernels mask edges).
     got2 = K.dense_fwd(t(c, np.float32).to(K_dtype(c)),
                        t(feats(g.num_nodes(), F)))
-    np.testing.assert_allclose(got2.numpy(), want[:, :F], **TOL)
+    _both_held(got2.numpy(), want[:, :F], want64[:, :F], abs64[:, :F])
 
 
 def K_dtype(c):
@@ -75,9 +104,12 @@ def test_chunk_sum_fwd_matches_reference():
     n_out = m.n_groups - m.n_dense
     want = np.asarray(ref._chunk_call("plain", _lay(hub, "part_fwd"), None,
                                       None, jnp.asarray(u), n_out, F_PAD))
-    got = K.chunk_sum(_tlay(hub, "part_fwd"), t(u), n_out).numpy()
+    lay = _tlay(hub, "part_fwd")
+    got = K.chunk_sum(lay, t(u), n_out).numpy()
+    want64 = K.chunk_sum_torch(lay, _f64(u), n_out).numpy()
+    abs64 = K.chunk_sum_torch(lay, _f64(np.abs(u)), n_out).numpy()
     rows = _covered(hub["part_fwd"]["out_id"], n_out)
-    np.testing.assert_allclose(got[rows], want[rows], **TOL)
+    _both_held(got[rows], want[rows], want64[rows], abs64[rows])
 
 
 @pytest.mark.parametrize("name", ["mixed", "chunked"])
@@ -88,10 +120,13 @@ def test_chunk_sum_bwd_matches_reference(name):
     ct = _pad(feats(n_in, F, seed=4), n_in)
     want = np.asarray(ref._chunk_call("plain", _lay(hub, "part_bwd"), None,
                                       None, jnp.asarray(ct), m.n_win, F_PAD))
-    got = K.chunk_sum(_tlay(hub, "part_bwd"), t(ct), m.n_win).numpy()
+    lay = _tlay(hub, "part_bwd")
+    got = K.chunk_sum(lay, t(ct), m.n_win).numpy()
+    want64 = K.chunk_sum_torch(lay, _f64(ct), m.n_win).numpy()
+    abs64 = K.chunk_sum_torch(lay, _f64(np.abs(ct)), m.n_win).numpy()
     rows = _covered(hub["part_bwd"]["out_id"], m.n_win)
     assert len(rows)
-    np.testing.assert_allclose(got[rows], want[rows], **TOL)
+    _both_held(got[rows], want[rows], want64[rows], abs64[rows])
 
 
 def test_expand_matches_reference(case):
@@ -104,12 +139,12 @@ def test_expand_matches_reference(case):
         jnp.asarray(hub["x_desc"]), g.num_nodes()))
     got = K.expand(t(merged), t(hub["x_starts"]), t(hub["x_desc"]),
                    g.num_nodes())
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_array_equal(got.numpy(), want)
     # The fill-gather through t_inv computes the same function.
     t_inv = np.asarray(hub["t_inv"]).astype(np.int64)
     gather = np.where((t_inv < m_pad)[:, None],
                       merged[np.minimum(t_inv, m_pad - 1)], 0.0)
-    np.testing.assert_allclose(got.numpy(), gather, **TOL)
+    np.testing.assert_array_equal(got.numpy(), gather)
 
 
 def _tail2(g, hub, m):
@@ -128,13 +163,17 @@ def test_dense_bwd_fused_matches_reference(case):
         jnp.asarray(c), jnp.asarray(ct), jnp.asarray(tail2),
         jnp.asarray(hub["gb_starts"]), jnp.asarray(hub["gb_desc"])))
     tc = t(c, np.float32).to(K_dtype(c))
-    got = K.dense_bwd_fused(tc, t(ct), t(tail2), t(hub["gb_starts"]),
-                            t(hub["gb_desc"]))
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    desc = (t(hub["gb_starts"]), t(hub["gb_desc"]))
+    got = K.dense_bwd_fused(tc, t(ct), t(tail2), *desc)
+    c64 = _f64(np.asarray(c).astype(np.float64))
+    want64 = K.dense_bwd_fused_torch(c64, _f64(ct), _f64(tail2),
+                                     *desc).numpy()
+    abs64 = K.dense_bwd_fused_torch(c64.abs(), _f64(np.abs(ct)),
+                                    _f64(np.abs(tail2)), *desc).numpy()
+    _both_held(got.numpy(), want, want64, abs64)
     n = g.num_nodes()
-    got2 = K.dense_bwd_fused(tc, t(ct[:, :F]), t(tail2[:, :F]),
-                             t(hub["gb_starts"]), t(hub["gb_desc"]), n)
-    np.testing.assert_allclose(got2.numpy(), want[:n, :F], **TOL)
+    got2 = K.dense_bwd_fused(tc, t(ct[:, :F]), t(tail2[:, :F]), *desc, n)
+    _both_held(got2.numpy(), want[:n, :F], want64[:n, :F], abs64[:n, :F])
 
 
 def test_dense_bwd_matches_reference(case):
@@ -143,7 +182,9 @@ def test_dense_bwd_matches_reference(case):
     ct = _pad(feats(m.n_dense * BLK, F, seed=8), m.n_dense * BLK)
     want = np.asarray(ref._dense_bwd_call(jnp.asarray(c), jnp.asarray(ct)))
     got = K.dense_bwd(t(c, np.float32).to(K_dtype(c)), t(ct))
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    c64 = np.asarray(c).astype(np.float64)
+    _both_held(got.numpy(), want, c64 @ ct.astype(np.float64),
+               np.abs(c64) @ np.abs(ct).astype(np.float64))
 
 
 def test_wrappers_check_inputs_and_count_only_launches():

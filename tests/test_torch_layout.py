@@ -139,3 +139,49 @@ def test_graph_to_keeps_metadata():
     assert torch.equal(g2.in_degrees().long(), torch.bincount(
         gt.dst[: gt.num_edges()].long(), minlength=gt.num_nodes()))
     assert tdgl.resolve_device("cpu").type == "cpu"
+
+
+_SRC4, _DST4 = np.array([0, 1, 2, 3]), np.array([1, 2, 3, 0])
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((4, 8), {}),                                  # pad_edges_to, by place
+    ((4,), {"pad_edges_to": 8}),
+    ((4, None, 3), {}),                            # pad_edges_multiple
+    ((4,), {"pad_edges_multiple": 16}),            # at least one multiple
+    ((4, None, 2), {}),                            # already a multiple
+    ((4, 5, 3), {}),                               # pad_edges_to wins
+    ((4, None, None, True), {}),                   # device_arrays
+    ((), {}),
+])
+def test_graph_takes_the_reference_positional_order(args, kw):
+    """``graph(data, num_nodes, pad_edges_to, pad_edges_multiple,
+    device_arrays, hub, hub_dense_floor, formats)`` in both packages, by
+    position and by keyword: the same real and padded edge counts, edge
+    arrays and edge mask. ``graph((src, dst), 4, 8)`` pads to 8 edges."""
+    gj = jdgl.graph((_SRC4, _DST4), *args, **kw)
+    gt = tdgl.graph((_SRC4, _DST4), *args, device="cpu", **kw)
+    assert gt.num_edges() == gj.num_edges() == 4
+    assert gt.num_edges_padded() == gj.num_edges_padded()
+    for k in ("src", "dst", "csc_src", "csc_eid"):
+        np.testing.assert_array_equal(getattr(gt, k).numpy(),
+                                      np.asarray(getattr(gj, k)), k)
+    # The port keeps no mask where no edge is padding.
+    mask_t = (np.ones(4, bool) if gt.edge_mask is None
+              else gt.edge_mask.numpy())
+    np.testing.assert_array_equal(mask_t, np.asarray(gj.edge_mask))
+    if args[1:2] == (8,):
+        assert gt.num_edges_padded() == 8
+
+
+def test_graph_hub_arguments_by_position():
+    """``hub`` and ``hub_dense_floor`` in the reference's places (sixth and
+    seventh) build the same hub layout as by keyword."""
+    src, dst = skewed_edges()
+    gj = jdgl.graph((src, dst), 300, None, None, False, 300, 1000)
+    gt = tdgl.graph((src, dst), 300, None, None, False, 300, 1000,
+                    device="cpu")
+    assert gt.hub_dst_meta == tdgl.graph(
+        (src, dst), num_nodes=300, hub=300, hub_dense_floor=1000,
+        device="cpu").hub_dst_meta
+    _assert_graphs_equal(gj, gt)

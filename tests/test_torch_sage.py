@@ -110,6 +110,48 @@ def test_sageconv_matches_reference(graphs, agg, kind):
                                    rtol=1e-4, atol=1e-5, err_msg=k)
 
 
+@pytest.mark.parametrize("agg", ["mean", "pool"])
+def test_sageconv_norm_matches_reference(graphs, agg):
+    """``SAGEConv(norm=)``: a callable applied to the layer's output after
+    the activation, here an L2 row normalisation, with the same weights
+    in both packages; values, grad_x and every parameter's grad."""
+    gj, gt, x, _ = _inputs(graphs, "full")
+    w = np.random.default_rng(7).normal(size=(300, 8)).astype(np.float32)
+    conv = JSAGEConv(8, aggregator_type=agg, activation=jax.nn.relu,
+                     norm=lambda h: h / jnp.sqrt(
+                         jnp.sum(h * h, axis=1, keepdims=True) + 1e-6))
+    params = jax.tree.map(np.asarray,
+                          conv.init(jax.random.PRNGKey(2), gj,
+                                    jnp.asarray(x)))
+    tconv = SAGEConv(IN, 8, aggregator_type=agg, activation=torch.relu,
+                     norm=lambda h: h / torch.sqrt(
+                         (h * h).sum(1, keepdim=True) + 1e-6),
+                     device="cpu")
+    tconv.load_state_dict(from_jax_params(params))
+
+    def loss(p, xx):
+        out = conv.apply(p, gj, xx)
+        return jnp.sum(out * w), out
+
+    ej, et = ENGINE[agg]
+    with engines(ej, et):
+        (_, want), (gp, gx) = jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+        tx = t(x).requires_grad_(True)
+        got = tconv(gt, tx)
+        (got * t(w)).sum().backward()
+    norms = np.linalg.norm(np.asarray(want), axis=1)
+    assert 0.5 < norms.max() <= 1.0 + 1e-5  # the norm ran
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=1e-4,
+                               atol=1e-5)
+    jg = from_jax_params(jax.tree.map(np.asarray, gp))
+    for k, p in tconv.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), jg[k].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+
+
 @pytest.mark.parametrize("kind", ["full", "blocks"])
 @pytest.mark.parametrize("agg", ["mean", "pool"])
 def test_graphsage_matches_reference(graphs, agg, kind):

@@ -114,6 +114,28 @@ def test_neighbor_sampler_matches_reference(parents):
     assert blocks_t[0].num_edges_padded() == 300 * 26 * 10
 
 
+def test_static_shapes_matches_reference(parents):
+    """``static_shapes=`` as the reference takes it: True (its default)
+    gives the reference's padded blocks; False, the numpy sampler's
+    unpadded path, raises until that sampler is ported. The same holds
+    for ``MultiLayerNeighborSampler``."""
+    from dgl1_tpu_torch.dataloading import MultiLayerNeighborSampler
+
+    gj, gt, train = parents
+    seeds = train[:64]
+    _, _, blocks_j = JSampler([10, 25], static_shapes=True).sample_blocks(
+        gj, seeds, rng=np.random.default_rng(8), num_real=60)
+    for cls in (NeighborSampler, MultiLayerNeighborSampler):
+        s = cls([10, 25], static_shapes=True)
+        assert s.static_shapes is True
+        _, _, blocks_t = s.sample_blocks(
+            gt, seeds, rng=np.random.default_rng(8), num_real=60)
+        for bt, bj in zip(blocks_t, blocks_j):
+            assert_same_block(bt, bj)
+        with pytest.raises(NotImplementedError, match="static_shapes"):
+            cls([10, 25], static_shapes=False)
+
+
 def test_node_dataloader_matches_reference(parents):
     gj, gt, train = parents
     kw = dict(batch_size=1024, shuffle=True, seed=0, num_workers=2,
