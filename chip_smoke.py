@@ -1638,14 +1638,17 @@ def tile_case(name, tiles, f, dev, is_max=None, library=True, seed=0):
 def phase_tile_kernels(dev, blocks):
     """K9 at block 1 ``tsrc`` (F=256: the mean step's only launch) and K10
     max at block 0 ``tdst`` (F=602: the pool step's first layer), on a
-    real sampled Reddit batch; K9 at block 0 ``tsrc`` and ``tdst`` and
-    K10 min and block 1 ride in ``variants``."""
+    real sampled Reddit batch; K9 at block 0 ``tsrc`` and ``tdst`` and at
+    block 1 ``tdst`` (the pool step's four shapes) and K10 min and block 1
+    ride in ``variants``."""
     b0, b1 = blocks
     k9 = with_variants(tile_case("block1_tsrc_f256", b1.tsrc, 256, dev), [
         tile_case("block0_tsrc_f602", b0.tsrc, 602, dev, library=False,
                   seed=1),
         tile_case("block0_tdst_f602", b0.tdst, 602, dev, library=False,
-                  seed=2)])
+                  seed=2),
+        tile_case("block1_tdst_f256", b1.tdst, 256, dev, library=False,
+                  seed=5)])
     k10 = with_variants(
         tile_case("block0_tdst_f602_max", b0.tdst, 602, dev, is_max=True), [
             tile_case("block0_tdst_f602_min", b0.tdst, 602, dev,

@@ -19,8 +19,8 @@
 // The TPU kernels gather and scatter through one-hot matmuls and carry
 // sums across an in-order grid in VMEM. Here rows are staged in shared
 // memory or loaded, sums live in registers and shared memory, and blocks
-// that share an output combine at the end (K6: per-block partials that a
-// second kernel sums; K7 g-major: float atomics). Outputs are narrow: H columns
+// that share an output combine at the end (K6 and K7 g-major: per-block
+// partials that a second kernel sums). Outputs are narrow: H columns
 // for den/mraw/gel/partials and H*D for num/gft (the reference pads both
 // to 128-lane multiples and its callers read these columns only).
 //
@@ -1354,136 +1354,580 @@ __global__ void __launch_bounds__(NT, 2)
 // hub row within group out_id[t]. Per real slot and head it recomputes
 // K7's q (acoef, the full-width per-head dot <ft_s, ct_b> and the
 // jacobian row term rho_b; see attn_bwd_src_kernel) and adds it to
-// grad_er[b]. A group's chunks are consecutive, as in K6, but at arxiv
-// scale one group holds all 5,292 chunks, so a block per group would run
-// on one SM. A block owns a run of consecutive chunks instead (about four
-// blocks per SM) and all heads: a thread per (slot, head) computes q from
-// the ft and ct rows (16-byte loads) and adds it to the group's (128 x H)
-// block in shared memory; when the run moves to another group, and at its
-// end, the block adds the block's nonzero entries to grad_er with one
-// atomic each.
+// grad_er[b]; rows no slot reaches are zero.
 //
 // Bound on the H100: bytes. At arxiv layer 1 (H=8, D=32) the data are a
 // and b (43.4 MB), ft (173.4 MB) and el read once, the group rows (er,
 // lse, rho, ct: small) and grad_er (n_groups * 128 * H) written once:
-// ~67 us at 3.35 TB/s. This design waits on the row gathers (ft and ct
-// rows from L1/L2), not on HBM.
+// ~66 us at 3.35 TB/s. The dots, 2 x 256 FLOP a slot (2.2 GFLOP), take
+// ~34 us at 67 TFLOP/s; but each slot's ft row has to reach the lanes
+// that hold its hub row's ct, and those 4.4 GB of shared-memory reads
+// (1 KB a slot) take ~150 us at 128 bytes a clock an SM.
+//
+// The earlier design (a thread per (slot, head) that gathered both rows
+// from L2, its own 128-byte runs, and added q to a shared (128 x H)
+// block with a float atomic, a compare-and-swap loop on this card: at
+// arxiv 35 M adds on 1,024 words) took 40x its bound. This one:
+//
+// * A 16-warp block owns a stripe of hs whole heads (at most 128
+//   columns, or one head up to 384) and a run of consecutive chunks,
+//   taken in batches of the chunks that share a (group, window), at most
+//   abcap slots a batch. It stages the next batch, its window (the stripe
+//   of ft for 128 rows and their el) and its slots' a, b and eid, by
+//   16-byte cp.async into one of two buffers while it walks the current
+//   one, and the group's er, lse, rho and (where they fit) ct rows once
+//   per group; otherwise ct rows come through L1, and where two batches
+//   do not fit, one. The walk reads nothing from global memory but those
+//   ct rows: a batch's descriptors and first slots loaded only when the
+//   batch starts cost a global round trip a batch.
+// * Warps take the batch's 32-slot rounds interleaved (contiguous shares
+//   were slower: the padding at a run's end falls to a few warps). Lane
+//   (j, p, k) takes slot j of each step of R = 32 / (hs x g) slots, part
+//   p of head k (g parts of cpl <= 32 features). It holds its slot's hub
+//   row of ct in registers, reloaded when the row
+//   changes (a window's slots come in runs of equal b: 14.6 runs a chunk
+//   at arxiv), reads the slot's ft part from the staged window with
+//   16-byte loads, all before it adds any, each lane starting at its own
+//   chunk (lane % 8: the eight lanes of a quarter-warp then read eight
+//   distinct bank groups where rows are a multiple of 32 floats apart),
+//   and sums the head over its g parts with shuffles. Where every lane
+//   holds 32 features (VM == 2) the chunk offsets are fixed and no load
+//   is guarded.
+// * q is summed per hub row without a shared atomic. A warp keeps the
+//   running sum of its current hub row in its lanes' registers while a
+//   step's slots all name that row (most steps); at a step that changes
+//   the row it adds the sum over its j lanes to its own (128 x hs)
+//   partial in shared memory, and any slot of a row neither before nor
+//   after the change one at a time, in order of j. When the group changes
+//   and at the run's end the warps' partials are summed in warp order
+//   into the block's slot of a global partial (block + group - first
+//   group, as K6), and attn_grp_fold_kernel sums the slots of each group
+//   in block order into every element of grad_er. No atomics: two runs
+//   give the same bits, as the reference's in-order sweep does.
+//
+// What holds it back (PERF.md, section 6): the walk, most of a block's
+// time at arxiv layer 1, issues ~140 instructions a step of 8 slots and
+// waits on its shared-memory chain (a, b, then the row, then 32 FMAs,
+// then the exp); staging and waiting take the rest.
 //
 // BF16: as attn_bwd_src_kernel (ft, ct, their products, q; lse and rho
-// when 3H > 128).
+// when 3H > 128); the staged window is rounded once, in shared memory, by
+// the threads that copied it, ct as it is staged or loaded, and the
+// products two at a time (rnd2).
 // ---------------------------------------------------------------------
-// One term of the per-head dot <ft_s, ct_b>.
-template <bool BF16>
-__device__ __forceinline__ float dot_term(float x, float y, float acc) {
-  return BF16 ? acc + rnd<true>(rnd<true>(x) * rnd<true>(y))
-              : fmaf(x, y, acc);
+constexpr int GRP_NT = 512;           // threads of a K7 g-major block
+constexpr int GRP_NW = GRP_NT / 32;
+constexpr int GRP_COLS = 32;          // features a lane holds
+constexpr size_t GRP_SMEM_MAX = 227 * 1024;  // sm_90's opt-in per block
+
+// A K7 g-major plan (made by the wrapper, ops/attn_kernels.py grp_plan):
+// hs heads a stripe (a power of two), g lanes a head (a power of two,
+// 32 g >= d), cpl features a lane (a multiple of 4, at most 32, g cpl >=
+// d), staged rows ws floats apart, nbuf batches staged at once (window
+// and slots), slots a batch's staged a, b and eid hold at most (abcap, a
+// multiple of 4), ctsh 1 where the group's ct rows are staged too.
+struct GrpPlan {
+  int hs, g, cpl, ws, nbuf, abcap, ctsh;
+};
+
+// Floats of one staged batch: the ft window, its el, and the slots' a, b
+// and eid.
+__host__ __device__ __forceinline__ int grp_buf(const GrpPlan& p) {
+  return BLK * (p.ws + p.hs) + 3 * p.abcap;
 }
 
-// <fr, cr> over one head's d features; 16-byte loads when vec4.
-template <bool BF16>
-__device__ __forceinline__ float head_dot(const float* fr, const float* cr,
-                                          int d, bool vec4) {
-  float gv = 0.f;
-  if (vec4) {
-    for (int c = 0; c < d; c += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(fr + c);
-      const float4 y = *reinterpret_cast<const float4*>(cr + c);
-      gv = dot_term<BF16>(x.x, y.x, gv);
-      gv = dot_term<BF16>(x.y, y.y, gv);
-      gv = dot_term<BF16>(x.z, y.z, gv);
-      gv = dot_term<BF16>(x.w, y.w, gv);
+size_t grp_smem(const GrpPlan& p) {
+  // nbuf staged batches, the group's ct rows, its er, lse and rho, and
+  // each warp's partial of q.
+  return sizeof(float) *
+         (static_cast<size_t>(p.nbuf) * grp_buf(p) +
+          static_cast<size_t>(p.ctsh) * BLK * p.ws +
+          static_cast<size_t>(3 + GRP_NW) * BLK * p.hs);
+}
+
+bool grp_plan_ok(const GrpPlan& p, int h, int d, int chunk) {
+  const bool pow2 = (p.hs & (p.hs - 1)) == 0 && (p.g & (p.g - 1)) == 0;
+  return p.hs >= 1 && p.g >= 1 && pow2 && p.hs * p.g <= 32 &&
+         (p.hs == 1 || p.hs <= h) && p.cpl >= 4 && p.cpl % 4 == 0 &&
+         p.cpl <= GRP_COLS && p.g * p.cpl >= d && p.ws >= p.hs * d &&
+         ((d & 3) != 0 || p.ws % 4 == 0) && (p.nbuf == 1 || p.nbuf == 2) &&
+         chunk >= 1 && p.abcap >= chunk &&
+         p.abcap % 4 == 0 && (p.ctsh == 0 || p.ctsh == 1) &&
+         grp_smem(p) <= GRP_SMEM_MAX;
+}
+
+// Calls f(r, c) for this thread's elements tid, tid + GRP_NT, ... of a
+// 128 x n tile in row-major order, stepping rows and columns without a
+// division an element.
+template <typename Fn>
+__device__ __forceinline__ void grp_tile(int n, Fn f) {
+  const int dr = GRP_NT / n, dc = GRP_NT - dr * n;
+  int r = threadIdx.x / n, c = threadIdx.x - r * n;
+  while (r < BLK) {
+    f(r, c);
+    r += dr;
+    c += dc;
+    if (c >= n) {
+      c -= n;
+      ++r;
+    }
+  }
+}
+
+// Stages batch [tb, te)'s window w (the stripe of ft for its 128 rows,
+// zeros past n_src; and their el) and its slots' a, b and (DROP) eid into
+// one buffer, and commits. With BF16 the same thread later rounds the ft
+// elements it copied (grp_round).
+template <bool VEC, bool DROP>
+__device__ void grp_stage(float* buf, const GrpPlan& pl, int w, int64_t s0,
+                          int ns, const int* __restrict__ a,
+                          const int* __restrict__ b,
+                          const int* __restrict__ eid,
+                          const float* __restrict__ ft,
+                          const float* __restrict__ el, int n_src, int h,
+                          int F, const Stripe& st, bool abvec) {
+  const int64_t row0 = static_cast<int64_t>(w) * BLK;
+  const int ws = pl.ws, hs = pl.hs;
+  float* ebuf = buf + BLK * ws;
+  int* abuf = reinterpret_cast<int*>(ebuf + BLK * hs);
+  int* bbuf = abuf + pl.abcap;
+  int* ibuf = bbuf + pl.abcap;
+  if (VEC) {
+    grp_tile(st.nf / 4, [&](int r, int u) {
+      const bool ok = row0 + r < n_src;
+      cp_async16(buf + r * ws + 4 * u,
+                 ok ? ft + (row0 + r) * F + st.c0 + 4 * u : ft, ok ? 16 : 0);
+    });
+  } else {
+    grp_tile(st.nf, [&](int r, int c) {
+      const bool ok = row0 + r < n_src;
+      cp_async4(buf + r * ws + c, ok ? ft + (row0 + r) * F + st.c0 + c : ft,
+                ok ? 4 : 0);
+    });
+  }
+  grp_tile(hs, [&](int r, int k) {
+    const bool ok = k < st.nh && row0 + r < n_src;
+    cp_async4(ebuf + r * hs + k, ok ? el + (row0 + r) * h + st.h0 + k : el,
+              ok ? 4 : 0);
+  });
+  if (abvec) {
+    for (int i = 4 * threadIdx.x; i < ns; i += 4 * GRP_NT) {
+      cp_async16(abuf + i, a + s0 + i, 16);
+      cp_async16(bbuf + i, b + s0 + i, 16);
+      if (DROP) cp_async16(ibuf + i, eid + s0 + i, 16);
     }
   } else {
-    for (int c = 0; c < d; ++c) gv = dot_term<BF16>(fr[c], cr[c], gv);
+    for (int i = threadIdx.x; i < ns; i += GRP_NT) {
+      cp_async4(abuf + i, a + s0 + i, 4);
+      cp_async4(bbuf + i, b + s0 + i, 4);
+      if (DROP) cp_async4(ibuf + i, eid + s0 + i, 4);
+    }
   }
-  return gv;
+  cp_async_commit();
 }
 
-__device__ void grp_flush(float* gq_sh, int g, int h,
-                          float* __restrict__ ger) {
-  __syncthreads();
-  float* dst = ger + static_cast<int64_t>(g) * BLK * h;
-  for (int i = threadIdx.x; i < BLK * h; i += NT) {
-    const float v = gq_sh[i];
-    if (v != 0.f) atomicAdd(&dst[i], v);
-    gq_sh[i] = 0.f;
-  }
-  __syncthreads();
+// bf16 mode: rounds x and y to bfloat16 (nearest even) with one packed
+// conversion, where rnd<true> takes one each: the conversion pipe runs at
+// a quarter of the FMA rate, and it bounds the bf16 dots.
+__device__ __forceinline__ void rnd2(float& x, float& y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  x = __low2float(v);
+  y = __high2float(v);
 }
 
-template <bool DROP, bool BF16>
-__global__ void __launch_bounds__(NT)
+// BF16: rounds the ft elements this thread staged (grp_stage's loops),
+// once they have landed.
+template <bool VEC>
+__device__ void grp_round(float* wbuf, const Stripe& st, int ws) {
+  if (VEC) {
+    grp_tile(st.nf / 4, [&](int r, int u) {
+      float4* p = reinterpret_cast<float4*>(wbuf + r * ws + 4 * u);
+      float4 v = *p;
+      rnd2(v.x, v.y);
+      rnd2(v.z, v.w);
+      *p = v;
+    });
+  } else {
+    grp_tile(st.nf, [&](int r, int c) {
+      wbuf[r * ws + c] = rnd<true>(wbuf[r * ws + c]);
+    });
+  }
+}
+
+// A batch: its window, group and end, the first chunk from tb on with
+// another window or group, or past maxc chunks, or t1. Lane i of the
+// warp gives chunk tb + i's window and group (dw, dg; loaded ahead).
+struct GrpBatch {
+  int w, g, te;
+};
+
+__device__ __forceinline__ GrpBatch grp_batch(const int* __restrict__ in_id,
+                                              const int* __restrict__ out_id,
+                                              int tb, int t1, int maxc,
+                                              int dw, int dg) {
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  GrpBatch bt;
+  bt.w = __shfl_sync(FULL, dw, 0);
+  bt.g = __shfl_sync(FULL, dg, 0);
+  const int end = min(t1, tb + maxc);
+  unsigned m = __ballot_sync(FULL,
+                             tb + lane >= end || dw != bt.w || dg != bt.g);
+  int base = tb;
+  while (m == 0) {  // a batch of more than 32 chunks
+    base += 32;
+    const int t = base + lane;
+    const int w = t < end ? in_id[t] : -1, g = t < end ? out_id[t] : -1;
+    m = __ballot_sync(FULL, t >= end || w != bt.w || g != bt.g);
+  }
+  bt.te = base + __ffs(m) - 1;
+  return bt;
+}
+
+// VM: 0 rows of any width through 4-byte loads, 1 rows of a multiple of 4
+// floats through 16-byte loads, 2 the same where every lane holds 32
+// features (eight 16-byte chunks: no guards, rotations by a mask).
+template <bool DROP, bool BF16, int VM>
+__global__ void __launch_bounds__(GRP_NT, 1)
     attn_bwd_grp_kernel(const int* __restrict__ a, const int* __restrict__ b,
                         const int* __restrict__ eid,
                         const int* __restrict__ in_id,
                         const int* __restrict__ out_id, int n_chunks,
-                        int chunk, int cpc, const float* __restrict__ el,
-                        const float* __restrict__ er_g,
+                        int chunk, int cpb, const float* __restrict__ el,
+                        int n_src, const float* __restrict__ er_g,
                         const float* __restrict__ lse_g,
                         const float* __restrict__ rho_g,
                         const float* __restrict__ ft,
                         const float* __restrict__ ct_g, int h, int d,
-                        int sub, float slope, const int* __restrict__ seed,
-                        int thresh, float inv_keep, float* __restrict__ ger) {
-  extern __shared__ float smem[];
-  float* gq_sh = smem;                                      // BLK * h
-  int* src_sh = reinterpret_cast<int*>(gq_sh + BLK * h);   // sub
-  int* b_sh = src_sh + sub;                                 // sub
-  const int tid = threadIdx.x, F = h * d;
+                        GrpPlan pl, float slope, const int* __restrict__ seed,
+                        int thresh, float inv_keep, int n_seg,
+                        float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  const int hs = pl.hs, ws = pl.ws, F = h * d, nbf = grp_buf(pl);
+  float* ct_sh = smem + pl.nbuf * nbf;         // ctsh x BLK x ws: ct rows
+  float* st_sh = ct_sh + pl.ctsh * BLK * ws;   // er, lse, rho: 3 x BLK x hs
+  float* wp_sh = st_sh + 3 * BLK * hs;         // GRP_NW x BLK x hs partials
+  const Stripe st = stripe_of(blockIdx.y, hs, h, d);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const unsigned FULL = 0xffffffffu;
+  // Lane (slot j, part p, head k), j fastest.
+  const int R = 32 / (hs * pl.g);
+  const int lj = lane % R, lp = (lane / R) % pl.g, lk = lane / (R * pl.g);
+  const int hc0 = lp * pl.cpl;  // the part's first feature in its head
+  const bool live = lk < st.nh && hc0 < d;
+  const int ncol = live ? min(pl.cpl, d - hc0) : 0;
+  const int col = lk * d + hc0;  // ... and column in the stripe
+  constexpr bool VEC = VM > 0, F8 = VM == 2;
+  const int nch = F8 ? 8 : (ncol + 3) / 4;
+  const int rot = nch > 0 ? (lane & 7) % nch : 0;  // VEC: first chunk read
+  // VEC: the offset of the lane's c-th chunk of a row, 4 ((c + rot) %
+  // nch) floats (the ft reads, the ct loads and cv's order).
+  int coff[GRP_COLS / 4];
+#pragma unroll
+  for (int c = 0; c < GRP_COLS / 4; ++c)
+    coff[c] =
+        4 * (F8 ? (c + rot) & 7 : (c + rot < nch ? c + rot : c + rot - nch));
+  float* wp = wp_sh + warp * BLK * hs;
   const int sd = DROP ? seed[0] : 0;
   const bool rstats = BF16 && 3 * h > BLK;
-  const bool vec4 = ((d | F) & 3) == 0 &&
-                    ((reinterpret_cast<uintptr_t>(ft) |
-                      reinterpret_cast<uintptr_t>(ct_g)) & 15) == 0;
-  for (int i = tid; i < BLK * h; i += NT) gq_sh[i] = 0.f;
-  __syncthreads();
+  const int maxc = pl.abcap / chunk;  // chunks a batch at most
+  const bool abvec = chunk % 4 == 0 &&
+                     ((reinterpret_cast<uintptr_t>(a) |
+                       reinterpret_cast<uintptr_t>(b) |
+                       (DROP ? reinterpret_cast<uintptr_t>(eid) : 0)) & 15) ==
+                         0;
 
-  const int t0 = blockIdx.x * cpc, t1 = min(n_chunks, t0 + cpc);
+  for (int i = tid; i < GRP_NW * BLK * hs; i += GRP_NT) wp_sh[i] = 0.f;
+
+  const int t0 = blockIdx.x * cpb, t1 = min(n_chunks, t0 + cpb);
+  if (t0 >= t1) return;
+  const int g_first = out_id[0];
+
+  // The lane's ct part of hub row crow (VEC: register chunk c holds the
+  // row's chunk (c + rot) % nch) and the row's er, lse and rho for head k.
+  float cv[GRP_COLS];
+  int crow = -1;
+  float erv = 0.f, lsev = 0.f, rhov = 0.f;
+  // The warp's current hub row (the same in every lane) and the lanes'
+  // running sums of its q.
   int cur = -1;
-  for (int t = t0; t < t1; ++t) {
-    const int g = out_id[t];
-    if (g != cur) {
-      if (cur >= 0) grp_flush(gq_sh, cur, h, ger);
-      cur = g;
-    }
-    const int64_t win0 = static_cast<int64_t>(in_id[t]) * BLK;
-    const int64_t grp0 = static_cast<int64_t>(g) * BLK;
-    for (int s0 = 0; s0 < chunk; s0 += sub) {
-      const int ns = min(sub, chunk - s0);
-      const int64_t slot0 = static_cast<int64_t>(t) * chunk + s0;
-      for (int j = tid; j < ns; j += NT) {
-        const int aa = a[slot0 + j], bb = b[slot0 + j];
-        src_sh[j] = (aa >= 0 && bb >= 0) ? static_cast<int>(win0 + aa) : -1;
-        b_sh[j] = bb;
+  float qacc = 0.f;
+  // Adds the running sums, summed over the j lanes, to the warp's partial.
+  auto flush_q = [&]() {
+    float s = qacc;
+    for (int o = 1; o < R; o <<= 1) s += __shfl_xor_sync(FULL, s, o);
+    if (cur >= 0 && lj == 0 && lp == 0 && live) wp[cur * hs + lk] += s;
+    qacc = 0.f;
+  };
+  // The warps' partials of group g, summed in warp order, to the block's
+  // slot; the partials are zeroed.
+  auto merge = [&](int g) {
+    __syncthreads();
+    float* dst = part + (static_cast<int64_t>(blockIdx.y) * n_seg +
+                         blockIdx.x + g - g_first) * BLK * hs;
+    for (int i = tid; i < BLK * hs; i += GRP_NT) {
+      float s = 0.f;
+      for (int w = 0; w < GRP_NW; ++w) {
+        s += wp_sh[w * BLK * hs + i];
+        wp_sh[w * BLK * hs + i] = 0.f;
       }
-      __syncthreads();
-      for (int idx = tid; idx < ns * h; idx += NT) {
-        const int j = idx / h, k = idx - j * h;
-        const int src = src_sh[j];
-        if (src < 0) continue;
-        const int bb = b_sh[j];
-        const int64_t grow = grp0 + bb;
-        const float sv = el[static_cast<int64_t>(src) * h + k] +
-                         er_g[grow * h + k];
-        float lse = lse_g[grow * h + k], rho = rho_g[grow * h + k];
-        if (rstats) {
-          lse = rnd<true>(lse);
-          rho = rnd<true>(rho);
-        }
-        const float acoef = expf(leaky(sv, slope) - lse);
-        const float dl = sv >= 0.f ? 1.f : slope;
-        const float gv = head_dot<BF16>(ft + static_cast<int64_t>(src) * F +
-                                            k * d,
-                                        ct_g + grow * F + k * d, d, vec4);
-        const float m =
-            DROP ? drop_scale(eid[slot0 + j], k, sd, thresh, inv_keep) : 1.f;
-        atomicAdd(&gq_sh[bb * h + k],
-                  rnd<BF16>(acoef * (gv * m - rho) * dl));
-      }
-      __syncthreads();
+      dst[i] = s;
     }
+    __syncthreads();
+  };
+  // Lane i's chunk descriptors from chunk tx on: loaded a batch ahead.
+  int dw, dg;
+  auto load_desc = [&](int tx) {
+    dw = tx + lane < t1 ? in_id[tx + lane] : -1;
+    dg = tx + lane < t1 ? out_id[tx + lane] : -1;
+  };
+  auto stage = [&](float* buf, const GrpBatch& bt, int tx) {
+    grp_stage<VEC, DROP>(buf, pl, bt.w, static_cast<int64_t>(tx) * chunk,
+                         (bt.te - tx) * chunk, a, b, eid, ft, el, n_src, h, F,
+                         st, abvec);
+  };
+  load_desc(t0);
+  GrpBatch cb = grp_batch(in_id, out_id, t0, t1, maxc, dw, dg);  // this
+  GrpBatch nbt = cb;                                              // next
+  if (cb.te < t1) {
+    load_desc(cb.te);
+    nbt = grp_batch(in_id, out_id, cb.te, t1, maxc, dw, dg);
   }
-  if (cur >= 0) grp_flush(gq_sh, cur, h, ger);
+  int tb = t0, buf = 0, cur_g = -1;
+  if (pl.nbuf == 2) stage(smem, cb, t0);
+  while (tb < t1) {
+    const int te = cb.te, tn = te;
+    const int g = cb.g;
+    const int64_t grp0 = static_cast<int64_t>(g) * BLK;
+    if (g != cur_g) {  // the same in every thread of the block
+      flush_q();
+      cur = -1;
+      crow = -1;
+      if (cur_g >= 0) merge(cur_g);
+      cur_g = g;
+      grp_tile(hs, [&](int r, int k) {
+        float er = 0.f, lse = 0.f, rho = 0.f;
+        if (k < st.nh) {
+          const int64_t o = (grp0 + r) * h + st.h0 + k;
+          er = er_g[o];
+          lse = lse_g[o];
+          rho = rho_g[o];
+          if (rstats) {
+            lse = rnd<true>(lse);
+            rho = rnd<true>(rho);
+          }
+        }
+        st_sh[r * hs + k] = er;
+        st_sh[(BLK + r) * hs + k] = lse;
+        st_sh[(2 * BLK + r) * hs + k] = rho;
+      });
+      if (pl.ctsh) {
+        grp_tile(st.nf, [&](int r, int c) {
+          ct_sh[r * ws + c] =
+              rnd<BF16>(__ldg(ct_g + (grp0 + r) * F + st.c0 + c));
+        });
+      }
+    }
+    float* cbuf = smem;
+    if (pl.nbuf == 2) {
+      // The next batch goes into the other buffer meanwhile.
+      if (tn < t1)
+        stage(smem + (buf ^ 1) * nbf, nbt, tn);
+      else
+        cp_async_commit();
+      cp_async_wait_prev();
+      cbuf += buf * nbf;
+    } else {
+      stage(smem, cb, tb);
+      cp_async_wait_all();
+    }
+    const float* wb = cbuf;
+    const float* eb = cbuf + BLK * ws;
+    const int* ab = reinterpret_cast<const int*>(eb + BLK * hs);
+    const int* bbv = ab + pl.abcap;
+    const int* ib = bbv + pl.abcap;
+    if (BF16) grp_round<VEC>(cbuf, st, ws);
+    // The batch after the next: its descriptors load during this walk.
+    if (nbt.te < t1) load_desc(nbt.te);
+    __syncthreads();
+
+    // The walk: warp w takes the batch's rounds of 32 slots w, w + 16, ...
+    const int S = (te - tb) * chunk;
+    for (int base = 32 * warp; base < S; base += 32 * GRP_NW) {
+      {
+        const int i = base + lane;
+        const bool r0 = i < S && ab[i] >= 0 && bbv[i] >= 0;
+        if (!__any_sync(FULL, r0)) continue;  // a run's padding tail
+      }
+      for (int s0 = 0; s0 < 32; s0 += R) {
+        const int i = base + s0 + lj;
+        const int aa = i < S ? ab[i] : -1, bb = i < S ? bbv[i] : -1;
+        const bool real = aa >= 0 && bb >= 0;
+        const bool on = real && live;
+        const float elv = on ? eb[aa * hs + lk] : 0.f;
+        if (on && bb != crow) {  // this lane's hub row changed
+          crow = bb;
+          if (pl.ctsh) {
+            const float* cg = ct_sh + bb * ws + col;
+            if (VEC) {
+#pragma unroll
+              for (int c = 0; c < GRP_COLS / 4; ++c) {
+                if (F8 || c < nch) {
+                  const float4 v =
+                      *reinterpret_cast<const float4*>(cg + coff[c]);
+                  cv[4 * c] = v.x;
+                  cv[4 * c + 1] = v.y;
+                  cv[4 * c + 2] = v.z;
+                  cv[4 * c + 3] = v.w;
+                }
+              }
+            } else {
+#pragma unroll
+              for (int c = 0; c < GRP_COLS; ++c)
+                if (c < ncol) cv[c] = cg[c];
+            }
+          } else {
+            const float* cg = ct_g + (grp0 + bb) * F + st.c0 + col;
+            if (VEC) {
+#pragma unroll
+              for (int c = 0; c < GRP_COLS / 4; ++c) {
+                if (F8 || c < nch) {
+                  float4 v =
+                      __ldg(reinterpret_cast<const float4*>(cg + coff[c]));
+                  if (BF16) {
+                    rnd2(v.x, v.y);
+                    rnd2(v.z, v.w);
+                  }
+                  cv[4 * c] = v.x;
+                  cv[4 * c + 1] = v.y;
+                  cv[4 * c + 2] = v.z;
+                  cv[4 * c + 3] = v.w;
+                }
+              }
+            } else {
+#pragma unroll
+              for (int c = 0; c < GRP_COLS; ++c)
+                if (c < ncol) cv[c] = rnd<BF16>(__ldg(cg + c));
+            }
+          }
+          const int hr = bb * hs + lk;
+          erv = st_sh[hr];
+          lsev = st_sh[BLK * hs + hr];
+          rhov = st_sh[2 * BLK * hs + hr];
+        }
+        // The dot over the lane's part (its ft loads first, then four
+        // partial sums), then over the head's g parts.
+        float pp[4] = {0.f, 0.f, 0.f, 0.f};
+        if (on) {
+          const float* fr = wb + aa * ws + col;
+          if (VEC) {
+            float4 x[GRP_COLS / 4];
+#pragma unroll
+            for (int c = 0; c < GRP_COLS / 4; ++c) {
+              if (F8 || c < nch) {
+                x[c] = *reinterpret_cast<const float4*>(fr + coff[c]);
+              }
+            }
+#pragma unroll
+            for (int c = 0; c < GRP_COLS / 4; ++c) {
+              if (F8 || c < nch) {
+                if (BF16) {
+                  float y[4] = {x[c].x * cv[4 * c], x[c].y * cv[4 * c + 1],
+                                x[c].z * cv[4 * c + 2],
+                                x[c].w * cv[4 * c + 3]};
+                  rnd2(y[0], y[1]);
+                  rnd2(y[2], y[3]);
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) pp[e] += y[e];
+                } else {
+                  pp[0] = fmaf(x[c].x, cv[4 * c], pp[0]);
+                  pp[1] = fmaf(x[c].y, cv[4 * c + 1], pp[1]);
+                  pp[2] = fmaf(x[c].z, cv[4 * c + 2], pp[2]);
+                  pp[3] = fmaf(x[c].w, cv[4 * c + 3], pp[3]);
+                }
+              }
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < GRP_COLS; ++c)
+              if (c < ncol)
+                pp[c & 3] = BF16 ? pp[c & 3] + rnd<true>(fr[c] * cv[c])
+                                 : fmaf(fr[c], cv[c], pp[c & 3]);
+          }
+        }
+        float gv = (pp[0] + pp[1]) + (pp[2] + pp[3]);
+        for (int o = R; o < R * pl.g; o <<= 1)
+          gv += __shfl_xor_sync(FULL, gv, o);
+        float q = 0.f;
+        if (on) {
+          const float sv = elv + erv;
+          const float acoef = expf(leaky(sv, slope) - lsev);
+          const float dl = sv >= 0.f ? 1.f : slope;
+          const float m =
+              DROP ? drop_scale(ib[i], st.h0 + lk, sd, thresh, inv_keep)
+                   : 1.f;
+          q = rnd<BF16>(acoef * (gv * m - rhov) * dl);
+        }
+        // q onto its hub row.
+        if (__all_sync(FULL, !real || bb == cur)) {
+          qacc += q;
+          continue;
+        }
+        qacc += real && bb == cur ? q : 0.f;
+        // The row of the step's last real slot goes on in registers.
+        const int last = 31 - __clz(__ballot_sync(FULL, real));
+        const int ncur = __shfl_sync(FULL, bb, last);
+        const int old = cur;
+        if (ncur != cur) {
+          flush_q();
+          cur = ncur;
+          qacc = real && bb == ncur ? q : 0.f;
+        }
+        // Slots of other rows: one at a time, in order of j.
+        unsigned todo = __ballot_sync(
+            FULL, real && bb != old && bb != ncur && lp == 0 && lk == 0);
+        while (todo) {
+          const int jj = __ffs(todo) - 1;
+          todo &= todo - 1;
+          if (lj == jj && lp == 0 && live) wp[bb * hs + lk] += q;
+          __syncwarp();
+        }
+      }
+    }
+    __syncthreads();
+    tb = tn;
+    cb = nbt;
+    if (cb.te < t1) nbt = grp_batch(in_id, out_id, cb.te, t1, maxc, dw, dg);
+    buf ^= 1;
+  }
+  flush_q();
+  if (cur_g >= 0) merge(cur_g);
+}
+
+// Sums the slots of the blocks whose run of chunks met each group, in
+// block order, into every element of grad_er (zero where no chunk names
+// the group). A thread per output element.
+__global__ void __launch_bounds__(NT)
+    attn_grp_fold_kernel(const int* __restrict__ out_id, int n_chunks,
+                         int cpb, int n_groups, int h, int hs, int n_seg,
+                         const float* __restrict__ part,
+                         float* __restrict__ ger) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+  if (i >= static_cast<int64_t>(n_groups) * BLK * h) return;
+  const int64_t row = i / h;
+  const int k = static_cast<int>(i - row * h);
+  const int g = static_cast<int>(row / BLK), r = static_cast<int>(row % BLK);
+  const int y = k / hs, kk = k - y * hs;
+  const int t0 = first_chunk(out_id, n_chunks, g);
+  const int t1 = first_chunk(out_id, n_chunks, g + 1);
+  float s = 0.f;
+  if (t0 < t1) {
+    const int seg0 = g - out_id[0];
+    for (int x = t0 / cpb; x <= (t1 - 1) / cpb; ++x)
+      s += part[((static_cast<int64_t>(y) * n_seg + x + seg0) * BLK + r) * hs +
+                kk];
+  }
+  ger[i] = s;
 }
 
 // ---------------------------------------------------------------------
@@ -1782,6 +2226,58 @@ int64_t fwd_scratch(int n_chunks, int h, int bf16, const FwdPlan& pl,
   return n;
 }
 
+// K7 g-major's instantiation: template <bool DROP, bool BF16, int VM>.
+using GrpKernel = void (*)(const int*, const int*, const int*, const int*,
+                           const int*, int, int, int, const float*, int,
+                           const float*, const float*, const float*,
+                           const float*, const float*, int, int, GrpPlan,
+                           float, const int*, int, float, int, float*);
+
+template <bool DROP, bool BF16>
+GrpKernel pick_grp2(int vm) {
+  return vm == 2   ? attn_bwd_grp_kernel<DROP, BF16, 2>
+         : vm == 1 ? attn_bwd_grp_kernel<DROP, BF16, 1>
+                   : attn_bwd_grp_kernel<DROP, BF16, 0>;
+}
+
+GrpKernel pick_grp(bool drop, bool bf16, int vm) {
+  return drop ? (bf16 ? pick_grp2<true, true>(vm)
+                      : pick_grp2<true, false>(vm))
+              : (bf16 ? pick_grp2<false, true>(vm)
+                      : pick_grp2<false, false>(vm));
+}
+
+// K7 g-major's grid: as many blocks as the card holds at once (as the
+// float32 instantiation without dropout fits them, so that the scratch
+// does not depend on the instantiation), split over the stripes, each a
+// run of cpb chunks; n_seg partial slots a stripe (a block's slot for a
+// group is block + group - out_id[0]).
+struct GrpLaunch {
+  size_t smem;
+  int n_stripes, cpb, nblk, n_seg;
+};
+
+cudaError_t grp_launch(int n_chunks, int n_groups, int h, const GrpPlan& pl,
+                       GrpLaunch* out) {
+  out->smem = grp_smem(pl);
+  out->n_stripes = (h + pl.hs - 1) / pl.hs;
+  auto ref = attn_bwd_grp_kernel<false, false, 1>;
+  cudaError_t e = set_smem(ref, out->smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ref, GRP_NT,
+                                                    out->smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) per_sm = 1;
+  int per_stripe = per_sm * num_sms() / out->n_stripes;
+  if (per_stripe < 1) per_stripe = 1;
+  out->cpb = (n_chunks + per_stripe - 1) / per_stripe;
+  if (out->cpb < 1) out->cpb = 1;
+  out->nblk = (n_chunks + out->cpb - 1) / out->cpb;
+  out->n_seg = out->nblk + n_groups;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1921,31 +2417,64 @@ int attn_bwd_src(const int* a, const int* b, const int* eid, const int* in_id,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7 g-major over the forward layout. `ger` (n_groups*128, h) must be
-// zeroed. seed null: no dropout. bf16: 1 for the bf16 mode.
+// K7 g-major's scratch in floats for this call (see grp_launch); -1 for
+// a plan the kernel does not take.
+long long attn_grp_scratch(int n_chunks, int chunk, int n_groups, int h,
+                           int d, int hs, int g, int cpl, int ws, int nbuf,
+                           int abcap, int ctsh) {
+  const GrpPlan pl{hs, g, cpl, ws, nbuf, abcap, ctsh};
+  if (h < 1 || h > BLK || d < 1 || d > MAX_COLS) return -1;
+  if (n_chunks <= 0) return 0;
+  if (!grp_plan_ok(pl, h, d, chunk)) return -1;
+  GrpLaunch ln;
+  if (grp_launch(n_chunks, n_groups, h, pl, &ln) != cudaSuccess) return -1;
+  return static_cast<long long>(ln.n_stripes) * ln.n_seg * BLK * pl.hs;
+}
+
+// K7 g-major over the forward layout. The plan (hs, g, cpl, ws, nbuf,
+// abcap, ctsh) is ops/attn_kernels.py's grp_plan; el and ft have n_src rows;
+// scratch holds attn_grp_scratch's floats. Every element of ger
+// (n_groups*128, h) is written. seed null: no dropout. bf16: 1 for the
+// bf16 mode.
 int attn_bwd_grp(const int* a, const int* b, const int* eid, const int* in_id,
                  const int* out_id, int n_chunks, int chunk, const float* el,
-                 const float* er_g, const float* lse_g, const float* rho_g,
-                 const float* ft, const float* ct_g, int h, int d,
-                 float slope, const int* seed, int thresh, float inv_keep,
-                 int bf16, float* ger, void* stream) {
+                 int n_src, const float* er_g, const float* lse_g,
+                 const float* rho_g, const float* ft, const float* ct_g, int h,
+                 int d, int hs, int g, int cpl, int ws, int nbuf, int abcap,
+                 int ctsh, float slope, const int* seed, int thresh,
+                 float inv_keep, int n_groups, int bf16, float* scratch,
+                 float* ger, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h < 1 || h > BLK || d < 1)
+  const GrpPlan pl{hs, g, cpl, ws, nbuf, abcap, ctsh};
+  if (h < 1 || h > BLK || d < 1 || d > MAX_COLS ||
+      (n_chunks > 0 && !grp_plan_ok(pl, h, d, chunk)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n_groups <= 0) return static_cast<int>(cudaGetLastError());
+  int cpb = 1, n_seg = 0;
   if (n_chunks > 0) {
-    int sub = 1024;
-    while (sub > 32 && sub * h > 4096) sub /= 2;
-    const size_t smem =
-        sizeof(float) * static_cast<size_t>(BLK) * h + sizeof(int) * 2 * sub;
-    const int cpc = chunks_per_block(n_chunks, 1);
-    auto kern = PICK(attn_bwd_grp_kernel, seed != nullptr, bf16);
-    cudaError_t e = set_smem(kern, smem);
+    if (scratch == nullptr || chunk < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    GrpLaunch ln;
+    cudaError_t e = grp_launch(n_chunks, n_groups, h, pl, &ln);
     if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<(n_chunks + cpc - 1) / cpc, NT, smem, s>>>(
-        a, b, eid, in_id, out_id, n_chunks, chunk, cpc, el, er_g, lse_g,
-        rho_g, ft, ct_g, h, d, sub, slope, seed,
-        seed != nullptr ? thresh : 0, seed != nullptr ? inv_keep : 1.f, ger);
+    const bool vec = (d & 3) == 0 &&
+                     ((reinterpret_cast<uintptr_t>(ft) |
+                       reinterpret_cast<uintptr_t>(ct_g)) & 15) == 0;
+    const bool drop = seed != nullptr;
+    GrpKernel kern =
+        pick_grp(drop, bf16, !vec ? 0 : cpl == 32 && d % 32 == 0 ? 2 : 1);
+    e = set_smem(kern, ln.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<dim3(ln.nblk, ln.n_stripes), GRP_NT, ln.smem, s>>>(
+        a, b, eid, in_id, out_id, n_chunks, chunk, ln.cpb, el, n_src, er_g,
+        lse_g, rho_g, ft, ct_g, h, d, pl, slope, seed, drop ? thresh : 0,
+        drop ? inv_keep : 1.f, ln.n_seg, scratch);
+    cpb = ln.cpb;
+    n_seg = ln.n_seg;
   }
+  const int64_t n_out = static_cast<int64_t>(n_groups) * BLK * h;
+  attn_grp_fold_kernel<<<static_cast<int>((n_out + NT - 1) / NT), NT, 0, s>>>(
+      out_id, n_chunks, cpb, n_groups, h, hs, n_seg, scratch, ger);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1345,23 +1345,77 @@ __global__ void __launch_bounds__(CF_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------
-// K2 rhs: chunk_rhs_kernel<BF16>, the first weighted design, kept for
-// rhs mode, which it serves at 28x the speed of its library call.
-//
-// A block owns a run of chunks and a stripe of RSTRIPE features; a warp
-// owns a contiguous eighth of each chunk and takes 32 slots at a time:
-// each lane reads one slot's a, b and eid, a ballot keeps the real ones,
-// and the warp walks those CW_UNROLL at a time, lanes over the stripe's
-// columns, loading every message before adding any; each run of equal b
-// goes to the shared partial with one shared atomic a column.
+// K2 rhs: chunk_rhs_kernel<BF16, VEC, LG>, copy_e with sum:
+// out[out_id[t] * 128 + b[s]] += e2[eid[s]] over the real slots whose edge
+// id lies in e2 (hub_chunk_weighted, rhs mode).
 //
 // Bound on the H100: bytes. Each real slot needs its he floats of e2 and
-// the layout, each read once; the output is written once. The flush
-// costs 128 x RSTRIPE atomics per run and output block.
+// the layout, each read once; the output is written once. R-GCN layer 1
+// (he = 64, 4.4 M real slots): 1.1 GB of 256-byte rows at random places
+// (eid follows the destination, not the edge order), 0.355 ms at 3.35
+// TB/s. No arithmetic to speak of: the kernel is a gather whose speed is
+// the number of rows in flight.
+//
+// The first design gave each lane a column of a 64-wide stripe and
+// walked four slots at a time with 4-byte loads: eight loads in flight a
+// lane, 1 KB a warp. Its bf16 build took twice as long because ptxas
+// placed each rounding (F2F.BF16.F32) right after its load, inside the
+// walk of four slots, so a lane waited for each slot's row before it
+// issued the next slot's loads: at most 3 loads in flight, against 8 in
+// the float32 build (tools/sass_report.py, PERF.md section 6). This one:
+//
+// * Lanes over a slot's columns, 4 a lane, 16 bytes at a time where rows
+//   allow (LG lanes a slot, 32 / LG slots a warp-wide load; at he <= 4
+//   each lane takes a slot of its own). A block owns a run of chunks and
+//   a stripe of RSTRIPE columns, a warp a contiguous eighth of each chunk.
+// * A warp loads the layout of a pass of NS slots (the next pass's a
+//   pass ahead, across chunk ends), then issues every row of the pass
+//   (RHS_STEPS loads a lane: 2 KB a warp at he = 64; 8 loads took 80
+//   registers and were slower at every width) before it adds any, each
+//   load without a condition (one whose result is moved or selected at
+//   once holds the next ones back), and rounds (BF16) only in the adding
+//   loop.
+// * Sums per hub row: while a step's slots all name the warp's current
+//   row (most steps: a window's slots come in runs of equal b) the lanes
+//   add into registers; a step that changes the row adds the sum over the
+//   lanes to the block's shared (128 x RSTRIPE) partial, and the runs that
+//   start and end inside the step are summed over their lanes first, one
+//   shared add a run and column. The partial goes to the output with one
+//   16-byte atomic a nonzero quad when out_id changes and at the run's
+//   end (flush_rhs).
 // ---------------------------------------------------------------------
 constexpr int RSTRIPE = 64;   // feature columns per block of K2 rhs
+constexpr int RHS_STEPS = 4;  // steps whose rows a lane loads at once
 
-template <bool BF16>
+// Adds the 128 x RSTRIPE partial of output block blk to the output (16
+// bytes at a time where its rows allow, one atomic each quad with a
+// nonzero) and zeroes it.
+__device__ void flush_rhs(float* __restrict__ acc, int blk, int f0,
+                          int width, float* __restrict__ out, int n_out_rows,
+                          int f) {
+  constexpr int Q = RSTRIPE / 4;
+  const bool vec = (f & 3) == 0;
+  for (int i = threadIdx.x; i < BLK * Q; i += NT) {
+    const int r = i / Q, c = (i - r * Q) * 4;
+    float4* p = reinterpret_cast<float4*>(acc + r * RSTRIPE + c);
+    const float4 v = *p;
+    if (v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f) continue;
+    *p = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int64_t row = static_cast<int64_t>(blk) * BLK + r;
+    if (c >= width || row >= n_out_rows) continue;
+    float* o = out + row * f + f0 + c;
+    if (vec && c + 4 <= width) {
+      atomicAdd(reinterpret_cast<float4*>(o), v);
+    } else {
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < width && vv[e] != 0.f) atomicAdd(o + e, vv[e]);
+    }
+  }
+}
+
+template <bool BF16, bool VEC, int LG>
 __global__ void __launch_bounds__(NT)
     chunk_rhs_kernel(const int* __restrict__ a, const int* __restrict__ b,
                      const int* __restrict__ eid,
@@ -1369,91 +1423,159 @@ __global__ void __launch_bounds__(NT)
                      int chunk, int run, const float* __restrict__ e2,
                      int n_e, int he, float* __restrict__ out,
                      int n_out_rows, int f) {
-  __shared__ float acc[BLK * RSTRIPE];
+  constexpr int P = 32 / LG;  // slots a step: lane group p takes slot p
+  constexpr int NS = P * RHS_STEPS < 128 ? P * RHS_STEPS : 128;  // a pass
+  constexpr int STEPS = NS / P;
+  constexpr int K = (NS + 31) / 32;  // layout registers a lane
+  __shared__ __align__(16) float acc[BLK * RSTRIPE];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p = lane / LG, c0 = 4 * (lane % LG);
   const int c_begin = blockIdx.x * run;
   const int c_end = min(n_chunks, c_begin + run);
   const int f0 = blockIdx.y * RSTRIPE;
   const int width = min(RSTRIPE, f - f0);
-  const bool has0 = lane < width, has1 = lane + 32 < width;
+  const int ncol = max(0, min(4, width - c0));
   const int per_warp = (chunk + NT / 32 - 1) / (NT / 32);
-  const int w_begin = warp * per_warp;
+  const int w_begin = min(chunk, warp * per_warp);
   const int w_end = min(chunk, w_begin + per_warp);
   for (int i = threadIdx.x; i < BLK * RSTRIPE; i += NT) acc[i] = 0.f;
   __syncthreads();
-  int cur = out_id[c_begin];
+
+  // A pass's layout: lane i, register k holds slot s0 + 32 k + i's row b
+  // and edge id, b = -1 where the slot is padding or its edge id falls
+  // outside e2.
+  int bq[K], eq[K];
+  auto load_layout = [&](int t, int s0) {
+    const int64_t slot0 = static_cast<int64_t>(t) * chunk;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = s0 + 32 * k + lane;
+      bq[k] = -1;
+      eq[k] = 0;
+      if (32 * k + lane < NS && i < w_end && t < c_end) {
+        const int aa = a[slot0 + i], bb = b[slot0 + i], ee = eid[slot0 + i];
+        if (aa >= 0 && bb >= 0 && ee >= 0 && ee < n_e) {
+          bq[k] = bb;
+          eq[k] = ee;
+        }
+      }
+    }
+  };
+  // Adds the lanes' running sums of row cur, summed over the lane groups,
+  // to the shared partial.
+  auto flush_run = [&](int cur, float (&sa)[4]) {
+#pragma unroll
+    for (int o = LG; o < 32; o <<= 1)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[e] += __shfl_xor_sync(FULL, sa[e], o);
+    if (cur >= 0 && p == 0)
+      for (int e = 0; e < ncol; ++e)
+        atomicAdd(&acc[cur * RSTRIPE + c0 + e], sa[e]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sa[e] = 0.f;
+  };
+
+  int cur_o = c_begin < c_end ? out_id[c_begin] : -1;
+  if (w_begin < w_end) load_layout(c_begin, w_begin);
   for (int t = c_begin; t < c_end; ++t) {
     const int o = out_id[t];
-    if (o != cur) {  // the same for every thread of the block
+    if (o != cur_o) {  // the same for every thread of the block
       __syncthreads();
-      flush_partial(acc, RSTRIPE, cur, f0, width, out, n_out_rows, f,
-                    threadIdx.x, NT);
+      flush_rhs(acc, cur_o, f0, width, out, n_out_rows, f);
       __syncthreads();
-      cur = o;
+      cur_o = o;
     }
-    const int64_t slot0 = static_cast<int64_t>(t) * chunk;
-    int run_b = -1;  // the warp's running output row and its partial sums
-    float run0 = 0.f, run1 = 0.f;
-    for (int s0 = w_begin; s0 < w_end; s0 += 32) {
-      const int s = s0 + lane;
-      int as = -1, bs = -1, es = 0;
-      if (s < w_end) {
-        as = a[slot0 + s];
-        bs = b[slot0 + s];
-        es = eid[slot0 + s];
-      }
-      const bool ok = as >= 0 && bs >= 0 && es >= 0 && es < n_e;
-      unsigned todo = __ballot_sync(FULL, ok);
-      while (todo) {  // todo is the same in every lane
-        int ks[CW_UNROLL];
-        int n = 0;
+    int cur = -1;  // the warp's current row (the same in every lane)
+    float sa[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = w_begin; s0 < w_end; s0 += NS) {
+      // Every row of the pass is requested before any is added, without
+      // conditions (a padding slot reads row 0, a lane past the stripe's
+      // edge its first columns; both are zeroed when added): a load whose
+      // result is moved or selected right away holds the next ones back.
+      float v[STEPS][4];
+      int rb[STEPS];
 #pragma unroll
-        for (int i = 0; i < CW_UNROLL; ++i) {
-          ks[i] = todo ? __ffs(todo) - 1 : 0;
-          if (todo) {
-            todo &= todo - 1;
-            ++n;
-          }
-        }
-        float v[CW_UNROLL][2];
-        int rows[CW_UNROLL];
+      for (int st = 0; st < STEPS; ++st) {
+        const int src = (st * P) % 32 + p, k = (st * P) / 32;
+        rb[st] = __shfl_sync(FULL, bq[k], src);
+        const int ee = __shfl_sync(FULL, eq[k], src);
+        const float* row = e2 + static_cast<int64_t>(ee) * he + f0;
+        if (VEC) {
+          const float4 x =
+              __ldg(reinterpret_cast<const float4*>(row + (ncol ? c0 : 0)));
+          v[st][0] = x.x;
+          v[st][1] = x.y;
+          v[st][2] = x.z;
+          v[st][3] = x.w;
+        } else {
 #pragma unroll
-        for (int i = 0; i < CW_UNROLL; ++i) {
-          const int bk = __shfl_sync(FULL, bs, ks[i]);
-          const int ek = __shfl_sync(FULL, es, ks[i]);
-          rows[i] = bk;
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int col = f0 + lane + 32 * j;
-            v[i][j] = i < n && (j == 0 ? has0 : has1)
-                          ? rnd<BF16>(e2[static_cast<int64_t>(ek) * he + col])
-                          : 0.f;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < CW_UNROLL; ++i) {
-          if (i >= n) break;
-          if (rows[i] != run_b) {  // the same in every lane
-            if (run_b >= 0) {
-              if (has0) atomicAdd(&acc[run_b * RSTRIPE + lane], run0);
-              if (has1) atomicAdd(&acc[run_b * RSTRIPE + lane + 32], run1);
-            }
-            run_b = rows[i];
-            run0 = run1 = 0.f;
-          }
-          run0 += v[i][0];
-          run1 += v[i][1];
+          for (int e = 0; e < 4; ++e)
+            v[st][e] = __ldg(row + min(c0 + e, width - 1));
         }
       }
+      // The next pass's layout (the next chunk's first where this share
+      // ends) lands while this pass adds.
+      if (s0 + NS < w_end)
+        load_layout(t, s0 + NS);
+      else if (w_begin < w_end)
+        load_layout(t + 1, w_begin);
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {
+        const int bb = rb[st];
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e] = bb >= 0 && e < ncol ? rnd<BF16>(v[st][e]) : 0.f;
+        if (__all_sync(FULL, bb < 0 || bb == cur)) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sa[e] += x[e];
+          continue;
+        }
+        // The row changes in this step: its last real slot's row goes on
+        // in registers; runs of other rows are summed over their lane
+        // groups and added once each.
+        const int old = cur;
+        const int last = 31 - __clz(__ballot_sync(FULL, bb >= 0));
+        const int ncur = __shfl_sync(FULL, bb, last);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[e] += bb >= 0 && bb == old ? x[e] : 0.f;
+        if (ncur != old) {
+          flush_run(old, sa);
+          cur = ncur;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sa[e] = bb == ncur ? x[e] : 0.f;
+        }
+        const bool rest = bb >= 0 && bb != old && bb != ncur;
+        if (!__any_sync(FULL, rest)) continue;
+        // Segments: runs of equal rows among the lane groups (lanes of
+        // other slots each their own). e: this run's last lane group.
+        const int key = rest ? bb : -1 - p;
+        const int key_next = __shfl_down_sync(FULL, key, LG);
+        const int key_prev = __shfl_up_sync(FULL, key, LG);
+        const int lg0 = lane - lane % LG;  // this lane group's first lane
+        const unsigned ends = __ballot_sync(
+            FULL, lane == lg0 && (p == P - 1 || key_next != key));
+        const int e_last = (lg0 + __ffs(ends >> lg0) - 1) / LG;
+        float xr[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xr[e] = rest ? x[e] : 0.f;
+#pragma unroll
+        for (int o = 1; o < P; o <<= 1) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float y = __shfl_down_sync(FULL, xr[e], o * LG);
+            if (p + o <= e_last) xr[e] += y;
+          }
+        }
+        if (rest && (p == 0 || key_prev != key))
+          for (int e = 0; e < ncol; ++e)
+            atomicAdd(&acc[bb * RSTRIPE + c0 + e], xr[e]);
+      }
     }
-    if (run_b >= 0) {
-      if (has0) atomicAdd(&acc[run_b * RSTRIPE + lane], run0);
-      if (has1) atomicAdd(&acc[run_b * RSTRIPE + lane + 32], run1);
-    }
+    flush_run(cur, sa);
   }
   __syncthreads();
-  flush_partial(acc, RSTRIPE, cur, f0, width, out, n_out_rows, f,
-                threadIdx.x, NT);
+  if (cur_o >= 0) flush_rhs(acc, cur_o, f0, width, out, n_out_rows, f);
 }
 
 // ---------------------------------------------------------------------
@@ -1909,6 +2031,28 @@ int chunk_walk_by_width(bool plain, const int* a, const int* b,
                                      n_in_rows, ld, out, n_out_rows, f, s);
 }
 
+// K2 rhs's instantiation: template <bool BF16, bool VEC, int LG>.
+using RhsKernel = void (*)(const int*, const int*, const int*, const int*,
+                           int, int, int, const float*, int, int, float*, int,
+                           int);
+
+template <bool BF16, bool VEC>
+RhsKernel pick_rhs2(int lg) {
+  switch (lg) {
+    case 1: return chunk_rhs_kernel<BF16, VEC, 1>;
+    case 2: return chunk_rhs_kernel<BF16, VEC, 2>;
+    case 4: return chunk_rhs_kernel<BF16, VEC, 4>;
+    case 8: return chunk_rhs_kernel<BF16, VEC, 8>;
+    default: return chunk_rhs_kernel<BF16, VEC, 16>;
+  }
+}
+
+RhsKernel pick_rhs(bool bf16, bool vec, int lg) {
+  return bf16 ? (vec ? pick_rhs2<true, true>(lg) : pick_rhs2<true, false>(lg))
+              : (vec ? pick_rhs2<false, true>(lg)
+                     : pick_rhs2<false, false>(lg));
+}
+
 template <bool BF16>
 int dense_bwd_by_type(const void* c, int c_dtype, const float* ct, float* out,
                       int n_out, int kd, int f, const int* starts,
@@ -2049,7 +2193,8 @@ int hub_chunk_weighted(int mode, const int* a, const int* b, const int* eid,
                        const float* in, int n_in_rows, int ld, float* out,
                        int n_out_rows, int f, int bf16, void* stream) {
   if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_chunks <= 0 || f <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_chunks <= 0 || f <= 0 || n_e <= 0)
+    return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
     return bf16 ? chunk_walk_by_width<true>(false, a, b, eid, in_id, out_id,
@@ -2062,13 +2207,23 @@ int hub_chunk_weighted(int mode, const int* a, const int* b, const int* eid,
                                              n_out_rows, f, s);
   }
   const int stripes = (f + RSTRIPE - 1) / RSTRIPE;
-  // About eight blocks per SM in all, each a run of whole chunks.
-  const int64_t target = 8LL * num_sms();
+  // Lanes a slot: the widest stripe's quads, rounded up to a power of two.
+  const int quads = ((f < RSTRIPE ? f : RSTRIPE) + 3) / 4;
+  const int lg = quads > 8 ? 16 : quads > 4 ? 8 : quads > 2 ? 4 : quads;
+  const bool vec =
+      (he & 3) == 0 && (reinterpret_cast<uintptr_t>(e2) & 15) == 0;
+  RhsKernel kern = pick_rhs(bf16, vec, lg);
+  int per_sm = 0;
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // One wave: as many blocks as fit on the card, each a run of chunks.
+  const int64_t target = static_cast<int64_t>(per_sm < 1 ? 1 : per_sm) *
+                         num_sms();
   int run = static_cast<int>(
       (static_cast<int64_t>(n_chunks) * stripes + target - 1) / target);
   if (run < 1) run = 1;
   dim3 grid((n_chunks + run - 1) / run, stripes);
-  auto kern = bf16 ? chunk_rhs_kernel<true> : chunk_rhs_kernel<false>;
   kern<<<grid, NT, 0, s>>>(a, b, eid, out_id, n_chunks, chunk, run, e2, n_e,
                            he, out, n_out_rows, f);
   return static_cast<int>(cudaGetLastError());

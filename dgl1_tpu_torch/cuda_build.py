@@ -44,9 +44,12 @@ _SIGNATURES = {
                          _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                          _f, _ptr, _c_int, _f, _c_int, _c_int, _ptr, _ptr,
                          _ptr, _ptr],
+        "attn_grp_scratch": [_c_int] * 12,
         "attn_bwd_grp": [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
-                         _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
-                         _f, _ptr, _c_int, _f, _c_int, _ptr, _ptr],
+                         _ptr, _c_int, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
+                         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+                         _c_int, _c_int, _f, _ptr, _c_int, _f, _c_int,
+                         _c_int, _ptr, _ptr, _ptr],
         "attn_ger_scratch": [_c_int] * 3,
         "attn_ger_reduce": [_ptr, _ptr, _c_int, _c_int, _ptr, _c_int, _ptr,
                             _ptr, _ptr],
@@ -82,6 +85,7 @@ _SIGNATURES = {
 
 # Entries that return other than an int error code.
 _RESTYPES = {"attn_fwd_scratch": ctypes.c_longlong,
+             "attn_grp_scratch": ctypes.c_longlong,
              "attn_ger_scratch": ctypes.c_longlong}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

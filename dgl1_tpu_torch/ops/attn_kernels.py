@@ -48,7 +48,7 @@ from dgl1_tpu_torch.ops.precision import round_bf16, rounding
 __all__ = ["attn_fwd", "attn_bwd_src", "attn_bwd_grp", "ger_reduce",
            "attn_fwd_torch", "attn_bwd_src_torch", "attn_bwd_grp_torch",
            "ger_reduce_torch", "drop_mask", "LAUNCHES", "reset_launches",
-           "KERNELS", "MAX_HEAD_DIM", "fwd_plan"]
+           "KERNELS", "MAX_HEAD_DIM", "fwd_plan", "grp_plan"]
 
 _BF16 = ("attn_fwd", "attn_bwd_src", "attn_bwd_grp")
 KERNELS = _BF16 + ("ger_reduce",) + tuple(f"{k}.bf16" for k in _BF16)
@@ -397,6 +397,86 @@ def fwd_plan(h: int, d: int) -> FwdPlan:
     return FwdPlan(nhs, nsub, ws, g, stripes, _fwd_smem(nhs, ws))
 
 
+# K7 g-major on the card (csrc/attn_kernels.cu attn_bwd_grp_kernel): a
+# 16-warp block owns a stripe of whole heads, at most GRP_STRIPE_COLS
+# columns (one head when wider), stages each batch of chunks (its 128-row
+# window and its slots' a, b and eid; two batches at a time where they
+# fit), the group's ct rows where they fit too, and keeps a (128 x heads)
+# partial of q per warp; a lane holds at most GRP_COLS features of one
+# head's row.
+GRP_COLS = 32
+GRP_STRIPE_COLS = 128
+_GRP_WARPS = 16
+
+
+class GrpPlan(NamedTuple):
+    """K7 g-major's stripes: ``hs`` heads a stripe, ``g`` lanes a head of
+    ``cpl`` features each, staged rows ``ws`` floats apart, ``nbuf``
+    batches staged at once, of at most ``abcap`` slots, ``ctsh`` 1 where
+    the group's ct rows are staged too, ``n_stripes`` stripes and the
+    block's ``smem`` bytes."""
+    hs: int
+    g: int
+    cpl: int
+    ws: int
+    nbuf: int
+    abcap: int
+    ctsh: int
+    n_stripes: int
+    smem: int
+
+
+def _grp_smem(hs: int, ws: int, nbuf: int, abcap: int, ctsh: int) -> int:
+    # nbuf staged batches (window, el, the slots' a, b and eid), the
+    # group's ct rows, its er, lse and rho, and each warp's partial of q.
+    return 4 * (nbuf * (BLK * (ws + hs) + 3 * abcap) + ctsh * BLK * ws
+                + (3 + _GRP_WARPS) * BLK * hs)
+
+
+# K7 g-major's stagings (batches at once, slots a batch, ct rows staged),
+# best first; a batch holds at least one chunk.
+_GRP_STAGING = ((2, 4096, 1), (2, 2048, 1), (2, 4096, 0), (2, 2048, 0),
+                (2, 1024, 1), (2, 1024, 0), (1, 4096, 0), (1, 2048, 0),
+                (1, 1024, 0))
+
+
+def grp_plan(h: int, d: int, chunk: int = 1024) -> GrpPlan:
+    """K7 g-major's plan for h heads of d features over chunks of
+    ``chunk`` slots: g (a power of two) lanes a head, so that each holds
+    at most GRP_COLS features; whole heads a stripe (a power of two, hs *
+    g <= 32 lanes) while they fit GRP_STRIPE_COLS columns, halved while no
+    staging of _GRP_STAGING that holds a chunk fits FWD_SMEM_MAX. Rows of
+    a multiple of 4 floats are staged 16 bytes at a time, a multiple of 32
+    floats apart where they are that wide (the lanes' 16-byte reads then
+    fall in distinct bank groups), else 4 floats more; other rows at an
+    odd stride. Raises for chunks no staging holds."""
+    g = 1
+    while GRP_COLS * g < d:
+        g *= 2
+    cpl = -(-(-(-d // g)) // 4) * 4
+    cap = min(32 // g, max(1, GRP_STRIPE_COLS // d), h)
+    hs = 1
+    while 2 * hs <= cap:
+        hs *= 2
+    while True:
+        w = hs * d
+        if d % 4 == 0:
+            ws = w if w % 32 == 0 else -(-w // 4) * 4 + 4
+        else:
+            ws = w | 1
+        fits = [stg for stg in _GRP_STAGING if stg[1] >= chunk
+                and _grp_smem(hs, ws, *stg) <= FWD_SMEM_MAX]
+        if fits:
+            break
+        if hs == 1:
+            raise ValueError(f"attn_bwd_grp stages a chunk in shared "
+                             f"memory: no plan for h={h}, d={d} and chunks "
+                             f"of {chunk} slots")
+        hs //= 2
+    return GrpPlan(hs, g, cpl, ws, *fits[0], -(-h // hs),
+                   _grp_smem(hs, ws, *fits[0]))
+
+
 def attn_fwd(lay, el, er_g, ft, h: int, d: int, slope: float,
              drop: float = 0.0, seed=None, n_groups: int = 1,
              bf16: bool = False):
@@ -500,7 +580,9 @@ def attn_bwd_grp(lay, el, er_g, lse_g, rho_g, ft, ct_g, h: int, d: int,
                  n_groups: int = 1, bf16: bool = False):
     """K7 g-major (``to_src=False``). ``lay``: the forward chunk layout;
     the other operands as :func:`attn_bwd_src`. Returns grad_er
-    (n_groups*128, h) as :func:`attn_bwd_grp_torch`."""
+    (n_groups*128, h) as :func:`attn_bwd_grp_torch`. On the card the sums
+    run in a fixed order (per-block partials folded in block order), so
+    two runs give the same bits."""
     dev, n_chunks, chunk, seed_p, thresh, inv_keep = _check_bwd(
         lay, el, er_g, lse_g, rho_g, ft, ct_g, h, d, drop, seed)
     if er_g.shape[0] < n_groups * BLK:
@@ -508,15 +590,27 @@ def attn_bwd_grp(lay, el, er_g, lse_g, rho_g, ft, ct_g, h: int, d: int,
     if dev.type == "cpu":
         return attn_bwd_grp_torch(lay, el, er_g, lse_g, rho_g, ft, ct_g, h,
                                   d, slope, drop, seed, n_groups, bf16)
-    ger = torch.zeros((n_groups * BLK, h), dtype=torch.float32, device=dev)
+    # Every element of the output is written.
+    ger = torch.empty((n_groups * BLK, h), dtype=torch.float32, device=dev)
+    if n_groups == 0:
+        return ger  # the C entry would launch nothing
+    pl = grp_plan(h, d, max(chunk, 1))
+    plan = pl[:7]
     with torch.cuda.device(dev):
-        rc = _lib().attn_bwd_grp(
+        lib = _lib()
+        n = lib.attn_grp_scratch(n_chunks, chunk, n_groups, h, d, *plan)
+        if n < 0:
+            raise RuntimeError(f"attention kernel attn_bwd_grp: no launch "
+                               f"for h={h}, d={d}")
+        scratch = torch.empty((max(n, 1),), dtype=torch.float32, device=dev)
+        rc = lib.attn_bwd_grp(
             lay["a"].data_ptr(), lay["b"].data_ptr(), lay["eid"].data_ptr(),
             lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,
-            chunk, el.data_ptr(), er_g.data_ptr(), lse_g.data_ptr(),
-            rho_g.data_ptr(), ft.data_ptr(), ct_g.data_ptr(), h, d,
-            ctypes.c_float(slope), seed_p, thresh, ctypes.c_float(inv_keep),
-            int(bf16), ger.data_ptr(), _stream(dev))
+            chunk, el.data_ptr(), el.shape[0], er_g.data_ptr(),
+            lse_g.data_ptr(), rho_g.data_ptr(), ft.data_ptr(),
+            ct_g.data_ptr(), h, d, *plan, ctypes.c_float(slope), seed_p,
+            thresh, ctypes.c_float(inv_keep), n_groups, int(bf16),
+            scratch.data_ptr(), ger.data_ptr(), _stream(dev))
     _done("attn_bwd_grp", rc, bf16)
     return ger
 

@@ -490,7 +490,7 @@ def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
         inp, ld = _rows16(inp)
     out = torch.zeros((n_out_blocks * BLK, width), dtype=torch.float32,
                       device=dev)
-    if n_chunks == 0 or width == 0:
+    if n_chunks == 0 or width == 0 or e2.shape[0] == 0:
         return out  # the C entry would launch nothing
     with torch.cuda.device(dev):
         rc = _lib().hub_chunk_weighted(

@@ -175,13 +175,15 @@ def test_fused_attention_matches_plain_on_the_card(dev, drop):
 
 
 @pytest.mark.parametrize("he,rep", [(1, 40), (1, 128), (8, 32), (4, 3),
-                                    (64, 1)])
+                                    (64, 1), (40, 1), (65, 1)])
 @pytest.mark.parametrize("mixed", [False, True])
 def test_weighted_kernels_match_plain_versions(dev, mixed, he, rep):
     """K2 mul (over full_fwd and the window-major full_bwd) and rhs, and
     K5 mul, within 1e-4 of their float64 plain versions relative to the
     same sums over absolute values (hub rows sum ~20k terms); K5 rhs, a
-    copy, exactly."""
+    copy, exactly. K2 rhs also in the bf16 mode (the float32 kernel
+    failing the same check) and with e2 cut short, whose slots past it
+    are skipped; he = 65 takes two stripes."""
     g = _graph(dev, mixed)
     hub, m = g.hub_dst, g.hub_dst_meta
     n, gr, f = g.num_nodes(), m.n_groups * 128, he * rep
@@ -208,6 +210,23 @@ def test_weighted_kernels_match_plain_versions(dev, mixed, he, rep):
             n_out, he, r)
         torch.cuda.synchronize()
         _sum_close(f"chunk_{mode}", got, want, scale)
+    e2_short = e2[: g.num_edges() // 2]
+    rhs = ("rhs", lf, e2_short, None, m.n_groups, he, 1)
+    got = K.chunk_weighted(*rhs)
+    want = K.chunk_weighted_torch("rhs", lf, *f64(e2_short), None,
+                                  m.n_groups, he, 1)
+    scale = K.chunk_weighted_torch("rhs", lf, *f64(e2_short.abs()), None,
+                                   m.n_groups, he, 1)
+    torch.cuda.synchronize()
+    _sum_close("chunk_rhs, e2 cut short", got, want, scale)
+    rhs = ("rhs", lf, e2, None, m.n_groups, he, 1)
+    got = K.chunk_weighted(*rhs, bf16=True)
+    want = K.chunk_weighted_torch("rhs", lf, *f64(e2), None, m.n_groups, he,
+                                  1, bf16=True)
+    scale = K.chunk_weighted_torch("rhs", lf, *f64(e2.abs()), None,
+                                   m.n_groups, he, 1, bf16=True)
+    torch.cuda.synchronize()
+    _bf16_close("chunk_rhs.bf16", got, K.chunk_weighted(*rhs), want, scale)
     got = K.edge_grad("mul", lf, u, ct, he, rep)
     want = K.edge_grad_torch("mul", lf, *f64(u, ct), he, rep)
     scale = K.edge_grad_torch("mul", lf, *f64(u.abs(), ct.abs()), he, rep)
@@ -748,24 +767,96 @@ def test_block_mm_bf16_matches_plain_version(dev, transpose):
                  > tol).any())
 
 
+def _gmajor_case(dev, kind, h, d):
+    """K7 g-major's inputs on the mixed hub graph's full_fwd (five groups)
+    or on _fwd_layout cut into 16-slot chunks (three groups, each
+    block's run of chunks crossing group changes, windows over three or
+    more chunks, long runs of one (b, a) pair, an all-padding chunk, a cut
+    last window). Returns (args without drop and seed, n_groups)."""
+    if kind == "chunks16":
+        lay, n_src, n_groups = _fwd_layout(dev, chunk=16, seed=h + d)
+        gen = torch.Generator(device=dev).manual_seed(h * d)
+
+        def rnd(*shape, shift=0.0):
+            return torch.randn(*shape, device=dev, generator=gen) + shift
+
+        gr = n_groups * 128
+        ins = (rnd(n_src, h), rnd(gr, h), rnd(gr, h, shift=3.0), rnd(gr, h),
+               rnd(n_src, h * d), rnd(gr, h * d))
+    else:
+        g = _graph(dev, True)
+        lay, n_groups = g.hub_dst["full_fwd"], g.hub_dst_meta.n_groups
+        ins = _attn_inputs(g, dev, h, d)
+    return (lay, *ins, h, d, 0.2), n_groups
+
+
 @pytest.mark.parametrize("drop", [0.0, 0.6])
-def test_gmajor_kernel_matches_plain_version(dev, drop):
+@pytest.mark.parametrize("h,d,bf16", [(8, 32, False), (8, 32, True),
+                                      (2, 32, False), (1, 40, False),
+                                      (5, 3, False), (5, 3, True),
+                                      (2, 256, False)])
+@pytest.mark.parametrize("kind", ["graph", "chunks16"])
+def test_gmajor_kernel_matches_plain_version(dev, kind, h, d, bf16, drop):
     """K7 g-major within 1e-4 of its float64 plain version relative to the
-    same sums over |ft|, |ct| and -|rho| (hub rows sum ~20k terms)."""
-    g = _graph(dev, True)
-    m = g.hub_dst_meta
-    h, d = 8, 32
-    el, er_g, lse_g, rho_g, ft, ct_g = _attn_inputs(g, dev, h, d)
+    same sums over |ft|, |ct| and -|rho| (hub rows sum ~20k terms), at
+    several heads a stripe with ct rows through L1 (8, 32) or staged (2,
+    32), one head of two lanes, d not a multiple of 4 (the scalar path)
+    and one batch staged at a time (d = 256); in the
+    bf16 mode (at the shapes with 3,000 outputs or more, so that
+    FLIP_SHARE allows the few rounded values that flip) with the flips,
+    the float32 kernel failing the same check. Every element is written
+    (the output comes from torch.empty over a pool of NaNs): rows no slot
+    names are exactly 0."""
+    (lay, el, er_g, lse_g, rho_g, ft, ct_g, *hd), n_groups = _gmajor_case(
+        dev, kind, h, d)
     seed = torch.tensor([987654321], dtype=torch.int32, device=dev)
-    lf = g.hub_dst["full_fwd"]
-    args = (lf, el, er_g, lse_g, rho_g, ft, ct_g, h, d, 0.2, drop, seed,
-            m.n_groups)
-    got = AK.attn_bwd_grp(*args)
-    want = AK.attn_bwd_grp_torch(*_f64(*args))
-    scale = AK.attn_bwd_grp_torch(*_f64(lf, el, er_g, lse_g, -rho_g.abs(),
-                                        ft.abs(), ct_g.abs(), *args[7:]))
+    args = (lay, el, er_g, lse_g, rho_g, ft, ct_g, *hd, drop, seed, n_groups)
+    name = "attn_bwd_grp.bf16" if bf16 else "attn_bwd_grp"
+    AK.reset_launches()
+    _nan_pool(dev, n_groups * 128 * h)
+    got = AK.attn_bwd_grp(*args, bf16=bf16)
+    assert {k: v for k, v in AK.LAUNCHES.items() if v} == {name: 1}
+    want = AK.attn_bwd_grp_torch(*_f64(*args), bf16=bf16)
+    scale = AK.attn_bwd_grp_torch(*_f64(lay, el, er_g, lse_g, -rho_g.abs(),
+                                        ft.abs(), ct_g.abs(), *args[7:]),
+                                  bf16=bf16)
     torch.cuda.synchronize()
-    _sum_close("ger", got.double(), want, scale)
+    if bf16:
+        _bf16_close("ger", got, AK.attn_bwd_grp(*args), want, scale,
+                    flips=True)
+    else:
+        _sum_close("ger", got.double(), want, scale)
+    rows_out = K._chunk_rows(lay)[1][K._chunk_rows(lay)[2]]
+    idle = torch.ones(n_groups * 128, dtype=torch.bool, device=dev)
+    idle[rows_out] = False
+    assert not bool(got[idle].any())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", ["graph", "chunks16"])
+def test_gmajor_kernel_gives_the_same_bits_twice(dev, kind, bf16):
+    """K7 g-major sums in a fixed order (per-warp partials in warp order,
+    per-block slots in block order): a second run gives the same bits, as
+    the reference's in-order sweep does."""
+    (lay, *rest), n_groups = _gmajor_case(dev, kind, 8, 32)
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    args = (lay, *rest, 0.6, seed, n_groups)
+    first = AK.attn_bwd_grp(*args, bf16=bf16)
+    assert torch.equal(first, AK.attn_bwd_grp(*args, bf16=bf16))
+
+
+def test_gmajor_kernel_on_an_empty_layout(dev):
+    """A layout without chunks: every row of grad_er is 0 (the output
+    comes from torch.empty over a pool of NaNs), written by the fold
+    alone."""
+    (lay, *rest), _ = _gmajor_case(dev, "graph", 8, 32)
+    empty = {k: v[:0] for k, v in lay.items()}
+    _nan_pool(dev, 2 * 128 * 8)
+    AK.reset_launches()
+    got = AK.attn_bwd_grp(empty, *rest, 0.0, None, 2)
+    torch.cuda.synchronize()
+    assert got.shape == (256, 8) and not bool(got.any())
+    assert {k: v for k, v in AK.LAUNCHES.items() if v} == {"attn_bwd_grp": 1}
 
 
 def test_wide_head_gat_layer_falls_through_on_the_card(dev):
@@ -1270,6 +1361,39 @@ def test_attn_fwd_on_the_repeated_pairs_graph(dev):
     m = g.hub_dst_meta
     _attn_fwd_check(g.hub_dst["full_fwd"], g.num_nodes(), m.n_groups, dev, 8, 32,
                0.6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("he", [1, 8, 40, 64, 65])
+def test_chunk_rhs_walk_edges(dev, he, bf16):
+    """K2 rhs on _fwd_layout cut into 16-slot chunks (each block's run of
+    chunks crossing group changes, windows over three or more chunks, rows
+    whose runs outlast a pass, an all-padding chunk) against its float64
+    plain version, with e2 a third short (the slots past it skipped), in
+    float32 and in the bf16 mode (the float32 kernel failing the bf16
+    check); where he is a multiple of 4, also e2 4 bytes off a 16-byte
+    boundary (the 4-byte loads)."""
+    lay, _, n_groups = _fwd_layout(dev, chunk=16, seed=he)
+    n_e = 2 * lay["a"].shape[0] // 3
+    gen = torch.Generator(device=dev).manual_seed(he)
+    e2s = [torch.randn(n_e, he, device=dev, generator=gen)]
+    if he % 4 == 0 and not bf16:
+        e2s.append(torch.randn(n_e * he + 1, device=dev,
+                               generator=gen)[1:].view(n_e, he))
+    name = "chunk_rhs.bf16" if bf16 else "chunk_rhs"
+    for e2 in e2s:
+        args = ("rhs", lay, e2, None, n_groups, he, 1)
+        K.reset_launches()
+        got = K.chunk_weighted(*args, bf16=bf16)
+        assert {k: v for k, v in K.LAUNCHES.items() if v} == {name: 1}
+        want = K.chunk_weighted_torch(*_f64(*args), bf16=bf16)
+        scale = K.chunk_weighted_torch("rhs", lay, e2.abs().double(), None,
+                                       n_groups, he, 1, bf16=bf16)
+        torch.cuda.synchronize()
+        if bf16:
+            _bf16_close(name, got, K.chunk_weighted(*args), want, scale)
+        else:
+            _sum_close(name, got.double(), want, scale)
 
 
 def _nan_pool(dev, n):

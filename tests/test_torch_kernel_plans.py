@@ -1,7 +1,7 @@
-"""Host-side plans of the port's CUDA kernels, on the CPU: K6's stripes and
-shared-memory budget at every head shape the fused attention takes, K5
-mul's choice of kernel and lanes, and the ctypes signatures against the C
-entry points in ``csrc/*.cu``."""
+"""Host-side plans of the port's CUDA kernels, on the CPU: K6's and K7
+g-major's stripes and shared-memory budgets at every head shape the fused
+attention takes, K5 mul's choice of kernel and lanes, and the ctypes
+signatures against the C entry points in ``csrc/*.cu``."""
 
 import re
 
@@ -57,6 +57,51 @@ def test_fwd_plan_main_shapes():
     assert AK.fwd_plan(8, 32)[:5] == (4, 1, 132, 32, 2)
     assert AK.fwd_plan(1, 40)[:5] == (1, 1, 44, 16, 1)
     assert AK.fwd_plan(2, 256)[:5] == (1, 2, 132, 32, 4)
+
+
+@pytest.mark.parametrize("chunk", [16, 1024])
+@pytest.mark.parametrize("h", [1, 2, 3, 5, 8, 50, 127, 128])
+def test_grp_plan_fits_and_covers_every_head(h, chunk):
+    """K7 g-major's plan for every head width up to MAX_HEAD_DIM: the block
+    stays inside the 227 KB opt-in; g lanes of at most GRP_COLS features
+    (a multiple of 4) hold a head; hs whole heads a stripe (powers of two,
+    hs * g <= 32 lanes, at most GRP_STRIPE_COLS columns unless one head is
+    wider), and the stripes cover the h heads; staged rows hold the
+    stripe, 16-byte aligned where d is a multiple of 4; a staged batch
+    holds a chunk; the first staging of _GRP_STAGING that fits."""
+    for d in range(1, AK.MAX_HEAD_DIM + 1):
+        p = AK.grp_plan(h, d, chunk)
+        assert p.smem <= AK.FWD_SMEM_MAX, (h, d, p)
+        assert p.smem == AK._grp_smem(p.hs, p.ws, p.nbuf, p.abcap, p.ctsh)
+        assert p.g & (p.g - 1) == 0 and p.hs & (p.hs - 1) == 0
+        assert p.hs * p.g <= 32 and p.hs <= h
+        assert p.cpl % 4 == 0 and 4 <= p.cpl <= AK.GRP_COLS
+        assert p.g * p.cpl >= d and AK.GRP_COLS * p.g >= d
+        assert p.hs * d <= AK.GRP_STRIPE_COLS or p.hs == 1
+        assert p.ws >= p.hs * d and (d % 4 or p.ws % 4 == 0)
+        assert p.abcap >= chunk and p.abcap % 4 == 0
+        assert p.n_stripes == -(-h // p.hs)
+        staging = AK._GRP_STAGING.index((p.nbuf, p.abcap, p.ctsh))
+        assert all(st[1] < chunk
+                   or AK._grp_smem(p.hs, p.ws, *st) > AK.FWD_SMEM_MAX
+                   for st in AK._GRP_STAGING[:staging])
+
+
+def test_grp_plan_main_shapes():
+    """arxiv layer 1 (H=8, D=32): two stripes of four heads, a lane a
+    head (8 slots a warp at once), rows 128 floats apart, two batches of
+    up to 2,048 slots staged, ct rows through L1, one ~218 KB block an SM;
+    layer 2 (H=1, D=40): two lanes a head (16 slots at once), ct rows
+    staged; a 256-wide head: one batch. No staging holds a chunk of 8,192
+    slots."""
+    assert AK.grp_plan(8, 32)[:8] == (4, 1, 32, 128, 2, 2048, 0, 2)
+    assert AK.grp_plan(8, 32).smem == 4 * (2 * (128 * 132 + 3 * 2048)
+                                           + 19 * 128 * 4)
+    assert AK.grp_plan(1, 40)[:8] == (1, 2, 20, 44, 2, 4096, 1, 1)
+    assert AK.grp_plan(5, 3)[:8] == (4, 1, 4, 13, 2, 4096, 1, 2)
+    assert AK.grp_plan(1, 256)[:8] == (1, 8, 32, 256, 1, 4096, 0, 1)
+    with pytest.raises(ValueError, match="no plan"):
+        AK.grp_plan(8, 32, 8192)
 
 
 @pytest.mark.parametrize("he,rep,want", [
@@ -123,3 +168,35 @@ def test_layout_runs_counts_a_hand_made_layout():
     assert got["b_runs_per_chunk"] == 1.0       # two runs over two chunks
     # Rounds: [0:32) one row, [32:64) rows 0 and 3, then two of padding.
     assert got["one_row_round_share"] == 0.75
+
+
+def test_sass_report_reads_ptxas_and_sass():
+    """tools/sass_report.py on text in the formats of ptxas -v and
+    cuobjdump -sass: registers and spills per kernel, its instructions
+    (predicated ones too), and loads in flight until one's result is
+    read."""
+    from dgl1_tpu_torch.tools import sass_report as S
+
+    sass = """
+        Function : _Z3fooPKfPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/              @!P0 LDG.E.CONSTANT R5, desc[UR4][R2.64+0x4] ;
+        /*0030*/                   FADD R6, R4, R5 ;
+        /*0040*/                   LDG.E.CONSTANT R7, desc[UR4][R2.64+0x8] ;
+        /*0050*/                   F2F.BF16.F32 R7, R7 ;
+        /*0060*/                   EXIT ;
+        Function : _Z3barv
+        /*0000*/                   EXIT ;
+"""
+    funcs = S._functions(sass)
+    assert list(funcs) == ["_Z3fooPKfPf", "_Z3barv"]
+    ops = [op for op, _ in funcs["_Z3fooPKfPf"]]
+    assert ops == ["LDC", "LDG.E.CONSTANT", "LDG.E.CONSTANT", "FADD",
+                   "LDG.E.CONSTANT", "F2F.BF16.F32", "EXIT"]
+    assert S.max_ldg_batch(funcs["_Z3fooPKfPf"]) == 2
+    log = """ptxas info    : Compiling entry function '_Z3fooPKfPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPKfPf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 40 registers, 368 bytes cmem[0]"""
+    assert S._ptxas_usage(log) == {"_Z3fooPKfPf": [40, 4, 12]}
