@@ -91,15 +91,20 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    1024, hidden 256, dropout 0.5, Adam 1e-3; parent graph on the host,
    features on the card): the graph's build seconds; K9 (tile_sum) at
    block 1's reverse tiles (F=256) and K10 (tile_minmax) at block 0's
-   forward tiles (F=602) of a real sampled batch, against their plain
-   versions (K9 in float64 within the tolerance below, K10 exactly), with
-   other blocks, widths and min as ``variants``; the mean trainer for 5
+   forward tiles (F=602) of a real sampled batch in gather mode (source
+   rows read through the layout's index, as the copy ops run them),
+   against their plain versions (K9 in float64 within the tolerance
+   below, K10 exactly), with the pool step's other shapes, min, and
+   message mode (a row per slot, as the binary ops run them) at each
+   row's shape and block 1's forward tiles as ``variants``, each with
+   its library call; the mean trainer for 5
    steps from the 2-worker loader (logits at step 0 against the oracle
    engine, launches K9 1 and every other kernel 0 per step, losses
    finite, then 5 steps on the first batch repeated whose losses fall;
    host sampling ms per batch, device step ms, peak memory); the pool
-   trainer for 3 steps (K10 2 and K9 4 per step); a ``torch.profiler``
-   trace of 3 mean steps on batches sampled beforehand;
+   trainer for 3 steps (K10 2 and K9 4 per step); ``torch.profiler``
+   traces of 3 mean and 3 pool steps on batches sampled beforehand, the
+   pool one with its peak memory;
 4d. the block-dense slice on hub-free geometric graphs (bench.py's
    "geometric" family): ``geometric_graph(2^20, 8)`` and ``(2^17, 8)`` with
    ``formats=(..., "bdense")`` (build seconds, blocks, coverage, tail),
@@ -443,7 +448,7 @@ def kernel_row(name, out, ref, scale, fn, plain, library, bytes_moved,
 VARIANT_KEYS = ("bf16", "max_abs_err", "ms", "host_paced_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "bytes", "flops",
                 "shapes", "past_rtol", "past_rtol_f32", "epilogue",
-                "unfused_ms")
+                "unfused_ms", "slot_bound_ms")
 
 
 def with_variants(row, variants):
@@ -1572,89 +1577,120 @@ def reddit_loader(r, dev, seed=0):
                           seed=seed, num_workers=2, prefetch=2, device=dev)
 
 
-def tile_case(name, tiles, f, dev, is_max=None, library=True, seed=0):
+def tile_case(name, tiles, n_src, f, dev, is_max=None, mode="gather",
+              seed=0):
     """K9 (``is_max`` None) or K10 on one tile layout of a sampled Reddit
-    block at width ``f``. Message rows of padding slots hold NaN: a kernel
-    that read one would put NaN in its output. K9 is held against its
-    float64 plain version with the script's tolerance, K10 against its
-    float32 plain version exactly; plain_ms times the float32 plain
-    version. The library call (timed only) gets the real slots' rows
-    gathered beforehand: ``index_add_`` for K9, ``scatter_reduce_`` amax
-    or amin (include_self=False) for K10."""
+    block at width ``f``. ``mode`` "gather": the engine's copy ops, source
+    rows (n_src, f) read through the layout's ``gather``, whose padding
+    slots point at an extra row of NaN; "msg": the binary ops, a message
+    row per slot, padding rows NaN. A kernel that read a padding slot would
+    put NaN in its output. K9 is held against its float64 plain version
+    with the script's tolerance, K10 against its float32 plain version
+    exactly; plain_ms times the float32 plain version. The library call
+    (timed only) gets the real slots' rows gathered beforehand:
+    ``index_add_`` for K9, ``scatter_reduce_`` amax or amin
+    (include_self=False) for K10. Bytes: each distinct source row the real
+    slots read (message mode: each real slot's row) and, in gather mode,
+    the real slots' indices; the layout; the output. ``slot_bound_ms``
+    counts a row for every real slot instead, as the message mode must
+    read them: rows that many slots share come from L2 only if it holds
+    them."""
     from dgl1_tpu_torch.ops import tile_kernels as TK
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     lid = tiles["lid"]
     args = (tiles["rows"], tiles["first"], lid)
     n_tiles, n_rb = lid.shape[0], tiles["block_mask"].shape[0]
-    msg = torch.randn(lid.numel(), f, device=dev, generator=gen)
+    pad = lid.reshape(-1) < 0
+    real = (~pad).nonzero().squeeze(1)
+    n_real = int(real.numel())
+    if mode == "gather":
+        src = torch.randn(n_src + 1, f, device=dev, generator=gen)
+        src[n_src] = float("nan")
+        idx = tiles["gather"].clone()
+        idx[pad] = n_src
+        src_rows = idx.index_select(0, real)
+        read = int(torch.unique(src_rows).numel()) * f * 4 + n_real * 4
+    else:
+        src = torch.randn(lid.numel(), f, device=dev, generator=gen)
+        src[pad] = float("nan")
+        idx, src_rows = None, real
+        read = n_real * f * 4
     if is_max is not None:
-        msg.clamp_(min=0.0)  # relu'd pool features: ties at zero
-    real = (lid.reshape(-1) >= 0).nonzero().squeeze(1)
-    msg[lid.reshape(-1) < 0] = float("nan")
+        src.clamp_(min=0.0)  # relu'd pool features: ties at zero
     target = (tiles["rows"].long()[:, None] * 128 + lid.long()).reshape(
         -1).index_select(0, real)
-    n_real = int(real.numel())
-    bytes_moved = (n_real * f * 4 + nbytes(lid, tiles["rows"],
-                                           tiles["first"])
-                   + n_rb * 128 * f * 4)
-    shapes = {"case": name, "f": f, "tiles": n_tiles, "row_blocks": n_rb,
-              "slots": int(lid.numel()), "real_slots": n_real,
-              "row_blocks_with_edges": int(tiles["block_mask"].sum())}
-    lib = None
-    if library:
-        msg_real = msg.index_select(0, real)
-        lib_out = torch.zeros(n_rb * 128, f, device=dev)
-        if is_max is None:
-            lib = lambda: lib_out.index_add_(0, target, msg_real)
-        else:
-            idx = target[:, None].expand(-1, f)
-            red = "amax" if is_max else "amin"
-            lib = lambda: lib_out.scatter_reduce_(0, idx, msg_real, red,
-                                                  include_self=False)
+    rest = nbytes(lid, tiles["rows"], tiles["first"]) + n_rb * 128 * f * 4
+    bytes_moved = read + rest
+    more = {"slot_bound_ms": bound(n_real * f * 4 + rest
+                                   + (n_real * 4 if idx is not None else 0),
+                                   n_real * f)[0]}
+    plan = TK.tile_plan(n_rb, f, src.data_ptr())
+    shapes = {"case": name, "mode": mode, "f": f, "tiles": n_tiles,
+              "row_blocks": n_rb, "slots": int(lid.numel()),
+              "real_slots": n_real, "src_rows": int(src.shape[0]),
+              "row_blocks_with_edges": int(tiles["block_mask"].sum()),
+              "plan": plan._asdict()}
+    msg_real = src.index_select(0, src_rows)
+    lib_out = torch.zeros(n_rb * 128, f, device=dev)
     if is_max is None:
-        out = TK.tile_sum(*args, msg, n_rb)
-        ref = TK.tile_sum_torch(*args, msg.double(), n_rb)
-        scale = TK.tile_sum_torch(*args, msg.abs().double(), n_rb)
-        row = kernel_row(
+        lib = lambda: lib_out.index_add_(0, target, msg_real)  # noqa: E731
+        out = TK.tile_sum(*args, src, n_rb, idx)
+        ref = TK.tile_sum_torch(*args, src.double(), n_rb, idx)
+        scale = TK.tile_sum_torch(*args, src.abs().double(), n_rb, idx)
+        return kernel_row(
             "tile_sum", out, ref, scale,
-            lambda: TK.tile_sum(*args, msg, n_rb),
-            lambda: TK.tile_sum_torch(*args, msg, n_rb), lib,
-            bytes_moved, n_real * f, shapes, plain_iters=3)
-    else:
-        out = TK.tile_minmax(is_max, *args, msg, n_rb)
-        ref = TK.tile_minmax_torch(is_max, *args, msg, n_rb)
-        shapes["reduce"] = "max" if is_max else "min"
-        row = kernel_row(
-            "tile_minmax", out, ref, None,
-            lambda: TK.tile_minmax(is_max, *args, msg, n_rb),
-            lambda: TK.tile_minmax_torch(is_max, *args, msg, n_rb), lib,
-            bytes_moved, n_real * f, shapes, plain_iters=3, exact=True)
-    if lib is None:
-        row["library_note"] = "timed on the main case only"
-    return row
+            lambda: TK.tile_sum(*args, src, n_rb, idx),
+            lambda: TK.tile_sum_torch(*args, src, n_rb, idx), lib,
+            bytes_moved, n_real * f, shapes, plain_iters=3, more=more)
+    tidx = target[:, None].expand(-1, f)
+    red = "amax" if is_max else "amin"
+    lib = lambda: lib_out.scatter_reduce_(  # noqa: E731
+        0, tidx, msg_real, red, include_self=False)
+    out = TK.tile_minmax(is_max, *args, src, n_rb, idx)
+    ref = TK.tile_minmax_torch(is_max, *args, src, n_rb, idx)
+    shapes["reduce"] = "max" if is_max else "min"
+    return kernel_row(
+        "tile_minmax", out, ref, None,
+        lambda: TK.tile_minmax(is_max, *args, src, n_rb, idx),
+        lambda: TK.tile_minmax_torch(is_max, *args, src, n_rb, idx), lib,
+        bytes_moved, n_real * f, shapes, plain_iters=3, exact=True,
+        more=more)
 
 
 def phase_tile_kernels(dev, blocks):
-    """K9 at block 1 ``tsrc`` (F=256: the mean step's only launch) and K10
-    max at block 0 ``tdst`` (F=602: the pool step's first layer), on a
-    real sampled Reddit batch; K9 at block 0 ``tsrc`` and ``tdst`` and at
-    block 1 ``tdst`` (the pool step's four shapes) and K10 min and block 1
-    ride in ``variants``."""
+    """K9 and K10 on a real sampled Reddit batch at the pool step's six
+    shapes, in gather mode (the copy ops the trainers run): K9 at block 1
+    ``tsrc`` (F=256: the mean step's only launch) with block 0 ``tsrc``
+    and ``tdst`` (F=602) and block 1 ``tdst`` as ``variants``; K10 max at
+    block 0 ``tdst`` (F=602: the pool step's first layer) with block 1
+    ``tdst`` and min at both as ``variants``. Message mode (the binary
+    ops) rides as variants at each kernel's row shape and at block 1
+    ``tdst``. A ``tdst`` layout reads the block's source rows, a ``tsrc``
+    one its destination rows."""
     b0, b1 = blocks
-    k9 = with_variants(tile_case("block1_tsrc_f256", b1.tsrc, 256, dev), [
-        tile_case("block0_tsrc_f602", b0.tsrc, 602, dev, library=False,
-                  seed=1),
-        tile_case("block0_tdst_f602", b0.tdst, 602, dev, library=False,
-                  seed=2),
-        tile_case("block1_tdst_f256", b1.tdst, 256, dev, library=False,
-                  seed=5)])
+
+    def case(name, b, direction, f, seed, **kw):
+        n_src = (b.num_src_nodes() if direction == "tdst"
+                 else b.num_dst_nodes())
+        return tile_case(name, getattr(b, direction), n_src, f, dev,
+                         seed=seed, **kw)
+
+    k9 = with_variants(case("block1_tsrc_f256", b1, "tsrc", 256, 0), [
+        case("block0_tsrc_f602", b0, "tsrc", 602, 1),
+        case("block0_tdst_f602", b0, "tdst", 602, 2),
+        case("block1_tdst_f256", b1, "tdst", 256, 5),
+        case("block1_tsrc_f256_msg", b1, "tsrc", 256, 0, mode="msg"),
+        case("block1_tdst_f256_msg", b1, "tdst", 256, 5, mode="msg")])
     k10 = with_variants(
-        tile_case("block0_tdst_f602_max", b0.tdst, 602, dev, is_max=True), [
-            tile_case("block0_tdst_f602_min", b0.tdst, 602, dev,
-                      is_max=False, library=False, seed=3),
-            tile_case("block1_tdst_f256_max", b1.tdst, 256, dev,
-                      is_max=True, library=False, seed=4)])
+        case("block0_tdst_f602_max", b0, "tdst", 602, 6, is_max=True), [
+            case("block0_tdst_f602_min", b0, "tdst", 602, 3, is_max=False),
+            case("block1_tdst_f256_max", b1, "tdst", 256, 4, is_max=True),
+            case("block1_tdst_f256_min", b1, "tdst", 256, 7, is_max=False),
+            case("block0_tdst_f602_max_msg", b0, "tdst", 602, 6,
+                 is_max=True, mode="msg"),
+            case("block1_tdst_f256_max_msg", b1, "tdst", 256, 4,
+                 is_max=True, mode="msg")])
     return {"tile_sum": k9, "tile_minmax": k10}
 
 
@@ -1747,16 +1783,19 @@ def phase_sage(name, dev, r, loader, aggregator, steps, per_step,
     return counts
 
 
-def profile_sage(dev, r, batches, steps=3):
-    """Where the Reddit mean step's device time goes: ``torch.profiler``
-    over ``steps`` steps on batches sampled beforehand (so the loader is
-    out of the window), after two warm-up steps; as profile_gat."""
+def profile_sage(dev, r, batches, aggregator="mean", steps=3):
+    """Where a Reddit step's device time goes (mean: ``sage_profile``,
+    pool: ``sage_pool_profile``): ``torch.profiler`` over ``steps`` steps
+    on batches sampled beforehand (so the loader is out of the window),
+    after two warm-up steps, as profile_gat; with the window's peak device
+    memory."""
     import dgl1_tpu_torch as dgl
     from torch.profiler import ProfilerActivity, profile
 
-    model = sage_model(r, dev, "mean")
+    model = sage_model(r, dev, aggregator)
     dgl.train_sampled(batches[:2], r["feat"], r["labels"], model)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1764,13 +1803,18 @@ def profile_sage(dev, r, batches, steps=3):
                           model)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    summarize_profile("sage_profile", "sage_reddit_train", prof, steps,
-                      wall_ms)
+    mean = aggregator == "mean"
+    summarize_profile(
+        "sage_profile" if mean else "sage_pool_profile",
+        "sage_reddit_train" if mean else "sage_reddit_pool_train", prof,
+        steps, wall_ms,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
 
 
-def summarize_profile(phase, path, prof, steps, wall_ms):
+def summarize_profile(phase, path, prof, steps, wall_ms, **extra):
     """Device busy time, idle share and the top device kernels of a
-    ``torch.profiler`` window of ``steps`` steps."""
+    ``torch.profiler`` window of ``steps`` steps; ``extra`` keys join the
+    line."""
     events = prof.key_averages()
     # Device spans of host annotations share their name with a host event
     # and would count the same device time twice.
@@ -1794,7 +1838,8 @@ def summarize_profile(phase, path, prof, steps, wall_ms):
         "idle_share": 1.0 - busy_ms / wall_ms,
         "top_kernels": [{"name": e.key[:90],
                          "ms_per_step": dev_us(e) / 1e3 / steps,
-                         "calls_per_step": e.count / steps} for e in top]}))
+                         "calls_per_step": e.count / steps} for e in top],
+        **extra}))
 
 
 # The block-dense workloads: bench.py --matrix's "geometric" family
@@ -2555,7 +2600,8 @@ def main():
     # Phase 2c and 4b: the sampled GraphSAGE slice at the Reddit
     # configuration. K9/K10 against their plain versions on a real
     # sampled batch, then the trainers: mean (K9 once per step) and pool
-    # (K10 twice, K9 four times per step), then a profile of the mean step.
+    # (K10 twice, K9 four times per step), then profiles of a mean and a
+    # pool step.
     from dgl1_tpu_torch.dataloading import NeighborSampler
 
     r = reddit_setup(dev)
@@ -2577,6 +2623,7 @@ def main():
             {"tile_sum": 4, "tile_minmax": 2})),
     ]
     profile_sage(dev, r, batches)
+    profile_sage(dev, r, batches, "pool")
     del r, loader, batches
     torch.cuda.empty_cache()
 

@@ -76,10 +76,10 @@ _SIGNATURES = {
                      _ptr, _c_int, _c_int, _c_int, _c_int, _ptr],
     },
     "tile_kernels": {
-        "tile_sum": [_ptr, _ptr, _ptr, _c_int, _ptr, _c_int, _ptr, _c_int,
-                     _ptr],
-        "tile_minmax": [_c_int, _ptr, _ptr, _ptr, _c_int, _ptr, _c_int,
-                        _ptr, _c_int, _ptr],
+        "tile_sum": [_ptr, _ptr, _ptr, _c_int, _ptr, _ptr, _c_int, _c_int,
+                     _ptr, _c_int, _c_int, _c_int, _c_int, _ptr],
+        "tile_minmax": [_c_int, _ptr, _ptr, _ptr, _c_int, _ptr, _ptr, _c_int,
+                        _c_int, _ptr, _c_int, _c_int, _c_int, _c_int, _ptr],
     },
 }
 

@@ -3,17 +3,16 @@
 The port's counterpart of ``dgl1_tpu/ops/engine_pallas.py``. The graph's
 tile layouts (``Graph.tdst`` for the forward, ``Graph.tsrc`` for grad_u;
 ``graph._build_tiles``) put each row block's edges in 1024-slot tiles.
-The message tensor (one row per slot: a gather, then the binary op) is
-built in torch glue; the reduction is K9 (:func:`tile_kernels.tile_sum`)
-or K10 (:func:`tile_kernels.tile_minmax`). Padding slots are never read
-by either, so the glue does not mask them. Backward passes are
-``torch.autograd.Function``s mirroring the reference's ``custom_vjp``s:
-grad_u is K9 over ``tsrc``, grad_e a gather; max/min recompute which
-edges hold the extremum and split the cotangent evenly over ties (tie
-counts by K9 over ``tdst``).
-
-The message tensor has a row for every slot, padding included: on a
-sampled block's reverse tiles that is about ten times the edge count.
+The reduction is K9 (:func:`tile_kernels.tile_sum`) or K10
+(:func:`tile_kernels.tile_minmax`). For ``copy_lhs`` and ``copy_rhs`` the
+kernel reads the operand's rows through the layout's ``gather`` or
+``eid`` itself, so no per-slot message tensor exists; the binary ops
+build their messages (one row per slot: the gathers, then the op) in
+torch glue. Padding slots are never read by either kernel, so the glue
+does not mask them. Backward passes are ``torch.autograd.Function``s
+mirroring the reference's ``custom_vjp``s: grad_u is K9 over ``tsrc``,
+grad_e a gather; max/min recompute which edges hold the extremum and
+split the cotangent evenly over ties (tie counts by K9 over ``tdst``).
 """
 
 from __future__ import annotations
@@ -30,32 +29,32 @@ __all__ = ["gspmm_tile"]
 _SUPPORTED_OPS = ("copy_lhs", "copy_rhs", "add", "sub", "mul", "div")
 
 
-def _messages(op: str, tiles: dict, u, e):
-    """(n_slots, flat) messages of the given tile direction, and the
-    feature shape they flatten."""
-    ug = None if u is None else gather_rows(u, tiles["gather"])
-    eg = None if e is None else gather_rows(e, tiles["eid"])
+def _operand(op: str, tiles: dict, u, e):
+    """What K9/K10 read in the given tile direction: ``(src, idx,
+    feat_shape)``. A copy op hands over its operand flattened to (n, flat)
+    float32 with the layout's index (``gather`` for u, ``eid`` for e); a
+    binary op builds its (n_slots, flat) messages and no index."""
     if op == "copy_lhs":
-        msg = ug
+        x, idx = u, tiles["gather"]
     elif op == "copy_rhs":
-        msg = eg
+        x, idx = e, tiles["eid"]
     else:
-        msg = _binary(op, ug, eg)
-    feat_shape = tuple(msg.shape[1:])
-    return msg.reshape(msg.shape[0], -1).float().contiguous(), feat_shape
+        ug = gather_rows(u, tiles["gather"])
+        eg = gather_rows(e, tiles["eid"])
+        x, idx = _binary(op, ug, eg), None
+    feat_shape = tuple(x.shape[1:])
+    return x.reshape(x.shape[0], -1).float().contiguous(), idx, feat_shape
 
 
 def _tiled_reduce(op: str, tiles: dict, u, e, num_target: int):
     """One g-SpMM sum in the given tile direction (K9). Rows of row blocks
-    without edges are zero."""
-    msg, feat_shape = _messages(op, tiles, u, e)
+    without edges are zero: K9 writes its identity there."""
+    src, idx, feat_shape = _operand(op, tiles, u, e)
     n_rb = max(-(-num_target // TILE_ROWS), 1)
-    out = K.tile_sum(tiles["rows"], tiles["first"], tiles["lid"], msg, n_rb)
-    out = out[:num_target]
-    row_mask = tiles["block_mask"].repeat_interleave(TILE_ROWS)[:num_target]
-    out = torch.where(row_mask[:, None], out, torch.zeros_like(out))
+    out = K.tile_sum(tiles["rows"], tiles["first"], tiles["lid"], src, n_rb,
+                     idx)
     dtype = (u if u is not None else e).dtype
-    return out.to(dtype).reshape((num_target,) + feat_shape)
+    return out[:num_target].to(dtype).reshape((num_target,) + feat_shape)
 
 
 def _tiled_minmax(op: str, is_max: bool, tiles: dict, u, e,
@@ -63,10 +62,10 @@ def _tiled_minmax(op: str, is_max: bool, tiles: dict, u, e,
     """Forward max/min in the given tile direction (K10); rows with no
     edges, and non-finite results, are zero (the reference's
     semantics)."""
-    msg, feat_shape = _messages(op, tiles, u, e)
+    src, idx, feat_shape = _operand(op, tiles, u, e)
     n_rb = max(-(-num_target // TILE_ROWS), 1)
     out = K.tile_minmax(is_max, tiles["rows"], tiles["first"], tiles["lid"],
-                        msg, n_rb)
+                        src, n_rb, idx)
     out = out[:num_target]
     row_mask = tiles["block_mask"].repeat_interleave(TILE_ROWS)[:num_target]
     out = torch.where(row_mask[:, None] & torch.isfinite(out), out,

@@ -7,41 +7,93 @@ K9  :func:`tile_sum`                ``_reduce_kernel`` / ``_segment_sum_tiles``
 K10 :func:`tile_minmax`             ``_minmax_kernel`` /
                                     ``_segment_minmax_tiles``
 
-Both reduce a message tensor ``msg`` (one row per tile slot,
-``n_tiles * 1024`` rows) into ``n_row_blocks * 128`` output rows through
+Both reduce source rows into ``n_row_blocks * 128`` output rows through
 the tile layout of ``graph._build_tiles`` (``rows``, ``first``, ``lid``).
-The output has exactly ``msg``'s columns (no 128-lane padding). Padding
-slots (lid = -1) are never read, so ``msg`` needs no masking there. Rows
-that no live tile reaches hold the identity: 0 for the sum, -inf / +inf
-for max / min (the reference leaves tile-less row blocks uninitialised;
-the engine masks them with ``block_mask`` either way). The kernels take
-the layouts of ``graph._build_tiles`` and ``graph._pad_tiles``, where
-every tile whose slot 0 is padding is empty and trails the real tiles of
-its row block: they cut such tiles off by a search instead of walking
-them.
+Slot s (of ``n_tiles * 1024``) reads row s of ``src`` (message mode,
+``idx`` None: ``src`` has a row per slot) or row ``clamp(idx[s], 0,
+len(src) - 1)`` (gather mode: ``idx`` is the layout's ``gather`` or
+``eid``, which is ``gather_rows``' semantics), so a copy op needs no
+message tensor. The output has exactly ``src``'s columns (no 128-lane
+padding). Padding slots (lid = -1) are never read, so neither ``src``
+nor ``idx`` needs masking there. Rows that no live tile reaches hold the
+identity: 0 for the sum, -inf / +inf for max / min (the reference leaves
+tile-less row blocks uninitialised; the engine masks K10's). The kernels
+take the layouts of ``graph._build_tiles`` and ``graph._pad_tiles``: in
+each tile the real slots come first, sorted by lid, and every tile whose
+slot 0 is padding is empty and trails the real tiles of its row block.
 
 A wrapper given CPU tensors computes its plain version (``*_torch``);
-given CUDA tensors it launches its kernel or raises. It checks devices,
-types, shapes and contiguity, allocates the output, and adds one to
-``LAUNCHES[name]`` for each kernel launch and nowhere else.
+given CUDA tensors it launches its kernel with the plan of
+:func:`tile_plan` or raises. It checks devices, types, shapes and
+contiguity, allocates the output, and adds one to ``LAUNCHES[name]`` for
+each kernel launch and nowhere else.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from dgl1_tpu_torch.graph import TILE_EDGES, TILE_ROWS
 
 __all__ = ["tile_sum", "tile_minmax", "tile_sum_torch", "tile_minmax_torch",
-           "LAUNCHES", "reset_launches", "KERNELS"]
+           "tile_plan", "TilePlan", "LAUNCHES", "reset_launches", "KERNELS"]
 
 KERNELS = ("tile_sum", "tile_minmax")
 LAUNCHES = {k: 0 for k in KERNELS}
+
+TILE_WARPS = 4              # warps a block (csrc/tile_kernels.cu WARPS)
+SMS = 132                   # H100 SXM
+# The grid a plan aims at (four blocks an SM: fewer, larger blocks stage
+# fewer tiles and timed faster than eight or twelve on the sampled Reddit
+# layouts), and the least it may have where the row blocks allow it (two
+# blocks an SM).
+TILE_WAVE_BLOCKS = 4 * SMS
+TILE_MIN_BLOCKS = 2 * SMS
+# Chunks of 32 * vec columns a warp holds of one slot, by vec: 8 or 10
+# floats a lane, 4 or 3 slots a batch (32 floats of loads in flight); the
+# kernel is built for these pairs only. A stripe of 256 or 320 columns
+# timed faster than 128 on every sampled Reddit shape, forward layouts
+# (tens of slots a row) included: fewer stripes repeat each slot's index
+# and address work fewer times.
+_NC = {4: 2, 2: 5, 1: 8}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class TilePlan(NamedTuple):
+    vec: int             # floats a lane loads at once (16, 8 or 4 bytes)
+    nc: int              # chunks of 32 * vec columns a stripe
+    rows_per_block: int  # rows of one row block a block owns
+    blocks: int          # the grid
+    stripes: int         # stripes a row: ceil(f / (32 * vec * nc))
+
+
+def tile_plan(n_row_blocks: int, f: int, align: int = 16) -> TilePlan:
+    """K9/K10's launch plan for ``f`` columns of a source at address
+    ``align`` (any number with the same remainder modulo 16 will do; the
+    default is aligned). Loads are 16 bytes where f and the source allow,
+    else 8, else 4. A block owns 128 rows,
+    halved while the grid is under four blocks an SM and every warp still
+    has a (row, stripe) item, then halved while it is under two blocks an
+    SM."""
+    a = align % 16
+    vec = (4 if f % 4 == 0 and a == 0 else
+           2 if f % 2 == 0 and a % 8 == 0 else 1)
+    nc = _NC[vec]
+    stripes = -(-f // (32 * vec * nc))
+    rpb = TILE_ROWS
+    while (rpb > 1 and n_row_blocks * (TILE_ROWS // rpb) < TILE_WAVE_BLOCKS
+           and (rpb // 2) * stripes >= TILE_WARPS):
+        rpb //= 2
+    while rpb > 1 and n_row_blocks * (TILE_ROWS // rpb) < TILE_MIN_BLOCKS:
+        rpb //= 2
+    return TilePlan(vec, nc, rpb, n_row_blocks * (TILE_ROWS // rpb),
+                    stripes)
 
 
 # ----------------------------------------------------------------------
@@ -69,18 +121,28 @@ def _live_slots(rows, first, lid):
     return slots, target.index_select(0, slots)
 
 
-def tile_sum_torch(rows, first, lid, msg, n_row_blocks: int):
-    """K9: out[rows[t] * 128 + lid[t, s]] += msg[t * 1024 + s] over the
-    live slots; (n_row_blocks * 128, f), zero where nothing lands."""
+def _slot_rows(slots, idx, n_src: int):
+    """The rows of ``src`` that ``slots`` read: the slots themselves, or
+    their clamped entries of ``idx``."""
+    if idx is None:
+        return slots
+    return idx.long().index_select(0, slots).clamp(0, n_src - 1)
+
+
+def tile_sum_torch(rows, first, lid, src, n_row_blocks: int, idx=None):
+    """K9: out[rows[t] * 128 + lid[t, s]] += src[row of slot t * 1024 + s]
+    over the live slots; (n_row_blocks * 128, f), zero where nothing
+    lands."""
     slots, target = _live_slots(rows, first, lid)
     keep = target < n_row_blocks * TILE_ROWS
-    out = msg.new_zeros((n_row_blocks * TILE_ROWS, msg.shape[1]))
-    return out.index_add_(0, target[keep],
-                          msg.index_select(0, slots[keep]))
+    slots, target = slots[keep], target[keep]
+    out = src.new_zeros((n_row_blocks * TILE_ROWS, src.shape[1]))
+    return out.index_add_(0, target, src.index_select(
+        0, _slot_rows(slots, idx, src.shape[0])))
 
 
-def tile_minmax_torch(is_max: bool, rows, first, lid, msg,
-                      n_row_blocks: int):
+def tile_minmax_torch(is_max: bool, rows, first, lid, src,
+                      n_row_blocks: int, idx=None):
     """K10: per tile and row, the max (min) of the row's slots, taken as 0
     when it is not finite (a NaN in the run, or +-inf); tiles combine by
     max (min) into (n_row_blocks * 128, f); rows that no live tile reaches
@@ -88,19 +150,20 @@ def tile_minmax_torch(is_max: bool, rows, first, lid, msg,
     ident = float("-inf") if is_max else float("inf")
     red = "amax" if is_max else "amin"
     slots, target = _live_slots(rows, first, lid)
-    f = msg.shape[1]
+    f = src.shape[1]
     tile_of = torch.div(slots, TILE_EDGES, rounding_mode="floor")
     # One segment per (tile, row): key = tile * 128 + row within block.
     key = tile_of * TILE_ROWS + target % TILE_ROWS
     n_seg = lid.shape[0] * TILE_ROWS
-    vals = msg.index_select(0, slots)
+    vals = src.index_select(0, _slot_rows(slots, idx, src.shape[0]))
     nan = torch.isnan(vals)
-    idx = key[:, None].expand(-1, f)
-    seg = msg.new_full((n_seg, f), ident).scatter_reduce(
-        0, idx, torch.where(nan, torch.full_like(vals, ident), vals), red)
-    seg_nan = msg.new_zeros((n_seg, f)).index_add_(0, key,
-                                                   nan.to(msg.dtype)) > 0
-    hit = torch.zeros((n_seg,), dtype=torch.bool, device=msg.device)
+    seg_idx = key[:, None].expand(-1, f)
+    seg = src.new_full((n_seg, f), ident).scatter_reduce(
+        0, seg_idx, torch.where(nan, torch.full_like(vals, ident), vals),
+        red)
+    seg_nan = src.new_zeros((n_seg, f)).index_add_(0, key,
+                                                   nan.to(src.dtype)) > 0
+    hit = torch.zeros((n_seg,), dtype=torch.bool, device=src.device)
     hit[key] = True
     part = torch.where(seg_nan | ~torch.isfinite(seg),
                        torch.zeros_like(seg), seg)
@@ -110,7 +173,7 @@ def tile_minmax_torch(is_max: bool, rows, first, lid, msg,
                                       rounding_mode="floor")] * TILE_ROWS
                 + seg_ids % TILE_ROWS)
     keep = seg_rows < n_row_blocks * TILE_ROWS
-    out = msg.new_full((n_row_blocks * TILE_ROWS, f), ident)
+    out = src.new_full((n_row_blocks * TILE_ROWS, f), ident)
     return out.scatter_reduce_(
         0, seg_rows[keep][:, None].expand(-1, f),
         part.index_select(0, seg_ids[keep]), red)
@@ -133,9 +196,9 @@ def _check(name, t, dtype, dim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_layout(rows, first, lid, msg, n_row_blocks):
-    dev = msg.device
-    _check("msg", msg, torch.float32, 2, dev)
+def _check_layout(rows, first, lid, src, n_row_blocks, idx):
+    dev = src.device
+    _check("src", src, torch.float32, 2, dev)
     _check("rows", rows, torch.int32, 1, dev)
     _check("first", first, torch.int32, 1, dev)
     _check("lid", lid, torch.int32, 2, dev)
@@ -144,8 +207,15 @@ def _check_layout(rows, first, lid, msg, n_row_blocks):
         raise ValueError(f"lid must be (n_tiles, {TILE_EDGES})")
     if rows.shape[0] != n_tiles or first.shape[0] != n_tiles:
         raise ValueError("rows, first and lid disagree on the tile count")
-    if msg.shape[0] != n_tiles * TILE_EDGES:
-        raise ValueError("msg must have one row per tile slot")
+    if idx is None:
+        if src.shape[0] != n_tiles * TILE_EDGES:
+            raise ValueError("src must have one row per tile slot")
+    else:
+        _check("idx", idx, torch.int32, 1, dev)
+        if idx.shape[0] != n_tiles * TILE_EDGES:
+            raise ValueError("idx must have one entry per tile slot")
+        if src.shape[0] < 1:
+            raise ValueError("src has no row to gather")
     if n_row_blocks < 1:
         raise ValueError("n_row_blocks must be at least 1")
     return dev
@@ -157,47 +227,47 @@ def _lib():
     return cuda_build.load("tile_kernels")
 
 
-def _launch(name, fn, *args):
-    rc = fn(*args)
+def _reduce(name, head, rows, first, lid, src, n_row_blocks, idx):
+    """Launch ``name`` (after the arguments ``head``) with its plan and
+    count the launch; a zero-width output needs none."""
+    dev = src.device
+    f = src.shape[1]
+    out = torch.empty((n_row_blocks * TILE_ROWS, f), dtype=torch.float32,
+                      device=dev)
+    if f == 0:
+        return out
+    p = tile_plan(n_row_blocks, f, src.data_ptr())
+    with torch.cuda.device(dev):
+        rc = getattr(_lib(), name)(
+            *head, rows.data_ptr(), first.data_ptr(), lid.data_ptr(),
+            lid.shape[0], src.data_ptr(),
+            None if idx is None else idx.data_ptr(), src.shape[0], f,
+            out.data_ptr(), n_row_blocks, p.vec, p.nc, p.rows_per_block,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tile kernel {name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
-
-
-def tile_sum(rows, first, lid, msg, n_row_blocks: int):
-    """K9. ``rows``/``first`` (n_tiles,), ``lid`` (n_tiles, 1024) int32;
-    ``msg`` (n_tiles * 1024, f) float32. Returns (n_row_blocks * 128, f)
-    float32."""
-    dev = _check_layout(rows, first, lid, msg, n_row_blocks)
-    if dev.type == "cpu":
-        return tile_sum_torch(rows, first, lid, msg, n_row_blocks)
-    f = msg.shape[1]
-    out = torch.empty((n_row_blocks * TILE_ROWS, f), dtype=torch.float32,
-                      device=dev)
-    if f == 0:
-        return out
-    with torch.cuda.device(dev):
-        _launch("tile_sum", _lib().tile_sum, rows.data_ptr(),
-                first.data_ptr(), lid.data_ptr(), lid.shape[0],
-                msg.data_ptr(), f, out.data_ptr(), n_row_blocks,
-                torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
-def tile_minmax(is_max: bool, rows, first, lid, msg, n_row_blocks: int):
+def tile_sum(rows, first, lid, src, n_row_blocks: int, idx=None):
+    """K9. ``rows``/``first`` (n_tiles,), ``lid`` (n_tiles, 1024) int32;
+    ``src`` float32, (n_tiles * 1024, f) without ``idx``, else (n, f) read
+    through ``idx`` (n_tiles * 1024,) int32. Returns (n_row_blocks * 128,
+    f) float32."""
+    dev = _check_layout(rows, first, lid, src, n_row_blocks, idx)
+    if dev.type == "cpu":
+        return tile_sum_torch(rows, first, lid, src, n_row_blocks, idx)
+    return _reduce("tile_sum", (), rows, first, lid, src, n_row_blocks, idx)
+
+
+def tile_minmax(is_max: bool, rows, first, lid, src, n_row_blocks: int,
+                idx=None):
     """K10, max (``is_max``) or min. Arguments and result as
     :func:`tile_sum`."""
-    dev = _check_layout(rows, first, lid, msg, n_row_blocks)
+    dev = _check_layout(rows, first, lid, src, n_row_blocks, idx)
     if dev.type == "cpu":
-        return tile_minmax_torch(is_max, rows, first, lid, msg, n_row_blocks)
-    f = msg.shape[1]
-    out = torch.empty((n_row_blocks * TILE_ROWS, f), dtype=torch.float32,
-                      device=dev)
-    if f == 0:
-        return out
-    with torch.cuda.device(dev):
-        _launch("tile_minmax", _lib().tile_minmax, int(bool(is_max)),
-                rows.data_ptr(), first.data_ptr(), lid.data_ptr(),
-                lid.shape[0], msg.data_ptr(), f, out.data_ptr(),
-                n_row_blocks, torch.cuda.current_stream(dev).cuda_stream)
-    return out
+        return tile_minmax_torch(is_max, rows, first, lid, src,
+                                 n_row_blocks, idx)
+    return _reduce("tile_minmax", (int(bool(is_max)),), rows, first, lid,
+                   src, n_row_blocks, idx)

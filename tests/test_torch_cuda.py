@@ -337,6 +337,97 @@ def test_tile_kernels_match_plain_versions(dev, direction, f):
             assert torch.equal(a, e)
 
 
+def _tile_case(tiles, f, mode, dev, seed):
+    """(src, idx) for K9/K10 on ``tiles``: a row per slot (``msg``) or the
+    sampled block's source rows read through ``gather`` (``gather``), one
+    real slot's index below 0 (clamped to row 0). Padding slots' rows hold
+    NaN: in gather mode their index points at an extra row of NaN."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pad = tiles["lid"].reshape(-1) < 0
+    if mode == "msg":
+        src = torch.randn(pad.numel(), f, device=dev, generator=gen)
+        src[pad] = float("nan")
+        return src, None
+    idx = tiles["gather"].clone()
+    n = int(idx.max()) + 1
+    src = torch.randn(n + 1, f, device=dev, generator=gen)
+    src[n] = float("nan")
+    idx[pad] = n
+    idx[int((~pad).nonzero()[0])] = -3
+    return src, idx
+
+
+@pytest.mark.parametrize("f", [1, 40, 256, 602])
+@pytest.mark.parametrize("mode", ["gather", "msg"])
+@pytest.mark.parametrize("direction", ["tdst", "tsrc"])
+def test_tile_kernels_both_modes_match_plain_versions(dev, direction, mode,
+                                                      f):
+    """K9 within 1e-5 of its float64 plain version relative to the same
+    sum over |src|, the same bits on a second run; K10 max and min bit for
+    bit on integer-valued rows with infinities, in both modes, on both
+    sampled blocks and the 3000-node graph: block 1's forward layout has a
+    single row block (fewer than 8), the sampled layouts trailing padding
+    tiles and row blocks with no edges, the graph's forward layout a row
+    block of 21 tiles (hub rows whose slots run over several tiles, more
+    than a block stages at once). Outputs come from a pool of NaNs, so an
+    element the kernel skips shows."""
+    from dgl1_tpu_torch.ops import tile_kernels as TK
+
+    for i, b in enumerate(_sampled_blocks(dev) + [_graph(dev, False)]):
+        tiles = getattr(b, direction)
+        n_rb = tiles["block_mask"].shape[0]
+        args = (tiles["rows"], tiles["first"], tiles["lid"])
+        src, idx = _tile_case(tiles, f, mode, dev, seed=f + i)
+        _nan_pool(dev, n_rb * 128 * f)
+        got = TK.tile_sum(*args, src, n_rb, idx)
+        again = TK.tile_sum(*args, src, n_rb, idx)
+        want = TK.tile_sum_torch(*args, src.double(), n_rb, idx)
+        scale = TK.tile_sum_torch(*args, src.abs().double(), n_rb, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert bool(((got.double() - want).abs() <= 1e-5 * scale
+                     + 1e-6).all()), (i, direction)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        ints = torch.randint(-3, 4, src.shape, device=dev,
+                             generator=gen).float()
+        ints[::97] = float("inf")
+        ints[5::89] = float("-inf")
+        ints[torch.isnan(src)] = float("nan")
+        for is_max in (True, False):
+            _nan_pool(dev, n_rb * 128 * f)
+            a = TK.tile_minmax(is_max, *args, ints, n_rb, idx)
+            e = TK.tile_minmax_torch(is_max, *args, ints, n_rb, idx)
+            torch.cuda.synchronize()
+            assert torch.equal(a, e), (i, direction, is_max)
+
+
+def test_tile_plan_fills_the_card_on_the_card(dev):
+    """The plans the sampled blocks' layouts get launch and agree with the
+    plain version at every row count a block may own: the same layout at
+    1, 2, 4, ..., 128 row blocks' worth of rows (tile_plan's choice
+    replaced)."""
+    from dgl1_tpu_torch.ops import tile_kernels as TK
+
+    b = _sampled_blocks(dev)[0]
+    tiles = b.tdst
+    n_rb = tiles["block_mask"].shape[0]
+    args = (tiles["rows"], tiles["first"], tiles["lid"])
+    src, idx = _tile_case(tiles, 40, "gather", dev, seed=3)
+    want = TK.tile_sum_torch(*args, src.double(), n_rb, idx)
+    scale = TK.tile_sum_torch(*args, src.abs().double(), n_rb, idx)
+    real_plan = TK.tile_plan
+    try:
+        for rpb in (1, 2, 4, 8, 16, 32, 64, 128):
+            TK.tile_plan = lambda *a, **k: real_plan(*a, **k)._replace(
+                rows_per_block=rpb)
+            got = TK.tile_sum(*args, src, n_rb, idx)
+            torch.cuda.synchronize()
+            assert bool(((got.double() - want).abs() <= 1e-5 * scale
+                         + 1e-6).all()), rpb
+    finally:
+        TK.tile_plan = real_plan
+
+
 @pytest.mark.parametrize("red", ["sum", "mean", "max", "min"])
 @pytest.mark.parametrize("op", ["copy_lhs", "mul"])
 def test_tile_engine_matches_plain_on_the_card(dev, op, red):

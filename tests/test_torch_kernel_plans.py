@@ -1,7 +1,8 @@
 """Host-side plans of the port's CUDA kernels, on the CPU: K6's and K7
 g-major's stripes and shared-memory budgets at every head shape the fused
-attention takes, K5 mul's choice of kernel and lanes, and the ctypes
-signatures against the C entry points in ``csrc/*.cu``."""
+attention takes, K5 mul's choice of kernel and lanes, K9/K10's loads,
+stripes and grid, and the ctypes signatures against the C entry points
+in ``csrc/*.cu``."""
 
 import re
 
@@ -10,6 +11,7 @@ import pytest
 from dgl1_tpu_torch import cuda_build
 from dgl1_tpu_torch.ops import attn_kernels as AK
 from dgl1_tpu_torch.ops import hub_kernels as K
+from dgl1_tpu_torch.ops import tile_kernels as T
 
 
 def _stripes(h, d, p):
@@ -200,3 +202,69 @@ ptxas info    : Function properties for _Z3fooPKfPf
     8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 40 registers, 368 bytes cmem[0]"""
     assert S._ptxas_usage(log) == {"_Z3fooPKfPf": [40, 4, 12]}
+
+
+def test_tile_plan_main_shapes():
+    """K9/K10 on a sampled Reddit batch: block 1's forward layout (8 row
+    blocks, F=256) gets at least two blocks an SM (16-byte loads, one
+    256-column stripe, 2 rows a block); block 0's reverse layout (2,288
+    row blocks, F=602) 8-byte loads, two 320-column stripes and whole row
+    blocks; its forward layout (208) 32 rows a block. A source off 16
+    bytes takes narrower loads."""
+    p = T.tile_plan(8, 256)
+    assert p.blocks >= 2 * 132
+    assert p == (4, 2, 2, 512, 1)
+    assert T.tile_plan(2288, 602) == (2, 5, 128, 2288, 2)
+    assert T.tile_plan(208, 602) == (2, 5, 32, 832, 2)
+    assert T.tile_plan(208, 256) == (4, 2, 32, 832, 1)
+    assert T.tile_plan(8, 256, align=8)[:2] == (2, 5)
+    assert T.tile_plan(8, 256, align=4)[:2] == (1, 8)
+
+
+@pytest.mark.parametrize("align", [0, 8, 4])
+def test_tile_plan_fits_the_kernel(align):
+    """For every width up to 700 and row-block counts from 1 to 5,000:
+    loads as wide as the width and alignment allow; a (vec, nc) pair the
+    kernel is built for (csrc/tile_kernels.cu's TILE_PLAN list); stripes
+    that cover the width with no empty one; a power of two of rows a
+    block; every warp an item unless the grid needs blocks of two rows or
+    fewer; at least two blocks an SM wherever the rows allow."""
+    import re
+
+    src = cuda_build.SOURCES["tile_kernels"].read_text()
+    built = {tuple(map(int, m)) for m in
+             re.findall(r"TILE_PLAN\((\d), (\d)\)\n", src)}
+    assert built == set(T._NC.items())
+    assert f"constexpr int WARPS = {T.TILE_WARPS};" in src
+    for n_rb in (1, 2, 3, 8, 26, 208, 2288, 5000):
+        for f in range(1, 701):
+            vec, nc, rpb, blocks, stripes = T.tile_plan(n_rb, f, align)
+            want = (4 if f % 4 == 0 and align == 0 else
+                    2 if f % 2 == 0 and align in (0, 8) else 1)
+            assert vec == want and (vec, nc) in built
+            sw = 32 * vec * nc
+            assert (stripes - 1) * sw < f <= stripes * sw
+            assert rpb & (rpb - 1) == 0 and 1 <= rpb <= 128
+            assert blocks == n_rb * (128 // rpb)
+            assert rpb * stripes >= T.TILE_WARPS or rpb <= 2
+            assert blocks >= min(2 * 132, n_rb * 128)
+
+
+def test_tile_variants_sources_apply():
+    """``tools/tile_variants.py`` builds its variants of the tile kernel by
+    replacing fixed snippets of ``csrc/tile_kernels.cu``: each applies
+    exactly once (edit the snippets when the kernel changes), and the
+    128-column variant's plan pairs are the ones it adds."""
+    import re
+
+    from dgl1_tpu_torch.tools import tile_variants as V
+
+    src = cuda_build.SOURCES["tile_kernels"].read_text()
+    for name, (patches, nc) in V.VARIANTS.items():
+        out = V.variant_source(src, name)
+        assert (out == src) == (not patches), name
+        built = {tuple(map(int, m)) for m in
+                 re.findall(r"TILE_PLAN\((\d), (\d)\)\n", out)}
+        assert set((nc or T._NC).items()) <= built, name
+    with pytest.raises(ValueError, match="snippet not found"):
+        V.variant_source(src.replace("store_vec<4>(out0", "x("), "no_stores")

@@ -9,7 +9,12 @@ against the JAX package.
   mode, on layouts with several tiles per row block, row blocks with no
   edges and padding tiles. Rows of tile-less row blocks are left out: the
   reference never writes them. Max/min agree exactly (non-finite values
-  included); sums of integer-valued messages are exact in float32.
+  included); sums of integer-valued messages are exact in float32. The
+  same in gather mode (the source rows read through the layout's
+  ``gather`` or ``eid``) on both directions of a sampled block, against
+  the reference fed the gathered messages its glue builds.
+- The copy ops hand K9/K10 their operand and the layout's index, never a
+  per-slot message tensor (the ELL engine's reverse sum too).
 - Engine ``"tile"`` against the reference's engine ``"pallas"`` forced by
   name, every op x sum/mean/max/min, values and grads, on integer-valued
   features so that ties occur: rtol 1e-5, atol 1e-5 (``div`` divides,
@@ -186,6 +191,117 @@ def test_tile_minmax_torch_matches_reference(is_max, seed):
     np.testing.assert_array_equal(narrow, got[:, :37])
 
 
+@pytest.fixture(scope="module")
+def sampled_block():
+    """Block 1 of a smoke-scale sampled batch (fanouts [10, 25], 128
+    seeds): its forward tiles are one row block of 5 tiles, its reverse
+    tiles 26 row blocks, 8 with edges, and trailing padding tiles."""
+    from dgl1_tpu_torch.dataloading import NeighborSampler
+
+    g, _, _, train = tdgl.data.minibatch_graph("smoke")
+    _, _, blocks = NeighborSampler([10, 25]).sample_blocks(
+        g, train[:128], rng=np.random.default_rng(0), num_real=120)
+    b = blocks[1]
+    assert int(b.tsrc["block_mask"].sum()) < b.tsrc["block_mask"].shape[0]
+    assert int(b.tsrc["lid"][-1, 0]) < 0
+    return b
+
+
+@pytest.mark.parametrize("red", ["sum", "max", "min"])
+@pytest.mark.parametrize("f", [1, 3, 130])
+@pytest.mark.parametrize("direction,key", [("tdst", "gather"),
+                                           ("tsrc", "eid")])
+def test_tile_plain_gather_mode_matches_reference(sampled_block, direction,
+                                                  key, f, red):
+    """The plain versions in gather mode (``src`` read through the
+    layout's ``gather`` or ``eid``) against the reference's
+    ``_segment_sum_tiles`` / ``_segment_minmax_tiles`` in interpret mode
+    on ``msg = src[clip(idx)]`` built in numpy as ``_tiled_reduce`` /
+    ``_tiled_minmax`` build it: padding slots zeroed (sum) or the identity
+    (max/min), columns padded to 128 lanes. Padding slots' indices point
+    at a row of NaN, which neither version may read; one real slot's index
+    is below 0 and one past the end (both clipped). Integer-valued rows
+    with infinities: every result is exact."""
+    tiles = getattr(sampled_block, direction)
+    n_rb = tiles["block_mask"].shape[0]
+    lid = tiles["lid"].numpy()
+    pad = lid.reshape(-1) < 0
+    idx = tiles[key].numpy().copy()
+    n = int(idx.max()) + 1
+    rng = np.random.default_rng(f)
+    src = rng.integers(-4, 5, (n + 2, f)).astype(np.float32)
+    if red != "sum":
+        src[rng.integers(0, n, 5), rng.integers(0, f, 5)] = np.inf
+        src[rng.integers(0, n, 5), rng.integers(0, f, 5)] = -np.inf
+    src[n] = np.nan
+    idx[pad] = n
+    real = np.flatnonzero(~pad)
+    idx[real[3]], idx[real[-2]] = -2, n + 5
+    ident = {"sum": 0.0, "max": -np.inf, "min": np.inf}[red]
+    f_pad = -(-f // R) * R
+    msg = np.full((pad.size, f_pad), ident, np.float32)
+    msg[~pad, :f] = src[np.clip(idx, 0, n + 1)][~pad]
+    ref_args = (jnp.asarray(tiles["rows"].numpy()),
+                jnp.asarray(tiles["first"].numpy()), jnp.asarray(lid),
+                jnp.asarray(msg), n_rb)
+    args = (*_plain_args(tiles), t(src), n_rb, t(idx))
+    if red == "sum":
+        want = _segment_sum_tiles(*ref_args)
+        got = TK.tile_sum_torch(*args)
+    else:
+        want = _segment_minmax_tiles(red == "max", *ref_args)
+        got = TK.tile_minmax_torch(red == "max", *args)
+    rows = np.repeat(tiles["block_mask"].numpy(), R)
+    np.testing.assert_array_equal(got.numpy()[rows],
+                                  np.asarray(want)[rows, :f])
+    assert np.all(got.numpy()[~rows] == ident)
+
+
+@pytest.mark.parametrize("engine,op,red", [
+    ("tile", "copy_lhs", "sum"), ("tile", "copy_lhs", "mean"),
+    ("tile", "copy_lhs", "max"), ("tile", "copy_lhs", "min"),
+    ("tile", "copy_rhs", "sum"), ("tile", "copy_rhs", "max"),
+    ("ell", "copy_lhs", "mean")])
+def test_copy_ops_read_no_message_tensor(sampled_block, monkeypatch, engine,
+                                         op, red):
+    """Every K9/K10 call of a copy op, forward and backward (the ELL
+    engine's reverse sum over ``tsrc`` included), hands the kernel its
+    operand's rows and the layout's index: no tensor with a row per slot
+    exists; the result still matches the oracle engine."""
+    calls = []
+
+    def spy(fn):
+        def wrapped(*a):
+            calls.append((a[-3].shape[0], a[-1] is not None))
+            return fn(*a)
+        return wrapped
+
+    monkeypatch.setattr(TK, "tile_sum", spy(TK.tile_sum))
+    monkeypatch.setattr(TK, "tile_minmax", lambda is_max, *a: spy(
+        lambda *b: TK.tile_minmax_torch(is_max, *b))(*a))
+    b = sampled_block
+    n_slots = b.tdst["lid"].numel()
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=((b.num_src_nodes() if op == "copy_lhs"
+                          else b.num_edges_padded()), 5))
+    w = t(rng.normal(size=(b.num_dst_nodes(), 5)).astype(np.float32))
+    res = []
+    for name in (engine, "xla"):
+        xt = t(x.astype(np.float32)).requires_grad_(True)
+        tdgl.ops.set_engine(name)
+        try:
+            out = tdgl.ops.gspmm(b, op, red, *((xt, None) if op == "copy_lhs"
+                                               else (None, xt)))
+            (out * w).sum().backward()
+        finally:
+            tdgl.ops.set_engine("auto")
+        res.append((out.detach(), xt.grad))
+    assert calls and all(has_idx and rows < n_slots
+                         for rows, has_idx in calls), calls
+    for a, c in zip(*res):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
 def test_tile_wrappers_check_their_inputs():
     tiles, n_rb = _layout(0)
     rows, first, lid = _plain_args(tiles)
@@ -198,6 +314,13 @@ def test_tile_wrappers_check_their_inputs():
         TK.tile_minmax(True, rows, first, lid, msg.double(), n_rb)
     with pytest.raises(ValueError, match="contiguous"):
         TK.tile_sum(rows, first, lid, msg.t().contiguous().t(), n_rb)
+    idx = torch.zeros(lid.numel(), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one entry per tile slot"):
+        TK.tile_sum(rows, first, lid, msg[:5], n_rb, idx[:-1])
+    with pytest.raises(TypeError, match="dtype"):
+        TK.tile_minmax(False, rows, first, lid, msg[:5], n_rb, idx.long())
+    with pytest.raises(ValueError, match="no row to gather"):
+        TK.tile_sum(rows, first, lid, msg[:0], n_rb, idx)
     assert TK.LAUNCHES == {"tile_sum": 0, "tile_minmax": 0}
 
 
