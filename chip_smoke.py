@@ -1625,7 +1625,7 @@ def tile_case(name, tiles, n_src, f, dev, is_max=None, mode="gather",
     more = {"slot_bound_ms": bound(n_real * f * 4 + rest
                                    + (n_real * 4 if idx is not None else 0),
                                    n_real * f)[0]}
-    plan = TK.tile_plan(n_rb, f, src.data_ptr())
+    plan = TK.tile_plan_for(src, n_rb)
     shapes = {"case": name, "mode": mode, "f": f, "tiles": n_tiles,
               "row_blocks": n_rb, "slots": int(lid.numel()),
               "real_slots": n_real, "src_rows": int(src.shape[0]),

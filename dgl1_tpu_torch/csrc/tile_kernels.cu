@@ -5,7 +5,7 @@
 //        -Xcompiler -fPIC
 // and bound with ctypes by dgl1_tpu_torch/ops/tile_kernels.py, whose
 // wrappers check devices, types and shapes, choose the launch plan
-// (tile_plan), allocate the output and count launches. Each entry point
+// (tile_plan_for), allocate the output and count launches. Each entry point
 // launches on the given stream and returns cudaGetLastError(); the wrapper
 // raises when it is not 0.
 //
@@ -46,9 +46,9 @@
 //   (rows shared by many slots come from L2) and the output.
 // - A block owns `rpb` rows of one row block (tile_plan halves 128 until
 //   the grid fills the card: block 1 of a sampled batch has 8 row blocks,
-//   so 2 rows a block) and every column. It finds its tile range once: two warp
-//   searches over `rows`, then one round that reads slot 0 and `first` of
-//   up to 32 tiles for the padding cut and the last tile flagged `first`.
+//   so 2 rows a block) and every column. It finds its tile range once: two
+//   warp searches over `rows`, one over the tiles' slot 0 for the padding
+//   cut, and a backward scan for the last tile flagged `first`.
 //   It then stages up to NT tiles at a time: lid in 16-byte loads, turned
 //   into each of its rows' run [ptr[r], ptr[r + 1]) per tile; in gather
 //   mode the index of its rows' slots follows by cp.async. A row block
@@ -226,29 +226,17 @@ tile_reduce_kernel(const int* __restrict__ rows, const int* __restrict__ first,
     // layout; every real tile holds an edge in slot 0. The last tile
     // flagged `first` before the cut restarts the block's result.
     const int t0 = s_range[0], te = s_range[1];
-    int t1, ts;
-    if (te - t0 <= 32) {
-      const int t = t0 + lane;
-      const bool in = t < te;
-      const bool real = in && __ldg(lid + (size_t)t * T) >= 0;
-      const bool fst = in && __ldg(first + t) == 1;
-      const unsigned pad = __ballot_sync(0xffffffffu, in && !real);
-      t1 = pad ? t0 + __ffs(pad) - 1 : te;
-      const unsigned hit = __ballot_sync(0xffffffffu, fst && t < t1);
-      ts = hit ? t0 + 31 - __clz(hit) : t0;
-    } else {
-      t1 = warp_partition_point(
-          t0, te, [&](int t) { return __ldg(lid + (size_t)t * T) >= 0; },
-          lane);
-      ts = t0;
-      for (int top = t1 - 1; top >= t0; top -= 32) {
-        const int t = top - lane;
-        const unsigned hit = __ballot_sync(
-            0xffffffffu, t >= t0 && __ldg(first + t) == 1);
-        if (hit) {
-          ts = top - (__ffs(hit) - 1);
-          break;
-        }
+    const int t1 = warp_partition_point(
+        t0, te, [&](int t) { return __ldg(lid + (size_t)t * T) >= 0; },
+        lane);
+    int ts = t0;
+    for (int top = t1 - 1; top >= t0; top -= 32) {
+      const int t = top - lane;
+      const unsigned hit = __ballot_sync(
+          0xffffffffu, t >= t0 && __ldg(first + t) == 1);
+      if (hit) {
+        ts = top - (__ffs(hit) - 1);
+        break;
       }
     }
     __syncwarp();
@@ -449,7 +437,7 @@ extern "C" {
 
 // out: (n_row_blocks * 128, f); every element is written. idx: null
 // (src has a row per slot) or (n_tiles * 1024,) indices into src's n_src
-// rows. vec, nc, rpb: the launch plan (tile_kernels.tile_plan).
+// rows. vec, nc, rpb: the launch plan (tile_kernels.tile_plan_for).
 int tile_sum(const int* rows, const int* first, const int* lid, int n_tiles,
              const float* src, const int* idx, int n_src, int f, float* out,
              int n_row_blocks, int vec, int nc, int rpb, void* stream) {
@@ -466,5 +454,8 @@ int tile_minmax(int is_max, const int* rows, const int* first,
                 : launch<kMin>(rows, first, lid, n_tiles, src, idx, n_src,
                                f, out, n_row_blocks, vec, nc, rpb, stream);
 }
+
+// Warps a block: what tile_kernels.tile_plan_for plans for.
+int tile_warps() { return WARPS; }
 
 }  // extern "C"

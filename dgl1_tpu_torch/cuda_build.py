@@ -80,6 +80,7 @@ _SIGNATURES = {
                      _ptr, _c_int, _c_int, _c_int, _c_int, _ptr],
         "tile_minmax": [_c_int, _ptr, _ptr, _ptr, _c_int, _ptr, _ptr, _c_int,
                         _c_int, _ptr, _c_int, _c_int, _c_int, _c_int, _ptr],
+        "tile_warps": [],
     },
 }
 

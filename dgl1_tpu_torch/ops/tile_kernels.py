@@ -24,7 +24,7 @@ slot 0 is padding is empty and trails the real tiles of its row block.
 
 A wrapper given CPU tensors computes its plain version (``*_torch``);
 given CUDA tensors it launches its kernel with the plan of
-:func:`tile_plan` or raises. It checks devices, types, shapes and
+:func:`tile_plan_for` or raises. It checks devices, types, shapes and
 contiguity, allocates the output, and adds one to ``LAUNCHES[name]`` for
 each kernel launch and nowhere else.
 """
@@ -38,19 +38,18 @@ import torch
 from dgl1_tpu_torch.graph import TILE_EDGES, TILE_ROWS
 
 __all__ = ["tile_sum", "tile_minmax", "tile_sum_torch", "tile_minmax_torch",
-           "tile_plan", "TilePlan", "LAUNCHES", "reset_launches", "KERNELS"]
+           "tile_plan", "tile_plan_for", "TilePlan", "LAUNCHES",
+           "reset_launches", "KERNELS"]
 
 KERNELS = ("tile_sum", "tile_minmax")
 LAUNCHES = {k: 0 for k in KERNELS}
 
-TILE_WARPS = 4              # warps a block (csrc/tile_kernels.cu WARPS)
-SMS = 132                   # H100 SXM
-# The grid a plan aims at (four blocks an SM: fewer, larger blocks stage
-# fewer tiles and timed faster than eight or twelve on the sampled Reddit
-# layouts), and the least it may have where the row blocks allow it (two
-# blocks an SM).
-TILE_WAVE_BLOCKS = 4 * SMS
-TILE_MIN_BLOCKS = 2 * SMS
+# The grid a plan aims at, in blocks an SM of the card: four (fewer,
+# larger blocks stage fewer tiles and timed faster than eight or twelve on
+# the sampled Reddit layouts), and the least it may have where the row
+# blocks allow it: two.
+TILE_WAVE_PER_SM = 4
+TILE_MIN_PER_SM = 2
 # Chunks of 32 * vec columns a warp holds of one slot, by vec: 8 or 10
 # floats a lane, 4 or 3 slots a batch (32 floats of loads in flight); the
 # kernel is built for these pairs only. A stripe of 256 or 320 columns
@@ -73,27 +72,38 @@ class TilePlan(NamedTuple):
     stripes: int         # stripes a row: ceil(f / (32 * vec * nc))
 
 
-def tile_plan(n_row_blocks: int, f: int, align: int = 16) -> TilePlan:
+def tile_plan(n_row_blocks: int, f: int, align: int = 16, *, sms: int,
+              warps: int) -> TilePlan:
     """K9/K10's launch plan for ``f`` columns of a source at address
     ``align`` (any number with the same remainder modulo 16 will do; the
-    default is aligned). Loads are 16 bytes where f and the source allow,
-    else 8, else 4. A block owns 128 rows,
-    halved while the grid is under four blocks an SM and every warp still
-    has a (row, stripe) item, then halved while it is under two blocks an
-    SM."""
+    default is aligned), on a card of ``sms`` SMs, for the kernel's
+    ``warps`` warps a block. Loads are 16 bytes where f and the source
+    allow, else 8, else 4. A block owns 128 rows, halved while the grid is
+    under four blocks an SM and every warp still has a (row, stripe) item,
+    then halved while it is under two blocks an SM."""
     a = align % 16
     vec = (4 if f % 4 == 0 and a == 0 else
            2 if f % 2 == 0 and a % 8 == 0 else 1)
     nc = _NC[vec]
     stripes = -(-f // (32 * vec * nc))
     rpb = TILE_ROWS
-    while (rpb > 1 and n_row_blocks * (TILE_ROWS // rpb) < TILE_WAVE_BLOCKS
-           and (rpb // 2) * stripes >= TILE_WARPS):
+    while (rpb > 1
+           and n_row_blocks * (TILE_ROWS // rpb) < TILE_WAVE_PER_SM * sms
+           and (rpb // 2) * stripes >= warps):
         rpb //= 2
-    while rpb > 1 and n_row_blocks * (TILE_ROWS // rpb) < TILE_MIN_BLOCKS:
+    while (rpb > 1
+           and n_row_blocks * (TILE_ROWS // rpb) < TILE_MIN_PER_SM * sms):
         rpb //= 2
     return TilePlan(vec, nc, rpb, n_row_blocks * (TILE_ROWS // rpb),
                     stripes)
+
+
+def tile_plan_for(src, n_row_blocks: int) -> TilePlan:
+    """The plan the wrappers launch with for the CUDA tensor ``src``: the
+    SM count of its card, the warps a block the built kernel has."""
+    sms = torch.cuda.get_device_properties(src.device).multi_processor_count
+    return tile_plan(n_row_blocks, src.shape[1], src.data_ptr(), sms=sms,
+                     warps=_lib().tile_warps())
 
 
 # ----------------------------------------------------------------------
@@ -236,7 +246,7 @@ def _reduce(name, head, rows, first, lid, src, n_row_blocks, idx):
                       device=dev)
     if f == 0:
         return out
-    p = tile_plan(n_row_blocks, f, src.data_ptr())
+    p = tile_plan_for(src, n_row_blocks)
     with torch.cuda.device(dev):
         rc = getattr(_lib(), name)(
             *head, rows.data_ptr(), first.data_ptr(), lid.data_ptr(),

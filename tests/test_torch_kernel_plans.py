@@ -126,7 +126,7 @@ def test_edge_grad_plan(he, rep, want):
 def _c_params(src, name):
     m = re.search(r"\n(?:int|long long) " + name + r"\(([^)]*)\)", src)
     assert m, name
-    return [p.strip() for p in m.group(1).split(",")]
+    return [p.strip() for p in m.group(1).split(",") if p.strip()]
 
 
 @pytest.mark.parametrize("lib", sorted(cuda_build._SIGNATURES))
@@ -204,6 +204,17 @@ ptxas info    : Used 40 registers, 368 bytes cmem[0]"""
     assert S._ptxas_usage(log) == {"_Z3fooPKfPf": [40, 4, 12]}
 
 
+# The card the plans are read for: an H100 SXM's SMs, and the warps a
+# block csrc/tile_kernels.cu is built with (its tile_warps entry).
+H100_SMS = 132
+TILE_WARPS = int(re.search(r"constexpr int WARPS = (\d+);",
+                           cuda_build.SOURCES["tile_kernels"].read_text())[1])
+
+
+def _tile_plan(n_rb, f, align=16, sms=H100_SMS):
+    return T.tile_plan(n_rb, f, align, sms=sms, warps=TILE_WARPS)
+
+
 def test_tile_plan_main_shapes():
     """K9/K10 on a sampled Reddit batch: block 1's forward layout (8 row
     blocks, F=256) gets at least two blocks an SM (16-byte loads, one
@@ -211,14 +222,27 @@ def test_tile_plan_main_shapes():
     row blocks, F=602) 8-byte loads, two 320-column stripes and whole row
     blocks; its forward layout (208) 32 rows a block. A source off 16
     bytes takes narrower loads."""
-    p = T.tile_plan(8, 256)
-    assert p.blocks >= 2 * 132
+    p = _tile_plan(8, 256)
+    assert p.blocks >= 2 * H100_SMS
     assert p == (4, 2, 2, 512, 1)
-    assert T.tile_plan(2288, 602) == (2, 5, 128, 2288, 2)
-    assert T.tile_plan(208, 602) == (2, 5, 32, 832, 2)
-    assert T.tile_plan(208, 256) == (4, 2, 32, 832, 1)
-    assert T.tile_plan(8, 256, align=8)[:2] == (2, 5)
-    assert T.tile_plan(8, 256, align=4)[:2] == (1, 8)
+    assert _tile_plan(2288, 602) == (2, 5, 128, 2288, 2)
+    assert _tile_plan(208, 602) == (2, 5, 32, 832, 2)
+    assert _tile_plan(208, 256) == (4, 2, 32, 832, 1)
+    assert _tile_plan(8, 256, align=8)[:2] == (2, 5)
+    assert _tile_plan(8, 256, align=4)[:2] == (1, 8)
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+def test_tile_plan_follows_the_card(sms):
+    """The grid is sized to the card's SM count: a card of fewer SMs gets
+    blocks of as many rows or more, and still two blocks an SM wherever
+    the rows allow."""
+    for n_rb in (1, 8, 26, 208, 2288):
+        for f in (1, 40, 256, 602):
+            p = _tile_plan(n_rb, f, sms=sms)
+            assert p.rows_per_block >= _tile_plan(n_rb, f).rows_per_block
+            assert p.blocks >= min(2 * sms, n_rb * 128)
+            assert p[:2] == _tile_plan(n_rb, f)[:2]
 
 
 @pytest.mark.parametrize("align", [0, 8, 4])
@@ -229,16 +253,13 @@ def test_tile_plan_fits_the_kernel(align):
     that cover the width with no empty one; a power of two of rows a
     block; every warp an item unless the grid needs blocks of two rows or
     fewer; at least two blocks an SM wherever the rows allow."""
-    import re
-
     src = cuda_build.SOURCES["tile_kernels"].read_text()
     built = {tuple(map(int, m)) for m in
              re.findall(r"TILE_PLAN\((\d), (\d)\)\n", src)}
     assert built == set(T._NC.items())
-    assert f"constexpr int WARPS = {T.TILE_WARPS};" in src
     for n_rb in (1, 2, 3, 8, 26, 208, 2288, 5000):
         for f in range(1, 701):
-            vec, nc, rpb, blocks, stripes = T.tile_plan(n_rb, f, align)
+            vec, nc, rpb, blocks, stripes = _tile_plan(n_rb, f, align)
             want = (4 if f % 4 == 0 and align == 0 else
                     2 if f % 2 == 0 and align in (0, 8) else 1)
             assert vec == want and (vec, nc) in built
@@ -246,25 +267,5 @@ def test_tile_plan_fits_the_kernel(align):
             assert (stripes - 1) * sw < f <= stripes * sw
             assert rpb & (rpb - 1) == 0 and 1 <= rpb <= 128
             assert blocks == n_rb * (128 // rpb)
-            assert rpb * stripes >= T.TILE_WARPS or rpb <= 2
-            assert blocks >= min(2 * 132, n_rb * 128)
-
-
-def test_tile_variants_sources_apply():
-    """``tools/tile_variants.py`` builds its variants of the tile kernel by
-    replacing fixed snippets of ``csrc/tile_kernels.cu``: each applies
-    exactly once (edit the snippets when the kernel changes), and the
-    128-column variant's plan pairs are the ones it adds."""
-    import re
-
-    from dgl1_tpu_torch.tools import tile_variants as V
-
-    src = cuda_build.SOURCES["tile_kernels"].read_text()
-    for name, (patches, nc) in V.VARIANTS.items():
-        out = V.variant_source(src, name)
-        assert (out == src) == (not patches), name
-        built = {tuple(map(int, m)) for m in
-                 re.findall(r"TILE_PLAN\((\d), (\d)\)\n", out)}
-        assert set((nc or T._NC).items()) <= built, name
-    with pytest.raises(ValueError, match="snippet not found"):
-        V.variant_source(src.replace("store_vec<4>(out0", "x("), "no_stores")
+            assert rpb * stripes >= TILE_WARPS or rpb <= 2
+            assert blocks >= min(2 * H100_SMS, n_rb * 128)
