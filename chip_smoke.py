@@ -85,6 +85,30 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    against the per-relation path and the oracle); bench_models' R-GCN in
    f32 and bf16 on the same graphs (as for GCN and GAT above); then a
    profile of 3 grouped steps;
+4e. typed graphs and heterographs: the R-GCN typed graph's identity
+   relation layouts (``typed_subgraphs(identity=True)``) and union block
+   (``typed_union_graph``, 8 x 169,343 sources), each asserted to claim
+   ``identity_expand`` (build seconds); K1 and K4a at relation 0's
+   identity layout and at the union block's dense tier (F=64) against
+   their float64 plain versions, as variants of the K1 and K4a rows;
+   ``bench_models``' R-GCN with ``--huborder`` and with ``--union`` in
+   f32 (5 epochs after the warm-up step; step-0 logits against the
+   per-relation path through ``perm``; no K3 and no weighted kernel,
+   K1 and K4 launched; ms per epoch, launches per step); then
+   configuration #4 at ogbn-mag's shape, ``synthetic_mag_heterograph
+   (scale=1)`` (build seconds, edges and the auto engine of each of the
+   7 relations), trained by ``HeteroEmbedding`` (128) and two
+   ``HeteroGraphConv({etype: GraphConv(norm='right')})`` layers 128 -> 64
+   -> 349 for 5 Adam steps (1e-2) on the train split's paper labels
+   (step-0 paper logits against the oracle engine; ms per step, peak
+   memory, launches per step, then a profile of 2 steps: device busy
+   time, idle share, top device operations); then HAN at ACM's shape
+   (3,025 papers, 5,835 authors, 56 subjects, 9,744 paper-author links,
+   1,870 features; PAP and PSP metapath graphs; 1,870 -> 8 x 8 -> 3,
+   dropout 0.6, Adam 5e-3, 5 steps): step-0 logits at dropout 0 against
+   the composed path on the oracle engine in float64, the GATConv path
+   of each metapath graph, launches (K6, K7 and K8 where a metapath
+   graph takes the fused attention);
 5. sampled GraphSAGE at the Reddit
    configuration of tools/bench_minibatch.py (--scale reddit: 232,965
    nodes, 114,615,892 edges, F=602, 41 classes, fanouts [10, 25], batch
@@ -470,7 +494,7 @@ def dense_fwd_case(case, g, dev, f, seed=0, library=True, bf16=False):
     plain = functools.partial(K.dense_fwd_torch, bf16=bf16)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    c, n = g.hub_dst["dense_c"], g.num_nodes()
+    c, n = g.hub_dst["dense_c"], g.num_src_nodes()
     kd = c.shape[1]
     # Rows of U the product needs: those whose row of C is not all zero.
     u_rows = int((c[:n] != 0).any(dim=1).sum())
@@ -564,11 +588,14 @@ def dense_bwd_fused_case(case, g, dev, f, seed=0, library=True,
     from dgl1_tpu_torch.ops.engine_ell import ell_stack
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    hub, m, n = g.hub_dst, g.hub_dst_meta, g.num_nodes()
+    hub, m, n = g.hub_dst, g.hub_dst_meta, g.num_src_nodes()
     c = hub["dense_c"]
     kd = c.shape[1]
+    if not hub["gb_desc"].shape[0]:
+        raise AssertionError(f"dense_bwd_fused[{case}]: the layout has no "
+                             f"fused-backward descriptors")
     ct = torch.randn(kd, f, device=dev, generator=gen)
-    ct_full = torch.randn(n, f, device=dev, generator=gen)
+    ct_full = torch.randn(g.num_dst_nodes(), f, device=dev, generator=gen)
     tail = ell_stack(m.tail_meta_src, hub["r_idx"], hub["r_eid"],
                      "copy_lhs", "sum", ct_full, None).contiguous()
     del ct_full
@@ -1541,6 +1568,345 @@ def profile_rgcn(dev, r, steps=3):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     summarize_profile("rgcn_profile", "rgcn_grouped_train", prof, steps,
                       wall_ms)
+
+
+# Phase 4e: typed graphs and heterographs. The identity relation layouts
+# and the union block of tools/bench_models.py --model rgcn --huborder /
+# --union (lines 55-75), configuration #4 at ogbn-mag's own shape (the
+# rgcn-hetero pattern on data.synthetic_mag_heterograph), and HAN at the
+# HAN paper's ACM shape (Wang et al., WWW 2019: 3,025 papers, 5,835
+# authors, 56 subjects, 1,870 features, 3 classes; examples/train_han.py's
+# class-biased links).
+MAG = dict(scale=1, emb=128, hidden=64, classes=349, lr=1e-2, steps=5)
+ACM = dict(papers=3025, authors=5835, subjects=56, pa_edges=9744,
+           feat=1870, classes=3, hidden=8, heads=8, dropout=0.6, lr=5e-3,
+           steps=5)
+
+
+def typed_setup(dev, r):
+    """The R-GCN typed graph's identity relation layouts
+    (``typed_subgraphs(identity=True)``) and its relation-stacked union
+    block (``typed_union_graph``), built on the host; each must claim
+    ``identity_expand``, as the reference's script asserts."""
+    import dgl1_tpu_torch as dgl
+
+    t0 = time.perf_counter()
+    rel_id, perm = dgl.typed_subgraphs(r["g"], r["et"], RGCN["rels"],
+                                       identity=True)
+    t1 = time.perf_counter()
+    gu, perm_u = dgl.typed_union_graph(r["g"], r["et"], RGCN["rels"])
+    t2 = time.perf_counter()
+    if not all(gr.hub_dst_meta.identity_expand for gr in rel_id):
+        raise AssertionError("an identity relation layout lost "
+                             "identity_expand")
+    if not gu.hub_dst_meta.identity_expand:
+        raise AssertionError("the union block lost identity_expand")
+    log(json.dumps({
+        "phase": "typed_graphs", "typed_subgraphs_identity_s": t1 - t0,
+        "typed_union_graph_s": t2 - t1,
+        "relation_0": repr(rel_id[0].hub_dst_meta),
+        "relation_edges": [gr.num_edges() for gr in rel_id],
+        "union": repr(gu.hub_dst_meta),
+        "union_num_src": gu.num_src_nodes(),
+        "union_num_dst": gu.num_dst_nodes()}))
+    return dict(rel_id=rel_id, gu=gu,
+                perm=torch.as_tensor(perm, device=dev),
+                perm_u=torch.as_tensor(perm_u, device=dev))
+
+
+def typed_kernel_variants(dev, rows, tl):
+    """K1 and K4a at relation 0's identity layout (phantom hub slots and
+    tail rows) and at the union block's dense tier (8 x 169,343 source
+    rows), F=64, against their float64 plain versions, as variants of
+    the K1 and K4a rows."""
+    for name, case in (("dense_fwd", dense_fwd_case),
+                       ("dense_bwd_fused", dense_bwd_fused_case)):
+        rows[name]["variants"] += [
+            {k: v[k] for k in VARIANT_KEYS if k in v}
+            for v in (case("rgcn_identity_rel0_f64", tl["rel_id"][0], dev,
+                           64, seed=40, library=False),
+                      case("rgcn_union_f64", tl["gu"], dev, 64, seed=41,
+                           library=False))]
+
+
+def phase_rgcn_typed(name, dev, r, tl, union, epochs=5):
+    """``bench_models.bench('rgcn', 'arxiv')`` in f32 on the identity
+    relation layouts (``--huborder``) or the union block (``--union``):
+    step-0 logits against the per-relation path with the same parameters
+    through ``perm``, then ``epochs`` timed epochs after the warm-up step,
+    counters zeroed before and read after. No K3 (identity layouts take
+    the pad-forward) and no weighted kernel; K1 and K4 must launch."""
+    from dgl1_tpu_torch.tools.bench_models import bench
+
+    feat, _ = rgcn_inputs(dev)
+    model = rgcn_model(dev)
+    perm = tl["perm_u" if union else "perm"]
+    typed = tl["gu"] if union else tl["rel_id"]
+    kw = {"union_graph" if union else "rel_graphs": typed}
+    model.eval()
+    with torch.no_grad():
+        ref = model(r["g"], feat=feat, rel_graphs=r["rel"])[perm]
+        out = model(r["g"], feat=feat[perm], **kw)
+        lerr, lmax = logits_vs(name, "per-relation path", out, ref)
+    del model, ref, out, feat
+    torch.cuda.empty_cache()
+    reset_all_launches()
+    rec = bench("rgcn", "arxiv", epochs=epochs, device=dev,
+                graph=(r["g"], typed), huborder=not union, union=union)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    expect_exact(name, {k: counts[k] for k in WEIGHTED + ("expand",)}, {})
+    expect_launches(name, dict(counts, dense_bwd_any=counts["dense_bwd"]
+                               + counts["dense_bwd_fused"]),
+                    ("dense_fwd", "dense_bwd_any"))
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"{name}: non-finite loss {rec['losses']}")
+    log(json.dumps(dict(
+        rec, phase="rgcn_typed_train", path=name,
+        launches={k: v for k, v in counts.items() if v},
+        launches_per_step=per_step(counts, rec["steps"]),
+        logits_err_vs_per_relation=lerr, logits_max_abs=lmax,
+        identity_expand=True)))
+    return counts
+
+
+def forward_engine(g, f=1):
+    """The engine the auto dispatch gives ``g``'s copy_u sum (the first
+    of bdense, hub, ell, tile that takes it; "xla" when none does)."""
+    from dgl1_tpu_torch.ops import dispatch
+
+    u = torch.zeros(g.num_src_nodes(), f, device=g.device)
+    for name in dispatch._candidates(True):
+        if dispatch._ENGINES[name](g, "copy_lhs", "sum", u, None) is not None:
+            return name
+    return "xla"
+
+
+def mag_setup(dev):
+    """``synthetic_mag_heterograph(scale=1)`` (ogbn-mag's node counts,
+    7 relations, 32,882,164 edges, every relation a block with every
+    layout its in-degrees earn) built on the host and moved to the card;
+    its build seconds, edges per relation and each relation's engine."""
+    import dgl1_tpu_torch as dgl
+
+    t0 = time.perf_counter()
+    hg, split = dgl.data.synthetic_mag_heterograph(scale=MAG["scale"],
+                                                   device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rels = {"/".join(c): {"edges": hg[c].num_edges(),
+                          "engine": forward_engine(hg[c]),
+                          "hub": repr(hg[c].hub_dst_meta)
+                          if hg[c].hub_dst_meta is not None else None}
+            for c in hg.canonical_etypes}
+    log(json.dumps({
+        "phase": "hetero_graphs", "build_s": secs,
+        "nodes": {nt: hg.num_nodes(nt) for nt in hg.ntypes},
+        "edges": hg.num_edges(), "relations": rels,
+        "device_mem_gb": torch.cuda.memory_allocated(dev) / 1e9}))
+    return hg, torch.as_tensor(split["train"], device=dev)
+
+
+class MagRGCN(torch.nn.Module):
+    """The rgcn-hetero pattern at configuration #4's shape: learned
+    embeddings (``HeteroEmbedding``, dim 128) for every type but paper,
+    paper features of 128, then two ``HeteroGraphConv({etype:
+    GraphConv(norm='right')})`` layers 128 -> 64 -> 349 with ReLU between;
+    returns the paper logits."""
+
+    def __init__(self, hg, dev, gen):
+        super().__init__()
+        from dgl1_tpu_torch.nn import (GraphConv, HeteroEmbedding,
+                                       HeteroGraphConv)
+
+        self.emb = HeteroEmbedding(
+            {nt: hg.num_nodes(nt) for nt in hg.ntypes if nt != "paper"},
+            MAG["emb"], device=dev, generator=gen)
+        dims = (MAG["emb"], MAG["hidden"], MAG["classes"])
+        self.layers = torch.nn.ModuleList(
+            HeteroGraphConv({et: GraphConv(dims[i], dims[i + 1],
+                                           norm="right", device=dev,
+                                           generator=gen)
+                             for et in hg.etypes})
+            for i in range(2))
+
+    def forward(self, hg, feat):
+        h = dict(self.emb.weights(), paper=feat)
+        h = {k: torch.relu(v) for k, v in self.layers[0](hg, h).items()}
+        return self.layers[1](hg, h)["paper"]
+
+
+def phase_mag_rgcn(name, dev, hg, train_ids):
+    """:class:`MagRGCN` for 5 full-graph Adam steps (1e-2) on the paper
+    labels of the train split: step-0 paper logits against the oracle
+    engine, losses finite and falling; ms per step, peak memory,
+    launches per step by kernel; then a profile of 2 steps (device busy
+    time, idle share, top device operations)."""
+    from dgl1_tpu_torch import ops
+    from torch.profiler import ProfilerActivity, profile
+
+    feat = hg.nodes["paper"].data["feat"]
+    labels = hg.nodes["paper"].data["label"].long()[train_ids]
+    model = MagRGCN(hg, dev, torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ops.set_engine("xla")
+        try:
+            ref = model(hg, feat)
+        finally:
+            ops.set_engine("auto")
+        lerr, lmax = logits_vs(name, "oracle", model(hg, feat), ref)
+    del ref
+    opt = torch.optim.Adam(model.parameters(), lr=MAG["lr"])
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(
+            model(hg, feat)[train_ids], labels)
+        loss.backward()
+        opt.step()
+        return loss
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    losses, step_s = [], []
+    for _ in range(MAG["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(step().detach()))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = all_launches()
+    train_record("hetero_rgcn_mag_train", name, hg, {
+        "losses": losses, "step_s": step_s}, counts, MAG["steps"],
+        dims=[MAG["emb"], MAG["hidden"], MAG["classes"]],
+        relations=len(hg.canonical_etypes),
+        logits_err_vs_oracle=lerr, logits_max_abs=lmax)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    summarize_profile("hetero_rgcn_mag_profile", name, prof, 2, wall_ms,
+                      peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    return counts
+
+
+def acm_graphs(dev, seed=0):
+    """The ACM-shaped heterograph (paper-author and paper-subject, both
+    directions; a paper's links go to its class's community with
+    probability 0.85, else anywhere, as examples/train_han.py draws
+    them), its PAP and PSP metapath graphs, random features and the
+    labels, with a train mask over half the papers."""
+    import dgl1_tpu_torch as dgl
+
+    rng = np.random.default_rng(seed)
+    n_p, c = ACM["papers"], ACM["classes"]
+    label = rng.integers(0, c, n_p)
+
+    def links(src, n_targets):
+        comm = rng.integers(0, c, n_targets)
+        pools = [np.flatnonzero(comm == k) for k in range(c)]
+        own = rng.random(len(src)) < 0.85
+        pick = np.array([pools[label[s]][rng.integers(len(pools[label[s]]))]
+                         for s in src])
+        return np.where(own, pick, rng.integers(0, n_targets, len(src)))
+
+    pa_s = np.concatenate([np.arange(n_p), rng.integers(
+        0, n_p, ACM["pa_edges"] - n_p)])
+    pa_d = links(pa_s, ACM["authors"])
+    ps_s = np.arange(n_p)
+    ps_d = links(ps_s, ACM["subjects"])
+    t0 = time.perf_counter()
+    hg = dgl.heterograph({
+        ("paper", "pa", "author"): (pa_s, pa_d),
+        ("author", "ap", "paper"): (pa_d, pa_s),
+        ("paper", "ps", "subject"): (ps_s, ps_d),
+        ("subject", "sp", "paper"): (ps_d, ps_s),
+    }, num_nodes_dict={"paper": n_p, "author": ACM["authors"],
+                       "subject": ACM["subjects"]}, device=dev)
+    graphs = [dgl.metapath_reachable_graph(hg, p)
+              for p in (["pa", "ap"], ["ps", "sp"])]
+    secs = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feat = torch.randn(n_p, ACM["feat"], device=dev, generator=gen)
+    train = torch.as_tensor(rng.permutation(n_p)[: n_p // 2], device=dev)
+    return graphs, feat, torch.as_tensor(label, device=dev), train, secs
+
+
+def gat_path(g, head_dim):
+    """Which of GATConv's three paths ``g`` takes (see GATConv)."""
+    from dgl1_tpu_torch.ops.attention import can_fuse_attention
+    from dgl1_tpu_torch.ops.battention import can_fuse_battention
+
+    if can_fuse_attention(g, head_dim):
+        return "fused hub attention"
+    return "block-dense" if can_fuse_battention(g) else "composed"
+
+
+def phase_han(name, dev):
+    """HAN (1,870 -> 8 heads x 8 -> 3, dropout 0.6, Adam 5e-3) on the PAP
+    and PSP metapath graphs for 5 steps: step-0 logits at dropout 0
+    against the composed path on the oracle engine in float64, the
+    GATConv path of each metapath graph, launches; losses finite."""
+    from dgl1_tpu_torch import ops
+    from dgl1_tpu_torch.models import HAN
+
+    graphs, feat, label, train, secs = acm_graphs(dev)
+    model = HAN(2, ACM["feat"], ACM["hidden"], ACM["classes"],
+                num_heads=ACM["heads"], dropout=ACM["dropout"], device=dev,
+                generator=torch.Generator().manual_seed(2))
+    model.eval()
+    with torch.no_grad():
+        ops.set_engine("xla")
+        try:
+            ref = copy.deepcopy(model).double()(
+                [composed_view(g) for g in graphs], feat.double())
+        finally:
+            ops.set_engine("auto")
+        lerr, lmax = logits_vs(name, "composed path", model(graphs, feat),
+                               ref.float(), rel=1e-4)
+    del ref
+    opt = torch.optim.Adam(model.parameters(), lr=ACM["lr"])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    losses, step_s = [], []
+    for _ in range(ACM["steps"]):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(
+            model(graphs, feat, generator=gen)[train], label[train])
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = all_launches()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    paths = {p: gat_path(g, ACM["hidden"]) for p, g in zip(("PAP", "PSP"),
+                                                           graphs)}
+    log(json.dumps({
+        "phase": "han_train", "path": name, "papers": ACM["papers"],
+        "metapath_edges": {p: g.num_edges() for p, g in zip(("PAP", "PSP"),
+                                                           graphs)},
+        "gatconv_path": paths, "build_s": secs,
+        "dims": [ACM["feat"], [ACM["heads"], ACM["hidden"]],
+                 ACM["classes"]], "dropout": ACM["dropout"],
+        "steps": ACM["steps"], "losses": losses,
+        "ms_per_step": [x * 1e3 for x in step_s],
+        "ms_per_step_after_first": float(np.mean(step_s[1:]) * 1e3),
+        "launches": {k: v for k, v in counts.items() if v},
+        "launches_per_step": per_step(counts, ACM["steps"]),
+        "logits_err_vs_composed": lerr, "logits_max_abs": lmax,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+    if "fused hub attention" in paths.values():
+        expect_launches(name, counts, ("attn_fwd", "attn_bwd_src",
+                                       "ger_reduce"))
+    return counts
 
 
 REDDIT = dict(batch=1024, fanouts=[10, 25], hidden=256, lr=1e-3)
@@ -2594,8 +2960,30 @@ def main():
         dev, "rgcn", (r["g"], r["rel"]),
         per_step(dict(main_counts)["rgcn_perrel_train"], 5))
     profile_rgcn(dev, r)
-    del r
+
+    # Phase 4e: typed graphs and heterographs. The identity relation
+    # layouts and the union block (K1 and K4a on them as variants, then
+    # bench_models' --huborder and --union R-GCN), then configuration #4
+    # at ogbn-mag's shape on the heterograph layer, then HAN at ACM's.
+    t4e = time.perf_counter()
+    tl = typed_setup(dev, r)
+    typed_kernel_variants(dev, rows, tl)
+    main_counts += [
+        ("rgcn_huborder_train", phase_rgcn_typed(
+            "rgcn_huborder_train", dev, r, tl, union=False)),
+        ("rgcn_union_train", phase_rgcn_typed(
+            "rgcn_union_train", dev, r, tl, union=True)),
+    ]
+    del r, tl
     torch.cuda.empty_cache()
+    hg, train_ids = mag_setup(dev)
+    main_counts.append(("hetero_rgcn_mag_train", phase_mag_rgcn(
+        "hetero_rgcn_mag_train", dev, hg, train_ids)))
+    del hg, train_ids
+    torch.cuda.empty_cache()
+    main_counts.append(("han_train", phase_han("han_train", dev)))
+    log(json.dumps({"phase": "hetero_done",
+                    "seconds": time.perf_counter() - t4e}))
 
     # Phase 2c and 4b: the sampled GraphSAGE slice at the Reddit
     # configuration. K9/K10 against their plain versions on a real

@@ -8,17 +8,26 @@ passes ``device="cpu"``; the hand-written kernels (``csrc/``) are built
 with nvcc at first use.
 """
 
-from dgl1_tpu_torch.graph import Graph, graph, rand_graph, resolve_device
+from dgl1_tpu_torch.graph import (Graph, block, create_block, graph,
+                                  rand_graph, resolve_device)
+from dgl1_tpu_torch.heterograph import (HeteroGraph, edge_type_subgraph,
+                                        heterograph, node_type_subgraph)
 from dgl1_tpu_torch.transform import (add_self_loop, edge_subgraph,
-                                      rcm_order, remove_self_loop,
-                                      reorder_graph, to_bidirected,
-                                      typed_subgraphs)
+                                      metapath_reachable_graph, rcm_order,
+                                      remove_self_loop, reorder_graph,
+                                      to_bidirected, to_heterogeneous,
+                                      to_homogeneous, typed_subgraphs,
+                                      typed_union_graph)
 from dgl1_tpu_torch import (data, dataloading, models, nn,  # noqa: F401
                             ops, random, sampling)
 from dgl1_tpu_torch.train import train, train_sampled
 
-__all__ = ["Graph", "graph", "rand_graph", "resolve_device", "add_self_loop",
+__all__ = ["Graph", "graph", "block", "create_block", "rand_graph",
+           "resolve_device", "HeteroGraph", "heterograph",
+           "node_type_subgraph", "edge_type_subgraph", "add_self_loop",
            "remove_self_loop", "reorder_graph", "rcm_order", "to_bidirected",
-           "edge_subgraph", "typed_subgraphs", "data",
+           "edge_subgraph", "typed_subgraphs", "typed_union_graph",
+           "to_homogeneous", "to_heterogeneous", "metapath_reachable_graph",
+           "data",
            "dataloading", "models", "nn", "ops", "random", "sampling",
            "train", "train_sampled"]

@@ -12,7 +12,7 @@ from dgl1_tpu_torch.transform import to_bidirected
 
 __all__ = ["synthetic_classification_graph", "powerlaw_graph",
            "geometric_graph", "typed_powerlaw_graph", "sort_by_relation",
-           "minibatch_graph"]
+           "minibatch_graph", "synthetic_mag_heterograph"]
 
 
 def synthetic_classification_graph(
@@ -163,3 +163,80 @@ def minibatch_graph(scale: str = "reddit", seed: int = 0):
     train_ids = np.random.default_rng(seed + 1).choice(n, size=n_train,
                                                        replace=False)
     return g, f, classes, train_ids
+
+
+def synthetic_mag_heterograph(scale: int = 10, num_classes: int = 349,
+                              feat_dim: int = 128, seed: int = 7,
+                              device=None):
+    """An ogbn-mag-shaped heterograph, the reference's synthetic stand-in
+    (the same draws from ``default_rng(seed)`` in the same order): node
+    types paper, author, institution and field_of_study at the real
+    counts divided by ``scale`` (institution by ``scale // 4``); relations
+    writes (7 a author), cites (10 a paper), affiliated_with (1 a
+    author), has_topic (5 a paper), the three non-paper ones with their
+    reverses. Authors and fields have a home class that their edges
+    prefer (0.8), cites is homophilous the same way. Papers carry
+    ``feat`` (float32 noisy class centroids) and ``label`` (int32).
+    Returns ``(hg, split)``, ``split`` the train/val/test paper ids
+    (60/20/20 of a permutation)."""
+    from dgl1_tpu_torch.heterograph import heterograph
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    n_paper = max(736_389 // scale, num_classes * 10)
+    n_author = max(1_134_649 // scale, 100)
+    n_inst = max(8_740 // max(scale // 4, 1), 20)
+    n_field = max(59_965 // scale, num_classes)
+
+    lab_p = rng.integers(0, num_classes, size=n_paper)
+    lab_a = rng.integers(0, num_classes, size=n_author)
+    lab_f = np.concatenate([
+        np.arange(num_classes),  # every class has at least one field
+        rng.integers(0, num_classes, size=n_field - num_classes),
+    ])
+
+    def pick_same(lab_dst_pool, want_class, p_same=0.8):
+        """Endpoint ids from lab_dst_pool, biased to the wanted class."""
+        order = np.argsort(lab_dst_pool, kind="stable")
+        start = np.searchsorted(lab_dst_pool[order], np.arange(num_classes))
+        count = np.bincount(lab_dst_pool, minlength=num_classes)
+        same = rng.random(len(want_class)) < p_same
+        r_same = order[start[want_class] + (
+            rng.random(len(want_class)) * np.maximum(count[want_class], 1)
+        ).astype(np.int64)]
+        r_any = rng.integers(0, len(lab_dst_pool), size=len(want_class))
+        return np.where(same & (count[want_class] > 0), r_same, r_any)
+
+    a_w = rng.integers(0, n_author, size=n_author * 7)
+    p_w = pick_same(lab_p, lab_a[a_w])
+    p_c_src = rng.integers(0, n_paper, size=n_paper * 10)
+    p_c_dst = pick_same(lab_p, lab_p[p_c_src])
+    a_af = rng.integers(0, n_author, size=n_author)
+    i_af = rng.integers(0, n_inst, size=n_author)
+    p_t = rng.integers(0, n_paper, size=n_paper * 5)
+    f_t = pick_same(lab_f, lab_p[p_t])
+
+    counts = {"paper": n_paper, "author": n_author,
+              "institution": n_inst, "field_of_study": n_field}
+    hg = heterograph({
+        ("author", "writes", "paper"): (a_w, p_w),
+        ("paper", "rev_writes", "author"): (p_w, a_w),
+        ("paper", "cites", "paper"): (p_c_src, p_c_dst),
+        ("author", "affiliated_with", "institution"): (a_af, i_af),
+        ("institution", "rev_affiliated_with", "author"): (i_af, a_af),
+        ("paper", "has_topic", "field_of_study"): (p_t, f_t),
+        ("field_of_study", "rev_has_topic", "paper"): (f_t, p_t),
+    }, num_nodes_dict=counts, device=dev)
+
+    noise = 0.5 * float(np.sqrt(feat_dim))
+    centroids = rng.normal(size=(num_classes, feat_dim))
+    feat = centroids[lab_p] + noise * rng.normal(size=(n_paper, feat_dim))
+    hg.nodes["paper"].data["feat"] = torch.as_tensor(
+        feat.astype(np.float32), device=dev)
+    hg.nodes["paper"].data["label"] = torch.as_tensor(
+        lab_p.astype(np.int32), device=dev)
+    perm = rng.permutation(n_paper)
+    n_tr, n_va = int(0.6 * n_paper), int(0.2 * n_paper)
+    split = {"train": perm[:n_tr], "val": perm[n_tr:n_tr + n_va],
+             "test": perm[n_tr + n_va:]}
+    return hg, split

@@ -23,8 +23,9 @@ C++ builder in ``_native``) and held as ``torch`` tensors:
 
 ``graph(formats=...)`` restricts what is built: ``("csc",)`` gives a
 sampling-only parent (COO and CSC, no CSR, tiles, ELL or hub). Blocks
-(``is_block``) come from the fused sampler (``sampling/fused.py``) and
-carry ``srcdata``/``dstdata`` and host bookkeeping in ``meta``.
+(``is_block``) come from the fused sampler (``sampling/fused.py``) or
+:func:`block` and carry ``srcdata``/``dstdata`` and host bookkeeping in
+``meta``.
 ``Graph.to(device)`` moves every tensor; entry points build on ``cuda``
 unless the caller passes ``device="cpu"``.
 """
@@ -36,8 +37,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Graph", "graph", "rand_graph", "resolve_device", "TILE_EDGES",
-           "TILE_ROWS"]
+__all__ = ["Graph", "graph", "block", "create_block", "rand_graph",
+           "resolve_device", "TILE_EDGES", "TILE_ROWS"]
 
 ID_DTYPE = np.int32
 
@@ -160,14 +161,16 @@ class Graph:
         """Length of the edge arrays (>= num_edges)."""
         return int(self.src.shape[0])
 
-    def in_degrees(self):
-        return torch.diff(self.csc_indptr)
+    def in_degrees(self, v=None):
+        deg = torch.diff(self.csc_indptr)
+        return deg if v is None else deg[v]
 
-    def out_degrees(self):
+    def out_degrees(self, u=None):
         if self.csr_indptr is None:
             raise ValueError("this graph was built without CSR "
                              "(formats=); out_degrees needs it")
-        return torch.diff(self.csr_indptr)
+        deg = torch.diff(self.csr_indptr)
+        return deg if u is None else deg[u]
 
     def edges(self):
         """(src, dst) in user edge order (padded length)."""
@@ -367,6 +370,24 @@ def _ladder_rung(k: int) -> int:
     raise ValueError(f"degree {k} above the ELL ladder")
 
 
+def _ell_bucket(indptr, nbr_sorted, eid_sorted, rows, n_b: int, k: int):
+    """One ELL bucket of ``n_b`` rows of ``k`` slots, flattened: its first
+    ``len(rows)`` rows hold the edges of ``rows`` (their neighbour and
+    edge id, in sorted order), every other slot the sentinel ``1 << 30``
+    and edge id 0."""
+    deg = (indptr[rows + 1] - indptr[rows]).astype(np.int64)
+    mat = np.full((n_b, k), np.int64(1 << 30), dtype=np.int64)
+    emat = np.zeros((n_b, k), dtype=np.int64)
+    total = int(deg.sum())
+    if total:
+        flat_rows = np.repeat(np.arange(len(rows)), deg)
+        flat_cols = np.arange(total) - np.repeat(np.cumsum(deg) - deg, deg)
+        src_pos = np.repeat(indptr[rows].astype(np.int64), deg) + flat_cols
+        mat[flat_rows, flat_cols] = nbr_sorted[src_pos]
+        emat[flat_rows, flat_cols] = eid_sorted[src_pos]
+    return mat.reshape(-1), emat.reshape(-1)
+
+
 def _build_ell(indptr: np.ndarray, nbr_sorted: np.ndarray,
                eid_sorted: np.ndarray, num_target: int, num_edges: int,
                min_slots: Optional[int] = None):
@@ -427,7 +448,6 @@ def _build_ell(indptr: np.ndarray, nbr_sorted: np.ndarray,
     meta = []
     idx_parts = []
     eid_parts = []
-    sentinel = np.int64(1 << 30)
     pos = 0
     while pos < len(nz):
         k = int(kpad[nz[pos]])
@@ -435,20 +455,11 @@ def _build_ell(indptr: np.ndarray, nbr_sorted: np.ndarray,
         while end < len(nz) and kpad[nz[end]] == k:
             end += 1
         rows = nz[pos:end]
-        n_b = len(rows)
-        mat = np.full((n_b, k), sentinel, dtype=np.int64)
-        emat = np.zeros((n_b, k), dtype=np.int64)
-        starts = indptr[rows]
-        degs = deg[rows]
-        flat_rows = np.repeat(np.arange(n_b), degs)
-        flat_cols = np.arange(int(degs.sum())) - np.repeat(
-            np.cumsum(degs) - degs, degs)
-        src_pos = np.repeat(starts, degs) + flat_cols
-        mat[flat_rows, flat_cols] = nbr_sorted[src_pos]
-        emat[flat_rows, flat_cols] = eid_sorted[src_pos]
-        meta.append((k, n_b))
-        idx_parts.append(mat.reshape(-1))
-        eid_parts.append(emat.reshape(-1))
+        idx_b, eid_b = _ell_bucket(indptr, nbr_sorted, eid_sorted, rows,
+                                   len(rows), k)
+        meta.append((k, len(rows)))
+        idx_parts.append(idx_b)
+        eid_parts.append(eid_b)
         pos = end
 
     idx = (np.concatenate(idx_parts) if idx_parts else
@@ -474,22 +485,57 @@ def _build_ell_uniform(indptr: np.ndarray, nbr_sorted: np.ndarray,
     if deg.size and int(deg.max(initial=0)) > k_pad:
         raise ValueError(
             f"row degree {int(deg.max())} exceeds uniform ELL width {k_pad}")
-    sentinel = np.int64(1 << 30)
-    mat = np.full((num_target, k_pad), sentinel, dtype=np.int64)
-    emat = np.zeros((num_target, k_pad), dtype=np.int64)
-    total = int(deg.sum())
-    if total:
-        flat_rows = np.repeat(np.arange(num_target), deg)
-        flat_cols = np.arange(total) - np.repeat(np.cumsum(deg) - deg, deg)
-        src_pos = np.repeat(indptr[:num_target].astype(np.int64), deg) \
-            + flat_cols
-        mat[flat_rows, flat_cols] = nbr_sorted[src_pos]
-        emat[flat_rows, flat_cols] = eid_sorted[src_pos]
+    idx, eid = _ell_bucket(indptr, nbr_sorted, eid_sorted,
+                           np.arange(num_target), num_target, k_pad)
     meta = ((k_pad, num_target),)
     return meta, {
-        "idx": mat.reshape(-1).astype(ID_DTYPE),
-        "eid": emat.reshape(-1).astype(ID_DTYPE),
+        "idx": idx.astype(ID_DTYPE),
+        "eid": eid.astype(ID_DTYPE),
         "inv_perm": np.zeros((0,), ID_DTYPE),
+    }
+
+
+def _build_ell_fixed_rows(indptr: np.ndarray, nbr_sorted: np.ndarray,
+                          eid_sorted: np.ndarray, meta_fixed,
+                          row_base: int, num_target: int):
+    """ELL stack with its rows pinned to id order: bucket b of
+    ``meta_fixed`` ((k, n), ...) holds rows ``[row_base + off, row_base +
+    off + n)`` in id order, so a covered row's stack position is ``id -
+    row_base`` whatever this edge set's own degrees are. Rows of degree 0
+    here are all-sentinel phantom rows. Per-relation tail stacks built
+    on one superset meta share one merge order (the typed identity
+    layouts of ``transform.typed_subgraphs(identity=True)``). Raises
+    ValueError when a row's degree exceeds its bucket width. Returns
+    (meta, arrays) like :func:`_build_ell`."""
+    n_rows = int(sum(n for _, n in meta_fixed))
+    deg = np.diff(indptr[: num_target + 1]).astype(np.int64)
+    idx_parts, eid_parts = [], []
+    off = 0
+    for k, n_b in meta_fixed:
+        rows = np.arange(row_base + off, row_base + off + n_b,
+                         dtype=np.int64)
+        rows = rows[rows < num_target]
+        if int(deg[rows].max(initial=0)) > k:
+            raise ValueError(
+                f"fixed-row ELL: degree {int(deg[rows].max())} exceeds "
+                f"bucket width {k}")
+        idx_b, eid_b = _ell_bucket(indptr, nbr_sorted, eid_sorted, rows,
+                                   n_b, k)
+        idx_parts.append(idx_b)
+        eid_parts.append(eid_b)
+        off += n_b
+    inv_perm = np.full((num_target,), n_rows, dtype=ID_DTYPE)
+    covered = np.arange(row_base, min(row_base + n_rows, num_target),
+                        dtype=np.int64)
+    inv_perm[covered] = (covered - row_base).astype(ID_DTYPE)
+    idx = (np.concatenate(idx_parts) if idx_parts
+           else np.zeros(0, np.int64))
+    eid = (np.concatenate(eid_parts) if eid_parts
+           else np.zeros(0, np.int64))
+    return tuple(meta_fixed), {
+        "idx": idx.astype(ID_DTYPE),
+        "eid": eid.astype(ID_DTYPE),
+        "inv_perm": inv_perm,
     }
 
 
@@ -661,6 +707,53 @@ def graph(data: Tuple, num_nodes: Optional[int] = None,
                             formats=formats, num_padded=num_padded)
     return Graph(**arrays, num_src_nodes=num_nodes, num_dst_nodes=num_nodes,
                  num_edges=num_edges, device=dev)
+
+
+def block(data: Tuple, num_src_nodes: Optional[int] = None,
+          num_dst_nodes: Optional[int] = None,
+          pad_edges_to: Optional[int] = None,
+          formats: Optional[Tuple[str, ...]] = None,
+          uniform_ell_k: Optional[int] = None, *, device=None) -> Graph:
+    """Bipartite message-flow block from ``(src, dst)`` (``dgl.create_block``),
+    built on the host and placed on ``device`` (default ``cuda``). The
+    node counts default to the largest id + 1 of each side; ``formats``
+    and ``pad_edges_to`` as in :func:`graph` (the hub layout where the
+    destination in-degrees clear its bar). The static-shape sampled mode
+    ``uniform_ell_k`` belongs with the numpy sampler (ROADMAP queue 1
+    item 3) and raises NotImplementedError."""
+    if uniform_ell_k is not None:
+        raise NotImplementedError(
+            "block(uniform_ell_k=) is the sampled static-shape mode, not "
+            "ported yet (ROADMAP queue 1 item 3)")
+    dev = resolve_device(device)
+    src, dst = data
+    src = _as_numpy_ids(src)
+    dst = _as_numpy_ids(dst)
+    if src.shape != dst.shape or src.ndim != 1:
+        raise ValueError("src/dst must be 1-D arrays of equal length")
+    num_edges = int(src.shape[0])
+    if num_src_nodes is None:
+        num_src_nodes = int(src.max(initial=-1) + 1)
+    if num_dst_nodes is None:
+        num_dst_nodes = int(dst.max(initial=-1) + 1)
+    if num_edges and (src.min() < 0 or dst.min() < 0
+                      or src.max() >= num_src_nodes
+                      or dst.max() >= num_dst_nodes):
+        raise ValueError("edge endpoint out of range")
+    if isinstance(formats, str):
+        formats = (formats,)
+    num_padded = int(pad_edges_to) if pad_edges_to is not None else num_edges
+    if num_padded < num_edges:
+        raise ValueError("pad_edges_to < num_edges")
+    arrays = _build_formats(src, dst, num_src_nodes, num_dst_nodes,
+                            num_edges, formats=formats,
+                            num_padded=num_padded)
+    return Graph(**arrays, num_src_nodes=num_src_nodes,
+                 num_dst_nodes=num_dst_nodes, num_edges=num_edges,
+                 is_block=True, device=dev)
+
+
+create_block = block
 
 
 def rand_graph(num_nodes: int, num_edges: int, seed: int = 0, **kw) -> Graph:

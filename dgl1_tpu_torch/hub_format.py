@@ -1,8 +1,10 @@
 """Hub-dense HYB layout builder (host side, numpy).
 
-The port's copy of ``dgl1_tpu/hub_format.py`` (the single-device build:
-no forced cross-part geometry). It splits a graph's edges by destination
-in-degree into three tiers for ``ops/engine_hub.py``:
+The port's copy of ``dgl1_tpu/hub_format.py`` (the single-device build
+and the typed identity mode, ``identity_force``; the forced cross-part
+geometry of the distributed layer is not ported). It splits a graph's
+edges by destination in-degree into three tiers for
+``ops/engine_hub.py``:
 
 * **dense**: groups of BLK hub rows whose edge count clears
   ``dense_floor`` (about num_src/2), stored as a static count matrix ``C``
@@ -191,14 +193,26 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
                      num_src: int, num_dst: int, num_edges: int, build_ell,
                      min_group_edges: Optional[int] = None,
                      dense_floor: Optional[int] = None,
-                     num_padded: Optional[int] = None):
+                     num_padded: Optional[int] = None,
+                     identity_force: Optional[dict] = None):
     """Build the three-tier hub layout. Returns (HubMeta, arrays) or
     (None, None) when no hub group clears the density bar (the engine then
     declines and dispatch falls through to ELL). ``build_ell`` is
     ``graph._build_ell``, reused for the tail in both directions. The
     per-edge maps (``edge_to_fslot``, ``edge_to_tslot``,
     ``diag_edge_dst``) cover ``num_padded`` edges (default
-    ``num_edges``), the padded ones holding the sentinel."""
+    ``num_edges``), the padded ones holding the sentinel.
+
+    ``identity_force`` (keys ``n_groups``, ``n_dense``,
+    ``tail_meta_dst``), the typed identity mode: hub slots are pinned to
+    ids ``[0, n_groups*128)`` and the dst tail stack to the following ids
+    in id order under the caller's bucket meta (``graph.
+    _build_ell_fixed_rows``), whatever this edge set's own degrees are.
+    Every relation built on one superset graph's geometry then shares
+    its merge order, the node order, and claims ``identity_expand``;
+    slots and rows this edge set does not touch read zeros (empty count
+    columns, all-sentinel ELL rows). A tail edge to a row past the pinned
+    range raises ValueError."""
     num_padded = num_edges if num_padded is None else int(num_padded)
     deg = np.diff(csc_indptr[: num_dst + 1]).astype(np.int64)
     n_win = -(-num_src // BLK)
@@ -208,27 +222,32 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
     if dense_floor is None:
         dense_floor = max(num_src // 2, 4 * CHUNK)
 
-    order_by_deg = np.argsort(-deg, kind="stable")
-    group_edge_counts = []
-    n_groups = 0
-    while n_groups < MAX_GROUPS:
-        rows = order_by_deg[n_groups * BLK: (n_groups + 1) * BLK]
-        if rows.size == 0:
-            break
-        group_edges = int(deg[rows].sum())
-        if group_edges < min_group_edges:
-            break
-        group_edge_counts.append(group_edges)
-        n_groups += 1
-    if n_groups == 0:
-        return None, None
-    n_dense = 0
-    while (n_dense < min(n_groups, MAX_DENSE_GROUPS)
-           and group_edge_counts[n_dense] >= dense_floor):
-        n_dense += 1
-
-    k_slots = n_groups * BLK
-    rows_all = order_by_deg[:k_slots]
+    if identity_force is not None:
+        n_groups = int(identity_force["n_groups"])
+        n_dense = int(identity_force["n_dense"])
+        k_slots = n_groups * BLK
+        rows_all = np.arange(min(k_slots, num_dst), dtype=np.int64)
+    else:
+        order_by_deg = np.argsort(-deg, kind="stable")
+        group_edge_counts = []
+        n_groups = 0
+        while n_groups < MAX_GROUPS:
+            rows = order_by_deg[n_groups * BLK: (n_groups + 1) * BLK]
+            if rows.size == 0:
+                break
+            group_edges = int(deg[rows].sum())
+            if group_edges < min_group_edges:
+                break
+            group_edge_counts.append(group_edges)
+            n_groups += 1
+        if n_groups == 0:
+            return None, None
+        n_dense = 0
+        while (n_dense < min(n_groups, MAX_DENSE_GROUPS)
+               and group_edge_counts[n_dense] >= dense_floor):
+            n_dense += 1
+        k_slots = n_groups * BLK
+        rows_all = order_by_deg[:k_slots]
     rows_d = rows_all[: n_dense * BLK]
     rows_c = rows_all[n_dense * BLK:]
     hub_ids = np.full((k_slots,), SENT, dtype=ID_DTYPE)
@@ -280,9 +299,22 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
             np.zeros((num_dst,), np.int64)
         t_indptr = np.zeros((num_dst + 1,), dtype=np.int64)
         np.cumsum(t_counts, out=t_indptr[1:])
-        tail_meta_dst, tail_dst_ell = build_ell(
-            t_indptr, t_src, t_eid, num_dst, n_tail,
-            min_slots=tail_min_slots)
+        if identity_force is not None:
+            from dgl1_tpu_torch.graph import _build_ell_fixed_rows
+
+            meta_fx = identity_force["tail_meta_dst"]
+            n_fx = int(sum(nb for _, nb in meta_fx))
+            if n_tail and int(t_dst.max(initial=0)) >= k_slots + n_fx:
+                raise ValueError(
+                    "identity_force: tail edge to a row outside the "
+                    "superset tail range (meta not from a superset "
+                    "graph?)")
+            tail_meta_dst, tail_dst_ell = _build_ell_fixed_rows(
+                t_indptr, t_src, t_eid, meta_fx, k_slots, num_dst)
+        else:
+            tail_meta_dst, tail_dst_ell = build_ell(
+                t_indptr, t_src, t_eid, num_dst, n_tail,
+                min_slots=tail_min_slots)
 
         r_order = np.argsort(t_src, kind="stable")
         r_counts = np.bincount(t_src, minlength=num_src) if n_tail else \

@@ -3,6 +3,8 @@
 from dgl1_tpu_torch.models.gat import GAT
 from dgl1_tpu_torch.models.gcn import GCN, EdgeWeightedGCN
 from dgl1_tpu_torch.models.graphsage import GraphSAGE
+from dgl1_tpu_torch.models.han import HAN, HANLayer, SemanticAttention
 from dgl1_tpu_torch.models.rgcn import RGCN
 
-__all__ = ["GCN", "EdgeWeightedGCN", "GAT", "GraphSAGE", "RGCN"]
+__all__ = ["GCN", "EdgeWeightedGCN", "GAT", "GraphSAGE", "RGCN", "HAN",
+           "HANLayer", "SemanticAttention"]

@@ -19,8 +19,8 @@ class RGCN(nn.Module):
     ``num_bases > 0``. With ``in_feats`` None the model is featureless: a
     learned ``embed`` (num_nodes, hidden) stands in for the input, as in
     the reference. :meth:`forward` takes the reference's arguments and
-    hands ``etypes``, ``presorted``, ``etype_counts`` and ``rel_graphs``
-    to every layer."""
+    hands ``etypes``, ``presorted``, ``etype_counts``, ``rel_graphs`` and
+    ``union_graph`` to every layer."""
 
     def __init__(self, num_nodes: int, hidden_feats: int, out_feats: int,
                  num_rels: int, num_bases: int = 0, num_layers: int = 2,
@@ -46,10 +46,10 @@ class RGCN(nn.Module):
 
     def forward(self, g: Graph, etypes=None, feat=None, *,
                 presorted: bool = False, etype_counts=None, rel_graphs=None,
-                generator=None):
+                union_graph=None, generator=None):
         h = self.embed if feat is None else feat
         for layer in self.layers:
             h = layer(g, h, etypes, presorted=presorted,
                       etype_counts=etype_counts, rel_graphs=rel_graphs,
-                      generator=generator)
+                      union_graph=union_graph, generator=generator)
         return h

@@ -2,6 +2,9 @@
 
 from dgl1_tpu_torch.nn.conv import (EdgeWeightNorm, GATConv, GraphConv,
                                     RelGraphConv, SAGEConv)
+from dgl1_tpu_torch.nn.hetero import HeteroGraphConv
+from dgl1_tpu_torch.nn.linear import HeteroEmbedding, HeteroLinear, TypedLinear
 
 __all__ = ["GraphConv", "EdgeWeightNorm", "GATConv", "SAGEConv",
-           "RelGraphConv"]
+           "RelGraphConv", "HeteroGraphConv", "TypedLinear", "HeteroLinear",
+           "HeteroEmbedding"]

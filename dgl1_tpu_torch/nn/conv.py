@@ -48,7 +48,10 @@ class GraphConv(nn.Module):
     mult-order rule). The bias is a parameter of its own, added after the
     normalisation. ``edge_weight`` (E,), a scalar per edge, turns the
     aggregation into ``u_mul_e`` (the reference's weighted GCN and the
-    GNNExplainer mask contract). Parameters: ``weight.weight`` (out, in)
+    GNNExplainer mask contract). ``feat`` may be a ``(src, dst)`` pair, as
+    ``HeteroGraphConv`` passes on a bipartite relation: the source side is
+    aggregated and each normalisation reads its own side's degrees.
+    Parameters: ``weight.weight`` (out, in)
     and ``bias`` (out,); :func:`dgl1_tpu_torch.params.from_jax_params`
     maps the reference's flax parameters onto them."""
 
@@ -88,10 +91,12 @@ class GraphConv(nn.Module):
 
     def forward(self, g: Graph, feat, edge_weight=None):
         power = -0.5 if self.norm == "both" else -1.0
-        feat_src = feat
+        # A (src, dst) pair (a block's two sides): only the source side
+        # is aggregated.
+        feat_src = feat[0] if isinstance(feat, (tuple, list)) else feat
         if self.norm in ("both", "left"):
-            norm = self._deg_norm(g.out_degrees(), feat.dtype, power)
-            feat_src = feat * norm[: feat.shape[0], None]
+            norm = self._deg_norm(g.out_degrees(), feat_src.dtype, power)
+            feat_src = feat_src * norm[: feat_src.shape[0], None]
 
         def agg(x):
             if edge_weight is None:
@@ -374,8 +379,12 @@ class RelGraphConv(nn.Module):
       ``etype_counts`` per relation) or ``gather_mm`` (``etypes``)
       projects, ``norm`` (E, 1) scales, ``gspmm copy_rhs`` sums.
 
-    ``union_graph=`` (``typed_union_graph``) is not ported and raises
-    NotImplementedError. Parameters keep the reference's layout so
+    * ``union_graph=`` (``transform.typed_union_graph``): ``z =
+      einsum('nf,rfo->rno', h, W)`` reshaped to (R*N, out), one
+      ``copy_lhs`` g-SpMM over the relation-stacked block, times
+      ``norm`` (num_dst, 1).
+
+    Parameters keep the reference's layout so
     :func:`dgl1_tpu_torch.params.from_jax_params` maps them unchanged:
     ``weight`` (R, in, out) or ``basis`` (B, in, out) and ``coeff`` (R,
     B), ``loop_weight`` (in, out), ``h_bias`` (out,). Dropout draws from
@@ -428,14 +437,20 @@ class RelGraphConv(nn.Module):
     def forward(self, g: Graph, feat, etypes=None, norm=None, *,
                 presorted: bool = False, etype_counts=None, rel_graphs=None,
                 union_graph=None, generator=None):
-        if union_graph is not None:
-            raise NotImplementedError(
-                "RelGraphConv(union_graph=) needs typed_union_graph, which "
-                "is not ported yet")
         weight = self._weights()
         h_src = feat
         h_dst = feat[: g.num_dst_nodes()] if g.is_block else feat
-        if rel_graphs is not None:
+        if union_graph is not None:
+            if union_graph.num_src_nodes() != self.num_rels * h_src.shape[0]:
+                raise ValueError(
+                    f"union_graph has {union_graph.num_src_nodes()} source "
+                    f"nodes, not num_rels * {h_src.shape[0]}")
+            z = torch.einsum("nf,rfo->rno", h_src, weight).reshape(
+                self.num_rels * h_src.shape[0], self.out_feats)
+            rst = gspmm(union_graph, "copy_lhs", "sum", z, None)
+            if norm is not None:
+                rst = rst * norm
+        elif rel_graphs is not None:
             rst = 0.0
             for r, gr in enumerate(rel_graphs):
                 if self.out_feats <= self.in_feats:

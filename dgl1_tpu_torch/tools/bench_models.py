@@ -3,21 +3,24 @@ GAT and R-GCN (the port's ``tools/bench_models.py``).
 
     python -m dgl1_tpu_torch.tools.bench_models [--scale cora|pubmed|arxiv]
         [--model gcn|gat|rgcn|all] [--epochs 20] [--precision f32|bf16]
-        [--fwd-only] [--huborder] [--device cuda|cpu]
+        [--fwd-only] [--huborder] [--union] [--device cuda|cpu]
 
 The same flags, scales and models as the reference: cora is
 ``rand_graph(2708, 10832)``, pubmed ``powerlaw_graph(19717, 5)`` and arxiv
 ``powerlaw_graph(169343, 26)``, each with ``add_self_loop``; GCN hidden
 256 at arxiv and 64 elsewhere, GAT ``hidden // 8`` x 8 heads at arxiv (8 x
 8 elsewhere) with dropout 0, R-GCN 128 -> 64 -> 40 with 4 bases over 8
-relations drawn by ``default_rng(0)`` on ``powerlaw_graph(169343, 26)``,
-on the per-relation ``typed_subgraphs`` path; Adam 1e-2, softmax
-cross-entropy over every node. ``--precision bf16`` sets the kernels'
-matmul mode (``ops.set_matmul_precision``). ``--huborder`` relabels the
-GCN/GAT graph hub-first (``reorder_graph(g, 'hub')``). The identity
-``typed_subgraphs`` and ``typed_union_graph`` behind R-GCN's
-``--huborder`` and ``--union`` are not ported (ROADMAP queue 1 item 2):
-those raise NotImplementedError.
+relations drawn by ``default_rng(0)`` on ``powerlaw_graph(169343, 26)``;
+Adam 1e-2, softmax cross-entropy over every node. ``--precision bf16``
+sets the kernels' matmul mode (``ops.set_matmul_precision``).
+``--huborder`` relabels the GCN/GAT graph hub-first (``reorder_graph(g,
+'hub')``); for R-GCN it takes the identity relation layouts
+(``typed_subgraphs(identity=True)``) in place of the plain per-relation
+subgraphs, and ``--union`` the relation-stacked union block
+(``typed_union_graph``, ``RelGraphConv(union_graph=)``); both assert
+that every layout claims ``identity_expand``, as the reference does.
+Features and labels are random, so the relabels' ``perm`` is not
+applied.
 
 Timing: one warm-up step (it builds and loads the kernels; its seconds
 are ``compile_s``), then ``epochs`` steps between two device syncs (a
@@ -36,12 +39,6 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["make_graph", "bench", "main"]
-
-# ROADMAP's name for the typed-graph work R-GCN's --huborder and --union
-# wait on.
-_TYPED = ("needs typed_subgraphs(identity=True) and typed_union_graph, "
-          "which are not ported (ROADMAP queue 1 item 2)")
-
 
 def make_graph(scale: str, device=None):
     """(graph, nodes, input features, classes) of a scale, with
@@ -63,14 +60,26 @@ def make_graph(scale: str, device=None):
     return dgl.add_self_loop(g), n, in_f, classes
 
 
-def rgcn_graphs(device=None, num_rels: int = 8):
-    """The typed graph of ``--model rgcn`` (no self-loops) and its
-    per-relation subgraphs."""
+def rgcn_graphs(device=None, num_rels: int = 8, huborder: bool = False,
+                union: bool = False, nodes: int = 169343,
+                avg_degree: int = 26):
+    """The typed graph of ``--model rgcn`` (no self-loops) and what its
+    path runs on: the per-relation subgraphs, the identity relation
+    layouts (``huborder``) or the union block (``union``). ``nodes`` and
+    ``avg_degree`` size the graph (the arxiv shape by default)."""
     import dgl1_tpu_torch as dgl
     from dgl1_tpu_torch.data import typed_powerlaw_graph
 
-    g, etypes = typed_powerlaw_graph(169343, 26, num_rels, seed=0,
+    g, etypes = typed_powerlaw_graph(nodes, avg_degree, num_rels, seed=0,
                                      device=device)
+    if union:
+        gu, _ = dgl.typed_union_graph(g, etypes, num_rels)
+        assert gu.hub_dst_meta.identity_expand
+        return g, gu
+    if huborder:
+        rel, _ = dgl.typed_subgraphs(g, etypes, num_rels, identity=True)
+        assert all(gr.hub_dst_meta.identity_expand for gr in rel)
+        return g, rel
     return g, dgl.typed_subgraphs(g, etypes, num_rels)
 
 
@@ -80,19 +89,21 @@ def bench(model_name: str, scale: str, epochs: int = 20,
     """Time ``epochs`` steps of one model after a warm-up step and print
     the reference's JSON line. ``graph``: a prebuilt graph of the scale
     (GCN, GAT) or ``(typed graph, relation graphs)`` (R-GCN), else built
-    here. Returns the printed record with ``losses`` (one per step,
-    warm-up first), ``steps`` and ``peak_mem_gb`` (None on the CPU)."""
+    here; for R-GCN the second item is the union block under ``union``
+    (:func:`rgcn_graphs`). Returns the printed record with ``losses`` (one
+    per step, warm-up first), ``steps`` and ``peak_mem_gb`` (None on the
+    CPU)."""
     import dgl1_tpu_torch as dgl
     from dgl1_tpu_torch.models import GAT, GCN, RGCN
 
     dev = dgl.resolve_device(device)
-    rel_graphs = None
+    kw = {}
     if model_name == "rgcn":
-        if huborder or union:
-            raise NotImplementedError(
-                f"rgcn with --{'union' if union else 'huborder'} {_TYPED}")
-        n, in_f, classes, num_rels = 169343, 128, 40, 8
-        g, rel_graphs = graph if graph is not None else rgcn_graphs(dev)
+        in_f, classes, num_rels = 128, 40, 8
+        g, typed = graph if graph is not None else rgcn_graphs(
+            dev, num_rels, huborder=huborder, union=union)
+        n = g.num_nodes()
+        kw = {"union_graph" if union else "rel_graphs": typed}
     elif model_name in ("gcn", "gat"):
         if graph is None:
             g, n, in_f, classes = make_graph(scale, dev)
@@ -126,7 +137,6 @@ def bench(model_name: str, scale: str, epochs: int = 20,
                        generator=torch.Generator(dev).manual_seed(0))
     labels = torch.randint(0, classes, (n,), device=dev,
                            generator=torch.Generator(dev).manual_seed(1))
-    kw = {"rel_graphs": rel_graphs} if model_name == "rgcn" else {}
     opt = torch.optim.Adam(model.parameters(), lr=1e-2)
     losses = []
 
@@ -160,7 +170,10 @@ def bench(model_name: str, scale: str, epochs: int = 20,
     dt = (time.perf_counter() - t0) / max(epochs, 1)
 
     rec = {
-        "model": model_name, "scale": scale, "nodes": n,
+        "model": model_name + ("+union" if union and model_name == "rgcn"
+                               else "")
+        + ("+identity" if huborder and model_name == "rgcn" else ""),
+        "scale": scale, "nodes": n,
         "edges": g.num_edges(), "hidden": hidden,
         "ms_per_epoch": dt * 1e3, "epochs_per_s": 1.0 / dt,
         "compile_s": compile_s, "backend": dev.type,
@@ -185,9 +198,11 @@ def main(argv=None):
     p.add_argument("--fwd-only", action="store_true",
                    help="time the forward pass only (no grad/adam)")
     p.add_argument("--huborder", action="store_true",
-                   help="hub_order-relabel the GCN/GAT graph first")
+                   help="hub_order-relabel the GCN/GAT graph first; "
+                        "rgcn: the identity relation layouts")
     p.add_argument("--union", action="store_true",
-                   help="rgcn only: the typed union graph (not ported)")
+                   help="rgcn only: one g-SpMM over the relation-stacked "
+                        "union block (typed_union_graph)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
     from dgl1_tpu_torch.ops import set_matmul_precision

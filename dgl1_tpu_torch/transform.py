@@ -1,21 +1,26 @@
 """Graph transforms (host side, numpy): the port's counterparts of
 ``dgl1_tpu/transform.py``'s ``add_self_loop``, ``remove_self_loop``,
 ``to_bidirected``, ``rcm_order``, ``reorder_graph`` (algorithms ``'rcm'``,
-``'hub'`` and ``'custom'``), ``edge_subgraph`` and ``typed_subgraphs``.
-Each returns a new graph on the input graph's device."""
+``'hub'`` and ``'custom'``), ``edge_subgraph``, ``typed_subgraphs``
+(with the identity layouts), ``typed_union_graph``, ``to_homogeneous``,
+``to_heterogeneous`` and ``metapath_reachable_graph``. Each returns a new
+graph on the input graph's device."""
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from dgl1_tpu_torch.graph import Graph, graph
+from dgl1_tpu_torch.graph import Graph, _tree_to, block, graph
 
 __all__ = ["add_self_loop", "remove_self_loop", "to_bidirected",
-           "rcm_order", "reorder_graph", "edge_subgraph", "typed_subgraphs"]
+           "rcm_order", "reorder_graph", "edge_subgraph", "typed_subgraphs",
+           "typed_union_graph", "to_homogeneous", "to_heterogeneous",
+           "metapath_reachable_graph"]
 
 
 def _coo(g: Graph):
@@ -190,11 +195,16 @@ def reorder_graph(g: Graph, node_permute_algo: str = "metis",
     return new
 
 
-def edge_subgraph(g: Graph, edges, relabel_nodes: bool = True) -> Graph:
+def edge_subgraph(g: Graph, edges, relabel_nodes: bool = True,
+                  pad_edges_to: Optional[int] = None,
+                  formats=None) -> Graph:
     """Edge-induced subgraph: the edges ``edges`` (ids or a bool mask) in
     the given order. With ``relabel_nodes`` the nodes they touch are
     renumbered in id order (old ids in ``ndata['_ID']``), else the parent's
-    node space is kept. Old edge ids land in ``edata['_ID']``."""
+    node space is kept. Old edge ids land in ``edata['_ID']``.
+    ``pad_edges_to`` and ``formats`` go to :func:`graph`; the padded
+    edges' rows of every ``edata`` field repeat the parent's row 0 (the
+    engines mask them out)."""
     if isinstance(edges, torch.Tensor):
         edges = edges.cpu().numpy()
     edges = np.asarray(edges)
@@ -203,22 +213,63 @@ def edge_subgraph(g: Graph, edges, relabel_nodes: bool = True) -> Graph:
     edges = edges.astype(np.int64)
     src, dst = _coo(g)
     s, d = src[edges], dst[edges]
+    kw = dict(pad_edges_to=pad_edges_to, formats=formats, device=g.device)
     if relabel_nodes:
         nodes = np.unique(np.concatenate([s, d]))
         relabel = np.full((g.num_src_nodes(),), -1, dtype=np.int64)
         relabel[nodes] = np.arange(len(nodes))
-        new = graph((relabel[s], relabel[d]), num_nodes=len(nodes),
-                    device=g.device)
+        new = graph((relabel[s], relabel[d]), num_nodes=len(nodes), **kw)
         new.ndata.update(_slice_rows(g.ndata, nodes))
         new.ndata["_ID"] = torch.as_tensor(nodes.astype(np.int32),
                                            device=new.device)
     else:
-        new = graph((s, d), num_nodes=g.num_src_nodes(), device=g.device)
+        new = graph((s, d), num_nodes=g.num_src_nodes(), **kw)
         new.ndata.update(g.ndata)
-    new.edata.update(_slice_rows(g.edata, edges))
+    rows = edges
+    if pad_edges_to is not None and pad_edges_to > len(edges):
+        rows = np.concatenate(
+            [edges, np.zeros(pad_edges_to - len(edges), np.int64)])
+    new.edata.update(_slice_rows(g.edata, rows))
     new.edata["_ID"] = torch.as_tensor(edges.astype(np.int32),
                                        device=new.device)
     return new
+
+
+def _typed_tail_meta(m, et2, dst2, num_rels: int):
+    """The pinned tail meta of the identity relation layouts: the parent's
+    bucket boundaries with each bucket's width shrunk to the largest
+    per-relation degree of its rows (ladder rungs), then merged pairwise
+    at the least added slots down to ``DGL1_TPU_TYPED_TAIL_BUCKETS``
+    buckets (default: no merge), as the reference does."""
+    from dgl1_tpu_torch.graph import _ladder_rung
+
+    k_slots0 = m.n_groups * 128
+    n_tail_p = int(m.n_tail_rows)
+    tail_meta = tuple(m.tail_meta_dst)
+    if n_tail_p == 0:
+        return tail_meta
+    caps = np.zeros((n_tail_p,), np.int64)
+    for r in range(int(num_rels)):
+        d_r = dst2[et2 == r]
+        d_r = d_r[(d_r >= k_slots0) & (d_r < k_slots0 + n_tail_p)]
+        np.maximum(caps, np.bincount(d_r - k_slots0, minlength=n_tail_p),
+                   out=caps)
+    rungs = np.array([_ladder_rung(int(c)) if c else 1 for c in caps],
+                     np.int64)
+    bounds = np.cumsum([0] + [nb for _, nb in tail_meta])
+    segs = [(int(rungs[a:b].max(initial=1)), int(b - a))
+            for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    n_buckets = int(os.environ.get("DGL1_TPU_TYPED_TAIL_BUCKETS",
+                                   str(len(segs))))
+    while len(segs) > n_buckets:
+        costs = [max(segs[i][0], segs[i + 1][0])
+                 * (segs[i][1] + segs[i + 1][1])
+                 - segs[i][0] * segs[i][1] - segs[i + 1][0] * segs[i + 1][1]
+                 for i in range(len(segs) - 1)]
+        i = int(np.argmin(costs))
+        segs[i: i + 2] = [(max(segs[i][0], segs[i + 1][0]),
+                           segs[i][1] + segs[i + 1][1])]
+    return tuple(segs)
 
 
 def typed_subgraphs(g: Graph, etypes, num_rels: int,
@@ -227,16 +278,207 @@ def typed_subgraphs(g: Graph, etypes, num_rels: int,
     space, for ``RelGraphConv(rel_graphs=...)``: relation r holds the
     edges with ``etypes == r`` in edge order, with its own hub layout
     where its in-degrees clear the bar. ``etypes`` is host data (numpy or
-    a tensor, read up to ``num_edges``). ``identity=True`` needs the
-    forced hub geometry of ``build_hub_format(identity_force=)``, which is
-    not ported, and raises NotImplementedError."""
-    if identity:
-        raise NotImplementedError(
-            "typed_subgraphs(identity=True) needs build_hub_format's "
-            "identity_force geometry, which is not ported yet")
+    a tensor, read up to ``num_edges``).
+
+    ``identity=True``, the identity typed layouts: the nodes are relabeled
+    hub-first by total degree (``reorder_graph(g, 'hub')``), then every
+    relation's hub layout is built with the relabeled parent's geometry
+    pinned (``build_hub_format(identity_force=)``: hub slots are ids
+    ``[0, n_groups*128)``, tail rows follow in id order under the tail
+    meta of :func:`_typed_tail_meta`), so every relation claims
+    ``identity_expand`` and its forward merge is a concat and a pad.
+    Returns ``(rel_graphs, perm)``, ``perm[new] = old``: apply it to every
+    node-aligned array, as after :func:`reorder_graph`. A parent whose
+    relabel has no identity hub layout gives a warning and the plain
+    subgraphs with the identity ``perm``."""
     if isinstance(etypes, torch.Tensor):
         etypes = etypes.cpu().numpy()
     etypes = np.asarray(etypes)[: g.num_edges()]
-    return tuple(edge_subgraph(g, np.nonzero(etypes == r)[0],
-                               relabel_nodes=False)
-                 for r in range(int(num_rels)))
+    if not identity:
+        return tuple(edge_subgraph(g, np.nonzero(etypes == r)[0],
+                                   relabel_nodes=False)
+                     for r in range(int(num_rels)))
+
+    from dgl1_tpu_torch import hub_format as hf
+    from dgl1_tpu_torch.graph import _build_ell
+
+    g2 = (reorder_graph(g, node_permute_algo="hub")
+          if g.hub_dst is not None else g)
+    if g2.hub_dst_meta is None or not g2.hub_dst_meta.identity_expand:
+        warnings.warn(
+            "typed_subgraphs(identity=True): the parent graph has no "
+            "identity hub layout; returning plain per-relation subgraphs "
+            "(descriptor expand).", stacklevel=2)
+        perm = np.arange(g.num_nodes(), dtype=np.int64)
+        return typed_subgraphs(g, etypes, num_rels), perm
+    perm = g2.ndata["_ID"].cpu().numpy().astype(np.int64)
+    et2 = etypes[g2.edata["_ID"].cpu().numpy().astype(np.int64)]
+    m = g2.hub_dst_meta
+    n = g2.num_nodes()
+    src2, dst2 = _coo(g2)
+    ident = {"n_groups": m.n_groups, "n_dense": m.n_dense,
+             "tail_meta_dst": _typed_tail_meta(m, et2, dst2, num_rels)}
+    out = []
+    for r in range(int(num_rels)):
+        mask = et2 == r
+        gr = graph((src2[mask], dst2[mask]), num_nodes=n, hub=False,
+                   formats=("coo", "csr", "csc", "ell"), device="cpu")
+        mr, ar = hf.build_hub_format(
+            gr.csc_indptr.numpy(), gr.csc_src.numpy(), gr.csc_eid.numpy(),
+            gr.csc_dst.numpy(), n, n, gr.num_edges(), _build_ell,
+            num_padded=gr.num_edges_padded(), identity_force=ident)
+        assert mr is not None and mr.identity_expand, (
+            "identity_force build must give an identity layout")
+        gr.hub_dst_meta, gr.hub_dst = mr, _tree_to(ar, "cpu")
+        out.append(gr.to(g.device))
+    return tuple(out), perm
+
+
+def typed_union_graph(g: Graph, etypes, num_rels: int, hub=None,
+                      hub_dense_floor=None, relabel: bool = True):
+    """Typed aggregation as one bipartite g-SpMM: ``out[d] = sum_r
+    sum_{(s->d) in r} Z_r[s]`` is a copy_u sum over the relation-stacked
+    source space ``etype * N + src`` with the destinations unchanged, so
+    one hub layout serves every relation (``RelGraphConv(union_graph=)``
+    feeds it ``Z`` of (R*N, F)). With ``relabel`` the nodes are renumbered
+    hub-first (:func:`hub_format.hub_order` on the union layout) and the
+    layout rebuilt, which then claims ``identity_expand`` (a warning where
+    a hub-group tie loses it). ``hub`` and ``hub_dense_floor`` as in
+    :func:`graph`. Returns ``(gu, perm)``: a block with ``num_src_nodes =
+    num_rels * N`` and ``perm[new] = old`` (apply it to every
+    node-aligned array)."""
+    from dgl1_tpu_torch.graph import _build_formats
+
+    if isinstance(etypes, torch.Tensor):
+        etypes = etypes.cpu().numpy()
+    e = g.num_edges()
+    etypes = np.asarray(etypes, np.int64)[:e]
+    src, dst = (a.astype(np.int64) for a in _coo(g))
+    n = g.num_nodes()
+    r_n = int(num_rels) * n
+
+    def build(s2, d2):
+        arrays = _build_formats(
+            s2, d2, r_n, n, e, hub=hub, hub_dense_floor=hub_dense_floor,
+            formats=("coo", "csr", "csc", "ell", "hub"))
+        return Graph(**arrays, num_src_nodes=r_n, num_dst_nodes=n,
+                     num_edges=e, is_block=True, device="cpu")
+
+    perm = np.arange(n, dtype=np.int64)
+    gu = build(etypes * n + src, dst)
+    if relabel and gu.hub_dst is not None:
+        from dgl1_tpu_torch.hub_format import hub_order
+
+        perm = hub_order(gu)
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n)
+        gu = build(etypes * n + inv[src], inv[dst])
+        if (gu.hub_dst_meta is not None
+                and not gu.hub_dst_meta.identity_expand):
+            warnings.warn(
+                "typed_union_graph: the hub-first relabel did not give an "
+                "identity layout (a hub-group tie); the descriptor expand "
+                "stays, the result is unchanged.", stacklevel=2)
+    return gu.to(g.device), perm
+
+
+def to_homogeneous(hg) -> Graph:
+    """One homogeneous graph from a heterograph (``dgl.to_homogeneous``):
+    node types in sorted order, each type's ids offset by the counts
+    before it; relations in canonical order. ``ndata['_TYPE']`` and
+    ``edata['_TYPE']`` hold the type ids and ``'_ID'`` the per-type ids,
+    int32."""
+    offsets, off = {}, 0
+    for nt in hg.ntypes:
+        offsets[nt] = off
+        off += hg.num_nodes(nt)
+    srcs, dsts, etype_ids, eids = [], [], [], []
+    for i, c in enumerate(hg.canonical_etypes):
+        st, _, dt = c
+        s, d = _coo(hg.rel_graphs[c])
+        srcs.append(s.astype(np.int64) + offsets[st])
+        dsts.append(d.astype(np.int64) + offsets[dt])
+        etype_ids.append(np.full(len(s), i, dtype=np.int32))
+        eids.append(np.arange(len(s), dtype=np.int32))
+
+    def cat(parts, dtype):
+        return np.concatenate(parts) if parts else np.zeros(0, dtype)
+
+    new = graph((cat(srcs, np.int64), cat(dsts, np.int64)), num_nodes=off,
+                device=hg.device)
+    ntype_arr = cat([np.full(hg.num_nodes(nt), i, dtype=np.int32)
+                     for i, nt in enumerate(hg.ntypes)], np.int32)
+    nid_arr = cat([np.arange(hg.num_nodes(nt), dtype=np.int32)
+                   for nt in hg.ntypes], np.int32)
+    for frame, key, arr in ((new.ndata, "_TYPE", ntype_arr),
+                            (new.ndata, "_ID", nid_arr),
+                            (new.edata, "_TYPE", cat(etype_ids, np.int32)),
+                            (new.edata, "_ID", cat(eids, np.int32))):
+        frame[key] = torch.as_tensor(arr, device=new.device)
+    return new
+
+
+def to_heterogeneous(g: Graph, ntypes, etypes, metagraph=None):
+    """A heterograph from a homogeneous graph carrying ``_TYPE`` and
+    ``_ID`` (``dgl.to_heterogeneous``). ``metagraph`` maps an edge-type id
+    to ``(srctype, etype, dsttype)``; without it each relation's end
+    types are those of its first edge."""
+    from dgl1_tpu_torch.heterograph import HeteroGraph
+
+    ntype_arr = g.ndata["_TYPE"].cpu().numpy()
+    nid_arr = g.ndata["_ID"].cpu().numpy()
+    etype_arr = g.edata["_TYPE"].cpu().numpy()[: g.num_edges()]
+    src, dst = _coo(g)
+    counts = {nt: int((ntype_arr == i).sum()) for i, nt in enumerate(ntypes)}
+    rels = {}
+    for j, et in enumerate(etypes):
+        m = etype_arr == j
+        if metagraph is not None:
+            c = metagraph[j]
+        elif m.any():
+            c = (ntypes[int(ntype_arr[src[m][0]])], et,
+                 ntypes[int(ntype_arr[dst[m][0]])])
+        else:
+            c = (ntypes[0], et, ntypes[0])
+        rels[c] = block((nid_arr[src[m]], nid_arr[dst[m]]),
+                        num_src_nodes=counts[c[0]],
+                        num_dst_nodes=counts[c[2]], device=g.device)
+    return HeteroGraph(rels, counts)
+
+
+def metapath_reachable_graph(hg, metapath) -> Graph:
+    """The graph from the first to the last node type of ``metapath`` with
+    an edge wherever a path runs along its relations
+    (``dgl.metapath_reachable_graph``): the product of the relations'
+    adjacency matrices on the host (scipy.sparse), each entry one edge,
+    in the product's row-major order. Same end types give a graph with
+    the type's frame; different ones a block with the source and
+    destination types' frames. Path counts are int64 (the reference's
+    int8 counts wrap, and a pair reached by a multiple of 256 paths is
+    dropped there)."""
+    import scipy.sparse as sp
+
+    canon = [hg.to_canonical_etype(et) for et in metapath]
+    for a, b in zip(canon[:-1], canon[1:]):
+        if a[2] != b[0]:
+            raise ValueError(f"metapath breaks between {a} and {b}")
+    adj = None
+    for c in canon:
+        s, d = _coo(hg.rel_graphs[c])
+        m = sp.csr_matrix((np.ones(len(s), dtype=np.int64), (s, d)),
+                          shape=(hg.num_nodes(c[0]), hg.num_nodes(c[2])))
+        adj = m if adj is None else adj @ m
+        adj.data[:] = 1  # reachability, not path counts
+    coo = adj.tocoo()
+    row, col = coo.row.astype(np.int64), coo.col.astype(np.int64)
+    srctype, dsttype = canon[0][0], canon[-1][2]
+    if srctype == dsttype:
+        new = graph((row, col), num_nodes=hg.num_nodes(srctype),
+                    device=hg.device)
+        new.ndata.update(hg.nodes_data(srctype))
+        return new
+    new = block((row, col), num_src_nodes=hg.num_nodes(srctype),
+                num_dst_nodes=hg.num_nodes(dsttype), device=hg.device)
+    new.srcdata.update(hg.nodes_data(srctype))
+    new.dstdata.update(hg.nodes_data(dsttype))
+    return new

@@ -1647,3 +1647,65 @@ def test_ger_reduce_on_the_hub_layouts(dev, mixed):
         _sum_close("ger", got.double(),
                    AK.ger_reduce_torch(lb, p.double(), m.n_groups),
                    AK.ger_reduce_torch(lb, p.abs().double(), m.n_groups))
+
+
+def _typed_layouts(dev):
+    """The identity relation layouts (3 relations) and the relation-
+    stacked union block (4 relations) of ``powerlaw_graph(4000, 26)``, on
+    the card: hub slots and tail rows a relation does not touch are
+    phantoms that read zeros; the union block is bipartite with 4 x 4000
+    sources."""
+    g = tdgl.data.powerlaw_graph(4000, 26, seed=2, device="cpu")
+    et = np.random.default_rng(0).integers(0, 4, g.num_edges())
+    rel, _ = tdgl.typed_subgraphs(g, et % 3, 3, identity=True)
+    gu, _ = tdgl.typed_union_graph(g, et, 4)
+    assert all(r.hub_dst_meta.identity_expand for r in rel)
+    assert gu.hub_dst_meta.identity_expand and gu.hub_dst_meta.n_dense
+    return [r.to(dev) for r in rel] + [gu.to(dev)]
+
+
+@pytest.mark.parametrize("f", [1, 40, 64])
+def test_dense_kernels_on_typed_layouts(dev, f):
+    """K1 and K4a on each identity relation layout and the union block
+    against their float64 plain versions, then the copy_u sum and its
+    grad through the hub engine against the oracle."""
+    for i, g in enumerate(_typed_layouts(dev)):
+        hub, m = g.hub_dst, g.hub_dst_meta
+        n_src, n_dst = g.num_src_nodes(), g.num_dst_nodes()
+        gen = torch.Generator(device=dev).manual_seed(i)
+        u = torch.randn(n_src, f, device=dev, generator=gen)
+        c = hub["dense_c"]
+        _sum_close(f"K1[{i}]", K.dense_fwd(c, u).double(),
+                   K.dense_fwd_torch(c, u.double()),
+                   K.dense_fwd_torch(c, u.abs().double()))
+        ct = torch.randn(c.shape[1], f, device=dev, generator=gen)
+        ct_full = torch.randn(n_dst, f, device=dev, generator=gen)
+        tail = ell_stack(m.tail_meta_src, hub["r_idx"], hub["r_eid"],
+                         "copy_lhs", "sum", ct_full, None).contiguous()
+        gs, gd = hub["gb_starts"], hub["gb_desc"]
+        _sum_close(f"K4a[{i}]",
+                   K.dense_bwd_fused(c, ct, tail, gs, gd, n_src).double(),
+                   K.dense_bwd_fused_torch(c, ct.double(), tail.double(),
+                                           gs, gd, n_src),
+                   K.dense_bwd_fused_torch(c, ct.abs().double(),
+                                           tail.abs().double(), gs, gd,
+                                           n_src))
+        K.reset_launches()
+
+        def run(engine, x0, w0):
+            tdgl.ops.set_engine(engine)
+            try:
+                x = x0.clone().requires_grad_(True)
+                y = tdgl.ops.gspmm(g, "copy_lhs", "sum", x, None)
+                (gx,) = torch.autograd.grad((y * w0).sum(), x)
+            finally:
+                tdgl.ops.set_engine("auto")
+            return y.detach(), gx
+
+        w = torch.randn(n_dst, f, device=dev, generator=gen)
+        hubbed = run("hub", u, w)
+        assert K.LAUNCHES["dense_fwd"] == 1 and K.LAUNCHES["expand"] == 0
+        assert K.LAUNCHES["dense_bwd_fused"] == 1
+        for name, a, b, s in zip(("fwd", "grad"), hubbed, run("xla", u, w),
+                                 run("xla", u.abs(), w.abs())):
+            _sum_close(f"{name}[{i}]", a, b, s)

@@ -34,7 +34,8 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "models.rgcn", "nn.conv", "transform", "data.synthetic",
             "bdense_format", "ops.bdense_kernels", "ops.engine_bdense",
             "ops.battention", "ops.precision", "tools.bench_models",
-            "tools.chunk_walk_variants")
+            "tools.chunk_walk_variants", "heterograph", "nn.hetero",
+            "nn.linear", "models.han")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -61,3 +62,12 @@ def test_entry_points_default_to_cuda():
     g = tdgl.graph(([0, 1], [1, 2]), num_nodes=3, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         g.to("cuda")
+    # The typed-graph and heterograph entry points.
+    for call in (lambda: tdgl.block(([0, 1], [1, 0]), 2, 2),
+                 lambda: tdgl.heterograph({("a", "r", "b"): ([0], [0])}),
+                 lambda: tdgl.nn.TypedLinear(3, 2, 2),
+                 lambda: tdgl.models.HAN(1, 4, 2, 2),
+                 lambda: tdgl.heterograph({("a", "r", "b"): ([0], [0])},
+                                          device="cpu").to("cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

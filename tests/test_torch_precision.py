@@ -519,10 +519,19 @@ def test_bench_models_prints_the_reference_keys(capsys):
                                                  10832 + 2708, 64, "cpu")
     assert rec["steps"] == 3 and len(rec["losses"]) == 3
     assert all(np.isfinite(rec["losses"]))
-    for flag in ("union", "huborder"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            bm.bench("rgcn", "arxiv", epochs=1, device="cpu",
-                     **{flag: True})
+    # R-GCN's --union and --huborder at a small scale (2,000 nodes, the
+    # arxiv degree, so the union block's 16,000 sources still earn a hub
+    # group): every layout claims identity_expand (rgcn_graphs asserts
+    # it), the reference's model names, finite losses.
+    for flag, name in (("union", "rgcn+union"), ("huborder",
+                                                 "rgcn+identity")):
+        graphs = bm.rgcn_graphs("cpu", nodes=2000, **{flag: True})
+        capsys.readouterr()
+        rec = bm.bench("rgcn", "arxiv", epochs=1, device="cpu",
+                       graph=graphs, **{flag: True})
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert (line["model"], line["nodes"]) == (name, 2000)
+        assert rec["steps"] == 2 and all(np.isfinite(rec["losses"]))
     # The CLI sets the matmul mode, as the reference's does.
     try:
         bm.main(["--scale", "cora", "--model", "gcn", "--epochs", "1",

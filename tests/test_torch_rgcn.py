@@ -1,8 +1,9 @@
 """R-GCN in the port against the JAX package, on the CPU: the segment
-matmuls, ``edge_subgraph``/``typed_subgraphs``, the typed synthetic graph,
-``RelGraphConv`` on its per-relation and per-edge (grouped-GEMM and
-gather) paths, and ``RGCN`` with and without input features, with the
-same weights (``from_jax_params``) on both sides.
+matmuls, ``edge_subgraph``/``typed_subgraphs`` (plain and identity), the
+typed synthetic graph, ``RelGraphConv`` on its per-relation, union-block
+and per-edge (grouped-GEMM and gather) paths, and ``RGCN`` with and
+without input features, with the same weights (``from_jax_params``) on
+both sides.
 
 Tolerances, float32: values and grads rtol 1e-4, atol 1e-5 (every sum runs
 in another order than in XLA); losses of 3 Adam steps (optax
@@ -149,8 +150,17 @@ def test_typed_subgraphs_match_reference():
     for a, b, c in zip(ra, rb, counts):
         _same_graph(a, b)
         assert b.num_edges() == c and b.num_nodes() == N
-    with pytest.raises(NotImplementedError, match="identity"):
-        tdgl.typed_subgraphs(gt, et, R, identity=True)
+    # identity=True: at the default hub floors the relabeled parent has no
+    # hub layout here, so both packages warn and keep the plain subgraphs
+    # with the identity perm (test_torch_hetero.py holds the identity
+    # layouts themselves).
+    with pytest.warns(UserWarning, match="no identity hub layout"):
+        ra, pa = jdgl.typed_subgraphs(gj, et, R, identity=True)
+    with pytest.warns(UserWarning, match="no identity hub layout"):
+        rb, pb = tdgl.typed_subgraphs(gt, t(et), R, identity=True)
+    np.testing.assert_array_equal(pb, pa)
+    for a, b in zip(ra, rb):
+        _same_graph(a, b)
 
 
 def test_typed_powerlaw_graph_and_sorted_copy():
@@ -239,13 +249,99 @@ def test_relgraphconv_matches_reference(path, reg, self_loop, norm, in_f,
         _close(p.grad, pg[k], k)
 
 
+def _union(relabel):
+    """The typed graph's union block in both packages, hub=True so the
+    stacked source space (R*N) has hub groups."""
+    gj, gt, et, _ = _typed(False)
+    uj, pj = jdgl.typed_union_graph(gj, et, R, hub=True, relabel=relabel)
+    ut, pt = tdgl.typed_union_graph(gt, t(et), R, hub=True, relabel=relabel)
+    np.testing.assert_array_equal(pt, pj)
+    assert ut.hub_dst_meta is not None
+    return gj, gt, et, uj, ut, pt
+
+
+@pytest.mark.parametrize("reg,relabel,norm", [(None, True, "dst"),
+                                              ("basis", False, None)])
+def test_relgraphconv_union_matches_reference(reg, relabel, norm):
+    """RelGraphConv(union_graph=) against the reference's on its node
+    order (values, the input's and every parameter's grads, the hub
+    engine), and against the port's rel_graphs path with the same
+    parameters through ``perm``."""
+    gj, gt, et, uj, ut, perm = _union(relabel)
+    inv = np.empty(N, np.int64)
+    inv[perm] = np.arange(N)
+    x = feats(N, 4, seed=5)[perm]
+    coef = feats(N, 7, seed=6)
+    nrm = None if norm is None else feats(N, 1, seed=7)
+    nb = 2 if reg == "basis" else 0
+    jconv = JRelGraphConv(4, 7, R, regularizer=reg, num_bases=nb,
+                          activation=jax.nn.relu)
+    jn = None if nrm is None else jnp.asarray(nrm)
+    with engines("hub", "hub"):
+        params = jconv.init(jax.random.PRNGKey(0), gj, jnp.asarray(x),
+                            norm=jn, union_graph=uj)
+        want = jconv.apply(params, gj, jnp.asarray(x), norm=jn,
+                           union_graph=uj)
+        jgp, jgx = jax.grad(lambda p, xx: jnp.sum(jconv.apply(
+            p, gj, xx, norm=jn, union_graph=uj) * coef), argnums=(0, 1))(
+                params, jnp.asarray(x))
+        conv = RelGraphConv(4, 7, R, regularizer=reg, num_bases=nb,
+                            activation=torch.relu, device="cpu")
+        conv.load_state_dict(from_jax_params(jax.tree.map(np.asarray,
+                                                          params)))
+        xt = t(x).requires_grad_(True)
+        tn = None if nrm is None else t(nrm)
+        got = conv(gt, xt, norm=tn, union_graph=ut)
+        (got * t(coef)).sum().backward()
+        # The per-relation path on the original ids, through perm.
+        rel = tdgl.typed_subgraphs(gt, et, R)
+        per_rel = conv(gt, t(x[inv]), norm=None if nrm is None
+                       else t(nrm[inv]), rel_graphs=rel)
+    _close(got.detach(), want)
+    _close(xt.grad, jgx)
+    pg = from_jax_params(jax.tree.map(np.asarray, jgp))
+    for k, p in conv.named_parameters():
+        _close(p.grad, pg[k], k)
+    _close(per_rel.detach().numpy()[perm], got.detach().numpy())
+
+
+def test_rgcn_union_graph_matches_rel_graphs():
+    """RGCN(union_graph=) reproduces the rel_graphs path with the same
+    parameters (tests/test_hub.py's check, without the relabel), in both
+    packages."""
+    gj, gt, et, uj, ut, _ = _union(False)
+    x = feats(N, 6, seed=8)
+    jmodel = JRGCN(num_nodes=N, hidden_feats=8, out_feats=3, num_rels=R,
+                   num_bases=2)
+    jrel = jdgl.typed_subgraphs(gj, et, R)
+    with engines("hub", "hub"):
+        params = jmodel.init(jax.random.PRNGKey(0), gj, None,
+                             jnp.asarray(x), rel_graphs=jrel)
+        want = jmodel.apply(params, gj, None, jnp.asarray(x),
+                            union_graph=uj)
+        model = RGCN(N, 8, 3, R, num_bases=2, in_feats=6, device="cpu")
+        model.load_state_dict(from_jax_params(jax.tree.map(np.asarray,
+                                                           params)))
+        got = model(gt, None, t(x), union_graph=ut)
+        per_rel = model(gt, None, t(x),
+                        rel_graphs=tdgl.typed_subgraphs(gt, et, R))
+    _close(got.detach(), want)
+    _close(got.detach(), per_rel.detach())
+
+
 def test_relgraphconv_errors():
     _, gt, et, _ = _typed(True)
     conv = RelGraphConv(3, 2, R, device="cpu")
     x = torch.ones((N, 3))
     with pytest.raises(ValueError, match="etype_counts"):
         conv(gt, x, t(et), presorted=True)
-    with pytest.raises(NotImplementedError, match="typed_union_graph"):
+    # The union path: the typed graph's own union block gives the
+    # per-relation path's output; a block of the wrong source count
+    # raises.
+    ut, _ = tdgl.typed_union_graph(gt, et, R, hub=True, relabel=False)
+    _close(conv(gt, x, union_graph=ut).detach(),
+           conv(gt, x, rel_graphs=tdgl.typed_subgraphs(gt, et, R)).detach())
+    with pytest.raises(ValueError, match="union_graph has"):
         conv(gt, x, union_graph=gt)
     with pytest.raises(ValueError, match="regularizer"):
         RelGraphConv(3, 2, R, regularizer="bdd", device="cpu")
