@@ -204,10 +204,11 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
     ``num_edges``), the padded ones holding the sentinel.
 
     ``identity_force`` (keys ``n_groups``, ``n_dense``,
-    ``tail_meta_dst``), the typed identity mode: hub slots are pinned to
-    ids ``[0, n_groups*128)`` and the dst tail stack to the following ids
-    in id order under the caller's bucket meta (``graph.
-    _build_ell_fixed_rows``), whatever this edge set's own degrees are.
+    ``tail_meta_dst``, ``build_ell_fixed``), the typed identity mode: hub
+    slots are pinned to ids ``[0, n_groups*128)`` and the dst tail stack
+    to the following ids in id order under the caller's bucket meta
+    (``build_ell_fixed`` is ``graph._build_ell_fixed_rows``), whatever
+    this edge set's own degrees are.
     Every relation built on one superset graph's geometry then shares
     its merge order, the node order, and claims ``identity_expand``;
     slots and rows this edge set does not touch read zeros (empty count
@@ -300,8 +301,6 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
         t_indptr = np.zeros((num_dst + 1,), dtype=np.int64)
         np.cumsum(t_counts, out=t_indptr[1:])
         if identity_force is not None:
-            from dgl1_tpu_torch.graph import _build_ell_fixed_rows
-
             meta_fx = identity_force["tail_meta_dst"]
             n_fx = int(sum(nb for _, nb in meta_fx))
             if n_tail and int(t_dst.max(initial=0)) >= k_slots + n_fx:
@@ -309,7 +308,7 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
                     "identity_force: tail edge to a row outside the "
                     "superset tail range (meta not from a superset "
                     "graph?)")
-            tail_meta_dst, tail_dst_ell = _build_ell_fixed_rows(
+            tail_meta_dst, tail_dst_ell = identity_force["build_ell_fixed"](
                 t_indptr, t_src, t_eid, meta_fx, k_slots, num_dst)
         else:
             tail_meta_dst, tail_dst_ell = build_ell(

@@ -61,16 +61,15 @@ def make_graph(scale: str, device=None):
 
 
 def rgcn_graphs(device=None, num_rels: int = 8, huborder: bool = False,
-                union: bool = False, nodes: int = 169343,
-                avg_degree: int = 26):
+                union: bool = False, nodes: int = 169343):
     """The typed graph of ``--model rgcn`` (no self-loops) and what its
     path runs on: the per-relation subgraphs, the identity relation
-    layouts (``huborder``) or the union block (``union``). ``nodes`` and
-    ``avg_degree`` size the graph (the arxiv shape by default)."""
+    layouts (``huborder``) or the union block (``union``). ``nodes`` sizes
+    the graph (the arxiv shape by default)."""
     import dgl1_tpu_torch as dgl
     from dgl1_tpu_torch.data import typed_powerlaw_graph
 
-    g, etypes = typed_powerlaw_graph(nodes, avg_degree, num_rels, seed=0,
+    g, etypes = typed_powerlaw_graph(nodes, 26, num_rels, seed=0,
                                      device=device)
     if union:
         gu, _ = dgl.typed_union_graph(g, etypes, num_rels)

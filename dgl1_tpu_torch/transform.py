@@ -300,7 +300,7 @@ def typed_subgraphs(g: Graph, etypes, num_rels: int,
                      for r in range(int(num_rels)))
 
     from dgl1_tpu_torch import hub_format as hf
-    from dgl1_tpu_torch.graph import _build_ell
+    from dgl1_tpu_torch.graph import _build_ell, _build_ell_fixed_rows
 
     g2 = (reorder_graph(g, node_permute_algo="hub")
           if g.hub_dst is not None else g)
@@ -317,7 +317,8 @@ def typed_subgraphs(g: Graph, etypes, num_rels: int,
     n = g2.num_nodes()
     src2, dst2 = _coo(g2)
     ident = {"n_groups": m.n_groups, "n_dense": m.n_dense,
-             "tail_meta_dst": _typed_tail_meta(m, et2, dst2, num_rels)}
+             "tail_meta_dst": _typed_tail_meta(m, et2, dst2, num_rels),
+             "build_ell_fixed": _build_ell_fixed_rows}
     out = []
     for r in range(int(num_rels)):
         mask = et2 == r

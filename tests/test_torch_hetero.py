@@ -31,7 +31,8 @@ from dgl1_tpu.nn.linear import (HeteroEmbedding as JHeteroEmbedding,
                                 TypedLinear as JTypedLinear)
 from dgl1_tpu_torch import hub_format as thf
 from dgl1_tpu_torch import nn as tnn
-from dgl1_tpu_torch.graph import _build_ell as t_build_ell, _tree_to
+from dgl1_tpu_torch.graph import (_build_ell as t_build_ell,
+                                  _build_ell_fixed_rows, _tree_to)
 from dgl1_tpu_torch.heterograph import HeteroGraph
 from dgl1_tpu_torch.models import HAN
 from dgl1_tpu_torch.params import from_jax_params
@@ -233,7 +234,8 @@ def test_identity_force_mixed_tiers_match_reference():
     mt, at = thf.build_hub_format(
         *(getattr(rt, k).numpy() for k in ("csc_indptr", "csc_src",
                                            "csc_eid", "csc_dst")),
-        n, n, len(s), t_build_ell, identity_force=ident)
+        n, n, len(s), t_build_ell,
+        identity_force=dict(ident, build_ell_fixed=_build_ell_fixed_rows))
     assert mt == mj and mt.identity_expand
     assert mt.n_groups == m.n_groups and mt.n_dense == m.n_dense
     rj.hub_dst_meta, rj.hub_dst = mj, jax.tree.map(jnp.asarray, aj)
@@ -242,7 +244,8 @@ def test_identity_force_mixed_tiers_match_reference():
     _check_copy_lhs(rj, rt, feats(n, 4, seed=9, shift=1.0),
                     feats(n, 4, seed=10), "mixed relation")
     # A tail edge to a row past the pinned tail range.
-    short = dict(ident, tail_meta_dst=((m.tail_meta_dst[0][0], 1),))
+    short = dict(ident, tail_meta_dst=((m.tail_meta_dst[0][0], 1),),
+                 build_ell_fixed=_build_ell_fixed_rows)
     with pytest.raises(ValueError, match="superset tail range"):
         thf.build_hub_format(
             *(getattr(rt, k).numpy() for k in ("csc_indptr", "csc_src",

@@ -10,6 +10,8 @@ in another order than in XLA); losses of 3 Adam steps (optax
 ``adam(1e-2)`` against ``train``'s ``torch.optim.Adam``) rtol 1e-4, atol
 1e-5."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -336,11 +338,14 @@ def test_relgraphconv_errors():
     with pytest.raises(ValueError, match="etype_counts"):
         conv(gt, x, t(et), presorted=True)
     # The union path: the typed graph's own union block gives the
-    # per-relation path's output; a block of the wrong source count
-    # raises.
+    # per-relation path's output (in float64: the two float32 orders of
+    # summation differ by rounding where terms cancel, whatever the
+    # weights); a block of the wrong source count raises.
     ut, _ = tdgl.typed_union_graph(gt, et, R, hub=True, relabel=False)
-    _close(conv(gt, x, union_graph=ut).detach(),
-           conv(gt, x, rel_graphs=tdgl.typed_subgraphs(gt, et, R)).detach())
+    conv64, x64 = copy.deepcopy(conv).double(), x.double()
+    _close(conv64(gt, x64, union_graph=ut).detach(),
+           conv64(gt, x64,
+                  rel_graphs=tdgl.typed_subgraphs(gt, et, R)).detach())
     with pytest.raises(ValueError, match="union_graph has"):
         conv(gt, x, union_graph=gt)
     with pytest.raises(ValueError, match="regularizer"):
