@@ -7,7 +7,8 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit, build the CUDA kernels from
    ``dgl1_tpu_torch/csrc`` (one nvcc per source, started together) and
-   print the build time;
+   print the build time; the native host library must load (else the
+   sampled phases would leave the fused sampler);
 2. the R-GCN graphs of tools/bench_models.py --model rgcn
    (``powerlaw_graph(169343, 26)``, 8 relations per edge from
    ``default_rng(0)``, the relation-sorted copy and the 8 per-relation
@@ -78,6 +79,15 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    instantiations only in bf16), step-0 losses within 2e-2, ms per epoch
    and peak memory; then ``torch.profiler`` traces of 3 arxiv GAT steps
    and 3 arxiv GCN steps (device busy time, idle share, top kernels);
+4g. link prediction (examples/train_link_pred.py) on a host copy of the
+   arxiv graph: ``EdgeDataLoader`` over every edge (batch 512,
+   ``negative_sampler.Uniform(1)``, ``exclude='self'``,
+   ``NeighborSampler([10, 10], static_shapes=False)``: ELL-only blocks),
+   GraphSAGE mean 128 -> 64 -> 64, ``u_dot_v`` scores, binary
+   cross-entropy, Adam 1e-3, 5 steps (host sampling ms per batch, ms per
+   step, launches recorded); then ``layerwise_inference`` over all nodes
+   against the same model's full-graph forward on the oracle engine, each
+   output within 1e-4 of its float64 abs sum (seconds, launches);
 4c. R-GCN at configuration #4's shape (128 -> 64 ->
    40, 8 relations, 4 bases, Adam 1e-2): 5 steps on the per-relation path
    (K1, K3, K4a per relation, no weighted kernel) and 5 on the
@@ -110,6 +120,17 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    the composed path on the oracle engine in float64, the GATConv path
    of each metapath graph, launches (K6, K7 and K8 where a metapath
    graph takes the fused attention);
+4f. the sampled R-GCN of examples/train_rgcn_sampled.py on the host copy
+   of the mag graph (built once there, copied to the card for 4e):
+   ``NeighborSampler([{e: 10}, {e: 10}])`` over all 7 relations (the
+   numpy sampler), batch 512, 2 workers, paper features from a
+   ``HostFeatureStore`` through ``pull_features``, ``HeteroRGCN`` 128 ->
+   64 -> 349 over ``NodeEmbedding`` tables of 64 (sparse Adam 5e-2, Adam
+   1e-2): step-0 paper logits against the oracle engine to 1e-4 of each
+   logit's float64 abs sum, a warm-up step, 5 steps with K9 exactly once
+   a relation whose backward runs (relations with no dst node counted
+   apart: they launch nothing), ms per step, host sampling and pull ms
+   per batch, then a profile of 3 steps;
 5. sampled GraphSAGE at the Reddit
    configuration of tools/bench_minibatch.py (--scale reddit: 232,965
    nodes, 114,615,892 edges, F=602, 41 classes, fanouts [10, 25], batch
@@ -127,7 +148,9 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    engine, launches K9 1 and every other kernel 0 per step, losses
    finite, then 5 steps on the first batch repeated whose losses fall;
    host sampling ms per batch, device step ms, peak memory); the pool
-   trainer for 3 steps (K10 2 and K9 4 per step); ``torch.profiler``
+   trainer for 3 steps (K10 2 and K9 4 per step); the lstm trainer
+   (``SAGEConv('lstm')``, an LSTM over each uniform ELL bucket) for 3
+   steps, no kernel; ``torch.profiler``
    traces of 3 mean and 3 pool steps on batches sampled beforehand, the
    pool one with its peak memory;
 4d. the block-dense slice on hub-free geometric graphs (bench.py's
@@ -1730,26 +1753,30 @@ def forward_engine(g, f=1):
 def mag_setup(dev):
     """``synthetic_mag_heterograph(scale=1)`` (ogbn-mag's node counts,
     7 relations, 32,882,164 edges, every relation a block with every
-    layout its in-degrees earn) built on the host and moved to the card;
-    its build seconds, edges per relation and each relation's engine."""
+    layout its in-degrees earn) built once on the host, where the sampled
+    phase reads it, and copied to the card for the full-graph phase; the
+    build and copy seconds, edges per relation and each relation's
+    engine. Returns (host graph, card graph, split)."""
     import dgl1_tpu_torch as dgl
 
     t0 = time.perf_counter()
-    hg, split = dgl.data.synthetic_mag_heterograph(scale=MAG["scale"],
-                                                   device=dev)
+    hg_host, split = dgl.data.synthetic_mag_heterograph(scale=MAG["scale"],
+                                                        device="cpu")
+    t1 = time.perf_counter()
+    hg = hg_host.to(dev)
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    t2 = time.perf_counter()
     rels = {"/".join(c): {"edges": hg[c].num_edges(),
                           "engine": forward_engine(hg[c]),
                           "hub": repr(hg[c].hub_dst_meta)
                           if hg[c].hub_dst_meta is not None else None}
             for c in hg.canonical_etypes}
     log(json.dumps({
-        "phase": "hetero_graphs", "build_s": secs,
+        "phase": "hetero_graphs", "build_s": t1 - t0, "to_card_s": t2 - t1,
         "nodes": {nt: hg.num_nodes(nt) for nt in hg.ntypes},
         "edges": hg.num_edges(), "relations": rels,
         "device_mem_gb": torch.cuda.memory_allocated(dev) / 1e9}))
-    return hg, torch.as_tensor(split["train"], device=dev)
+    return hg_host, hg, split
 
 
 class MagRGCN(torch.nn.Module):
@@ -1835,6 +1862,290 @@ def phase_mag_rgcn(name, dev, hg, train_ids):
         wall_ms = (time.perf_counter() - t0) * 1e3 / 2
     summarize_profile("hetero_rgcn_mag_profile", name, prof, 2, wall_ms,
                       peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    return counts
+
+
+# examples/train_rgcn_sampled.py at ogbn-mag's widths (its defaults with
+# the real dataset's 349 classes): fanouts 10 and 10 over every relation,
+# batch 512, hidden 64, embeddings 64, Adam 1e-2, sparse Adam 5e-2.
+SAMPLED_MAG = dict(batch=512, fanout=10, emb=64, hidden=64, classes=349,
+                   lr=1e-2, sparse_lr=5e-2, steps=5, workers=2)
+
+
+def hetero_abs_bound(model, blocks, x):
+    """Row-wise bound for the hetero R-GCN's logits: the model with every
+    parameter and input by absolute value, in float64 under the oracle
+    engine (relu(|x|) = |x|, and the degree norms are positive)."""
+    from dgl1_tpu_torch import ops
+
+    a = copy.deepcopy(model).double()
+    with torch.no_grad():
+        for p in a.parameters():
+            p.abs_()
+        ops.set_engine("xla")
+        try:
+            return a(blocks, {k: v.abs().double() for k, v in x.items()})
+        finally:
+            ops.set_engine("auto")
+
+
+def k9_relations(blocks, out_ntype="paper"):
+    """The relations whose backward runs K9 in a sampled hetero R-GCN
+    step: each relation into ``out_ntype`` of the output block, and each
+    relation of the input block into a source type of those, where it has
+    dst nodes; and the count of empty relations (no dst node) of each
+    block, which launch nothing."""
+    r1 = [c for c, g in blocks[1].rel_graphs.items()
+          if c[2] == out_ntype and g.num_dst_nodes()]
+    need = {c[0] for c in r1}
+    r0 = [c for c, g in blocks[0].rel_graphs.items()
+          if c[2] in need and g.num_dst_nodes()]
+    empty = [sum(g.num_dst_nodes() == 0 for g in b.rel_graphs.values())
+             for b in blocks]
+    return len(r0) + len(r1), empty
+
+
+def phase_sampled_rgcn_mag(name, dev, hg, split):
+    """The sampled R-GCN of examples/train_rgcn_sampled.py at full scale:
+    ``NeighborSampler([{e: 10}, {e: 10}])`` over the 7 relations of the
+    host mag graph (the numpy sampler), ``NodeDataLoader`` of the train
+    papers (batch 512, 2 workers) with the paper features pulled from a
+    ``HostFeatureStore`` through ``pull_features``, ``HeteroRGCN`` 128 ->
+    64 -> 349 over ``NodeEmbedding`` tables of 64 for the other types,
+    trained by ``train_sampled_rgcn`` (Adam 1e-2, sparse Adam 5e-2).
+    Step-0 paper logits against the oracle engine to 1e-4 of each
+    logit's float64 abs sum; a warm-up step, then 5 steps from the loader
+    with K9 launched exactly once a relation whose backward runs (empty
+    relations, none; counted apart); ms per step, host sampling and pull
+    ms per batch; then a profile of 3 steps on batches sampled
+    beforehand. K9 at two of the step's shapes is checked against its
+    float64 plain version and timed; returns (launches, those rows as
+    variants of the K9 row)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgl1_tpu_torch import ops
+    from dgl1_tpu_torch.data import HostFeatureStore
+    from dgl1_tpu_torch.dataloading import NeighborSampler, NodeDataLoader
+    from dgl1_tpu_torch.models import HeteroRGCN
+    from dgl1_tpu_torch.optim import NodeEmbedding, take_rows
+    from dgl1_tpu_torch.train import embed_ids, train_sampled_rgcn
+
+    cfg = SAMPLED_MAG
+    t_phase = time.perf_counter()
+    store = HostFeatureStore(hg.nodes["paper"].data["feat"].numpy(),
+                             device=dev)
+    labels = hg.nodes["paper"].data["label"].to(dev)
+    fan = {c[1]: cfg["fanout"] for c in hg.canonical_etypes}
+    loader = NodeDataLoader(
+        hg, {"paper": split["train"]}, NeighborSampler([fan, fan]),
+        batch_size=cfg["batch"], shuffle=True, seed=0,
+        num_workers=cfg["workers"], prefetch=2,
+        pull_features=lambda inp: store.pull_to_device(inp["paper"]),
+        device=dev)
+    embed = [nt for nt in hg.ntypes if nt != "paper"]
+    gen = torch.Generator().manual_seed(3)
+    tables = {nt: NodeEmbedding.create(hg.num_nodes(nt), cfg["emb"],
+                                       generator=gen, device=dev).table
+              for nt in embed}
+    dims = dict({nt: cfg["emb"] for nt in embed}, paper=store.shape[1])
+    model = HeteroRGCN(hg.canonical_etypes, dims, cfg["hidden"],
+                       cfg["classes"], device=dev,
+                       generator=torch.Generator().manual_seed(2))
+
+    it = iter(loader)
+    b0 = next(it)
+    it.close()
+    inp, out, blocks, mask, x_paper = b0
+    ids = embed_ids(inp, blocks, tables)
+    x = dict({nt: take_rows(tables[nt], ids[nt]) for nt in embed},
+             paper=x_paper)
+    with torch.no_grad():
+        got = model(blocks, x)
+        ops.set_engine("xla")
+        try:
+            ref = model(blocks, x)
+        finally:
+            ops.set_engine("auto")
+    if got.shape != (cfg["batch"], cfg["classes"]):
+        raise AssertionError(f"{name}: logits shape {tuple(got.shape)}")
+    lerr, lratio = logits_vs_abs(name, "oracle", got, ref,
+                                 hetero_abs_bound(model, blocks, x))
+    per_step, empty = k9_relations(blocks)
+    del got, ref, x
+    # K9 at the shapes this step gives it (every aggregation runs at the
+    # hidden width, 64): the output block's cites and the input block's
+    # writes, reverse tiles read through their gather, as variants of the
+    # K9 row.
+    k9_variants = []
+    for name_v, b, c in (("mag_block1_cites_tsrc_f64", blocks[1], "cites"),
+                         ("mag_block0_writes_tsrc_f64", blocks[0],
+                          "writes")):
+        rel = b[c]
+        v = tile_case(name_v, rel.tsrc, rel.num_dst_nodes(), cfg["hidden"],
+                      dev, seed=len(k9_variants) + 20)
+        k9_variants.append({k: v[k] for k in VARIANT_KEYS if k in v})
+    warm = train_sampled_rgcn([b0], None, labels, model, tables,
+                              lr=cfg["lr"], sparse_lr=cfg["sparse_lr"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    res = train_sampled_rgcn(loader, None, labels, model, tables,
+                             states=warm["states"], steps=cfg["steps"],
+                             lr=cfg["lr"], sparse_lr=cfg["sparse_lr"])
+    torch.cuda.synchronize()
+    counts = all_launches()
+    losses = res["losses"]
+    if len(losses) != cfg["steps"] or not all(math.isfinite(v)
+                                              for v in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    expect_exact(name, counts, {"tile_sum": per_step * cfg["steps"]})
+    log(json.dumps({
+        "phase": "sampled_rgcn_mag_train", "path": name,
+        "dims": [store.shape[1], cfg["hidden"], cfg["classes"]],
+        "emb": cfg["emb"], "fanouts": [cfg["fanout"]] * 2,
+        "batch": cfg["batch"], "relations": len(hg.canonical_etypes),
+        "steps": cfg["steps"], "warmup_loss": warm["losses"][0],
+        "losses": losses,
+        "ms_per_step": [v * 1e3 for v in res["step_s"]],
+        "ms_per_step_after_first": float(np.mean(res["step_s"][1:]) * 1e3),
+        "wait_ms_per_step": [v * 1e3 for v in res["wait_s"]],
+        "host_sample_ms_per_batch": float(np.mean(res["sample_ms"])),
+        "host_sample_ms": res["sample_ms"],
+        "host_pull_ms_per_batch": float(np.mean(res["pull_ms"])),
+        "launches": counts,
+        "launches_per_step": {k: v / cfg["steps"] for k, v in counts.items()},
+        "k9_relations_per_step": per_step,
+        "empty_relations_per_block": empty,
+        "logits_err_vs_oracle": lerr, "logits_err_over_abs_sum": lratio,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+    it = iter(loader)
+    batches = [next(it) for _ in range(3)]
+    it.close()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_sampled_rgcn(batches, None, labels, model, tables,
+                           states=res["states"], lr=cfg["lr"],
+                           sparse_lr=cfg["sparse_lr"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    summarize_profile("sampled_rgcn_mag_profile", name, prof, 3, wall_ms,
+                      host_sample_ms_per_batch=float(
+                          np.mean(loader.sample_s) * 1e3))
+    log(json.dumps({"phase": "sampled_rgcn_mag_done",
+                    "seconds": time.perf_counter() - t_phase}))
+    return counts, k9_variants
+
+
+# The link prediction of examples/train_link_pred.py at the arxiv graph of
+# tools/bench_models.py: GraphSAGE mean 128 -> 64 -> 64, fanouts [10, 10]
+# unpadded, batch 512 edges, one uniform negative each, the batch's own
+# edges excluded from its blocks, a u_dot_v score, Adam 1e-3.
+LINKPRED = dict(feat=128, hidden=64, fanouts=[10, 10], batch=512, lr=1e-3,
+                steps=5, infer_batch=32768)
+
+
+def phase_link_pred(name, dev, g):
+    """Link prediction on the arxiv graph ``g`` (a host copy samples):
+    ``EdgeDataLoader`` over every edge with ``exclude='self'`` and
+    ``negative_sampler.Uniform(1)``, ``NeighborSampler([10, 10],
+    static_shapes=False)`` (ELL-only blocks), GraphSAGE 128 -> 64 -> 64,
+    ``u_dot_v`` scores, binary cross-entropy, Adam 1e-3 for 5 steps (host
+    sampling ms per batch, ms per step, the launches, recorded); then one
+    ``layerwise_inference`` over all nodes, held element by element
+    against the same model's full-graph forward on the oracle engine to
+    1e-4 of each output's float64 abs sum, with its seconds and
+    launches."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch import ops
+    from dgl1_tpu_torch.dataloading import (EdgeDataLoader, NeighborSampler,
+                                            layerwise_inference,
+                                            negative_sampler)
+    from dgl1_tpu_torch.models import GraphSAGE
+
+    cfg = LINKPRED
+    t_phase = time.perf_counter()
+    g_host = g.to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(g.num_nodes(), cfg["feat"], device=dev, generator=gen)
+    model = GraphSAGE(cfg["feat"], cfg["hidden"], cfg["hidden"],
+                      num_layers=2, dropout=0.0, device=dev,
+                      generator=torch.Generator().manual_seed(2))
+    loader = EdgeDataLoader(
+        g_host, np.arange(g_host.num_edges()),
+        NeighborSampler(cfg["fanouts"], static_shapes=False),
+        batch_size=cfg["batch"], shuffle=True,
+        negative_sampler=negative_sampler.Uniform(1), seed=0,
+        exclude="self", device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=cfg["lr"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    losses, step_s, sample_ms = [], [], []
+    it = iter(loader)
+    for _ in range(cfg["steps"]):
+        t0 = time.perf_counter()
+        inp, pos, neg, blocks = next(it)
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        h = model(blocks, feat.index_select(0, inp))
+        ps = dgl.ops.u_dot_v(pos, h, h)[:, 0]
+        ns = dgl.ops.u_dot_v(neg, h, h)[:, 0]
+        scores = torch.cat([ps, ns])
+        y = torch.cat([torch.ones_like(ps), torch.zeros_like(ns)])
+        loss = torch.nn.functional.binary_cross_entropy_with_logits(scores,
+                                                                    y)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        sample_ms.append((t1 - t0) * 1e3)
+    it.close()
+    counts = all_launches()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    model.eval()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = layerwise_inference(
+            g_host, feat,
+            [lambda b, x: torch.relu(model.layers[0](b, x)),
+             lambda b, x: model.layers[1](b, x)],
+            batch_size=cfg["infer_batch"])
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t0
+        infer_counts = all_launches()
+        ops.set_engine("xla")
+        try:
+            ref = model(g, feat)
+        finally:
+            ops.set_engine("auto")
+        a = copy.deepcopy(model).double()
+        for p in a.parameters():
+            p.abs_()
+        ops.set_engine("xla")
+        try:
+            bound = a(g, feat.abs().double())
+        finally:
+            ops.set_engine("auto")
+    ierr, iratio = logits_vs_abs(name, "full-graph oracle", out, ref, bound)
+    log(json.dumps({
+        "phase": "link_pred_train", "path": name, "nodes": g.num_nodes(),
+        "edges": g.num_edges(),
+        "dims": [cfg["feat"], cfg["hidden"], cfg["hidden"]],
+        "fanouts": cfg["fanouts"], "batch_edges": cfg["batch"],
+        "steps": cfg["steps"], "losses": losses,
+        "ms_per_step": [v * 1e3 for v in step_s],
+        "host_sample_ms_per_batch": float(np.mean(sample_ms)),
+        "host_sample_ms": sample_ms, "launches": counts,
+        "layerwise_inference_s": infer_s,
+        "layerwise_inference_batch": cfg["infer_batch"],
+        "layerwise_launches": {k: v for k, v in infer_counts.items() if v},
+        "inference_err_vs_full_graph": ierr,
+        "inference_err_over_abs_sum": iratio,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "seconds": time.perf_counter() - t_phase}))
     return counts
 
 
@@ -2905,6 +3216,12 @@ def main():
     log(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                     "python": sys.version.split()[0]}))
     phase_build()
+    from dgl1_tpu_torch import _native
+
+    # The fused sampler needs the host library: without it the sampled
+    # phases would take the numpy sampler and measure another path.
+    if _native.lib() is None:
+        raise AssertionError("the native host library did not build")
 
     # Graphs (host build, then device).
     t0 = time.perf_counter()
@@ -2989,6 +3306,10 @@ def main():
                                           per_step(steps[path], 5))
     profile_gat(dev, g_arx)
     profile_gcn(dev, g_arx)
+    # Phase 4g: link prediction on the arxiv graph (a host copy samples),
+    # then layer-wise inference against the full-graph forward.
+    main_counts.append(("link_pred_arxiv_train", phase_link_pred(
+        "link_pred_arxiv_train", dev, g_arx)))
     del g_arx, g_mix
 
     # Phase 4c: R-GCN at the configuration-#4 shape, the slice's main
@@ -3021,10 +3342,19 @@ def main():
     ]
     del r, tl
     torch.cuda.empty_cache()
-    hg, train_ids = mag_setup(dev)
+    hg_host, hg, split = mag_setup(dev)
     main_counts.append(("hetero_rgcn_mag_train", phase_mag_rgcn(
-        "hetero_rgcn_mag_train", dev, hg, train_ids)))
-    del hg, train_ids
+        "hetero_rgcn_mag_train", dev, hg,
+        torch.as_tensor(split["train"], device=dev))))
+    del hg
+    torch.cuda.empty_cache()
+    # Phase 4f: the sampled R-GCN of examples/train_rgcn_sampled.py on the
+    # host copy (the numpy sampler over every relation, K9 in each
+    # relation's backward).
+    counts, mag_k9 = phase_sampled_rgcn_mag("sampled_rgcn_mag_train", dev,
+                                            hg_host, split)
+    main_counts.append(("sampled_rgcn_mag_train", counts))
+    del hg_host, split
     torch.cuda.empty_cache()
     main_counts.append(("han_train", phase_han("han_train", dev)))
     log(json.dumps({"phase": "hetero_done",
@@ -3042,6 +3372,7 @@ def main():
         r["g"], r["train_ids"][:REDDIT["batch"]],
         rng=np.random.default_rng(0))
     rows.update(phase_tile_kernels(dev, [b.to(dev) for b in blocks]))
+    rows["tile_sum"]["variants"] += mag_k9
     del blocks
     loader = reddit_loader(r, dev)
     it = iter(loader)
@@ -3055,6 +3386,11 @@ def main():
             "sage_reddit_pool_train", dev, r, loader, "pool", 3,
             {"tile_sum": 4, "tile_minmax": 2})),
     ]
+    t_lstm = time.perf_counter()
+    main_counts.append(("sage_reddit_lstm_train", phase_sage(
+        "sage_reddit_lstm_train", dev, r, loader, "lstm", 3, {})))
+    log(json.dumps({"phase": "sage_reddit_lstm_done",
+                    "seconds": time.perf_counter() - t_lstm}))
     profile_sage(dev, r, batches)
     profile_sage(dev, r, batches, "pool")
     del r, loader, batches

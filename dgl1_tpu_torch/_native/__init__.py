@@ -2,11 +2,12 @@
 
 A copy of ``dgl1_tpu/_native``'s loader for the entry points the port
 uses: the layout builders (``build_adj``, ``plan_ell``, ``fill_ell``,
-``plan_tiles``, ``build_tiles``) and the fused neighbor sampler
-(``sample_block``). The library is compiled on first use into
+``plan_tiles``, ``build_tiles``), the fused neighbor sampler
+(``sample_block``) and the feature store's threaded row gather
+(:func:`gather_rows`). The library is compiled on first use into
 ``dgl1_tpu_torch/_build/`` (keyed by a hash of the source). Every layout
-builder keeps a pure numpy fallback for when it is missing; the sampler
-has none yet and raises.
+builder and the row gather keep a numpy fallback for when it is missing;
+without it ``NeighborSampler`` takes the numpy sampler.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["lib", "BUILD_DIR"]
+__all__ = ["lib", "gather_rows", "BUILD_DIR"]
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
@@ -65,7 +66,36 @@ def _compile() -> ctypes.CDLL:
                                  ctypes.c_int64, ctypes.c_int64, i32p, i32p,
                                  i32p, i64p, i64p]
     lib.sample_block.restype = ctypes.c_int32
+    lib.gather_rows.argtypes = [ctypes.c_void_p, i64p, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_int32]
+    lib.gather_rows.restype = None
     return lib
+
+
+def gather_rows(src: np.ndarray, ids: np.ndarray, num_threads: int = 8,
+                out: Optional[np.ndarray] = None) -> np.ndarray:
+    """``out[i] = src[ids[i]]`` by a threaded row memcpy (numpy's
+    ``take`` without the native library or for a non-contiguous ``src``).
+    ``src`` is any C-contiguous array of rows, a ``np.memmap`` included;
+    ``out``, when given, is a C-contiguous (len(ids), ...) array of its
+    type (a pinned staging buffer, say). An id out of range raises
+    IndexError."""
+    ids = np.ascontiguousarray(ids, dtype=np.int64)
+    if len(ids) and (int(ids.min()) < 0 or int(ids.max()) >= len(src)):
+        raise IndexError(f"row id out of range [0, {len(src)})")
+    if out is None:
+        out = np.empty((len(ids),) + src.shape[1:], dtype=src.dtype)
+    native = lib()
+    if native is None or not src.flags.c_contiguous or len(ids) == 0:
+        if len(ids):
+            np.take(src, ids, axis=0, out=out)
+        return out
+    row_bytes = src.dtype.itemsize * int(np.prod(src.shape[1:],
+                                                 dtype=np.int64))
+    native.gather_rows(src.ctypes.data, ids, len(ids), row_bytes,
+                       out.ctypes.data, num_threads)
+    return out
 
 
 def lib() -> Optional[ctypes.CDLL]:

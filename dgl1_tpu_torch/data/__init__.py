@@ -1,6 +1,8 @@
-"""Synthetic datasets of the port (numpy generators, same seeds as the
-reference's)."""
+"""Data of the port: the synthetic generators (numpy, the reference's
+seeds) and the host feature store."""
 
+from dgl1_tpu_torch.data.feature_store import (HostFeatureStore,
+                                               prefetch_to_device)
 from dgl1_tpu_torch.data.synthetic import (  # noqa: F401
     geometric_graph, minibatch_graph, powerlaw_graph, sort_by_relation,
     synthetic_classification_graph, synthetic_mag_heterograph,
@@ -8,4 +10,5 @@ from dgl1_tpu_torch.data.synthetic import (  # noqa: F401
 
 __all__ = ["powerlaw_graph", "geometric_graph", "typed_powerlaw_graph",
            "sort_by_relation", "synthetic_classification_graph",
-           "minibatch_graph", "synthetic_mag_heterograph"]
+           "minibatch_graph", "synthetic_mag_heterograph",
+           "HostFeatureStore", "prefetch_to_device"]

@@ -1,11 +1,19 @@
 """Mini-batch sampling pipeline (the port's ``dgl1_tpu/dataloading``):
-the fused neighbor sampler and the node dataloader. The other loaders
-(edge, cluster, saint, graph) are not ported yet."""
+the neighbor samplers, the node and edge loaders, the negative samplers
+and layer-wise inference. The other loaders (cluster, saint, graph) are
+not ported yet."""
 
 from dgl1_tpu_torch.dataloading.dataloader import (DataLoader, NodeCollator,
                                                    NodeDataLoader)
+from dgl1_tpu_torch.dataloading.edge_dataloader import (
+    EdgeDataLoader, as_edge_prediction_sampler)
+from dgl1_tpu_torch.dataloading import negative_sampler
+from dgl1_tpu_torch.dataloading.inference import layerwise_inference
 from dgl1_tpu_torch.dataloading.neighbor_sampler import (
-    MultiLayerNeighborSampler, NeighborSampler)
+    MultiLayerFullNeighborSampler, MultiLayerNeighborSampler,
+    NeighborSampler)
 
-__all__ = ["NeighborSampler", "MultiLayerNeighborSampler", "NodeDataLoader",
-           "DataLoader", "NodeCollator"]
+__all__ = ["NeighborSampler", "MultiLayerNeighborSampler",
+           "MultiLayerFullNeighborSampler", "NodeDataLoader", "DataLoader",
+           "NodeCollator", "EdgeDataLoader", "as_edge_prediction_sampler",
+           "negative_sampler", "layerwise_inference"]

@@ -8,6 +8,9 @@ reference's for the same seed. The last partial batch is padded to full
 size with a seed mask. Each batch is moved to ``device`` (default
 ``cuda``) inside the worker, off the training thread; the copies go on
 the default stream, so on the card they queue with the step's kernels.
+On a heterograph the seeds are a ``{ntype: ids}`` dict of one node type,
+and ids and blocks come back per node type. ``pull_features`` runs in
+the worker too, beside the sampler.
 """
 
 from __future__ import annotations
@@ -36,7 +39,10 @@ class NodeCollator:
         self.sampler = sampler
         self.rng = rng or dgl_random.default_rng()
 
-    def collate(self, seeds: np.ndarray, batch_size: int):
+    def collate(self, seeds: np.ndarray, batch_size: int,
+                ntype: Optional[str] = None):
+        """Pad ``seeds`` to ``batch_size`` by repeating the last one and
+        sample; ``ntype`` names the seeds' type on a heterograph."""
         seeds = np.asarray(seeds, dtype=np.int64)
         n_real = len(seeds)
         if n_real < batch_size:
@@ -45,33 +51,50 @@ class NodeCollator:
         mask = np.zeros((batch_size,), dtype=bool)
         mask[:n_real] = True
         input_nodes, output_nodes, blocks = self.sampler.sample_blocks(
-            self.g, seeds, rng=self.rng, num_real=n_real)
+            self.g, seeds if ntype is None else {ntype: seeds},
+            rng=self.rng, num_real=n_real)
         return input_nodes, output_nodes, blocks, mask
+
+
+def _ids_to(ids, dev: torch.device):
+    if isinstance(ids, dict):
+        return {k: _ids_to(v, dev) for k, v in ids.items()}
+    return torch.from_numpy(np.asarray(ids, np.int64)).to(dev)
 
 
 def _to_device(item, dev: torch.device):
     inp, out, blocks, mask = item
-    return (torch.from_numpy(np.asarray(inp, np.int64)).to(dev),
-            torch.from_numpy(np.asarray(out, np.int64)).to(dev),
-            [b.to(dev) for b in blocks], torch.from_numpy(mask).to(dev))
+    return (_ids_to(inp, dev), _ids_to(out, dev), [b.to(dev) for b in blocks],
+            torch.from_numpy(mask).to(dev))
 
 
 class NodeDataLoader:
     """Iterates mini-batches ``(input_nodes, output_nodes, blocks, mask)``
     for the seed set ``nids``: int64 id tensors, blocks and the bool seed
-    mask, all on ``device``.
+    mask, all on ``device``. On a heterograph ``nids`` is a ``{ntype:
+    ids}`` dict of one node type, and the ids come back as ``{ntype:
+    ids}`` dicts. ``pull_features``, a callable of the batch's host input
+    ids (numpy, or a dict of them), runs in the worker beside the sampler
+    (a feature store's ``pull_to_device``, say); its result is appended
+    as a fifth item.
 
     ``prefetch`` > 0 runs ``num_workers`` producer threads with bounded
     queues (strided over batches, consumed round-robin); 0 samples inline.
     ``sample_s`` collects, per batch, the host seconds its worker spent
     sampling and moving it (the loader's own cost, whatever the consumer
-    does)."""
+    does), ``pull_s`` the seconds of each ``pull_features`` call."""
 
     def __init__(self, g, nids, sampler, batch_size: int = 1024,
                  shuffle: bool = True, drop_last: bool = False,
                  prefetch: int = 2, seed: Optional[int] = None,
-                 num_workers: int = 1, device=None):
+                 num_workers: int = 1, pull_features=None, device=None):
         self.g = g
+        self.seed_ntype = None
+        if isinstance(nids, dict):
+            if len(nids) != 1:
+                raise ValueError(
+                    "hetero NodeDataLoader takes one seed node type")
+            self.seed_ntype, nids = next(iter(nids.items()))
         self.nids = np.asarray(nids, dtype=np.int64)
         self.sampler = sampler
         self.batch_size = batch_size
@@ -82,8 +105,10 @@ class NodeDataLoader:
         self.rng = np.random.default_rng(seed)
         self.num_workers = max(int(num_workers), 1)
         self.device = resolve_device(device)
+        self.pull_features = pull_features
         self.collator = NodeCollator(g, sampler, rng=self.rng)
         self.sample_s: list = []
+        self.pull_s: list = []
 
     def __len__(self):
         n = len(self.nids)
@@ -100,8 +125,13 @@ class NodeDataLoader:
 
     def _produce(self, coll: NodeCollator, seeds):
         t0 = time.perf_counter()
-        item = _to_device(coll.collate(seeds, self.batch_size), self.device)
+        host = coll.collate(seeds, self.batch_size, ntype=self.seed_ntype)
+        item = _to_device(host, self.device)
         self.sample_s.append(time.perf_counter() - t0)
+        if self.pull_features is not None:
+            t0 = time.perf_counter()
+            item = item + (self.pull_features(host[0]),)
+            self.pull_s.append(time.perf_counter() - t0)
         return item
 
     def __iter__(self) -> Iterator:

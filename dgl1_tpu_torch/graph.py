@@ -718,13 +718,15 @@ def block(data: Tuple, num_src_nodes: Optional[int] = None,
     built on the host and placed on ``device`` (default ``cuda``). The
     node counts default to the largest id + 1 of each side; ``formats``
     and ``pad_edges_to`` as in :func:`graph` (the hub layout where the
-    destination in-degrees clear its bar). The static-shape sampled mode
-    ``uniform_ell_k`` belongs with the numpy sampler (ROADMAP queue 1
-    item 3) and raises NotImplementedError."""
-    if uniform_ell_k is not None:
-        raise NotImplementedError(
-            "block(uniform_ell_k=) is the sampled static-shape mode, not "
-            "ported yet (ROADMAP queue 1 item 3)")
+    destination in-degrees clear its bar).
+
+    ``uniform_ell_k``: the static-shape mode of sampled blocks whose
+    in-degree is at most ``k``. It builds COO, CSC and CSR, a uniform
+    single-rung dst-ELL (:func:`_build_ell_uniform`) and both tile
+    directions padded to :func:`static_tile_bound` of ``pad_edges_to``,
+    and nothing else, so every block of an epoch has the same layout
+    shapes; ``meta['num_real_edges']`` holds the real edge count (which
+    is also ``num_edges()`` in the port)."""
     dev = resolve_device(device)
     src, dst = data
     src = _as_numpy_ids(src)
@@ -745,12 +747,32 @@ def block(data: Tuple, num_src_nodes: Optional[int] = None,
     num_padded = int(pad_edges_to) if pad_edges_to is not None else num_edges
     if num_padded < num_edges:
         raise ValueError("pad_edges_to < num_edges")
+    if uniform_ell_k is None:
+        arrays = _build_formats(src, dst, num_src_nodes, num_dst_nodes,
+                                num_edges, formats=formats,
+                                num_padded=num_padded)
+        return Graph(**arrays, num_src_nodes=num_src_nodes,
+                     num_dst_nodes=num_dst_nodes, num_edges=num_edges,
+                     is_block=True, device=dev)
     arrays = _build_formats(src, dst, num_src_nodes, num_dst_nodes,
-                            num_edges, formats=formats,
+                            num_edges, formats=("csr",),
                             num_padded=num_padded)
-    return Graph(**arrays, num_src_nodes=num_src_nodes,
-                 num_dst_nodes=num_dst_nodes, num_edges=num_edges,
-                 is_block=True, device=dev)
+    arrays["ell_dst_meta"], arrays["ell_dst"] = _build_ell_uniform(
+        arrays["csc_indptr"], arrays["csc_src"], arrays["csc_eid"],
+        num_dst_nodes, uniform_ell_k)
+    arrays["tdst"] = _pad_tiles(
+        _build_tiles(arrays["csc_dst"], arrays["csc_src"], arrays["csc_eid"],
+                     num_edges, num_dst_nodes),
+        static_tile_bound(num_padded, num_dst_nodes), num_dst_nodes)
+    arrays["tsrc"] = _pad_tiles(
+        _build_tiles(arrays["csr_src"], arrays["csr_dst"], arrays["csr_eid"],
+                     num_edges, num_src_nodes),
+        static_tile_bound(num_padded, num_src_nodes), num_src_nodes)
+    g = Graph(**arrays, num_src_nodes=num_src_nodes,
+              num_dst_nodes=num_dst_nodes, num_edges=num_edges,
+              is_block=True, device=dev)
+    g.meta["num_real_edges"] = num_edges
+    return g
 
 
 create_block = block

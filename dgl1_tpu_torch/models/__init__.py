@@ -4,7 +4,8 @@ from dgl1_tpu_torch.models.gat import GAT
 from dgl1_tpu_torch.models.gcn import GCN, EdgeWeightedGCN
 from dgl1_tpu_torch.models.graphsage import GraphSAGE
 from dgl1_tpu_torch.models.han import HAN, HANLayer, SemanticAttention
-from dgl1_tpu_torch.models.rgcn import RGCN
+from dgl1_tpu_torch.models.rgcn import RGCN, HeteroRGCN
 
-__all__ = ["GCN", "EdgeWeightedGCN", "GAT", "GraphSAGE", "RGCN", "HAN",
+__all__ = ["GCN", "EdgeWeightedGCN", "GAT", "GraphSAGE", "RGCN", "HeteroRGCN",
+           "HAN",
            "HANLayer", "SemanticAttention"]

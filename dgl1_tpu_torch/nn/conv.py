@@ -16,7 +16,7 @@ from dgl1_tpu_torch.ops import gspmm, gsddmm
 from dgl1_tpu_torch.ops.attention import can_fuse_attention, gat_attention
 from dgl1_tpu_torch.ops.battention import bdense_gat_attention
 from dgl1_tpu_torch.ops.edge_softmax import edge_softmax
-from dgl1_tpu_torch.ops.engine_xla import gather_rows
+from dgl1_tpu_torch.ops.engine_xla import gather_rows, take_fill
 from dgl1_tpu_torch.ops.segment import gather_mm, segment_mm
 
 __all__ = ["GraphConv", "EdgeWeightNorm", "GATConv", "SAGEConv",
@@ -265,21 +265,28 @@ class GATConv(nn.Module):
 
 
 class SAGEConv(nn.Module):
-    """GraphSAGE layer with the ``mean``, ``gcn`` and ``pool``
-    aggregators (the reference's ``SAGEConv``; ``lstm`` is not ported
-    yet and raises NotImplementedError).
+    """GraphSAGE layer with the ``mean``, ``gcn``, ``pool`` and ``lstm``
+    aggregators (the reference's ``SAGEConv``).
 
     ``mean``: ``fc_self(h_dst) + fc_neigh(mean of h_src over in-edges)``;
     ``gcn``: ``fc_neigh((sum + h_dst) / (in_degree + 1))``; ``pool``:
-    ``fc_self(h_dst) + fc_neigh(max of relu(fc_pool(h_src)))``. The bias is
+    ``fc_self(h_dst) + fc_neigh(max of relu(fc_pool(h_src)))``; ``lstm``:
+    ``fc_self(h_dst) + fc_neigh(last output of an LSTM over the
+    in-neighbors)``, the LSTM run over each bucket of the ELL layout
+    (``g.ell_dst``) as one batch of sequences in slot order, each row's
+    output taken at its degree (a row of degree 0 reads one zero input,
+    as the reference's ``seq_lengths`` of 1 does). ``lstm`` is a
+    ``torch.nn.LSTM`` of width ``in_feats`` whose ``bias_ih_l0`` is held
+    at zero (flax's ``OptimizedLSTMCell`` has one bias a gate, on the
+    hidden side). The bias is
     a parameter of its own; ``norm``, a callable, is applied last, after
     the activation, as in the reference. On a block, ``h_dst`` is the first
     ``num_dst_nodes`` rows of ``h_src`` (dst nodes come first on the src
     side). Parameters ``fc_self.weight``, ``fc_neigh.weight`` (out, in),
-    ``fc_pool.weight`` (in, in) with ``fc_pool.bias``, and ``bias`` (out,):
-    :func:`dgl1_tpu_torch.params.from_jax_params` maps the reference's
-    flax tree onto them. Feature dropout draws from the ``generator``
-    passed to :meth:`forward`, only while training."""
+    ``fc_pool.weight`` (in, in) with ``fc_pool.bias``, ``lstm.*`` and
+    ``bias`` (out,): :func:`dgl1_tpu_torch.params.from_jax_params` maps
+    the reference's flax tree onto them. Feature dropout draws from the
+    ``generator`` passed to :meth:`forward`, only while training."""
 
     def __init__(self, in_feats: int, out_feats: int,
                  aggregator_type: str = "mean", feat_drop: float = 0.0,
@@ -287,10 +294,7 @@ class SAGEConv(nn.Module):
                  activation: Optional[Callable] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if aggregator_type == "lstm":
-            raise NotImplementedError(
-                "the lstm aggregator is not ported yet")
-        if aggregator_type not in ("mean", "gcn", "pool"):
+        if aggregator_type not in ("mean", "gcn", "pool", "lstm"):
             raise ValueError(f"invalid aggregator {aggregator_type!r}")
         dev = resolve_device(device)
         self.aggregator_type = aggregator_type
@@ -299,6 +303,9 @@ class SAGEConv(nn.Module):
         self.activation = activation
         self.fc_pool = (nn.Linear(in_feats, in_feats, device=dev)
                         if aggregator_type == "pool" else None)
+        self.lstm = (nn.LSTM(in_feats, in_feats, batch_first=True,
+                             device=dev)
+                     if aggregator_type == "lstm" else None)
         self.fc_self = (nn.Linear(in_feats, out_feats, bias=False, device=dev)
                         if aggregator_type != "gcn" else None)
         self.fc_neigh = nn.Linear(in_feats, out_feats, bias=False, device=dev)
@@ -322,6 +329,50 @@ class SAGEConv(nn.Module):
                     lin.bias.zero_()
             if self.bias is not None:
                 self.bias.zero_()
+            if self.lstm is not None:
+                # Per gate: input kernels normal of std 1/sqrt(in),
+                # orthogonal hidden kernels, zero biases (the scales of
+                # flax's OptimizedLSTMCell).
+                f = self.lstm.hidden_size
+                for g in range(4):
+                    rows = slice(g * f, (g + 1) * f)
+                    self.lstm.weight_ih_l0[rows].copy_(_init_on(
+                        (f, f), generator, lambda t: nn.init.normal_(
+                            t, 0.0, 1.0 / math.sqrt(f),
+                            generator=generator)))
+                    self.lstm.weight_hh_l0[rows].copy_(_init_on(
+                        (f, f), generator, lambda t: nn.init.orthogonal_(
+                            t, generator=generator)))
+                self.lstm.bias_ih_l0.zero_()
+                self.lstm.bias_hh_l0.zero_()
+        if self.lstm is not None:
+            self.lstm.bias_ih_l0.requires_grad_(False)
+
+    def _lstm_neigh(self, g: Graph, h_src):
+        """The last LSTM output of each row's in-neighbors, bucket by
+        bucket of ``g.ell_dst`` (slots at or above 2^29 are padding)."""
+        if g.ell_dst is None:
+            raise ValueError("lstm aggregator requires ELL layout")
+        idx = g.ell_dst["idx"].long()
+        outs = []
+        off = 0
+        for k, n_b in g.ell_dst_meta:
+            if n_b == 0:
+                continue
+            sl = idx[off:off + n_b * k]
+            valid = (sl < (1 << 29)).reshape(n_b, k)
+            seq = h_src.index_select(0, sl.clamp(0, h_src.shape[0] - 1))
+            seq = torch.where(valid[..., None], seq.reshape(n_b, k, -1),
+                              torch.zeros((), dtype=h_src.dtype,
+                                          device=h_src.device))
+            lengths = valid.sum(dim=1).clamp(min=1)
+            ys, _ = self.lstm(seq)
+            outs.append(ys[torch.arange(n_b, device=ys.device), lengths - 1])
+            off += n_b * k
+        stacked = (torch.cat(outs, dim=0) if outs
+                   else h_src.new_zeros((0, h_src.shape[-1])))
+        inv = g.ell_dst["inv_perm"]
+        return stacked if inv.shape[0] == 0 else take_fill(stacked, inv)
 
     def forward(self, g: Graph, feat, generator=None):
         h_src = feat
@@ -336,9 +387,11 @@ class SAGEConv(nn.Module):
             s = gspmm(g, "copy_lhs", "sum", h_src, None)
             deg = g.in_degrees().to(h_src.dtype)[:, None]
             h_neigh = self.fc_neigh((s + h_dst) / (deg + 1.0))
-        else:
+        elif agg == "pool":
             h_pool = torch.relu(self.fc_pool(h_src))
             h_neigh = self.fc_neigh(gspmm(g, "copy_lhs", "max", h_pool, None))
+        else:
+            h_neigh = self.fc_neigh(self._lstm_neigh(g, h_src))
         rst = h_neigh if agg == "gcn" else self.fc_self(h_dst) + h_neigh
         if self.bias is not None:
             rst = rst + self.bias

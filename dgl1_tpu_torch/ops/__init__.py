@@ -1,11 +1,13 @@
-"""``dgl1_tpu_torch.ops``: the g-SpMM and g-SDDMM front ends, engine
-dispatch, the engines (oracle, block-dense, ELL, hub, tile), edge softmax,
+"""``dgl1_tpu_torch.ops``: the g-SpMM and g-SDDMM front ends (with the
+g-SDDMM sugar: ``u_dot_v``, ``copy_u``, ...), engine dispatch, the engines (oracle, block-dense, ELL, hub, tile), edge softmax,
 the fused GAT attention (hub and block-dense), the segment matmuls and
 the kernels' matmul precision mode."""
 
 from dgl1_tpu_torch.ops.dispatch import (get_engine, register_engine,
                                          set_engine)
 from dgl1_tpu_torch.ops.spmm import gspmm
+from dgl1_tpu_torch.ops.sddmm import *  # noqa: F401,F403
+from dgl1_tpu_torch.ops import sddmm as _sddmm
 from dgl1_tpu_torch.ops.sddmm import gsddmm
 from dgl1_tpu_torch.ops.edge_softmax import edge_softmax
 from dgl1_tpu_torch.ops.attention import can_fuse_attention, gat_attention
@@ -32,3 +34,4 @@ __all__ = ["gspmm", "gsddmm", "edge_softmax", "gat_attention",
            "segment_ids_from_lengths", "set_engine", "get_engine",
            "register_engine", "set_matmul_precision",
            "get_matmul_precision", "matmul_precision"]
+__all__ += [n for n in _sddmm.__all__ if n not in __all__]

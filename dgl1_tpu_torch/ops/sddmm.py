@@ -1,4 +1,7 @@
-"""Public g-SDDMM front end (the port's ``dgl1_tpu/ops/sddmm.py``).
+"""Public g-SDDMM front end (the port's ``dgl1_tpu/ops/sddmm.py``):
+``gsddmm`` and its sugar, ``copy_u``, ``copy_v`` and ``{x}_{op}_{y}`` for
+``x != y`` in u, v, e and op in add, sub, mul, div, dot (``u_dot_v``,
+link prediction's score, ...).
 
 Every call runs on the oracle engine (``engine_xla.gsddmm_xla``): the
 reference's only other g-SDDMM engine is the tiled Pallas engine, which is
@@ -7,6 +10,7 @@ not ported yet.
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
@@ -32,3 +36,36 @@ def gsddmm(g: Graph, op: str, lhs_data: Optional[torch.Tensor],
         squeeze = True
     out = gsddmm_xla(g, op, lhs_data, rhs_data, lhs_target, rhs_target)
     return out[..., 0] if squeeze and out.shape[-1] == 1 else out
+
+
+def _make_sugar(lhs: str, op: str, rhs: str):
+    def fn(g: Graph, x, y):
+        return gsddmm(g, op, x, y, lhs_target=lhs, rhs_target=rhs)
+
+    fn.__name__ = f"{lhs}_{op}_{rhs}"
+    fn.__doc__ = (f"``{fn.__name__}(g, x, y)``: per-edge ``{lhs}-data {op} "
+                  f"{rhs}-data``.")
+    return fn
+
+
+def copy_u(g: Graph, x):
+    """Source-node data gathered onto the edges (user edge order)."""
+    return gsddmm(g, "copy_lhs", x, None, lhs_target="u")
+
+
+def copy_v(g: Graph, x):
+    """Destination-node data gathered onto the edges (user edge order)."""
+    return gsddmm(g, "copy_lhs", x, None, lhs_target="v")
+
+
+__all__ += ["copy_u", "copy_v"]
+
+_module = sys.modules[__name__]
+for _lhs in ("u", "v", "e"):
+    for _rhs in ("u", "v", "e"):
+        if _lhs == _rhs:
+            continue
+        for _op in ("add", "sub", "mul", "div", "dot"):
+            _fn = _make_sugar(_lhs, _op, _rhs)
+            setattr(_module, _fn.__name__, _fn)
+            __all__.append(_fn.__name__)

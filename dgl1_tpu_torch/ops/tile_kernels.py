@@ -224,8 +224,6 @@ def _check_layout(rows, first, lid, src, n_row_blocks, idx):
         _check("idx", idx, torch.int32, 1, dev)
         if idx.shape[0] != n_tiles * TILE_EDGES:
             raise ValueError("idx must have one entry per tile slot")
-        if src.shape[0] < 1:
-            raise ValueError("src has no row to gather")
     if n_row_blocks < 1:
         raise ValueError("n_row_blocks must be at least 1")
     return dev
@@ -235,6 +233,17 @@ def _lib():
     from dgl1_tpu_torch import cuda_build
 
     return cuda_build.load("tile_kernels")
+
+
+def _no_work(lid, src) -> bool:
+    """No slot can land: no tile, or no source row to read (a real slot
+    reads one, so every slot is padding)."""
+    return lid.shape[0] == 0 or src.shape[0] == 0
+
+
+def _identity(src, n_row_blocks: int, fill: float):
+    return torch.full((n_row_blocks * TILE_ROWS, src.shape[1]), fill,
+                      dtype=torch.float32, device=src.device)
 
 
 def _reduce(name, head, rows, first, lid, src, n_row_blocks, idx):
@@ -264,8 +273,14 @@ def tile_sum(rows, first, lid, src, n_row_blocks: int, idx=None):
     """K9. ``rows``/``first`` (n_tiles,), ``lid`` (n_tiles, 1024) int32;
     ``src`` float32, (n_tiles * 1024, f) without ``idx``, else (n, f) read
     through ``idx`` (n_tiles * 1024,) int32. Returns (n_row_blocks * 128,
-    f) float32."""
+    f) float32.
+
+    With no work (no tile, or a gather source with no row, as the empty
+    relations of a sampled hetero block give it) the result is zeros,
+    made without a launch and counted as none, on either device."""
     dev = _check_layout(rows, first, lid, src, n_row_blocks, idx)
+    if _no_work(lid, src):
+        return _identity(src, n_row_blocks, 0.0)
     if dev.type == "cpu":
         return tile_sum_torch(rows, first, lid, src, n_row_blocks, idx)
     return _reduce("tile_sum", (), rows, first, lid, src, n_row_blocks, idx)
@@ -274,8 +289,12 @@ def tile_sum(rows, first, lid, src, n_row_blocks: int, idx=None):
 def tile_minmax(is_max: bool, rows, first, lid, src, n_row_blocks: int,
                 idx=None):
     """K10, max (``is_max``) or min. Arguments and result as
-    :func:`tile_sum`."""
+    :func:`tile_sum`; with no work the result is -inf (+inf) everywhere,
+    without a launch."""
     dev = _check_layout(rows, first, lid, src, n_row_blocks, idx)
+    if _no_work(lid, src):
+        return _identity(src, n_row_blocks,
+                         float("-inf") if is_max else float("inf"))
     if dev.type == "cpu":
         return tile_minmax_torch(is_max, rows, first, lid, src,
                                  n_row_blocks, idx)

@@ -56,7 +56,8 @@ def sample_block_fused(g: Graph, seeds: np.ndarray, num_real_dst: int,
     if native is None:
         raise NotImplementedError(
             "the fused sampler needs the native library, which could not "
-            "be built; the numpy sampler is not ported yet")
+            "be built; NeighborSampler takes the numpy sampler "
+            "(sampling/neighbor.py) without it")
     rng = rng or dgl_random.default_rng()
     seeds = np.ascontiguousarray(seeds, dtype=np.int64)
     P = len(seeds)

@@ -1,7 +1,9 @@
 """Trainers: the full-graph step of ``tools/bench_models.py`` (forward,
-softmax cross-entropy over all nodes, backward, Adam) and the sampled
+softmax cross-entropy over all nodes, backward, Adam), the sampled
 mini-batch step of ``tools/bench_minibatch.py`` /
-``examples/train_sage_minibatch.py``."""
+``examples/train_sage_minibatch.py`` and the sampled heterograph R-GCN
+step of ``examples/train_rgcn_sampled.py`` (dense Adam beside the
+embedding tables' sparse Adam)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,10 @@ import time
 import torch
 import torch.nn.functional as F
 
-__all__ = ["train", "train_sampled"]
+from dgl1_tpu_torch.optim import (sparse_adam_init, sparse_adam_update,
+                                  take_rows)
+
+__all__ = ["train", "train_sampled", "train_sampled_rgcn", "embed_ids"]
 
 
 def train(graph, feat, labels, model, steps: int = 5, lr: float = 1e-2,
@@ -89,3 +94,83 @@ def train_sampled(batches, feat, labels, model, steps=None, lr: float = 1e-3,
                  if sample_s is not None else [])
     return {"losses": losses, "step_s": step_s, "wait_s": wait_s,
             "sample_ms": sample_ms}
+
+
+def embed_ids(inp: dict, blocks, tables: dict) -> dict:
+    """The input ids of each embedded node type with the padding tail
+    (past ``blocks[0].meta['num_real_src']``) set to the table's size, out
+    of range: a gather reads zeros there and the sparse update drops it,
+    so the padding (which repeats id 0) never touches a real row."""
+    out = {}
+    for nt, table in tables.items():
+        ids = inp[nt].clone()
+        ids[blocks[0].meta["num_real_src"][nt]:] = table.shape[0]
+        out[nt] = ids
+    return out
+
+
+def train_sampled_rgcn(batches, feat, labels, model, tables: dict,
+                       states=None, steps=None, lr: float = 1e-2,
+                       sparse_lr: float = 5e-2, ntype: str = "paper"
+                       ) -> dict:
+    """Steps of a sampled heterograph model (``models.HeteroRGCN``) over
+    ``batches`` of ``({ntype: input ids}, {ntype: output ids}, blocks,
+    mask)``, with a fifth item, the ``ntype`` input rows, when ``feat`` is
+    None (a loader's ``pull_features``); else ``feat`` holds them on the
+    device. The other node types read learned rows of ``tables`` (one
+    tensor a type, updated in place by sparse Adam at ``sparse_lr``,
+    state ``states`` or fresh); the model's parameters take Adam at
+    ``lr``. The loss is the cross-entropy over the real seeds (the
+    mask). At most ``steps`` steps (None: all).
+
+    Returns ``{"losses", "step_s", "wait_s", "sample_ms", "pull_ms",
+    "states"}`` as :func:`train_sampled`, with the loader's feature-pull
+    ms per batch and the sparse Adam states."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    states = (states if states is not None
+              else {nt: sparse_adam_init(t) for nt, t in tables.items()})
+    model.train()
+    losses, step_s, wait_s = [], [], []
+    sample_s = getattr(batches, "sample_s", None)
+    pull_s = getattr(batches, "pull_s", None)
+    first = (len(sample_s) if sample_s is not None else 0,
+             len(pull_s) if pull_s is not None else 0)
+    it = iter(batches)
+    for _ in (itertools.count() if steps is None else range(steps)):
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            break
+        t1 = time.perf_counter()
+        inp, out, blocks, mask = item[:4]
+        x_in = (item[4] if feat is None
+                else feat.index_select(0, inp[ntype]))
+        ids = embed_ids(inp, blocks, tables)
+        rows = {nt: take_rows(tables[nt], ids[nt]).requires_grad_(True)
+                for nt in tables}
+        opt.zero_grad(set_to_none=True)
+        logits = model(blocks, {ntype: x_in, **rows})
+        ce = F.cross_entropy(logits, labels.index_select(0, out[ntype])
+                             .long(), reduction="none")
+        m = mask.to(ce.dtype)
+        loss = (ce * m).sum() / m.sum().clamp(min=1.0)
+        loss.backward()
+        opt.step()
+        for nt in tables:
+            sparse_adam_update(tables[nt], states[nt], ids[nt],
+                               rows[nt].grad, lr=sparse_lr)
+        losses.append(float(loss.detach()))
+        if logits.is_cuda:
+            torch.cuda.synchronize(logits.device)
+        step_s.append(time.perf_counter() - t1)
+        wait_s.append(t1 - t0)
+    if hasattr(it, "close"):
+        it.close()
+
+    def ms(xs, start):
+        return [s * 1e3 for s in xs[start:]] if xs is not None else []
+
+    return {"losses": losses, "step_s": step_s, "wait_s": wait_s,
+            "sample_ms": ms(sample_s, first[0]),
+            "pull_ms": ms(pull_s, first[1]), "states": states}

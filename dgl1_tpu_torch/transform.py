@@ -3,8 +3,9 @@
 ``to_bidirected``, ``rcm_order``, ``reorder_graph`` (algorithms ``'rcm'``,
 ``'hub'`` and ``'custom'``), ``edge_subgraph``, ``typed_subgraphs``
 (with the identity layouts), ``typed_union_graph``, ``to_homogeneous``,
-``to_heterogeneous`` and ``metapath_reachable_graph``. Each returns a new
-graph on the input graph's device."""
+``to_heterogeneous``, ``metapath_reachable_graph``, ``node_subgraph``,
+``compact_graphs``, ``to_block`` and ``to_block_hetero``. Each returns a
+new graph on the input graph's device."""
 
 from __future__ import annotations
 
@@ -15,12 +16,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dgl1_tpu_torch.graph import Graph, _tree_to, block, graph
+from dgl1_tpu_torch.graph import (Graph, _tree_to, block, graph,
+                                  resolve_device)
 
 __all__ = ["add_self_loop", "remove_self_loop", "to_bidirected",
            "rcm_order", "reorder_graph", "edge_subgraph", "typed_subgraphs",
            "typed_union_graph", "to_homogeneous", "to_heterogeneous",
-           "metapath_reachable_graph"]
+           "metapath_reachable_graph", "node_subgraph", "compact_graphs",
+           "to_block", "to_block_hetero"]
 
 
 def _coo(g: Graph):
@@ -483,3 +486,268 @@ def metapath_reachable_graph(hg, metapath) -> Graph:
     new.srcdata.update(hg.nodes_data(srctype))
     new.dstdata.update(hg.nodes_data(dsttype))
     return new
+
+
+def node_subgraph(g: Graph, nodes) -> Graph:
+    """Node-induced subgraph (``dgl.node_subgraph``): the edges with both
+    ends in ``nodes`` (ids or a bool mask), nodes renumbered in the order
+    given; the old node and edge ids land in ``ndata['_ID']`` and
+    ``edata['_ID']``."""
+    if isinstance(nodes, torch.Tensor):
+        nodes = nodes.cpu().numpy()
+    nodes = np.asarray(nodes)
+    if nodes.dtype == bool:
+        nodes = np.nonzero(nodes)[0]
+    nodes = nodes.astype(np.int64)
+    src, dst = _coo(g)
+    relabel = np.full((g.num_nodes(),), -1, dtype=np.int64)
+    relabel[nodes] = np.arange(len(nodes))
+    keep = (relabel[src] >= 0) & (relabel[dst] >= 0)
+    eids = np.nonzero(keep)[0]
+    new = graph((relabel[src[keep]], relabel[dst[keep]]),
+                num_nodes=len(nodes), device=g.device)
+    new.ndata.update(_slice_rows(g.ndata, nodes))
+    new.ndata["_ID"] = torch.as_tensor(nodes.astype(np.int32),
+                                       device=new.device)
+    new.edata.update(_slice_rows(g.edata, eids))
+    new.edata["_ID"] = torch.as_tensor(eids.astype(np.int32),
+                                       device=new.device)
+    return new
+
+
+def compact_graphs(graphs):
+    """Drop the nodes isolated in every one of ``graphs`` (one graph or a
+    list of graphs on one node space), renumbering them alike
+    (``dgl.compact_graphs``); returns the same structure."""
+    single = isinstance(graphs, Graph)
+    gs = [graphs] if single else list(graphs)
+    used = np.zeros((gs[0].num_nodes(),), dtype=bool)
+    for g in gs:
+        src, dst = _coo(g)
+        used[src] = True
+        used[dst] = True
+    out = [node_subgraph(g, used) for g in gs]
+    return out[0] if single else out
+
+
+# ----------------------------------------------------------------------
+# Blocks from sampled frontiers
+# ----------------------------------------------------------------------
+
+def _src_numbering(n_parent: int, real_dst: np.ndarray, include_dst: bool):
+    """The source side's parent -> local map and id list before any edge:
+    the real dst nodes first when ``include_dst``."""
+    relabel = np.full((n_parent,), -1, dtype=np.int64)
+    if not include_dst:
+        return relabel, np.zeros((0,), dtype=np.int64)
+    relabel[real_dst] = np.arange(len(real_dst))
+    return relabel, real_dst.copy()
+
+
+def _append_first_seen(relabel: np.ndarray, src_ids: np.ndarray,
+                       src: np.ndarray) -> np.ndarray:
+    """Give the sources not numbered yet the next local ids in the order
+    they first appear in ``src`` (a stable unique)."""
+    new_srcs = src[relabel[src] < 0]
+    if len(new_srcs):
+        _, first = np.unique(new_srcs, return_index=True)
+        uniq = new_srcs[np.sort(first)]
+        relabel[uniq] = len(src_ids) + np.arange(len(uniq))
+        src_ids = np.concatenate([src_ids, uniq])
+    return src_ids
+
+
+def _padded_ids(ids: np.ndarray, n: int) -> torch.Tensor:
+    arr = np.zeros((n,), dtype=np.int32)
+    arr[: len(ids)] = ids
+    return torch.from_numpy(arr)
+
+
+def _padded_eids(eid, n_padded: int) -> torch.Tensor:
+    eid = np.asarray(eid).astype(np.int32)
+    if n_padded != len(eid):
+        eid = np.concatenate([eid, np.zeros((n_padded - len(eid),),
+                                            np.int32)])
+    return torch.from_numpy(eid)
+
+
+def _block_of(src: np.ndarray, dst_local: np.ndarray, dst_nodes: np.ndarray,
+              num_real_dst: int, n_parent_src: int, include_dst: bool,
+              pad_src_to, pad_edges_to, formats, uniform_k, device,
+              eid=None) -> Graph:
+    """The block of :func:`to_block` from the sampled edges' parent
+    sources ``src`` and local destination rows ``dst_local``: a row per
+    entry of ``dst_nodes``, so a seed given twice keeps two rows."""
+    real_dst = dst_nodes[:num_real_dst]
+    relabel_src, src_ids = _src_numbering(n_parent_src, real_dst,
+                                          include_dst)
+    src_ids = _append_first_seen(relabel_src, src_ids, src)
+    num_src = int(pad_src_to) if pad_src_to is not None else len(src_ids)
+    if num_src < len(src_ids):
+        raise ValueError(f"pad_src_to={num_src} smaller than actual src "
+                         f"count {len(src_ids)}")
+    b = block((relabel_src[src], dst_local), num_src_nodes=num_src,
+              num_dst_nodes=len(dst_nodes), pad_edges_to=pad_edges_to,
+              formats=formats, uniform_ell_k=uniform_k, device=device)
+    b.srcdata["_ID"] = _padded_ids(src_ids, num_src).to(b.device)
+    b.dstdata["_ID"] = torch.from_numpy(
+        dst_nodes.astype(np.int32)).to(b.device)
+    if eid is not None:
+        b.edata["_ID"] = _padded_eids(eid, b.num_edges_padded()).to(
+            b.device)
+    b.meta["num_real_src"] = int(len(src_ids))
+    b.meta["num_real_dst"] = int(num_real_dst)
+    return b
+
+
+def _hetero_block_of(rel_edges: dict, dst_nodes: dict, num_real_dst: dict,
+                     ntypes, n_parent: dict, include_dst: bool, pad_src_to,
+                     pad_edges_to, formats, uniform_k, device, eids=None):
+    """The hetero block of :func:`to_block_hetero` from each relation's
+    parent sources and local destination rows (``rel_edges[c] = (src,
+    dst_local)``, relations in canonical order). Sources are numbered per
+    source type across relations in that order."""
+    from dgl1_tpu_torch.heterograph import HeteroGraph
+
+    relabel_src, src_ids = {}, {}
+    for nt in ntypes:
+        real = (dst_nodes[nt][: num_real_dst[nt]] if nt in dst_nodes
+                else np.zeros((0,), np.int64))
+        relabel_src[nt], src_ids[nt] = _src_numbering(
+            n_parent[nt], real, include_dst and nt in dst_nodes)
+    for (st, _, _), (src, _) in rel_edges.items():
+        src_ids[st] = _append_first_seen(relabel_src[st], src_ids[st], src)
+    num_src = {}
+    for nt in ntypes:
+        bound = (pad_src_to or {}).get(nt)
+        if bound is not None and bound < len(src_ids[nt]):
+            raise ValueError(
+                f"pad_src_to[{nt!r}]={bound} smaller than actual src count "
+                f"{len(src_ids[nt])}")
+        num_src[nt] = int(bound) if bound is not None else len(src_ids[nt])
+    rels = {}
+    for c, (src, dst_local) in rel_edges.items():
+        st, _, dt = c
+        rels[c] = block(
+            (relabel_src[st][src] if len(src) else src, dst_local),
+            num_src_nodes=num_src[st],
+            num_dst_nodes=len(dst_nodes.get(dt, ())),
+            pad_edges_to=(pad_edges_to or {}).get(c), formats=formats,
+            uniform_ell_k=(uniform_k or {}).get(c), device=device)
+        if eids is not None and eids.get(c) is not None:
+            rels[c].edata["_ID"] = _padded_eids(
+                eids[c], rels[c].num_edges_padded()).to(rels[c].device)
+    dev = resolve_device(device)
+    blk = HeteroGraph(
+        rels, {nt: len(v) for nt, v in dst_nodes.items()},
+        node_frames={nt: {"_ID": torch.from_numpy(
+            v.astype(np.int32)).to(dev)} for nt, v in dst_nodes.items()},
+        num_src_nodes_dict=num_src,
+        src_node_frames={nt: {"_ID": _padded_ids(
+            src_ids[nt], num_src[nt]).to(dev)} for nt in ntypes})
+    blk.meta["num_real_src"] = {nt: int(len(src_ids[nt])) for nt in ntypes}
+    blk.meta["num_real_dst"] = {nt: int(num_real_dst[nt])
+                                for nt in dst_nodes}
+    return blk
+
+
+def _frontier_coo(fr: Graph):
+    src, dst = _coo(fr)
+    return src.astype(np.int64), dst.astype(np.int64)
+
+
+def _frontier_eid(fr: Graph):
+    eid = fr.edata.get("_ID")
+    return None if eid is None else eid.cpu().numpy()[: fr.num_edges()]
+
+
+def to_block_hetero(frontier, dst_nodes, include_dst_in_src: bool = True,
+                    num_real_dst: Optional[dict] = None,
+                    pad_src_to: Optional[dict] = None,
+                    pad_edges_to: Optional[dict] = None, formats=None,
+                    uniform_k: Optional[dict] = None):
+    """A hetero frontier to a hetero block with local ids per node type
+    (``to_bipartite.cc :: ToBlock`` on heterographs): per type, the dst
+    nodes get ids [0, len(dst)); the source side is the real dst nodes
+    (with ``include_dst_in_src``) and then each new source of that type in
+    first-seen order over the relations in canonical order. Every
+    relation gets a block, even with no edges. ``dst_nodes`` and
+    ``num_real_dst`` are per node type (entries past ``num_real_dst`` are
+    padding), ``pad_src_to`` per node type, ``pad_edges_to`` and
+    ``uniform_k`` per canonical edge type (:func:`graph.block`'s
+    ``uniform_ell_k``). Each relation keeps the frontier's
+    ``edata['_ID']``, padded with 0; ``meta['num_real_src'/
+    'num_real_dst']`` hold the real prefix lengths. Built on the
+    frontier's device."""
+    dst_nodes = {nt: np.asarray(v).astype(np.int64)
+                 for nt, v in dst_nodes.items()}
+    num_real_dst = dict(num_real_dst or {})
+    for nt, v in dst_nodes.items():
+        num_real_dst.setdefault(nt, len(v))
+    relabel_dst = {}
+    for nt, v in dst_nodes.items():
+        if nt not in frontier.ntypes:
+            continue
+        r = np.full((frontier.num_nodes(nt),), -1, dtype=np.int64)
+        real = v[: num_real_dst[nt]]
+        r[real] = np.arange(len(real))
+        relabel_dst[nt] = r
+    rel_edges, eids = {}, {}
+    for c in frontier.canonical_etypes:
+        dt = c[2]
+        rel = frontier.rel_graphs[c]
+        src, dst = _frontier_coo(rel)
+        if dt not in relabel_dst:
+            if len(src):
+                raise ValueError(f"frontier has edges of type {c} but no "
+                                 f"dst seeds of type {dt!r}")
+            rel_edges[c] = (src, dst)
+        else:
+            ldst = relabel_dst[dt][dst]
+            if len(dst) and np.any(ldst < 0):
+                raise ValueError(
+                    f"frontier {c} contains an edge to a non-seed dst node")
+            rel_edges[c] = (src, ldst)
+        eids[c] = _frontier_eid(rel)
+    return _hetero_block_of(
+        rel_edges, dst_nodes, num_real_dst, frontier.ntypes,
+        {nt: frontier.num_nodes(nt) for nt in frontier.ntypes},
+        include_dst_in_src, pad_src_to, pad_edges_to, formats, uniform_k,
+        frontier.device, eids)
+
+
+def to_block(frontier, dst_nodes, include_dst_in_src: bool = True,
+             num_real_dst=None, pad_src_to=None, pad_edges_to=None,
+             formats=None, uniform_k=None) -> Graph:
+    """A frontier (edges into seed nodes, in parent ids) to a bipartite
+    block with local ids (``to_bipartite.cc :: ToBlock``): the dst nodes
+    get ids [0, len(dst)); the source side is the real dst nodes (with
+    ``include_dst_in_src``) and then each new source in first-seen order.
+    Parent ids land in ``srcdata['_ID']``/``dstdata['_ID']``.
+    ``dst_nodes`` may carry a padding tail past ``num_real_dst``;
+    ``pad_src_to``, ``pad_edges_to`` and ``uniform_k`` (``block``'s
+    ``uniform_ell_k``) give a block of static shape whose real ids are a
+    prefix (``meta['num_real_src'/'num_real_dst']``). A frontier in
+    parent ids cannot tell two copies of one seed apart: its edges go to
+    the last copy, as the reference numbers them (the samplers keep
+    copies apart themselves). A heterograph frontier goes to
+    :func:`to_block_hetero`. Built on the frontier's device."""
+    from dgl1_tpu_torch.heterograph import HeteroGraph
+
+    if isinstance(frontier, HeteroGraph):
+        return to_block_hetero(frontier, dst_nodes, include_dst_in_src,
+                               num_real_dst, pad_src_to, pad_edges_to,
+                               formats, uniform_k)
+    dst_nodes = np.asarray(dst_nodes).astype(np.int64)
+    if num_real_dst is None:
+        num_real_dst = len(dst_nodes)
+    src, dst = _frontier_coo(frontier)
+    relabel_dst = np.full((frontier.num_dst_nodes(),), -1, dtype=np.int64)
+    relabel_dst[dst_nodes[:num_real_dst]] = np.arange(num_real_dst)
+    ldst = relabel_dst[dst]
+    if np.any(ldst < 0):
+        raise ValueError("frontier contains an edge to a non-seed dst node")
+    return _block_of(src, ldst, dst_nodes, num_real_dst,
+                     frontier.num_src_nodes(), include_dst_in_src,
+                     pad_src_to, pad_edges_to, formats, uniform_k,
+                     frontier.device)

@@ -428,6 +428,46 @@ def test_tile_plan_fills_the_card_on_the_card(dev):
         TK.tile_plan = real_plan
 
 
+@pytest.mark.parametrize("f", [16, 64, 349])
+def test_tile_sum_on_sampled_hetero_relations(dev, f):
+    """K9 on the reverse tiles (``tsrc``) of a sampled hetero block's
+    relations, as the sampled R-GCN's backward runs it (the cotangent of
+    the dst rows read through the layout's ``gather``): every relation of
+    the output block with edges within 1e-5 of its float64 plain version
+    relative to the sum over absolute values; a relation with no dst node
+    (the output layer seeds papers only) gives zeros without a launch."""
+    from dgl1_tpu_torch.dataloading import NeighborSampler
+    from dgl1_tpu_torch.ops import tile_kernels as TK
+
+    hg, split = tdgl.data.synthetic_mag_heterograph(scale=64, device="cpu")
+    fan = {c[1]: 10 for c in hg.canonical_etypes}
+    _, _, blocks = NeighborSampler([fan, fan]).sample_blocks(
+        hg, {"paper": split["train"][:512]}, rng=np.random.default_rng(0))
+    out_block = blocks[1].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(f)
+    n_empty = 0
+    for c, rel in out_block.rel_graphs.items():
+        tiles = rel.tsrc
+        n_rb = tiles["block_mask"].shape[0]
+        args = (tiles["rows"], tiles["first"], tiles["lid"])
+        ct = torch.randn(rel.num_dst_nodes(), f, device=dev, generator=gen)
+        TK.reset_launches()
+        got = TK.tile_sum(*args, ct, n_rb, tiles["gather"])
+        torch.cuda.synchronize()
+        assert got.shape == (n_rb * 128, f)
+        if rel.num_dst_nodes() == 0:
+            n_empty += 1
+            assert TK.LAUNCHES["tile_sum"] == 0 and not got.any(), c
+            continue
+        assert TK.LAUNCHES["tile_sum"] == 1
+        want = TK.tile_sum_torch(*args, ct.double(), n_rb, tiles["gather"])
+        scale = TK.tile_sum_torch(*args, ct.abs().double(), n_rb,
+                                  tiles["gather"])
+        assert bool(((got.double() - want).abs() <= 1e-5 * scale
+                     + 1e-6).all()), c
+    assert n_empty == 4
+
+
 @pytest.mark.parametrize("red", ["sum", "mean", "max", "min"])
 @pytest.mark.parametrize("op", ["copy_lhs", "mul"])
 def test_tile_engine_matches_plain_on_the_card(dev, op, red):

@@ -124,8 +124,19 @@ def test_block_matches_reference(hub, pad):
     np.testing.assert_array_equal(gt.out_degrees().numpy(),
                                   np.asarray(gj.out_degrees()))
     assert tdgl.create_block is tdgl.block
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tdgl.block((src, dst), 400, 300, uniform_ell_k=10, device="cpu")
+    # The static-shape sampled mode: a uniform ELL as wide as the largest
+    # in-degree, both tile directions padded to the static tile bound.
+    k = int(np.bincount(dst, minlength=300).max())
+    uj = jdgl.block((src, dst), 400, 300, pad_edges_to=pad, uniform_ell_k=k)
+    ut = tdgl.block((src, dst), 400, 300, pad_edges_to=pad, uniform_ell_k=k,
+                    device="cpu")
+    assert ut.meta["num_real_edges"] == uj.meta["num_real_edges"] == e
+    assert ut.ell_dst_meta == uj.ell_dst_meta and ut.ell_src is None
+    for name in ("src", "dst", "csr_indptr", "csr_dst", "csr_eid",
+                 "csc_indptr", "csc_src", "csc_eid", "csc_dst"):
+        _assert_tree_equal(getattr(uj, name), getattr(ut, name), name)
+    for name in ("ell_dst", "tdst", "tsrc"):
+        _assert_tree_equal(getattr(uj, name), getattr(ut, name), name)
 
 
 @pytest.mark.parametrize("relabel", [True, False])

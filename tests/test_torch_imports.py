@@ -35,7 +35,10 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "bdense_format", "ops.bdense_kernels", "ops.engine_bdense",
             "ops.battention", "ops.precision", "tools.bench_models",
             "tools.chunk_walk_variants", "heterograph", "nn.hetero",
-            "nn.linear", "models.han")
+            "nn.linear", "models.han", "sampling.neighbor",
+            "sampling.negative", "dataloading.edge_dataloader",
+            "dataloading.negative_sampler", "dataloading.inference",
+            "data.feature_store", "optim", "train")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -68,6 +71,14 @@ def test_entry_points_default_to_cuda():
                  lambda: tdgl.nn.TypedLinear(3, 2, 2),
                  lambda: tdgl.models.HAN(1, 4, 2, 2),
                  lambda: tdgl.heterograph({("a", "r", "b"): ([0], [0])},
-                                          device="cpu").to("cuda")):
+                                          device="cpu").to("cuda"),
+                 # The sampling, loading and optimizer entry points.
+                 lambda: tdgl.data.HostFeatureStore(torch.zeros(3, 2)
+                                                    .numpy()),
+                 lambda: tdgl.optim.NodeEmbedding.create(3, 2),
+                 lambda: tdgl.models.HeteroRGCN([("a", "r", "b")],
+                                                {"a": 2}, 2, 2),
+                 lambda: tdgl.dataloading.EdgeDataLoader(g, [0], None),
+                 lambda: tdgl.dataloading.NodeDataLoader(g, [0], None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -12,6 +12,8 @@ Dropout is off (eval mode): flax's masks cannot be drawn in torch.
 Tolerances, float32: values rtol 1e-4, atol 1e-5; grads rtol 1e-4, atol
 1e-5. The dense layers' sums run in another order than XLA's."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +112,56 @@ def test_sageconv_matches_reference(graphs, agg, kind):
                                    rtol=1e-4, atol=1e-5, err_msg=k)
 
 
+@pytest.mark.parametrize("kind", ["full", "blocks"])
+def test_sageconv_lstm_matches_reference(graphs, kind):
+    """``SAGEConv('lstm')``: an LSTM over each ELL bucket (the uniform one
+    of a sampled block, whose padded dst rows read one zero input), values
+    and every grad within 1e-5."""
+    if kind == "full":  # few ELL buckets: one LSTM scan each
+        rng = np.random.default_rng(11)
+        src, dst = rng.integers(0, 120, 480), rng.integers(0, 120, 480)
+        gj = jdgl.graph((src, dst), num_nodes=120)
+        gt = tdgl.graph((src, dst), num_nodes=120, device="cpu")
+        x = feats(120, IN, seed=3)
+    else:
+        gj, gt, x, _ = _inputs(graphs, kind)
+        gj, gt = gj[0], gt[0]
+        # The reference reads the uniform ELL's empty inv_perm (rows
+        # already in order) as a permutation and returns no row; it is
+        # given that order explicitly.
+        gj = copy.copy(gj)
+        gj.ell_dst = dict(gj.ell_dst, inv_perm=jnp.arange(
+            gj.num_dst_nodes(), dtype=jnp.int32))
+    n_dst = gt.num_dst_nodes()
+    w = np.random.default_rng(7).normal(size=(n_dst, 8)).astype(np.float32)
+    conv = JSAGEConv(8, aggregator_type="lstm")
+    params = jax.tree.map(np.asarray, conv.init(jax.random.PRNGKey(2), gj,
+                                                jnp.asarray(x)))
+    tconv = SAGEConv(IN, 8, aggregator_type="lstm", device="cpu")
+    tconv.load_state_dict(from_jax_params(params))
+
+    def loss(p, xx):
+        out = conv.apply(p, gj, xx)
+        return jnp.sum(out * w), out
+
+    with engines("ell", "ell"):
+        (_, want), (gp, gx) = jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+        tx = t(x).requires_grad_(True)
+        got = tconv(gt, tx)
+        (got * t(w)).sum().backward()
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **tol)
+    jg = from_jax_params(jax.tree.map(np.asarray, gp))
+    for k, p in tconv.named_parameters():
+        if not p.requires_grad:  # bias_ih_l0, held at zero
+            assert k == "lstm.bias_ih_l0" and not jg[k].any()
+            continue
+        np.testing.assert_allclose(p.grad.numpy(), jg[k].numpy(),
+                                   err_msg=k, **tol)
+
+
 @pytest.mark.parametrize("agg", ["mean", "pool"])
 def test_sageconv_norm_matches_reference(graphs, agg):
     """``SAGEConv(norm=)``: a callable applied to the layer's output after
@@ -199,8 +251,16 @@ def test_from_jax_params_maps_sage_names():
                       device="cpu")
     assert set(sd) == set(model.state_dict())
     assert sd["layers.0.fc_self.weight"].shape == (5, 3)
-    with pytest.raises(NotImplementedError, match="lstm"):
-        SAGEConv(3, 4, aggregator_type="lstm", device="cpu")
+    # The lstm aggregator's flax cell maps onto torch.nn.LSTM's tensors.
+    conv = JSAGEConv(4, aggregator_type="lstm")
+    g = jdgl.graph((np.array([0, 1, 2]), np.array([1, 2, 0])), num_nodes=3)
+    lp = jax.tree.map(np.asarray, conv.init(jax.random.PRNGKey(0), g,
+                                            jnp.ones((3, 3))))
+    tconv = SAGEConv(3, 4, aggregator_type="lstm", device="cpu")
+    sd = from_jax_params(lp)
+    assert set(sd) == set(tconv.state_dict())
+    assert sd["lstm.weight_ih_l0"].shape == (12, 3)
+    assert not sd["lstm.bias_ih_l0"].any()
 
 
 def test_train_sampled_on_the_cpu():

@@ -7,7 +7,9 @@
   both padded tile layouts, the id maps and the real counts;
 - ``NodeDataLoader(num_workers=2, prefetch=2, seed=0)`` gives the same
   batch sequence, blocks and last-batch mask;
-- what is not ported yet raises NotImplementedError.
+- the paths that raised before the numpy sampler was ported (negative
+  fanouts, ``replace``, ``prob``, ``exclude_eids``, heterographs,
+  ``static_shapes=False``, no native library) give the reference's blocks.
 """
 
 import numpy as np
@@ -22,6 +24,11 @@ from dgl1_tpu_torch import _native as tnative
 from dgl1_tpu_torch.dataloading import NeighborSampler, NodeDataLoader
 from dgl1_tpu_torch.sampling import sample_block_fused
 
+import jax.numpy as jnp
+
+import dgl1_tpu as jdgl
+from dgl1_tpu import _native as jnative
+from test_torch_neighbor import assert_block_equal, assert_hetero_equal
 from tools.bench_minibatch import build_graph
 # The reference's sampler needs its native library, loaded under a lock.
 from torch_parity import reference_native  # noqa: F401
@@ -117,8 +124,8 @@ def test_neighbor_sampler_matches_reference(parents):
 def test_static_shapes_matches_reference(parents):
     """``static_shapes=`` as the reference takes it: True (its default)
     gives the reference's padded blocks; False, the numpy sampler's
-    unpadded path, raises until that sampler is ported. The same holds
-    for ``MultiLayerNeighborSampler``."""
+    unpadded path, the reference's unpadded blocks. The same holds for
+    ``MultiLayerNeighborSampler``."""
     from dgl1_tpu_torch.dataloading import MultiLayerNeighborSampler
 
     gj, gt, train = parents
@@ -132,8 +139,16 @@ def test_static_shapes_matches_reference(parents):
             gt, seeds, rng=np.random.default_rng(8), num_real=60)
         for bt, bj in zip(blocks_t, blocks_j):
             assert_same_block(bt, bj)
-        with pytest.raises(NotImplementedError, match="static_shapes"):
-            cls([10, 25], static_shapes=False)
+        s = cls([10, 25], static_shapes=False)
+        assert s.static_shapes is False
+        _, _, unpadded_t = s.sample_blocks(
+            gt, seeds, rng=np.random.default_rng(8), num_real=60)
+        _, _, unpadded_j = JSampler([10, 25], static_shapes=False) \
+            .sample_blocks(gj, seeds, rng=np.random.default_rng(8),
+                           num_real=60)
+        for bt, bj in zip(unpadded_t, unpadded_j):
+            assert_block_equal(bj, bt, "unpadded")
+            assert bt.num_edges_padded() == bt.num_edges()
 
 
 def test_node_dataloader_matches_reference(parents):
@@ -164,21 +179,45 @@ def test_node_dataloader_matches_reference(parents):
 
 
 def test_unported_sampling_paths_raise(parents, monkeypatch):
-    _, gt, train = parents
-    with pytest.raises(NotImplementedError, match="negative"):
-        NeighborSampler([-1, 10])
-    with pytest.raises(NotImplementedError):
-        NeighborSampler([10], replace=True)
-    with pytest.raises(NotImplementedError):
-        NeighborSampler([10], prob="w")
-    s = NeighborSampler([10])
-    with pytest.raises(NotImplementedError, match="exclude_eids"):
-        s.sample_blocks(gt, train[:8], exclude_eids=np.arange(3))
-    with pytest.raises(NotImplementedError, match="heterographs"):
-        s.sample_blocks(gt, {"user": train[:8]})
+    """What raised NotImplementedError before the numpy sampler was ported
+    now samples the reference's blocks: a negative fanout, ``replace``,
+    ``prob``, ``exclude_eids``, a heterograph, and a process without the
+    native library (the numpy path there, in both packages)."""
+    gj, gt, train = parents
+    seeds = train[:40]
+
+    def same(kw, g=(gj, gt), seed_nodes=seeds, **call):
+        rj = JSampler(**kw).sample_blocks(
+            g[0], seed_nodes, rng=np.random.default_rng(3), **call)
+        rt = NeighborSampler(**kw).sample_blocks(
+            g[1], seed_nodes, rng=np.random.default_rng(3), **call)
+        for bj, bt in zip(rj[2], rt[2]):
+            if isinstance(bt, tdgl.HeteroGraph):
+                assert_hetero_equal(bj, bt)
+            else:
+                assert_block_equal(bj, bt, str(kw))
+        return rt
+
+    same(dict(fanouts=[-1, 10]))
+    same(dict(fanouts=[10], replace=True))
+    w = np.random.default_rng(4).random(gt.num_edges()).astype(np.float32)
+    gj.edata["w"], gt.edata["w"] = jnp.asarray(w), torch.from_numpy(w)
+    try:
+        same(dict(fanouts=[10], prob="w"))
+    finally:
+        del gj.edata["w"], gt.edata["w"]
+    _, _, (b,) = same(dict(fanouts=[10]), exclude_eids=np.arange(0, 200_000,
+                                                                 2))
+    assert not (b.edata["_ID"].numpy()[: b.num_edges()] % 2 == 0).any()
+    src, dst = gt.src.numpy()[:5000], gt.dst.numpy()[:5000]
+    c = ("user", "follows", "user")
+    hg = (jdgl.heterograph({c: (src, dst)}, num_nodes_dict={"user": 20000}),
+          tdgl.heterograph({c: (src, dst)}, num_nodes_dict={"user": 20000},
+                           device="cpu"))
+    same(dict(fanouts=[3, 2]), g=hg, seed_nodes={"user": seeds})
     monkeypatch.setattr(tnative, "lib", lambda: None)
-    with pytest.raises(NotImplementedError, match="native"):
-        s.sample_blocks(gt, train[:8])
+    monkeypatch.setattr(jnative, "lib", lambda: None)
+    same(dict(fanouts=[10, 25]), num_real=35)
 
 
 def test_blocks_move_to_the_loader_device(parents):

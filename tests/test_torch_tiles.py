@@ -319,8 +319,12 @@ def test_tile_wrappers_check_their_inputs():
         TK.tile_sum(rows, first, lid, msg[:5], n_rb, idx[:-1])
     with pytest.raises(TypeError, match="dtype"):
         TK.tile_minmax(False, rows, first, lid, msg[:5], n_rb, idx.long())
-    with pytest.raises(ValueError, match="no row to gather"):
-        TK.tile_sum(rows, first, lid, msg[:0], n_rb, idx)
+    # No source row to gather (an empty relation of a sampled hetero
+    # block): the identity, without a launch.
+    out = TK.tile_sum(rows, first, lid, msg[:0], n_rb, idx)
+    assert out.shape == (n_rb * 128, 8) and not out.any()
+    assert torch.isneginf(
+        TK.tile_minmax(True, rows, first, lid, msg[:0], n_rb, idx)).all()
     assert TK.LAUNCHES == {"tile_sum": 0, "tile_minmax": 0}
 
 
