@@ -173,6 +173,27 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    ``bdense_gat_attention``, 2 calls per step and no kernel; 1 step at
    0.6 on the composed chain); ``torch.profiler`` traces of 3 GCN steps
    and 1 GAT step;
+4h. the distributed layer (``dgl1_tpu_torch/parallel``): one card and one
+   NCCL rank a device, so ``parallel.initialize`` at world size 1 over
+   NCCL (backend and world size printed); the dry run's legs 1-7 and 11
+   (``tools/dryrun_multichip.py``) at the reference's sizes, one JSON
+   line each; the flagship combined + prefilled identity sharded GCN
+   (BASELINE configuration #5's trainer at P = 1) on the arxiv graph,
+   128 -> 256 -> 40, Adam 1e-2, 5 steps: step-0 logits within 1e-4 of
+   each logit's float64 abs sum against the float64 oracle, exact hub
+   launches a step, ms a step and a 2-step profile (device busy and idle
+   share); the data-parallel sampled GraphSAGE at the Reddit
+   configuration through ``DistGraph`` and ``DistNodeDataLoader`` (3
+   steps, K9 once a step, host sampling ms a batch); then 4-part builds of
+   leg 1's graph with tiles, leg 3's vertex cut, leg 5's hub layouts (with
+   and without the identity relabel) and leg 7's block-dense one
+   (partitioner and build seconds), each partition's local reduce (F =
+   128) and, on leg 5's identity layouts, the fused attention (H = 8, D =
+   32) run on the card in turn with the halo rows filled on the host,
+   every partition's result held against the same call on the CPU (the
+   kernels' plain versions) and the assembled rows and gradients against
+   the float64 oracle; and each kernel at partition 0's shapes against
+   its float64 plain version, timed, as variants of its row;
 6. the ``{"kernels": [...]}`` line: ``launches_by_path`` holds each
    trainer run's count and ``launches`` their sum (every kernel above
    zero), then the last line
@@ -3187,6 +3208,596 @@ def phase_gcn(name, dev, g, steps, expect):
     return counts
 
 
+# ----------------------------------------------------------------------
+# Phase 4h: the distributed layer (dgl1_tpu_torch/parallel). The machine
+# has one card and NCCL takes one rank a device, so the distributed path
+# runs at world size 1 over NCCL; the 4-part builds run each partition's
+# local operation in turn in this one process, the halo rows filled on the
+# host from the global features (PartitionedGraph.combined_from_global).
+# ----------------------------------------------------------------------
+
+DIST = dict(parts=4, f=128, h=8, d=32, flagship_steps=5, sage_steps=3,
+            flagship_dims=(128, 256, 40), lr=1e-2)
+
+
+def phase_dist_init():
+    """``parallel.initialize`` at world size 1 on NCCL (a TCP store on
+    localhost)."""
+    import socket
+
+    import torch.distributed as dist
+    from dgl1_tpu_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    backend = parallel.initialize(f"127.0.0.1:{port}", 1, 0, timeout_s=120,
+                                  device="cuda")
+    if backend != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"initialize gave {backend}, world "
+                             f"{dist.get_world_size()}")
+    log(json.dumps({"phase": "dist_init", "backend": backend,
+                    "world_size": dist.get_world_size(),
+                    "seconds": time.perf_counter() - t0}))
+
+
+def phase_dryrun_legs(dev):
+    """The dry run's legs 1-7 and 11 (tools/dryrun_multichip.py) at world
+    size 1 over NCCL, at the reference's sizes; one JSON line a leg (its
+    seconds include the host builds)."""
+    from dgl1_tpu_torch.tools.dryrun_multichip import run_legs
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    run_legs(0, 1, dev, log=lambda r: log(json.dumps(
+        dict(r, phase="dryrun_leg"))))
+    torch.cuda.synchronize()
+    counts = all_launches()
+    log(json.dumps({"phase": "dryrun_done", "seconds":
+                    time.perf_counter() - t0,
+                    "launches": {k: v for k, v in counts.items() if v}}))
+    return counts
+
+
+def _gcn_oracle64(g, feat, params, absolute=False):
+    """The 2-layer GCN logits ``A relu(A X W1 + b1) W2 + b2`` (A = D^-1/2
+    A D^-1/2 with global degrees) in float64 on the oracle engine; with
+    ``absolute`` every value and weight by its absolute value and relu by
+    abs, each logit's sum over absolute values."""
+    from dgl1_tpu_torch import ops
+
+    no = g.out_degrees().double().clamp(min=1.0) ** -0.5
+    ni = g.in_degrees().double().clamp(min=1.0) ** -0.5
+    w1, b1, w2, b2 = (params[k].detach().double()
+                      for k in ("w1", "b1", "w2", "b2"))
+    x = feat.double()
+    if absolute:
+        w1, b1, w2, b2, x = (t.abs() for t in (w1, b1, w2, b2, x))
+
+    def a(h):
+        return ops.gspmm(g, "copy_lhs", "sum", h * no[:, None],
+                         None) * ni[:, None]
+
+    ops.set_engine("xla")
+    try:
+        h = a(x) @ w1 + b1
+        h = h.abs() if absolute else torch.relu(h)
+        return a(h) @ w2 + b2
+    finally:
+        ops.set_engine("auto")
+
+
+def phase_dist_flagship(name, dev, g):
+    """BASELINE configuration #5's trainer, the flagship combined +
+    prefilled identity sharded GCN (``build_partitioned_graph(hub=True,
+    hub_identity=True)`` at P = 1) on the arxiv trainer's graph, 128 -> 256
+    -> 40, Adam 1e-2, 5 steps: step-0 logits within 1e-4 of each logit's
+    float64 abs sum against the float64 oracle, exact hub launches a step
+    (layer 1's input needs no gradient: K1 twice, K4a or K4b once, K2
+    three times where a chunked group exists, no K3 on the identity
+    layout), ms a step, then a profile of 2 steps."""
+    from dgl1_tpu_torch.ops.engine_hub import _use_fused_bwd
+    from dgl1_tpu_torch.parallel import build_partitioned_graph
+    from dgl1_tpu_torch.parallel.sharded_ops import (
+        fill_halo_combined, make_sharded_gcn_matvec_combined)
+    from dgl1_tpu_torch.parallel.train import (init_gcn_params,
+                                               make_gcn_train_step)
+    from torch.profiler import ProfilerActivity, profile
+
+    in_f, hidden, classes = DIST["flagship_dims"]
+    steps = DIST["flagship_steps"]
+    t0 = time.perf_counter()
+    pg = build_partitioned_graph(g, np.zeros(g.num_nodes(), np.int32), 1,
+                                 tiles=False, hub=True, hub_identity=True)
+    build_s = time.perf_counter() - t0
+    m = pg.hub_meta
+    if m is None or not m.identity_expand:
+        raise AssertionError(f"{name}: no identity hub layout: {m}")
+    pl = pg.local(0, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(g.num_nodes(), in_f, device=dev, generator=gen)
+    labels = torch.randint(0, classes, (g.num_nodes(),), device=dev,
+                           generator=gen)
+    x = fill_halo_combined(pl)(pg.shard_node_data_combined(feat, 0))
+    y = pg.shard_node_data(labels, 0)
+    mask = torch.as_tensor(pg.node_mask[0], device=dev)
+    params = init_gcn_params(in_f, hidden, classes, device=dev,
+                             generator=torch.Generator().manual_seed(2))
+    # Step-0 logits against the float64 oracle.
+    mv1 = make_sharded_gcn_matvec_combined(pl, halo_filled=True)
+    mv = make_sharded_gcn_matvec_combined(pl)
+    with torch.no_grad():
+        h = torch.relu(mv1(x) @ params["w1"] + params["b1"])
+        logits = (mv(h) @ params["w2"] + params["b2"])[: pl.n_loc]
+        got = pg.unshard_node_data(logits[None])
+    ref = _gcn_oracle64(g, feat, params)
+    bound_ = _gcn_oracle64(g, feat, params, absolute=True)
+    lerr, lrel = logits_vs_abs(name, "float64 oracle", got, ref, bound_)
+    del ref, bound_, got, h, logits
+    opt = torch.optim.Adam(params.values(), lr=DIST["lr"])
+    step, _ = make_gcn_train_step(pl, opt, classes, combined=True,
+                                  prefilled=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(step(params, x, y, mask))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    counts = all_launches()
+    fused = _use_fused_bwd(m, pl.hub)
+    chunked = m.n_groups > m.n_dense
+    want = {"dense_fwd": 2 if m.n_dense else 0,
+            "dense_bwd_fused": 1 if fused else 0,
+            "dense_bwd": 1 if (m.n_dense and not fused) else 0,
+            "chunk_sum": 3 if chunked else 0}
+    expect_exact(name, counts, {k: v * steps for k, v in want.items()})
+    rec = {"phase": "dist_gcn_train", "path": name,
+           "nodes": g.num_nodes(), "edges": g.num_edges(),
+           "dims": [in_f, hidden, classes], "steps": steps,
+           "build_s": build_s, "hub_rows": pg.hub_rows, "n_loc": pg.n_loc,
+           "meta": {"n_groups": m.n_groups, "n_dense": m.n_dense,
+                    "n_tail_rows": m.n_tail_rows,
+                    "identity_expand": m.identity_expand,
+                    "covered": m.covered, "has_diag": m.has_diag},
+           "losses": losses, "ms_per_step": [s * 1e3 for s in step_s],
+           "ms_per_step_after_first": float(np.mean(step_s[1:]) * 1e3),
+           "launches": {k: v for k, v in counts.items() if v},
+           "launches_per_step": want,
+           "logits_err_vs_oracle64": lerr,
+           "logits_err_over_abs_sum": lrel,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses {losses}")
+    log(json.dumps(rec))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(2):
+            step(params, x, y, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / 2
+    summarize_profile("dist_gcn_profile", name, prof, 2, wall_ms)
+    return counts
+
+
+def phase_dist_sage(name, dev, r):
+    """The data-parallel sampled GraphSAGE at the Reddit configuration
+    (602 -> 256 -> 41, fanouts [10, 25], batch 1024, Adam 1e-3, dropout 0)
+    through ``DistGraph`` (one part) and ``DistNodeDataLoader`` at world
+    size 1: the features a host ``DistTensor``, gathered per batch in the
+    loader's 2 workers and copied to the card, gradients averaged over
+    the world; 3 steps, K9 once a step exactly, host sampling and pull ms
+    a batch."""
+    from dgl1_tpu_torch.dataloading import NeighborSampler
+    from dgl1_tpu_torch.parallel import (DistGraph, DistNodeDataLoader,
+                                         DistTensor, node_split)
+    from dgl1_tpu_torch.parallel.train import make_dp_sampled_step
+
+    steps = DIST["sage_steps"]
+    g = r["g"]
+    dg = DistGraph(g, 1, part=np.zeros(g.num_nodes(), np.int32))
+    dg.ndata["feat"] = DistTensor(dg.book, {0: r["feat"].cpu().numpy()},
+                                  name="feat")
+    seeds = node_split(np.asarray(r["train_ids"]), dg.book, 0)
+    loader = DistNodeDataLoader(
+        dg, seeds, NeighborSampler(REDDIT["fanouts"]),
+        batch_size=REDDIT["batch"], shuffle=True, seed=0, device=dev,
+        num_workers=2, prefetch=2)
+    model = sage_model(r, dev, "mean", dropout=0.0)
+    step = make_dp_sampled_step(model, torch.optim.Adam(
+        model.parameters(), lr=REDDIT["lr"]))
+    reset_all_launches()
+    losses, step_s, wait_s = [], [], []
+    it = iter(loader)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        inp, out, blocks, mask, x = next(it)
+        t1 = time.perf_counter()
+        y = r["labels"].index_select(0, out)
+        losses.append(step(blocks, x, y, mask))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        wait_s.append(t1 - t0)
+    it.close()
+    counts = all_launches()
+    expect_exact(name, counts, {"tile_sum": steps})
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    sample_ms = [s * 1e3 for s in loader.loader.sample_s[:steps]]
+    pull_ms = [s * 1e3 for s in loader.loader.pull_s[:steps]]
+    log(json.dumps({
+        "phase": "dist_sage_train", "path": name, "world_size": 1,
+        "dims": [r["in_f"], REDDIT["hidden"], r["classes"]],
+        "fanouts": REDDIT["fanouts"], "batch": REDDIT["batch"],
+        "steps": steps, "losses": losses,
+        "ms_per_step": [s * 1e3 for s in step_s],
+        "wait_ms_per_step": [s * 1e3 for s in wait_s],
+        "host_sample_ms_per_batch": float(np.mean(sample_ms)),
+        "host_sample_ms": sample_ms,
+        "host_pull_ms_per_batch": float(np.mean(pull_ms)),
+        "host_pull_ms": pull_ms, "launches": {
+            k: v for k, v in counts.items() if v}}))
+    return counts
+
+
+def dist_part_builds():
+    """The 4-part host builds of the dry run's graphs: leg 1's with tiles
+    (K9; the leg itself takes the segment path), leg 3's vertex cut, leg
+    5's hub layouts with and without the identity relabel and those of its
+    symmetric copy (dense and chunked groups and a tail), leg 7's
+    block-dense; partitioner and build seconds."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch.parallel import (build_partitioned_graph,
+                                         vertex_cut_edge_owner)
+    from dgl1_tpu_torch.parallel.partition import greedy_partition_assignment
+
+    p_ = DIST["parts"]
+    secs, builds = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    g1 = dgl.to_bidirected(dgl.data.powerlaw_graph(100_000, 12, seed=0,
+                                                   device="cpu"))
+    part1 = timed("greedy_leg1", lambda: greedy_partition_assignment(
+        g1, p_, balance_edges=True))
+    builds["leg1_tiles"] = (g1, timed("build_leg1_tiles", lambda:
+                                      build_partitioned_graph(g1, part1,
+                                                              p_)))
+    g3 = dgl.data.powerlaw_graph(20_000, 5, seed=1, device="cpu")
+    part3 = timed("greedy_leg3", lambda: greedy_partition_assignment(
+        g3, p_, balance_edges=True))
+    eo = vertex_cut_edge_owner(g3, part3, p_)
+    builds["leg3_vertex_cut"] = (g3, timed(
+        "build_leg3_vertex_cut", lambda: build_partitioned_graph(
+            g3, part3, p_, edge_owner=eo)))
+    g5 = dgl.data.powerlaw_graph(12_000, 6, seed=4, device="cpu")
+    part5 = timed("greedy_leg5", lambda: greedy_partition_assignment(
+        g5, p_, balance_edges=True))
+    for key, ident in (("leg5_hub", False), ("leg5_hub_identity", True)):
+        builds[key] = (g5, timed(f"build_{key}", lambda: (
+            build_partitioned_graph(g5, part5, p_, tiles=False, hub=256,
+                                    hub_dense_floor=512,
+                                    hub_identity=ident))))
+    # Leg 5's graph made symmetric: its parts keep a tail (K4a's fused
+    # tail; leg 5's own hub groups cover every edge, so it takes K4b) and
+    # chunked groups (K2).
+    g5b = dgl.to_bidirected(g5)
+    part5b = timed("greedy_leg5_bidir", lambda: greedy_partition_assignment(
+        g5b, p_, balance_edges=True))
+    builds["leg5_bidir_hub"] = (g5b, timed(
+        "build_leg5_bidir_hub", lambda: build_partitioned_graph(
+            g5b, part5b, p_, tiles=False, hub=256, hub_dense_floor=512)))
+    n7 = 50_000
+    rng7 = np.random.default_rng(3)
+    s7 = rng7.integers(0, n7, n7 * 8)
+    d7 = np.clip(s7 + rng7.integers(-150, 150, n7 * 8), 0, n7 - 1)
+    g7 = dgl.graph((s7, d7), num_nodes=n7, device="cpu")
+    part7 = (np.arange(n7) * p_ // n7).astype(np.int32)
+    builds["leg7_bdense"] = (g7, timed("build_leg7_bdense", lambda: (
+        build_partitioned_graph(g7, part7, p_, bdense=True))))
+    t0 = time.perf_counter()
+    from dgl1_tpu_torch.parallel.partition import metis_partition_assignment
+
+    metis_partition_assignment(g5, p_)
+    secs["metis_leg5"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "dist_part_builds", "parts": p_,
+                    "seconds": secs,
+                    "builds": {k: {"n_loc": pg.n_loc, "e_loc": pg.e_loc,
+                                   "m_halo": pg.m_halo, "m_part": pg.m_part,
+                                   "hub_rows": pg.hub_rows,
+                                   "hub_meta": repr(pg.hub_meta)}
+                               for k, (_, pg) in builds.items()}}))
+    return builds
+
+
+def _scatter_rows(total, ids, rows):
+    """``total[ids] += rows`` over the rows whose id is not -1."""
+    ok = ids >= 0
+    total.index_add_(0, ids[ok], rows[ok])
+
+
+def part_spmm_check(name, g, pg, dev):
+    """Each partition's local copy_u sum (``local_spmm_sum``: tiles, hub or
+    block-dense, vertex-cut partial slots) forward and backward on the
+    card in turn, every partition's result against the same call on the
+    CPU (the kernels' plain versions), then the assembled owned rows and
+    the gradient against the float64 single-device oracle. Counters count
+    the card's calls only."""
+    from dgl1_tpu_torch import ops
+    from dgl1_tpu_torch.parallel.sharded_ops import local_spmm_sum
+
+    f, n = DIST["f"], g.num_nodes()
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(n, f, generator=gen)
+    w = torch.randn(n, f, generator=gen)
+    gd = g.to(dev)
+    ops.set_engine("xla")
+    try:
+        xr = x.to(dev).double().requires_grad_(True)
+        ref = ops.gspmm(gd, "copy_lhs", "sum", xr, None)
+        (gref,) = torch.autograd.grad((ref * w.to(dev).double()).sum(), xr)
+        scale = ops.gspmm(gd, "copy_lhs", "sum", x.abs().to(dev).double(),
+                          None)
+        us = x.abs().to(dev).double().requires_grad_(True)
+        (gscale,) = torch.autograd.grad(
+            (ops.gspmm(gd, "copy_lhs", "sum", us, None)
+             * w.abs().to(dev).double()).sum(), us)
+    finally:
+        ops.set_engine("auto")
+    y_all = torch.zeros(n, f, device=dev)
+    g_all = torch.zeros(n, f, device=dev)
+    per_part = []
+    reset_all_launches()
+    for p in range(pg.num_parts):
+        pl = pg.local(p, dev)
+        comb = pg.combined_from_global(x, p).to(dev).requires_grad_(True)
+        oid = torch.as_tensor(pg.output_ids(p), device=dev)
+        cid = torch.as_tensor(pg.combined_ids(p), device=dev)
+        y = local_spmm_sum(pl, comb)
+        ct = torch.where((oid >= 0)[:, None],
+                         w.to(dev).index_select(0, oid.clamp(min=0)),
+                         torch.zeros((), device=dev))
+        (gc,) = torch.autograd.grad((y * ct).sum(), comb)
+        _scatter_rows(y_all, oid, y.detach())
+        _scatter_rows(g_all, cid, gc)
+        per_part.append((p, comb.detach(), ct, y.detach(), gc))
+    torch.cuda.synchronize()
+    counts = all_launches()
+    # Each partition's card result against its plain versions (the same
+    # call on CPU tensors), outside the counted window.
+    errs = []
+    for p, comb, ct, y, gc in per_part:
+        pc = pg.local(p, "cpu")
+        cc = comb.cpu().requires_grad_(True)
+        yc = local_spmm_sum(pc, cc)
+        (gcc,) = torch.autograd.grad((yc * ct.cpu()).sum(), cc)
+        pl_abs = pg.local(p, dev)
+        with torch.no_grad():
+            ys = local_spmm_sum(pl_abs, comb.abs())
+        ca = comb.abs().requires_grad_(True)
+        (gs,) = torch.autograd.grad((local_spmm_sum(pl_abs, ca)
+                                     * ct.abs()).sum(), ca)
+        errs.append({"part": p,
+                     "fwd": check(f"{name} part {p} fwd vs plain", y,
+                                  yc.to(dev), ys),
+                     "bwd": check(f"{name} part {p} bwd vs plain", gc,
+                                  gcc.to(dev), gs)})
+    err_f = check(f"{name} fwd vs oracle", y_all, ref.float(), scale)
+    err_b = check(f"{name} bwd vs oracle", g_all, gref.float(), gscale)
+    log(json.dumps({"phase": "dist_part_spmm", "path": name,
+                    "parts": pg.num_parts, "nodes": n,
+                    "edges": g.num_edges(), "f": f,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "fwd_err_vs_oracle": err_f, "bwd_err_vs_oracle": err_b,
+                    "parts_vs_plain": errs}))
+    return counts
+
+
+def part_gat_check(name, g, pg, dev):
+    """The fused attention (K6, K7, K8) on each partition's hub layout in
+    turn (``fused_attention_local``, H = 8, D = 32), each partition's result
+    and gradients against the same call on the CPU (the plain versions),
+    then the assembled owned rows and gradients against the composed
+    path on the float64 oracle (as gat_attention_path)."""
+    from dgl1_tpu_torch import ops
+    from dgl1_tpu_torch.parallel.sharded_ops import fused_attention_local
+
+    h, d, n = DIST["h"], DIST["d"], g.num_nodes()
+    gen = torch.Generator().manual_seed(22)
+    el, er = (torch.randn(n, h, generator=gen) for _ in range(2))
+    ft = torch.randn(n, h, d, generator=gen)
+    w = torch.randn(n, h, d, generator=gen)
+    gv = composed_view(g.to(dev))
+
+    def composed(a, b, c):
+        att = ops.edge_softmax(gv, torch.nn.functional.leaky_relu(
+            ops.gsddmm(gv, "add", a[:, :, None], b[:, :, None]), SLOPE))
+        return ops.gspmm(gv, "mul", "sum", c, att)
+
+    ops.set_engine("xla")
+    try:
+        rin = [t.to(dev).double().requires_grad_(True) for t in (el, er, ft)]
+        ref = composed(*rin)
+        rgrads = torch.autograd.grad((ref * w.to(dev).double()).sum(), rin)
+        with torch.no_grad():
+            scale = composed(*(t.to(dev).double() for t in
+                               (el, er, ft.abs())))
+        ref = ref.detach()
+    finally:
+        ops.set_engine("auto")
+    outs = [torch.zeros(n, h, d, device=dev), torch.zeros(n, h, device=dev),
+            torch.zeros(n, h, device=dev), torch.zeros(n, h * d, device=dev)]
+
+    def run(pl, p, device):
+        ins = [pg.combined_from_global(el, p),
+               pg.shard_node_data(er, p),
+               pg.combined_from_global(ft.reshape(n, h * d), p)]
+        ins = [t.to(device).requires_grad_(True) for t in ins]
+        out = fused_attention_local(pl, *ins, SLOPE)
+        own = torch.as_tensor(np.where(pg.node_mask[p], pg.orig_ids[p], -1),
+                              device=device)
+        ct = torch.where((own >= 0)[:, None, None],
+                         w.to(device).index_select(0, own.clamp(min=0)),
+                         torch.zeros((), device=device))
+        grads = torch.autograd.grad((out * ct).sum(), ins)
+        return out.detach(), grads, own
+
+    reset_all_launches()
+    per_part = []
+    for p in range(pg.num_parts):
+        out, (gel, ger, gft), own = run(pg.local(p, dev), p, dev)
+        cid = torch.as_tensor(pg.combined_ids(p), device=dev)
+        _scatter_rows(outs[0], own, out)
+        _scatter_rows(outs[1], cid, gel)
+        _scatter_rows(outs[2], own, ger)
+        _scatter_rows(outs[3], cid, gft)
+        per_part.append((p, out, gel, ger, gft))
+    torch.cuda.synchronize()
+    counts = all_launches()
+    expect_launches(name, counts, ("attn_fwd", "attn_bwd_src",
+                                   "ger_reduce"))
+    errs = []
+    for p, out, gel, ger, gft in per_part:
+        oc, gc, _ = run(pg.local(p, "cpu"), p, "cpu")
+        errs.append({"part": p, **{
+            k: check(f"{name} part {p} {k} vs plain", a, b.to(dev),
+                     b.to(dev).abs() + b.abs().max().to(dev))
+            for k, a, b in zip(("out", "gel", "ger", "gft"),
+                               (out, gel, ger, gft), (oc,) + gc)}})
+    err_f = check(f"{name} fwd vs oracle", outs[0], ref.float(), scale)
+    err_b = {k: check(f"{name} grad_{k} vs oracle", a, b.reshape(a.shape),
+                      b.abs().reshape(a.shape) + b.abs().max())
+             for k, a, b in zip(("el", "er", "ft"), outs[1:], rgrads)}
+    log(json.dumps({"phase": "dist_part_gat", "path": name,
+                    "parts": pg.num_parts, "nodes": n, "h": h, "d": d,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "fwd_err_vs_oracle": err_f, "bwd_err_vs_oracle": err_b,
+                    "parts_vs_plain": errs}))
+    return counts
+
+
+def _part_tiles(pl, key):
+    """A partition's tile layout for tile_case: its row blocks and the
+    scratch block the cross-part padding tiles aim at."""
+    t = dict(getattr(pl, key))
+    t["block_mask"] = torch.cat([t["block_mask"],
+                                 t["block_mask"].new_zeros(1)])
+    return t
+
+
+def part_block_case(case, pl, dev, f, transpose):
+    """K11 at width f on one partition's block descriptors (n_out output
+    rows from n_comb combined rows, or the transpose) against its float64
+    plain version."""
+    from dgl1_tpu_torch.ops import bdense_kernels as BK
+
+    bd = pl.bdense
+    gen = torch.Generator(device=dev).manual_seed(23)
+    if transpose:
+        args = (True, bd["ab"], bd["col_ptr"], bd["rbb"])
+        n_in, n_out = pl.n_out, pl.n_comb
+    else:
+        args = (False, bd["a"], bd["row_ptr"], bd["cb"])
+        n_in, n_out = pl.n_comb, pl.n_out
+    k = int(args[2][-1])
+    x = torch.randn(n_in, f, device=dev, generator=gen)
+    nnz = int((args[1][: k * 128] != 0).sum())
+    return kernel_row(
+        "block_bwd" if transpose else "block_fwd",
+        BK.block_mm(*args, x, n_out), BK.block_mm_torch(*args, x.double(),
+                                                        n_out),
+        BK.block_mm_torch(*args, x.abs().double(), n_out),
+        lambda: BK.block_mm(*args, x, n_out),
+        lambda: BK.block_mm_torch(*args, x, n_out), None,
+        nbytes(args[1][: k * 128], args[2], args[3]) + n_in * f * 4
+        + n_out * f * 4, 2 * nnz * f,
+        {"case": case, "transpose": transpose, "n_in": n_in,
+         "n_out": n_out, "f": f, "blocks": k, "nnz": nnz},
+        library_note="timed on the main case only")
+
+
+def part_kernel_variants(dev, rows, builds):
+    """Each kernel of the partitioned paths at partition 0's shapes (F =
+    128; H = 8, D = 32) against its float64 plain version, timed, as
+    variants of the kernel rows: K9 over leg 1's and leg 3's halo tiles
+    (both directions), K1, K3 and K4a on leg 5's hub layout, K1 and K4a on
+    its identity layout, K6-K8 there, K1, K2 (both directions), K3 and
+    K4a on the symmetric copy's, K11 both ways on leg 7's blocks."""
+    f = DIST["f"]
+
+    def add(name, row):
+        rows[name]["variants"].append(
+            {k: row[k] for k in VARIANT_KEYS if k in row})
+
+    for key in ("leg1_tiles", "leg3_vertex_cut"):
+        pl = builds[key][1].local(0, dev)
+        add("tile_sum", tile_case(f"part4_{key}_fwd_p0", _part_tiles(
+            pl, "tiles_fwd"), pl.n_comb, f, dev))
+        add("tile_sum", tile_case(f"part4_{key}_rev_p0", _part_tiles(
+            pl, "tiles_rev"), pl.n_out, f, dev))
+    hg = builds["leg5_hub"][1].local(0, dev).hub_graph()
+    add("dense_fwd", dense_fwd_case("part4_leg5_hub_p0", hg, dev, f))
+    add("dense_bwd_fused", dense_bwd_fused_case("part4_leg5_hub_p0", hg,
+                                                dev, f))
+    add("expand", expand_case("part4_leg5_hub_p0", hg, dev, f))
+    hi = builds["leg5_hub_identity"][1].local(0, dev).hub_graph()
+    add("dense_fwd", dense_fwd_case("part4_leg5_identity_p0", hi, dev, f))
+    add("dense_bwd_fused", dense_bwd_fused_case("part4_leg5_identity_p0",
+                                                hi, dev, f))
+    hb = builds["leg5_bidir_hub"][1].local(0, dev).hub_graph()
+    add("dense_fwd", dense_fwd_case("part4_leg5_bidir_p0", hb, dev, f))
+    add("chunk_sum", chunk_sum_case("part4_leg5_bidir_p0", hb, dev, f))
+    add("chunk_sum", chunk_sum_case("part4_leg5_bidir_bwd_p0", hb, dev, f,
+                                    bwd=True))
+    add("expand", expand_case("part4_leg5_bidir_p0", hb, dev, f))
+    add("dense_bwd_fused", dense_bwd_fused_case("part4_leg5_bidir_p0", hb,
+                                                dev, f))
+    for k, row in attn_case("part4_leg5_identity_p0", hi, dev, DIST["h"],
+                            DIST["d"], 0.0, library=False).items():
+        add(k, row)
+    pl7 = builds["leg7_bdense"][1].local(0, dev)
+    for tr in (False, True):
+        add("block_bwd" if tr else "block_fwd",
+            part_block_case("part4_leg7_p0", pl7, dev, f, tr))
+
+
+def phase_dist(dev, g_arx_host, r):
+    """Phase 4h: NCCL at world size 1, the dry run's legs, the flagship
+    sharded GCN at the arxiv widths, the data-parallel sampled GraphSAGE
+    at the Reddit configuration, the 4-part per-partition checks. Returns
+    each path's (name, counts)."""
+    from dgl1_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    phase_dist_init()
+    out = [("dryrun_legs_world1", phase_dryrun_legs(dev))]
+    out.append(("dist_gcn_arxiv_flagship_train", phase_dist_flagship(
+        "dist_gcn_arxiv_flagship_train", dev, g_arx_host)))
+    out.append(("dist_sage_reddit_dp_train", phase_dist_sage(
+        "dist_sage_reddit_dp_train", dev, r)))
+    builds = dist_part_builds()
+    for key in ("leg1_tiles", "leg3_vertex_cut", "leg5_hub",
+                "leg5_hub_identity", "leg5_bidir_hub", "leg7_bdense"):
+        g, pg = builds[key]
+        out.append((f"part4_{key}", part_spmm_check(f"part4_{key}", g, pg,
+                                                    dev)))
+    g5, pg5 = builds["leg5_hub_identity"]
+    out.append(("part4_leg5_identity_gat", part_gat_check(
+        "part4_leg5_identity_gat", g5, pg5, dev)))
+    parallel.exit_client()
+    log(json.dumps({"phase": "dist_done",
+                    "seconds": time.perf_counter() - t0}))
+    return out, builds
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -3310,7 +3921,7 @@ def main():
     # then layer-wise inference against the full-graph forward.
     main_counts.append(("link_pred_arxiv_train", phase_link_pred(
         "link_pred_arxiv_train", dev, g_arx)))
-    del g_arx, g_mix
+    del g_mix  # g_arx stays for phase 4h's flagship trainer
 
     # Phase 4c: R-GCN at the configuration-#4 shape, the slice's main
     # path: the per-relation path (K1, K3, K4 per relation) and the
@@ -3393,7 +4004,7 @@ def main():
                     "seconds": time.perf_counter() - t_lstm}))
     profile_sage(dev, r, batches)
     profile_sage(dev, r, batches, "pool")
-    del r, loader, batches
+    del loader, batches  # r stays for phase 4h's data-parallel trainer
     torch.cuda.empty_cache()
 
     # Phase 4d: the block-dense slice on the geometric graphs. K11 against
@@ -3420,6 +4031,17 @@ def main():
     profile_bdense(dev, g20, "gat", steps=1, warmup=1)
     log(json.dumps({"phase": "bdense_done",
                     "seconds": time.perf_counter() - t4d}))
+    del g20
+    torch.cuda.empty_cache()
+
+    # Phase 4h: the distributed layer at world size 1 over NCCL (the dry
+    # run's legs, the flagship sharded GCN, the data-parallel sampled
+    # GraphSAGE), then the 4-part builds run partition by partition, and
+    # each kernel at partition 0's shapes as variants of its row.
+    counts_4h, builds = phase_dist(dev, g_arx, r)
+    main_counts += counts_4h
+    part_kernel_variants(dev, rows, builds)
+    del r, g_arx, builds
 
     # ``launches`` is one number per kernel: the sum of the trainer runs,
     # each zeroed and read on its own; ``launches_by_path`` keeps them

@@ -22,7 +22,7 @@ from dgl1_tpu_torch.transform import (add_self_loop, compact_graphs,
                                       to_homogeneous, typed_subgraphs,
                                       typed_union_graph)
 from dgl1_tpu_torch import (data, dataloading, models, nn,  # noqa: F401
-                            ops, optim, random, sampling)
+                            ops, optim, parallel, random, sampling)
 from dgl1_tpu_torch.train import train, train_sampled, train_sampled_rgcn
 
 __all__ = ["Graph", "graph", "block", "create_block", "rand_graph",
@@ -32,5 +32,6 @@ __all__ = ["Graph", "graph", "block", "create_block", "rand_graph",
            "edge_subgraph", "typed_subgraphs", "typed_union_graph",
            "to_homogeneous", "to_heterogeneous", "metapath_reachable_graph",
            "node_subgraph", "compact_graphs", "to_block", "to_block_hetero",
-           "data", "dataloading", "models", "nn", "ops", "optim", "random",
+           "data", "dataloading", "models", "nn", "ops", "optim", "parallel",
+           "random",
            "sampling", "train", "train_sampled", "train_sampled_rgcn"]

@@ -37,6 +37,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+# The ELL bucket fill and the fixed-row stack live with the hub builder,
+# which pins its tail stacks with them; the ELL builders here reuse them.
+from dgl1_tpu_torch.hub_format import (  # noqa: F401
+    _build_ell_fixed_rows, _ell_bucket)
+
 __all__ = ["Graph", "graph", "block", "create_block", "rand_graph",
            "resolve_device", "TILE_EDGES", "TILE_ROWS"]
 
@@ -315,7 +320,7 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
             floor = int(hub)
         hub_dst_meta, hub_dst = hub_format.build_hub_format(
             csc_indptr, csc_src, csc_eid, csc_dst, num_src, num_dst,
-            num_edges, _build_ell, num_padded=num_padded,
+            num_edges, num_padded or num_edges, _build_ell,
             min_group_edges=floor, dense_floor=hub_dense_floor,
         )
     bdense_meta = bdense = None
@@ -368,24 +373,6 @@ def _ladder_rung(k: int) -> int:
         if r >= k:
             return r
     raise ValueError(f"degree {k} above the ELL ladder")
-
-
-def _ell_bucket(indptr, nbr_sorted, eid_sorted, rows, n_b: int, k: int):
-    """One ELL bucket of ``n_b`` rows of ``k`` slots, flattened: its first
-    ``len(rows)`` rows hold the edges of ``rows`` (their neighbour and
-    edge id, in sorted order), every other slot the sentinel ``1 << 30``
-    and edge id 0."""
-    deg = (indptr[rows + 1] - indptr[rows]).astype(np.int64)
-    mat = np.full((n_b, k), np.int64(1 << 30), dtype=np.int64)
-    emat = np.zeros((n_b, k), dtype=np.int64)
-    total = int(deg.sum())
-    if total:
-        flat_rows = np.repeat(np.arange(len(rows)), deg)
-        flat_cols = np.arange(total) - np.repeat(np.cumsum(deg) - deg, deg)
-        src_pos = np.repeat(indptr[rows].astype(np.int64), deg) + flat_cols
-        mat[flat_rows, flat_cols] = nbr_sorted[src_pos]
-        emat[flat_rows, flat_cols] = eid_sorted[src_pos]
-    return mat.reshape(-1), emat.reshape(-1)
 
 
 def _build_ell(indptr: np.ndarray, nbr_sorted: np.ndarray,
@@ -492,50 +479,6 @@ def _build_ell_uniform(indptr: np.ndarray, nbr_sorted: np.ndarray,
         "idx": idx.astype(ID_DTYPE),
         "eid": eid.astype(ID_DTYPE),
         "inv_perm": np.zeros((0,), ID_DTYPE),
-    }
-
-
-def _build_ell_fixed_rows(indptr: np.ndarray, nbr_sorted: np.ndarray,
-                          eid_sorted: np.ndarray, meta_fixed,
-                          row_base: int, num_target: int):
-    """ELL stack with its rows pinned to id order: bucket b of
-    ``meta_fixed`` ((k, n), ...) holds rows ``[row_base + off, row_base +
-    off + n)`` in id order, so a covered row's stack position is ``id -
-    row_base`` whatever this edge set's own degrees are. Rows of degree 0
-    here are all-sentinel phantom rows. Per-relation tail stacks built
-    on one superset meta share one merge order (the typed identity
-    layouts of ``transform.typed_subgraphs(identity=True)``). Raises
-    ValueError when a row's degree exceeds its bucket width. Returns
-    (meta, arrays) like :func:`_build_ell`."""
-    n_rows = int(sum(n for _, n in meta_fixed))
-    deg = np.diff(indptr[: num_target + 1]).astype(np.int64)
-    idx_parts, eid_parts = [], []
-    off = 0
-    for k, n_b in meta_fixed:
-        rows = np.arange(row_base + off, row_base + off + n_b,
-                         dtype=np.int64)
-        rows = rows[rows < num_target]
-        if int(deg[rows].max(initial=0)) > k:
-            raise ValueError(
-                f"fixed-row ELL: degree {int(deg[rows].max())} exceeds "
-                f"bucket width {k}")
-        idx_b, eid_b = _ell_bucket(indptr, nbr_sorted, eid_sorted, rows,
-                                   n_b, k)
-        idx_parts.append(idx_b)
-        eid_parts.append(eid_b)
-        off += n_b
-    inv_perm = np.full((num_target,), n_rows, dtype=ID_DTYPE)
-    covered = np.arange(row_base, min(row_base + n_rows, num_target),
-                        dtype=np.int64)
-    inv_perm[covered] = (covered - row_base).astype(ID_DTYPE)
-    idx = (np.concatenate(idx_parts) if idx_parts
-           else np.zeros(0, np.int64))
-    eid = (np.concatenate(eid_parts) if eid_parts
-           else np.zeros(0, np.int64))
-    return tuple(meta_fixed), {
-        "idx": idx.astype(ID_DTYPE),
-        "eid": eid.astype(ID_DTYPE),
-        "inv_perm": inv_perm,
     }
 
 

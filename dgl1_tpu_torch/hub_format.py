@@ -1,10 +1,10 @@
 """Hub-dense HYB layout builder (host side, numpy).
 
-The port's copy of ``dgl1_tpu/hub_format.py`` (the single-device build
-and the typed identity mode, ``identity_force``; the forced cross-part
-geometry of the distributed layer is not ported). It splits a graph's
-edges by destination in-degree into three tiers for
-``ops/engine_hub.py``:
+The port's copy of ``dgl1_tpu/hub_format.py``: the single-device build,
+the typed identity mode (``identity_force``) and the forced cross-part
+geometry of the distributed layer (``force``, ``allow_empty``,
+``gb_always``; ``parallel/hub_shard.py``). It splits a graph's edges by
+destination in-degree into three tiers for ``ops/engine_hub.py``:
 
 * **dense**: groups of BLK hub rows whose edge count clears
   ``dense_floor`` (about num_src/2), stored as a static count matrix ``C``
@@ -14,9 +14,10 @@ edges by destination in-degree into three tiers for
 * **ELL tail**: every other edge, on the degree-bucketed ELL layout.
 
 The arrays and ``HubMeta`` equal those of ``dgl1_tpu/hub_format.py``
-for the same edges. One difference: counts in 128..256 are kept as
-float32 in numpy and cast to ``torch.bfloat16`` when the tensor is made
-(numpy has no bf16).
+for the same edges. One difference: ``dense_c`` is a torch tensor and
+counts in 128..256 are kept as float32 in numpy and cast to
+``torch.bfloat16`` when the tensor is made (numpy has no bf16); a forced
+``dense_dtype`` is a torch dtype.
 """
 
 from __future__ import annotations
@@ -126,6 +127,196 @@ def _chunk_descriptors(n_chunks_per_run: np.ndarray, run_starts: np.ndarray,
     return chunk_out, chunk_in, first
 
 
+def _ell_bucket(indptr, nbr_sorted, eid_sorted, rows, n_b: int, k: int):
+    """One ELL bucket of ``n_b`` rows of ``k`` slots, flattened: its first
+    ``len(rows)`` rows hold the edges of ``rows`` (their neighbour and
+    edge id, in sorted order), every other slot the sentinel ``1 << 30``
+    and edge id 0."""
+    deg = (indptr[rows + 1] - indptr[rows]).astype(np.int64)
+    mat = np.full((n_b, k), np.int64(1 << 30), dtype=np.int64)
+    emat = np.zeros((n_b, k), dtype=np.int64)
+    total = int(deg.sum())
+    if total:
+        flat_rows = np.repeat(np.arange(len(rows)), deg)
+        flat_cols = np.arange(total) - np.repeat(np.cumsum(deg) - deg, deg)
+        src_pos = np.repeat(indptr[rows].astype(np.int64), deg) + flat_cols
+        mat[flat_rows, flat_cols] = nbr_sorted[src_pos]
+        emat[flat_rows, flat_cols] = eid_sorted[src_pos]
+    return mat.reshape(-1), emat.reshape(-1)
+
+
+def _build_ell_fixed_rows(indptr: np.ndarray, nbr_sorted: np.ndarray,
+                          eid_sorted: np.ndarray, meta_fixed,
+                          row_base: int, num_target: int):
+    """ELL stack with its rows pinned to id order: bucket b of
+    ``meta_fixed`` ((k, n), ...) holds rows ``[row_base + off, row_base +
+    off + n)`` in id order, so a covered row's stack position is ``id -
+    row_base`` whatever this edge set's own degrees are. Rows of degree 0
+    here are all-sentinel phantom rows. Per-relation tail stacks built
+    on one superset meta share one merge order (the typed identity
+    layouts of ``transform.typed_subgraphs(identity=True)``). Raises
+    ValueError when a row's degree exceeds its bucket width. Returns
+    (meta, arrays) like ``graph._build_ell``."""
+    n_rows = int(sum(n for _, n in meta_fixed))
+    deg = np.diff(indptr[: num_target + 1]).astype(np.int64)
+    idx_parts, eid_parts = [], []
+    off = 0
+    for k, n_b in meta_fixed:
+        rows = np.arange(row_base + off, row_base + off + n_b,
+                         dtype=np.int64)
+        rows = rows[rows < num_target]
+        if int(deg[rows].max(initial=0)) > k:
+            raise ValueError(
+                f"fixed-row ELL: degree {int(deg[rows].max())} exceeds "
+                f"bucket width {k}")
+        idx_b, eid_b = _ell_bucket(indptr, nbr_sorted, eid_sorted, rows,
+                                   n_b, k)
+        idx_parts.append(idx_b)
+        eid_parts.append(eid_b)
+        off += n_b
+    inv_perm = np.full((num_target,), n_rows, dtype=ID_DTYPE)
+    covered = np.arange(row_base, min(row_base + n_rows, num_target),
+                        dtype=np.int64)
+    inv_perm[covered] = (covered - row_base).astype(ID_DTYPE)
+    idx = (np.concatenate(idx_parts) if idx_parts
+           else np.zeros(0, np.int64))
+    eid = (np.concatenate(eid_parts) if eid_parts
+           else np.zeros(0, np.int64))
+    return tuple(meta_fixed), {
+        "idx": idx.astype(ID_DTYPE),
+        "eid": eid.astype(ID_DTYPE),
+        "inv_perm": inv_perm,
+    }
+
+
+def _inflate_ell(meta, arrays, forced_meta):
+    """Pad an ELL layout to a forced bucket structure (the cross-part
+    geometry of the partitioned hub layouts): in each forced bucket (k,
+    N_k) the part's own rows at rung k come first, then empty rows (idx =
+    SENT). ``inv_perm`` is remapped to the inflated positions; rows past
+    the natural stack (zero degree) map to the inflated total."""
+    forced_meta = tuple(forced_meta)
+    if tuple(meta) == forced_meta:
+        return tuple(meta), arrays
+    nat = {int(k): int(n) for k, n in meta}
+    forced = {int(k): int(n) for k, n in forced_meta}
+    for k, n in nat.items():
+        if forced.get(k, 0) < n:
+            raise ValueError(
+                f"forced ELL meta {forced_meta} cannot hold natural "
+                f"bucket ({k}, {n})")
+    old_total = sum(n for _, n in meta)
+    new_total = sum(n for _, n in forced_meta)
+    idx_parts, eid_parts = [], []
+    # Old stacked row -> new stacked row; buckets differ in width, so the
+    # flat slot offsets are cumulative n_l * k_l.
+    pos_map = np.full((old_total + 1,), new_total, dtype=np.int64)
+    old_row_start, old_flat_start = {}, {}
+    rs = fs = 0
+    for k, n in meta:
+        old_row_start[int(k)] = rs
+        old_flat_start[int(k)] = fs
+        rs += n
+        fs += n * int(k)
+    new_s = 0
+    for k, n_forced in forced_meta:
+        k = int(k)
+        n_nat = nat.get(k, 0)
+        if n_nat:
+            ofs = old_flat_start[k]
+            ors = old_row_start[k]
+            idx_parts.append(arrays["idx"][ofs: ofs + n_nat * k])
+            eid_parts.append(arrays["eid"][ofs: ofs + n_nat * k])
+            pos_map[ors: ors + n_nat] = new_s + np.arange(n_nat)
+        pad_rows = n_forced - n_nat
+        if pad_rows:
+            idx_parts.append(np.full((pad_rows * k,), SENT, ID_DTYPE))
+            eid_parts.append(np.zeros((pad_rows * k,), ID_DTYPE))
+        new_s += n_forced
+    inv = np.minimum(arrays["inv_perm"].astype(np.int64), old_total)
+    out = dict(arrays)
+    out["idx"] = (np.concatenate(idx_parts) if idx_parts
+                  else np.zeros((0,), ID_DTYPE))
+    out["eid"] = (np.concatenate(eid_parts) if eid_parts
+                  else np.zeros((0,), ID_DTYPE))
+    out["inv_perm"] = pos_map[inv].astype(ID_DTYPE)
+    return forced_meta, out
+
+
+def union_ell_meta(metas):
+    """Smallest common forced bucket structure: per rung k, the most rows
+    any part has at exactly k (rows only pad wider, never move rungs)."""
+    ks = sorted({int(k) for m in metas for k, _ in m})
+    return tuple(
+        (k, max((int(n) for m in metas for kk, n in m if int(kk) == k),
+                default=0))
+        for k in ks)
+
+
+def ell_pos_map(meta_nat, meta_forced) -> np.ndarray:
+    """Natural stacked row -> forced (inflated) stacked row, by the rule
+    of :func:`_inflate_ell`; the identity-relabel planner
+    (``parallel/hub_shard.plan_identity_order``) assigns local ids with
+    it."""
+    nat = {int(k): int(n) for k, n in meta_nat}
+    old_total = sum(int(n) for _, n in meta_nat)
+    pos_map = np.full((old_total,), -1, dtype=np.int64)
+    old_start = {}
+    rs = 0
+    for k, n in meta_nat:
+        old_start[int(k)] = rs
+        rs += int(n)
+    new_s = 0
+    for k, n_forced in meta_forced:
+        k = int(k)
+        n_nat = nat.get(k, 0)
+        if n_nat:
+            ors = old_start[k]
+            pos_map[ors: ors + n_nat] = new_s + np.arange(n_nat)
+        new_s += int(n_forced)
+    return pos_map
+
+
+def _pad_chunk_layout(lay, target: int, bwd: bool, init_blocks: int = 0):
+    """Pad a chunk layout to ``target`` chunks with no-op chunks (empty
+    slots; first=0, out_id=0: they add nothing to block 0). With
+    ``init_blocks=n`` the no-op chunks are aimed (first=1) at the output
+    blocks in [0, n) that no real chunk starts, so the identity layouts,
+    whose forward copies the whole hub block, find every block written
+    (an all-empty chunk writes zeros)."""
+    n = lay["in_id"].shape[0]
+    if n > target:
+        raise ValueError(f"chunk count {n} exceeds forced target {target}")
+    if n == target and not init_blocks:
+        return lay
+    pad = target - n
+    out = dict(lay)
+    for k, fill in (("a", -1), ("b", -1), ("eid", 0)):
+        out[k] = np.concatenate(
+            [lay[k], np.full((pad * CHUNK,), fill, ID_DTYPE)])
+    for k in ("in_id", "out_id", "first"):
+        out[k] = np.concatenate([lay[k], np.zeros((pad,), ID_DTYPE)])
+    if init_blocks:
+        have = set(lay["out_id"][lay["first"] == 1].tolist())
+        missing = [g for g in range(int(init_blocks)) if g not in have]
+        if len(missing) > pad:
+            raise ValueError(
+                f"{len(missing)} uninitialized output blocks but only "
+                f"{pad} padded chunks (raise the forced chunk target)")
+        if missing:
+            out["out_id"][n: n + len(missing)] = np.asarray(
+                missing, ID_DTYPE)
+            out["first"][n: n + len(missing)] = 1
+    if bwd and "gperm" in lay:
+        out["gperm"] = np.concatenate(
+            [lay["gperm"], np.arange(n, target, dtype=ID_DTYPE)])
+        out["gout"] = np.concatenate(
+            [lay["gout"], np.zeros((pad,), ID_DTYPE)])
+        out["gfirst"] = np.concatenate(
+            [lay["gfirst"], np.zeros((pad,), ID_DTYPE)])
+    return out
+
+
 def _chunk_layouts(h_src, h_slot, h_eid, n_win: int, group_offset: int):
     """Forward (group-major) and backward (window-major) chunk layouts for
     one edge subset; output group ids shift by ``group_offset``."""
@@ -171,16 +362,21 @@ def _chunk_layouts(h_src, h_slot, h_eid, n_win: int, group_offset: int):
     return fwd, bwd, win_mask, fe, fa
 
 
-def _dense_counts(h_src, h_slot, num_src: int, n_src_pad: int, kd: int):
+def _dense_counts(h_src, h_slot, num_src: int, n_src_pad: int, kd: int,
+                  dtype=None):
     """Dense-tier count matrix ``C[s, k]`` = multiplicity of edge s -> hub
-    slot k, as a torch tensor: int8 for counts <= 127, bf16 up to 256
-    (exact there), float32 beyond."""
+    slot k, as a torch tensor: ``dtype`` when given (a forced geometry),
+    else int8 for counts <= 127, bf16 up to 256 (exact there), float32
+    beyond."""
     if not kd:
-        return torch.zeros((n_src_pad, 0), dtype=torch.float32)
+        return torch.zeros((n_src_pad, 0),
+                           dtype=torch.float32 if dtype is None else dtype)
     flat = h_src * kd + h_slot
     dense_c = np.zeros((n_src_pad, kd), dtype=np.float32)
     dense_c[:num_src] = np.bincount(
         flat, minlength=num_src * kd).astype(np.float32).reshape(num_src, kd)
+    if dtype is not None:
+        return torch.from_numpy(dense_c).to(dtype)
     cmax = dense_c.max(initial=0.0)
     if cmax <= 127:
         return torch.from_numpy(dense_c.astype(np.int8))
@@ -190,31 +386,46 @@ def _dense_counts(h_src, h_slot, num_src: int, n_src_pad: int, kd: int):
 
 def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
                      csc_eid: np.ndarray, csc_dst: np.ndarray,
-                     num_src: int, num_dst: int, num_edges: int, build_ell,
+                     num_src: int, num_dst: int, num_edges: int,
+                     num_padded: int, build_ell,
                      min_group_edges: Optional[int] = None,
                      dense_floor: Optional[int] = None,
-                     num_padded: Optional[int] = None,
+                     force: Optional[dict] = None,
+                     allow_empty: bool = False,
+                     gb_always: bool = False,
                      identity_force: Optional[dict] = None):
-    """Build the three-tier hub layout. Returns (HubMeta, arrays) or
-    (None, None) when no hub group clears the density bar (the engine then
-    declines and dispatch falls through to ELL). ``build_ell`` is
-    ``graph._build_ell``, reused for the tail in both directions. The
-    per-edge maps (``edge_to_fslot``, ``edge_to_tslot``,
-    ``diag_edge_dst``) cover ``num_padded`` edges (default
-    ``num_edges``), the padded ones holding the sentinel.
+    """Build the three-tier hub layout (the reference's signature and
+    argument order). Returns (HubMeta, arrays) or (None, None) when no
+    hub group clears the density bar (the engine then declines and
+    dispatch falls through to ELL). The csc arrays are dst-sorted; entries
+    past ``num_edges`` are ignored. ``build_ell`` is ``graph._build_ell``,
+    reused for the tail in both directions. The per-edge maps
+    (``edge_to_fslot``, ``edge_to_tslot``, ``diag_edge_dst``) cover
+    ``num_padded`` edges, the padded ones holding the sentinel.
+
+    ``force`` pins the static geometry to the cross-part union of the
+    partitioned hub layouts (``parallel/hub_shard.py``): ``n_groups`` /
+    ``n_dense`` (this part's dense groups keep slots [0, own_nd*128), its
+    chunked groups move up to start at n_dense*128, SENT slots between),
+    ``tail_meta_dst`` / ``tail_meta_src`` (buckets inflated by
+    :func:`_inflate_ell`), ``n_full_f`` / ``n_full_b`` / ``n_part_f`` /
+    ``n_part_b`` (no-op chunks), ``t_pad``, ``x_desc_len``,
+    ``gb_desc_len``, ``dense_dtype`` (a torch dtype), ``has_diag``,
+    ``covered``, ``identity_expand`` and optionally ``init_fwd_blocks``.
+    ``allow_empty`` builds an all-tail layout instead of returning None
+    (a part with no hub of its own). ``gb_always`` builds the fused
+    backward's descriptors without a dense tier (the measuring pass).
 
     ``identity_force`` (keys ``n_groups``, ``n_dense``,
-    ``tail_meta_dst``, ``build_ell_fixed``), the typed identity mode: hub
-    slots are pinned to ids ``[0, n_groups*128)`` and the dst tail stack
-    to the following ids in id order under the caller's bucket meta
-    (``build_ell_fixed`` is ``graph._build_ell_fixed_rows``), whatever
-    this edge set's own degrees are.
-    Every relation built on one superset graph's geometry then shares
-    its merge order, the node order, and claims ``identity_expand``;
-    slots and rows this edge set does not touch read zeros (empty count
-    columns, all-sentinel ELL rows). A tail edge to a row past the pinned
-    range raises ValueError."""
-    num_padded = num_edges if num_padded is None else int(num_padded)
+    ``tail_meta_dst``), the typed identity mode: hub slots are pinned to
+    ids ``[0, n_groups*128)`` and the dst tail stack to the following ids
+    in id order under the caller's bucket meta
+    (:func:`_build_ell_fixed_rows`), whatever this edge set's own degrees
+    are. Every relation built on one superset graph's geometry then
+    shares its merge order, the node order, and claims
+    ``identity_expand``; slots and rows this edge set does not touch read
+    zeros (empty count columns, all-sentinel ELL rows). A tail edge to a
+    row past the pinned range raises ValueError."""
     deg = np.diff(csc_indptr[: num_dst + 1]).astype(np.int64)
     n_win = -(-num_src // BLK)
     if min_group_edges is None:
@@ -226,8 +437,11 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
     if identity_force is not None:
         n_groups = int(identity_force["n_groups"])
         n_dense = int(identity_force["n_dense"])
+        NG, ND = n_groups, n_dense
         k_slots = n_groups * BLK
         rows_all = np.arange(min(k_slots, num_dst), dtype=np.int64)
+        rows_d = rows_all[: n_dense * BLK]
+        rows_c = rows_all[n_dense * BLK:]
     else:
         order_by_deg = np.argsort(-deg, kind="stable")
         group_edge_counts = []
@@ -241,27 +455,37 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
                 break
             group_edge_counts.append(group_edges)
             n_groups += 1
-        if n_groups == 0:
+        if n_groups == 0 and not (allow_empty or force is not None):
             return None, None
         n_dense = 0
         while (n_dense < min(n_groups, MAX_DENSE_GROUPS)
                and group_edge_counts[n_dense] >= dense_floor):
             n_dense += 1
-        k_slots = n_groups * BLK
-        rows_all = order_by_deg[:k_slots]
-    rows_d = rows_all[: n_dense * BLK]
-    rows_c = rows_all[n_dense * BLK:]
+        # The static geometry: this part's own counts or the forced union.
+        own_nd, own_ng = n_dense, n_groups
+        if force is not None:
+            NG, ND = int(force["n_groups"]), int(force["n_dense"])
+            if own_nd > ND or own_ng - own_nd > NG - ND:
+                raise ValueError(
+                    "forced group geometry smaller than natural")
+        else:
+            NG, ND = own_ng, own_nd
+        n_groups, n_dense = NG, ND
+        k_slots = NG * BLK
+        rows_all = order_by_deg[: own_ng * BLK]
+        rows_d = rows_all[: own_nd * BLK]
+        rows_c = rows_all[own_nd * BLK:]
     hub_ids = np.full((k_slots,), SENT, dtype=ID_DTYPE)
     hub_ids[: rows_d.size] = rows_d
-    hub_ids[n_dense * BLK: n_dense * BLK + rows_c.size] = rows_c
+    hub_ids[ND * BLK: ND * BLK + rows_c.size] = rows_c
     slot_of_row = np.full((num_dst,), SENT, dtype=ID_DTYPE)
     slot_of_row[rows_d] = np.arange(rows_d.size, dtype=ID_DTYPE)
-    slot_of_row[rows_c] = n_dense * BLK + np.arange(rows_c.size,
-                                                    dtype=ID_DTYPE)
+    slot_of_row[rows_c] = ND * BLK + np.arange(rows_c.size, dtype=ID_DTYPE)
 
-    # Split edges: hub set (dense/chunked) vs tail (ELL); the csc arrays
-    # are dst-sorted.
-    dst_e, src_e, eid_e = csc_dst, csc_src, csc_eid
+    # Split edges: hub set (dense/chunked) vs tail (ELL).
+    dst_e = csc_dst[:num_edges]
+    src_e = csc_src[:num_edges]
+    eid_e = csc_eid[:num_edges]
     slot_e = slot_of_row[dst_e]
     is_hub = slot_e != SENT
 
@@ -279,12 +503,21 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
         h_src[in_part], h_slot[in_part], h_eid[in_part], n_win,
         group_offset=n_dense,
     )
+    if force is not None:
+        init = bool(force.get("init_fwd_blocks", False))
+        full_fwd = _pad_chunk_layout(full_fwd, force["n_full_f"], False,
+                                     init_blocks=NG if init else 0)
+        full_bwd = _pad_chunk_layout(full_bwd, force["n_full_b"], True)
+        part_fwd = _pad_chunk_layout(part_fwd, force["n_part_f"], False,
+                                     init_blocks=(NG - ND) if init else 0)
+        part_bwd = _pad_chunk_layout(part_bwd, force["n_part_b"], True)
 
     # Rows padded to DENSE_RB: padding rows are zero and contribute nothing.
     kd = n_dense * BLK
     n_src_pad = -(-max(num_src, 1) // DENSE_RB) * DENSE_RB
-    dense_c = _dense_counts(h_src[~in_part], h_slot[~in_part], num_src,
-                            n_src_pad, kd)
+    dense_c = _dense_counts(
+        h_src[~in_part], h_slot[~in_part], num_src, n_src_pad, kd,
+        None if force is None else force.get("dense_dtype"))
 
     # Edge-id -> full-layout fwd slot (for grad_e extraction).
     edge_to_fslot = np.full((num_padded,), SENT, dtype=ID_DTYPE)
@@ -308,7 +541,7 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
                     "identity_force: tail edge to a row outside the "
                     "superset tail range (meta not from a superset "
                     "graph?)")
-            tail_meta_dst, tail_dst_ell = identity_force["build_ell_fixed"](
+            tail_meta_dst, tail_dst_ell = _build_ell_fixed_rows(
                 t_indptr, t_src, t_eid, meta_fx, k_slots, num_dst)
         else:
             tail_meta_dst, tail_dst_ell = build_ell(
@@ -324,6 +557,14 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
             r_indptr, t_dst[r_order], t_eid[r_order], num_src, n_tail,
             min_slots=tail_min_slots,
         )
+        if force is not None:
+            if identity_force is None:
+                # Pinned dst stacks are uniform across parts already;
+                # inflating would move their id-order positions.
+                tail_meta_dst, tail_dst_ell = _inflate_ell(
+                    tail_meta_dst, tail_dst_ell, force["tail_meta_dst"])
+            tail_meta_src, tail_src_ell = _inflate_ell(
+                tail_meta_src, tail_src_ell, force["tail_meta_src"])
 
         # Merge permutation: non-hub rows read the tail stack, hub rows
         # the dense/chunked block appended after it, empty rows the OOB
@@ -337,6 +578,10 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
 
         # Compact tail edge endpoints (grad_e without full-E gathers).
         t_pad = max(-(-max(n_tail, 1) // CHUNK) * CHUNK, CHUNK)
+        if force is not None:
+            if force["t_pad"] < t_pad:
+                raise ValueError("forced t_pad smaller than natural")
+            t_pad = force["t_pad"]
         tail_src_c = np.full((t_pad,), SENT, dtype=ID_DTYPE)
         tail_dst_c = np.full((t_pad,), SENT, dtype=ID_DTYPE)
         tail_src_c[:n_tail] = t_src
@@ -407,6 +652,11 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
     else:  # packing would overflow; the engine uses the fill-gather
         x_desc = np.zeros((0,), dtype=ID_DTYPE)
         x_starts_p = np.zeros((0,), dtype=ID_DTYPE)
+    if force is not None and n_merge_rows < EXPAND_PACK:
+        if force["x_desc_len"] < len(x_desc):
+            raise ValueError("forced x_desc_len smaller than natural")
+        # Entries past the final x_starts value are never read.
+        x_desc = np.pad(x_desc, (0, force["x_desc_len"] - len(x_desc)))
 
     # Fused-backward descriptors (src direction): grad_u's dense-tier
     # kernel adds the compact tail-src stack rows in its own output pass.
@@ -414,7 +664,7 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
     # by src row, per-DENSE_RB-block start offsets; each src row at most
     # once.
     n_src_rows_tail = int(sum(n for _, n in tail_meta_src))
-    if 0 < n_src_rows_tail < EXPAND_PACK and kd:
+    if 0 < n_src_rows_tail < EXPAND_PACK and (kd or gb_always):
         rv = full_tail["r_inv"].astype(np.int64)[:num_src]
         gvalid = np.flatnonzero(rv < n_src_rows_tail)
         gm = rv[gvalid]
@@ -428,6 +678,12 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
     else:
         gb_desc = np.zeros((0,), dtype=ID_DTYPE)
         gb_starts = np.zeros((0,), dtype=ID_DTYPE)
+    if force is not None and len(gb_starts):
+        if force["gb_desc_len"] < len(gb_desc):
+            raise ValueError("forced gb_desc_len smaller than natural")
+        gb_desc = np.pad(gb_desc, (0, force["gb_desc_len"] - len(gb_desc)))
+    if force is not None:
+        has_diag = bool(force.get("has_diag", has_diag))
 
     # Identity expand (hub_order relabel): destinations [0, k_slots) are
     # the hub slots in order and [k_slots, k_slots + n_tail_rows) the tail
@@ -444,6 +700,9 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
             np.arange(n_tail_rows, dtype=np.int64))
         and (ft_inv[n_merge:] == SENT).all()
     )
+    if force is not None:
+        # The meta is one for every part: the forced value.
+        identity_expand = bool(force.get("identity_expand", False))
     meta = HubMeta(
         n_full_f=len(full_fwd["in_id"]),
         n_full_b=len(full_bwd["in_id"]),
@@ -455,7 +714,8 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
         tail_meta_dst=tuple(tail_meta_dst),
         tail_meta_src=tuple(tail_meta_src),
         n_tail_rows=n_tail_rows,
-        covered=int(is_hub.sum()),
+        covered=(int(force["covered"]) if force is not None
+                 else int(is_hub.sum())),
         has_diag=has_diag,
         identity_expand=identity_expand,
     )

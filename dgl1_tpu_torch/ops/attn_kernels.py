@@ -53,6 +53,12 @@ __all__ = ["attn_fwd", "attn_bwd_src", "attn_bwd_grp", "ger_reduce",
 _BF16 = ("attn_fwd", "attn_bwd_src", "attn_bwd_grp")
 KERNELS = _BF16 + ("ger_reduce",) + tuple(f"{k}.bf16" for k in _BF16)
 LAUNCHES = {k: 0 for k in KERNELS}
+# K6 and K7 (to_src) given a layout with no chunk (a partition of a
+# sharded build without a hub edge of its own, once its forced no-op
+# chunks are dropped) return the plain versions' values for no slot
+# (zeros; mraw -1e30) without a launch, on either device, and count here.
+# K7 g-major and K8 launch on such a layout and write zeros.
+NO_WORK = {"attn_fwd": 0, "attn_bwd_src": 0}
 
 NEG = -1e30  # the reference's -inf stand-in
 # Widest head the kernels take: a head's features share one shared-memory
@@ -69,6 +75,8 @@ _M32 = 0xFFFFFFFF
 
 
 def reset_launches() -> None:
+    for k in NO_WORK:
+        NO_WORK[k] = 0
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
@@ -495,6 +503,13 @@ def attn_fwd(lay, el, er_g, ft, h: int, d: int, slope: float,
     _check_rows("er_g", er_g, n_groups * BLK, h, dev)
     _check_rows("ft", ft, el.shape[0], h * d, dev)
     seed_p, thresh, inv_keep = _drop_args(drop, seed, dev)
+    if n_chunks == 0:
+        # No slot: what the plain version gives, without a launch.
+        NO_WORK["attn_fwd"] += 1
+        z = torch.zeros((n_groups * BLK, h), dtype=torch.float32,
+                        device=dev)
+        return (torch.zeros((n_groups * BLK, h * d), dtype=torch.float32,
+                            device=dev), z, torch.full_like(z, NEG))
     if dev.type == "cpu":
         return attn_fwd_torch(lay, el, er_g, ft, h, d, slope, drop, seed,
                               n_groups, bf16)
@@ -556,6 +571,13 @@ def attn_bwd_src(lay, el, er_g, lse_g, rho_g, ft, ct_g, h: int, d: int,
         raise ValueError(
             f"attn_bwd_src sorts each batch of chunks in shared memory: "
             f"chunks of at most {MAX_SRC_CHUNK} slots, got {chunk}")
+    if n_chunks == 0:
+        NO_WORK["attn_bwd_src"] += 1
+        return (torch.zeros((n_win * BLK, h * d), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((n_win * BLK, h), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((0, h), dtype=torch.float32, device=dev))
     if dev.type == "cpu":
         return attn_bwd_src_torch(lay, el, er_g, lse_g, rho_g, ft, ct_g, h,
                                   d, slope, drop, seed, n_win, bf16)

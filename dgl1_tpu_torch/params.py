@@ -63,7 +63,11 @@ def from_jax_params(params) -> "OrderedDict[str, torch.Tensor]":
     ``predict``, ``l0``/``l1`` of ``models.HeteroRGCN``, ...) are the
     port's own. A flax ``Dense`` kernel is (in, out) and
     ``nn.Linear.weight`` is (out, in), so kernels are transposed; an
-    embedding table is (num, dim) in both."""
+    embedding table is (num, dim) in both. A flat dict of arrays keeps
+    its names and orientation: the sharded trainers' weights
+    (``parallel.train.init_gcn_params``' ``w1``/``b1``/``w2``/``b2``, the
+    sharded GAT layer's ``W``/``al``/``ar``, the tensor-parallel ``w1``/
+    ``w2``) multiply as ``x @ w`` in both packages."""
     if "params" in params:
         params = params["params"]
     out = OrderedDict()

@@ -125,23 +125,25 @@ def reorder_graph(g: Graph, node_permute_algo: str = "metis",
     the hub layout rebuilt (pass non-default hub floors through
     ``permute_config={'hub': ..., 'hub_dense_floor': ...}``);
     ``'custom'`` with ``permute_config={'nodes_perm': perm}``, ``perm[new]
-    = old``. ``'metis'`` needs the reference's partitioner, which is not
-    ported, and raises NotImplementedError. ``edge_permute_algo``:
+    = old``; ``'metis'``, nodes ordered by part
+    (``parallel.metis_partition_assignment``, ``permute_config={'k':
+    parts}``, default 8). ``edge_permute_algo``:
     ``'src'`` or ``'dst'`` (stable sort by the new id) or ``'custom'``
     (``permute_config={'edges_perm': ...}``). ``formats`` goes to
     :func:`graph`: ``('coo', 'csr', 'csc', 'ell', 'bdense')`` builds the
     block-dense layout on the reordered graph. With ``store_ids`` the old
     ids land in ``ndata['_ID']`` and ``edata['_ID']``. The signature is
-    the reference's, so its default, ``'metis'``, raises here too."""
+    the reference's."""
     cfg = permute_config or {}
     n = g.num_nodes()
     if node_permute_algo == "rcm":
         perm = rcm_order(g)
     elif node_permute_algo == "metis":
-        raise NotImplementedError(
-            "reorder_graph(node_permute_algo='metis') needs "
-            "parallel/partition.py::metis_partition_assignment, which is "
-            "not ported yet")
+        from dgl1_tpu_torch.parallel.partition import (
+            metis_partition_assignment)
+
+        part = metis_partition_assignment(g, int(cfg.get("k", 8)))
+        perm = np.argsort(part, kind="stable").astype(np.int64)
     elif node_permute_algo == "hub":
         from dgl1_tpu_torch.hub_format import hub_order
 
@@ -303,7 +305,7 @@ def typed_subgraphs(g: Graph, etypes, num_rels: int,
                      for r in range(int(num_rels)))
 
     from dgl1_tpu_torch import hub_format as hf
-    from dgl1_tpu_torch.graph import _build_ell, _build_ell_fixed_rows
+    from dgl1_tpu_torch.graph import _build_ell
 
     g2 = (reorder_graph(g, node_permute_algo="hub")
           if g.hub_dst is not None else g)
@@ -320,8 +322,7 @@ def typed_subgraphs(g: Graph, etypes, num_rels: int,
     n = g2.num_nodes()
     src2, dst2 = _coo(g2)
     ident = {"n_groups": m.n_groups, "n_dense": m.n_dense,
-             "tail_meta_dst": _typed_tail_meta(m, et2, dst2, num_rels),
-             "build_ell_fixed": _build_ell_fixed_rows}
+             "tail_meta_dst": _typed_tail_meta(m, et2, dst2, num_rels)}
     out = []
     for r in range(int(num_rels)):
         mask = et2 == r
@@ -329,8 +330,8 @@ def typed_subgraphs(g: Graph, etypes, num_rels: int,
                    formats=("coo", "csr", "csc", "ell"), device="cpu")
         mr, ar = hf.build_hub_format(
             gr.csc_indptr.numpy(), gr.csc_src.numpy(), gr.csc_eid.numpy(),
-            gr.csc_dst.numpy(), n, n, gr.num_edges(), _build_ell,
-            num_padded=gr.num_edges_padded(), identity_force=ident)
+            gr.csc_dst.numpy(), n, n, gr.num_edges(), gr.num_edges_padded(),
+            _build_ell, identity_force=ident)
         assert mr is not None and mr.identity_expand, (
             "identity_force build must give an identity layout")
         gr.hub_dst_meta, gr.hub_dst = mr, _tree_to(ar, "cpu")

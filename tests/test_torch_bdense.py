@@ -376,9 +376,18 @@ def test_reorder_graph_custom_and_errors():
     assert ident.bdense is None
     np.testing.assert_array_equal(ident.edata["_ID"].numpy(),
                                   np.arange(g.num_edges()))
-    with pytest.raises(NotImplementedError,
-                       match="metis_partition_assignment"):
-        tdgl.reorder_graph(g, node_permute_algo="metis")
+    # 'metis' orders nodes by the partitioner's parts, as the reference.
+    gj = jdgl.graph((src, dst), num_nodes=N)
+    for k in (2, 4):
+        cfg = {"k": k}
+        rj = jdgl.reorder_graph(gj, node_permute_algo="metis",
+                                permute_config=cfg)
+        rt = tdgl.reorder_graph(g, node_permute_algo="metis",
+                                permute_config=cfg)
+        np.testing.assert_array_equal(rt.ndata["_ID"].numpy(),
+                                      np.asarray(rj.ndata["_ID"]))
+        np.testing.assert_array_equal(rt.src.numpy(), np.asarray(rj.src))
+        np.testing.assert_array_equal(rt.dst.numpy(), np.asarray(rj.dst))
     with pytest.raises(ValueError, match="edge_permute_algo"):
         tdgl.reorder_graph(g, "rcm", edge_permute_algo="random")
 
@@ -441,8 +450,8 @@ def test_gcn_adam_steps_on_bdense_graph_match_reference():
 
 def test_reorder_graph_takes_the_reference_signature():
     """The reference's parameters in its order and with its defaults
-    (``'metis'`` first, which raises until the partitioner is ported);
-    ``store_ids=False`` leaves no ``_ID``."""
+    (``'metis'`` first: the reference's permutation at its default 8
+    parts); ``store_ids=False`` leaves no ``_ID``."""
     import inspect
 
     sig_t = inspect.signature(tdgl.reorder_graph)
@@ -451,8 +460,10 @@ def test_reorder_graph_takes_the_reference_signature():
         (p.name, p.default) for p in sig_j.parameters.values()]
     src, dst = band_edges()
     g = tdgl.graph((src, dst), num_nodes=N, device="cpu")
-    with pytest.raises(NotImplementedError, match="metis"):
-        tdgl.reorder_graph(g)
+    np.testing.assert_array_equal(
+        tdgl.reorder_graph(g).ndata["_ID"].numpy(),
+        np.asarray(jdgl.reorder_graph(
+            jdgl.graph((src, dst), num_nodes=N)).ndata["_ID"]))
     kept = tdgl.reorder_graph(g, "rcm")
     bare = tdgl.reorder_graph(g, "rcm", "src", False)
     assert "_ID" in kept.ndata and "_ID" in kept.edata

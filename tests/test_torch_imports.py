@@ -38,7 +38,12 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "nn.linear", "models.han", "sampling.neighbor",
             "sampling.negative", "dataloading.edge_dataloader",
             "dataloading.negative_sampler", "dataloading.inference",
-            "data.feature_store", "optim", "train")
+            "data.feature_store", "optim", "train", "parallel",
+            "parallel.partition", "parallel.graph_partition_book",
+            "parallel.halo", "parallel.hub_shard", "parallel.sharded_ops",
+            "parallel.train", "parallel.tp", "parallel.kvstore",
+            "parallel.dist_context", "parallel.dist_graph",
+            "parallel.dist_dataloader", "tools.dryrun_multichip")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -79,6 +84,11 @@ def test_entry_points_default_to_cuda():
                  lambda: tdgl.models.HeteroRGCN([("a", "r", "b")],
                                                 {"a": 2}, 2, 2),
                  lambda: tdgl.dataloading.EdgeDataLoader(g, [0], None),
-                 lambda: tdgl.dataloading.NodeDataLoader(g, [0], None)):
+                 lambda: tdgl.dataloading.NodeDataLoader(g, [0], None),
+                 # The distributed layer.
+                 lambda: tdgl.parallel.build_partitioned_graph(
+                     g, [0, 0, 1], 2).local(0),
+                 lambda: tdgl.parallel.train.init_gcn_params(2, 2, 2),
+                 lambda: tdgl.parallel.initialize("127.0.0.1:1", 1, 0)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
