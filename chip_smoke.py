@@ -194,6 +194,44 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    kernels' plain versions) and the assembled rows and gradients against
    the float64 oracle; and each kernel at partition 0's shapes against
    its float64 plain version, timed, as variants of its row;
+4i. the typed distributed layer (``parallel/hetero.py``), at world size 1
+   over NCCL (initialized before it): phase 4c's typed graph made a
+   one-ntype heterograph by ``to_heterogeneous`` and built at P = 1 with
+   ``hub=True, hub_identity=True`` (every relation must claim
+   ``identity_expand``; host seconds), dry run leg 9's model 128 -> 64 ->
+   40 with per-relation and self weights, Adam 1e-2, 5 steps (step-0
+   logits within 1e-4 of each logit's float64 abs sum against the float64
+   oracle; exact hub launches a step and no K3; ms a step, a 2-step
+   profile; K1 and K4a at relation 0's layout, F = 64 and 40, as
+   variants); then on the host mag graph (``scale=1``) built with
+   ``tiles=True`` at P = 1 (partitioner and build seconds): leg 9's model
+   at phase 4e's widths (paper features through ``w_in`` 128 -> 128,
+   embeddings of 128 for the other types, 128 -> 64 -> 349, Adam 1e-2, 3
+   steps; step-0 paper logits against the float64 oracle; K9 exactly:
+   forward once a relation with a tile and layer, reverse once a relation
+   whose output reaches the loss; a 2-step profile), the typed attention
+   (H = 2, D = 8) forward and gradient on the same build, K9 at the cites
+   relation's tiles as variants; then a 4-part greedy build of the
+   scale-40 mag graph with tiles (partitioner and build seconds), each
+   partition's local reduce of every relation (F = 64) forward and
+   gradient on the card in turn with the halo rows filled on the host,
+   each against the same call on the CPU and the assembled rows and
+   gradients against the float64 oracle, K9 at partition 0's cites tiles
+   as variants. Dry run legs 8-10 run with the others in 4h;
+4j. the message-passing front end (``function/``, ``core.py``): after
+   phase 4's GCN, the 2-layer GCN written through ``g.update_all(
+   fn.copy_u('h', 'm'), fn.sum('m', 'h'))`` on the arxiv graph, 128 -> 256
+   -> 40, sharing a ``models.GCN``'s weights (step-0 logits within 1e-4 of
+   each logit's float64 abs sum of that model's; 5 steps with exactly
+   phase 4's GCN launches a step); and one call of each builtin pair with
+   its backward, each held against the same call on a CPU copy of the
+   graph, launches counted: ``u_mul_e`` sum on the arxiv graph (K2 mul,
+   K5 mul), a UDF reduce on its ELL plan and ``apply_edges(u_dot_v)`` (no
+   kernel), ``copy_e`` sum on the R-GCN's sorted graph (K2 rhs, K5 rhs,
+   in 4c), ``multi_update_all`` on the mag heterograph (ELL, no kernel,
+   in 4e), ``copy_u`` max and sum on a sampled Reddit block (K10, K9, in
+   5) and ``copy_u`` sum on the 2^17 geometric block-dense graph (K11
+   both ways, in 4d);
 6. the ``{"kernels": [...]}`` line: ``launches_by_path`` holds each
    trainer run's count and ``launches`` their sum (every kernel above
    zero), then the last line
@@ -3798,6 +3836,755 @@ def phase_dist(dev, g_arx_host, r):
     return out, builds
 
 
+# ----------------------------------------------------------------------
+# Phase 4i: the typed distributed layer (dgl1_tpu_torch/parallel/hetero.py)
+# at world size 1 over NCCL, and the 4-part typed build run partition by
+# partition with the halo rows filled on the host.
+# ----------------------------------------------------------------------
+
+TYPED = dict(dims=(128, 64, 40), steps=5, lr=1e-2, mag_scale=1,
+             mag_steps=3, mag_dims=(128, 64, 349), attn_h=2, attn_d=8,
+             parts=4, part_scale=40, part_f=64)
+_EDGE_CHUNK = 1 << 21
+
+
+def _rel_edges(hg, dev):
+    """Each relation's real (src, dst) as long tensors on ``dev``."""
+    out = {}
+    for c in hg.canonical_etypes:
+        rel = hg[c]
+        e = rel.num_edges()
+        out[c] = (rel.src[:e].to(dev).long(), rel.dst[:e].to(dev).long())
+    return out
+
+
+def _typed_layer64(hg, edges, x, w, s, norm, absolute=False):
+    """One typed layer in float64 over the global graph: sum_r A_r (x[src]
+    W_r), 'right' normalized, + x W_self; with ``absolute`` every value by
+    its absolute value (each output then bounds the sum of the absolute
+    values of its terms). Edges in chunks to bound the gathered rows."""
+    ab = (lambda t: t.abs()) if absolute else (lambda t: t)
+    out, deg = {}, {}
+    for c, (src, dst) in edges.items():
+        st, _, dt = c
+        if st not in x:
+            continue
+        h = ab(x[st].double()) @ ab(w[c].detach().double())
+        y = h.new_zeros((hg.num_nodes(dt), h.shape[1]))
+        for i in range(0, src.shape[0], _EDGE_CHUNK):
+            y.index_add_(0, dst[i: i + _EDGE_CHUNK],
+                         h.index_select(0, src[i: i + _EDGE_CHUNK]))
+        out[dt] = out[dt] + y if dt in out else y
+        deg[dt] = deg.get(dt, 0) + torch.bincount(
+            dst, minlength=hg.num_nodes(dt)).double()
+    for nt in out:
+        if norm == "right":
+            out[nt] = out[nt] / deg[nt].clamp_min(1.0)[:, None]
+        if s is not None and nt in s:
+            out[nt] = out[nt] + ab(x[nt].double()) @ ab(
+                s[nt].detach().double())
+    return out
+
+
+def _typed_logits64(hg, edges, x, params, out_type, absolute=False):
+    """Two typed layers with relu between (abs with ``absolute``): leg 9's
+    logits in float64 from global inputs ``x`` {nt: (N_nt, F)}."""
+    h1 = _typed_layer64(hg, edges, x, params["w1"], params["s1"], "right",
+                        absolute)
+    h1 = {k: (v.abs() if absolute else torch.relu(v))
+          for k, v in h1.items()}
+    return _typed_layer64(hg, edges, h1, params["w2"], params["s2"],
+                          "right", absolute)[out_type]
+
+
+def _typed_step0(name, phg, pl, hg, dev, params, feats_global, out_type):
+    """Step-0 logits of leg 9's model on this one part against the
+    float64 oracle on the global graph, within 1e-4 of each logit's
+    float64 abs sum. ``feats_global`` {nt: (N_nt, F)} are the model's
+    inputs before ``w_in``; the part's embeddings stand for the rest."""
+    from dgl1_tpu_torch.parallel.hetero import make_sharded_rgcn_layer
+
+    layer = make_sharded_rgcn_layer(pl)
+    w_in = params.get("w_in")
+    x_loc = {nt: phg.shard_node_data(nt, v, 0).to(dev)
+             for nt, v in feats_global.items()}
+    with torch.no_grad():
+        h0 = {nt: v if w_in is None else v @ w_in for nt, v in x_loc.items()}
+        h0.update(params.get("emb", {}))
+        h1 = {nt: torch.relu(v) for nt, v in
+              layer(h0, params["w1"], params["s1"]).items()}
+        logits = layer(h1, params["w2"], params["s2"])[out_type]
+        got = phg.unshard_node_data(out_type, logits[None])
+        x = {nt: v.to(dev).double() for nt, v in feats_global.items()}
+        if w_in is not None:
+            x = {nt: v @ w_in.detach().double() for nt, v in x.items()}
+        for nt, v in params.get("emb", {}).items():
+            x[nt] = phg.unshard_node_data(nt, v.detach()[None]).double()
+        edges = _rel_edges(hg, dev)
+        ref = _typed_logits64(hg, edges, x, params, out_type)
+        xa = {nt: v.abs() for nt, v in x.items()}
+        bound_ = _typed_logits64(hg, edges, xa, params, out_type, True)
+    return logits_vs_abs(name, "float64 oracle", got, ref, bound_)
+
+
+def _typed_want(pl, layers_bwd):
+    """Exact hub launches a step of two typed layers whose relations all
+    carry a hub layout: per relation and layer K1 where a dense group
+    exists and K2 where a chunked one does, forward; backward for the
+    relations in ``layers_bwd`` (each layer's set): K4a (fused) or K4b,
+    and K2 again; no K3 on identity layouts."""
+    from dgl1_tpu_torch.ops.engine_hub import _use_fused_bwd
+
+    want = {"dense_fwd": 0, "chunk_sum": 0, "dense_bwd_fused": 0,
+            "dense_bwd": 0, "expand": 0}
+    for bwd in layers_bwd:
+        for c in pl.etypes:
+            m = pl.hub_meta[c]
+            chunked = m.n_groups > m.n_dense
+            want["dense_fwd"] += 1 if m.n_dense else 0
+            want["chunk_sum"] += 1 if chunked else 0
+            want["expand"] += 0 if m.identity_expand else 1
+            if c in bwd:
+                fused = _use_fused_bwd(m, pl.hub[c])
+                want["dense_bwd_fused"] += 1 if fused else 0
+                want["dense_bwd"] += 1 if (m.n_dense and not fused) else 0
+                want["chunk_sum"] += 1 if chunked else 0
+    return want
+
+
+def _run_typed_steps(name, dev, step, params, feats, labels, mask, steps):
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(step(params, feats, labels, mask))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    counts = all_launches()
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses {losses}")
+    return losses, step_s, counts
+
+
+def _typed_profile(phase, name, dev, step, params, feats, labels, mask):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(2):
+            step(params, feats, labels, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / 2
+    summarize_profile(phase, name, prof, 2, wall_ms,
+                      peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def typed_identity_setup(r):
+    """Phase 4c's typed graph as a one-ntype heterograph through
+    ``to_heterogeneous`` (relations '0'..'7'), on the host, and its
+    identity build at P = 1 (``hub=True, hub_identity=True``); host
+    seconds of each."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch.parallel.hetero import (build_partitioned_hetero,
+                                                hetero_partition_assignment)
+
+    t0 = time.perf_counter()
+    g = r["g"].to("cpu")
+    n = g.num_nodes()
+    g.ndata["_TYPE"] = torch.zeros(n, dtype=torch.int64)
+    g.ndata["_ID"] = torch.arange(n)
+    g.edata["_TYPE"] = r["et"].cpu()
+    hg = dgl.to_heterogeneous(g, ["_N"],
+                              [str(i) for i in range(RGCN["rels"])])
+    t1 = time.perf_counter()
+    part = hetero_partition_assignment(hg, 1, part_method="random")
+    t2 = time.perf_counter()
+    phg = build_partitioned_hetero(hg, part, 1, hub=True, hub_identity=True)
+    t3 = time.perf_counter()
+    bad = [c for c in phg.etypes if phg.hub.get(c) is None
+           or not phg.hub_meta[c].identity_expand]
+    if bad:
+        raise AssertionError(f"typed identity: no identity layout on {bad}")
+    log(json.dumps({"phase": "typed_identity_build", "to_heterogeneous_s":
+                    t1 - t0, "partition_s": t2 - t1, "build_s": t3 - t2,
+                    "relations": len(phg.etypes), "hub_rows": phg.hub_rows[
+                        phg.etypes[0]], "meta": repr(phg.hub_meta[
+                            phg.etypes[0]])}))
+    return hg, phg
+
+
+def phase_typed_identity(name, dev, hg, phg, rows):
+    """The typed identity sharded R-GCN at configuration #4's shape at
+    P = 1: 128 -> 64 -> 40 with per-relation and self weights, Adam 1e-2,
+    5 steps; step-0 logits against the float64 oracle; exact hub launches
+    a step and no K3; ms a step and a 2-step profile. K1 and K4a at
+    relation 0's layout (F = 64 and 40) join their rows as variants."""
+    from dgl1_tpu_torch.parallel.hetero import (init_typed_rgcn_params,
+                                                make_typed_rgcn_train_step)
+
+    in_f, hidden, classes = TYPED["dims"]
+    pl = phg.local(0, dev)
+    gen = torch.Generator().manual_seed(0)
+    n = hg.num_nodes("_N")
+    feat = torch.randn(n, in_f, generator=gen)
+    labels = torch.randint(0, classes, (n,), generator=gen)
+    params = init_typed_rgcn_params(pl, in_f, hidden, classes, "_N",
+                                    device=dev, generator=gen)
+    lerr, lrel = _typed_step0(name, phg, pl, hg, dev, params, {"_N": feat},
+                              "_N")
+    leaves = [x for v in params.values() for x in v.values()]
+    step = make_typed_rgcn_train_step(
+        pl, torch.optim.Adam(leaves, lr=TYPED["lr"]), classes, "_N")
+    feats = {"_N": phg.shard_node_data("_N", feat, 0).to(dev)}
+    y = phg.shard_node_data("_N", labels, 0).to(dev)
+    mask = torch.as_tensor(phg.node_mask["_N"][0], device=dev)
+    steps = TYPED["steps"]
+    losses, step_s, counts = _run_typed_steps(name, dev, step, params, feats,
+                                              y, mask, steps)
+    want = _typed_want(pl, [set(pl.etypes), set(pl.etypes)])
+    if want["expand"]:
+        raise AssertionError(f"{name}: a relation without identity expand")
+    expect_exact(name, counts, {k: v * steps for k, v in want.items()})
+    log(json.dumps({
+        "phase": "typed_identity_train", "path": name, "nodes": n,
+        "edges": hg.num_edges(), "relations": len(pl.etypes),
+        "dims": [in_f, hidden, classes], "steps": steps, "losses": losses,
+        "ms_per_step": [s * 1e3 for s in step_s],
+        "ms_per_step_after_first": float(np.mean(step_s[1:]) * 1e3),
+        "launches": {k: v for k, v in counts.items() if v},
+        "launches_per_step": want, "logits_err_vs_oracle64": lerr,
+        "logits_err_over_abs_sum": lrel,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+    _typed_profile("typed_identity_profile", name, dev, step, params, feats,
+                   y, mask)
+    c0 = pl.etypes[0]
+    hg0 = pl.hub_graph(c0)
+    for f in (hidden, classes):
+        for kname, case in (("dense_fwd", dense_fwd_case),
+                            ("dense_bwd_fused", dense_bwd_fused_case)):
+            row = case(f"typed_identity_rel0_f{f}", hg0, dev, f, seed=50,
+                       library=False)
+            rows[kname]["variants"].append(
+                {k: row[k] for k in VARIANT_KEYS if k in row})
+    return counts
+
+
+def phase_typed_mag(name, dev, hg_host):
+    """Leg 9's model at ogbn-mag's shape (phase 4e's widths: embeddings
+    128, 128 -> 64 -> 349 through a replicated ``w_in`` 128 -> 128, Adam
+    1e-2) on ``build_partitioned_hetero(tiles=True)`` at P = 1: partition
+    and build seconds, step-0 paper logits against the float64 oracle, 3
+    steps with K9 exactly: forward once a relation with edges and layer,
+    backward once for each relation whose output reaches the loss; then
+    the typed attention (H = 2, D = 8) forward and gradient on the same
+    build, and K9 at the cites relation's tiles as variants."""
+    from dgl1_tpu_torch.parallel.hetero import (
+        build_partitioned_hetero, hetero_partition_assignment,
+        init_typed_rgcn_params, make_sharded_hetero_attention,
+        make_typed_rgcn_train_step)
+
+    in_f, hidden, classes = TYPED["mag_dims"]
+    t0 = time.perf_counter()
+    # At P = 1 every partitioner gives the one part; "random" skips the
+    # greedy stream over 33M edges.
+    part = hetero_partition_assignment(hg_host, 1, part_method="random")
+    t1 = time.perf_counter()
+    phg = build_partitioned_hetero(hg_host, part, 1, tiles=True)
+    t2 = time.perf_counter()
+    pl = phg.local(0, dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(json.dumps({"phase": "typed_mag_build", "partition_s": t1 - t0,
+                    "build_s": t2 - t1, "to_card_s": t3 - t2,
+                    "scale": TYPED["mag_scale"],
+                    "edges": hg_host.num_edges(),
+                    "e_loc": {"/".join(c): v for c, v in
+                              phg.e_loc.items()}}))
+    gen = torch.Generator().manual_seed(3)
+    featureless = [nt for nt in pl.ntypes if nt != "paper"]
+    params = init_typed_rgcn_params(pl, in_f, hidden, classes, "paper",
+                                    proj_from=in_f, featureless=featureless,
+                                    device=dev, generator=gen)
+    feat = hg_host.nodes["paper"].data["feat"]
+    lerr, lrel = _typed_step0(name, phg, pl, hg_host, dev, params,
+                              {"paper": feat}, "paper")
+    leaves = [x for v in params.values() for x in (
+        v.values() if isinstance(v, dict) else [v])]
+    step = make_typed_rgcn_train_step(
+        pl, torch.optim.Adam(leaves, lr=TYPED["lr"]), classes)
+    feats = {"paper": phg.shard_node_data("paper", feat, 0).to(dev)}
+    y = phg.shard_node_data("paper", hg_host.nodes["paper"].data["label"],
+                            0).to(dev)
+    mask = torch.as_tensor(phg.node_mask["paper"][0], device=dev)
+    steps = TYPED["mag_steps"]
+    losses, step_s, counts = _run_typed_steps(name, dev, step, params, feats,
+                                              y, mask, steps)
+    # K9 launches where a layout has a tile (a relation with edges).
+    live = [c for c in pl.etypes if pl.tiles_fwd[c]["lid"].shape[0]]
+    l2_bwd = [c for c in pl.etypes if c[2] == "paper"
+              and pl.tiles_rev[c]["lid"].shape[0]]
+    l1_bwd = [c for c in pl.etypes if c[2] in {x[0] for x in l2_bwd}
+              and pl.tiles_rev[c]["lid"].shape[0]]
+    want = {"tile_sum": 2 * len(live) + len(l2_bwd) + len(l1_bwd)}
+    expect_exact(name, counts, {k: v * steps for k, v in want.items()})
+    log(json.dumps({
+        "phase": "typed_mag_train", "path": name,
+        "nodes": {nt: hg_host.num_nodes(nt) for nt in hg_host.ntypes},
+        "edges": hg_host.num_edges(), "dims": [in_f, hidden, classes],
+        "steps": steps, "losses": losses,
+        "ms_per_step": [s * 1e3 for s in step_s],
+        "ms_per_step_after_first": float(np.mean(step_s[1:]) * 1e3),
+        "launches": {k: v for k, v in counts.items() if v},
+        "launches_per_step": want, "relations_with_edges": len(live),
+        "backward_relations": [len(l2_bwd), len(l1_bwd)],
+        "logits_err_vs_oracle64": lerr, "logits_err_over_abs_sum": lrel,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+    _typed_profile("typed_mag_profile", name, dev, step, params, feats, y,
+                   mask)
+    # The typed attention on the same build, forward and gradient.
+    ah, ad = TYPED["attn_h"], TYPED["attn_d"]
+    agen = torch.Generator(device=dev).manual_seed(4)
+
+    def leaf(*shape):
+        return (torch.randn(*shape, device=dev, generator=agen)
+                * 0.1).requires_grad_(True)
+
+    el = {c: leaf(pl.n_loc[c[0]], ah) for c in pl.etypes}
+    er = {nt: leaf(pl.n_loc[nt], ah) for nt in pl.ntypes}
+    ft = {c: leaf(pl.n_loc[c[0]], ah, ad) for c in pl.etypes}
+    attn = make_sharded_hetero_attention(pl)
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = attn(el, er, ft)
+    val = sum((v ** 2).sum() for v in out.values())
+    val.backward()
+    torch.cuda.synchronize()
+    a_ms = (time.perf_counter() - t0) * 1e3
+    vals = [float(val.detach())] + [float(t.grad.abs().sum()) for t in (
+        *el.values(), *er.values(), *ft.values())]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"{name} attention: non-finite {vals[:4]}")
+    log(json.dumps({"phase": "typed_mag_attention", "path": name,
+                    "heads": ah, "head_dim": ad, "fwd_bwd_ms": a_ms,
+                    "value": vals[0], "launches": {
+                        k: v for k, v in all_launches().items() if v}}))
+    c = ("paper", "cites", "paper")
+    k9 = [typed_k9_variant(f"typed_mag_cites_{key}_f{f}", pl, key, c, n_src,
+                           f, dev)
+          for key, n_src, f in (("tiles_fwd", pl.n_comb("paper"), hidden),
+                                ("tiles_rev", pl.n_loc["paper"], classes))]
+    return counts, k9
+
+
+def typed_k9_variant(case, pl, key, c, n_src, f, dev):
+    """K9 at one relation's tile layout of a typed partition (``key``
+    'tiles_fwd' or 'tiles_rev') as a variant of its row: the layout with
+    the scratch row block its padding tiles aim at."""
+    t = dict(getattr(pl, key)[c])
+    t["block_mask"] = torch.cat([t["block_mask"],
+                                 t["block_mask"].new_zeros(1)])
+    row = tile_case(case, t, n_src, f, dev)
+    return {k: row[k] for k in VARIANT_KEYS if k in row}
+
+
+def _combined_ids(phg, nt, rank):
+    """Global id of each row of part ``rank``'s combined ``nt`` table; -1
+    on phantom rows and halo slots no relation reads."""
+    own = np.where(phg.node_mask[nt][rank], phg.orig_ids[nt][rank], -1)
+    m = phg.m_halo[nt]
+    if m == 0:
+        return own.astype(np.int64)
+    halo = np.full((phg.num_parts, m), -1, np.int64)
+    for q in range(phg.num_parts):
+        sid = phg.send_idx[nt][q, rank]
+        halo[q] = np.where(phg.node_mask[nt][q][sid],
+                           phg.orig_ids[nt][q][sid], -1)
+    live = np.zeros(phg.num_parts * m, bool)
+    n_loc = phg.n_loc[nt]
+    for c in phg.etypes:
+        if c[0] != nt:
+            continue
+        es, ed = phg.esrc[c][rank], phg.edst[c][rank]
+        used = (es >= n_loc) & (ed < phg.n_loc[c[2]])
+        live[es[used] - n_loc] = True
+    return np.concatenate([own.astype(np.int64),
+                           np.where(live, halo.reshape(-1), -1)])
+
+
+def phase_typed_parts(name, dev):
+    """A 4-part greedy build of ``synthetic_mag_heterograph(scale=40)``
+    with tiles (partitioner and build seconds), each partition's local
+    reduce of every relation (K9 forward and, for the gradient, reverse;
+    F = 64) on the card in turn with the halo rows filled on the host,
+    each against the same call on the CPU (the kernel's plain version),
+    then the assembled rows and gradients of each relation against the
+    float64 oracle; returns the counts and K9 at partition 0's cites tiles
+    (the variants of its row)."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch.parallel.hetero import (_local_rel_reduce,
+                                                build_partitioned_hetero,
+                                                hetero_partition_assignment)
+
+    p_, f = TYPED["parts"], TYPED["part_f"]
+    hg, _ = dgl.data.synthetic_mag_heterograph(scale=TYPED["part_scale"],
+                                               device="cpu")
+    t0 = time.perf_counter()
+    part = hetero_partition_assignment(hg, p_, part_method="greedy")
+    t1 = time.perf_counter()
+    phg = build_partitioned_hetero(hg, part, p_, tiles=True)
+    t2 = time.perf_counter()
+    gen = torch.Generator().manual_seed(31)
+    x = {nt: torch.randn(hg.num_nodes(nt), f, generator=gen)
+         for nt in hg.ntypes}
+    w = {nt: torch.randn(hg.num_nodes(nt), f, generator=gen)
+         for nt in hg.ntypes}
+    edges = _rel_edges(hg, dev)
+    reset_all_launches()
+    y_all = {c: torch.zeros(hg.num_nodes(c[2]), f, device=dev)
+             for c in hg.canonical_etypes}
+    g_all = {c: torch.zeros(hg.num_nodes(c[0]), f, device=dev)
+             for c in hg.canonical_etypes}
+    per_part = []
+    n_k9 = 0
+    for p in range(p_):
+        pl = phg.local(p, dev)
+        # K9 launches where a layout has a tile: forward, then reverse.
+        n_k9 += sum(int(t[c]["lid"].shape[0] > 0) for c in pl.etypes
+                    for t in (pl.tiles_fwd, pl.tiles_rev))
+        for c in hg.canonical_etypes:
+            st, _, dt = c
+            comb = phg.combined_from_global(st, x[st], p).to(
+                dev).requires_grad_(True)
+            oid = torch.as_tensor(np.where(phg.node_mask[dt][p],
+                                           phg.orig_ids[dt][p], -1),
+                                  device=dev)
+            cid = torch.as_tensor(_combined_ids(phg, st, p), device=dev)
+            y = _local_rel_reduce(pl, c, comb)
+            ct = torch.where((oid >= 0)[:, None],
+                             w[dt].to(dev).index_select(0, oid.clamp(min=0)),
+                             torch.zeros((), device=dev))
+            (gc,) = torch.autograd.grad((y * ct).sum(), comb)
+            _scatter_rows(y_all[c], oid, y.detach())
+            _scatter_rows(g_all[c], cid, gc)
+            per_part.append((p, c, comb.detach(), ct, y.detach(), gc))
+    torch.cuda.synchronize()
+    counts = all_launches()
+    errs = []
+    for p, c, comb, ct, y, gc in per_part:
+        pc, pd = phg.local(p, "cpu"), phg.local(p, dev)
+        cc = comb.cpu().requires_grad_(True)
+        yc = _local_rel_reduce(pc, c, cc)
+        (gcc,) = torch.autograd.grad((yc * ct.cpu()).sum(), cc)
+        with torch.no_grad():
+            ys = _local_rel_reduce(pd, c, comb.abs())
+        ca = comb.abs().requires_grad_(True)
+        (gs,) = torch.autograd.grad((_local_rel_reduce(pd, c, ca)
+                                     * ct.abs()).sum(), ca)
+        errs.append({"part": p, "rel": "/".join(c),
+                     "fwd": check(f"{name} {c} part {p} fwd vs plain", y,
+                                  yc.to(dev), ys),
+                     "bwd": check(f"{name} {c} part {p} bwd vs plain", gc,
+                                  gcc.to(dev), gs)})
+    oracle = []
+    for c, (src, dst) in edges.items():
+        st, _, dt = c
+        xs, ws = x[st].to(dev).double(), w[dt].to(dev).double()
+        ref = xs.new_zeros((hg.num_nodes(dt), f)).index_add_(
+            0, dst, xs.index_select(0, src))
+        scale = xs.new_zeros((hg.num_nodes(dt), f)).index_add_(
+            0, dst, xs.abs().index_select(0, src))
+        gref = xs.new_zeros(xs.shape).index_add_(0, src,
+                                                 ws.index_select(0, dst))
+        gscale = xs.new_zeros(xs.shape).index_add_(
+            0, src, ws.abs().index_select(0, dst))
+        oracle.append({"rel": "/".join(c), "edges": int(src.shape[0]),
+                       "fwd": check(f"{name} {c} fwd vs oracle", y_all[c],
+                                    ref.float(), scale),
+                       "bwd": check(f"{name} {c} bwd vs oracle", g_all[c],
+                                    gref.float(), gscale)})
+    expect_exact(name, counts, {"tile_sum": n_k9})
+    log(json.dumps({"phase": "typed_part_spmm", "path": name, "parts": p_,
+                    "scale": TYPED["part_scale"], "f": f,
+                    "edges": hg.num_edges(), "partition_s": t1 - t0,
+                    "build_s": t2 - t1,
+                    "m_halo": phg.m_halo, "launches": {
+                        k: v for k, v in counts.items() if v},
+                    "vs_oracle": oracle, "parts_vs_plain": errs}))
+    pl0 = phg.local(0, dev)
+    c = ("paper", "cites", "paper")
+    return counts, [typed_k9_variant(f"typed_part4_cites_{key}_p0", pl0,
+                                     key, c, n_src, f, dev)
+                    for key, n_src in (("tiles_fwd", pl0.n_comb("paper")),
+                                       ("tiles_rev", pl0.n_loc["paper"]))]
+
+
+# ----------------------------------------------------------------------
+# Phase 4j: the message-passing front end (function/, core.py): the GCN
+# written through update_all, and one call of each builtin pair, with its
+# backward, on the graph whose layout takes it.
+# ----------------------------------------------------------------------
+
+FRONT = dict(f=64, steps=5)
+
+
+class UpdateAllGCN(torch.nn.Module):
+    """``models.GCN``'s layers (their parameters), each aggregation
+    written as ``g.update_all(fn.copy_u('h', 'm'), fn.sum('m', 'h'))``
+    inside ``g.local_scope()``: the symmetric norms, the projection before
+    the aggregation where the layer narrows (GraphConv's order), the bias
+    after."""
+
+    def __init__(self, gcn):
+        super().__init__()
+        self.convs = gcn.layers
+
+    def forward(self, g, feat, generator=None):
+        from dgl1_tpu_torch import function as fn
+
+        n_out = g.out_degrees().float().clamp(min=1.0) ** -0.5
+        n_in = g.in_degrees().float().clamp(min=1.0) ** -0.5
+        h = feat
+        for i, conv in enumerate(self.convs):
+            h = h * n_out[:, None]
+            if conv.in_feats > conv.out_feats:
+                h = conv.weight(h)
+            with g.local_scope():
+                g.ndata["h"] = h
+                g.update_all(fn.copy_u("h", "m"), fn.sum("m", "h"))
+                h = g.ndata["h"]
+            if conv.in_feats <= conv.out_feats:
+                h = conv.weight(h)
+            h = h * n_in[:, None] + conv.bias
+            if i < len(self.convs) - 1:
+                h = torch.relu(h)
+        return h
+
+
+def phase_update_all_gcn(name, dev, g, gcn_counts):
+    """The 2-layer GCN through ``update_all`` on the arxiv graph, 128 ->
+    256 -> 40, sharing a ``models.GCN``'s weights: step-0 logits against
+    that model's within 1e-4 of each logit's float64 abs sum (the float64
+    oracle engine with every weight and feature by its absolute value), 5
+    Adam steps with exactly phase 4's GCN launches a step."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch import ops
+    from dgl1_tpu_torch.models import GCN
+
+    n, in_f, hidden, classes = g.num_nodes(), 128, 256, 40
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(n, in_f, device=dev, generator=gen)
+    labels = torch.randint(0, classes, (n,), device=dev, generator=gen)
+    gcn = GCN(in_f, hidden, classes, num_layers=2, dropout=0.0, device=dev,
+              generator=torch.Generator().manual_seed(2))
+    model = UpdateAllGCN(copy.deepcopy(gcn))
+    with torch.no_grad():
+        got = model(g, feat)
+        ref = gcn(g, feat)
+        a = copy.deepcopy(gcn).double()
+        for p in a.parameters():
+            p.abs_()
+        ops.set_engine("xla")
+        try:
+            bound_ = a(g, feat.abs().double())
+        finally:
+            ops.set_engine("auto")
+    lerr, lrel = logits_vs_abs(name, "models.GCN", got, ref, bound_)
+    del a, bound_, ref
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    res = dgl.train(g, feat, labels, model, steps=FRONT["steps"], lr=1e-2)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    want = per_step(gcn_counts, 5)
+    expect_exact(name, counts, {k: v * FRONT["steps"]
+                                for k, v in want.items()})
+    train_record("update_all_gcn_train", name, g, res, counts,
+                 FRONT["steps"], dims=[in_f, hidden, classes],
+                 launches_per_step_phase4=want,
+                 logits_err_vs_gcn=lerr, logits_err_over_abs_sum=lrel)
+    return counts
+
+
+def _frame(g, where):
+    """The frame dict ``where`` names: 'ndata', 'edata', 'srcdata' or
+    'nframes:<ntype>' (a heterograph's)."""
+    if where.startswith("nframes:"):
+        return g.nframes[where.split(":", 1)[1]]
+    return getattr(g, where)
+
+
+def _pair_call(g, inputs, call, absolute=False):
+    """``call(g)`` with ``inputs`` [(key, frame, cpu tensor, grad?)] put
+    into the frames on g's device (by absolute value with ``absolute``),
+    and the gradient of sum(out * ct) into each input that wants one;
+    ``ct`` a fixed draw of out's shape (by absolute value likewise)."""
+    dev = g.device
+    leaves = []
+    for key, where, base, rg in inputs:
+        t = (base.abs() if absolute else base).to(dev).requires_grad_(rg)
+        _frame(g, where)[key] = t
+        if rg:
+            leaves.append(t)
+    out = call(g)
+    ct = torch.randn(tuple(out.shape),
+                     generator=torch.Generator().manual_seed(9)).to(dev)
+    if absolute:
+        ct = ct.abs()
+    grads = torch.autograd.grad((out * ct).sum(), leaves) if leaves else []
+    return out.detach(), [gr.detach() for gr in grads]
+
+
+def frontend_pair(name, g_dev, g_cpu, inputs, call, expect=()):
+    """One front-end call with its backward on the card (counters zeroed
+    before and read after; each kernel in ``expect`` launched, and none
+    where ``expect`` is empty), held against the same call on the CPU copy
+    of the graph within the script's tolerance, its scale the same call
+    over absolute values."""
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out, grads = _pair_call(g_dev, inputs, call)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = all_launches()
+    launched = {k: v for k, v in counts.items() if v}
+    if expect:
+        expect_launches(name, counts, expect)
+    elif launched:
+        raise AssertionError(f"{name}: launched {launched}")
+    ref, rgrads = _pair_call(g_cpu, inputs, call)
+    sc, sgrads = _pair_call(g_cpu, inputs, call, absolute=True)
+    dev = out.device
+    errs = [check(f"{name} out", out, ref.to(dev), sc.abs().to(dev))]
+    for i, (a, b, s_) in enumerate(zip(grads, rgrads, sgrads)):
+        errs.append(check(f"{name} grad {i}", a, b.to(dev),
+                          s_.abs().to(dev)))
+    log(json.dumps({"phase": "frontend_pair", "path": name,
+                    "edges": g_dev.num_edges(), "out": list(out.shape),
+                    "ms_with_backward": ms, "launches": launched,
+                    "errs": errs}))
+    return counts
+
+
+def frontend_arxiv_pairs(dev, g):
+    """u_mul_e sum on the arxiv graph with a weight an edge (K2 mul, K5
+    mul), a UDF reduce on its ELL plan and apply_edges(u_dot_v) (no
+    kernel); returns each path's counts."""
+    from dgl1_tpu_torch import function as fn
+
+    f, n, e = FRONT["f"], g.num_nodes(), g.num_edges()
+    gc = g.to("cpu")
+    gen = torch.Generator().manual_seed(41)
+    h = torch.randn(n, f, generator=gen)
+    w = torch.rand(e, 1, generator=gen)
+    out = [("frontend_u_mul_e_sum_arxiv", frontend_pair(
+        "frontend_u_mul_e_sum_arxiv", g, gc,
+        [("h", "ndata", h, True), ("w", "edata", w, True)],
+        lambda x: x.update_all(fn.u_mul_e("h", "w", "m"),
+                               fn.sum("m", "o")),
+        ("chunk_mul", "edge_grad_mul")))]
+    if g.ell_dst is None:
+        raise AssertionError("the arxiv graph has no ELL layout")
+    h16 = h[:, :16].contiguous()
+    out.append(("frontend_udf_reduce_arxiv_ell", frontend_pair(
+        "frontend_udf_reduce_arxiv_ell", g, gc, [("h", "ndata", h16, True)],
+        lambda x: x.update_all(
+            fn.copy_u("h", "m"),
+            lambda nb: {"o": (nb.mailbox["m"] ** 2).sum(dim=1)}))))
+    out.append(("frontend_apply_edges_u_dot_v_arxiv", frontend_pair(
+        "frontend_apply_edges_u_dot_v_arxiv", g, gc,
+        [("h", "ndata", h16, True)],
+        lambda x: x.apply_edges(fn.u_dot_v("h", "h", "s")))))
+    for x in (g, gc):
+        for k in ("h", "o"):
+            x.ndata.pop(k, None)
+        for k in ("w", "s"):
+            x.edata.pop(k, None)
+    return out
+
+
+def frontend_copy_e(dev, g_sorted):
+    """copy_e sum on the R-GCN's relation-sorted graph at he = 64 (K2 rhs,
+    K5 rhs)."""
+    from dgl1_tpu_torch import function as fn
+
+    e = g_sorted.num_edges()
+    w = torch.randn(e, FRONT["f"], generator=torch.Generator().manual_seed(42))
+    name = "frontend_copy_e_sum_rgcn"
+    counts = frontend_pair(
+        name, g_sorted, g_sorted.to("cpu"), [("w", "edata", w, True)],
+        lambda x: x.update_all(fn.copy_e("w", "m"), fn.sum("m", "o")),
+        ("chunk_rhs", "edge_grad_rhs"))
+    g_sorted.edata.pop("w", None)
+    g_sorted.ndata.pop("o", None)
+    return [(name, counts)]
+
+
+def frontend_block(dev, block):
+    """copy_u max (K10) and sum (K9 in the backward) on one sampled Reddit
+    block."""
+    from dgl1_tpu_torch import function as fn
+
+    bc = block.to("cpu")
+    x = torch.randn(block.num_src_nodes(), FRONT["f"],
+                    generator=torch.Generator().manual_seed(43))
+    out = []
+    for red, kern in (("max", "tile_minmax"), ("sum", "tile_sum")):
+        name = f"frontend_copy_u_{red}_reddit_block"
+        out.append((name, frontend_pair(
+            name, block, bc, [("h", "srcdata", x, True)],
+            lambda g, red=red: g.update_all(fn.copy_u("h", "m"),
+                                            getattr(fn, red)("m", "o")),
+            (kern,))))
+    return out
+
+
+def frontend_bdense(dev, g17):
+    """copy_u sum on the 2^17 geometric block-dense graph (K11 both
+    ways)."""
+    from dgl1_tpu_torch import function as fn
+
+    x = torch.randn(g17.num_nodes(), FRONT["f"],
+                    generator=torch.Generator().manual_seed(44))
+    name = "frontend_copy_u_sum_geo2e17"
+    counts = frontend_pair(
+        name, g17, g17.to("cpu"), [("h", "ndata", x, True)],
+        lambda g: g.update_all(fn.copy_u("h", "m"), fn.sum("m", "o")),
+        ("block_fwd", "block_bwd"))
+    for k in ("h", "o"):
+        g17.ndata.pop(k, None)
+    return [(name, counts)]
+
+
+def frontend_mag(dev, hg, hg_host):
+    """multi_update_all on the mag heterograph: copy_u sum on every
+    relation (no relation clears the hub bar: the ELL engine, no kernel),
+    summed across relations."""
+    from dgl1_tpu_torch import function as fn
+
+    gen = torch.Generator().manual_seed(45)
+    inputs = [("hx", f"nframes:{nt}", torch.randn(hg.num_nodes(nt), 8,
+                                                  generator=gen), True)
+              for nt in hg.ntypes]
+    spec = {c: (fn.copy_u("hx", "m"), fn.sum("m", "ox"))
+            for c in hg.canonical_etypes}
+    name = "frontend_multi_update_all_mag"
+
+    def call(g):
+        return torch.cat([v.reshape(-1) for _, v in sorted(
+            g.multi_update_all(spec, "sum").items())])
+
+    counts = frontend_pair(name, hg, hg_host, inputs, call)
+    for x in (hg, hg_host):
+        for fr in x.nframes.values():
+            for k in ("hx", "ox"):
+                fr.pop(k, None)
+    return [(name, counts)]
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -3917,6 +4704,13 @@ def main():
                                           per_step(steps[path], 5))
     profile_gat(dev, g_arx)
     profile_gcn(dev, g_arx)
+    # Phase 4j: the message-passing front end on the arxiv graph: the GCN
+    # through update_all (phase 4's launches a step), u_mul_e sum (K2 mul,
+    # K5 mul), a UDF reduce on the ELL plan and apply_edges(u_dot_v).
+    main_counts.append(("update_all_gcn_arxiv_train", phase_update_all_gcn(
+        "update_all_gcn_arxiv_train", dev, g_arx,
+        steps["gcn_arxiv_train"])))
+    main_counts += frontend_arxiv_pairs(dev, g_arx)
     # Phase 4g: link prediction on the arxiv graph (a host copy samples),
     # then layer-wise inference against the full-graph forward.
     main_counts.append(("link_pred_arxiv_train", phase_link_pred(
@@ -3937,6 +4731,7 @@ def main():
         dev, "rgcn", (r["g"], r["rel"]),
         per_step(dict(main_counts)["rgcn_perrel_train"], 5))
     profile_rgcn(dev, r)
+    main_counts += frontend_copy_e(dev, r["g_sorted"])
 
     # Phase 4e: typed graphs and heterographs. The identity relation
     # layouts and the union block (K1 and K4a on them as variants, then
@@ -3951,12 +4746,22 @@ def main():
         ("rgcn_union_train", phase_rgcn_typed(
             "rgcn_union_train", dev, r, tl, union=True)),
     ]
-    del r, tl
+    del tl
+    # Phase 4i: the typed distributed layer at world size 1 over NCCL: the
+    # typed identity R-GCN on phase 4c's graph (K1, K2, K4a, no K3).
+    t4i = time.perf_counter()
+    phase_dist_init()
+    hg_id, phg_id = typed_identity_setup(r)
+    main_counts.append(("typed_identity_rgcn_train", phase_typed_identity(
+        "typed_identity_rgcn_train", dev, hg_id, phg_id, rows)))
+    del r, hg_id, phg_id
+    t4i = time.perf_counter() - t4i
     torch.cuda.empty_cache()
     hg_host, hg, split = mag_setup(dev)
     main_counts.append(("hetero_rgcn_mag_train", phase_mag_rgcn(
         "hetero_rgcn_mag_train", dev, hg,
         torch.as_tensor(split["train"], device=dev))))
+    main_counts += frontend_mag(dev, hg, hg_host)
     del hg
     torch.cuda.empty_cache()
     # Phase 4f: the sampled R-GCN of examples/train_rgcn_sampled.py on the
@@ -3965,7 +4770,19 @@ def main():
     counts, mag_k9 = phase_sampled_rgcn_mag("sampled_rgcn_mag_train", dev,
                                             hg_host, split)
     main_counts.append(("sampled_rgcn_mag_train", counts))
+    # Phase 4i on the mag graph: leg 9's model at P = 1 on the tile
+    # layouts (K9 a relation), the typed attention, then the 4-part build
+    # of the scale-40 graph partition by partition.
+    t0 = time.perf_counter()
+    counts, typed_k9 = phase_typed_mag("typed_mag_rgcn_train", dev, hg_host)
+    main_counts.append(("typed_mag_rgcn_train", counts))
     del hg_host, split
+    torch.cuda.empty_cache()
+    counts, k9 = phase_typed_parts("typed_part4_mag_scale40", dev)
+    main_counts.append(("typed_part4_mag_scale40", counts))
+    typed_k9 += k9
+    log(json.dumps({"phase": "typed_dist_done", "seconds":
+                    t4i + time.perf_counter() - t0}))
     torch.cuda.empty_cache()
     main_counts.append(("han_train", phase_han("han_train", dev)))
     log(json.dumps({"phase": "hetero_done",
@@ -3982,8 +4799,10 @@ def main():
     _, _, blocks = NeighborSampler(REDDIT["fanouts"]).sample_blocks(
         r["g"], r["train_ids"][:REDDIT["batch"]],
         rng=np.random.default_rng(0))
-    rows.update(phase_tile_kernels(dev, [b.to(dev) for b in blocks]))
-    rows["tile_sum"]["variants"] += mag_k9
+    blocks = [b.to(dev) for b in blocks]
+    rows.update(phase_tile_kernels(dev, blocks))
+    rows["tile_sum"]["variants"] += mag_k9 + typed_k9
+    main_counts += frontend_block(dev, blocks[0])
     del blocks
     loader = reddit_loader(r, dev)
     it = iter(loader)
@@ -4015,6 +4834,7 @@ def main():
     t4d = time.perf_counter()
     bg = bdense_setup(dev)
     rows.update(phase_block_kernels(dev, bg))
+    main_counts += frontend_bdense(dev, bg["g17"])
     bdense_gspmm_path("bdense_geo2e20_f128", bg["g20"], dev, 128)
     rcm_route(dev, bg)
     g20 = bg["g20"]

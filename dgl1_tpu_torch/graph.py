@@ -43,7 +43,8 @@ from dgl1_tpu_torch.hub_format import (  # noqa: F401
     _build_ell_fixed_rows, _ell_bucket)
 
 __all__ = ["Graph", "graph", "block", "create_block", "rand_graph",
-           "resolve_device", "TILE_EDGES", "TILE_ROWS"]
+           "rand_bipartite", "from_scipy", "resolve_device", "TILE_EDGES",
+           "TILE_ROWS"]
 
 ID_DTYPE = np.int32
 
@@ -177,9 +178,14 @@ class Graph:
         deg = torch.diff(self.csr_indptr)
         return deg if u is None else deg[u]
 
-    def edges(self):
-        """(src, dst) in user edge order (padded length)."""
-        return self.src, self.dst
+    def edges(self, order: str = "eid"):
+        """(src, dst) in user edge order (padded length), or with
+        ``order="srcdst"`` sorted by source (the CSR order)."""
+        if order == "eid":
+            return self.src, self.dst
+        if order == "srcdst":
+            return self.csr_src, self.csr_dst
+        raise ValueError(f"unknown order {order!r}")
 
     def to(self, device) -> "Graph":
         """A new Graph with every tensor on ``device`` (same metadata)."""
@@ -226,6 +232,362 @@ class Graph:
             g.ndata.update(self.ndata)
         return g
 
+    # -- the DGL surface: counts, names and queries (host side) ---------
+    @property
+    def number_of_nodes(self):
+        return self.num_nodes
+
+    @property
+    def number_of_edges(self):
+        return self.num_edges
+
+    def number_of_src_nodes(self) -> int:
+        return self._num_src_nodes
+
+    def number_of_dst_nodes(self) -> int:
+        return self._num_dst_nodes
+
+    def num_real_edges(self) -> int:
+        """The real edge count; a static-shape block's is in
+        ``meta['num_real_edges']``."""
+        return int(self.meta.get("num_real_edges", self._num_edges))
+
+    @property
+    def is_padded(self) -> bool:
+        return self.num_edges_padded() != self._num_edges
+
+    @property
+    def ntypes(self):
+        return ["_N"]
+
+    @property
+    def etypes(self):
+        return ["_E"]
+
+    @property
+    def canonical_etypes(self):
+        return [("_N", "_E", "_N")]
+
+    @property
+    def is_homogeneous(self) -> bool:
+        return True
+
+    @property
+    def idtype(self):
+        return self.src.dtype
+
+    def long(self) -> "Graph":
+        """``DGLGraph.long``: the ids keep their int32 tensors."""
+        return self
+
+    def formats(self, formats=None):
+        """No argument: {'created': [...], 'not created': [...]} of the
+        layouts. With a format name or list: a new graph rebuilt from the
+        edge list with only those layouts (COO and CSC always), the frames
+        carried over."""
+        if formats is None:
+            created = ["coo", "csc"] + (["csr"] if self.csr_indptr is not
+                                        None else [])
+            for name, field in (("tile", self.tdst), ("ell", self.ell_dst),
+                                ("hub", self.hub_dst),
+                                ("bdense", self.bdense)):
+                if field is not None:
+                    created.append(name)
+            universe = ["coo", "csr", "csc", "tile", "ell", "hub", "bdense"]
+            return {"created": created,
+                    "not created": [f for f in universe
+                                    if f not in created]}
+        if isinstance(formats, str):
+            formats = (formats,)
+        e = self._num_edges
+        src = self.src[:e].cpu().numpy()
+        dst = self.dst[:e].cpu().numpy()
+        if self._is_block:
+            g2 = block((src, dst), num_src_nodes=self._num_src_nodes,
+                       num_dst_nodes=self._num_dst_nodes,
+                       pad_edges_to=self.num_edges_padded(),
+                       formats=tuple(formats), device=self.device)
+            g2.srcdata.update(self.srcdata)
+            g2.dstdata.update(self.dstdata)
+        else:
+            g2 = graph((src, dst), num_nodes=self._num_src_nodes,
+                       pad_edges_to=self.num_edges_padded(),
+                       formats=tuple(formats), device=self.device)
+            g2.ndata.update(self.ndata)
+        g2.edata.update(self.edata)
+        return g2
+
+    def create_formats_(self) -> "Graph":
+        """``DGLGraph.create_formats_``: layouts are built at
+        construction; nothing to do."""
+        return self
+
+    def _host(self, name):
+        return getattr(self, name).cpu().numpy()
+
+    def _need_csr(self):
+        if self.csr_indptr is None:
+            raise ValueError("this graph was built without CSR "
+                             "(formats=); the query needs it")
+
+    def nodes(self, ntype=None):
+        """All node ids."""
+        if self._is_block:
+            raise ValueError("nodes() is ambiguous on a block")
+        return torch.arange(self.num_nodes(), device=self.device)
+
+    def srcnodes(self):
+        return torch.arange(self._num_src_nodes, device=self.device)
+
+    def dstnodes(self):
+        return torch.arange(self._num_dst_nodes, device=self.device)
+
+    def has_nodes(self, vid):
+        """Whether the ids are valid node ids (ambiguous on a block)."""
+        v = _as_host(vid)
+        out = (v >= 0) & (v < self.num_nodes())
+        return bool(out) if out.ndim == 0 else out
+
+    def all_edges(self, order: str = "eid"):
+        return self.edges(order)
+
+    def find_edges(self, eid):
+        """(src, dst) of the given edge ids."""
+        eid = torch.as_tensor(_as_host(eid), device=self.device).long()
+        return self.src[eid], self.dst[eid]
+
+    def _csr_hits(self, u, v):
+        self._need_csr()
+        indptr, col = self._host("csr_indptr"), self._host("csr_dst")
+        for uu, vv in zip(u, v):
+            lo, hi = int(indptr[uu]), int(indptr[uu + 1])
+            yield lo, np.nonzero(col[lo:hi] == vv)[0]
+
+    def edge_ids(self, u, v, return_uv: bool = False):
+        """The edge id of each (u[i] -> v[i]), the first in CSR order
+        (raises where there is none); with ``return_uv`` every parallel
+        edge as (u, v, eid) arrays."""
+        u = _as_host(u).astype(np.int64).reshape(-1)
+        v = _as_host(v).astype(np.int64).reshape(-1)
+        eid = self._host("csr_eid").astype(np.int64)
+        if return_uv:
+            us, vs, es = [], [], []
+            for (lo, hits), uu, vv in zip(self._csr_hits(u, v), u, v):
+                us.append(np.full(len(hits), uu, np.int64))
+                vs.append(np.full(len(hits), vv, np.int64))
+                es.append(eid[lo + hits])
+            return _cat(us), _cat(vs), _cat(es)
+        out = np.empty(len(u), dtype=np.int64)
+        for i, ((lo, hits), uu, vv) in enumerate(zip(self._csr_hits(u, v),
+                                                    u, v)):
+            if len(hits) == 0:
+                raise KeyError(f"no edge ({int(uu)} -> {int(vv)})")
+            out[i] = eid[lo + hits[0]]
+        return out if out.size != 1 else out[0]
+
+    def has_edges_between(self, u, v):
+        """Whether each edge (u[i] -> v[i]) exists."""
+        u = _as_host(u).astype(np.int64).reshape(-1)
+        v = _as_host(v).astype(np.int64).reshape(-1)
+        out = np.array([len(h) > 0 for _, h in self._csr_hits(u, v)],
+                       dtype=bool)
+        return out if out.size != 1 else bool(out[0])
+
+    def successors(self, v: int):
+        """Out-neighbors of node ``v``."""
+        self._need_csr()
+        indptr = self._host("csr_indptr")
+        return self._host("csr_dst")[int(indptr[v]):int(indptr[v + 1])]
+
+    def predecessors(self, v: int):
+        """In-neighbors of node ``v``."""
+        indptr = self._host("csc_indptr")
+        return self._host("csc_src")[int(indptr[v]):int(indptr[v + 1])]
+
+    def _edges_of(self, nodes, prefix, incoming: bool, form: str):
+        nodes = _as_host(nodes).astype(np.int64).reshape(-1)
+        indptr = self._host(f"{prefix}_indptr")
+        other = self._host(f"{prefix}_{'src' if incoming else 'dst'}")
+        eid = self._host(f"{prefix}_eid")
+        us, vs, es = [], [], []
+        for n in nodes:
+            lo, hi = int(indptr[n]), int(indptr[n + 1])
+            o = other[lo:hi].astype(np.int64)
+            s = np.full(hi - lo, n, np.int64)
+            us.append(o if incoming else s)
+            vs.append(s if incoming else o)
+            es.append(eid[lo:hi].astype(np.int64))
+        u, v, e = _cat(us), _cat(vs), _cat(es)
+        if form == "uv":
+            return u, v
+        if form == "eid":
+            return e
+        if form == "all":
+            return u, v, e
+        raise ValueError(f"unknown form {form!r}")
+
+    def in_edges(self, v, form: str = "uv"):
+        """Edges whose destination is in ``v``."""
+        return self._edges_of(v, "csc", True, form)
+
+    def out_edges(self, u, form: str = "uv"):
+        """Edges whose source is in ``u``."""
+        self._need_csr()
+        return self._edges_of(u, "csr", False, form)
+
+    def subgraph(self, nodes):
+        """Node-induced subgraph (``DGLGraph.subgraph``)."""
+        from dgl1_tpu_torch.transform import node_subgraph
+
+        return node_subgraph(self, nodes)
+
+    def adjacency_matrix(self, transpose: bool = False, scipy_fmt=None,
+                         etype=None):
+        """``A[dst, src] = 1`` (the g-SpMM orientation), or its transpose:
+        a dense tensor on the graph's device, or with ``scipy_fmt`` in
+        {'coo', 'csr', 'csc'} a scipy sparse matrix."""
+        from scipy import sparse as sp
+
+        e = self.num_real_edges()
+        src, dst = self._host("src")[:e], self._host("dst")[:e]
+        rows, cols = (src, dst) if transpose else (dst, src)
+        shape = ((self._num_src_nodes, self._num_dst_nodes) if transpose
+                 else (self._num_dst_nodes, self._num_src_nodes))
+        mat = sp.coo_matrix((np.ones(e, np.float32), (rows, cols)),
+                            shape=shape)
+        if scipy_fmt is not None:
+            return mat.asformat(scipy_fmt)
+        return torch.as_tensor(mat.toarray(), device=self.device)
+
+    def incidence_matrix(self, typestr: str = "both", scipy_fmt=None):
+        """(N, E) node-edge incidence: ``'in'`` M[v, e] = 1 at e's
+        destination, ``'out'`` M[u, e] = 1 at its source, ``'both'`` -1 at
+        the source and 1 at the destination (0 for a self-loop)."""
+        from scipy import sparse as sp
+
+        e = self.num_real_edges()
+        src, dst = self._host("src")[:e], self._host("dst")[:e]
+        eids = np.arange(e)
+        if typestr == "in":
+            rows, cols, vals = dst, eids, np.ones(e, np.float32)
+        elif typestr == "out":
+            rows, cols, vals = src, eids, np.ones(e, np.float32)
+        elif typestr == "both":
+            keep = src != dst
+            k = int(keep.sum())
+            rows = np.concatenate([src[keep], dst[keep]])
+            cols = np.concatenate([eids[keep], eids[keep]])
+            vals = np.concatenate([-np.ones(k, np.float32),
+                                   np.ones(k, np.float32)])
+        else:
+            raise ValueError(f"unknown incidence typestr {typestr!r}")
+        mat = sp.coo_matrix((vals, (rows, cols)),
+                            shape=(self.num_nodes(), e))
+        if scipy_fmt is not None:
+            return mat.asformat(scipy_fmt)
+        return torch.as_tensor(mat.toarray(), device=self.device)
+
+    adj = adjacency_matrix
+    inc = incidence_matrix
+
+    def is_multigraph(self) -> bool:
+        """True when some (u, v) pair repeats."""
+        e = self.num_real_edges()
+        if e == 0:
+            return False
+        key = (self._host("src")[:e].astype(np.int64)
+               * max(self._num_dst_nodes, 1)
+               + self._host("dst")[:e].astype(np.int64))
+        return len(np.unique(key)) < e
+
+    def node_attr_schemes(self):
+        return {k: (tuple(v.shape[1:]), v.dtype)
+                for k, v in self.ndata.items()}
+
+    def edge_attr_schemes(self):
+        return {k: (tuple(v.shape[1:]), v.dtype)
+                for k, v in self.edata.items()}
+
+    def clone(self) -> "Graph":
+        """The same structure tensors with new frame dicts."""
+        import copy
+
+        new = copy.copy(self)
+        new.meta = dict(self.meta)
+        new.ndata = dict(self.ndata)
+        new.edata = dict(self.edata)
+        if self._is_block:
+            new.srcdata = dict(self.srcdata)
+            new.dstdata = dict(self.dstdata)
+        else:
+            new.srcdata = new.dstdata = new.ndata
+        return new
+
+    def local_var(self) -> "Graph":
+        """A view whose frame writes do not reach this graph."""
+        return self.clone()
+
+    def local_scope(self):
+        """Context manager that restores the frames on exit, also on an
+        exception."""
+        return _LocalScope(self)
+
+    # -- message passing (``core.py``) ------------------------------------
+    def update_all(self, message_func, reduce_func, apply_node_func=None):
+        """``reduce(message)`` over every node's in-edges, written into
+        ``dstdata``; returns the reduced tensor."""
+        from dgl1_tpu_torch import core
+
+        return core.update_all(self, message_func, reduce_func,
+                               apply_node_func)
+
+    def apply_edges(self, func, edges="__ALL__"):
+        """An edge function written into ``edata`` (g-SDDMM)."""
+        from dgl1_tpu_torch import core
+
+        return core.apply_edges(self, func, edges)
+
+    def apply_nodes(self, func, v="__ALL__"):
+        from dgl1_tpu_torch import core
+
+        return core.apply_nodes(self, func, v)
+
+    def send_and_recv(self, edges, message_func, reduce_func,
+                      apply_node_func=None):
+        from dgl1_tpu_torch import core
+
+        return core.send_and_recv(self, edges, message_func, reduce_func,
+                                  apply_node_func)
+
+    def filter_nodes(self, predicate):
+        from dgl1_tpu_torch import core
+
+        return core.filter_nodes(self, predicate)
+
+    def filter_edges(self, predicate):
+        from dgl1_tpu_torch import core
+
+        return core.filter_edges(self, predicate)
+
+    def prop_nodes(self, nodes_generator, message_func, reduce_func,
+                   apply_node_func=None):
+        from dgl1_tpu_torch import core
+
+        return core.prop_nodes(self, nodes_generator, message_func,
+                               reduce_func, apply_node_func)
+
+    def pull(self, v, message_func, reduce_func, apply_node_func=None):
+        from dgl1_tpu_torch import core
+
+        return core.pull(self, v, message_func, reduce_func,
+                         apply_node_func)
+
+    def push(self, u, message_func, reduce_func, apply_node_func=None):
+        from dgl1_tpu_torch import core
+
+        return core.push(self, u, message_func, reduce_func,
+                         apply_node_func)
+
     def __repr__(self):
         kind = "Block" if self._is_block else "Graph"
         return (f"{kind}(num_src_nodes={self._num_src_nodes}, "
@@ -234,6 +596,38 @@ class Graph:
                 f"hub={self.hub_dst_meta is not None}, "
                 f"bdense={self.bdense_meta is not None}, "
                 f"tiles={self.tdst is not None})")
+
+
+def _as_host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _cat(parts) -> np.ndarray:
+    return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+
+class _LocalScope:
+    """``Graph.local_scope``: the frame dicts' contents restored on exit."""
+
+    def __init__(self, g: Graph):
+        self._g = g
+
+    def _frames(self):
+        g = self._g
+        frames = [g.ndata, g.edata]
+        if g.is_block:
+            frames += [g.srcdata, g.dstdata]
+        return frames
+
+    def __enter__(self):
+        self._saved = [dict(f) for f in self._frames()]
+        return self._g
+
+    def __exit__(self, *exc):
+        for f, saved in zip(self._frames(), self._saved):
+            f.clear()
+            f.update(saved)
+        return False
 
 
 # ----------------------------------------------------------------------
@@ -729,3 +1123,22 @@ def rand_graph(num_nodes: int, num_edges: int, seed: int = 0, **kw) -> Graph:
     src = rng.integers(0, num_nodes, size=num_edges)
     dst = rng.integers(0, num_nodes, size=num_edges)
     return graph((src, dst), num_nodes=num_nodes, **kw)
+
+
+def rand_bipartite(num_src: int, num_dst: int, num_edges: int, seed: int = 0,
+                   **kw) -> Graph:
+    """A uniform random block of ``num_edges`` edges, drawn from
+    ``default_rng(seed)`` as the reference draws them; ``kw`` goes to
+    :func:`block`."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, num_src, size=num_edges)
+    dst = rng.integers(0, num_dst, size=num_edges)
+    return block((src, dst), num_src_nodes=num_src, num_dst_nodes=num_dst,
+                 **kw)
+
+
+def from_scipy(sp_mat, **kw) -> Graph:
+    """A graph from a scipy sparse matrix (``dgl.from_scipy``): row index
+    is the source, column the destination; ``kw`` goes to :func:`graph`."""
+    coo = sp_mat.tocoo()
+    return graph((coo.row, coo.col), num_nodes=max(coo.shape), **kw)

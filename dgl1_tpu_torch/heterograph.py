@@ -13,10 +13,10 @@ Block mode (``num_src_nodes_dict`` given) keeps separate source and
 destination node spaces per type: ``srcframes`` holds the source side,
 ``nframes`` the destination side.
 
-The message-passing front end (``apply_edges``, ``update_all``,
-``multi_update_all``) goes through ``function/`` and ``core.py``, which
-are not ported (ROADMAP queue 1 item 5), and raises
-NotImplementedError.
+Message passing (``apply_edges``, ``update_all``, ``multi_update_all``)
+wires the type frames into each relation block and runs ``core.py`` on
+it, combining the relations' results per destination type with a cross
+reducer (``sum``, ``mean``, ``max``, ``min`` or ``stack``).
 """
 
 from __future__ import annotations
@@ -33,10 +33,6 @@ __all__ = ["HeteroGraph", "heterograph", "node_type_subgraph",
            "edge_type_subgraph"]
 
 CanonicalEtype = Tuple[str, str, str]
-
-_FRONT_END = ("needs the message-passing front end (function/, core.py), "
-              "which is not ported yet (ROADMAP queue 1 item 5)")
-
 
 class _TypeDataProxy:
     """``.data`` handle of one node or edge type."""
@@ -96,19 +92,6 @@ class _MultiTypeFrameView:
         for f in self._frames.values():
             out |= set(f.keys())
         return out
-
-
-class _NodeBatch:
-    """What :meth:`HeteroGraph.apply_nodes` hands its function: the node
-    type's frame as ``data`` and its ids."""
-
-    __slots__ = ("data", "_nodes")
-
-    def __init__(self, data, nodes):
-        self.data, self._nodes = data, nodes
-
-    def nodes(self):
-        return self._nodes
 
 
 class HeteroGraph:
@@ -328,25 +311,87 @@ class HeteroGraph:
     def apply_nodes(self, func, ntype: Optional[str] = None):
         """``func`` on one node type's frame (it gets ``.data`` and
         ``.nodes()``); the fields it returns are written back."""
+        from dgl1_tpu_torch.core import NodeBatch
+
         if ntype is None:
             if len(self._num_nodes) != 1:
                 raise ValueError("ntype is required: multiple node types")
             ntype = self.ntypes[0]
         frame = self.nframes[ntype]
         nodes = torch.arange(self.num_dst_nodes(ntype), device=self.device)
-        out = func(_NodeBatch(frame, nodes))
+        out = func(NodeBatch(frame, {}, nodes))
         frame.update(out)
         return out
 
+    def _wired(self, c) -> Graph:
+        """Relation ``c``'s block with its source and destination type
+        frames wired in."""
+        st, _, dt = c
+        rel = self.rel_graphs[c]
+        rel.srcdata.clear()
+        rel.srcdata.update(self.srcframes[st])
+        rel.dstdata.clear()
+        rel.dstdata.update(self.nframes[dt])
+        return rel
+
     def apply_edges(self, func, etype=None):
-        raise NotImplementedError(f"HeteroGraph.apply_edges {_FRONT_END}")
+        """``apply_edges`` on one relation (required when there are
+        several), reading its type frames."""
+        c = (self.to_canonical_etype(etype) if etype is not None
+             else self._one_canonical())
+        return self._wired(c).apply_edges(func)
+
+    def _one_canonical(self):
+        if len(self.rel_graphs) != 1:
+            raise ValueError("etype is required: multiple edge types")
+        return self.canonical_etypes[0]
 
     def update_all(self, mfunc, rfunc, etype=None):
-        raise NotImplementedError(f"HeteroGraph.update_all {_FRONT_END}")
+        """Message passing on one relation, or on every relation summed per
+        destination type."""
+        if etype is not None:
+            return self.multi_update_all(
+                {self.to_canonical_etype(etype): (mfunc, rfunc)}, "sum")
+        return self.multi_update_all(
+            {c: (mfunc, rfunc) for c in self.canonical_etypes}, "sum")
 
     def multi_update_all(self, etype_dict, cross_reducer: str = "sum"):
-        raise NotImplementedError(
-            f"HeteroGraph.multi_update_all {_FRONT_END}")
+        """Message passing on each relation of ``etype_dict`` ({etype:
+        (message, reduce)}), the results combined per destination type by
+        ``cross_reducer`` (``sum``, ``mean``, ``max``, ``min`` or
+        ``stack``, which stacks on axis 1 in the dict's order) and written
+        into its frame. Returns {(dsttype, field): value}."""
+        from dgl1_tpu_torch import core
+
+        if cross_reducer not in ("sum", "mean", "max", "min", "stack"):
+            raise ValueError(f"unknown cross reducer {cross_reducer!r}")
+        per_dst: Dict[str, Dict[str, list]] = {}
+        for c, spec in etype_dict.items():
+            c = self.to_canonical_etype(c)
+            result = core.message_passing(self._wired(c), spec[0], spec[1],
+                                          None)
+            for k, v in result.items():
+                per_dst.setdefault(c[2], {}).setdefault(k, []).append(v)
+        out = {}
+        for dt, fields in per_dst.items():
+            for k, vs in fields.items():
+                if cross_reducer == "stack":
+                    v = torch.stack(vs, dim=1)
+                elif cross_reducer in ("sum", "mean"):
+                    v = vs[0]
+                    for w in vs[1:]:
+                        v = v + w
+                    if cross_reducer == "mean":
+                        v = v / len(vs)
+                else:
+                    op = torch.maximum if cross_reducer == "max" \
+                        else torch.minimum
+                    v = vs[0]
+                    for w in vs[1:]:
+                        v = op(v, w)
+                self.nframes[dt][k] = v
+                out[(dt, k)] = v
+        return out
 
     # -- copies and devices ----------------------------------------------
     def _rebuild(self, rels, frames, srcframes):

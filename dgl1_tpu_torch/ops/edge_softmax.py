@@ -18,10 +18,13 @@ __all__ = ["edge_softmax"]
 
 def edge_softmax(g: Graph, logits, norm_by: str = "dst"):
     """Softmax of ``logits`` (num_edges, *f) over each destination's
-    incoming edges. ``norm_by='src'`` (the reverse graph) is not ported."""
+    incoming edges, or with ``norm_by='src'`` over each source's outgoing
+    edges (the softmax of the reverse graph, as the reference takes it)."""
+    if norm_by == "src":
+        return edge_softmax(g.reverse(copy_edata=False), logits,
+                            norm_by="dst")
     if norm_by != "dst":
-        raise NotImplementedError("edge_softmax: only norm_by='dst' is "
-                                  "ported")
+        raise ValueError("norm_by must be 'src' or 'dst'")
     squeeze = logits.dim() == 1
     if squeeze:
         logits = logits[:, None]

@@ -3,9 +3,11 @@
 ``x != y`` in u, v, e and op in add, sub, mul, div, dot (``u_dot_v``,
 link prediction's score, ...).
 
-Every call runs on the oracle engine (``engine_xla.gsddmm_xla``): the
-reference's only other g-SDDMM engine is the tiled Pallas engine, which is
-not ported yet.
+Every call runs on the oracle engine (``engine_xla.gsddmm_xla``), as in
+the reference: its tiled Pallas g-SDDMM engine always declines, so its
+oracle is its only g-SDDMM path too. ``core.apply_edges`` and the
+messages of ``core.message_passing`` that read the destination
+(``u_dot_v``, ...) reach it.
 """
 
 from __future__ import annotations

@@ -1,5 +1,10 @@
-"""Segment matmuls (the port's ``dgl1_tpu/ops/segment.py``:
-``segment_ids_from_lengths``, ``segment_mm``, ``gather_mm``).
+"""Segment ops (the port's ``dgl1_tpu/ops/segment.py``:
+``segment_ids_from_lengths``, ``segment_reduce``, ``segment_softmax``,
+``segment_mm``, ``gather_mm``).
+
+``segment_reduce`` and ``segment_softmax`` are ``index_add`` and
+``scatter_reduce`` over the segment ids, as the reference's are XLA
+segment ops.
 
 The reference's ``segment_mm`` is ``jax.lax.ragged_dot`` and its
 ``gather_mm`` a one-hot einsum, both XLA with no Pallas kernel, so the
@@ -11,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["segment_ids_from_lengths", "segment_mm", "gather_mm"]
+__all__ = ["segment_ids_from_lengths", "segment_reduce", "segment_softmax",
+           "segment_mm", "gather_mm"]
 
 
 def _lengths(seglen):
@@ -28,6 +34,52 @@ def segment_ids_from_lengths(seglen, total: int):
     offsets = torch.cumsum(seglen, 0)
     pos = torch.arange(total, device=offsets.device, dtype=offsets.dtype)
     return torch.searchsorted(offsets, pos, right=True).to(torch.int32)
+
+
+def _seg_ids(seglen, value):
+    seglen = torch.as_tensor(seglen, device=value.device)
+    return seglen, segment_ids_from_lengths(seglen, value.shape[0]).long()
+
+
+def _scatter(value, ids, num_segments: int, reduce: str, init: float):
+    out = value.new_full((num_segments,) + tuple(value.shape[1:]), init)
+    idx = ids.reshape((-1,) + (1,) * (value.dim() - 1)).expand_as(value)
+    return out.scatter_reduce(0, idx, value, reduce, include_self=False)
+
+
+def segment_reduce(seglen, value, reducer: str = "sum"):
+    """Reduce ``value`` (total, ...) within contiguous segments of lengths
+    ``seglen`` (S,) (``dgl.ops.segment_reduce``): sum, mean, max, min or
+    prod; an empty segment gives 0 (prod: 1)."""
+    seglen, ids = _seg_ids(seglen, value)
+    n = seglen.shape[0]
+    shape = (n,) + (1,) * (value.dim() - 1)
+    if reducer in ("sum", "mean"):
+        out = value.new_zeros((n,) + tuple(value.shape[1:])).index_add(
+            0, ids, value)
+        if reducer == "mean":
+            out = out / seglen.clamp_min(1).to(out.dtype).reshape(shape)
+        return out
+    if reducer == "prod":
+        return _scatter(value, ids, n, "prod", 1.0)
+    if reducer not in ("max", "min"):
+        raise ValueError(f"unknown reducer {reducer!r}")
+    out = _scatter(value, ids, n, "amax" if reducer == "max" else "amin",
+                   0.0)
+    return torch.where((seglen == 0).reshape(shape), torch.zeros_like(out),
+                       out)
+
+
+def segment_softmax(seglen, value):
+    """Softmax of ``value`` within contiguous segments of lengths
+    ``seglen``, shifted by each segment's max (a constant for autograd)."""
+    seglen, ids = _seg_ids(seglen, value)
+    n = seglen.shape[0]
+    mx = _scatter(value.detach(), ids, n, "amax", float("-inf"))
+    mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    ex = torch.exp(value - mx.index_select(0, ids))
+    s = ex.new_zeros((n,) + tuple(ex.shape[1:])).index_add(0, ids, ex)
+    return ex / s.clamp_min(1e-38).index_select(0, ids)
 
 
 class _SegmentMM(torch.autograd.Function):

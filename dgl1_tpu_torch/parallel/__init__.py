@@ -1,10 +1,10 @@
 """The multi-device training layer (parity: DistDGL,
 ``python/dgl/distributed``): partitioners, the halo and vertex-cut
 layouts, the sharded g-SpMM and GAT, the partitioned hub layouts, the
-sharded GCN trainer, tensor parallelism, the KVStore, DistGraph and the
-data-parallel loader, over ``torch.distributed`` with one process a
-partition. The port's counterpart of ``dgl1_tpu/parallel`` without its
-heterograph module (``hetero.py``), which the next slice brings.
+sharded GCN trainer, the typed (heterograph) partitions with the sharded
+R-GCN layer and typed attention, tensor parallelism, the KVStore,
+DistGraph and the data-parallel loader, over ``torch.distributed`` with
+one process a partition. The port's counterpart of ``dgl1_tpu/parallel``.
 """
 
 from dgl1_tpu_torch.parallel.partition import (
@@ -27,6 +27,19 @@ from dgl1_tpu_torch.parallel.sharded_ops import (
     make_sharded_gat_layer,
     sharded_gat_attention,
     sharded_gspmm,
+)
+from dgl1_tpu_torch.parallel.hetero import (
+    LocalHeteroPartition,
+    PartitionedHeteroGraph,
+    build_partitioned_hetero,
+    hetero_edge_cut_fraction,
+    hetero_partition_assignment,
+    load_hetero_partition,
+    make_sharded_hetero_attention,
+    make_sharded_rgcn_layer,
+    partition_hetero_graph,
+    sharded_typed_attention,
+    sharded_typed_gspmm,
 )
 from dgl1_tpu_torch.parallel.dist_graph import DistGraph, DistTensor
 from dgl1_tpu_torch.parallel.dist_dataloader import (DistDataLoader,
@@ -59,6 +72,17 @@ __all__ = [
     "sharded_gat_attention",
     "make_sharded_gat_layer",
     "halo_exchange",
+    "hetero_partition_assignment",
+    "hetero_edge_cut_fraction",
+    "PartitionedHeteroGraph",
+    "LocalHeteroPartition",
+    "build_partitioned_hetero",
+    "sharded_typed_gspmm",
+    "make_sharded_rgcn_layer",
+    "sharded_typed_attention",
+    "make_sharded_hetero_attention",
+    "partition_hetero_graph",
+    "load_hetero_partition",
     "DistGraph",
     "DistTensor",
     "DistDataLoader",

@@ -1,13 +1,13 @@
-"""DistGraph / DistTensor facade (homogeneous graphs).
+"""DistGraph / DistTensor facade.
 
 The port's counterpart of ``dgl1_tpu/parallel/dist_graph.py`` (parity:
 ``python/dgl/distributed/dist_graph.py`` / ``dist_tensor.py``), with no
 servers and no RPC: each process owns its partitions' shards, global-id
 reads are host gathers against the partition layout, and device-side
-access goes through :class:`~dgl1_tpu_torch.parallel.halo.
-PartitionedGraph`'s static halo plan. Heterographs (the reference's typed
-facade) come with ``parallel/hetero.py`` in the next slice and raise
-NotImplementedError here.
+access goes through a static halo plan: :class:`~dgl1_tpu_torch.parallel.
+halo.PartitionedGraph`, or on a heterograph (per-ntype books and
+DistTensors) :class:`~dgl1_tpu_torch.parallel.hetero.
+PartitionedHeteroGraph`.
 """
 
 from __future__ import annotations
@@ -100,9 +100,32 @@ class DistGraph:
             random_partition_assignment)
 
         if isinstance(g, HeteroGraph):
-            raise NotImplementedError(
-                "DistGraph over a heterograph needs parallel/hetero.py, "
-                "which the next slice of the port brings")
+            from dgl1_tpu_torch.parallel.hetero import (
+                hetero_partition_assignment)
+
+            if part is None:
+                # None: the facade's default ('metis' on a heterograph);
+                # an explicit method is taken as given.
+                part = hetero_partition_assignment(
+                    g, num_parts, part_method=part_method or "metis")
+            self.g = g
+            self.hetero = True
+            self.part = part
+            self.num_parts = num_parts
+            self.part_id = None
+            self._pg = None
+            self.books = {nt: GraphPartitionBook(part[nt], num_parts)
+                          for nt in g.ntypes}
+            self.book = None
+            self.ndata = {}
+            for nt in g.ntypes:
+                for k, v in g.nframes[nt].items():
+                    arr = _host(v)
+                    shards = {p: arr[self.books[nt].partid2nids(p)]
+                              for p in range(num_parts)}
+                    self.ndata.setdefault(nt, {})[k] = DistTensor(
+                        self.books[nt], shards, name=f"{nt}/{k}")
+            return
         self.hetero = False
         if part is None:
             if part_method == "random":
@@ -163,21 +186,93 @@ class DistGraph:
         }
         return obj
 
-    def num_nodes(self) -> int:
+    @classmethod
+    def from_hetero_partition(cls, out_path: str, graph_name: str,
+                              part_id: int, device=None) -> "DistGraph":
+        """One process's typed view of :func:`~dgl1_tpu_torch.parallel.
+        hetero.partition_hetero_graph` artifacts: the local [owned | halo]
+        heterograph on ``device`` (None: cuda), per-ntype books from the
+        saved assignment and per-ntype feature shards (this part's owned
+        rows)."""
+        from dgl1_tpu_torch.parallel.hetero import load_hetero_partition
+
+        lg, feats, book = load_hetero_partition(out_path, graph_name,
+                                                part_id, device=device)
+        part = book["part_assignment"]
+        num_parts = int(book["num_parts"])
+        obj = cls.__new__(cls)
+        obj.hetero = True
+        obj.g = lg
+        obj.part = part
+        obj.num_parts = num_parts
+        obj.part_id = int(part_id)
+        obj._pg = None
+        obj.books = {nt: GraphPartitionBook(part[nt], num_parts)
+                     for nt in book["ntypes"]}
+        obj.book = None
+        obj._global_num_nodes = dict(book["num_nodes"])
+        obj._global_num_edges = dict(book["num_edges"])
+        obj.ndata = {}
+        for nt, frame in feats.items():
+            for k, v in frame.items():
+                obj.ndata.setdefault(nt, {})[k] = DistTensor(
+                    obj.books[nt], {part_id: np.asarray(v)},
+                    name=f"{nt}/{k}")
+        return obj
+
+    def num_nodes(self, ntype: Optional[str] = None) -> int:
+        if self.hetero:
+            counts = getattr(self, "_global_num_nodes", None)
+            if counts is not None:  # a per-process view: the global counts
+                return (sum(counts.values()) if ntype is None
+                        else counts[ntype])
+            return self.g.num_nodes(ntype)
         return self.g.num_nodes()
 
-    def num_edges(self) -> int:
+    def num_edges(self, etype=None) -> int:
+        """Global edge totals; a per-process typed view reports the counts
+        saved in the partition book, not its local graph's."""
+        counts = getattr(self, "_global_num_edges", None)
+        if counts is not None:
+            if etype is None:
+                return sum(counts.values())
+            if isinstance(etype, tuple):
+                etype = "/".join(etype)
+            if etype in counts:
+                return counts[etype]
+            hits = [v for k, v in counts.items()
+                    if k.split("/")[1] == etype]
+            if len(hits) != 1:
+                raise KeyError(f"etype {etype!r} is absent or ambiguous")
+            return hits[0]
+        if etype is not None and self.hetero:
+            return self.g[etype].num_edges()
         return self.g.num_edges()
 
-    def get_partition_book(self):
+    def get_partition_book(self, ntype: Optional[str] = None):
+        if self.hetero:
+            return self.books if ntype is None else self.books[ntype]
         return self.book
 
-    def partitioned(self, **kw) -> PartitionedGraph:
-        """The halo-plan build (cached; ``build_partitioned_graph``'s
-        keywords)."""
+    def partitioned(self, **kw):
+        """The halo-plan build (cached): ``build_partitioned_graph``'s, or
+        on a heterograph ``build_partitioned_hetero``'s keywords."""
         if self._pg is None:
-            self._pg = build_partitioned_graph(self.g, self.part,
-                                               self.num_parts, **kw)
+            if self.hetero:
+                if getattr(self, "_global_num_nodes", None) is not None:
+                    raise ValueError(
+                        "partitioned() needs the full heterograph; this is "
+                        "a per-process view (from_hetero_partition): build "
+                        "the plan once from the full graph, or construct "
+                        "DistGraph(hg, k)")
+                from dgl1_tpu_torch.parallel.hetero import (
+                    build_partitioned_hetero)
+
+                self._pg = build_partitioned_hetero(
+                    self.g, self.part, self.num_parts, **kw)
+            else:
+                self._pg = build_partitioned_graph(self.g, self.part,
+                                                   self.num_parts, **kw)
         return self._pg
 
     def local_graph(self, part_id: int) -> Graph:

@@ -225,15 +225,20 @@ def partition_graph(
     ``save_structure`` writes the full COO once so any host can sample
     any seed without forwarding (``DistGraph.from_partition`` reads it).
 
-    Heterographs (the reference's ``partition_hetero_graph``) are not
-    ported yet and raise NotImplementedError.
+    Heterographs dispatch to :func:`~dgl1_tpu_torch.parallel.hetero.
+    partition_hetero_graph` (``metis`` for ``metis`` and ``greedy``, as the
+    reference maps them).
     """
     from dgl1_tpu_torch.heterograph import HeteroGraph
 
     if isinstance(g, HeteroGraph):
-        raise NotImplementedError(
-            "partition_graph on a heterograph needs parallel/hetero.py, "
-            "which the next slice of the port brings")
+        from dgl1_tpu_torch.parallel.hetero import partition_hetero_graph
+
+        return partition_hetero_graph(
+            g, graph_name, num_parts, out_path,
+            part_method=("metis" if part_method in ("metis", "greedy")
+                         else part_method),
+            balance_edges=balance_edges, seed=seed)
     if part_method == "random":
         part = random_partition_assignment(g, num_parts, seed)
     elif part_method == "greedy":

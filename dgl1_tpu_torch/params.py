@@ -8,7 +8,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "from_jax_tree"]
 
 
 _LSTM_GATES = ("i", "f", "g", "o")  # torch.nn.LSTM's gate order
@@ -85,3 +85,17 @@ def from_jax_params(params) -> "OrderedDict[str, torch.Tensor]":
             names[-1] = "weight"
         out[".".join(names)] = torch.tensor(arr)
     return out
+
+
+def from_jax_tree(params, device=None):
+    """A nested dict of arrays (numpy or jax) as the same nesting of
+    float32 tensors, keys kept as they are (canonical-etype tuples, node
+    types): the typed sharded trainers' parameter dict (dry run leg 9's
+    ``w1``/``w2`` keyed by canonical etype, ``s1``/``s2`` by node type,
+    ``w_in`` and ``emb``), whose weights multiply as ``x @ w`` in both
+    packages, so nothing is transposed. ``device`` None keeps them on
+    the CPU."""
+    if hasattr(params, "items"):
+        return {k: from_jax_tree(v, device) for k, v in params.items()}
+    out = torch.tensor(np.asarray(params, dtype=np.float32))
+    return out if device is None else out.to(device)

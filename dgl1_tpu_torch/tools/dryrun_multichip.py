@@ -1,5 +1,5 @@
-"""Dry run of the distributed layer: the homogeneous legs of the
-reference's ``dryrun_multichip`` (``__graft_entry__.py``).
+"""Dry run of the distributed layer: the legs of the reference's
+``dryrun_multichip`` (``__graft_entry__.py``).
 
     python -m dgl1_tpu_torch.tools.dryrun_multichip --nproc 4 --device cpu
     python -m dgl1_tpu_torch.tools.dryrun_multichip --device cuda
@@ -22,6 +22,18 @@ process a card). Rank 0 prints one line per leg, as the reference does:
    build;
 7. the block-dense matvec forward and gradient (a 50,000-node band
    graph, contiguous parts, F = 32);
+8. the typed identity R-GCN forward on a small hub-heavy heterograph
+   (paper 100, author 60, 1,200 edges a relation, random parts, hub 16,
+   dense floor 32, ``hub_identity``): every relation's layout must claim
+   ``identity_expand``;
+9. the sharded typed R-GCN train step on ``synthetic_mag_heterograph(
+   scale=40)`` (16 classes, 32 features, greedy parts): paper features
+   through a replicated ``w_in``, sharded embeddings for the other node
+   types (their gradients go back to their owners through the exchanges'
+   backward and are not all-reduced), two typed layers 32 -> 32 -> 16,
+   Adam 1e-2;
+10. the typed attention (one softmax a destination across its
+   relations, 2 heads of 8) forward and gradient on leg 9's build;
 11. the data-parallel sampled GraphSAGE step: ``partition_graph`` of a
    20,000-node graph into random parts, ``DistGraph.from_partition``,
    ``DistNodeDataLoader`` over the part's own seeds (batch 256, fanouts
@@ -64,9 +76,9 @@ def _sum_all(x: float) -> float:
 
 def run_legs(rank: int, world: int, device, scale: float = 1.0,
              workdir=None, log=None):
-    """Run legs 1-7 and 11 on this rank (``torch.distributed`` initialized
-    when ``world`` > 1); returns one record per leg. ``log(record)`` is
-    called on each as it ends."""
+    """Run legs 1-11 on this rank (``torch.distributed`` initialized when
+    ``world`` > 1); returns one record per leg. ``log(record)`` is called
+    on each as it ends."""
     import dgl1_tpu_torch as dgl
     from dgl1_tpu_torch.data.synthetic import (powerlaw_graph,
                                                synthetic_classification_graph)
@@ -232,6 +244,8 @@ def run_legs(rank: int, world: int, device, scale: float = 1.0,
     done(7, "block-dense sharded SpMM fwd+grad", t0, cov=cov, value=val)
     del pg3, pl3, g3
 
+    typed_legs(rank, world, dev, scale, done)
+
     # Leg 11: the data-parallel sampled GraphSAGE step.
     t0 = time.perf_counter()
     from dgl1_tpu_torch.dataloading import NeighborSampler
@@ -278,6 +292,95 @@ def run_legs(rank: int, world: int, device, scale: float = 1.0,
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"leg {r['leg']}: {k} = {v}")
     return records
+
+
+def typed_legs(rank: int, world: int, dev, scale: float, done):
+    """Legs 8-10, the typed distributed layer (``parallel/hetero.py``);
+    ``done(leg, name, t0, **record)`` records each."""
+    from dgl1_tpu_torch.data.synthetic import synthetic_mag_heterograph
+    from dgl1_tpu_torch.heterograph import heterograph
+    from dgl1_tpu_torch.parallel.hetero import (
+        build_partitioned_hetero, hetero_partition_assignment,
+        init_typed_rgcn_params, make_sharded_hetero_attention,
+        make_sharded_rgcn_layer, make_typed_rgcn_train_step)
+
+    # Leg 8: the typed identity layouts, one forward.
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    e_i = 1200
+    hg_i = heterograph({
+        ("author", "writes", "paper"):
+            (rng.integers(0, 60, e_i), rng.integers(0, 6, e_i)),
+        ("paper", "cites", "paper"):
+            (rng.integers(0, 100, e_i), rng.integers(0, 8, e_i)),
+    }, num_nodes_dict={"paper": 100, "author": 60}, device="cpu")
+    part_i = hetero_partition_assignment(hg_i, world, part_method="random")
+    phg_i = build_partitioned_hetero(hg_i, part_i, world, hub=16,
+                                     hub_dense_floor=32, hub_identity=True)
+    ident = [c for c in phg_i.etypes if phg_i.hub.get(c) is not None
+             and phg_i.hub_meta[c].identity_expand]
+    if len(ident) != len(phg_i.etypes):
+        raise AssertionError(f"leg 8: identity layouts on {ident} only")
+    pl_i = phg_i.local(rank, dev)
+    gen = torch.Generator().manual_seed(7)
+    x_i = {nt: phg_i.shard_node_data(nt, torch.randn(
+        hg_i.num_nodes(nt), 8, generator=gen), rank).to(dev)
+        for nt in hg_i.ntypes}
+    w_i = {c: (torch.randn(8, 4, generator=gen) * 0.1).to(dev)
+           for c in phg_i.etypes}
+    s_i = {nt: (torch.randn(8, 4, generator=gen) * 0.1).to(dev)
+           for nt in hg_i.ntypes}
+    out_i = make_sharded_rgcn_layer(pl_i)(x_i, w_i, s_i)
+    done(8, "typed IDENTITY sharded R-GCN fwd", t0,
+         identity_relations=len(ident),
+         value=_sum_all(float(sum(v.abs().sum() for v in out_i.values()))))
+
+    # Leg 9: the sharded typed R-GCN train step.
+    t0 = time.perf_counter()
+    classes, f_in, hid = 16, 32, 32
+    hg, split = synthetic_mag_heterograph(
+        scale=max(int(40 / scale), 1), num_classes=classes, feat_dim=f_in,
+        device="cpu")
+    hpart = hetero_partition_assignment(hg, world, part_method="greedy")
+    phg = build_partitioned_hetero(hg, hpart, world)
+    pl = phg.local(rank, dev)
+    params = init_typed_rgcn_params(
+        pl, hid, hid, classes, "paper", proj_from=f_in,
+        featureless=[nt for nt in pl.ntypes if nt != "paper"], device=dev,
+        generator=torch.Generator().manual_seed(2 + rank))
+    leaves = [x for k, v in params.items() for x in
+              (v.values() if isinstance(v, dict) else [v])]
+    opt = torch.optim.Adam(leaves, lr=1e-2)
+    step = make_typed_rgcn_train_step(pl, opt, classes)
+    tr = np.zeros(hg.num_nodes("paper"), np.float32)
+    tr[split["train"]] = 1.0
+    x = {"paper": phg.shard_node_data(
+        "paper", hg.nodes["paper"].data["feat"], rank).to(dev)}
+    y = phg.shard_node_data("paper", hg.nodes["paper"].data["label"],
+                            rank).to(dev)
+    m = phg.shard_node_data("paper", torch.tensor(tr), rank).to(dev)
+    loss = step(params, x, y, m)
+    done(9, "sharded typed R-GCN train step", t0,
+         nodes=sum(phg.num_nodes.values()), relations=len(phg.etypes),
+         loss=loss)
+
+    # Leg 10: the typed attention on leg 9's build.
+    t0 = time.perf_counter()
+    ah, ad = 2, 8
+    gen = torch.Generator().manual_seed(4 + rank)
+
+    def leaf(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.1).to(
+            dev).requires_grad_(True)
+
+    el = {c: leaf(pl.n_loc[c[0]], ah) for c in pl.etypes}
+    er = {nt: leaf(pl.n_loc[nt], ah) for nt in pl.ntypes}
+    ft = {c: leaf(pl.n_loc[c[0]], ah, ad) for c in pl.etypes}
+    out = make_sharded_hetero_attention(pl)(el, er, ft)
+    val = sum((v ** 2).sum() for v in out.values())
+    val.backward()
+    done(10, "sharded typed attention (cross-relation softmax) fwd+grad",
+         t0, value=_sum_all(float(val.detach())))
 
 
 def _line(world, rec) -> str:

@@ -23,7 +23,7 @@ __all__ = ["add_self_loop", "remove_self_loop", "to_bidirected",
            "rcm_order", "reorder_graph", "edge_subgraph", "typed_subgraphs",
            "typed_union_graph", "to_homogeneous", "to_heterogeneous",
            "metapath_reachable_graph", "node_subgraph", "compact_graphs",
-           "to_block", "to_block_hetero"]
+           "to_block", "to_block_hetero", "reverse"]
 
 
 def _coo(g: Graph):
@@ -39,6 +39,11 @@ def _slice_rows(data: dict, idx: np.ndarray) -> dict:
         i = torch.as_tensor(idx, dtype=torch.int64, device=v.device)
         out[k] = v.index_select(0, i.clamp(0, v.shape[0] - 1))
     return out
+
+
+def reverse(g: Graph, copy_edata: bool = True) -> Graph:
+    """``dgl.reverse``: every edge reversed (CSR and CSC swap roles)."""
+    return g.reverse(copy_edata=copy_edata)
 
 
 def add_self_loop(g: Graph) -> Graph:

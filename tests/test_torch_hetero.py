@@ -351,11 +351,17 @@ def test_heterograph_frames_and_facade():
     clone = ht.clone()
     clone.nodes["user"].data["only_clone"] = torch.ones(3)
     assert "only_clone" not in ht.nodes["user"].data
-    for call in (lambda: ht.update_all(None, None),
-                 lambda: ht.multi_update_all({}),
-                 lambda: ht.apply_edges(None, etype="plays")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            call()
+    # The message-passing front end (test_torch_core.py holds it against
+    # the reference).
+    from dgl1_tpu_torch import function as fn
+
+    assert ht.multi_update_all({}) == {}
+    out = ht.update_all(fn.copy_u("h", "m"), fn.sum("m", "agg"),
+                        etype="follows")
+    assert out[("user", "agg")].shape == (3, 2)
+    ht.nodes["game"].data["g"] = torch.ones(2, 2)
+    assert ht.apply_edges(fn.u_dot_v("h", "g", "d"),
+                          etype="plays").shape == (3, 1)
 
 
 def test_to_homogeneous_round_trip_matches_reference():

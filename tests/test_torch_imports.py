@@ -43,7 +43,8 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "parallel.halo", "parallel.hub_shard", "parallel.sharded_ops",
             "parallel.train", "parallel.tp", "parallel.kvstore",
             "parallel.dist_context", "parallel.dist_graph",
-            "parallel.dist_dataloader", "tools.dryrun_multichip")
+            "parallel.dist_dataloader", "tools.dryrun_multichip",
+            "parallel.hetero", "function", "udf", "core", "traversal")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -70,6 +71,7 @@ def test_entry_points_default_to_cuda():
     g = tdgl.graph(([0, 1], [1, 2]), num_nodes=3, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         g.to("cuda")
+    hg = tdgl.heterograph({("a", "r", "b"): ([0], [0])}, device="cpu")
     # The typed-graph and heterograph entry points.
     for call in (lambda: tdgl.block(([0, 1], [1, 0]), 2, 2),
                  lambda: tdgl.heterograph({("a", "r", "b"): ([0], [0])}),
@@ -89,6 +91,14 @@ def test_entry_points_default_to_cuda():
                  lambda: tdgl.parallel.build_partitioned_graph(
                      g, [0, 0, 1], 2).local(0),
                  lambda: tdgl.parallel.train.init_gcn_params(2, 2, 2),
-                 lambda: tdgl.parallel.initialize("127.0.0.1:1", 1, 0)):
+                 lambda: tdgl.parallel.initialize("127.0.0.1:1", 1, 0),
+                 # The typed distributed layer and the front end.
+                 lambda: tdgl.parallel.build_partitioned_hetero(
+                     hg, {"a": [0], "b": [0]}, 1).local(0),
+                 lambda: tdgl.parallel.DistGraph.from_hetero_partition(
+                     "unused", "g", 0),
+                 lambda: tdgl.parallel.load_hetero_partition("unused", "g",
+                                                             0),
+                 lambda: tdgl.rand_bipartite(3, 2, 4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -238,3 +238,105 @@ def dist_cases(rank, world, cases):
     fns = {"kvstore": _case_kvstore, "dp_sage": _case_dp_sage,
            "dryrun": _case_dryrun, "tp": _case_tp}
     return {c["name"]: fns[c["kind"]](rank, world, c) for c in cases}
+
+
+# ----------------------------------------------------------------------
+# Typed (heterograph) cases of test_torch_hetero_parallel.py
+# ----------------------------------------------------------------------
+
+def _tensors(d, requires_grad=False):
+    return {k: torch.tensor(v, requires_grad=requires_grad)
+            for k, v in d.items()}
+
+
+def _grads(d):
+    return {k: (np.zeros(tuple(v.shape), np.float32) if v.grad is None
+                else _np(v.grad)) for k, v in d.items()}
+
+
+def _masked_sin(phg, rank, out):
+    """sum of sin over the real (owned, non-phantom) rows of every output."""
+    tot = 0.0
+    for nt, v in out.items():
+        m = torch.as_tensor(phg.node_mask[nt][rank])
+        tot = tot + (torch.sin(v) * m.reshape((-1,) + (1,) * (v.dim() - 1))
+                     ).sum()
+    return tot
+
+
+def _case_hetero_layer(rank, c):
+    from dgl1_tpu_torch.parallel.hetero import make_sharded_rgcn_layer
+    from dgl1_tpu_torch.parallel.sharded_ops import allreduce_grads
+
+    phg = c["phg"]
+    pl = phg.local(rank, "cpu")
+    x = {nt: phg.shard_node_data(nt, torch.tensor(v), rank)
+         .requires_grad_(True) for nt, v in c["feats"].items()}
+    w = _tensors(c["w"], True)
+    s = _tensors(c["s"], True) if c["s"] is not None else None
+    out = make_sharded_rgcn_layer(pl, norm=c["norm"])(x, w, s)
+    _masked_sin(phg, rank, out).backward()
+    allreduce_grads(list(w.values()) + (list(s.values()) if s else []))
+    return {"out": {nt: _np(v) for nt, v in out.items()},
+            "gx": _grads(x), "gw": _grads(w),
+            "gs": _grads(s) if s else {}}
+
+
+def _case_hetero_attn(rank, c):
+    from dgl1_tpu_torch.parallel.hetero import make_sharded_hetero_attention
+
+    phg = c["phg"]
+    pl = phg.local(rank, "cpu")
+
+    def shard(d, key):
+        return {k: phg.shard_node_data(key(k), torch.tensor(v), rank)
+                .requires_grad_(True) for k, v in d.items()}
+
+    el = shard(c["el"], lambda k: k[0])
+    er = shard(c["er"], lambda k: k)
+    ft = shard(c["ft"], lambda k: k[0])
+    out = make_sharded_hetero_attention(pl)(el, er, ft)
+    _masked_sin(phg, rank, out).backward()
+    return {"out": {nt: _np(v) for nt, v in out.items()},
+            "gel": _grads(el), "ger": _grads(er), "gft": _grads(ft)}
+
+
+def _case_hetero_train(rank, c):
+    """Dry run leg 9's loss on this rank: paper features projected by the
+    replicated ``w_in``, sharded embeddings for the other node types, two
+    typed layers; replicated gradients all-reduced, embedding gradients
+    left where the exchanges' backward put them."""
+    from dgl1_tpu_torch.parallel.hetero import make_sharded_rgcn_layer
+    from dgl1_tpu_torch.parallel.sharded_ops import allreduce_grads
+
+    phg = c["phg"]
+    pl = phg.local(rank, "cpu")
+    layer = make_sharded_rgcn_layer(pl)
+    rep = {k: _tensors(v, True) if isinstance(v, dict)
+           else torch.tensor(v, requires_grad=True)
+           for k, v in c["params"].items() if k != "emb"}
+    emb = {nt: phg.shard_node_data(nt, torch.tensor(v), rank)
+           .requires_grad_(True) for nt, v in c["params"]["emb"].items()}
+    x = phg.shard_node_data("paper", torch.tensor(c["x"]), rank)
+    y = phg.shard_node_data("paper", torch.tensor(c["y"]), rank).long()
+    m = phg.shard_node_data("paper", torch.tensor(c["mask"]), rank)
+    h0 = {"paper": x @ rep["w_in"], **emb}
+    h1 = {nt: torch.relu(v) for nt, v in
+          layer(h0, rep["w1"], rep["s1"]).items()}
+    logits = layer(h1, rep["w2"], rep["s2"])["paper"]
+    ce = torch.nn.functional.cross_entropy(logits, y, reduction="none")
+    loss = (ce * m).sum() / c["mask_total"]
+    loss.backward()
+    flat = [p for v in rep.values()
+            for p in (v.values() if isinstance(v, dict) else [v])]
+    allreduce_grads(flat)
+    return {"loss": float(loss), "gemb": _grads(emb),
+            "gw_in": _np(rep["w_in"].grad), "gw1": _grads(rep["w1"]),
+            "gs2": _grads(rep["s2"])}
+
+
+def hetero_cases(rank, world, cases):
+    """The named typed cases on this rank's part."""
+    fns = {"layer": _case_hetero_layer, "attn": _case_hetero_attn,
+           "train": _case_hetero_train}
+    return {c["name"]: fns[c["kind"]](rank, c) for c in cases}
