@@ -202,8 +202,8 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    40 with per-relation and self weights, Adam 1e-2, 5 steps (step-0
    logits within 1e-4 of each logit's float64 abs sum against the float64
    oracle; exact hub launches a step and no K3; ms a step, a 2-step
-   profile; K1 and K4a at relation 0's layout, F = 64 and 40, as
-   variants); then on the host mag graph (``scale=1``) built with
+   profile; K1, K4a and K2 both ways at relation 0's layout, F = 64 and
+   40, as variants); then on the host mag graph (``scale=1``) built with
    ``tiles=True`` at P = 1 (partitioner and build seconds): leg 9's model
    at phase 4e's widths (paper features through ``w_in`` 128 -> 128,
    embeddings of 128 for the other types, 128 -> 64 -> 349, Adam 1e-2, 3
@@ -4020,8 +4020,9 @@ def phase_typed_identity(name, dev, hg, phg, rows):
     """The typed identity sharded R-GCN at configuration #4's shape at
     P = 1: 128 -> 64 -> 40 with per-relation and self weights, Adam 1e-2,
     5 steps; step-0 logits against the float64 oracle; exact hub launches
-    a step and no K3; ms a step and a 2-step profile. K1 and K4a at
-    relation 0's layout (F = 64 and 40) join their rows as variants."""
+    a step and no K3; ms a step and a 2-step profile. K1, K4a and K2
+    (forward and backward, over the pinned chunks) at relation 0's layout
+    (F = 64 and 40) join their rows as variants."""
     from dgl1_tpu_torch.parallel.hetero import (init_typed_rgcn_params,
                                                 make_typed_rgcn_train_step)
 
@@ -4068,6 +4069,14 @@ def phase_typed_identity(name, dev, hg, phg, rows):
             row = case(f"typed_identity_rel0_f{f}", hg0, dev, f, seed=50,
                        library=False)
             rows[kname]["variants"].append(
+                {k: row[k] for k in VARIANT_KEYS if k in row})
+        # K2 over the pinned (forced) chunks, both directions: the step's
+        # 16 forward and 16 backward launches.
+        for bwd in (False, True):
+            tag = "_bwd" if bwd else ""
+            row = chunk_sum_case(f"typed_identity_rel0{tag}_f{f}", hg0, dev,
+                                 f, bwd=bwd, seed=51)
+            rows["chunk_sum"]["variants"].append(
                 {k: row[k] for k in VARIANT_KEYS if k in row})
     return counts
 

@@ -89,7 +89,12 @@ class DistGraph:
     """Partitioned-graph facade with DGL-like accessors: from a full
     graph and a partition count (one process sees every part), or from
     :func:`~dgl1_tpu_torch.parallel.partition.partition_graph` artifacts
-    per process (:meth:`from_partition`)."""
+    per process (:meth:`from_partition`).
+
+    ``hetero`` marks a heterograph (per-ntype books and DistTensors);
+    ``_global_num_nodes`` / ``_global_num_edges`` are None except on a
+    per-process typed view (:meth:`from_hetero_partition`), whose local
+    graph is not the whole one: they hold the book's global counts."""
 
     def __init__(self, g, num_parts: int,
                  part: Optional[np.ndarray] = None,
@@ -110,6 +115,7 @@ class DistGraph:
                     g, num_parts, part_method=part_method or "metis")
             self.g = g
             self.hetero = True
+            self._global_num_nodes = self._global_num_edges = None
             self.part = part
             self.num_parts = num_parts
             self.part_id = None
@@ -127,6 +133,7 @@ class DistGraph:
                         self.books[nt], shards, name=f"{nt}/{k}")
             return
         self.hetero = False
+        self._global_num_nodes = self._global_num_edges = None
         if part is None:
             if part_method == "random":
                 part = random_partition_assignment(g, num_parts)
@@ -173,6 +180,7 @@ class DistGraph:
         part = np.load(out / "node_part.npy")
         obj = cls.__new__(cls)
         obj.hetero = False
+        obj._global_num_nodes = obj._global_num_edges = None
         obj.g = g
         obj.book = GraphPartitionBook(part, int(meta["num_parts"]))
         obj.part = part
@@ -222,7 +230,7 @@ class DistGraph:
 
     def num_nodes(self, ntype: Optional[str] = None) -> int:
         if self.hetero:
-            counts = getattr(self, "_global_num_nodes", None)
+            counts = self._global_num_nodes
             if counts is not None:  # a per-process view: the global counts
                 return (sum(counts.values()) if ntype is None
                         else counts[ntype])
@@ -232,7 +240,7 @@ class DistGraph:
     def num_edges(self, etype=None) -> int:
         """Global edge totals; a per-process typed view reports the counts
         saved in the partition book, not its local graph's."""
-        counts = getattr(self, "_global_num_edges", None)
+        counts = self._global_num_edges
         if counts is not None:
             if etype is None:
                 return sum(counts.values())
@@ -259,7 +267,7 @@ class DistGraph:
         on a heterograph ``build_partitioned_hetero``'s keywords."""
         if self._pg is None:
             if self.hetero:
-                if getattr(self, "_global_num_nodes", None) is not None:
+                if self._global_num_nodes is not None:
                     raise ValueError(
                         "partitioned() needs the full heterograph; this is "
                         "a per-process view (from_hetero_partition): build "

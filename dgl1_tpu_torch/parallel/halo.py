@@ -316,15 +316,24 @@ class LocalPartition:
         if self.hub is None:
             raise ValueError("no hub layout: build with hub=...")
         if self._hub_graph is None:
-            real = int((self.edst < self.n_out).sum())
-            self._hub_graph = Graph(
-                src=self.esrc, dst=self.edst, csr_indptr=None, csr_dst=None,
-                csr_eid=None, csr_src=None, csc_indptr=None, csc_src=None,
-                csc_eid=None, csc_dst=None, num_src_nodes=self.hub_rows,
-                num_dst_nodes=self.hub_rows, num_edges=real,
-                hub_dst=self.hub, hub_dst_meta=self.hub_meta,
-                device=self.device)
+            self._hub_graph = hub_layout_graph(
+                self.esrc, self.edst, self.hub, self.hub_meta,
+                self.hub_rows, self.n_out, self.device)
         return self._hub_graph
+
+
+def hub_layout_graph(esrc, edst, hub, hub_meta, rows: int, n_out: int,
+                     device) -> Graph:
+    """A part's hub layout as a :class:`Graph` of ``rows`` sources and
+    ``rows`` destinations, the engines' input (``ops/engine_hub.py``,
+    ``ops/attention.py``). Edges into a destination at or past ``n_out``
+    are padding and not counted."""
+    return Graph(
+        src=esrc, dst=edst, csr_indptr=None, csr_dst=None, csr_eid=None,
+        csr_src=None, csc_indptr=None, csc_src=None, csc_eid=None,
+        csc_dst=None, num_src_nodes=rows, num_dst_nodes=rows,
+        num_edges=int((edst < n_out).sum()), hub_dst=hub,
+        hub_dst_meta=hub_meta, device=device)
 
 
 def vertex_cut_edge_owner(g: Graph, part: np.ndarray, num_parts: int,

@@ -23,7 +23,6 @@ reference's is plain jnp.
 from __future__ import annotations
 
 import json
-import math
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -34,7 +33,7 @@ import torch.distributed as dist
 from dgl1_tpu_torch.graph import Graph, _tree_to
 from dgl1_tpu_torch.heterograph import HeteroGraph
 from dgl1_tpu_torch.parallel.graph_partition_book import GraphPartitionBook
-from dgl1_tpu_torch.parallel.halo import _slice
+from dgl1_tpu_torch.parallel.halo import _slice, hub_layout_graph
 
 __all__ = [
     "homogenize_structure",
@@ -289,16 +288,9 @@ class LocalHeteroPartition:
         if self.hub is None or self.hub.get(c) is None:
             raise ValueError(f"relation {c} has no hub layout")
         if c not in self._hub_graphs:
-            edst = self.edst[c]
-            r_c = self.hub_rows[c]
-            self._hub_graphs[c] = Graph(
-                src=self.esrc[c], dst=edst, csr_indptr=None, csr_dst=None,
-                csr_eid=None, csr_src=None, csc_indptr=None, csc_src=None,
-                csc_eid=None, csc_dst=None, num_src_nodes=r_c,
-                num_dst_nodes=r_c,
-                num_edges=int((edst < self.n_loc[c[2]]).sum()),
-                hub_dst=self.hub[c], hub_dst_meta=self.hub_meta[c],
-                device=self.device)
+            self._hub_graphs[c] = hub_layout_graph(
+                self.esrc[c], self.edst[c], self.hub[c], self.hub_meta[c],
+                self.hub_rows[c], self.n_loc[c[2]], self.device)
         return self._hub_graphs[c]
 
 
@@ -607,27 +599,18 @@ def _local_rel_reduce(pl: LocalHeteroPartition, c, msg_combined):
     """Sum of relation ``c``'s combined source rows into its owned
     destination rows: the hub engine, the tile kernel K9 both ways, or a
     gather and ``index_add`` (padded slots land on a dropped row)."""
+    from dgl1_tpu_torch.parallel.sharded_ops import (hub_local_spmm,
+                                                     make_local_spmm,
+                                                     segment_local_spmm)
+
     st, _, dt = c
     n_dst = pl.n_loc[dt]
     if pl.hub is not None and pl.hub.get(c) is not None:
-        from dgl1_tpu_torch.ops.engine_hub import _HubSum
-        from dgl1_tpu_torch.ops.precision import get_matmul_precision
-
-        r_c = pl.hub_rows[c]
-        widths = [0, 0] * (msg_combined.dim() - 1) + [
-            0, r_c - msg_combined.shape[0]]
-        x_pad = torch.nn.functional.pad(msg_combined, widths)
-        rep = math.prod(msg_combined.shape[1:])
-        return _HubSum.apply(pl.hub_graph(c), "copy_lhs", 1, rep, x_pad,
-                             None, get_matmul_precision() == "bf16")[:n_dst]
+        return hub_local_spmm(pl.hub_graph(c), msg_combined, n_dst)
     if pl.tiles_fwd is not None:
-        from dgl1_tpu_torch.parallel.sharded_ops import make_local_spmm
-
         fn = make_local_spmm(n_dst, pl.n_comb(st))
         return fn(pl.tiles_fwd[c], pl.tiles_rev[c], msg_combined)
-    msg = msg_combined.index_select(0, pl.esrc[c].long())
-    out = msg_combined.new_zeros((n_dst + 1,) + tuple(msg.shape[1:]))
-    return out.index_add(0, pl.edst[c].long(), msg)[:n_dst]
+    return segment_local_spmm(pl.esrc[c], pl.edst[c], msg_combined, n_dst)
 
 
 def sharded_typed_gspmm(pl: LocalHeteroPartition,

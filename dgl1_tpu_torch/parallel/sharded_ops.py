@@ -28,7 +28,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.functional import leaky_relu
 
-from dgl1_tpu_torch.graph import TILE_ROWS
+from dgl1_tpu_torch.graph import TILE_ROWS, Graph
 from dgl1_tpu_torch.ops.engine_xla import take_fill
 from dgl1_tpu_torch.ops.precision import get_matmul_precision
 from dgl1_tpu_torch.parallel.halo import LocalPartition
@@ -39,6 +39,8 @@ __all__ = [
     "halo_update_combined",
     "fill_halo_combined",
     "local_spmm_sum",
+    "hub_local_spmm",
+    "segment_local_spmm",
     "make_local_spmm",
     "make_local_spmm_bdense",
     "fused_attention_local",
@@ -319,45 +321,52 @@ def make_local_spmm_bdense(n_out: int, n_comb: int):
     return fn
 
 
-def _hub_sum(pl: LocalPartition, x_rows: torch.Tensor) -> torch.Tensor:
-    """copy_u sum of (R, *f) rows through the hub engine on the part's
-    layout (R sources, R destinations): K1, K2, K3 and the ELL tail
+def _hub_sum(hg: Graph, x_rows: torch.Tensor) -> torch.Tensor:
+    """copy_u sum of (R, *f) rows through the hub engine on a part's
+    layout ``hg`` (R sources, R destinations): K1, K2, K3 and the ELL tail
     forward, K4a/K4b and K2 backward, as on one device."""
     from dgl1_tpu_torch.ops.engine_hub import _HubSum
 
     rep = math.prod(x_rows.shape[1:])
-    return _HubSum.apply(pl.hub_graph(), "copy_lhs", 1, rep, x_rows, None,
+    return _HubSum.apply(hg, "copy_lhs", 1, rep, x_rows, None,
                          get_matmul_precision() == "bf16")
 
 
-def _hub_local_spmm(pl: LocalPartition, combined: torch.Tensor):
+def hub_local_spmm(hg: Graph, combined: torch.Tensor, n_out: int):
     """The hub engine's local reduce: the combined table lifted to the R
-    rows the layout is built in (one copy; the combined-layout path keeps
-    activations at R rows and avoids it), summed, cut to n_out rows."""
-    widths = [0, 0] * (combined.dim() - 1) + [0, pl.hub_rows
-                                              - combined.shape[0]]
+    rows the layout ``hg`` is built in (one copy; the combined-layout path
+    keeps activations at R rows and avoids it), summed, cut to n_out
+    rows."""
+    widths = [0, 0] * (combined.dim() - 1) + [
+        0, hg.num_src_nodes() - combined.shape[0]]
     x_pad = torch.nn.functional.pad(combined, widths)
-    return _hub_sum(pl, x_pad)[: pl.n_out]
+    return _hub_sum(hg, x_pad)[:n_out]
+
+
+def segment_local_spmm(esrc, edst, combined: torch.Tensor, n_out: int):
+    """The local reduce without descriptors: a gather and ``index_add``
+    (padded edges hold a destination >= n_out and land on a dropped
+    row)."""
+    msg = combined.index_select(0, esrc.long())
+    out = combined.new_zeros((n_out + 1,) + tuple(combined.shape[1:]))
+    return out.index_add(0, edst.long(), msg)[:n_out]
 
 
 def local_spmm_sum(pl: LocalPartition, combined: torch.Tensor):
     """Sum over this part's edges of the combined (n_comb, *f) table into
     its (n_out, *f) output rows (owned rows, then the vertex-cut partial
     slots): the hub engine, block-dense with a tile tail, tiles (K9), or,
-    without descriptors, a gather and ``index_add`` (padded edges hold the
-    destination n_out and land on a dropped row)."""
+    without descriptors, a gather and ``index_add``."""
     n_out, n_comb = pl.n_out, pl.n_comb
     if pl.hub is not None:
-        return _hub_local_spmm(pl, combined)
+        return hub_local_spmm(pl.hub_graph(), combined, n_out)
     if pl.bdense is not None:
         return make_local_spmm_bdense(n_out, n_comb)(
             pl.bdense, pl.tiles_fwd, pl.tiles_rev, combined)
     if pl.tiles_fwd is not None:
         return make_local_spmm(n_out, n_comb)(pl.tiles_fwd, pl.tiles_rev,
                                               combined)
-    msg = combined.index_select(0, pl.esrc.long())
-    out = combined.new_zeros((n_out + 1,) + tuple(combined.shape[1:]))
-    return out.index_add(0, pl.edst.long(), msg)[:n_out]
+    return segment_local_spmm(pl.esrc, pl.edst, combined, n_out)
 
 
 def _take_fill(x, idx, fill: float = 0.0):
@@ -448,7 +457,7 @@ def sharded_gspmm_combined(pl: LocalPartition, x_comb: torch.Tensor,
     if pl.hub is None:
         raise ValueError("combined layout requires hub=... at build")
     x2 = x_comb if halo_filled else halo_update_combined(pl, x_comb, group)
-    y = _hub_sum(pl, x2)
+    y = _hub_sum(pl.hub_graph(), x2)
     if pl.m_part == 0:
         return y
     merged = _merge_partials(pl, y, group)

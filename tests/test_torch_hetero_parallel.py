@@ -92,6 +92,11 @@ BUILDS = {
     "hub_identity": (dict(seed=9, e=1200, hub_heavy=True), "random",
                      dict(hub=16, hub_dense_floor=32, hub_identity=True),
                      "right", True),
+    # No group clears the dense floor: every hub slot is a pinned chunk,
+    # so the layer's forward and backward go through K2's layouts.
+    "hub_identity_chunked": (dict(seed=9, e=1200, hub_heavy=True), "random",
+                             dict(hub=16, hub_dense_floor=100000,
+                                  hub_identity=True), "right", True),
     "none_norm": (dict(seed=8, np_=60, na=40, ni=12, e=200), "metis", {},
                   "none", False),
 }
@@ -380,8 +385,11 @@ def test_build_partitioned_hetero_matches_reference(name):
     if pj.hub_meta is not None:
         for c in pj.etypes:
             assert pj.hub_meta[c] == pt.hub_meta[c], c
-    if name == "hub_identity":
+    if name.startswith("hub_identity"):
         assert all(pt.hub_meta[c].identity_expand for c in pt.etypes)
+    if name == "hub_identity_chunked":
+        assert all(pt.hub_meta[c].n_groups > pt.hub_meta[c].n_dense == 0
+                   for c in pt.etypes)
 
 
 @pytest.mark.parametrize("writer", ["port", "reference"])
