@@ -232,6 +232,36 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    in 4e), ``copy_u`` max and sum on a sampled Reddit block (K10, K9, in
    5) and ``copy_u`` sum on the 2^17 geometric block-dense graph (K11
    both ways, in 4d);
+4k. the graph-level layer and the convs (slice 18), each model's weights
+   a reference-layout parameter tree built in numpy from a seed and
+   carried by ``params.from_jax_params``: after phase 4g, on the arxiv
+   graph, examples/train_citation_zoo.py's APPNP (128 -> 64 -> 40,
+   dropout 0.5, ``APPNPConv(k=10, alpha=0.1)``) and examples/train_gcn2.py's
+   GCNII (16 ``GCN2Conv`` layers, hidden 64, alpha 0.1, lambda 0.5), 5
+   Adam steps each at 1e-2: step-0 logits within 1e-4 of each logit's
+   float64 abs sum against the float64 oracle engine, exactly 10 (16)
+   hub propagations a step forward and backward (one ``copy_lhs`` sum
+   g-SpMM's launches counted first), a 2-step APPNP profile; each conv
+   with a graph forward and backward at in 128, out 64 (4 heads of 16)
+   against its float64 oracle run (float32 for a conv with a kink before
+   its first g-SpMM) within 1e-3 of each tensor's largest
+   magnitude, launches and engine recorded (``ChebConv`` with
+   ``laplacian_lambda_max`` of the arxiv graph, host seconds; GINConv also
+   on the mixed graph: K2, K4b); the dense convs on a 4,096-node
+   adjacency; DGI (hidden 128, 3 steps at 1e-3, step-0 embeddings against
+   the float64 oracle); ``save_graphs``/``load_graphs`` of the arxiv graph
+   with features (seconds, equal arrays); GIN graph classification (5
+   layers, hidden 64, sum readout) over ``GraphDataLoader(batch_size=32,
+   pad=True)`` on seeded power-law graphs of 200-800 nodes, 5 steps
+   (step-0 logits against the float64 oracle, each batch's engine, host
+   ms a batch against ms a step, a 2-step profile); DGCNN's EdgeConv at
+   ModelNet40's shape (32 clouds of 1,024 points, ``KNNGraph(k=20)`` on
+   the card, 3 -> 64, a 2-step profile); HGTConv on ``to_homogeneous``
+   of the mag graph at scale 8; K1, K3, K4a at F = 64 and K2 mul, K5 mul
+   at 4 heads of 16 as variants of their rows. In phase 5, GATv2Conv
+   (K9), EdgeConv and PNA max/min (K10) on a sampled Reddit block; in
+   4d, GINConv sum on the 2^17 geometric graph (K11 both ways, and at F
+   = 64 as variants);
 6. the ``{"kernels": [...]}`` line: ``launches_by_path`` holds each
    trainer run's count and ``launches`` their sum (every kernel above
    zero), then the last line
@@ -4594,6 +4624,790 @@ def frontend_mag(dev, hg, hg_host):
     return [(name, counts)]
 
 
+# ----------------------------------------------------------------------
+# Phase 4k: the graph-level layer, the convs and the graph files (slice
+# 18). Model legs carry their weights from a reference-layout parameter
+# tree built in numpy from a seed, through params.from_jax_params.
+# ----------------------------------------------------------------------
+
+# The kernels the convs of phase 4k must launch between them: K1-K5,
+# K9, K10, K11.
+CONV_KERNELS = ("dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
+                "dense_bwd", "chunk_mul", "chunk_rhs", "edge_grad_mul",
+                "edge_grad_rhs", "tile_sum", "tile_minmax", "block_fwd",
+                "block_bwd")
+ZOO = dict(in_f=128, out_f=64, heads=4, head_f=16, appnp_hidden=64,
+           classes=40, steps=5, gcnii_layers=16, dense_nodes=4096,
+           hgt_mag_scale=8, gin_graphs=1024, gin_feat=64, gin_hidden=64,
+           gin_batch=32, gin_nodes=(200, 800), gin_degree=2, gin_steps=5,
+           clouds=32, points=1024, knn_k=20, dgi_hidden=128, dgi_steps=3)
+
+
+def _np_dense(rng, n_in, n_out, bias=True):
+    """A flax ``Dense`` leaf: kernel (in, out) of std 1/sqrt(in), bias of
+    std 0.1."""
+    leaf = {"kernel": (rng.normal(size=(n_in, n_out)) / math.sqrt(n_in))
+            .astype(np.float32)}
+    if bias:
+        leaf["bias"] = (0.1 * rng.normal(size=(n_out,))).astype(np.float32)
+    return leaf
+
+
+def _load_tree(model, tree):
+    """``model`` with the reference-layout ``tree`` loaded through
+    ``from_jax_params`` (every parameter named by the tree)."""
+    from dgl1_tpu_torch.params import from_jax_params
+
+    model.load_state_dict(from_jax_params({"params": tree}), strict=True)
+    return model
+
+
+def _drop(x, p, training, generator):
+    from dgl1_tpu_torch.nn.conv import _dropout
+
+    return _dropout(x, p, generator) if training and p > 0 else x
+
+
+class AppnpNet(torch.nn.Module):
+    """examples/train_citation_zoo.py's ``appnp`` model: dropout, Dense ->
+    relu, dropout, Dense, then ``APPNPConv(k=10, alpha=0.1)``; flax's
+    auto names ``Dense_0``/``Dense_1``."""
+
+    def __init__(self, in_f, hidden, classes, dropout, dev):
+        super().__init__()
+        from dgl1_tpu_torch.nn import APPNPConv
+
+        self.Dense_0 = torch.nn.Linear(in_f, hidden, device=dev)
+        self.Dense_1 = torch.nn.Linear(hidden, classes, device=dev)
+        self.prop = APPNPConv(k=10, alpha=0.1, device=dev)
+        self.dropout = dropout
+
+    def forward(self, g, feat, generator=None):
+        x = _drop(feat, self.dropout, self.training, generator)
+        x = torch.relu(self.Dense_0(x))
+        x = _drop(x, self.dropout, self.training, generator)
+        return self.prop(g, self.Dense_1(x))
+
+    @staticmethod
+    def tree(rng, in_f, hidden, classes):
+        return {"Dense_0": _np_dense(rng, in_f, hidden),
+                "Dense_1": _np_dense(rng, hidden, classes)}
+
+
+class Gcn2Net(torch.nn.Module):
+    """examples/train_gcn2.py's GCNII: ``fc_in`` -> relu, ``layers``
+    ``GCN2Conv(project_initial_features=True)`` + relu (``conv_{l}``, layer
+    l + 1), ``fc_out``, dropout before each."""
+
+    def __init__(self, in_f, hidden, classes, layers, alpha, lambda_,
+                 dropout, dev):
+        super().__init__()
+        from dgl1_tpu_torch.nn import GCN2Conv
+
+        self.fc_in = torch.nn.Linear(in_f, hidden, device=dev)
+        self.layers = layers
+        for l in range(layers):
+            setattr(self, f"conv_{l}", GCN2Conv(
+                hidden, layer=l + 1, alpha=alpha, lambda_=lambda_,
+                project_initial_features=True, device=dev))
+        self.fc_out = torch.nn.Linear(hidden, classes, device=dev)
+        self.dropout = dropout
+
+    def forward(self, g, feat, generator=None):
+        def drop(x):
+            return _drop(x, self.dropout, self.training, generator)
+
+        h0 = torch.relu(self.fc_in(drop(feat)))
+        h = h0
+        for l in range(self.layers):
+            h = torch.relu(getattr(self, f"conv_{l}")(g, drop(h), h0))
+        return self.fc_out(drop(h))
+
+    @staticmethod
+    def tree(rng, in_f, hidden, classes, layers):
+        t = {"fc_in": _np_dense(rng, in_f, hidden),
+             "fc_out": _np_dense(rng, hidden, classes)}
+        for l in range(layers):
+            t[f"conv_{l}"] = {"fc": _np_dense(rng, hidden, hidden)}
+        return t
+
+
+def _abs_oracle(model, g, feat, call):
+    """``call(model, g, feat)`` in float64 on the oracle engine, and the
+    same with every parameter and input by its absolute value (each
+    output's float64 abs sum), model in eval mode."""
+    from dgl1_tpu_torch import ops
+
+    m64 = copy.deepcopy(model).double().eval()
+    ops.set_engine("xla")
+    try:
+        with torch.no_grad():
+            ref = call(m64, g, feat.double())
+            for p in m64.parameters():
+                p.abs_()
+            bound_ = call(m64, g, feat.abs().double())
+    finally:
+        ops.set_engine("auto")
+    return ref, bound_
+
+
+def model_step0(name, model, g, feat, call=None):
+    """The model's step-0 output on the card (eval mode) against its
+    float64 oracle run, within 1e-4 of each output's float64 abs sum."""
+    call = call or (lambda m, gg, x: m(gg, x))
+    model.eval()
+    with torch.no_grad():
+        got = call(model, g, feat)
+    ref, bound_ = _abs_oracle(model, g, feat, call)
+    return logits_vs_abs(name, "float64 oracle", got, ref, bound_)
+
+
+def gspmm_unit(g, f):
+    """Launches of one ``copy_lhs`` sum g-SpMM on ``g`` at width f (the
+    convs' propagation): (forward, backward) count dicts."""
+    from dgl1_tpu_torch.ops import gspmm
+
+    x = torch.randn(g.num_src_nodes(), f, device=g.device,
+                    requires_grad=True)
+    reset_all_launches()
+    y = gspmm(g, "copy_lhs", "sum", x, None)
+    torch.cuda.synchronize()
+    fwd = {k: v for k, v in all_launches().items() if v}
+    reset_all_launches()
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    bwd = {k: v for k, v in all_launches().items() if v}
+    return fwd, bwd
+
+
+def _scaled(counts, k):
+    return {n: v * k for n, v in counts.items()}
+
+
+def _plus(*ds):
+    out = {}
+    for d in ds:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def learnable_labels(feat, classes, seed):
+    """Labels a linear map of the features can fit (argmax of a fixed
+    random projection), so five steps lower the loss even with dropout."""
+    gen = torch.Generator(device=feat.device).manual_seed(seed)
+    w = torch.randn(feat.shape[1], classes, device=feat.device,
+                    generator=gen)
+    return (feat @ w).argmax(dim=1)
+
+
+def phase_appnp(name, dev, g, profile_steps=2):
+    """examples/train_citation_zoo.py --model appnp at arxiv scale: 128 ->
+    64 -> 40, dropout 0.5, ``APPNPConv(k=10, alpha=0.1)``, 5 Adam steps at
+    1e-2 (dropout masks from a seeded generator); step-0 logits against the
+    float64 oracle; exactly 10 propagations a step forward and backward
+    (``gspmm_unit`` at F = 40); a profile of ``profile_steps`` steps."""
+    import dgl1_tpu_torch as dgl
+    from torch.profiler import ProfilerActivity, profile
+
+    z = ZOO
+    n = g.num_nodes()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(n, z["in_f"], device=dev, generator=gen)
+    labels = learnable_labels(feat, z["classes"], 1)
+    model = _load_tree(
+        AppnpNet(z["in_f"], z["appnp_hidden"], z["classes"], 0.5, dev),
+        AppnpNet.tree(np.random.default_rng(18), z["in_f"],
+                      z["appnp_hidden"], z["classes"]))
+    lerr, lrel = model_step0(name, model, g, feat)
+    fwd, bwd = gspmm_unit(g, z["classes"])
+    want = _plus(_scaled(fwd, 10), _scaled(bwd, 10))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    drop_gen = torch.Generator(device=dev).manual_seed(3)
+    res = dgl.train(g, feat, labels, model, steps=z["steps"], lr=1e-2,
+                    generator=drop_gen)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    expect_exact(name, counts, _scaled(want, z["steps"]))
+    train_record("appnp_train", name, g, res, counts, z["steps"],
+                 dims=[z["in_f"], z["appnp_hidden"], z["classes"]],
+                 k=10, launches_per_step_expected=want,
+                 logits_err_vs_oracle64=lerr, logits_err_over_abs_sum=lrel)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dgl.train(g, feat, labels, model, steps=profile_steps, lr=1e-2,
+                  generator=drop_gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / profile_steps
+    summarize_profile("appnp_profile", name, prof, profile_steps, wall_ms)
+    return counts
+
+
+def phase_gcnii(name, dev, g):
+    """examples/train_gcn2.py's defaults at arxiv scale: 16 GCN2Conv
+    layers, hidden 64, alpha 0.1, lambda 0.5, dropout 0.5, 5 Adam steps at
+    1e-2; step-0 logits against the float64 oracle; exactly 16
+    propagations a step forward and backward (``gspmm_unit`` at F =
+    64)."""
+    import dgl1_tpu_torch as dgl
+
+    z = ZOO
+    n, hid, layers = g.num_nodes(), z["out_f"], z["gcnii_layers"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(n, z["in_f"], device=dev, generator=gen)
+    labels = learnable_labels(feat, z["classes"], 2)
+    model = _load_tree(
+        Gcn2Net(z["in_f"], hid, z["classes"], layers, 0.1, 0.5, 0.5, dev),
+        Gcn2Net.tree(np.random.default_rng(19), z["in_f"], hid,
+                     z["classes"], layers))
+    lerr, lrel = model_step0(name, model, g, feat)
+    fwd, bwd = gspmm_unit(g, hid)
+    want = _plus(_scaled(fwd, layers), _scaled(bwd, layers))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    res = dgl.train(g, feat, labels, model, steps=z["steps"], lr=1e-2,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    torch.cuda.synchronize()
+    counts = all_launches()
+    expect_exact(name, counts, _scaled(want, z["steps"]))
+    train_record("gcnii_train", name, g, res, counts, z["steps"],
+                 layers=layers, hidden=hid, launches_per_step_expected=want,
+                 logits_err_vs_oracle64=lerr, logits_err_over_abs_sum=lrel)
+    return counts
+
+
+def conv_case(name, make, g, inputs, grad_of=(0,), expect=(), f64=True):
+    """One conv's forward and backward on the card (the auto engine,
+    counters zeroed before and read after; each kernel in ``expect``
+    launched) against the same module and inputs on the oracle engine in
+    float64: each output and each input's gradient of ``sum(out * ct)``
+    (``ct`` a fixed draw) within 1e-3 of that tensor's largest magnitude,
+    as phase 4's GCN logits check. Without ``f64`` the oracle runs in
+    float32: for a conv with a kink before its first g-SpMM (a
+    leaky_relu, a max over per-edge values), where a float32 value within
+    rounding of the kink takes the other branch in float64 (EGAT's edge
+    output did on the arxiv graph); in float32 both sides do the same
+    arithmetic up to the first g-SpMM. ``inputs``: card tensors (float
+    ones in ``grad_of`` get gradients). ``make()`` builds the module on
+    the card."""
+    from dgl1_tpu_torch import ops
+
+    mod = make()
+    mod.eval()
+    xs = [x.detach().clone().requires_grad_(i in grad_of)
+          for i, x in enumerate(inputs)]
+
+    def outs(o):
+        return o if isinstance(o, tuple) else (o,)
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    got = outs(mod(g, *xs))
+    cts = [torch.randn(o.shape, device=o.device,
+                       generator=torch.Generator(device=o.device)
+                       .manual_seed(50 + i)) for i, o in enumerate(got)]
+    sum((o * c).sum() for o, c in zip(got, cts)).backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = all_launches()
+    expect_launches(name, counts, expect)
+    engine = (forward_engine(g) if hasattr(g, "hub_dst") else "dense")
+    grads = [xs[i].grad for i in grad_of]
+    got = [o.detach() for o in got]
+    del xs
+    dt = torch.float64 if f64 else torch.float32
+    m_ref = copy.deepcopy(mod).to(dt) if f64 else mod
+    xr = [(x.to(dt) if x.is_floating_point() else x).detach().clone()
+          .requires_grad_(i in grad_of) for i, x in enumerate(inputs)]
+    ops.set_engine("xla")
+    try:
+        ref = outs(m_ref(g, *xr))
+        sum((o * c.to(dt)).sum() for o, c in zip(ref, cts)).backward()
+    finally:
+        ops.set_engine("auto")
+    del m_ref
+    errs = []
+    pairs = list(zip(got, (r.detach() for r in ref)))
+    pairs += [(a, xr[i].grad) for a, i in zip(grads, grad_of)]
+    for k, (a, b) in enumerate(pairs):
+        scale = float(b.abs().max())
+        err = float((a.to(dt) - b).abs().max())
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"{name}[{k}]: err {err} > 1e-3 * "
+                                 f"max|ref| ({scale})")
+        errs.append(err / max(scale, 1e-300))
+    launched = {k: v for k, v in counts.items() if v}
+    log(json.dumps({"phase": "conv_leg", "path": name,
+                    "nodes": g.num_src_nodes() if hasattr(g, "hub_dst")
+                    else g.shape[0],
+                    "edges": g.num_edges() if hasattr(g, "hub_dst")
+                    else int((g != 0).sum()),
+                    "engine": engine, "out": [list(o.shape) for o in got],
+                    "ms_with_backward": ms, "launches": launched,
+                    "rel_errs": errs}))
+    return counts
+
+
+def conv_legs_arxiv(dev, g, g_mix):
+    """The hub-graph convs on the arxiv graph at in 128, out 64 (4 heads
+    of 16 where the conv has heads), each against its oracle run
+    with its launches counted (``conv_case``); GINConv also on the mixed
+    graph (K2, K4b). ChebConv takes ``laplacian_lambda_max`` of the arxiv
+    graph (host seconds reported). Returns [(path, counts)]."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch import nn as tnn
+
+    z = ZOO
+    fi, fo, h, hf = z["in_f"], z["out_f"], z["heads"], z["head_f"]
+    n, e = g.num_nodes(), g.num_edges_padded()
+    gen = torch.Generator(device=dev).manual_seed(60)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    x, x64w = rnd(n, fi), rnd(n, 64)
+    wg = torch.Generator().manual_seed(61)
+    kw = dict(device=dev, generator=wg)
+    t0 = time.perf_counter()
+    lam = float(dgl.laplacian_lambda_max(g)[0])
+    lam_s = time.perf_counter() - t0
+    log(json.dumps({"phase": "laplacian_lambda_max", "graph": "arxiv",
+                    "lambda_max": lam, "host_s": lam_s}))
+    z_types = torch.tensor([1.0, 6.0, 8.0], device=dev)[
+        torch.randint(0, 3, (n,), device=dev, generator=gen)][:, None]
+    dist = torch.rand(e, 1, device=dev, generator=gen) * 4.0
+    hub = ("dense_fwd", "expand", "dense_bwd_fused")
+    mul = ("chunk_mul", "edge_grad_mul")
+    rhs = ("chunk_rhs", "edge_grad_rhs")
+    cases = [
+        ("dotgat", lambda: tnn.DotGatConv(fi, hf, h, **kw), [x], (0,), mul),
+        ("gin_sum", lambda: tnn.GINConv(
+            apply_func=tnn.conv.dense(fi, fo, **kw), device=dev), [x], (0,),
+         hub),
+        ("sgconv", lambda: tnn.SGConv(fi, fo, k=2, **kw), [x], (0,), hub),
+        ("appnp", lambda: tnn.APPNPConv(k=3, device=dev), [x], (0,), hub),
+        ("tagconv", lambda: tnn.TAGConv(fi, fo, k=2, **kw), [x], (0,), hub),
+        ("chebconv", lambda: tnn.ChebConv(fi, fo, k=2, **kw),
+         [x, torch.tensor(lam, device=dev)], (0,), hub),
+        ("edgeconv", lambda: tnn.EdgeConv(fi, fo, **kw), [x], (0,), ()),
+        ("gated", lambda: tnn.GatedGraphConv(64, 64, n_steps=2, **kw),
+         [x64w], (0,), rhs),
+        ("agnn", lambda: tnn.AGNNConv(device=dev), [x], (0,), mul),
+        ("nnconv_sum", lambda: tnn.NNConv(
+            8, 8, tnn.conv.dense(4, 64, **kw), "sum", **kw),
+         [rnd(n, 8), rnd(e, 4)], (0, 1), rhs),
+        ("gmmconv_sum", lambda: tnn.GMMConv(fi, fo, 2, 3, "sum", **kw),
+         [x, rnd(e, 2)], (0, 1), rhs),
+        ("cfconv", lambda: tnn.CFConv(fi, 16, fo, fo, **kw),
+         [x, rnd(e, 16)], (0, 1), mul),
+        ("atomic", lambda: tnn.AtomicConv((3.0,) * 4, (0.5, 1.0, 2.0, 3.0),
+                                          (1.0,) * 4, (1.0, 6.0, 8.0),
+                                          device=dev),
+         [z_types, dist], (1,), ()),
+        ("gatv2", lambda: tnn.GATv2Conv(fi, hf, h, **kw), [x], (0,), mul),
+        ("egat", lambda: tnn.EGATConv(fi, 16, hf, hf, h, **kw),
+         [x, rnd(e, 16)], (0, 1), mul),
+        ("edgegat", lambda: tnn.EdgeGATConv(fi, 16, hf, h, **kw),
+         [x, rnd(e, 16)], (0, 1), ()),
+        ("gcn2", lambda: tnn.GCN2Conv(fi, layer=1, **kw), [x, rnd(n, fi)],
+         (0, 1), hub),
+        # sum, mean (the hub engine) and max, min; std's square root
+        # amplifies float32 rounding (tested on the CPU).
+        ("pna", lambda: tnn.PNAConv(fi, fo, aggregators=(
+            "mean", "max", "min", "sum"), **kw), [x], (0,), hub),
+    ]
+    # Kinks before the first g-SpMM: the float32 oracle (conv_case).
+    kinked = ("edgeconv", "gatv2", "egat", "edgegat")
+    out = []
+    for cname, make, inputs, grad_of, expect in cases:
+        path = f"conv_{cname}_arxiv"
+        out.append((path, conv_case(path, make, g, inputs, grad_of, expect,
+                                    f64=cname not in kinked)))
+        torch.cuda.empty_cache()
+    xm = torch.randn(g_mix.num_nodes(), fi, device=dev, generator=gen)
+    out.append(("conv_gin_sum_mixed", conv_case(
+        "conv_gin_sum_mixed", lambda: tnn.GINConv(
+            apply_func=tnn.conv.dense(fi, fo, **kw), device=dev),
+        g_mix, [xm], (0,), ("dense_fwd", "chunk_sum", "dense_bwd"))))
+    return out
+
+
+def conv_legs_dense(dev):
+    """The dense convs on a 4,096-node random adjacency (density 1%, a
+    plain matmul a propagation, no kernel) against their oracle
+    runs."""
+    from dgl1_tpu_torch import nn as tnn
+
+    z = ZOO
+    nd, fi, fo = z["dense_nodes"], z["in_f"], z["out_f"]
+    gen = torch.Generator(device=dev).manual_seed(62)
+    adj = (torch.rand(nd, nd, device=dev, generator=gen) < 0.01).float()
+    x = torch.randn(nd, fi, device=dev, generator=gen)
+    kw = dict(device=dev, generator=torch.Generator().manual_seed(63))
+    out = []
+    for cname, make, extra in (
+            ("dense_graph", lambda: tnn.DenseGraphConv(fi, fo, **kw), []),
+            ("dense_sage", lambda: tnn.DenseSAGEConv(fi, fo, **kw), []),
+            ("dense_cheb", lambda: tnn.DenseChebConv(fi, fo, 3, **kw),
+             [torch.tensor(1.8, device=dev)])):
+        path = f"conv_{cname}_4096"
+        out.append((path, conv_case(path, make, adj, [x] + extra)))
+    return out
+
+
+def conv_leg_hgt(dev):
+    """HGTConv on ``to_homogeneous`` of the mag heterograph at
+    ``hgt_mag_scale`` (128 -> 4 x 16, 4 node types, 7 edge types),
+    against its oracle run."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch import nn as tnn
+
+    z = ZOO
+    t0 = time.perf_counter()
+    hg, _ = dgl.data.synthetic_mag_heterograph(scale=z["hgt_mag_scale"],
+                                               device="cpu")
+    g = dgl.to_homogeneous(hg).to(dev)
+    log(json.dumps({"phase": "hgt_graph", "scale": z["hgt_mag_scale"],
+                    "nodes": g.num_nodes(), "edges": g.num_edges(),
+                    "build_s": time.perf_counter() - t0}))
+    nt, et = g.ndata["_TYPE"].long(), g.edata["_TYPE"].long()
+    x = torch.randn(g.num_nodes(), z["in_f"], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(64))
+    path = "conv_hgt_mag"
+    counts = conv_case(path, lambda: tnn.HGTConv(
+        z["in_f"], z["head_f"], z["heads"], len(hg.ntypes),
+        len(hg.canonical_etypes), device=dev,
+        generator=torch.Generator().manual_seed(65)), g, [x, nt, et])
+    return [(path, counts)]
+
+
+def conv_legs_block(dev, block, f):
+    """On one sampled Reddit block (F = 602): GATv2Conv, as the
+    reference's ``test_new_convs_on_blocks`` runs it, EdgeConv and PNA's
+    max and min (K10 forward, K9 in its backward)."""
+    from dgl1_tpu_torch import nn as tnn
+
+    x = torch.randn(block.num_src_nodes(), f, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(66))
+    kw = dict(device=dev, generator=torch.Generator().manual_seed(67))
+    z = ZOO
+    out = []
+    for cname, make, expect in (
+            ("gatv2", lambda: tnn.GATv2Conv(f, z["head_f"], z["heads"],
+                                            **kw), ()),
+            ("edgeconv", lambda: tnn.EdgeConv(f, z["out_f"], **kw), ()),
+            ("pna_max_min", lambda: tnn.PNAConv(
+                f, z["out_f"], aggregators=("max", "min"),
+                scalers=("identity",), **kw),
+             ("tile_minmax", "tile_sum"))):
+        path = f"conv_{cname}_reddit_block"
+        out.append((path, conv_case(path, make, block, [x], (0,), expect,
+                                    f64=cname == "pna_max_min")))
+    return out
+
+
+def conv_leg_bdense(dev, g17):
+    """GINConv sum on the 2^17 geometric block-dense graph (F = 64): K11
+    both ways."""
+    from dgl1_tpu_torch import nn as tnn
+
+    x = torch.randn(g17.num_nodes(), 64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(68))
+    path = "conv_gin_sum_geo2e17"
+    return [(path, conv_case(path, lambda: tnn.GINConv(
+        apply_func=tnn.conv.dense(
+            64, 64, device=dev, generator=torch.Generator().manual_seed(69)),
+        device=dev), g17, [x], (0,), ("block_fwd", "block_bwd")))]
+
+
+class _GinData:
+    """``count`` seeded power-law graphs of ``gin_nodes`` nodes (REDDIT-
+    BINARY's range) with ``gin_feat``-wide features and a label each,
+    built on the host when indexed."""
+
+    def __init__(self, count):
+        self.count = count
+
+    def __len__(self):
+        return self.count
+
+    def __getitem__(self, i):
+        import dgl1_tpu_torch as dgl
+
+        z = ZOO
+        rng = np.random.default_rng(1000 + i)
+        n = int(rng.integers(z["gin_nodes"][0], z["gin_nodes"][1] + 1))
+        g = dgl.data.powerlaw_graph(n, z["gin_degree"], seed=i,
+                                    formats=("csc",), device="cpu")
+        g.ndata["x"] = torch.from_numpy(
+            rng.normal(size=(n, z["gin_feat"])).astype(np.float32))
+        return g, i % 2
+
+
+def _gin_tree(rng, in_f, hidden, classes, layers):
+    t = {}
+    for i in range(layers - 1):
+        t[f"mlp{i}"] = {"fc0": _np_dense(rng, in_f if i == 0 else hidden,
+                                         hidden),
+                        "ln0": {"scale": np.ones(hidden, np.float32),
+                                "bias": np.zeros(hidden, np.float32)},
+                        "fc_out": _np_dense(rng, hidden, hidden)}
+        t[f"bn{i}"] = {"scale": np.ones(hidden, np.float32),
+                       "bias": np.zeros(hidden, np.float32)}
+    for i in range(layers):
+        # Small prediction weights: the sum readout adds hundreds of rows.
+        t[f"pred{i}"] = _np_dense(rng, in_f if i == 0 else hidden, classes)
+        t[f"pred{i}"]["kernel"] *= 0.02
+    return t
+
+
+def phase_gin(name, dev, profile_steps=2):
+    """GIN graph classification (the GIN paper's and DGL's
+    examples/pytorch/gin defaults: 5 layers, hidden 64, sum readout, 2
+    classes) over ``GraphDataLoader(batch_size=32, pad=True)`` on 1,024
+    seeded power-law graphs of 200-800 nodes, 5 Adam steps at 1e-2 of the
+    masked cross entropy: step-0 logits against the float64 oracle, the
+    engine of each batch's propagation (the padding graph's self-loops may
+    earn a hub layout), host ms a batch of the loader against device ms a
+    step, launches, and a profile of ``profile_steps`` steps."""
+    from dgl1_tpu_torch.dataloading import GraphDataLoader
+    from dgl1_tpu_torch.models import GIN
+    from torch.profiler import ProfilerActivity, profile
+
+    z = ZOO
+    # prefetch 0: each batch is built when asked for, so its host time is
+    # the loader's cost a batch.
+    loader = GraphDataLoader(_GinData(z["gin_graphs"]),
+                             batch_size=z["gin_batch"], shuffle=True,
+                             pad=True, prefetch=0, seed=0, device=dev)
+    t0 = time.perf_counter()
+    it = iter(loader)
+    batches, load_ms = [], []
+    for _ in range(z["gin_steps"] + profile_steps):
+        t1 = time.perf_counter()
+        batches.append(next(it))
+        load_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    wall_load_s = time.perf_counter() - t0
+    model = _load_tree(
+        GIN(z["gin_feat"], z["gin_hidden"], 2, num_layers=5, device=dev),
+        _gin_tree(np.random.default_rng(20), z["gin_feat"], z["gin_hidden"],
+                  2, 5))
+    bg0 = batches[0][0]
+    lerr, lrel = model_step0(name, model, bg0, bg0.ndata["x"])
+    engines_ = [forward_engine(b[0], z["gin_hidden"]) for b in batches]
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    model.train()
+
+    def step(b):
+        bg, y, mask = b
+        opt.zero_grad(set_to_none=True)
+        logits = model(bg, bg.ndata["x"])[: z["gin_batch"]]
+        nll = torch.nn.functional.cross_entropy(logits, y.long(),
+                                                reduction="none")
+        loss = (nll * mask).sum() / mask.sum()
+        loss.backward()
+        opt.step()
+        return loss
+
+    reset_all_launches()
+    losses, step_ms = [], []
+    for b in batches[: z["gin_steps"]]:
+        t1 = time.perf_counter()
+        loss = step(b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss.detach()))
+    counts = all_launches()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for b in batches[z["gin_steps"]:]:
+            step(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / profile_steps
+    summarize_profile("gin_profile", name, prof, profile_steps, wall_ms)
+    log(json.dumps({
+        "phase": "gin_train", "path": name, "graphs": z["gin_graphs"],
+        "batch": z["gin_batch"], "steps": z["gin_steps"], "losses": losses,
+        "batch_nodes": [b[0].num_nodes() for b in batches],
+        "batch_edges": [b[0].num_edges() for b in batches],
+        "engine_per_batch": engines_,
+        "loader_host_ms_per_batch": load_ms, "loader_wall_s": wall_load_s,
+        "ms_per_step": step_ms,
+        "launches": {k: v for k, v in counts.items() if v},
+        "logits_err_vs_oracle64": lerr, "logits_err_over_abs_sum": lrel}))
+    return counts
+
+
+def phase_dgcnn(name, dev, profile_steps=2):
+    """DGCNN's first EdgeConv at ModelNet40's published shape: 32 clouds
+    of 1,024 points, ``KNNGraph(k=20)`` built on the card (ms), EdgeConv
+    3 -> 64 forward and backward against its oracle run, the
+    engine taken, and a profile of ``profile_steps`` steps of kNN build +
+    EdgeConv forward and backward."""
+    from dgl1_tpu_torch import nn as tnn
+    from torch.profiler import ProfilerActivity, profile
+
+    z = ZOO
+    gen = torch.Generator(device=dev).manual_seed(70)
+    pts = torch.randn(z["clouds"], z["points"], 3, device=dev, generator=gen)
+    knn = tnn.KNNGraph(z["knn_k"], device=dev)
+    knn(pts[:1])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = knn(pts)
+    torch.cuda.synchronize()
+    knn_ms = (time.perf_counter() - t0) * 1e3
+    if g.num_edges() != z["clouds"] * z["points"] * z["knn_k"]:
+        raise AssertionError(f"{name}: {g.num_edges()} kNN edges")
+    x = pts.reshape(-1, 3)
+    make = lambda: tnn.EdgeConv(  # noqa: E731
+        3, 64, device=dev, generator=torch.Generator().manual_seed(71))
+    counts = conv_case(name, make, g, [x], f64=False)
+    conv = make()
+
+    def step():
+        gg = knn(pts)
+        xx = pts.reshape(-1, 3).requires_grad_(True)
+        conv(gg, xx).sum().backward()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(profile_steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / profile_steps
+    summarize_profile("dgcnn_profile", name, prof, profile_steps, wall_ms,
+                      knn_build_ms=knn_ms, engine=forward_engine(g, 64))
+    return counts
+
+
+def phase_dgi(name, dev, g):
+    """examples/train_dgi.py's ``DGI(hidden=128)`` at arxiv scale, 3 Adam
+    steps at 1e-3, corruption permutations from a seeded generator on the
+    card: step-0 embeddings against the float64 oracle, losses finite,
+    launches."""
+    from dgl1_tpu_torch.models import DGI
+
+    z = ZOO
+    n = g.num_nodes()
+    feat = torch.randn(n, z["in_f"], device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(72))
+    tree = {"encoder": {"conv0": {
+        "weight": {"kernel": _np_dense(np.random.default_rng(21), z["in_f"],
+                                       z["dgi_hidden"])["kernel"]},
+        "bias": np.zeros(z["dgi_hidden"], np.float32)},
+        "prelu0": {"negative_slope": np.asarray(0.25, np.float32)}},
+        "discriminator": _np_dense(np.random.default_rng(22),
+                                   z["dgi_hidden"], z["dgi_hidden"])["kernel"]}
+    model = _load_tree(DGI(z["in_f"], z["dgi_hidden"], device=dev), tree)
+    lerr, lrel = model_step0(name, model, g, feat,
+                             call=lambda m, gg, x: m.embed(gg, x))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    perm_gen = torch.Generator(device=dev).manual_seed(5)
+    model.train()
+    reset_all_launches()
+    losses, step_ms = [], []
+    for _ in range(z["dgi_steps"]):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = model(g, feat, generator=perm_gen)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+    counts = all_launches()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    log(json.dumps({"phase": "dgi_train", "path": name, "nodes": n,
+                    "hidden": z["dgi_hidden"], "losses": losses,
+                    "ms_per_step": step_ms,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "embed_err_vs_oracle64": lerr,
+                    "embed_err_over_abs_sum": lrel}))
+    return counts
+
+
+def phase_graph_files(dev, g):
+    """``save_graphs``/``load_graphs`` round trip of the arxiv graph with
+    128-wide features and a label dict in a temporary directory: seconds
+    each way, the file's size, every array equal after the load."""
+    import tempfile
+
+    import dgl1_tpu_torch as dgl
+
+    gen = torch.Generator(device=dev).manual_seed(73)
+    g.ndata["feat"] = torch.randn(g.num_nodes(), 128, device=dev,
+                                  generator=gen)
+    y = torch.randint(0, 40, (g.num_nodes(),), device=dev, generator=gen)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "arxiv.npz")
+            t0 = time.perf_counter()
+            dgl.save_graphs(path, g, labels={"y": y})
+            save_s = time.perf_counter() - t0
+            size = Path(path).stat().st_size
+            t0 = time.perf_counter()
+            (back,), labels = dgl.load_graphs(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+    finally:
+        feat = g.ndata.pop("feat")
+    e = g.num_edges()
+    if (back.num_nodes() != g.num_nodes() or back.num_edges() != e
+            or not torch.equal(back.src[:e], g.src[:e])
+            or not torch.equal(back.dst[:e], g.dst[:e])
+            or not torch.equal(back.ndata["feat"], feat)
+            or not torch.equal(labels["y"], y)):
+        raise AssertionError("graph files: the arxiv graph did not come "
+                             "back as saved")
+    log(json.dumps({"phase": "graph_files", "nodes": g.num_nodes(),
+                    "edges": e, "file_mb": size / 1e6, "save_s": save_s,
+                    "load_s": load_s, "hub": back.hub_dst is not None}))
+
+
+def zoo_kernel_variants(dev, rows, g_arx):
+    """The kernels at this slice's new shapes, each against its float64
+    plain version as a variant of its row: K1, K3 (with the diagonal
+    epilogue) and K4a at GCNII's F = 64 on the arxiv graph, K2 mul and K5
+    mul at the attention convs' 4 heads of 16 there."""
+    new = {
+        "dense_fwd": dense_fwd_case("gcnii_arxiv_f64", g_arx, dev, 64,
+                                    seed=80, library=False),
+        "expand": expand_case("gcnii_arxiv_f64_diag", g_arx, dev, 64,
+                              seed=81, library=False, epilogue="u"),
+        "dense_bwd_fused": dense_bwd_fused_case("gcnii_arxiv_f64", g_arx,
+                                                dev, 64, seed=82,
+                                                library=False),
+        "chunk_mul": weighted_row("chunk_mul", "attn_convs_arxiv_h4x16",
+                                  g_arx, dev, 4, 16, library=False,
+                                  seed=83),
+        "edge_grad_mul": weighted_row("edge_grad_mul",
+                                      "attn_convs_arxiv_h4x16", g_arx, dev,
+                                      4, 16, library=False, seed=84),
+    }
+    for name, v in new.items():
+        rows[name]["variants"].append({k: v[k] for k in VARIANT_KEYS
+                                       if k in v})
+
+
+def bdense_gin_variants(dev, rows, g17):
+    """K11 forward and transpose at the GINConv leg's F = 64 on the 2^17
+    geometric graph, as variants of their rows."""
+    for name, tr in (("block_fwd", False), ("block_bwd", True)):
+        v = block_case("gin_geo2e17_f64", g17, dev, 64, tr, seed=85,
+                       library=False)
+        rows[name]["variants"].append({k: v[k] for k in VARIANT_KEYS
+                                       if k in v})
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -4724,6 +5538,30 @@ def main():
     # then layer-wise inference against the full-graph forward.
     main_counts.append(("link_pred_arxiv_train", phase_link_pred(
         "link_pred_arxiv_train", dev, g_arx)))
+    # Phase 4k: APPNP and GCNII at arxiv scale (exact hub launches a
+    # step), each hub conv on the arxiv graph against its oracle run
+    # (GINConv also on the mixed graph), the dense convs, DGI, the graph
+    # files, GIN graph classification, DGCNN's EdgeConv and HGTConv; the
+    # kernels at the new shapes as variants of their rows.
+    t4k = time.perf_counter()
+    main_counts += [
+        ("appnp_arxiv_train", phase_appnp("appnp_arxiv_train", dev, g_arx)),
+        ("gcnii_arxiv_train", phase_gcnii("gcnii_arxiv_train", dev, g_arx)),
+    ]
+    main_counts += conv_legs_arxiv(dev, g_arx, g_mix)
+    main_counts += conv_legs_dense(dev)
+    main_counts.append(("dgi_arxiv_train", phase_dgi("dgi_arxiv_train", dev,
+                                                     g_arx)))
+    phase_graph_files(dev, g_arx)
+    main_counts.append(("gin_graph_classification", phase_gin(
+        "gin_graph_classification", dev)))
+    main_counts.append(("dgcnn_edgeconv_modelnet40", phase_dgcnn(
+        "dgcnn_edgeconv_modelnet40", dev)))
+    main_counts += conv_leg_hgt(dev)
+    zoo_kernel_variants(dev, rows, g_arx)
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "phase4k_done",
+                    "seconds": time.perf_counter() - t4k}))
     del g_mix  # g_arx stays for phase 4h's flagship trainer
 
     # Phase 4c: R-GCN at the configuration-#4 shape, the slice's main
@@ -4812,6 +5650,7 @@ def main():
     rows.update(phase_tile_kernels(dev, blocks))
     rows["tile_sum"]["variants"] += mag_k9 + typed_k9
     main_counts += frontend_block(dev, blocks[0])
+    main_counts += conv_legs_block(dev, blocks[0], r["in_f"])
     del blocks
     loader = reddit_loader(r, dev)
     it = iter(loader)
@@ -4844,6 +5683,8 @@ def main():
     bg = bdense_setup(dev)
     rows.update(phase_block_kernels(dev, bg))
     main_counts += frontend_bdense(dev, bg["g17"])
+    main_counts += conv_leg_bdense(dev, bg["g17"])
+    bdense_gin_variants(dev, rows, bg["g17"])
     bdense_gspmm_path("bdense_geo2e20_f128", bg["g20"], dev, 128)
     rcm_route(dev, bg)
     g20 = bg["g20"]
@@ -4872,6 +5713,10 @@ def main():
     part_kernel_variants(dev, rows, builds)
     del r, g_arx, builds
 
+    # Every hub, tile and block-dense kernel ran under some conv of 4k.
+    expect_launches("convs", _plus(*(c for p, c in main_counts
+                                     if p.startswith("conv_"))),
+                    CONV_KERNELS)
     # ``launches`` is one number per kernel: the sum of the trainer runs,
     # each zeroed and read on its own; ``launches_by_path`` keeps them
     # apart. The g-SpMM and gat_attention counts stay in their lines.

@@ -43,8 +43,8 @@ from dgl1_tpu_torch.hub_format import (  # noqa: F401
     _build_ell_fixed_rows, _ell_bucket)
 
 __all__ = ["Graph", "graph", "block", "create_block", "rand_graph",
-           "rand_bipartite", "from_scipy", "resolve_device", "TILE_EDGES",
-           "TILE_ROWS"]
+           "rand_bipartite", "from_scipy", "from_networkx", "to_networkx",
+           "resolve_device", "TILE_EDGES", "TILE_ROWS"]
 
 ID_DTYPE = np.int32
 
@@ -1142,3 +1142,63 @@ def from_scipy(sp_mat, **kw) -> Graph:
     is the source, column the destination; ``kw`` goes to :func:`graph`."""
     coo = sp_mat.tocoo()
     return graph((coo.row, coo.col), num_nodes=max(coo.shape), **kw)
+
+
+def from_networkx(nx_graph, node_attrs=(), edge_attrs=(), **kw) -> Graph:
+    """A graph from a networkx graph (``dgl.from_networkx``): nodes
+    numbered in ``nx_graph.nodes()`` order, edges in ``nx_graph.edges()``
+    order; an undirected input gets both directions, the reversed copies
+    after the originals. The listed node and edge attributes are stacked
+    into ``ndata``/``edata`` (a scalar attribute as a column, float64 as
+    float32, as the reference stores them). ``kw`` goes
+    to :func:`graph` (``device`` included). networkx is imported here
+    only, so the package imports without it."""
+    import networkx  # noqa: F401  (the caller's graph is one)
+
+    nodes = list(nx_graph.nodes())
+    relabel = {v: i for i, v in enumerate(nodes)}
+    edges = list(nx_graph.edges())
+    src = np.asarray([relabel[u] for u, _ in edges], dtype=np.int64)
+    dst = np.asarray([relabel[v] for _, v in edges], dtype=np.int64)
+    directed = nx_graph.is_directed()
+    if not directed:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    g = graph((src, dst), num_nodes=len(nodes), **kw)
+
+    def column(vals):
+        vals = np.asarray(vals)
+        if vals.dtype == np.float64:  # the reference's float32 arrays
+            vals = vals.astype(np.float32)
+        return torch.as_tensor(vals if vals.ndim > 1 else vals[:, None],
+                               device=g.device)
+
+    for key in node_attrs:
+        g.ndata[key] = column([nx_graph.nodes[v][key] for v in nodes])
+    for key in edge_attrs:
+        vals = [nx_graph.edges[e][key] for e in edges]
+        g.edata[key] = column(vals if directed else vals + vals)
+    return g
+
+
+def to_networkx(g: Graph, node_attrs=(), edge_attrs=()):
+    """A networkx ``MultiDiGraph`` of ``g`` (``dgl.to_networkx``): nodes
+    0..N-1, one edge per real edge in edge-id order with its id as the
+    ``id`` attribute, and the listed ``ndata``/``edata`` rows as numpy
+    attributes. networkx is imported here only."""
+    import networkx as nx
+
+    nxg = nx.MultiDiGraph()
+    nxg.add_nodes_from(range(g.num_nodes()))
+    e = g.num_edges()
+    src = g.src[:e].cpu().numpy()
+    dst = g.dst[:e].cpu().numpy()
+    keys = [nxg.add_edge(int(src[i]), int(dst[i]), id=i) for i in range(e)]
+    for key in node_attrs:
+        vals = g.ndata[key].detach().cpu().numpy()
+        for v in range(g.num_nodes()):
+            nxg.nodes[v][key] = vals[v]
+    for key in edge_attrs:
+        vals = g.edata[key].detach().cpu().numpy()
+        for i in range(e):
+            nxg.edges[int(src[i]), int(dst[i]), keys[i]][key] = vals[i]
+    return nxg

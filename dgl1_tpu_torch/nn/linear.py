@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from dgl1_tpu_torch.graph import resolve_device
-from dgl1_tpu_torch.nn.conv import _init_on, _uniform_, _xavier_uniform
+from dgl1_tpu_torch.nn.conv import _init_on, _xavier_uniform, dense
 from dgl1_tpu_torch.ops.segment import gather_mm, segment_mm
 
 __all__ = ["TypedLinear", "HeteroLinear", "HeteroEmbedding", "dense"]
@@ -58,21 +58,6 @@ class TypedLinear(nn.Module):
                                     minlength=self.num_types)
             return segment_mm(x, w, counts)
         return gather_mm(x, w, x_type)
-
-
-def dense(in_size: int, out_size: int, bias: bool = True, device=None,
-          generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """``nn.Linear`` with its weight drawn uniform in +-1/sqrt(in) on the
-    generator's device (the CPU when None) and a zero bias, so one seed
-    gives the same weights on every device."""
-    lin = nn.Linear(in_size, out_size, bias=bias, device=device)
-    bound = 1.0 / math.sqrt(in_size)
-    with torch.no_grad():
-        lin.weight.copy_(_init_on(lin.weight.shape, generator,
-                                  lambda w: _uniform_(w, bound, generator)))
-        if lin.bias is not None:
-            lin.bias.zero_()
-    return lin
 
 
 class HeteroLinear(nn.Module):

@@ -5,7 +5,7 @@ edge softmax, the fused GAT attention (hub and block-dense), the segment
 ops and the kernels' matmul precision mode."""
 
 from dgl1_tpu_torch.ops.dispatch import (get_engine, register_engine,
-                                         set_engine)
+                                         set_auto_order, set_engine)
 from dgl1_tpu_torch.ops.spmm import *  # noqa: F401,F403
 from dgl1_tpu_torch.ops import spmm as _spmm
 from dgl1_tpu_torch.ops.spmm import gspmm
@@ -37,6 +37,6 @@ __all__ = ["gspmm", "gsddmm", "edge_softmax", "gat_attention",
            "can_fuse_battention", "segment_mm", "gather_mm",
            "segment_reduce", "segment_softmax",
            "segment_ids_from_lengths", "set_engine", "get_engine",
-           "register_engine", "set_matmul_precision",
+           "register_engine", "set_auto_order", "set_matmul_precision",
            "get_matmul_precision", "matmul_precision"]
 __all__ += [n for n in _spmm.__all__ + _sddmm.__all__ if n not in __all__]

@@ -95,15 +95,19 @@ def gspmm_xla(g: Graph, op: str, reduce_op: str, u: Optional[torch.Tensor],
         return out
     idx = seg.reshape((-1,) + (1,) * (msg.dim() - 1)).expand_as(msg)
     red = {"prod": "prod", "max": "amax", "min": "amin"}[reduce_op]
-    out = msg.new_zeros(shape).scatter_reduce(
+    # The initial values are never reduced (include_self=False), but the
+    # backward of amax/amin splits a row's gradient over every entry equal
+    # to its result, the initial value included: -inf/+inf keep it out of
+    # that count where a 0 would halve the gradient of a result of 0.0.
+    init = {"prod": 0.0, "max": float("-inf"), "min": float("inf")}[reduce_op]
+    out = msg.new_full(shape, init).scatter_reduce(
         0, idx, msg, reduce=red, include_self=False)
-    if reduce_op == "prod":
-        # Empty segments: the identity, as segment_prod gives.
-        empty = (g.in_degrees() == 0).reshape(
-            (num_dst,) + (1,) * (out.dim() - 1))
-        return torch.where(empty, torch.ones_like(out), out)
-    # Empty max/min rows are 0, as in the reference.
-    return out
+    # Rows without a real edge: the identity for prod, as segment_prod
+    # gives; 0 for max/min, as the reference's zero-initialised output.
+    empty = (torch.bincount(seg, minlength=num_dst) == 0).reshape(
+        (num_dst,) + (1,) * (out.dim() - 1))
+    return torch.where(empty, torch.full_like(out, float(reduce_op == "prod")),
+                       out)
 
 
 def gsddmm_xla(g: Graph, op: str, lhs: Optional[torch.Tensor],

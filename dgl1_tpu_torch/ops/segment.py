@@ -64,8 +64,10 @@ def segment_reduce(seglen, value, reducer: str = "sum"):
         return _scatter(value, ids, n, "prod", 1.0)
     if reducer not in ("max", "min"):
         raise ValueError(f"unknown reducer {reducer!r}")
+    # +-inf, not 0: amax/amin's backward counts an initial value equal to
+    # the result among the ties (see engine_xla.gspmm_xla).
     out = _scatter(value, ids, n, "amax" if reducer == "max" else "amin",
-                   0.0)
+                   float("-inf") if reducer == "max" else float("inf"))
     return torch.where((seglen == 0).reshape(shape), torch.zeros_like(out),
                        out)
 

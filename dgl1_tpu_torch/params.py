@@ -38,14 +38,47 @@ def _lstm_leaves(cell):
     yield ("bias_hh_l0",), b_hh
 
 
+_GRU_GATES = ("r", "z", "n")  # torch.nn.GRUCell's gate order
+
+
+def _is_gru_cell(tree) -> bool:
+    keys = set(tree.keys())
+    return all(f"{s}{gate}" in keys for s in "ih" for gate in _GRU_GATES)
+
+
+def _gru_leaves(cell):
+    """flax ``GRUCell`` parameters as ``torch.nn.GRUCell``'s: the input
+    kernels ``ir``, ``iz``, ``in`` (in, f) and the hidden kernels ``hr``,
+    ``hz``, ``hn`` (f, f) become ``weight_ih`` / ``weight_hh`` (3f, .) in
+    the order r, z, n; flax's input biases become ``bias_ih`` and its one
+    hidden bias (``hn``) the n part of ``bias_hh``, whose r and z parts are
+    zero (flax has no hidden bias there)."""
+    def kernel(name):
+        return np.asarray(cell[name]["kernel"], dtype=np.float32).T
+
+    b_hn = np.asarray(cell["hn"]["bias"], np.float32)
+    yield ("weight_ih",), np.concatenate(
+        [kernel(f"i{g}") for g in _GRU_GATES])
+    yield ("weight_hh",), np.concatenate(
+        [kernel(f"h{g}") for g in _GRU_GATES])
+    yield ("bias_ih",), np.concatenate(
+        [np.asarray(cell[f"i{g}"]["bias"], np.float32) for g in _GRU_GATES])
+    yield ("bias_hh",), np.concatenate(
+        [np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+
+
 def _flatten(tree, prefix=()):
+    """(path, array, mapped) leaves; a recurrent cell (at any depth, the
+    top included) yields its torch tensors already mapped."""
+    cell = (_lstm_leaves if _is_lstm_cell(tree)
+            else _gru_leaves if _is_gru_cell(tree) else None)
+    if cell is not None:
+        for path, arr in cell(tree):
+            yield prefix + path, arr, True
+        return
     for k, v in tree.items():
         if isinstance(v, dict) or hasattr(v, "items"):
-            if _is_lstm_cell(v):
-                for path, arr in _lstm_leaves(v):
-                    yield prefix + (k,) + path, arr, True
-            else:
-                yield from _flatten(v, prefix + (k,))
+            yield from _flatten(v, prefix + (k,))
         else:
             yield prefix + (k,), v, False
 
@@ -54,11 +87,17 @@ def from_jax_params(params) -> "OrderedDict[str, torch.Tensor]":
     """A ``state_dict`` for the port's module from a flax parameter tree
     given as numpy arrays (with or without the top ``'params'`` key).
 
-    Names map ``layer{i}`` -> ``layers.{i}``, ``HeteroGraphConv``'s
+    Names map ``layer{i}`` and ``layers_{i}`` (a flax list attribute,
+    ``Sequential``'s) -> ``layers.{i}``, ``HeteroGraphConv``'s
     ``mods_{etype}`` -> ``mods.{etype}``, a ``Dense`` ``kernel`` ->
-    ``weight`` and an ``Embed`` ``embedding`` -> ``weight``; an
+    ``weight``, an ``Embed`` ``embedding`` -> ``weight`` and a
+    ``LayerNorm`` ``scale`` -> ``weight``; an
     ``OptimizedLSTMCell`` (``SAGEConv('lstm')``'s ``lstm``) becomes a
-    ``torch.nn.LSTM``'s four tensors (:func:`_lstm_leaves`); the other
+    ``torch.nn.LSTM``'s four tensors (:func:`_lstm_leaves`), and the
+    cells flax names itself (``OptimizedLSTMCell_{i}``, the two
+    directions of ``JumpingKnowledge('lstm')``) ``lstm_cells.{i}``; a
+    ``GRUCell`` (``GatedGraphConv``'s ``gru``) becomes a
+    ``torch.nn.GRUCell``'s four tensors (:func:`_gru_leaves`); the other
     names (``emb_{t}``, ``fc_{t}``, ``gat_{i}``, ``semantic``,
     ``predict``, ``l0``/``l1`` of ``models.HeteroRGCN``, ...) are the
     port's own. A flax ``Dense`` kernel is (in, out) and
@@ -73,15 +112,17 @@ def from_jax_params(params) -> "OrderedDict[str, torch.Tensor]":
     out = OrderedDict()
     for path, value, done in _flatten(params):
         arr = np.asarray(value, dtype=np.float32)
-        names = [re.sub(r"^mods_(.+)$", r"mods.\1",
-                        re.sub(r"^layer(\d+)$", r"layers.\1", p))
+        names = [re.sub(r"^OptimizedLSTMCell_(\d+)$", r"lstm_cells.\1",
+                        re.sub(r"^mods_(.+)$", r"mods.\1",
+                               re.sub(r"^layers?_?(\d+)$", r"layers.\1",
+                                      p)))
                  for p in path]
         if done:
             pass
         elif names[-1] == "kernel":
             names[-1] = "weight"
             arr = arr.T
-        elif names[-1] == "embedding":
+        elif names[-1] in ("embedding", "scale"):
             names[-1] = "weight"
         out[".".join(names)] = torch.tensor(arr)
     return out

@@ -4,8 +4,13 @@
 ``'hub'`` and ``'custom'``), ``edge_subgraph``, ``typed_subgraphs``
 (with the identity layouts), ``typed_union_graph``, ``to_homogeneous``,
 ``to_heterogeneous``, ``metapath_reachable_graph``, ``node_subgraph``,
-``compact_graphs``, ``to_block`` and ``to_block_hetero``. Each returns a
-new graph on the input graph's device."""
+``compact_graphs``, ``to_block``, ``to_block_hetero``,
+``add_reverse_edges``, ``to_simple``, ``khop_graph``, ``line_graph``,
+``in_subgraph``, ``out_subgraph``, ``knn_graph``,
+``segmented_knn_graph``, ``laplacian_lambda_max``, ``add_edges``,
+``remove_edges``, ``add_nodes``, ``remove_nodes``, ``laplacian_pe``,
+``random_walk_pe``, ``shortest_dist`` and ``merge``. Each returns a new
+graph (or tensor) on the input graph's device."""
 
 from __future__ import annotations
 
@@ -23,7 +28,12 @@ __all__ = ["add_self_loop", "remove_self_loop", "to_bidirected",
            "rcm_order", "reorder_graph", "edge_subgraph", "typed_subgraphs",
            "typed_union_graph", "to_homogeneous", "to_heterogeneous",
            "metapath_reachable_graph", "node_subgraph", "compact_graphs",
-           "to_block", "to_block_hetero", "reverse"]
+           "to_block", "to_block_hetero", "reverse", "add_reverse_edges",
+           "to_simple", "khop_graph", "line_graph", "in_subgraph",
+           "out_subgraph", "knn_graph", "segmented_knn_graph",
+           "laplacian_lambda_max", "add_edges", "remove_edges", "add_nodes",
+           "remove_nodes", "laplacian_pe", "random_walk_pe", "shortest_dist",
+           "merge"]
 
 
 def _coo(g: Graph):
@@ -39,6 +49,20 @@ def _slice_rows(data: dict, idx: np.ndarray) -> dict:
         i = torch.as_tensor(idx, dtype=torch.int64, device=v.device)
         out[k] = v.index_select(0, i.clamp(0, v.shape[0] - 1))
     return out
+
+
+def _ids(x) -> np.ndarray:
+    """Ids or a bool mask (list, numpy or tensor) as int64 numpy ids."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    x = np.asarray(x)
+    return np.nonzero(x)[0] if x.dtype == bool else x.astype(np.int64)
+
+
+def _unique_pairs(s: np.ndarray, d: np.ndarray, n: int):
+    """Sorted distinct (s, d) pairs through one packed int64 key."""
+    key = np.unique(s.astype(np.int64) * n + d.astype(np.int64))
+    return key // n, key % n
 
 
 def reverse(g: Graph, copy_edata: bool = True) -> Graph:
@@ -73,10 +97,9 @@ def remove_self_loop(g: Graph) -> Graph:
 def to_bidirected(g: Graph) -> Graph:
     """Add reverse edges and deduplicate (packed int64 keys)."""
     src, dst = _coo(g)
-    n = g.num_nodes()
-    key = np.unique(np.concatenate([src, dst]).astype(np.int64) * n
-                    + np.concatenate([dst, src]).astype(np.int64))
-    return graph((key // n, key % n), num_nodes=n, device=g.device)
+    s, d = _unique_pairs(np.concatenate([src, dst]),
+                         np.concatenate([dst, src]), g.num_nodes())
+    return graph((s, d), num_nodes=g.num_nodes(), device=g.device)
 
 
 def rcm_order(g: Graph) -> np.ndarray:
@@ -215,12 +238,7 @@ def edge_subgraph(g: Graph, edges, relabel_nodes: bool = True,
     ``pad_edges_to`` and ``formats`` go to :func:`graph`; the padded
     edges' rows of every ``edata`` field repeat the parent's row 0 (the
     engines mask them out)."""
-    if isinstance(edges, torch.Tensor):
-        edges = edges.cpu().numpy()
-    edges = np.asarray(edges)
-    if edges.dtype == bool:
-        edges = np.nonzero(edges)[0]
-    edges = edges.astype(np.int64)
+    edges = _ids(edges)
     src, dst = _coo(g)
     s, d = src[edges], dst[edges]
     kw = dict(pad_edges_to=pad_edges_to, formats=formats, device=g.device)
@@ -499,12 +517,7 @@ def node_subgraph(g: Graph, nodes) -> Graph:
     ends in ``nodes`` (ids or a bool mask), nodes renumbered in the order
     given; the old node and edge ids land in ``ndata['_ID']`` and
     ``edata['_ID']``."""
-    if isinstance(nodes, torch.Tensor):
-        nodes = nodes.cpu().numpy()
-    nodes = np.asarray(nodes)
-    if nodes.dtype == bool:
-        nodes = np.nonzero(nodes)[0]
-    nodes = nodes.astype(np.int64)
+    nodes = _ids(nodes)
     src, dst = _coo(g)
     relabel = np.full((g.num_nodes(),), -1, dtype=np.int64)
     relabel[nodes] = np.arange(len(nodes))
@@ -757,3 +770,365 @@ def to_block(frontier, dst_nodes, include_dst_in_src: bool = True,
                      frontier.num_src_nodes(), include_dst_in_src,
                      pad_src_to, pad_edges_to, formats, uniform_k,
                      frontier.device)
+
+
+# ----------------------------------------------------------------------
+# Structure transforms, the point-cloud graphs and the spectral and
+# positional encodings (host side, as in the reference)
+# ----------------------------------------------------------------------
+
+def add_reverse_edges(g: Graph, copy_ndata: bool = True,
+                      copy_edata: bool = False) -> Graph:
+    """``dgl.add_reverse_edges``: the reverse of every edge appended after
+    the originals (edge ``i``'s reverse is edge ``i + E``), nothing
+    deduplicated; ``copy_edata`` repeats each edge row onto its reverse."""
+    if g.is_block:
+        raise ValueError("add_reverse_edges on a block is ill-defined")
+    src, dst = _coo(g)
+    new = graph((np.concatenate([src, dst]), np.concatenate([dst, src])),
+                num_nodes=g.num_nodes(), device=g.device)
+    if copy_ndata:
+        new.ndata.update(g.ndata)
+    if copy_edata:
+        for k, v in g.edata.items():
+            e = v[: g.num_edges()]
+            new.edata[k] = torch.cat([e, e], dim=0)
+    return new
+
+
+def to_simple(g: Graph) -> Graph:
+    """``dgl.to_simple``: duplicate edges removed, the rest sorted by
+    (src, dst); node data kept."""
+    src, dst = _coo(g)
+    s, d = _unique_pairs(src, dst, g.num_nodes())
+    new = graph((s, d), num_nodes=g.num_nodes(), device=g.device)
+    new.ndata.update(g.ndata)
+    return new
+
+
+def khop_graph(g: Graph, k: int) -> Graph:
+    """``dgl.khop_graph``: an edge (u, v) for every walk of exactly ``k``
+    steps from u to v (the multiplicity is the walk count), through the
+    k-th power of the adjacency (scipy)."""
+    import scipy.sparse as sp
+
+    src, dst = _coo(g)
+    n = g.num_nodes()
+    adj = sp.csr_matrix((np.ones(len(src), dtype=np.int64), (src, dst)),
+                        shape=(n, n))
+    coo = (adj ** k).tocoo()
+    return graph((np.repeat(coo.row, coo.data), np.repeat(coo.col, coo.data)),
+                 num_nodes=n, device=g.device)
+
+
+def line_graph(g: Graph, backtracking: bool = True) -> Graph:
+    """``dgl.line_graph``: one node per edge of ``g`` and an edge e1 -> e2
+    wherever dst(e1) == src(e2), grouped by e1 and in e2's source order;
+    ``backtracking=False`` drops e2 that reverses e1."""
+    src, dst = _coo(g)
+    e = len(src)
+    order = np.argsort(src, kind="stable")
+    sorted_src = src[order]
+    starts = np.searchsorted(sorted_src, dst, side="left")
+    ends = np.searchsorted(sorted_src, dst, side="right")
+    e1 = np.repeat(np.arange(e), ends - starts)
+    e2 = (np.concatenate([order[s:t] for s, t in zip(starts, ends)])
+          if e else np.zeros((0,), dtype=np.int64))
+    if not backtracking and e:
+        keep = ~((dst[e2] == src[e1]) & (src[e2] == dst[e1]))
+        e1, e2 = e1[keep], e2[keep]
+    return graph((e1, e2), num_nodes=e, device=g.device)
+
+
+def _side_subgraph(g: Graph, nodes, side: int) -> Graph:
+    mask = np.zeros((g.num_nodes(),), dtype=bool)
+    mask[_ids(nodes)] = True
+    ends = _coo(g)[side]
+    return edge_subgraph(g, np.nonzero(mask[ends])[0], relabel_nodes=False)
+
+
+def in_subgraph(g: Graph, nodes) -> Graph:
+    """``dgl.in_subgraph``: every edge whose destination is in ``nodes``
+    (ids or a bool mask), in edge-id order, on the parent's node space
+    (old edge ids in ``edata['_ID']``)."""
+    return _side_subgraph(g, nodes, 1)
+
+
+def out_subgraph(g: Graph, nodes) -> Graph:
+    """``dgl.out_subgraph``: every edge whose source is in ``nodes``."""
+    return _side_subgraph(g, nodes, 0)
+
+
+def _knn_rows(x, k: int):
+    """(n, k) ids of each row's ``k`` nearest rows of ``x`` (itself
+    included), by the reference's float32 squared distances
+    ``|a|^2 + |b|^2 - 2ab`` over the last two axes; equal distances keep
+    the lower id first (a stable sort), where ``top_k`` may take either."""
+    sq = (x * x).sum(dim=-1)
+    d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * (x @ x.transpose(-1, -2))
+    return torch.sort(d2, dim=-1, stable=True).indices[..., :k]
+
+
+def _points(x, device):
+    dev = resolve_device(device)
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x))
+    return x.to(device=dev, dtype=torch.float32), dev
+
+
+def knn_graph(x, k: int, *, device=None) -> Graph:
+    """``dgl.knn_graph``: each point gets an edge from each of its ``k``
+    nearest points, itself included (``min(k, n)`` of them); ``x`` (N, D)
+    or (B, N, D) point clouds (then each cloud is a segment of
+    :func:`segmented_knn_graph`). The distances are computed on ``device``
+    (default ``cuda``), where the graph is placed."""
+    if (x.ndim if hasattr(x, "ndim") else np.ndim(x)) == 3:
+        b, n = x.shape[0], x.shape[1]
+        return segmented_knn_graph(x.reshape(b * n, -1), k,
+                                   np.full((b,), n, dtype=np.int64),
+                                   device=device)
+    x, dev = _points(x, device)
+    n = x.shape[0]
+    kk = min(k, n)
+    src = _knn_rows(x, kk).reshape(-1).cpu().numpy().astype(np.int64)
+    dst = np.repeat(np.arange(n, dtype=np.int64), kk)
+    return graph((src, dst), num_nodes=n, device=dev)
+
+
+def segmented_knn_graph(x, k: int, segs, *, device=None) -> Graph:
+    """``dgl.segmented_knn_graph``: the kNN graph within each segment of a
+    packed point set (``segs``: the segments' point counts), with
+    ``min(k, smallest segment)`` neighbours a point. The reference masks
+    one (N, N) distance matrix; here each segment's (n, n) block is
+    computed on its own (one batched product when the segments are of one
+    size), which gives the same graph in a segment's memory."""
+    x, dev = _points(x, device)
+    segs = np.asarray(segs, dtype=np.int64)
+    n = x.shape[0]
+    if int(segs.sum()) != n:
+        raise ValueError("segment sizes do not add up to the point count")
+    kk = min(k, int(segs.min()))
+    offs = np.concatenate([[0], np.cumsum(segs)])
+    if len(segs) and np.all(segs == segs[0]):
+        nbr = _knn_rows(x.reshape(len(segs), int(segs[0]), -1), kk)
+        nbr = nbr + torch.as_tensor(offs[:-1], device=dev)[:, None, None]
+    else:
+        nbr = torch.cat([_knn_rows(x[a:b], kk) + a
+                         for a, b in zip(offs[:-1], offs[1:])]) if n else \
+            torch.zeros((0, kk), dtype=torch.int64, device=dev)
+    src = nbr.reshape(-1).cpu().numpy().astype(np.int64)
+    dst = np.repeat(np.arange(n, dtype=np.int64), kk)
+    return graph((src, dst), num_nodes=n, device=dev)
+
+
+def laplacian_lambda_max(g: Graph):
+    """``dgl.laplacian_lambda_max``: the largest eigenvalue of each
+    batched graph's symmetric normalised Laplacian ``I - D^-1/2 A D^-1/2``
+    (D the out-degrees of A, rows = sources), a list of floats; dense
+    ``eigvals`` up to 64 nodes, else ``scipy.sparse.linalg.eigs`` at
+    ``tol=1e-6`` (its start vector is random, so repeated calls agree to
+    that tolerance, not bit for bit)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from dgl1_tpu_torch.batch import unbatch
+
+    graphs = unbatch(g) if "_batch_num_nodes" in g.meta else [g]
+    out = []
+    for sub in graphs:
+        n = sub.num_nodes()
+        src, dst = _coo(sub)
+        adj = sp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+        deg = np.asarray(adj.sum(axis=1)).ravel()
+        with np.errstate(divide="ignore"):
+            inv_sqrt = np.where(deg > 0, deg ** -0.5, 0.0)
+        dmat = sp.diags(inv_sqrt)
+        lap = sp.eye(n) - dmat @ adj @ dmat
+        if n <= 64:
+            val = float(np.linalg.eigvals(lap.toarray()).real.max())
+        else:
+            val = float(spla.eigs(lap, k=1, which="LM",
+                                  return_eigenvectors=False,
+                                  tol=1e-6).real[0])
+        out.append(val)
+    return out
+
+
+def _append_rows(old, extra, n_old: int, n_new: int):
+    """``old``'s first ``n_old`` rows then ``extra`` (zeros of old's row
+    shape when None; old is zeros of extra's when None)."""
+    if old is None:
+        old = extra.new_zeros((n_old,) + tuple(extra.shape[1:]))
+    if extra is None:
+        extra = old.new_zeros((n_new,) + tuple(old.shape[1:]))
+    return torch.cat([old[:n_old], extra.to(old.device)], dim=0)
+
+
+def add_edges(g: Graph, src, dst, data: Optional[dict] = None) -> Graph:
+    """``dgl.add_edges``, functional: a new graph with the edges appended;
+    each ``edata`` field gets the rows of ``data`` or zeros, and a field
+    only ``data`` has gets zeros for the old edges."""
+    s0, d0 = _coo(g)
+    src = np.atleast_1d(_ids(src))
+    dst = np.atleast_1d(_ids(dst))
+    new = graph((np.concatenate([s0, src]), np.concatenate([d0, dst])),
+                num_nodes=g.num_nodes(), device=g.device)
+    new.ndata.update(g.ndata)
+    data = data or {}
+    for k in set(g.edata) | set(data):
+        extra = (torch.as_tensor(data[k], device=g.device) if k in data
+                 else None)
+        new.edata[k] = _append_rows(g.edata.get(k), extra, g.num_edges(),
+                                    len(src))
+    return new
+
+
+def remove_edges(g: Graph, eids) -> Graph:
+    """``dgl.remove_edges``: a new graph without the edges ``eids``, on
+    the same nodes, edge data sliced alike."""
+    keep = np.ones((g.num_edges(),), dtype=bool)
+    keep[np.atleast_1d(_ids(eids))] = False
+    src, dst = _coo(g)
+    new = graph((src[keep], dst[keep]), num_nodes=g.num_nodes(),
+                device=g.device)
+    new.ndata.update(g.ndata)
+    new.edata.update(_slice_rows(g.edata, np.nonzero(keep)[0]))
+    return new
+
+
+def add_nodes(g: Graph, num: int, data: Optional[dict] = None) -> Graph:
+    """``dgl.add_nodes``: ``num`` isolated nodes appended; node data as
+    :func:`add_edges` treats edge data."""
+    src, dst = _coo(g)
+    n = g.num_nodes()
+    new = graph((src, dst), num_nodes=n + int(num), device=g.device)
+    new.edata.update(g.edata)
+    data = data or {}
+    for k in set(g.ndata) | set(data):
+        extra = (torch.as_tensor(data[k], device=g.device) if k in data
+                 else None)
+        new.ndata[k] = _append_rows(g.ndata.get(k), extra, n, int(num))
+    return new
+
+
+def remove_nodes(g: Graph, nids) -> Graph:
+    """``dgl.remove_nodes``: the subgraph induced by the other nodes, the
+    remaining ones renumbered in order (:func:`node_subgraph`)."""
+    keep = np.ones((g.num_nodes(),), dtype=bool)
+    keep[np.atleast_1d(_ids(nids))] = False
+    return node_subgraph(g, np.nonzero(keep)[0])
+
+
+def laplacian_pe(g: Graph, k: int, padding: bool = False):
+    """``dgl.laplacian_pe``: the eigenvectors of the ``k`` smallest
+    non-trivial eigenvalues of the symmetric normalised Laplacian of the
+    simple undirected graph under ``g`` (N, k) float32, on g's device;
+    zero columns past ``n - 1`` with ``padding``. Eigenvectors are defined
+    up to sign (and within a repeated eigenvalue, up to a rotation):
+    ``eigsh`` starts from a random vector, as in the reference."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    n = g.num_nodes()
+    if not padding and n <= k:
+        raise ValueError(f"need num_nodes > k, got {n} <= {k}")
+    src, dst = _coo(g)
+    a = sp.coo_matrix((np.ones(len(src)), (dst, src)), shape=(n, n))
+    a = ((a + a.T) > 0).astype(np.float64)
+    deg = np.asarray(a.sum(1)).ravel()
+    with np.errstate(divide="ignore"):
+        dinv = np.where(deg > 0, deg ** -0.5, 0.0)
+    lap = sp.eye(n) - sp.diags(dinv) @ a @ sp.diags(dinv)
+    kk = min(k + 1, n)
+    if n < 40 or kk >= n - 1:
+        w, v = np.linalg.eigh(lap.toarray())
+    else:
+        w, v = spla.eigsh(lap.tocsc(), k=kk, which="SM", tol=1e-6)
+    v = v[:, np.argsort(w)[1:kk]]
+    if v.shape[1] < k:
+        v = np.pad(v, ((0, 0), (0, k - v.shape[1])))
+    return torch.as_tensor(v[:, :k].astype(np.float32), device=g.device)
+
+
+def random_walk_pe(g: Graph, k: int, eweight_name: Optional[str] = None):
+    """``dgl.random_walk_pe``: ``PE[i, j] = (RW^(j+1))_ii`` for the
+    row-normalised walk matrix (weighted by ``edata[eweight_name]``), (N,
+    k) float32 on g's device."""
+    import scipy.sparse as sp
+
+    n = g.num_nodes()
+    src, dst = _coo(g)
+    w = (g.edata[eweight_name][: len(src)].detach().cpu().numpy()
+         .astype(np.float64) if eweight_name else np.ones(len(src)))
+    a = sp.coo_matrix((w.reshape(-1), (src, dst)), shape=(n, n)).tocsr()
+    deg = np.asarray(a.sum(1)).ravel()
+    rw = sp.diags(np.where(deg > 0, 1.0 / np.where(deg > 0, deg, 1.0),
+                           0.0)) @ a
+    pe = np.zeros((n, k))
+    m = rw.copy()
+    for j in range(k):
+        pe[:, j] = m.diagonal()
+        if j + 1 < k:
+            m = m @ rw
+    return torch.as_tensor(pe.astype(np.float32), device=g.device)
+
+
+def shortest_dist(g: Graph, root=None, return_paths: bool = False):
+    """``dgl.shortest_dist``: unweighted shortest distances, all pairs (N,
+    N) or from ``root`` (N,), int64 on g's device, -1 where unreachable;
+    with a root, ``return_paths`` also gives each node's path as edge ids
+    (N, longest) padded with -1 (the first edge of each (u, v) pair)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+
+    n, (src, dst) = g.num_nodes(), _coo(g)
+    e = len(src)
+    adj = csr_matrix((np.ones(e), (src, dst)), shape=(n, n))
+    if root is None:
+        if return_paths:
+            raise NotImplementedError("return_paths requires a root")
+        d = shortest_path(adj, method="D", unweighted=True)
+        return torch.as_tensor(np.where(np.isinf(d), -1, d).astype(np.int64),
+                               device=g.device)
+    d, pred = shortest_path(adj, method="D", unweighted=True,
+                            indices=int(root), return_predecessors=True)
+    dist = np.where(np.isinf(d), -1, d).astype(np.int64)
+    if not return_paths:
+        return torch.as_tensor(dist, device=g.device)
+    eid_of = {}
+    for i in range(e):
+        eid_of.setdefault((int(src[i]), int(dst[i])), i)
+    paths = np.full((n, max(int(dist.max(initial=0)), 1)), -1, np.int64)
+    for v in range(n):
+        hops, cur = [], v
+        while dist[v] > 0 and pred[cur] >= 0:
+            hops.append(eid_of[(int(pred[cur]), int(cur))])
+            cur = int(pred[cur])
+        paths[v, : len(hops)] = hops[::-1]
+    return (torch.as_tensor(dist, device=g.device),
+            torch.as_tensor(paths, device=g.device))
+
+
+def merge(graphs):
+    """``dgl.merge``: one graph on the largest node space, the edges of
+    every graph in order. A node field comes from the first graph that has
+    it, zero-filled to the merged node count; an edge field is
+    concatenated across graphs, zeros for the graphs without it."""
+    n = max(g.num_nodes() for g in graphs)
+    coos = [_coo(g) for g in graphs]
+    out = graph((np.concatenate([s for s, _ in coos]),
+                 np.concatenate([d for _, d in coos])), num_nodes=n,
+                device=graphs[0].device)
+    for g in graphs:
+        for k, v in g.ndata.items():
+            if k not in out.ndata:
+                out.ndata[k] = (v if v.shape[0] == n
+                                else _append_rows(v, None, v.shape[0],
+                                                  n - v.shape[0]))
+    for k in sorted(set().union(*(g.edata.keys() for g in graphs))):
+        ref = next(g.edata[k] for g in graphs if k in g.edata)
+        out.edata[k] = torch.cat(
+            [g.edata[k][: g.num_edges()].to(ref.device) if k in g.edata
+             else ref.new_zeros((g.num_edges(),) + tuple(ref.shape[1:]))
+             for g in graphs], dim=0)
+    return out

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,7 +45,10 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "parallel.train", "parallel.tp", "parallel.kvstore",
             "parallel.dist_context", "parallel.dist_graph",
             "parallel.dist_dataloader", "tools.dryrun_multichip",
-            "parallel.hetero", "function", "udf", "core", "traversal")
+            "parallel.hetero", "function", "udf", "core", "traversal",
+            "batch", "readout", "data.serialize", "nn.glob", "nn.softmax",
+            "nn.utils", "nn.factory", "dataloading.graph_dataloader",
+            "models.gin", "models.dgi")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -99,6 +103,18 @@ def test_entry_points_default_to_cuda():
                      "unused", "g", 0),
                  lambda: tdgl.parallel.load_hetero_partition("unused", "g",
                                                              0),
-                 lambda: tdgl.rand_bipartite(3, 2, 4)):
+                 lambda: tdgl.rand_bipartite(3, 2, 4),
+                 # The graph-level layer, the graph files, kNN, the convs.
+                 lambda: tdgl.batch([g]),
+                 lambda: tdgl.load_graphs("unused.npz"),
+                 lambda: tdgl.knn_graph(np.zeros((4, 2)), 2),
+                 lambda: tdgl.nn.KNNGraph(2),
+                 lambda: tdgl.dataloading.GraphDataLoader([]),
+                 lambda: tdgl.nn.GINConv(),
+                 lambda: tdgl.nn.APPNPConv(),
+                 lambda: tdgl.nn.DotGatConv(2, 2),
+                 lambda: tdgl.nn.Set2Set(2),
+                 lambda: tdgl.models.GIN(2, 2, 2),
+                 lambda: tdgl.models.DGI(2, 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -17,12 +17,15 @@ import subprocess
 import time
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 import dgl1_tpu as jdgl
 import dgl1_tpu_torch as tdgl
 from dgl1_tpu import _native as jnative
+from dgl1_tpu_torch.params import from_jax_params
 
 N, E = 300, 3000
 
@@ -148,6 +151,70 @@ def engines(name_j, name_t):
     finally:
         jdgl.ops.set_engine(old_j)
         tdgl.ops.set_engine(old_t)
+
+
+MODULE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def rand(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def close(a, b, err_msg="", tol=None):
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    np.testing.assert_allclose(a, np.asarray(b), err_msg=err_msg,
+                               **(tol or MODULE_TOL))
+
+
+def module_pair(jmod, tmod, gj, gt, inputs, grad_of=(0,), tol=None,
+                engine=None):
+    """A reference (flax) module and the port's with its parameters
+    carried by ``from_jax_params``, the port's in eval mode and on
+    ``engine`` (the oracle when None), the reference's jitted on its
+    oracle, both on ``inputs`` (numpy arrays, or (jax, torch) pairs for
+    the other inputs); the outputs, the grads of ``sum(out * ct)`` (a
+    fixed random cotangent) of the inputs in ``grad_of`` and of every
+    parameter compared. Returns the port's outputs."""
+    jin = [a[0] if isinstance(a, tuple) else jnp.asarray(a) for a in inputs]
+    tin = [a[1] if isinstance(a, tuple) else torch.tensor(a) for a in inputs]
+    params = jax.tree.map(np.asarray, jax.jit(
+        lambda *x: jmod.init(jax.random.PRNGKey(0), gj, *x))(*jin))
+    tmod.load_state_dict(from_jax_params(params), strict=True)
+    tmod.eval()  # no dropout: the reference's deterministic default
+
+    def outs(o):
+        return o if isinstance(o, tuple) else (o,)
+
+    shapes = jax.eval_shape(lambda p, *x: jmod.apply(p, gj, *x), params,
+                            *jin)
+    cts = [rand(o.shape, 100 + i) for i, o in enumerate(outs(shapes))]
+
+    def loss(p, *gx):
+        xs = list(jin)
+        for i, x in zip(grad_of, gx):
+            xs[i] = x
+        out = outs(jmod.apply(p, gj, *xs))
+        return sum(jnp.sum(o * c) for o, c in zip(out, cts)), out
+
+    # One jitted call: the reference's eager ops compile one by one.
+    (_, want), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=tuple(range(1 + len(grad_of))), has_aux=True))(
+        params, *[jin[i] for i in grad_of])
+    for i in grad_of:
+        tin[i].requires_grad_(True)
+    with engines("xla", engine or "xla"):
+        got = outs(tmod(gt, *tin))
+        sum((o * torch.tensor(c)).sum() for o, c in zip(got, cts)).backward()
+    for k, (a, b) in enumerate(zip(got, want)):
+        close(a, b, f"out {k}", tol)
+    for i, gx in zip(grad_of, grads[1:]):
+        close(tin[i].grad, gx, f"grad of input {i}", tol)
+    jg = from_jax_params(jax.tree.map(np.asarray, grads[0]))
+    tp = {k: p for k, p in tmod.named_parameters() if p.requires_grad}
+    assert set(tp) <= set(jg), set(tp) - set(jg)
+    for k, p in tp.items():
+        close(p.grad, jg[k], k, tol)
+    return got
 
 
 def t(x, dtype=None):
