@@ -232,7 +232,7 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    in 4e), ``copy_u`` max and sum on a sampled Reddit block (K10, K9, in
    5) and ``copy_u`` sum on the 2^17 geometric block-dense graph (K11
    both ways, in 4d);
-4k. the graph-level layer and the convs (slice 18), each model's weights
+4k. the graph-level layer and the convs, each model's weights
    a reference-layout parameter tree built in numpy from a seed and
    carried by ``params.from_jax_params``: after phase 4g, on the arxiv
    graph, examples/train_citation_zoo.py's APPNP (128 -> 64 -> 40,
@@ -4625,9 +4625,9 @@ def frontend_mag(dev, hg, hg_host):
 
 
 # ----------------------------------------------------------------------
-# Phase 4k: the graph-level layer, the convs and the graph files (slice
-# 18). Model legs carry their weights from a reference-layout parameter
-# tree built in numpy from a seed, through params.from_jax_params.
+# Phase 4k: the graph-level layer, the convs and the graph files. Model
+# legs carry their weights from a reference-layout parameter tree built in
+# numpy from a seed, through params.from_jax_params.
 # ----------------------------------------------------------------------
 
 # The kernels the convs of phase 4k must launch between them: K1-K5,
@@ -5374,7 +5374,7 @@ def phase_graph_files(dev, g):
 
 
 def zoo_kernel_variants(dev, rows, g_arx):
-    """The kernels at this slice's new shapes, each against its float64
+    """The kernels at phase 4k's new shapes, each against its float64
     plain version as a variant of its row: K1, K3 (with the diagonal
     epilogue) and K4a at GCNII's F = 64 on the arxiv graph, K2 mul and K5
     mul at the attention convs' 4 heads of 16 there."""

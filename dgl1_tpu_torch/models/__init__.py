@@ -1,5 +1,5 @@
 """``dgl1_tpu_torch.models``: model zoo of the port (the reference's
-names less ``LGNN`` and the Tree-LSTM, which a later slice ports)."""
+names less ``LGNN`` and the Tree-LSTM, not ported yet)."""
 
 from dgl1_tpu_torch.models.dgi import DGI, DGIEncoder
 from dgl1_tpu_torch.models.gat import GAT

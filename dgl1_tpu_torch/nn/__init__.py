@@ -1,6 +1,5 @@
 """``dgl1_tpu_torch.nn``: graph neural network modules (the reference's
-``dgl1_tpu.nn`` names, less ``GNNExplainer``, which a later slice
-ports)."""
+``dgl1_tpu.nn`` names, less ``GNNExplainer``, not ported yet)."""
 
 from dgl1_tpu_torch.nn.conv import (AGNNConv, APPNPConv, AtomicConv,
                                     CFConv, ChebConv, DenseChebConv,

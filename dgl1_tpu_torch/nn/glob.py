@@ -79,7 +79,8 @@ class GlobalAttentionPooling(nn.Module):
     """``sum over nodes of softmax(gate_nn(h)) * feat_nn(h)`` per graph
     (the softmax within each graph); ``feat_nn`` None keeps ``h``."""
 
-    def __init__(self, gate_nn: nn.Module, feat_nn: Optional[nn.Module] = None):
+    def __init__(self, gate_nn: nn.Module,
+                 feat_nn: Optional[nn.Module] = None):
         super().__init__()
         self.gate_nn, self.feat_nn = gate_nn, feat_nn
 

@@ -1,4 +1,4 @@
-"""The transforms of this slice, the graph files, the networkx bridge and
+"""The ported transforms, the graph files, the networkx bridge and
 the engine order against the reference on the same numpy inputs.
 
 Structure compares exactly (edge lists in order, node counts, ``_ID``
@@ -423,8 +423,8 @@ def test_engine_environment_variable(name, want):
 
 
 def test_top_level_names_match_reference():
-    """Every name of the reference's ``__all__`` but those a later slice
-    ports (``geometry``, ``khop_in_subgraph``)."""
+    """Every name of the reference's ``__all__`` but those not ported yet
+    (``geometry``, ``khop_in_subgraph``)."""
     later = {"geometry", "khop_in_subgraph"}
     missing = [n for n in jdgl.__all__ if n not in later
                and not hasattr(tdgl, n)]
