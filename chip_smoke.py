@@ -257,8 +257,9 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    ms a batch against ms a step, a 2-step profile); DGCNN's EdgeConv at
    ModelNet40's shape (32 clouds of 1,024 points, ``KNNGraph(k=20)`` on
    the card, 3 -> 64, a 2-step profile); HGTConv on ``to_homogeneous``
-   of the mag graph at scale 8; K1, K3, K4a at F = 64 and K2 mul, K5 mul
-   at 4 heads of 16 as variants of their rows. In phase 5, GATv2Conv
+   of the mag graph at scale 8; K1, K3, K4a at F = 64, K2 mul, K5 mul
+   at 4 heads of 16, K2 rhs, K5 rhs at he = 4 and K10 at F = 4 on the
+   arxiv forward tiles as variants of their rows. In phase 5, GATv2Conv
    (K9), EdgeConv and PNA max/min (K10) on a sampled Reddit block; in
    4d, GINConv sum on the 2^17 geometric graph (K11 both ways, and at F
    = 64 as variants);
@@ -5374,10 +5375,13 @@ def phase_graph_files(dev, g):
 
 
 def zoo_kernel_variants(dev, rows, g_arx):
-    """The kernels at phase 4k's new shapes, each against its float64
-    plain version as a variant of its row: K1, K3 (with the diagonal
-    epilogue) and K4a at GCNII's F = 64 on the arxiv graph, K2 mul and K5
-    mul at the attention convs' 4 heads of 16 there."""
+    """The kernels at phase 4k's new shapes, each against its plain
+    version as a variant of its row: K1, K3 (with the diagonal epilogue)
+    and K4a at GCNII's F = 64 on the arxiv graph, K2 mul and K5 mul at the
+    attention convs' 4 heads of 16 there, K2 rhs and K5 rhs at their
+    ``edge_softmax`` sums (he = 4); returns K10 at that softmax's max (F =
+    4) on the arxiv graph's forward tiles, whose hub row of 2.8M edges is
+    one row block, as a variant for K10's row (made in phase 5)."""
     new = {
         "dense_fwd": dense_fwd_case("gcnii_arxiv_f64", g_arx, dev, 64,
                                     seed=80, library=False),
@@ -5392,10 +5396,19 @@ def zoo_kernel_variants(dev, rows, g_arx):
         "edge_grad_mul": weighted_row("edge_grad_mul",
                                       "attn_convs_arxiv_h4x16", g_arx, dev,
                                       4, 16, library=False, seed=84),
+        "chunk_rhs": weighted_row("chunk_rhs", "softmax_sum_arxiv_he4",
+                                  g_arx, dev, 4, 1, library=False, seed=86),
+        "edge_grad_rhs": weighted_row("edge_grad_rhs",
+                                      "softmax_sum_arxiv_he4", g_arx, dev, 4,
+                                      1, library=False, seed=87),
     }
     for name, v in new.items():
         rows[name]["variants"].append({k: v[k] for k in VARIANT_KEYS
                                        if k in v})
+    # K10's row is made in phase 5: its variant joins it there.
+    v = tile_case("softmax_max_arxiv_tdst_f4", g_arx.tdst, g_arx.num_nodes(),
+                  4, dev, is_max=True, seed=88)
+    return [{k: v[k] for k in VARIANT_KEYS if k in v}]
 
 
 def bdense_gin_variants(dev, rows, g17):
@@ -5558,7 +5571,7 @@ def main():
     main_counts.append(("dgcnn_edgeconv_modelnet40", phase_dgcnn(
         "dgcnn_edgeconv_modelnet40", dev)))
     main_counts += conv_leg_hgt(dev)
-    zoo_kernel_variants(dev, rows, g_arx)
+    zoo_k10 = zoo_kernel_variants(dev, rows, g_arx)
     torch.cuda.empty_cache()
     log(json.dumps({"phase": "phase4k_done",
                     "seconds": time.perf_counter() - t4k}))
@@ -5649,6 +5662,7 @@ def main():
     blocks = [b.to(dev) for b in blocks]
     rows.update(phase_tile_kernels(dev, blocks))
     rows["tile_sum"]["variants"] += mag_k9 + typed_k9
+    rows["tile_minmax"]["variants"] += zoo_k10
     main_counts += frontend_block(dev, blocks[0])
     main_counts += conv_legs_block(dev, blocks[0], r["in_f"])
     del blocks
