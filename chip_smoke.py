@@ -263,6 +263,24 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    (K9), EdgeConv and PNA max/min (K10) on a sampled Reddit block; in
    4d, GINConv sum on the 2^17 geometric graph (K11 both ways, and at F
    = 64 as variants);
+4l. the rest of the single-device surface, after 4k: GNNExplainer on
+   the arxiv GCN (``models.GCN(128, 256, 40)``, ``edge_weight`` to both
+   layers; 100 mask epochs at lr 0.01): the masks after 3 epochs against
+   the float64 oracle run, ``explain_graph`` launching exactly K2 mul 4,
+   K5 mul 2 and K3 (with the diagonal) 2 a mask epoch plus one forward,
+   ms a mask epoch, a 3-epoch profile, and ``explain_node`` (2 hops) at
+   the highest and a median in-degree node (subgraph size, engine,
+   launches); K2 mul's grad_u at F = 128 and K5 mul at F = 40 as
+   variants; ``RedditDataset(full_scale=True)``'s synthetic fallback
+   (232,965 nodes, F = 602, 41 classes; build and cache seconds), then
+   GraphSAINT (walk mode, 2,000 roots of length 4, 8 batches) and
+   Cluster-GCN (1,500 parts from a two-level greedy partition, 20 a
+   batch, 10 steps) training ``models.GCN(602, 128, 41)``: pre-sampling
+   and partition seconds, host ms a batch, ms a step, engines, launches,
+   step-0 logits against the float64 oracle; then LGNN, the Tree-LSTM
+   (both cells, eager and compiled), PinSAGE sampling and
+   ``farthest_point_sampler`` (32 x 1,024 points to 512) at their
+   examples' sizes against their CPU runs;
 6. the ``{"kernels": [...]}`` line: ``launches_by_path`` holds each
    trainer run's count and ``launches`` their sum (every kernel above
    zero), then the last line
@@ -5421,6 +5439,551 @@ def bdense_gin_variants(dev, rows, g17):
                                        if k in v})
 
 
+# Phase 4l: the rest of the single-device surface. GNNExplainer on the
+# arxiv GCN (examples of DGL's explain module: num_epochs 100, lr 0.01),
+# GraphSAINT's random-walk sampler and Cluster-GCN at Reddit's shape (the
+# GraphSAINT authors' Reddit walk setting: 2,000 roots of length 4; the
+# Cluster-GCN paper's: 1,500 parts, 20 a batch), and the small models at
+# their examples' widths.
+EXPLAIN = dict(in_f=128, hidden=256, classes=40, epochs=100, lr=0.01,
+               hops=2, oracle_epochs=3, profile_epochs=3)
+# Launches per mask epoch of the arxiv GCN with a weighted aggregation
+# (hub engine, one dense group, the self-loop diagonal extracted): each
+# layer's forward is K2 mul with K3's diagonal epilogue, its backward K2
+# mul on the full backward layout (grad_u: the feature mask reaches layer
+# 1's input) and K5 mul (grad_e, the edge mask). The base prediction
+# before the epochs is one forward.
+EXPLAIN_PER_EPOCH = {"chunk_mul": 4, "edge_grad_mul": 2, "expand": 2}
+EXPLAIN_BASE = {"chunk_mul": 2, "expand": 2}
+SAINT = dict(roots=2000, length=4, batches=8, num_pre=20, hidden=128,
+             lr=1e-2)
+CLUSTER = dict(parts=1500, per_batch=20, top_parts=30, steps=10,
+               hidden=128, lr=1e-2)
+SMALL = dict(lgnn_graphs=2, lgnn_nodes=60, lgnn_hidden=32, tree_batch=32,
+             tree_x=64, tree_h=64, pinsage_items=500, pinsage_users=300,
+             pinsage_categories=5, pinsage_batch=64, fps_clouds=32,
+             fps_points=1024, fps_samples=512)
+
+
+def masks_vs(name, got, ref, per_element):
+    """A mask (sigmoid values) against its float64 oracle: every element
+    within 1e-4 of the mask's abs sum, and with ``per_element`` within
+    1e-4 itself. The feature mask's gradient sums over every node and can
+    cancel, which Adam's normalised step turns into a relative error of
+    the step; an edge's is a few products, its error stays near float32
+    rounding. Returns (max error, max error over the abs sum)."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: mask shape {tuple(got.shape)}")
+    err = float((got.detach().double().cpu() - ref.detach().cpu())
+                .abs().max())
+    abs_sum = float(ref.abs().sum())
+    tol = 1e-4 if per_element else 1e-4 * abs_sum
+    if not bool(torch.isfinite(got).all()) or not err <= tol:
+        raise AssertionError(f"{name}: mask err {err} > {tol}")
+    return err, err / abs_sum
+
+
+def phase_explainer(dev, g):
+    """GNNExplainer on the arxiv GCN (``models.GCN(128, 256, 40)``, norm
+    'both', eval mode, weights from a seed; ``model_fn`` gives the edge
+    weight to both layers), reference defaults (100 epochs, lr 0.01):
+    the masks after 3 epochs against the same loop in float64 on the
+    oracle engine (``masks_vs``: each element within 1e-4 of the mask's
+    abs sum, an edge mask's within 1e-4); ``explain_graph`` with
+    exactly EXPLAIN_BASE plus EXPLAIN_PER_EPOCH a mask epoch launched and
+    nothing else, ms a mask epoch (100 epochs less 0), a profile of 3
+    epochs of the mask loop; ``explain_node`` (2 hops) at the node of
+    highest in-degree and a node of median in-degree: the subgraph's size,
+    its engine, launches and seconds. Returns [(path, counts)]."""
+    from dgl1_tpu_torch import khop_in_subgraph, ops
+    from dgl1_tpu_torch.models import GCN
+    from dgl1_tpu_torch.nn import GNNExplainer
+    from torch.profiler import ProfilerActivity, profile
+
+    e = EXPLAIN
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(g.num_nodes(), e["in_f"], device=dev, generator=gen)
+    model = GCN(e["in_f"], e["hidden"], e["classes"], norm="both",
+                device=dev, generator=torch.Generator().manual_seed(21))
+    model.eval()
+
+    def mask_gen():
+        return torch.Generator().manual_seed(0)
+
+    def explainer(m, epochs):
+        return GNNExplainer(lambda gg, x, ew: m(gg, x, edge_weight=ew),
+                            e["hops"], lr=e["lr"], num_epochs=epochs)
+
+    def run(epochs, call):
+        ex = explainer(model, epochs)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out = call(ex)
+        torch.cuda.synchronize()
+        return out, all_launches(), time.perf_counter() - t0
+
+    def graph_call(ex):
+        return ex.explain_graph(g, feat, generator=mask_gen())
+
+    # The masks after 3 epochs against the float64 oracle run.
+    (fm3, em3), _, _ = run(e["oracle_epochs"], graph_call)
+    m64 = copy.deepcopy(model).double()
+    ops.set_engine("xla")
+    try:
+        fm64, em64 = explainer(m64, e["oracle_epochs"]).explain_graph(
+            g, feat.double(), generator=mask_gen())
+    finally:
+        ops.set_engine("auto")
+    del m64
+    errs = {"edge": masks_vs("explain_graph edge mask", em3, em64, True),
+            "feat": masks_vs("explain_graph feat mask", fm3, fm64, False)}
+    del fm64, em64
+    torch.cuda.empty_cache()
+    # Launches and ms a mask epoch: 100 epochs against none.
+    _, base, t0_s = run(0, graph_call)
+    expect_exact("explain_graph_base", base, EXPLAIN_BASE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (fm, em), counts, t_s = run(e["epochs"], graph_call)
+    expect_exact("explain_graph_arxiv",
+                 counts, _plus(EXPLAIN_BASE,
+                               _scaled(EXPLAIN_PER_EPOCH, e["epochs"])))
+    if not (em.shape == (g.num_edges(),) and fm.shape == (e["in_f"],)):
+        raise AssertionError(f"explain_graph: masks {tuple(em.shape)}, "
+                             f"{tuple(fm.shape)}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    # A profile of the mask loop alone.
+    ex = explainer(model, e["profile_epochs"])
+    with torch.no_grad():
+        target = int(model(g, feat, edge_weight=torch.ones(
+            g.num_edges_padded(), device=dev)).reshape(-1).argmax())
+
+    def target_fn(logits):
+        return -torch.log_softmax(logits.reshape(-1), dim=0)[target]
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        ex._optimize(g, feat, target_fn, mask_gen())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / e["profile_epochs"]
+    summarize_profile("explainer_profile", "explain_graph_arxiv", prof,
+                      e["profile_epochs"], wall_ms)
+    log(json.dumps({
+        "phase": "explain_graph", "path": "explain_graph_arxiv",
+        "nodes": g.num_nodes(), "edges": g.num_edges(),
+        "dims": [e["in_f"], e["hidden"], e["classes"]],
+        "epochs": e["epochs"], "seconds": t_s, "seconds_0_epochs": t0_s,
+        "ms_per_mask_epoch": (t_s - t0_s) * 1e3 / e["epochs"],
+        "launches": {k: v for k, v in counts.items() if v},
+        "launches_per_mask_epoch": EXPLAIN_PER_EPOCH,
+        "launches_base": {k: v for k, v in base.items() if v},
+        "peak_mem_gb": peak,
+        "oracle_epochs": e["oracle_epochs"],
+        "edge_mask_err_vs_oracle64": errs["edge"][0],
+        "edge_mask_err_over_abs_sum": errs["edge"][1],
+        "feat_mask_err_vs_oracle64": errs["feat"][0],
+        "feat_mask_err_over_abs_sum": errs["feat"][1],
+        "edge_mask_mean": float(em.mean()),
+        "edge_mask_range": [float(em.min()), float(em.max())]}))
+    out = [("explain_graph_arxiv", counts)]
+    deg = g.in_degrees().cpu().numpy()
+    picks = (("hub", int(deg.argmax())),
+             ("median", int(np.argsort(deg, kind="stable")[len(deg) // 2])))
+    for tag, node in picks:
+        t1 = time.perf_counter()
+        sg, _ = khop_in_subgraph(g, node, e["hops"])
+        khop_s = time.perf_counter() - t1
+        engine = forward_engine(sg, e["classes"])
+        del sg
+        (center, sg, fm, em), counts, secs = run(
+            e["epochs"],
+            lambda ex: ex.explain_node(node, g, feat, generator=mask_gen()))
+        if not (em.shape == (sg.num_edges(),) and bool(
+                torch.isfinite(em).all()) and bool(torch.isfinite(fm).all())):
+            raise AssertionError(f"explain_node {tag}: masks")
+        log(json.dumps({
+            "phase": "explain_node", "path": f"explain_node_arxiv_{tag}",
+            "node": node, "in_degree": int(deg[node]), "hops": e["hops"],
+            "subgraph_nodes": sg.num_nodes(),
+            "subgraph_edges": sg.num_edges(), "engine": engine,
+            "hub_meta": repr(sg.hub_dst_meta), "khop_seconds": khop_s,
+            "seconds": secs, "epochs": e["epochs"],
+            "launches": {k: v for k, v in counts.items() if v}}))
+        out.append((f"explain_node_arxiv_{tag}", counts))
+        del sg
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "explainer_done",
+                    "seconds": time.perf_counter() - t_phase}))
+    return out
+
+
+def explainer_kernel_variants(dev, rows, g_arx):
+    """The explainer's shapes not timed elsewhere, each against its
+    float64 plain version with its library call, as variants of their
+    rows: K2 mul's grad_u at layer 1 (``full_bwd``, F = 128) and K5 mul at
+    layer 2 (F = 40) with ``sampled_addmm``."""
+    for name, case, rep, bwd in (
+            ("chunk_mul", "explainer_grad_u_f128", 128, True),
+            ("edge_grad_mul", "explainer_layer2_f40", 40, False)):
+        v = weighted_row(name, case, g_arx, dev, 1, rep, bwd, seed=90)
+        rows[name]["variants"].append({k: v[k] for k in VARIANT_KEYS
+                                       if k in v})
+    torch.cuda.empty_cache()
+
+
+def reddit_dataset(dev, tmp):
+    """``data.RedditDataset(full_scale=True)``'s synthetic fallback on the
+    card (232,965 nodes, average degree 50 made bidirected, 602 features,
+    41 classes), its cache written under ``tmp``: build and cache
+    seconds."""
+    import dgl1_tpu_torch as dgl
+
+    t0 = time.perf_counter()
+    ds = dgl.data.RedditDataset(full_scale=True, raw_dir=tmp, device=dev)
+    secs = time.perf_counter() - t0
+    g = ds[0]
+    if not (ds.is_synthetic and g.num_nodes() == 232965
+            and tuple(g.ndata["feat"].shape) == (232965, 602)):
+        raise AssertionError("RedditDataset(full_scale=True): unexpected "
+                             "graph")
+    cache = Path(tmp) / f"{ds.name}_processed.npz"
+    log(json.dumps({"phase": "reddit_dataset", "nodes": g.num_nodes(),
+                    "edges": g.num_edges(), "seconds": secs,
+                    "cache_mb": cache.stat().st_size / 2 ** 20,
+                    "train_nodes": int(g.ndata["train_mask"].sum())}))
+    return g
+
+
+def _sampled_loss(model, sg, mask, train_mask):
+    """``examples/train_saint.py``'s loss: cross entropy over the real
+    training nodes, weighted by ``loss_norm`` where the batch has it."""
+    logp = torch.log_softmax(model(sg, sg.ndata["feat"]), dim=1)
+    ce = -logp.gather(1, sg.ndata["label"].long()[:, None])[:, 0]
+    w = mask * train_mask[sg.ndata["_ID"].long()]
+    if "loss_norm" in sg.ndata:
+        w = w * sg.ndata["loss_norm"]
+    return (ce * w).sum() / w.sum().clamp_min(1e-6)
+
+
+def train_subgraphs(name, dev, g, batches, steps, hidden, lr):
+    """``models.GCN(602, hidden, 41)`` (dropout 0, weights from a seed)
+    for ``steps`` Adam steps, one a subgraph drawn from ``batches``: the
+    step-0 logits against the float64 oracle (1e-4 of each logit's abs
+    sum), host ms to draw each batch, ms a step, each batch's engine,
+    size and launches. Returns the launches of all steps."""
+    from dgl1_tpu_torch.models import GCN
+
+    model = GCN(g.ndata["feat"].shape[1], hidden, 41, dropout=0.0,
+                device=dev, generator=torch.Generator().manual_seed(22))
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    it = iter(batches)
+    host_ms, step_ms, losses, per_step = [], [], [], []
+    engines_, sizes = [], []
+    lerr = None
+    total = {}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        sg, mask = next(it)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            lerr = model_step0(name, model, sg, sg.ndata["feat"])
+        model.train()
+        engines_.append(forward_engine(sg, hidden))
+        sizes.append([int(mask.sum()), sg.num_nodes(), sg.num_edges()])
+        reset_all_launches()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = _sampled_loss(model, sg, mask, g.ndata["train_mask"])
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = all_launches()
+        per_step.append({k: v for k, v in counts.items() if v})
+        total = _plus(total, counts)
+        losses.append(float(loss.detach()))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    log(json.dumps({
+        "phase": "subgraph_train", "path": name, "steps": steps,
+        "dims": [g.ndata["feat"].shape[1], hidden, 41], "losses": losses,
+        "host_ms_per_batch": host_ms, "ms_per_step": step_ms,
+        "ms_per_step_after_first": float(np.mean(step_ms[1:])),
+        "engine_per_batch": engines_,
+        "real_nodes_padded_nodes_edges": sizes,
+        "launches_per_step": per_step,
+        "logits_err_vs_oracle64": lerr[0],
+        "logits_err_over_abs_sum": lerr[1]}))
+    return total
+
+
+def two_level_partition(g, k1, k2):
+    """``k1 * k2`` parts: the port's greedy partitioner into ``k1`` parts
+    of ``g``, then each part's induced subgraph into ``k2`` by the same
+    partitioner (its cost grows with the parts times the nodes, so one
+    level of 1,500 parts over 232,965 nodes takes many minutes on the
+    host)."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch.parallel.partition import (
+        edge_cut_fraction, greedy_partition_assignment)
+
+    e = g.num_edges()
+    src = g.src[:e].cpu().numpy().astype(np.int64)
+    dst = g.dst[:e].cpu().numpy().astype(np.int64)
+    n = g.num_nodes()
+    host = dgl.graph((src, dst), num_nodes=n, formats=("csc",),
+                     device="cpu")
+    top = greedy_partition_assignment(host, k1)
+    inner = np.where(top[src] == top[dst], top[src], -1)
+    order = np.argsort(inner, kind="stable")
+    bounds = np.searchsorted(inner[order], np.arange(-1, k1 + 1))
+    out = np.empty(n, np.int64)
+    relabel = np.empty(n, np.int64)
+    for p in range(k1):
+        ids = np.nonzero(top == p)[0]
+        relabel[ids] = np.arange(len(ids))
+        eids = order[bounds[p + 1]:bounds[p + 2]]
+        sub = dgl.graph((relabel[src[eids]], relabel[dst[eids]]),
+                        num_nodes=len(ids), formats=("csc",), device="cpu")
+        out[ids] = p * k2 + greedy_partition_assignment(sub, k2)
+    return out, 1.0 - edge_cut_fraction(host, out)
+
+
+def phase_saint_cluster(dev):
+    """GraphSAINT (walk mode: 2,000 roots of length 4, 20 pre-sampling
+    batches) and Cluster-GCN (1,500 parts, 20 a batch) on
+    ``RedditDataset(full_scale=True)``'s synthetic fallback, each training
+    ``models.GCN(602, 128, 41)`` with Adam 1e-2 (SAINT 8 batches with
+    ``loss_norm`` weighting the loss, Cluster-GCN 10): pre-sampling and
+    partitioner seconds, host ms a batch, ms a step, engines and
+    launches (``train_subgraphs``). Returns [(path, counts)]."""
+    import tempfile
+
+    from dgl1_tpu_torch.dataloading import ClusterGCNDataLoader, SAINTSampler
+
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        g = reddit_dataset(dev, tmp)
+    s = SAINT
+    t0 = time.perf_counter()
+    sampler = SAINTSampler(g, "walk", (s["roots"], s["length"]),
+                           num_batches=s["batches"], num_pre=s["num_pre"],
+                           seed=0, device=dev)
+    pre_s = time.perf_counter() - t0
+    log(json.dumps({"phase": "saint_presample", "mode": "walk",
+                    "roots": s["roots"], "length": s["length"],
+                    "num_pre": s["num_pre"], "seconds": pre_s}))
+    out.append(("saint_reddit_train", train_subgraphs(
+        "saint_reddit_train", dev, g, sampler, s["batches"], s["hidden"],
+        s["lr"])))
+    del sampler
+    c = CLUSTER
+    t0 = time.perf_counter()
+    assign, inner = two_level_partition(g, c["top_parts"],
+                                        c["parts"] // c["top_parts"])
+    part_s = time.perf_counter() - t0
+    sizes = np.bincount(assign, minlength=c["parts"])
+    log(json.dumps({"phase": "cluster_partition", "parts": c["parts"],
+                    "levels": [c["top_parts"], c["parts"] // c["top_parts"]],
+                    "seconds": part_s, "edges_within_parts": inner,
+                    "part_nodes_min_max": [int(sizes.min()),
+                                           int(sizes.max())]}))
+    # prefetch 0: each batch is built when asked for, so its host time is
+    # the loader's cost a batch.
+    loader = ClusterGCNDataLoader(g, c["parts"], c["per_batch"], seed=0,
+                                  prefetch=0, partition_assignment=assign,
+                                  device=dev)
+    out.append(("cluster_gcn_reddit_train", train_subgraphs(
+        "cluster_gcn_reddit_train", dev, g, loader, c["steps"], c["hidden"],
+        c["lr"])))
+    del loader, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vs_cpu64(name, got, ref, rel=1e-4):
+    """Card output against a float64 CPU run: max error within ``rel`` of
+    the largest magnitude."""
+    got = got.detach().double().cpu()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: output {tuple(got.shape)}")
+    err, mx = float((got - ref).abs().max()), float(ref.abs().max())
+    if not err <= rel * mx:
+        raise AssertionError(f"{name}: err {err} > {rel} * {mx}")
+    return err / mx
+
+
+def timed_fwd_bwd(model, call):
+    """(output, host ms of forward and backward, launches)."""
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call(model)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, all_launches()
+
+
+def cpu64_run(model, call):
+    from dgl1_tpu_torch import ops
+
+    m = copy.deepcopy(model).double().cpu().eval()
+    ops.set_engine("xla")
+    try:
+        with torch.no_grad():
+            return call(m)
+    finally:
+        ops.set_engine("auto")
+
+
+def pinsage_item_graph(device):
+    """examples/train_pinsage.py's item graph (500 items, 300 users, 5
+    categories, 12 interactions a user; the example's draws)."""
+    import dgl1_tpu_torch as dgl
+
+    s = SMALL
+    items, users, cats = (s["pinsage_items"], s["pinsage_users"],
+                          s["pinsage_categories"])
+    rng = np.random.default_rng(0)
+    cat = rng.integers(0, cats, items)
+    u_cat = rng.integers(0, cats, users)
+    iu = rng.integers(0, users, users * 12)
+    in_cat = rng.random(len(iu)) < 0.85
+    it = np.where(in_cat, rng.permutation(items)[np.searchsorted(
+        np.sort(cat), u_cat[iu], side="left").clip(0, items - 1)],
+        rng.integers(0, items, len(iu)))
+    by_cat = [np.flatnonzero(cat == c) for c in range(cats)]
+    it = np.where(in_cat, np.asarray(
+        [by_cat[c][rng.integers(0, len(by_cat[c]))] for c in u_cat[iu]]), it)
+    order = np.argsort(iu, kind="stable")
+    iu_s, it_s = iu[order], it[order]
+    ss, dd = [], []
+    for a, b in zip(np.searchsorted(iu_s, np.arange(users), side="left"),
+                    np.searchsorted(iu_s, np.arange(users), side="right")):
+        its = np.unique(it_s[a:b])
+        if len(its) > 1:
+            pairs = np.array(np.meshgrid(its, its)).reshape(2, -1)
+            keep = pairs[0] != pairs[1]
+            ss.append(pairs[0][keep])
+            dd.append(pairs[1][keep])
+    return dgl.to_simple(dgl.graph((np.concatenate(ss), np.concatenate(dd)),
+                                   num_nodes=items, device=device))
+
+
+def phase_small_models(dev):
+    """The small models once each at their examples' widths, each on the
+    card against a float64 CPU run of the same parameters (max error
+    within 1e-4 of the largest magnitude): LGNN (examples/train_lgnn.py:
+    SBM mixtures of 60 nodes, 2 communities, average degree 8, hidden 32,
+    3 layers), the Tree-LSTM (examples/train_treelstm.py: x and h 64, a
+    batch of 32 synthetic SST trees) with both cells, eager and compiled;
+    then PinSAGE sampling at examples/train_pinsage.py's graph (its
+    sampler settings, 64 seeds) against the same on a CPU copy, and
+    ``farthest_point_sampler`` on 32 x 1,024 points down to 512 against
+    the CPU's indices. Returns [(path, counts)]."""
+    import dgl1_tpu_torch as dgl
+    from dgl1_tpu_torch.models import LGNN, TreeLSTM
+    from dgl1_tpu_torch.sampling import PinSAGESampler
+
+    s = SMALL
+    out = []
+    t_phase = time.perf_counter()
+    kw = dict(avg_deg=8.0, pq=2.0, seed=0)
+    g, lg, pm = dgl.data.SBMMixtureDataset(s["lgnn_graphs"], s["lgnn_nodes"],
+                                           2, device=dev, **kw)[0]
+    gc, lgc, pmc = dgl.data.SBMMixtureDataset(
+        s["lgnn_graphs"], s["lgnn_nodes"], 2, device="cpu", **kw)[0]
+    model = LGNN(hidden=s["lgnn_hidden"], communities=2, device=dev,
+                 generator=torch.Generator().manual_seed(23)).eval()
+    o, ms, counts = timed_fwd_bwd(model, lambda m: m(g, lg, pm))
+    rel = _vs_cpu64("lgnn", o, cpu64_run(model, lambda m: m(gc, lgc,
+                                                            pmc.double())))
+    log(json.dumps({"phase": "small_model", "path": "lgnn_sbm",
+                    "nodes": g.num_nodes(), "edges": g.num_edges(),
+                    "line_graph_edges": lg.num_edges(),
+                    "hidden": s["lgnn_hidden"], "ms_fwd_bwd": ms,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "err_over_max": rel}))
+    out.append(("lgnn_sbm", counts))
+    trees = dgl.data.SSTDataset("train", num_trees=s["tree_batch"], seed=0,
+                                device="cpu")
+    bgc = dgl.batch([trees[i] for i in range(s["tree_batch"])],
+                    device="cpu")
+    bg = bgc.to(dev)
+    sched = dgl.topo_schedule(bgc)
+    for cell in ("childsum", "nary"):
+        model = TreeLSTM(trees.vocab_size, s["tree_x"], s["tree_h"], 5,
+                         cell_type=cell, device=dev,
+                         generator=torch.Generator().manual_seed(24)).eval()
+        for mode, sc in (("eager", None), ("compiled", sched)):
+            o, ms, counts = timed_fwd_bwd(model, lambda m: m(
+                bg, bg.ndata["x"], bg.ndata["mask"], schedule=sc))
+            rel = _vs_cpu64(f"treelstm {cell} {mode}", o, cpu64_run(
+                model, lambda m: m(bgc, bgc.ndata["x"],
+                                   bgc.ndata["mask"].double(), schedule=sc)))
+            path = f"treelstm_{cell}_{mode}"
+            log(json.dumps({"phase": "small_model", "path": path,
+                            "trees": s["tree_batch"],
+                            "nodes": bg.num_nodes(), "levels": int(
+                                sched["ids"].shape[0]),
+                            "x_h": [s["tree_x"], s["tree_h"]],
+                            "ms_fwd_bwd": ms,
+                            "launches": {k: v for k, v in
+                                         counts.items() if v},
+                            "err_over_max": rel}))
+            out.append((path, counts))
+    # PinSAGE sampling: the card's graph against a CPU copy, one seed.
+    gi, gic = pinsage_item_graph(dev), pinsage_item_graph("cpu")
+    kw = dict(num_traversals=2, termination_prob=0.5, num_random_walks=16,
+              num_neighbors=5, seed=1)
+    seeds = torch.arange(s["pinsage_batch"], device=dev)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    fr = PinSAGESampler(gi, **kw)(seeds)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = all_launches()
+    frc = PinSAGESampler(gic, **kw)(seeds.cpu())
+    e = fr.num_edges()
+    if not (e == frc.num_edges() and torch.equal(fr.src[:e].cpu(),
+                                                  frc.src[:e])
+            and torch.equal(fr.dst[:e].cpu(), frc.dst[:e])
+            and torch.equal(fr.edata["weights"].cpu(), frc.edata["weights"])):
+        raise AssertionError("PinSAGESampler: the card's frontier differs "
+                             "from the CPU's")
+    log(json.dumps({"phase": "small_model", "path": "pinsage_sampler",
+                    "items": gi.num_nodes(), "item_edges": gi.num_edges(),
+                    "seeds": s["pinsage_batch"], "frontier_edges": e,
+                    "ms": ms}))
+    out.append(("pinsage_sampler", counts))
+    # Farthest-point sampling at ModelNet40's shape.
+    pos = torch.randn(s["fps_clouds"], s["fps_points"], 3, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(25))
+    reset_all_launches()
+    idx = dgl.geometry.farthest_point_sampler(pos, s["fps_samples"],
+                                              device=dev)
+    counts = all_launches()
+    want = dgl.geometry.farthest_point_sampler(pos.cpu(), s["fps_samples"],
+                                               device="cpu")
+    if not torch.equal(idx.cpu(), want):
+        raise AssertionError("farthest_point_sampler: the card's indices "
+                             "differ from the CPU's")
+    ms = cuda_ms(lambda: dgl.geometry.farthest_point_sampler(
+        pos, s["fps_samples"], device=dev), iters=3, warmup=1)
+    log(json.dumps({"phase": "small_model", "path": "farthest_point_sampler",
+                    "shape": [s["fps_clouds"], s["fps_points"], 3],
+                    "samples": s["fps_samples"], "ms": ms}))
+    out.append(("farthest_point_sampler", counts))
+    log(json.dumps({"phase": "small_models_done",
+                    "seconds": time.perf_counter() - t_phase}))
+    return out
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -5575,6 +6138,17 @@ def main():
     torch.cuda.empty_cache()
     log(json.dumps({"phase": "phase4k_done",
                     "seconds": time.perf_counter() - t4k}))
+    # Phase 4l: GNNExplainer on the arxiv GCN (K2 mul, K5 mul and K3 with
+    # its diagonal a mask epoch, exactly), GraphSAINT and Cluster-GCN at
+    # Reddit's shape, then LGNN, the Tree-LSTM, PinSAGE sampling and
+    # farthest-point sampling against their CPU runs.
+    t4l = time.perf_counter()
+    main_counts += phase_explainer(dev, g_arx)
+    explainer_kernel_variants(dev, rows, g_arx)
+    main_counts += phase_saint_cluster(dev)
+    main_counts += phase_small_models(dev)
+    log(json.dumps({"phase": "phase4l_done",
+                    "seconds": time.perf_counter() - t4l}))
     del g_mix  # g_arx stays for phase 4h's flagship trainer
 
     # Phase 4c: R-GCN at the configuration-#4 shape, the slice's main

@@ -40,6 +40,8 @@ from dgl1_tpu_torch.readout import (broadcast_edges, broadcast_nodes,
                                     sum_nodes, topk_edges, topk_nodes)
 from dgl1_tpu_torch.train import train, train_sampled, train_sampled_rgcn
 from dgl1_tpu_torch import core, function, traversal, udf  # noqa: F401
+from dgl1_tpu_torch import geometry, utils  # noqa: F401
+from dgl1_tpu_torch.nn.explain import khop_in_subgraph
 from dgl1_tpu_torch import function as fn  # noqa: F401
 from dgl1_tpu_torch.core import (filter_edges, filter_nodes, prop_edges,
                                  prop_edges_dfs, prop_nodes, prop_nodes_bfs,
@@ -101,4 +103,4 @@ __all__ = ["Graph", "graph", "block", "create_block", "rand_graph",
            "remove_nodes", "laplacian_pe", "random_walk_pe", "in_subgraph",
            "out_subgraph", "knn_graph", "segmented_knn_graph",
            "laplacian_lambda_max", "merge", "shortest_dist", "apply_each",
-           "distributed"]
+           "distributed", "geometry", "utils", "khop_in_subgraph"]

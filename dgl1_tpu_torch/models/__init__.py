@@ -1,5 +1,5 @@
 """``dgl1_tpu_torch.models``: model zoo of the port (the reference's
-names less ``LGNN`` and the Tree-LSTM, not ported yet)."""
+names, and ``EdgeWeightedGCN`` and ``HeteroRGCN``)."""
 
 from dgl1_tpu_torch.models.dgi import DGI, DGIEncoder
 from dgl1_tpu_torch.models.gat import GAT
@@ -7,8 +7,12 @@ from dgl1_tpu_torch.models.gcn import GCN, EdgeWeightedGCN
 from dgl1_tpu_torch.models.gin import GIN
 from dgl1_tpu_torch.models.graphsage import GraphSAGE
 from dgl1_tpu_torch.models.han import HAN, HANLayer, SemanticAttention
+from dgl1_tpu_torch.models.lgnn import LGNN, LGNNCore, LGNNLayer
 from dgl1_tpu_torch.models.rgcn import RGCN, HeteroRGCN
+from dgl1_tpu_torch.models.treelstm import (ChildSumTreeLSTMCell,
+                                            NAryTreeLSTMCell, TreeLSTM)
 
 __all__ = ["GCN", "EdgeWeightedGCN", "GAT", "GraphSAGE", "RGCN", "HeteroRGCN",
-           "HAN", "HANLayer", "SemanticAttention", "GIN", "DGI",
-           "DGIEncoder"]
+           "HAN", "HANLayer", "SemanticAttention", "GIN", "LGNN",
+           "LGNNLayer", "LGNNCore", "DGI", "DGIEncoder", "TreeLSTM",
+           "ChildSumTreeLSTMCell", "NAryTreeLSTMCell"]

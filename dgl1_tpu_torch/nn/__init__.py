@@ -1,5 +1,5 @@
 """``dgl1_tpu_torch.nn``: graph neural network modules (the reference's
-``dgl1_tpu.nn`` names, less ``GNNExplainer``, not ported yet)."""
+``dgl1_tpu.nn`` names)."""
 
 from dgl1_tpu_torch.nn.conv import (AGNNConv, APPNPConv, AtomicConv,
                                     CFConv, ChebConv, DenseChebConv,
@@ -10,6 +10,7 @@ from dgl1_tpu_torch.nn.conv import (AGNNConv, APPNPConv, AtomicConv,
                                     GINConv, GMMConv, GraphConv, HGTConv,
                                     NNConv, PNAConv, RelGraphConv, SAGEConv,
                                     SGConv, TAGConv)
+from dgl1_tpu_torch.nn.explain import GNNExplainer
 from dgl1_tpu_torch.nn.factory import KNNGraph, SegmentedKNNGraph
 from dgl1_tpu_torch.nn.glob import (AvgPooling, GlobalAttentionPooling,
                                     MaxPooling, Set2Set,
@@ -33,4 +34,5 @@ __all__ = ["GraphConv", "GATConv", "DotGatConv", "SAGEConv", "RelGraphConv",
            "SetTransformerEncoder", "SetTransformerDecoder", "GATv2Conv",
            "EGATConv", "EdgeGATConv", "GCN2Conv", "PNAConv",
            "JumpingKnowledge", "LabelPropagation", "HGTConv", "TypedLinear",
-           "HeteroLinear", "HeteroEmbedding", "EdgeWeightNorm", "GMMConv"]
+           "HeteroLinear", "HeteroEmbedding", "EdgeWeightNorm", "GMMConv",
+           "GNNExplainer"]

@@ -83,13 +83,28 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v, False
 
 
+_RENAMES = ((r"^layers?_?(\d+)$", r"layers.\1"),
+            (r"^mods_(.+)$", r"mods.\1"),
+            (r"^OptimizedLSTMCell_(\d+)$", r"lstm_cells.\1"),
+            (r"^(ChildSum|NAry)TreeLSTMCell_0$", "cell"))
+
+
+def _rename(name: str) -> str:
+    for pattern, repl in _RENAMES:
+        name = re.sub(pattern, repl, name)
+    return name
+
+
 def from_jax_params(params) -> "OrderedDict[str, torch.Tensor]":
     """A ``state_dict`` for the port's module from a flax parameter tree
     given as numpy arrays (with or without the top ``'params'`` key).
 
     Names map ``layer{i}`` and ``layers_{i}`` (a flax list attribute,
     ``Sequential``'s) -> ``layers.{i}``, ``HeteroGraphConv``'s
-    ``mods_{etype}`` -> ``mods.{etype}``, a ``Dense`` ``kernel`` ->
+    ``mods_{etype}`` -> ``mods.{etype}``, the Tree-LSTM's auto-named cell
+    (``ChildSumTreeLSTMCell_0``, ``NAryTreeLSTMCell_0``) -> ``cell``
+    (LGNN's ``layer{i}/g_core|lg_core/theta_*|bn`` and ``classify`` need
+    only the general rules), a ``Dense`` ``kernel`` ->
     ``weight``, an ``Embed`` ``embedding`` -> ``weight`` and a
     ``LayerNorm`` ``scale`` -> ``weight``; an
     ``OptimizedLSTMCell`` (``SAGEConv('lstm')``'s ``lstm``) becomes a
@@ -112,11 +127,7 @@ def from_jax_params(params) -> "OrderedDict[str, torch.Tensor]":
     out = OrderedDict()
     for path, value, done in _flatten(params):
         arr = np.asarray(value, dtype=np.float32)
-        names = [re.sub(r"^OptimizedLSTMCell_(\d+)$", r"lstm_cells.\1",
-                        re.sub(r"^mods_(.+)$", r"mods.\1",
-                               re.sub(r"^layers?_?(\d+)$", r"layers.\1",
-                                      p)))
-                 for p in path]
+        names = [_rename(p) for p in path]
         if done:
             pass
         elif names[-1] == "kernel":

@@ -48,7 +48,14 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "parallel.hetero", "function", "udf", "core", "traversal",
             "batch", "readout", "data.serialize", "nn.glob", "nn.softmax",
             "nn.utils", "nn.factory", "dataloading.graph_dataloader",
-            "models.gin", "models.dgi")
+            "models.gin", "models.dgi", "sampling.randomwalks",
+            "sampling.pinsage", "dataloading.saint", "dataloading.cluster",
+            "nn.explain", "geometry", "models.lgnn", "models.treelstm",
+            "utils", "utils.checkpoint", "utils.logging", "utils.profiler",
+            "data.base", "data.utils", "data.citation", "data.reddit",
+            "data.ogb", "data.gnn_benchmark", "data.knowledge",
+            "data.minigc", "data.ppi_tu", "data.qm", "data.sbm", "data.sst",
+            "data.csv_dataset")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -115,6 +122,27 @@ def test_entry_points_default_to_cuda():
                  lambda: tdgl.nn.DotGatConv(2, 2),
                  lambda: tdgl.nn.Set2Set(2),
                  lambda: tdgl.models.GIN(2, 2, 2),
-                 lambda: tdgl.models.DGI(2, 2)):
+                 lambda: tdgl.models.DGI(2, 2),
+                 # The loaders, models, geometry and datasets.
+                 lambda: tdgl.dataloading.SAINTSampler(g, "node", 2, 1,
+                                                       num_pre=0),
+                 lambda: tdgl.dataloading.ClusterGCNDataLoader(
+                     g, 1, partition_assignment=np.zeros(3, np.int64)),
+                 lambda: tdgl.models.LGNN(),
+                 lambda: tdgl.models.TreeLSTM(4, 2, 2, 2),
+                 lambda: tdgl.geometry.farthest_point_sampler(
+                     np.zeros((4, 2)), 2),
+                 lambda: tdgl.data.CoraGraphDataset(raw_dir="unused"),
+                 lambda: tdgl.data.KarateClubDataset(),
+                 lambda: tdgl.data.MiniGCDataset(1),
+                 lambda: tdgl.data.PPIDataset("valid", raw_dir="unused"),
+                 lambda: tdgl.data.TUDataset("MUTAG", raw_dir="unused"),
+                 lambda: tdgl.data.GINDataset("MUTAG", raw_dir="unused"),
+                 lambda: tdgl.data.QM7bDataset(1, raw_dir="unused"),
+                 lambda: tdgl.data.QM9Dataset(num_molecules=1,
+                                              raw_dir="unused"),
+                 lambda: tdgl.data.SBMMixtureDataset(1, 8, 2),
+                 lambda: tdgl.data.SSTDataset(raw_dir="unused"),
+                 lambda: tdgl.data.CSVDataset("unused")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
