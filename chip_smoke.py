@@ -281,6 +281,18 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    (both cells, eager and compiled), PinSAGE sampling and
    ``farthest_point_sampler`` (32 x 1,024 points to 512) at their
    examples' sizes against their CPU runs;
+4m. the examples harness (``dgl1_tpu_torch/tools/run_examples.py``),
+   after 4l: each of its 17 entries in process through its trainer's
+   ``main`` at the harness's arguments on the card (exit code, gate
+   line, best validation and test metrics, wall seconds, ms a step,
+   launches); for each trainer that launched a hand kernel, its first
+   step (dropout 0) on the auto engine against the same weights on the
+   oracle engine, GATConv on its composed path (loss within 1e-4
+   relative, each gradient within 1e-4 of its largest magnitude plus
+   1e-6 of the step's largest gradient magnitude), and a
+   3-step profile of it (device busy ms, idle share); then ``python -m
+   dgl1_tpu_torch.tools.run_examples --only train_gcn.py`` as a
+   subprocess. The datasets are cached in a temporary directory;
 6. the ``{"kernels": [...]}`` line: ``launches_by_path`` holds each
    trainer run's count and ``launches`` their sum (every kernel above
    zero), then the last line
@@ -5984,6 +5996,193 @@ def phase_small_models(dev):
     return out
 
 
+# Phase 4m: the examples harness's entries (dgl1_tpu_torch/tools/
+# run_examples.py), each trainer in process at the harness's arguments.
+# A step-0 check holds the loss within EXAMPLE_RTOL of the oracle's and
+# each parameter's gradient within EXAMPLE_RTOL of its largest magnitude
+# plus EXAMPLE_GTOL of the largest gradient magnitude of the whole step:
+# the kernels sum in other orders than the oracle's scatters, and a
+# gradient that is a sum of cancelling terms (GAT's attn_r: 5.8e-3 from
+# terms of the step's scale) keeps float32 rounding of that scale.
+EXAMPLE_RTOL, EXAMPLE_GTOL = 1e-4, 1e-6
+EXAMPLE_PROFILE_STEPS = 3
+
+
+def oracle_view(x):
+    """``x`` with every ``Graph`` in it (through dicts, lists and plain
+    tuples) replaced by its view without the hub layout, so that GATConv
+    takes its composed path; other objects are passed through."""
+    from dgl1_tpu_torch.graph import Graph
+
+    if isinstance(x, Graph):
+        return composed_view(x)
+    if isinstance(x, dict):
+        return {k: oracle_view(v) for k, v in x.items()}
+    if isinstance(x, list) or (isinstance(x, tuple)
+                               and not hasattr(x, "_fields")):
+        return type(x)(oracle_view(v) for v in x)
+    return x
+
+
+def example_step0(entry, mod, args, dev):
+    """The trainer's first step (its ``step_loss`` on its ``first_batch``,
+    model in eval mode: dropout 0) on the auto engine, against the same
+    step on the oracle engine on the composed views of its graphs from a
+    copy of the same weights: the loss and every parameter's gradient,
+    with the launches of the auto step. Then a ``torch.profiler`` window
+    of EXAMPLE_PROFILE_STEPS Adam steps on the same batch after one
+    warm-up step: device busy ms a step and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgl1_tpu_torch import ops
+
+    data, model = mod.build(args, dev)
+    batch = (mod.first_batch(args, data, dev)
+             if hasattr(mod, "first_batch") else None)
+    model.eval()
+    ref = copy.deepcopy(model)
+    reset_all_launches()
+    loss = mod.step_loss(args, data, model, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in all_launches().items() if v}
+    ops.set_engine("xla")
+    try:
+        want = mod.step_loss(args, oracle_view(data), ref,
+                             oracle_view(batch))
+        want.backward()
+    finally:
+        ops.set_engine("auto")
+    lerr = abs(float(loss) - float(want))
+    if not lerr <= EXAMPLE_RTOL * abs(float(want)):
+        raise AssertionError(f"{entry}: step-0 loss {float(loss)} vs oracle "
+                             f"{float(want)}")
+    grads = [(name, p.grad if p.grad is not None else torch.zeros_like(p),
+              q.grad if q.grad is not None else torch.zeros_like(q))
+             for (name, p), (_, q) in zip(model.named_parameters(),
+                                          ref.named_parameters())
+             if p.grad is not None or q.grad is not None]
+    top = max(float(gb.abs().max()) for _, _, gb in grads)
+    worst = 0.0
+    for name, ga, gb in grads:
+        err = float((ga - gb).abs().max())
+        scale = float(gb.abs().max())
+        if not err <= EXAMPLE_RTOL * scale + EXAMPLE_GTOL * top:
+            raise AssertionError(
+                f"{entry}: step-0 grad of {name}: err {err} > {EXAMPLE_RTOL}"
+                f" * {scale} + {EXAMPLE_GTOL} * {top}")
+        worst = max(worst, err / max(scale, 1e-30))
+    del ref, want
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        mod.step_loss(args, data, model, batch).backward()
+        opt.step()
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(EXAMPLE_PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = ((time.perf_counter() - t0) * 1e3
+                   / EXAMPLE_PROFILE_STEPS)
+    summarize_profile("example_profile", entry, prof, EXAMPLE_PROFILE_STEPS,
+                      wall_ms)
+    return {"loss": float(loss), "loss_err_vs_oracle": lerr,
+            "worst_grad_err_over_max": worst, "largest_grad": top,
+            "step0_launches": counts}
+
+
+def phase_examples(dev):
+    """Phase 4m: every entry of the port's examples harness in process,
+    through its trainer's ``main`` (``build``, ``train``, the gate) at the
+    harness's arguments on the card, the launch counters zeroed before
+    and read after; one line each with the exit code, the gate's line,
+    the best validation and test metrics, wall seconds, ms a step and the
+    launches. A trainer that launched a hand kernel gets the step-0 check
+    of :func:`example_step0`. Then the harness's command line once as a
+    subprocess on the card (``--only train_gcn.py``). Datasets are cached
+    in a temporary directory, removed at the end. Returns the launches of
+    each entry."""
+    import importlib
+    import os
+    import shutil
+    import tempfile
+
+    from dgl1_tpu_torch.tools import run_examples as H
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dgl1_examples_")
+    old = os.environ.get("DGL1_TPU_DATA_DIR")
+    os.environ["DGL1_TPU_DATA_DIR"] = tmp
+    out = []
+    try:
+        for entry in sorted(H.EXAMPLES):
+            argv = list(H.EXAMPLES[entry][0])
+            mod = importlib.import_module(H.module_of(entry))
+            reset_all_launches()
+            t0 = time.perf_counter()
+            try:
+                m = mod.main(argv)
+            except SystemExit as e:
+                raise AssertionError(f"{entry}: exited with {e.code!r}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = all_launches()
+            losses, ms = m["losses"], m["step_ms"]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"{entry}: non-finite loss {losses}")
+            launched = {k: v for k, v in counts.items() if v}
+            rec = {"phase": "example", "entry": entry, "argv": argv,
+                   "rc": 0, "gate": m["gate"], "val": m["val"],
+                   "test": m["test"], "wall_s": wall,
+                   "train_wall_s": m["wall_s"], "steps": len(losses),
+                   "first_loss": losses[0], "last_loss": losses[-1],
+                   "ms_first_step": ms[0],
+                   "ms_per_step": (float(np.mean(ms[1:])) if len(ms) > 1
+                                   else ms[0]),
+                   "ms_per_step_median": float(np.median(ms)),
+                   "launches": launched,
+                   "launches_per_step": {k: v / len(losses)
+                                         for k, v in launched.items()}}
+            if launched:
+                t0 = time.perf_counter()
+                rec["step0"] = example_step0(entry, mod,
+                                             mod.parse_args(argv), dev)
+                rec["step0"]["seconds"] = time.perf_counter() - t0
+                if not rec["step0"]["step0_launches"]:
+                    raise AssertionError(f"{entry}: launched {launched} but"
+                                         f" its first step launched nothing")
+            log(json.dumps(rec))
+            out.append((f"example_{entry}", counts))
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "dgl1_tpu_torch.tools.run_examples",
+             "--only", "train_gcn.py"], cwd=str(HERE), capture_output=True,
+            text=True, timeout=300)
+        log(json.dumps({"phase": "example_harness_cli",
+                        "rc": p.returncode,
+                        "seconds": time.perf_counter() - t0,
+                        "output": p.stdout.strip().splitlines()[-3:]}))
+        if p.returncode != 0:
+            raise AssertionError(f"run_examples --only train_gcn.py: rc "
+                                 f"{p.returncode}\n{p.stdout}{p.stderr}")
+    finally:
+        if old is None:
+            os.environ.pop("DGL1_TPU_DATA_DIR", None)
+        else:
+            os.environ["DGL1_TPU_DATA_DIR"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(json.dumps({"phase": "phase4m_done",
+                    "seconds": time.perf_counter() - t_phase}))
+    return out
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -6149,6 +6348,10 @@ def main():
     main_counts += phase_small_models(dev)
     log(json.dumps({"phase": "phase4l_done",
                     "seconds": time.perf_counter() - t4l}))
+    # Phase 4m: the examples harness's 17 entries in process (launches;
+    # where a hand kernel ran, the step-0 check against the oracle and a
+    # profile), then the harness's command line once.
+    main_counts += phase_examples(dev)
     del g_mix  # g_arx stays for phase 4h's flagship trainer
 
     # Phase 4c: R-GCN at the configuration-#4 shape, the slice's main

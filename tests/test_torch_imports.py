@@ -1,6 +1,7 @@
 """The port imports no JAX and nothing of the JAX package, and asks for
 CUDA by default."""
 
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -55,7 +56,15 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "data.base", "data.utils", "data.citation", "data.reddit",
             "data.ogb", "data.gnn_benchmark", "data.knowledge",
             "data.minigc", "data.ppi_tu", "data.qm", "data.sbm", "data.sst",
-            "data.csv_dataset")
+            "data.csv_dataset", "tools.run_examples", "examples",
+            "examples.train_gcn", "examples.train_gat", "examples.train_gcn2",
+            "examples.train_citation_zoo", "examples.train_rgcn",
+            "examples.train_han", "examples.train_hetero",
+            "examples.train_sage_minibatch", "examples.train_rgcn_sampled",
+            "examples.train_link_pred", "examples.train_hetero_link_pred",
+            "examples.train_rgcn_link_pred", "examples.train_sign",
+            "examples.train_dgi", "examples.train_cluster_gcn",
+            "examples.train_saint")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -143,6 +152,10 @@ def test_entry_points_default_to_cuda():
                                               raw_dir="unused"),
                  lambda: tdgl.data.SBMMixtureDataset(1, 8, 2),
                  lambda: tdgl.data.SSTDataset(raw_dir="unused"),
-                 lambda: tdgl.data.CSVDataset("unused")):
+                 lambda: tdgl.data.CSVDataset("unused"),
+                 # The trainers run on the card unless given --cpu.
+                 lambda: importlib.import_module(
+                     "dgl1_tpu_torch.examples.train_gcn").main(
+                         ["--epochs", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
