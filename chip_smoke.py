@@ -289,7 +289,11 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    step (dropout 0) on the auto engine against the same weights on the
    oracle engine, GATConv on its composed path (loss within 1e-4
    relative, each gradient within 1e-4 of its largest magnitude plus
-   1e-6 of the step's largest gradient magnitude), and a
+   1e-6 of the step's largest gradient magnitude; the parameters' and
+   the embedding rows' the sampled R-GCN's sparse update reads), each
+   K10 call of that step against its plain version exactly and timed
+   as a variant of K10's row (``edge_softmax`` only subtracts its max,
+   so the loss cannot show a wrong one), and a
    3-step profile of it (device busy ms, idle share); then ``python -m
    dgl1_tpu_torch.tools.run_examples --only train_gcn.py`` as a
    subprocess. The datasets are cached in a temporary directory;
@@ -304,6 +308,7 @@ or when the package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -4915,12 +4920,17 @@ def conv_case(name, make, g, inputs, grad_of=(0,), expect=(), f64=True):
     launched) against the same module and inputs on the oracle engine in
     float64: each output and each input's gradient of ``sum(out * ct)``
     (``ct`` a fixed draw) within 1e-3 of that tensor's largest magnitude,
-    as phase 4's GCN logits check. Without ``f64`` the oracle runs in
-    float32: for a conv with a kink before its first g-SpMM (a
-    leaky_relu, a max over per-edge values), where a float32 value within
-    rounding of the kink takes the other branch in float64 (EGAT's edge
-    output did on the arxiv graph); in float32 both sides do the same
-    arithmetic up to the first g-SpMM. ``inputs``: card tensors (float
+    as phase 4's GCN logits check. Without ``f64`` the gradients are held
+    against the oracle in float32: for a conv with a kink before its
+    first g-SpMM (a leaky_relu, a max over per-edge values), where a
+    float32 value within rounding of the kink takes the other branch in
+    float64 (EGAT's edge output did on the arxiv graph); in float32 both
+    sides do the same arithmetic up to the first g-SpMM. Its outputs are
+    still held against the float64 oracle, since a forward is continuous
+    at a kink: the float32 oracle's own sums over the arxiv hub row (2.8M
+    in-edges) drifted by 2.9e-3 of EdgeGAT's largest output, where the
+    kernels were within 3.8e-7 of float64 (the output errors against the
+    float32 oracle are logged as ``fwd_errs_vs_oracle32``). ``inputs``: card tensors (float
     ones in ``grad_of`` get gradients). ``make()`` builds the module on
     the card."""
     from dgl1_tpu_torch import ops
@@ -4959,12 +4969,28 @@ def conv_case(name, make, g, inputs, grad_of=(0,), expect=(), f64=True):
     finally:
         ops.set_engine("auto")
     del m_ref
+    fwd_ref = [r.detach() for r in ref]
+    more = {}
+    if not f64:
+        more["fwd_errs_vs_oracle32"] = [
+            float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+            for a, b in zip(got, fwd_ref)]
+        m64 = copy.deepcopy(mod).double()
+        ops.set_engine("xla")
+        try:
+            with torch.no_grad():
+                fwd_ref = list(outs(m64(g, *[
+                    x.double() if x.is_floating_point() else x
+                    for x in inputs])))
+        finally:
+            ops.set_engine("auto")
+        del m64
     errs = []
-    pairs = list(zip(got, (r.detach() for r in ref)))
+    pairs = list(zip(got, fwd_ref))
     pairs += [(a, xr[i].grad) for a, i in zip(grads, grad_of)]
     for k, (a, b) in enumerate(pairs):
         scale = float(b.abs().max())
-        err = float((a.to(dt) - b).abs().max())
+        err = float((a.to(b.dtype) - b).abs().max())
         if not err <= 1e-3 * scale:
             raise AssertionError(f"{name}[{k}]: err {err} > 1e-3 * "
                                  f"max|ref| ({scale})")
@@ -4977,7 +5003,7 @@ def conv_case(name, make, g, inputs, grad_of=(0,), expect=(), f64=True):
                     else int((g != 0).sum()),
                     "engine": engine, "out": [list(o.shape) for o in got],
                     "ms_with_backward": ms, "launches": launched,
-                    "rel_errs": errs}))
+                    "rel_errs": errs, **more}))
     return counts
 
 
@@ -6024,17 +6050,88 @@ def oracle_view(x):
     return x
 
 
+@contextlib.contextmanager
+def recorded_k10():
+    """Inside the block every call of K10's wrapper (``tile_minmax``, as
+    the tile engine calls it) is recorded with its arguments and output:
+    ``edge_softmax`` only subtracts its max, so a wrong max would leave a
+    step's loss and gradients as they are, and :func:`check_k10_calls`
+    holds each output itself against the plain version."""
+    from dgl1_tpu_torch.ops import tile_kernels as TK
+
+    calls, real = [], TK.tile_minmax
+
+    def rec(*a):
+        out = real(*a)
+        calls.append((a, out))
+        return out
+
+    TK.tile_minmax = rec
+    try:
+        yield calls
+    finally:
+        TK.tile_minmax = real
+
+
+def k10_call_variant(case, a, out):
+    """One recorded K10 call as a variant of K10's row: its output held
+    against ``tile_minmax_torch`` on the same arguments exactly (a max or
+    min picks one of its inputs; rows that no tile reaches hold the
+    identity on both sides), then the kernel, its plain version and the
+    library call (``scatter_reduce_`` over the real slots' rows, timed
+    only) timed on those arguments. Bytes as :func:`tile_case`: each
+    distinct row the real slots read and their indices, the layout, the
+    output."""
+    from dgl1_tpu_torch.ops import tile_kernels as TK
+
+    is_max, rows, first, lid, src, n_rb, idx = a
+    f = src.shape[1]
+    real = (lid.reshape(-1) >= 0).nonzero().squeeze(1)
+    n_real = int(real.numel())
+    src_rows = real if idx is None else idx.long().index_select(0, real)
+    target = (rows.long()[:, None] * 128 + lid.long()).reshape(
+        -1).index_select(0, real)
+    msg_real = src.index_select(0, src_rows)
+    tidx = target[:, None].expand(-1, f)
+    red = "amax" if is_max else "amin"
+    lib_out = torch.zeros(n_rb * 128, f, device=src.device)
+    read = int(torch.unique(src_rows).numel()) * f * 4 + (
+        n_real * 4 if idx is not None else 0)
+    shapes = {"case": case, "reduce": "max" if is_max else "min", "f": f,
+              "tiles": int(lid.shape[0]), "row_blocks": int(n_rb),
+              "slots": int(lid.numel()), "real_slots": n_real,
+              "src_rows": int(src.shape[0]),
+              "mode": "gather" if idx is not None else "msg"}
+    return kernel_row(
+        "tile_minmax", out, TK.tile_minmax_torch(*a), None,
+        lambda: TK.tile_minmax(*a), lambda: TK.tile_minmax_torch(*a),
+        lambda: lib_out.scatter_reduce_(0, tidx, msg_real, red,
+                                        include_self=False),
+        read + nbytes(lid, rows, first) + n_rb * 128 * f * 4, n_real * f,
+        shapes, plain_iters=3, exact=True)
+
+
 def example_step0(entry, mod, args, dev):
     """The trainer's first step (its ``step_loss`` on its ``first_batch``,
     model in eval mode: dropout 0) on the auto engine, against the same
     step on the oracle engine on the composed views of its graphs from a
-    copy of the same weights: the loss and every parameter's gradient,
-    with the launches of the auto step. Then a ``torch.profiler`` window
-    of EXAMPLE_PROFILE_STEPS Adam steps on the same batch after one
-    warm-up step: device busy ms a step and the idle share."""
+    copy of the same weights: the loss, every parameter's gradient and
+    the gradient of every further leaf the step's update reads (a
+    trainer's ``step_leaves``, which returns the loss with those leaves
+    by name), with the launches of the auto step; each K10 call of the
+    auto step checked against its plain version and timed as a variant of
+    K10's row (:func:`recorded_k10`, :func:`k10_call_variant`). Then a
+    ``torch.profiler`` window of EXAMPLE_PROFILE_STEPS Adam steps on the
+    same batch after one warm-up step: device busy ms a step and the idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     from dgl1_tpu_torch import ops
+
+    def loss_and_leaves(d, m, b):
+        if hasattr(mod, "step_leaves"):
+            return mod.step_leaves(args, d, m, b)
+        return mod.step_loss(args, d, m, b), {}
 
     data, model = mod.build(args, dev)
     batch = (mod.first_batch(args, data, dev)
@@ -6042,25 +6139,31 @@ def example_step0(entry, mod, args, dev):
     model.eval()
     ref = copy.deepcopy(model)
     reset_all_launches()
-    loss = mod.step_loss(args, data, model, batch)
-    loss.backward()
+    with recorded_k10() as k10:
+        loss, leaves = loss_and_leaves(data, model, batch)
+        loss.backward()
     torch.cuda.synchronize()
     counts = {k: v for k, v in all_launches().items() if v}
     ops.set_engine("xla")
     try:
-        want = mod.step_loss(args, oracle_view(data), ref,
-                             oracle_view(batch))
+        want, want_leaves = loss_and_leaves(oracle_view(data), ref,
+                                            oracle_view(batch))
         want.backward()
     finally:
         ops.set_engine("auto")
+    k10_rows = [k10_call_variant(f"{entry}_step0_call{i}", a, out)
+                for i, (a, out) in enumerate(k10)]
+    del k10
     lerr = abs(float(loss) - float(want))
     if not lerr <= EXAMPLE_RTOL * abs(float(want)):
         raise AssertionError(f"{entry}: step-0 loss {float(loss)} vs oracle "
                              f"{float(want)}")
+    pairs = (list(zip(model.named_parameters(), ref.named_parameters()))
+             + [((f"leaf {k}", v), (k, want_leaves[k]))
+                for k, v in leaves.items()])
     grads = [(name, p.grad if p.grad is not None else torch.zeros_like(p),
               q.grad if q.grad is not None else torch.zeros_like(q))
-             for (name, p), (_, q) in zip(model.named_parameters(),
-                                          ref.named_parameters())
+             for (name, p), (_, q) in pairs
              if p.grad is not None or q.grad is not None]
     top = max(float(gb.abs().max()) for _, _, gb in grads)
     worst = 0.0
@@ -6094,7 +6197,11 @@ def example_step0(entry, mod, args, dev):
                       wall_ms)
     return {"loss": float(loss), "loss_err_vs_oracle": lerr,
             "worst_grad_err_over_max": worst, "largest_grad": top,
-            "step0_launches": counts}
+            "leaves": sorted(leaves),
+            "k10_calls": [{k: r[k] for k in ("max_abs_err", "ms",
+                                             "plain_ms", "shapes")}
+                          for r in k10_rows],
+            "step0_launches": counts}, k10_rows
 
 
 def phase_examples(dev):
@@ -6107,7 +6214,8 @@ def phase_examples(dev):
     of :func:`example_step0`. Then the harness's command line once as a
     subprocess on the card (``--only train_gcn.py``). Datasets are cached
     in a temporary directory, removed at the end. Returns the launches of
-    each entry."""
+    each entry and the step-0 checks' K10 calls as variants of K10's
+    row."""
     import importlib
     import os
     import shutil
@@ -6119,7 +6227,7 @@ def phase_examples(dev):
     tmp = tempfile.mkdtemp(prefix="dgl1_examples_")
     old = os.environ.get("DGL1_TPU_DATA_DIR")
     os.environ["DGL1_TPU_DATA_DIR"] = tmp
-    out = []
+    out, k10_variants = [], []
     try:
         for entry in sorted(H.EXAMPLES):
             argv = list(H.EXAMPLES[entry][0])
@@ -6151,9 +6259,11 @@ def phase_examples(dev):
                                          for k, v in launched.items()}}
             if launched:
                 t0 = time.perf_counter()
-                rec["step0"] = example_step0(entry, mod,
-                                             mod.parse_args(argv), dev)
+                rec["step0"], k10_rows = example_step0(
+                    entry, mod, mod.parse_args(argv), dev)
                 rec["step0"]["seconds"] = time.perf_counter() - t0
+                k10_variants += [{k: v[k] for k in VARIANT_KEYS if k in v}
+                                 for v in k10_rows]
                 if not rec["step0"]["step0_launches"]:
                     raise AssertionError(f"{entry}: launched {launched} but"
                                          f" its first step launched nothing")
@@ -6180,7 +6290,7 @@ def phase_examples(dev):
         shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps({"phase": "phase4m_done",
                     "seconds": time.perf_counter() - t_phase}))
-    return out
+    return out, k10_variants
 
 
 def card_line():
@@ -6351,7 +6461,8 @@ def main():
     # Phase 4m: the examples harness's 17 entries in process (launches;
     # where a hand kernel ran, the step-0 check against the oracle and a
     # profile), then the harness's command line once.
-    main_counts += phase_examples(dev)
+    ex_counts, ex_k10 = phase_examples(dev)
+    main_counts += ex_counts
     del g_mix  # g_arx stays for phase 4h's flagship trainer
 
     # Phase 4c: R-GCN at the configuration-#4 shape, the slice's main
@@ -6439,7 +6550,7 @@ def main():
     blocks = [b.to(dev) for b in blocks]
     rows.update(phase_tile_kernels(dev, blocks))
     rows["tile_sum"]["variants"] += mag_k9 + typed_k9
-    rows["tile_minmax"]["variants"] += zoo_k10
+    rows["tile_minmax"]["variants"] += zoo_k10 + ex_k10
     main_counts += frontend_block(dev, blocks[0])
     main_counts += conv_legs_block(dev, blocks[0], r["in_f"])
     del blocks

@@ -20,18 +20,16 @@ This module holds what the trainers share.
 
 from __future__ import annotations
 
-import math
 import time
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from dgl1_tpu_torch.graph import resolve_device
 
-__all__ = ["run", "device_of", "masked_ce", "accuracy", "flax_dense",
-           "literature_gate", "first_of", "NO_GATE", "Stepper"]
+__all__ = ["run", "device_of", "masked_ce", "accuracy", "literature_gate",
+           "first_of", "NO_GATE", "Stepper"]
 
 NO_GATE = "no gate"
 
@@ -72,25 +70,6 @@ def accuracy(pred, labels, mask) -> float:
     m = mask.to(torch.float32)
     correct = (pred == labels.long()).to(torch.float32)
     return float((correct * m).sum() / m.sum().clamp_min(1.0))
-
-
-def flax_dense(in_size: int, out_size: int, bias: bool = True, device=None,
-               generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """``nn.Linear`` initialised as flax's ``nn.Dense``: the weight from
-    ``lecun_normal`` (a normal of std ``sqrt(1 / in) / 0.8796...``
-    truncated at two std), the bias zero; drawn on the generator's device
-    (the CPU when None), so one seed gives the same weights anywhere."""
-    lin = nn.Linear(in_size, out_size, bias=bias, device=device)
-    std = math.sqrt(1.0 / in_size) / 0.87962566103423978
-    w = torch.empty(lin.weight.shape, device=(
-        generator.device if generator is not None else "cpu"))
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
-    with torch.no_grad():
-        lin.weight.copy_(w)
-        if lin.bias is not None:
-            lin.bias.zero_()
-    return lin
 
 
 def literature_gate(best_test: float, gate: Optional[float],

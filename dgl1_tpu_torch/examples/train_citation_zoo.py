@@ -16,10 +16,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dgl1_tpu_torch.examples import flax_dense, literature_gate, run
+from dgl1_tpu_torch.examples import literature_gate, run
 from dgl1_tpu_torch.examples.train_gcn import (  # noqa: F401
     citation_graph, fit, node_data, step_loss)
-from dgl1_tpu_torch.nn.conv import _maybe_drop
+from dgl1_tpu_torch.nn.conv import _maybe_drop, dense
 
 # Literature test accuracies, less 0.015 at the gate; real data only.
 GATES = {
@@ -52,8 +52,8 @@ class APPNP(_Zoo):
         super().__init__(p)
         from dgl1_tpu_torch.nn import APPNPConv
 
-        self.Dense_0 = flax_dense(in_f, hidden, device=dev, generator=gen)
-        self.Dense_1 = flax_dense(hidden, classes, device=dev, generator=gen)
+        self.Dense_0 = dense(in_f, hidden, device=dev, generator=gen)
+        self.Dense_1 = dense(hidden, classes, device=dev, generator=gen)
         self.APPNPConv_0 = APPNPConv(k=10, alpha=0.1, device=dev)
 
     def forward(self, g, x, generator=None):
@@ -108,10 +108,10 @@ class AGNN(_Zoo):
         super().__init__(p)
         from dgl1_tpu_torch.nn import AGNNConv
 
-        self.Dense_0 = flax_dense(in_f, hidden, device=dev, generator=gen)
+        self.Dense_0 = dense(in_f, hidden, device=dev, generator=gen)
         self.AGNNConv_0 = AGNNConv(device=dev)
         self.AGNNConv_1 = AGNNConv(device=dev)
-        self.Dense_1 = flax_dense(hidden, classes, device=dev, generator=gen)
+        self.Dense_1 = dense(hidden, classes, device=dev, generator=gen)
 
     def forward(self, g, x, generator=None):
         x = torch.relu(self.Dense_0(x))
@@ -163,8 +163,8 @@ class JKNet(_Zoo):
                 in_f if i == 0 else hidden, hidden, device=dev,
                 generator=gen))
         self.JumpingKnowledge_0 = JumpingKnowledge("cat", device=dev)
-        self.Dense_0 = flax_dense(3 * hidden, classes, device=dev,
-                                  generator=gen)
+        self.Dense_0 = dense(3 * hidden, classes, device=dev,
+                             generator=gen)
 
     def forward(self, g, x, generator=None):
         outs, h = [], x
@@ -184,7 +184,7 @@ class MoNet(_Zoo):
         super().__init__(p)
         from dgl1_tpu_torch.nn import GMMConv
 
-        self.pseudo_proj = flax_dense(2, 2, device=dev, generator=gen)
+        self.pseudo_proj = dense(2, 2, device=dev, generator=gen)
         self.GMMConv_0 = GMMConv(in_f, hidden, dim=2, n_kernels=3,
                                  device=dev, generator=gen)
         self.GMMConv_1 = GMMConv(hidden, classes, dim=2, n_kernels=3,

@@ -14,10 +14,10 @@ import sys
 import torch
 from torch import nn
 
-from dgl1_tpu_torch.examples import flax_dense, literature_gate, run
+from dgl1_tpu_torch.examples import literature_gate, run
 from dgl1_tpu_torch.examples.train_gcn import (  # noqa: F401
     citation_graph, fit, node_data, step_loss)
-from dgl1_tpu_torch.nn.conv import _maybe_drop
+from dgl1_tpu_torch.nn.conv import _maybe_drop, dense
 
 # Chen et al. 2020: Cora 85.5 / Citeseer 73.4 / Pubmed 80.3, less 0.015.
 GATES = {"cora": 0.855, "citeseer": 0.734, "pubmed": 0.803}
@@ -48,16 +48,16 @@ class GCNII(nn.Module):
         super().__init__()
         from dgl1_tpu_torch.nn import GCN2Conv
 
-        self.fc_in = flax_dense(in_feats, hidden, device=device,
-                                generator=generator)
+        self.fc_in = dense(in_feats, hidden, device=device,
+                           generator=generator)
         self.layers = layers
         for l in range(layers):
             setattr(self, f"conv_{l}", GCN2Conv(
                 hidden, layer=l + 1, alpha=alpha, lambda_=lambda_,
                 project_initial_features=True, device=device,
                 generator=generator))
-        self.fc_out = flax_dense(hidden, classes, device=device,
-                                 generator=generator)
+        self.fc_out = dense(hidden, classes, device=device,
+                            generator=generator)
         self.p = p
 
     def forward(self, g, x, generator=None):

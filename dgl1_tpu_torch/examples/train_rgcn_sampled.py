@@ -91,6 +91,13 @@ def step_loss(args, data, model, batch):
     return batch_loss(data, model, batch)[0]
 
 
+def step_leaves(args, data, model, batch):
+    """The step's loss and the embedding rows it read by node type: the
+    leaves besides the model's parameters whose gradients the step's
+    sparse update takes."""
+    return batch_loss(data, model, batch)[:2]
+
+
 def batch_loss(data, model, batch):
     """The loss of one batch and the embedding rows it read (leaves whose
     ``grad`` the sparse update takes), with their ids."""

@@ -17,10 +17,10 @@ import time
 import torch
 from torch import nn
 
-from dgl1_tpu_torch.examples import flax_dense, literature_gate, run
+from dgl1_tpu_torch.examples import literature_gate, run
 from dgl1_tpu_torch.examples import train_gcn
 from dgl1_tpu_torch.examples.train_gcn import citation_graph, fit, node_data
-from dgl1_tpu_torch.nn.conv import _maybe_drop
+from dgl1_tpu_torch.nn.conv import _maybe_drop, dense
 
 # SIGN reports about GCN's citation accuracy; less 0.015, real data only.
 GATES = {"cora": 0.810, "citeseer": 0.703, "pubmed": 0.789}
@@ -59,10 +59,10 @@ class SignMLP(nn.Module):
     def __init__(self, in_f, hidden, classes, p, device=None,
                  generator=None):
         super().__init__()
-        self.Dense_0 = flax_dense(in_f, hidden, device=device,
-                                  generator=generator)
-        self.Dense_1 = flax_dense(hidden, classes, device=device,
-                                  generator=generator)
+        self.Dense_0 = dense(in_f, hidden, device=device,
+                             generator=generator)
+        self.Dense_1 = dense(hidden, classes, device=device,
+                             generator=generator)
         self.p = p
 
     def forward(self, x, generator=None):

@@ -55,16 +55,24 @@ def _init_on(shape, generator, fill):
     return t
 
 
+def _lecun_normal(shape, generator):
+    """flax's ``Dense`` kernel init (``lecun_normal``) on an (out, in)
+    weight: a normal of std ``sqrt(1 / in) / 0.8796...`` truncated at two
+    std, drawn on the generator's device."""
+    std = math.sqrt(1.0 / shape[-1]) / 0.87962566103423978
+    return _init_on(shape, generator, lambda t: nn.init.trunc_normal_(
+        t, std=std, a=-2 * std, b=2 * std, generator=generator))
+
+
 def dense(in_size: int, out_size: int, bias: bool = True, device=None,
           generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """``nn.Linear`` with its weight drawn uniform in +-1/sqrt(in) on the
-    generator's device (the CPU when None) and a zero bias, so one seed
-    gives the same weights on every device."""
+    """``nn.Linear`` initialised as the reference's flax ``Dense``: the
+    weight lecun normal (:func:`_lecun_normal`), drawn on the generator's
+    device (the CPU when None) so one seed gives the same weights on every
+    device, and a zero bias."""
     lin = nn.Linear(in_size, out_size, bias=bias, device=device)
-    bound = 1.0 / math.sqrt(in_size)
     with torch.no_grad():
-        lin.weight.copy_(_init_on(lin.weight.shape, generator,
-                                  lambda w: _uniform_(w, bound, generator)))
+        lin.weight.copy_(_lecun_normal(lin.weight.shape, generator))
         if lin.bias is not None:
             lin.bias.zero_()
     return lin
@@ -128,15 +136,14 @@ class GraphConv(nn.Module):
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
-        """Xavier-uniform weight, zero bias. The weight is drawn on the
-        generator's device (the CPU when None) and copied, so one seed
-        gives the same weights on every device."""
+        """The weight as the reference's flax ``Dense`` (lecun normal),
+        zero bias. The weight is drawn on the generator's device (the CPU
+        when None) and copied, so one seed gives the same weights on every
+        device."""
         if self.weight is not None:
             with torch.no_grad():
-                self.weight.weight.copy_(_init_on(
-                    self.weight.weight.shape, generator,
-                    lambda t: nn.init.xavier_uniform_(t,
-                                                      generator=generator)))
+                self.weight.weight.copy_(_lecun_normal(
+                    self.weight.weight.shape, generator))
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -258,19 +265,16 @@ class GATConv(nn.Module):
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
-        """Xavier-normal fc (gain sqrt 2, as the reference GATConv of DGL)
-        and attention vectors (fan over heads and features, as flax's
-        xavier_normal on (1, H, F)); zero bias."""
-        gain = nn.init.calculate_gain("relu")
+        """fc and res_fc as the reference's flax ``Dense`` (lecun normal),
+        attention vectors as its ``xavier_normal`` on (1, H, F) (fan over
+        heads and features); zero bias."""
         h, f = self.num_heads, self.out_feats
         std = (2.0 / (h + f)) ** 0.5
         with torch.no_grad():
             for lin in (self.fc, self.res_fc):
                 if lin is not None:
-                    lin.weight.copy_(_init_on(
-                        lin.weight.shape, generator,
-                        lambda t: nn.init.xavier_normal_(
-                            t, gain=gain, generator=generator)))
+                    lin.weight.copy_(_lecun_normal(lin.weight.shape,
+                                                   generator))
             for p in (self.attn_l, self.attn_r):
                 p.copy_(_init_on(p.shape, generator,
                                  lambda t: nn.init.normal_(
@@ -370,17 +374,14 @@ class SAGEConv(nn.Module):
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
-        """Xavier-uniform weights with the relu gain (as DGL's SAGEConv),
-        zero biases; drawn on the generator's device and copied."""
-        gain = nn.init.calculate_gain("relu")
+        """Weights as the reference's flax ``Dense`` layers (lecun
+        normal), zero biases; drawn on the generator's device and
+        copied."""
         with torch.no_grad():
             for lin in (self.fc_pool, self.fc_self, self.fc_neigh):
                 if lin is None:
                     continue
-                lin.weight.copy_(_init_on(
-                    lin.weight.shape, generator,
-                    lambda t: nn.init.xavier_uniform_(t, gain=gain,
-                                                      generator=generator)))
+                lin.weight.copy_(_lecun_normal(lin.weight.shape, generator))
                 if lin.bias is not None:
                     lin.bias.zero_()
             if self.bias is not None:

@@ -993,11 +993,20 @@ def test_gmajor_kernel_on_an_empty_layout(dev):
 def test_wide_head_gat_layer_falls_through_on_the_card(dev):
     """GATConv(in, 512, num_heads=1) on a hub graph: heads wider than the
     kernels' 384 features decline the fused attention, so no attention
-    kernel launches and the layer matches the same layer on the CPU."""
+    kernel launches and the layer matches the same layer on the CPU. The
+    weights are drawn here at the scale the tolerance was set for (fc
+    xavier normal with gain sqrt 2): at GATConv's own init, 3.3x larger
+    at 16 inputs, the gradients of ``sum(out ** 2)`` grow ~36x, and
+    float32 summation order alone moves a few elements past atol 1e-4."""
     g = _graph(dev, True)
     gc = g.to("cpu")
-    conv = tdgl.nn.GATConv(16, 512, num_heads=1, device="cpu",
-                           generator=torch.Generator().manual_seed(12))
+    conv = tdgl.nn.GATConv(16, 512, num_heads=1, device="cpu")
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        torch.nn.init.xavier_normal_(conv.fc.weight, gain=2 ** 0.5,
+                                     generator=gen)
+        for p in (conv.attn_l, conv.attn_r):
+            p.normal_(0.0, (2.0 / 513) ** 0.5, generator=gen)
     x = torch.randn(g.num_nodes(), 16,
                     generator=torch.Generator().manual_seed(13))
     res = []
