@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from dgl1_tpu_torch.graph import resolve_device
 
 __all__ = ["run", "device_of", "masked_ce", "accuracy", "literature_gate",
-           "first_of", "NO_GATE", "Stepper"]
+           "first_of", "NO_GATE", "Stepper", "load_reference",
+           "reference_state_dict"]
 
 NO_GATE = "no gate"
 
@@ -82,6 +83,24 @@ def literature_gate(best_test: float, gate: Optional[float],
         raise SystemExit(f"ACCURACY GATE FAILED: {what} test "
                          f"{best_test:.4f} < {gate:.4f}")
     return f"accuracy gate passed ({best_test:.4f} >= {gate:.4f})"
+
+
+def reference_state_dict(params, renames=None) -> dict:
+    """The reference script's flax parameter tree (numpy arrays) as the
+    port's ``state_dict``: :func:`~dgl1_tpu_torch.params.from_jax_params`,
+    then each part of a name that is a key of ``renames`` takes that
+    key's value in its place (flax's auto names to the port's)."""
+    from dgl1_tpu_torch.params import from_jax_params
+
+    renames = renames or {}
+    return {".".join(renames.get(part, part) for part in k.split(".")): v
+            for k, v in from_jax_params(params).items()}
+
+
+def load_reference(model, params, renames=None):
+    """Load :func:`reference_state_dict` of ``params`` into ``model``."""
+    model.load_state_dict(reference_state_dict(params, renames), strict=True)
+    return model
 
 
 def first_of(batches):

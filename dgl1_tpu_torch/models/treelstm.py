@@ -16,13 +16,14 @@ the reference, the reduce adds ``U_iou`` of the children to the stored
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 
 from dgl1_tpu_torch.graph import Graph, resolve_device
-from dgl1_tpu_torch.nn.conv import _dropout, dense
+from dgl1_tpu_torch.nn.conv import _dropout, _init_on, dense
 
 __all__ = ["TreeLSTM", "ChildSumTreeLSTMCell", "NAryTreeLSTMCell"]
 
@@ -122,7 +123,13 @@ class TreeLSTM(nn.Module):
             raise ValueError(cell_type)
         self.h_size = h_size
         self.dropout = dropout
+        # flax's ``Embed``: a normal of std 1/sqrt(x_size).
         self.embedding = nn.Embedding(num_vocab, x_size, device=dev)
+        with torch.no_grad():
+            self.embedding.weight.copy_(_init_on(
+                self.embedding.weight.shape, generator,
+                lambda w: nn.init.normal_(w, std=1.0 / math.sqrt(x_size),
+                                          generator=generator)))
         self.cls = dense(h_size, num_classes, device=dev, generator=generator)
 
     def forward(self, g: Graph, tokens, token_mask, schedule=None,

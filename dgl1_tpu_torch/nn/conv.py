@@ -36,7 +36,7 @@ __all__ = ["GraphConv", "EdgeWeightNorm", "GATConv", "SAGEConv",
            "NNConv", "DenseGraphConv", "DenseSAGEConv", "GMMConv",
            "DenseChebConv", "CFConv", "AtomicConv", "GATv2Conv", "EGATConv",
            "EdgeGATConv", "GCN2Conv", "PNAConv", "HGTConv",
-           "shifted_softplus", "dense"]
+           "shifted_softplus", "dense", "FlaxGRUCell"]
 
 
 def _dropout(x, p: float, generator):
@@ -79,23 +79,54 @@ def dense(in_size: int, out_size: int, bias: bool = True, device=None,
 
 
 def _reset_lstm(lstm, generator):
-    """Per gate: input kernels normal of std 1/sqrt(in), orthogonal hidden
-    kernels, zero biases (the scales of flax's OptimizedLSTMCell);
-    ``bias_ih_l0`` stays zero and frozen, since the flax cell has one
-    bias a gate, on the hidden side."""
+    """flax's OptimizedLSTMCell scheme, per gate: lecun normal input
+    kernels (:func:`_lecun_normal`: std 1/sqrt(in), truncated at two
+    std), orthogonal hidden kernels, zero biases; ``bias_ih_l0`` stays
+    zero and frozen, since the flax cell has one bias a gate, on the
+    hidden side."""
     f, n_in = lstm.hidden_size, lstm.input_size
     with torch.no_grad():
         for g in range(4):
             rows = slice(g * f, (g + 1) * f)
-            lstm.weight_ih_l0[rows].copy_(_init_on(
-                (f, n_in), generator, lambda t: nn.init.normal_(
-                    t, 0.0, 1.0 / math.sqrt(n_in), generator=generator)))
+            lstm.weight_ih_l0[rows].copy_(_lecun_normal((f, n_in),
+                                                        generator))
             lstm.weight_hh_l0[rows].copy_(_init_on(
                 (f, f), generator, lambda t: nn.init.orthogonal_(
                     t, generator=generator)))
         lstm.bias_ih_l0.zero_()
         lstm.bias_hh_l0.zero_()
     lstm.bias_ih_l0.requires_grad_(False)
+
+
+class FlaxGRUCell(nn.GRUCell):
+    """flax's ``GRUCell`` as a ``torch.nn.GRUCell`` (its four tensors, so
+    ``from_jax_params`` loads it): stepped through ``torch.gru_cell`` with
+    the r and z parts of ``bias_hh`` held out (flax has a hidden bias on n
+    only), so those stay as loaded: zero. Drawn as flax draws it, per gate
+    (r, z, n): lecun normal input kernels (:func:`_lecun_normal`),
+    orthogonal hidden kernels, zero biases. ``forward(x, h)``."""
+
+    def __init__(self, in_feats: int, out_feats: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_feats, out_feats, device=device)
+        f = out_feats
+        with torch.no_grad():
+            for g in range(3):
+                rows = slice(g * f, (g + 1) * f)
+                self.weight_ih[rows].copy_(_lecun_normal((f, in_feats),
+                                                         generator))
+                self.weight_hh[rows].copy_(_init_on(
+                    (f, f), generator, lambda t: nn.init.orthogonal_(
+                        t, generator=generator)))
+            self.bias_ih.zero_()
+            self.bias_hh.zero_()
+        self.register_buffer("_hh_mask", torch.cat([
+            torch.zeros(2 * f, device=device),
+            torch.ones(f, device=device)]), persistent=False)
+
+    def forward(self, x, h):
+        return torch.gru_cell(x, h, self.weight_ih, self.weight_hh,
+                              self.bias_ih, self.bias_hh * self._hh_mask)
 
 
 def _layer_norm(f: int, device):
@@ -785,10 +816,7 @@ class GatedGraphConv(nn.Module):
     """Gated graph conv (``gatedgraphconv.py``): the input zero-padded to
     ``out_feats``, then ``n_steps`` of ``h = GRU(h, sum over in-edges of
     h_u @ W[etype])`` (the per-edge ``copy_u``, a ``copy_e`` sum). ``gru``
-    is a ``torch.nn.GRUCell`` stepped through ``torch.gru_cell`` with the
-    r and z parts of ``bias_hh`` held out (flax's ``GRUCell`` has a hidden
-    bias on n only), so those stay as loaded: zero. ``weight`` (T, out,
-    out)."""
+    is a :class:`FlaxGRUCell`. ``weight`` (T, out, out)."""
 
     def __init__(self, in_feats: int, out_feats: int, n_steps: int = 1,
                  n_etypes: int = 1, device=None,
@@ -801,24 +829,12 @@ class GatedGraphConv(nn.Module):
                                                       n_etypes)
         self.weight = nn.Parameter(_xavier_uniform(
             (n_etypes, out_feats, out_feats), generator).to(dev))
-        self.gru = nn.GRUCell(out_feats, out_feats, device=dev)
-        bound = 1.0 / math.sqrt(out_feats)
-        with torch.no_grad():
-            for w in (self.gru.weight_ih, self.gru.weight_hh):
-                w.copy_(_init_on(w.shape, generator,
-                                 lambda t: _uniform_(t, bound, generator)))
-            self.gru.bias_ih.zero_()
-            self.gru.bias_hh.zero_()
-        self.register_buffer("_hh_mask", torch.cat([
-            torch.zeros(2 * out_feats, device=dev),
-            torch.ones(out_feats, device=dev)]), persistent=False)
+        self.gru = FlaxGRUCell(out_feats, out_feats, dev, generator)
 
     def forward(self, g: Graph, feat, etypes=None):
         if feat.shape[-1] < self.out_feats:
             feat = torch.nn.functional.pad(
                 feat, (0, self.out_feats - feat.shape[-1]))
-        gru = self.gru
-        b_hh = gru.bias_hh * self._hh_mask
         h = feat
         for _ in range(self.n_steps):
             src_h = gsddmm(g, "copy_lhs", h, None, lhs_target="u")
@@ -827,8 +843,7 @@ class GatedGraphConv(nn.Module):
             else:
                 msg = gather_mm(src_h, self.weight, etypes)
             a = gspmm(g, "copy_rhs", "sum", None, msg)
-            h = torch.gru_cell(a, h, gru.weight_ih, gru.weight_hh,
-                               gru.bias_ih, b_hh)
+            h = self.gru(a, h)
         return h
 
 
@@ -912,7 +927,8 @@ class DenseGraphConv(nn.Module):
 
 class DenseSAGEConv(nn.Module):
     """Mean SAGEConv on a dense adjacency (``densesageconv.py``): ``fc``
-    over ``[h, mean of the neighbours]``."""
+    over ``[h, mean of the neighbours]``; ``adj`` (N_dst, N_src), or a
+    batch of them (B, N_dst, N_src) with ``feat`` (B, N_src, F)."""
 
     def __init__(self, in_feats: int, out_feats: int, bias: bool = True,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -922,7 +938,7 @@ class DenseSAGEConv(nn.Module):
 
     def forward(self, adj, feat):
         adj = adj.to(feat.dtype)
-        h_neigh = (adj @ feat) / adj.sum(dim=1, keepdim=True).clamp_min(1.0)
+        h_neigh = (adj @ feat) / adj.sum(dim=-1, keepdim=True).clamp_min(1.0)
         return self.fc(torch.cat([feat, h_neigh], dim=-1))
 
 

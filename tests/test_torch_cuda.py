@@ -1758,3 +1758,31 @@ def test_dense_kernels_on_typed_layouts(dev, f):
         for name, a, b, s in zip(("fwd", "grad"), hubbed, run("xla", u, w),
                                  run("xla", u.abs(), w.abs())):
             _sum_close(f"{name}[{i}]", a, b, s)
+
+
+def test_dgmg_graphed_step_matches_eager(dev):
+    """``train_dgmg``'s CUDA-graph replay of the step against the same
+    steps taken eagerly from the same weights and batches: every loss and
+    the final weights within float32 rounding."""
+    from dgl1_tpu_torch.examples import train_dgmg as M
+
+    args = M.parse_args(["--iters", "8", "--hidden", "8", "--batch", "4",
+                         "--samples", "2"])
+    data, model = M.build(args, dev)
+    eager = M.DGMG(args.hidden, args.n_max, device=dev)
+    eager.load_state_dict(model.state_dict())
+    got = M.train(args, data, model, dev)["losses"]
+    data["rng"] = np.random.default_rng(0)
+    opt = torch.optim.Adam(eager.parameters(), lr=args.lr)
+    want = []
+    for _ in range(args.iters):
+        opt.zero_grad()
+        loss = M.step_loss(args, data, eager, M.make_batch(args, data))
+        loss.backward()
+        opt.step()
+        want.append(float(loss))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for (k, a), b in zip(model.state_dict().items(),
+                         eager.state_dict().values()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)

@@ -339,6 +339,23 @@ def init_pair(kind):
     src, dst = np.arange(8), (np.arange(8) + 1) % 8
     gj = jdgl.graph((src, dst), num_nodes=8)
     x = jnp.zeros((8, INIT_IN))
+    if kind.startswith("TreeLSTM"):
+        # train_treelstm's widths (x_size 64), a vocabulary of 500.
+        kw = dict(num_vocab=INIT_IN, x_size=INIT_OUT, h_size=INIT_OUT,
+                  num_classes=5, cell_type=kind.split("-")[1])
+        tok, mask = jnp.zeros(8, jnp.int32), jnp.ones(8)
+        tree = jdgl.graph((np.arange(1, 8), np.arange(7) // 2), num_nodes=8)
+        jm, sched = jdgl.models.TreeLSTM(**kw), jdgl.topo_schedule(tree)
+        return (tdgl.models.TreeLSTM(device=CPU, generator=gen, **kw),
+                jax.jit(lambda: jm.init(jax.random.PRNGKey(0), tree, tok,
+                                        mask, schedule=sched))())
+    if kind == "GatedGraphConv":
+        # train_ggnn's shape: a 1-wide annotation into out, 2 edge types.
+        et = jnp.zeros(8, jnp.int32)
+        return (tdgl.nn.GatedGraphConv(1, INIT_OUT, n_steps=2, n_etypes=2,
+                                       device=CPU, generator=gen),
+                jdgl.nn.GatedGraphConv(INIT_OUT, n_steps=2, n_etypes=2)
+                .init(jax.random.PRNGKey(0), gj, jnp.zeros((8, 1)), et))
     if kind == "GraphConv":
         pair = (tdgl.nn.GraphConv(INIT_IN, INIT_OUT, device=CPU,
                                   generator=gen),
@@ -355,19 +372,34 @@ def init_pair(kind):
     return pair[0], pair[1].init(jax.random.PRNGKey(0), gj, x)
 
 
-@pytest.mark.parametrize("kind", ["Dense", "GraphConv", "GATConv",
-                                  "SAGEConv-mean", "SAGEConv-pool"])
+INIT_KINDS = ["Dense", "GraphConv", "GATConv", "SAGEConv-mean",
+              "SAGEConv-pool", "TreeLSTM-childsum", "TreeLSTM-nary",
+              "GatedGraphConv"]
+
+
+@pytest.mark.parametrize("kind", INIT_KINDS)
 def test_init_matches_reference_scheme(kind):
     """The port's initial weights follow the reference's schemes (every
     flax ``Dense`` is lecun normal, truncated at two std): each weight of
     at least 400 elements has the standard deviation of the reference's
     draw of the same tensor within 10% (draws from other generators can
-    agree only in distribution) and no element past the truncation.
-    GATConv's fc drawn as DGL's (xavier normal, gain sqrt 2) had 1.9x the
-    reference's scale, which tripled the GAT trainer's first loss on
-    pubmed."""
-    model, params = init_pair(kind)
-    want = from_jax_params(jax.tree.map(np.asarray, params))
+    agree only in distribution) and no element past the truncation where
+    the reference's draw has none. GATConv's fc drawn as DGL's (xavier
+    normal, gain sqrt 2) had 1.9x the reference's scale, which tripled
+    the GAT trainer's first loss on pubmed. TreeLSTM's embedding (flax
+    ``Embed``, std 1/sqrt(x_size)) was drawn N(0, 1), and GatedGraphConv's
+    GRU (flax ``GRUCell``: lecun normal input and orthogonal hidden
+    kernels per gate) uniform in 1/sqrt(out)."""
+    check_init(*init_pair(kind))
+
+
+def check_init(model, params, renames=None):
+    """``model``'s initial weights against the reference's ``params``
+    (see :func:`test_init_matches_reference_scheme`), flax's names mapped
+    by ``renames`` (a trainer's ``REFERENCE_NAMES``)."""
+    from dgl1_tpu_torch.examples import reference_state_dict
+
+    want = reference_state_dict(jax.tree.map(np.asarray, params), renames)
     got = model.state_dict()
     checked = 0
     for name, w in want.items():
@@ -378,7 +410,7 @@ def test_init_matches_reference_scheme(kind):
         assert t.shape == w.shape, name
         np.testing.assert_allclose(t.std(), w.std(), rtol=0.1, err_msg=name)
         bound = 2 * np.sqrt(1.0 / t.shape[-1]) / 0.87962566103423978
-        if name.endswith("weight"):
+        if np.abs(w).max() <= bound * (1 + 1e-6):
             assert np.abs(t).max() <= bound * (1 + 1e-6), name
         checked += 1
     assert checked >= 1

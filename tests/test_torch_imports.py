@@ -64,7 +64,13 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "examples.train_link_pred", "examples.train_hetero_link_pred",
             "examples.train_rgcn_link_pred", "examples.train_sign",
             "examples.train_dgi", "examples.train_cluster_gcn",
-            "examples.train_saint")
+            "examples.train_saint", "examples.train_graph_classification",
+            "examples.train_diffpool", "examples.train_chem",
+            "examples.train_ggnn", "examples.train_pointcloud",
+            "examples.train_transformer", "examples.train_gcmc",
+            "examples.train_treelstm", "examples.train_lgnn",
+            "examples.train_pinsage", "examples.train_metapath2vec",
+            "examples.train_dgmg", "tools.profile_examples")
 
 
 def test_port_imports_no_jax_and_no_reference():
