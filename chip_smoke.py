@@ -282,13 +282,18 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    ``farthest_point_sampler`` (32 x 1,024 points to 512) at their
    examples' sizes against their CPU runs;
 4m. the examples harness (``dgl1_tpu_torch/tools/run_examples.py``),
-   after 4l: each of its 29 entries in process through its trainer's
+   after 4l: each of its 34 entries in process through its trainer's
    ``main`` at the harness's arguments on the card (GGNN at 10 of its
-   60 epochs, ``PHASE_4M_ARGS``; exit code, gate
+   60 epochs, ``PHASE_4M_ARGS``; the 5 distributed entries at ``--parts
+   1``, one NCCL rank, with free ports and a temporary partition
+   directory; exit code, gate
    line, best validation and test metrics, wall seconds, ms a step,
-   launches); for each trainer that launched a hand kernel, its first
+   launches); for each trainer that launched a hand kernel, and each
+   distributed trainer, its first
    step (dropout 0) on the auto engine against the same weights on the
-   oracle engine, GATConv on its composed path (loss within 1e-4
+   oracle engine, GATConv on its composed path, or, for the partitioned
+   trainers, whose local layouts the engine swap does not reach, against
+   the single-device float64 oracle of the whole graph (loss within 1e-4
    relative, each gradient within 1e-4 of its largest magnitude plus
    1e-6 of the step's largest gradient magnitude; the parameters' and
    the embedding rows' the sampled R-GCN's sparse update reads), each
@@ -297,7 +302,8 @@ nothing of ``dgl1_tpu``). Phases, in order; any failure exits non-zero:
    so the loss cannot show a wrong one), and a
    3-step profile of it (device busy ms, idle share); then ``python -m
    dgl1_tpu_torch.tools.run_examples --only train_gcn.py`` as a
-   subprocess. The datasets are cached in a temporary directory;
+   subprocess, and ``--only dist``, whose entries need 2 or 4 cards and
+   are reported as not run on one. The datasets are cached in a temporary directory;
 6. the ``{"kernels": [...]}`` line: ``launches_by_path`` holds each
    trainer run's count and ``launches`` their sum (every kernel above
    zero), then the last line
@@ -6011,6 +6017,25 @@ EXAMPLE_PROFILE_STEPS = 3
 PHASE_4M_ARGS = {"train_ggnn.py": ["--epochs", "10"]}
 
 
+def phase_4m_argv(entry, tmp):
+    """An entry's arguments in phase 4m: ``PHASE_4M_ARGS`` or the
+    harness's, a distributed trainer at ``--parts 1`` (the one card's one
+    NCCL rank; NCCL places one rank a card), ``train_dist_sampled`` with
+    its partition under ``tmp`` and free ports of this host (fresh ones
+    at each call)."""
+    from dgl1_tpu_torch.examples import free_port_base
+    from dgl1_tpu_torch.tools import run_examples as H
+
+    argv = list(PHASE_4M_ARGS.get(entry, H.EXAMPLES[entry][0]))
+    if "--parts" in argv:
+        argv[argv.index("--parts") + 1] = "1"
+    if H.script_of(entry) == "train_dist_sampled.py":
+        argv += ["--out", str(Path(tmp) / "dist_sampled_parts"),
+                 "--coordinator", f"127.0.0.1:{free_port_base()}",
+                 "--store-port-base", str(free_port_base())]
+    return argv
+
+
 def oracle_view(x):
     """``x`` with every ``Graph`` in it (through dicts, lists and plain
     tuples) replaced by its view without the hub layout, so that GATConv
@@ -6121,13 +6146,18 @@ def example_step0(entry, mod, args, dev):
         loss.backward()
     torch.cuda.synchronize()
     counts = {k: v for k, v in all_launches().items() if v}
-    ops.set_engine("xla")
-    try:
-        want, want_leaves = loss_and_leaves(oracle_view(data), ref,
-                                            oracle_view(batch))
+    if hasattr(mod, "oracle_loss"):
+        # A partitioned trainer: its whole-graph float64 oracle.
+        want, want_leaves = mod.oracle_loss(args, data, ref, batch), {}
         want.backward()
-    finally:
-        ops.set_engine("auto")
+    else:
+        ops.set_engine("xla")
+        try:
+            want, want_leaves = loss_and_leaves(oracle_view(data), ref,
+                                                oracle_view(batch))
+            want.backward()
+        finally:
+            ops.set_engine("auto")
     k10_rows = [k10_call_variant(f"{entry}_step0_call{i}", a, out)
                 for i, (a, out) in enumerate(k10)]
     del k10
@@ -6172,7 +6202,11 @@ def example_step0(entry, mod, args, dev):
                    / EXAMPLE_PROFILE_STEPS)
     summarize_profile("example_profile", entry, prof, EXAMPLE_PROFILE_STEPS,
                       wall_ms)
+    if hasattr(mod, "release"):
+        mod.release(data)
     return {"loss": float(loss), "loss_err_vs_oracle": lerr,
+            "oracle": ("float64 whole graph" if hasattr(mod, "oracle_loss")
+                       else "oracle engine"),
             "worst_grad_err_over_max": worst, "largest_grad": top,
             "leaves": sorted(leaves),
             "k10_calls": [{k: r[k] for k in ("max_abs_err", "ms",
@@ -6198,6 +6232,7 @@ def phase_examples(dev):
     import shutil
     import tempfile
 
+    from dgl1_tpu_torch.examples import process_group
     from dgl1_tpu_torch.tools import run_examples as H
 
     t_phase = time.perf_counter()
@@ -6207,7 +6242,8 @@ def phase_examples(dev):
     out, k10_variants = [], []
     try:
         for entry in sorted(H.EXAMPLES):
-            argv = list(PHASE_4M_ARGS.get(entry, H.EXAMPLES[entry][0]))
+            argv = phase_4m_argv(entry, tmp)
+            parts = H.parts_of(H.EXAMPLES[entry][0])
             mod = importlib.import_module(H.module_of(entry))
             reset_all_launches()
             t0 = time.perf_counter()
@@ -6235,14 +6271,26 @@ def phase_examples(dev):
                    "launches": launched,
                    "launches_per_step": {k: v / len(losses)
                                          for k, v in launched.items()}}
-            if launched:
+            if parts > 1:
+                # The harness runs it on `parts` ranks; here one NCCL rank
+                # holds the whole graph (no halo, nothing on the wire).
+                rec.update(harness_parts=parts, parts=1, backend="nccl")
+                for k in ("test_nodes", "steps_per_epoch", "local_rows",
+                          "pulls_local", "pulls_remote"):
+                    if k in m:
+                        rec[k] = m[k]
+            if launched or hasattr(mod, "oracle_loss"):
                 t0 = time.perf_counter()
-                rec["step0"], k10_rows = example_step0(
-                    entry, mod, mod.parse_args(argv), dev)
+                group = (process_group(1, 0, dev) if parts > 1
+                         else contextlib.nullcontext())
+                with group:
+                    rec["step0"], k10_rows = example_step0(
+                        entry, mod, mod.parse_args(phase_4m_argv(entry, tmp)),
+                        dev)
                 rec["step0"]["seconds"] = time.perf_counter() - t0
                 k10_variants += [{k: v[k] for k in VARIANT_KEYS if k in v}
                                  for v in k10_rows]
-                if not rec["step0"]["step0_launches"]:
+                if launched and not rec["step0"]["step0_launches"]:
                     raise AssertionError(f"{entry}: launched {launched} but"
                                          f" its first step launched nothing")
             log(json.dumps(rec))
@@ -6260,6 +6308,25 @@ def phase_examples(dev):
         if p.returncode != 0:
             raise AssertionError(f"run_examples --only train_gcn.py: rc "
                                  f"{p.returncode}\n{p.stdout}{p.stderr}")
+        # The distributed entries need 2 or 4 cards: on one card the
+        # harness reports each as not run and runs nothing.
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "dgl1_tpu_torch.tools.run_examples",
+             "--only", "dist"], cwd=str(HERE), capture_output=True,
+            text=True, timeout=300)
+        lines = p.stdout.strip().splitlines()
+        not_run = [x for x in lines if "not run: needs" in x]
+        log(json.dumps({"phase": "example_harness_cli_dist",
+                        "rc": p.returncode, "cards": torch.cuda.device_count(),
+                        "seconds": time.perf_counter() - t0,
+                        "not_run": not_run, "output": lines[-2:]}))
+        want = sum(H.parts_of(H.EXAMPLES[n][0]) > torch.cuda.device_count()
+                   for n in H.EXAMPLES if "dist" in n)
+        if p.returncode != 0 or len(not_run) != want:
+            raise AssertionError(f"run_examples --only dist: rc "
+                                 f"{p.returncode}, {len(not_run)} not run, "
+                                 f"{want} expected\n{p.stdout}{p.stderr}")
     finally:
         if old is None:
             os.environ.pop("DGL1_TPU_DATA_DIR", None)
@@ -6436,7 +6503,7 @@ def main():
     main_counts += phase_small_models(dev)
     log(json.dumps({"phase": "phase4l_done",
                     "seconds": time.perf_counter() - t4l}))
-    # Phase 4m: the examples harness's 29 entries in process (launches;
+    # Phase 4m: the examples harness's 34 entries in process (launches;
     # where a hand kernel ran, the step-0 check against the oracle and a
     # profile), then the harness's command line once.
     ex_counts, ex_k10 = phase_examples(dev)

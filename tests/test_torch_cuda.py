@@ -1786,3 +1786,13 @@ def test_dgmg_graphed_step_matches_eager(dev):
                          eager.state_dict().values()):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_dist_trainer_refuses_more_parts_than_cards(dev):
+    """A distributed trainer on the card with more parts than cards exits
+    before any work (NCCL places one rank a card), naming both counts."""
+    from dgl1_tpu_torch.examples import train_dist
+
+    n = torch.cuda.device_count()
+    with pytest.raises(SystemExit, match=f"need {n + 1} devices, have {n}"):
+        train_dist.main(["--parts", str(n + 1), "--nodes", "600"])

@@ -2,8 +2,9 @@
 CPU, and their harness (``dgl1_tpu_torch/tools/run_examples.py``).
 
 Smoke: every entry of the harness through its trainer's ``main`` with
-``--cpu`` at a tiny size: exit 0 (no ``SystemExit``), the metrics the
-gates read, a finite loss for every step. Harness: ``--list``, the
+``--cpu`` at a tiny size (a distributed one on its gloo ranks): exit 0
+(no ``SystemExit``), the metrics the gates read, a finite loss for every
+step. Harness: ``--list``, the
 coverage guard against the reference's ``examples/`` and one trainer
 through the harness's subprocess path.
 
@@ -73,6 +74,26 @@ SMOKE_GRAPH = {
                             "24", "--batch-size", "4", "--hidden", "8",
                             "--k", "4"],
 }
+# The distributed entries, each over its --parts gloo ranks (ports and the partition directory are the
+# launcher's free ports and temporary directory). The gates run in the
+# spawned ranks: the accuracy floors are set to what a tiny run reaches.
+SMOKE_DIST = {
+    "train_dist.py": ["--parts", "2", "--nodes", "600", "--epochs", "2",
+                      "--feat-dim", "8", "--hidden", "8", "--classes", "4"],
+    "train_dist.py#hard-int8": ["--parts", "2", "--nodes", "600",
+                                "--epochs", "2", "--feat-dim", "8",
+                                "--hidden", "8", "--classes", "4",
+                                "--halo-dtype", "int8", "--hub-identity"],
+    "train_rgcn_dist.py": ["--parts", "2", "--epochs", "2", "--scale",
+                           "800", "--hidden", "8", "--feat-dim", "8",
+                           "--min-acc", "0"],
+    "train_rgcn_dist_sampled.py": ["--parts", "2", "--epochs", "1",
+                                   "--scale", "800", "--hidden", "8",
+                                   "--embed-dim", "8", "--batch-size",
+                                   "16", "--min-acc", "0"],
+    "train_dist_sampled.py": ["--parts", "2", "--epochs", "1", "--nodes",
+                              "600", "--sharded-store", "--hidden", "8"],
+}
 SMOKE_GEN = {
     "train_lgnn.py": ["--epochs", "1", "--graphs", "6", "--nodes", "20",
                       "--hidden", "8"],
@@ -121,11 +142,10 @@ def check_metrics(m, line, out):
 
 
 def test_smoke_covers_the_harness():
-    """Every harness entry has a smoke run in one of the three files."""
-    assert not set(SMOKE) & (set(SMOKE_GRAPH) | set(SMOKE_GEN))
-    assert not set(SMOKE_GRAPH) & set(SMOKE_GEN)
-    assert (set(SMOKE) | set(SMOKE_GRAPH) | set(SMOKE_GEN)
-            == set(harness.EXAMPLES))
+    """Every harness entry has a smoke run in one of the four files."""
+    tables = [set(SMOKE), set(SMOKE_GRAPH), set(SMOKE_GEN), set(SMOKE_DIST)]
+    assert sum(len(t) for t in tables) == len(set().union(*tables))
+    assert set().union(*tables) == set(harness.EXAMPLES)
 
 
 @pytest.mark.parametrize("entry", sorted(SMOKE))
@@ -138,6 +158,17 @@ def test_trainer_main_runs_on_the_cpu(entry, capsys):
     assert m["losses"] and len(m["losses"]) == len(m["step_ms"])
     assert all(np.isfinite(m["losses"]))
     assert m["gate"] in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("entry", sorted(SMOKE_DIST))
+def test_dist_trainer_main_runs_on_gloo_ranks(entry, capfd):
+    """Each distributed entry through ``main(argv + ['--cpu'])`` on its
+    gloo ranks at a tiny size: rank 0's metrics, a loss a step, the
+    gate's line printed by rank 0 (the spawned ranks write to the file
+    descriptor, hence ``capfd``)."""
+    mod = importlib.import_module(harness.module_of(entry))
+    m = mod.main(SMOKE_DIST[entry] + ["--cpu"])
+    check_metrics(m, m["gate"], capfd.readouterr().out)
 
 
 def test_harness_list():
@@ -153,11 +184,9 @@ def test_harness_coverage_is_the_reference_examples():
     assert len(on_disk) == 32
     assert ported | harness.PENDING == on_disk
     assert not ported & harness.PENDING
-    assert len(harness.PENDING) == 4 and len(ported) == 28
-    assert len(harness.EXAMPLES) == 29  # with train_rgcn.py#identity
-    assert harness.PENDING == {"train_dist.py", "train_dist_sampled.py",
-                               "train_rgcn_dist.py",
-                               "train_rgcn_dist_sampled.py"}
+    assert len(harness.PENDING) == 0 and len(ported) == 32
+    # With train_rgcn.py#identity and train_dist.py#hard-int8.
+    assert len(harness.EXAMPLES) == 34
     assert harness.uncovered() == []
     for n in harness.EXAMPLES:
         importlib.import_module(harness.module_of(n))

@@ -70,7 +70,9 @@ _MODULES = ("graph", "hub_format", "ops.engine_hub", "ops.hub_kernels",
             "examples.train_transformer", "examples.train_gcmc",
             "examples.train_treelstm", "examples.train_lgnn",
             "examples.train_pinsage", "examples.train_metapath2vec",
-            "examples.train_dgmg", "tools.profile_examples")
+            "examples.train_dgmg", "examples.train_dist",
+            "examples.train_dist_sampled", "examples.train_rgcn_dist",
+            "examples.train_rgcn_dist_sampled", "tools.profile_examples")
 
 
 def test_port_imports_no_jax_and_no_reference():

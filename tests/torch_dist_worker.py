@@ -340,3 +340,103 @@ def hetero_cases(rank, world, cases):
     fns = {"layer": _case_hetero_layer, "attn": _case_hetero_attn,
            "train": _case_hetero_train}
     return {c["name"]: fns[c["kind"]](rank, c) for c in cases}
+
+
+# ----------------------------------------------------------------------
+# The distributed trainers of test_torch_examples_dist.py
+# ----------------------------------------------------------------------
+
+_CPU = torch.device("cpu")
+
+
+def _trainer(name):
+    import importlib
+
+    return importlib.import_module(f"dgl1_tpu_torch.examples.{name}")
+
+
+def _case_train_dist(rank, c):
+    """``train_dist``'s build and train on this rank (float64 on request:
+    the weights and features cast after the build); the losses, the
+    initial weights and the test predictions of the owned rows."""
+    from dgl1_tpu_torch.parallel.train import make_gcn_predict
+
+    mod = _trainer("train_dist")
+    args = mod.parse_args(c["argv"] + ["--cpu"])
+    data, model = mod.build(args, _CPU)
+    init = {k: _np(v).copy() for k, v in model.items()}
+    if c["f64"]:
+        model.double()
+        data["x"], data["x_own"] = data["x"].double(), data["x_own"].double()
+    m = mod.train(args, data, model, _CPU)
+    pg = data["pg"]
+    pred = make_gcn_predict(data["pl"])(model, data["x_own"])
+    return {"losses": np.asarray(m["losses"]), "init": init,
+            "pred": _np(pred), "ids": pg.orig_ids[rank],
+            "own": pg.node_mask[rank], "test": m["test"]}
+
+
+def _case_rgcn_dist(rank, c):
+    """``train_rgcn_dist`` on this rank: the step-0 paper logits (float64
+    from the port's own draws), the script's oracle check, then the
+    trainer's steps; the draws, logits and losses."""
+    mod = _trainer("train_rgcn_dist")
+    args = mod.parse_args(c["argv"] + ["--cpu"])
+    data, model = mod.build(args, _CPU)
+    init = {k: _np(v).copy() for k, v in model.state_dict().items()}
+    err = mod.check_oracle(args, data, model)
+    model.double()
+    data["x"] = data["x"].double()
+    data["masks"] = {k: v.double() for k, v in data["masks"].items()}
+    with torch.no_grad():
+        logits = mod.forward(data, model)
+    m = mod.train(args, data, model, _CPU)
+    phg = data["phg"]
+    return {"init": init, "logits": _np(logits), "oracle_err": err,
+            "ids": phg.orig_ids["paper"][rank],
+            "own": phg.node_mask["paper"][rank],
+            "losses": np.asarray(m["losses"])}
+
+
+def _case_rgcn_dist_sampled(rank, c):
+    """``train_rgcn_dist_sampled``'s first step on this rank from the
+    reference's initial weights in float64: the mean loss over the ranks
+    and every gradient after the mean over the ranks, by name."""
+    import torch.distributed as dist
+
+    from dgl1_tpu_torch.models import HeteroRGCN
+
+    mod = _trainer("train_rgcn_dist_sampled")
+    args = mod.parse_args(c["argv"] + ["--cpu"])
+    data, model = mod.build(args, _CPU)
+    tables = {k: _np(v).copy() for k, v in model.emb.items()}
+    model.net.load_state_dict(HeteroRGCN.jax_state_dict(
+        c["params"], data["hg"].canonical_etypes), strict=True)
+    model.double()
+    blocks, x, ids, y = mod.first_batch(args, data, _CPU)
+    loss = mod.step_loss(args, data, model, (blocks, x.double(), ids, y))
+    loss.backward()
+    world = dist.get_world_size()
+    mod.average_grads(list(model.parameters()), world)
+    mean = loss.detach().clone()
+    dist.all_reduce(mean)
+    return {"loss": float(mean) / world, "tables": tables,
+            "grads": {n: _np(p.grad) for n, p in model.named_parameters()}}
+
+
+def examples_cases(rank, world, cases):
+    """The named trainer cases of ``test_torch_examples_dist.py``."""
+    fns = {"train_dist": _case_train_dist, "rgcn_dist": _case_rgcn_dist,
+           "rgcn_dist_sampled": _case_rgcn_dist_sampled}
+    return {c["name"]: fns[c["kind"]](rank, c) for c in cases}
+
+
+def rank_outcome(kind: str, rank: int):
+    """A spawned rank of ``examples.spawn_ranks``'s own test: rank 1
+    raises (``"raise"``), exits with a message (``"exit"``, as a failed
+    gate) or returns like rank 0 (``"ok"``)."""
+    if rank == 1 and kind == "raise":
+        raise ValueError("rank 1 failed on purpose")
+    if rank == 1 and kind == "exit":
+        raise SystemExit("GATE FAILED on rank 1")
+    return {"rank": rank, "threads": torch.get_num_threads()}
