@@ -2669,7 +2669,7 @@ def summarize_profile(phase, path, prof, steps, wall_ms, **extra):
     """Device busy time, idle share and the top device kernels of a
     ``torch.profiler`` window of ``steps`` steps; ``extra`` keys join the
     line."""
-    from dgl1_tpu_torch.tools.profile_examples import device_ms
+    from dgl1_tpu_torch.utils.profiler import device_ms
 
     busy_ms, top = device_ms(prof, 12)
     busy_ms /= steps

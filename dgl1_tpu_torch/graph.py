@@ -21,6 +21,10 @@ C++ builder in ``_native``) and held as ``torch`` tensors:
                         ``bdense_meta``; built only when ``formats`` names
                         ``"bdense"``.
 
+``build_s``              host seconds of each layout's build and copy to
+                        the device, by format (``adj``: COO, CSR and
+                        CSC; ``ell``, ``tile``, ``hub``, ``bdense``).
+
 ``graph(formats=...)`` restricts what is built: ``("csc",)`` gives a
 sampling-only parent (COO and CSC, no CSR, tiles, ELL or hub). Blocks
 (``is_block``) come from the fused sampler (``sampling/fused.py``) or
@@ -32,6 +36,7 @@ unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -40,7 +45,7 @@ import torch
 # The ELL bucket fill and the fixed-row stack live with the hub builder,
 # which pins its tail stacks with them; the ELL builders here reuse them.
 from dgl1_tpu_torch.hub_format import (  # noqa: F401
-    _build_ell_fixed_rows, _ell_bucket)
+    EllMeta, _build_ell_fixed_rows, _ell_bucket)
 
 __all__ = ["Graph", "graph", "block", "create_block", "rand_graph",
            "rand_bipartite", "from_scipy", "from_networkx", "to_networkx",
@@ -85,10 +90,22 @@ def _tree_to(x, device):
     return x
 
 
-_ARRAY_FIELDS = ("src", "dst", "edge_mask", "csr_indptr", "csr_dst",
-                 "csr_eid", "csr_src", "csc_indptr", "csc_src", "csc_eid",
-                 "csc_dst", "tdst", "tsrc", "ell_dst", "ell_src", "hub_dst",
-                 "bdense")
+_ADJ_FIELDS = ("src", "dst", "edge_mask", "csr_indptr", "csr_dst", "csr_eid",
+               "csr_src", "csc_indptr", "csc_src", "csc_eid", "csc_dst")
+_ARRAY_FIELDS = _ADJ_FIELDS + ("tdst", "tsrc", "ell_dst", "ell_src",
+                               "hub_dst", "bdense")
+# The format (a key of ``Graph.build_s``) each array field belongs to.
+_FORMAT_OF = dict(dict.fromkeys(_ADJ_FIELDS, "adj"), tdst="tile",
+                  tsrc="tile", ell_dst="ell", ell_src="ell", hub_dst="hub",
+                  bdense="bdense")
+
+
+def _lap(build_s: dict, fmt: str, t0: float) -> float:
+    """Add the host seconds since ``t0`` to ``build_s[fmt]``; returns the
+    clock's reading."""
+    now = time.perf_counter()
+    build_s[fmt] = build_s.get(fmt, 0.0) + now - t0
+    return now
 
 
 class Graph:
@@ -109,8 +126,10 @@ class Graph:
                  hub_dst: Optional[Dict[str, Any]] = None,
                  hub_dst_meta=None,
                  bdense: Optional[Dict[str, Any]] = None, bdense_meta=None,
+                 build_s: Optional[Dict[str, float]] = None,
                  device="cpu"):
         dev = torch.device(device)
+        self.build_s: Dict[str, float] = dict(build_s or {})
         for k, v in (("src", src), ("dst", dst), ("edge_mask", edge_mask),
                      ("csr_indptr", csr_indptr), ("csr_dst", csr_dst),
                      ("csr_eid", csr_eid), ("csr_src", csr_src),
@@ -119,7 +138,10 @@ class Graph:
                      ("tdst", tdst), ("tsrc", tsrc), ("ell_dst", ell_dst),
                      ("ell_src", ell_src), ("hub_dst", hub_dst),
                      ("bdense", bdense)):
+            t0 = time.perf_counter()
             setattr(self, k, _tree_to(v, dev))
+            if v is not None:
+                _lap(self.build_s, _FORMAT_OF[k], t0)
         self.ell_dst_meta = ell_dst_meta
         self.ell_src_meta = ell_src_meta
         self.hub_dst_meta = hub_dst_meta
@@ -188,7 +210,8 @@ class Graph:
         raise ValueError(f"unknown order {order!r}")
 
     def to(self, device) -> "Graph":
-        """A new Graph with every tensor on ``device`` (same metadata)."""
+        """A new Graph with every tensor on ``device`` (same metadata;
+        ``build_s`` adds the copy's seconds)."""
         dev = resolve_device(device)
         new = Graph(
             **{k: getattr(self, k) for k in _ARRAY_FIELDS},
@@ -196,7 +219,7 @@ class Graph:
             hub_dst_meta=self.hub_dst_meta, bdense_meta=self.bdense_meta,
             is_block=self._is_block, num_src_nodes=self._num_src_nodes,
             num_dst_nodes=self._num_dst_nodes, num_edges=self._num_edges,
-            device=dev)
+            build_s=self.build_s, device=dev)
         new.meta = dict(self.meta)
         new.ndata.update(_tree_to(self.ndata, dev))
         new.edata.update(_tree_to(self.edata, dev))
@@ -647,7 +670,9 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
     a row. With ``num_padded`` > ``num_edges`` the edge arrays get a tail
     of padded edges (the reference's sentinels: node ``num_src`` /
     ``num_dst``, edge id 0) and an ``edge_mask``; every layout holds the
-    real edges only."""
+    real edges only. ``build_s`` gives each format's host seconds."""
+    t = time.perf_counter()
+    build_s: Dict[str, float] = {}
     want = (lambda k: True) if formats is None else (
         lambda k: k in formats)
     need_csr = any(want(k) for k in ("csr", "tile", "ell", "hub"))
@@ -688,6 +713,7 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
         if need_csr:
             csr_indptr, csr_dst, csr_eid, csr_src = adj(src, dst, num_src)
         csc_indptr, csc_src, csc_eid, csc_dst = adj(dst, src, num_dst)
+    t = _lap(build_s, "adj", t)
 
     ell_dst_meta = ell_dst = ell_src_meta = ell_src = None
     if want("ell"):
@@ -695,10 +721,12 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
             csc_indptr, csc_src, csc_eid, num_dst, num_edges)
         ell_src_meta, ell_src = _build_ell(
             csr_indptr, csr_dst, csr_eid, num_src, num_edges)
+        t = _lap(build_s, "ell", t)
     tdst = tsrc = None
     if want("tile"):
         tdst = _build_tiles(csc_dst, csc_src, csc_eid, num_edges, num_dst)
         tsrc = _build_tiles(csr_src, csr_dst, csr_eid, num_edges, num_src)
+        t = _lap(build_s, "tile", t)
     # Hub layout: auto-built only when the head of the in-degree
     # distribution clears the density bar. hub=True forces it, an int sets
     # the per-group edge floor, hub=False skips.
@@ -717,6 +745,7 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
             num_edges, num_padded or num_edges, _build_ell,
             min_group_edges=floor, dense_floor=hub_dense_floor,
         )
+        t = _lap(build_s, "hub", t)
     bdense_meta = bdense = None
     if formats is not None and "bdense" in formats and num_edges > 0:
         from dgl1_tpu_torch.bdense_format import build_block_dense
@@ -724,6 +753,7 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
         bdense_meta, bdense = build_block_dense(
             np.asarray(src, np.int64), np.asarray(dst, np.int64),
             num_src, num_dst, _build_ell)
+        t = _lap(build_s, "bdense", t)
     pad = (num_padded or num_edges) - num_edges
     edge_mask = None
     if pad:
@@ -736,6 +766,7 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
         csc_src, csc_dst = padded(csc_src, num_src), padded(csc_dst, num_dst)
         csr_eid, csc_eid = padded(csr_eid, 0), padded(csc_eid, 0)
         edge_mask = np.arange(num_edges + pad) < num_edges
+    _lap(build_s, "adj", t)
     return dict(
         src=coo_src, dst=coo_dst, edge_mask=edge_mask,
         csr_indptr=csr_indptr, csr_dst=csr_dst, csr_eid=csr_eid,
@@ -745,7 +776,7 @@ def _build_formats(src: np.ndarray, dst: np.ndarray, num_src: int,
         ell_dst_meta=ell_dst_meta, ell_dst=ell_dst,
         ell_src_meta=ell_src_meta, ell_src=ell_src,
         hub_dst_meta=hub_dst_meta, hub_dst=hub_dst,
-        bdense_meta=bdense_meta, bdense=bdense,
+        bdense_meta=bdense_meta, bdense=bdense, build_s=build_s,
     )
 
 
@@ -798,8 +829,9 @@ def _build_ell(indptr: np.ndarray, nbr_sorted: np.ndarray,
             inv_perm = np.empty((num_target,), ID_DTYPE)
             native.fill_ell(ip32, nbr32, eid32, num_target, num_edges, ms,
                             idx, eid, inv_perm)
-            meta = tuple(
-                (int(meta_k[i]), int(meta_nb[i])) for i in range(nb))
+            meta = EllMeta(
+                ((int(meta_k[i]), int(meta_nb[i])) for i in range(nb)),
+                num_edges)
             return meta, {"idx": idx, "eid": eid, "inv_perm": inv_perm}
 
     deg = np.diff(indptr[: num_target + 1]).astype(np.int64)
@@ -847,7 +879,7 @@ def _build_ell(indptr: np.ndarray, nbr_sorted: np.ndarray,
            np.zeros(0, np.int64))
     eid = (np.concatenate(eid_parts) if eid_parts else
            np.zeros(0, np.int64))
-    return tuple(meta), {
+    return EllMeta(meta, int(deg.sum())), {
         "idx": idx.astype(ID_DTYPE),
         "eid": eid.astype(ID_DTYPE),
         "inv_perm": inv_perm,
@@ -868,7 +900,7 @@ def _build_ell_uniform(indptr: np.ndarray, nbr_sorted: np.ndarray,
             f"row degree {int(deg.max())} exceeds uniform ELL width {k_pad}")
     idx, eid = _ell_bucket(indptr, nbr_sorted, eid_sorted,
                            np.arange(num_target), num_target, k_pad)
-    meta = ((k_pad, num_target),)
+    meta = EllMeta(((k_pad, num_target),), int(deg.sum()))
     return meta, {
         "idx": idx.astype(ID_DTYPE),
         "eid": eid.astype(ID_DTYPE),
@@ -1094,9 +1126,11 @@ def block(data: Tuple, num_src_nodes: Optional[int] = None,
     arrays = _build_formats(src, dst, num_src_nodes, num_dst_nodes,
                             num_edges, formats=("csr",),
                             num_padded=num_padded)
+    t = time.perf_counter()
     arrays["ell_dst_meta"], arrays["ell_dst"] = _build_ell_uniform(
         arrays["csc_indptr"], arrays["csc_src"], arrays["csc_eid"],
         num_dst_nodes, uniform_ell_k)
+    t = _lap(arrays["build_s"], "ell", t)
     arrays["tdst"] = _pad_tiles(
         _build_tiles(arrays["csc_dst"], arrays["csc_src"], arrays["csc_eid"],
                      num_edges, num_dst_nodes),
@@ -1105,6 +1139,7 @@ def block(data: Tuple, num_src_nodes: Optional[int] = None,
         _build_tiles(arrays["csr_src"], arrays["csr_dst"], arrays["csr_eid"],
                      num_edges, num_src_nodes),
         static_tile_bound(num_padded, num_src_nodes), num_src_nodes)
+    _lap(arrays["build_s"], "tile", t)
     g = Graph(**arrays, num_src_nodes=num_src_nodes,
               num_dst_nodes=num_dst_nodes, num_edges=num_edges,
               is_block=True, device=dev)

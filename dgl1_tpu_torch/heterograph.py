@@ -135,6 +135,16 @@ class HeteroGraph:
         return self.nframes
 
     @property
+    def build_s(self) -> Dict[str, float]:
+        """Host seconds of the relations' layout builds and copies, by
+        format, summed over the relations (``Graph.build_s``)."""
+        out: Dict[str, float] = {}
+        for g in self.rel_graphs.values():
+            for fmt, sec in g.build_s.items():
+                out[fmt] = out.get(fmt, 0.0) + sec
+        return out
+
+    @property
     def ntypes(self):
         if self._num_src is not None:
             return sorted(set(self._num_nodes) | set(self._num_src))

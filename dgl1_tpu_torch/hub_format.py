@@ -38,6 +38,20 @@ EXPAND_RB = 512        # output rows per expand-merge block
 EXPAND_PACK = 1 << 20  # descriptor packing base (local_row*PACK + m_row)
 
 
+class EllMeta(tuple):
+    """An ELL layout's bucket meta ``((k, n_rows), ...)`` that also keeps
+    ``real``, the count of edges its slots hold (None where a meta was
+    built without it), so the engine counts its slots' use on the host."""
+
+    def __new__(cls, buckets=(), real=None):
+        meta = super().__new__(cls, buckets)
+        meta.real = None if real is None else int(real)
+        return meta
+
+    def __reduce__(self):
+        return EllMeta, (tuple(self), self.real)
+
+
 class HubMeta(NamedTuple):
     """Static descriptor of a hub layout (field for field the reference's)."""
     n_full_f: int        # full-layout fwd chunks (all hub edges)
@@ -182,7 +196,7 @@ def _build_ell_fixed_rows(indptr: np.ndarray, nbr_sorted: np.ndarray,
            else np.zeros(0, np.int64))
     eid = (np.concatenate(eid_parts) if eid_parts
            else np.zeros(0, np.int64))
-    return tuple(meta_fixed), {
+    return EllMeta(meta_fixed, int(deg[covered].sum())), {
         "idx": idx.astype(ID_DTYPE),
         "eid": eid.astype(ID_DTYPE),
         "inv_perm": inv_perm,
@@ -195,9 +209,9 @@ def _inflate_ell(meta, arrays, forced_meta):
     N_k) the part's own rows at rung k come first, then empty rows (idx =
     SENT). ``inv_perm`` is remapped to the inflated positions; rows past
     the natural stack (zero degree) map to the inflated total."""
-    forced_meta = tuple(forced_meta)
+    forced_meta = EllMeta(forced_meta, getattr(meta, "real", None))
     if tuple(meta) == forced_meta:
-        return tuple(meta), arrays
+        return forced_meta, arrays
     nat = {int(k): int(n) for k, n in meta}
     forced = {int(k): int(n) for k, n in forced_meta}
     for k, n in nat.items():
@@ -596,7 +610,7 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
             return np.where(c == SENT, 0, c).astype(ID_DTYPE)
 
         return dict(
-            meta_dst=tuple(tail_meta_dst), meta_src=tuple(tail_meta_src),
+            meta_dst=tail_meta_dst, meta_src=tail_meta_src,
             n_rows=n_tail_rows,
             t_idx=tail_dst_ell["idx"], t_eid=tail_dst_ell["eid"],
             t_eid_c=to_compact(tail_dst_ell["eid"]),
@@ -629,8 +643,8 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
         keep = ~take
         t_dst, t_src, t_eid = t_dst[keep], t_src[keep], t_eid[keep]
     full_tail = _build_tail(t_dst, t_src, t_eid)
-    tail_meta_dst = list(full_tail["meta_dst"])
-    tail_meta_src = list(full_tail["meta_src"])
+    tail_meta_dst = full_tail["meta_dst"]
+    tail_meta_src = full_tail["meta_src"]
     n_tail_rows = full_tail["n_rows"]
 
     # Expand descriptors for out[v] = merged[t_inv[v]]: packed
@@ -711,8 +725,8 @@ def build_hub_format(csc_indptr: np.ndarray, csc_src: np.ndarray,
         n_win=int(n_win),
         n_groups=int(n_groups),
         n_dense=int(n_dense),
-        tail_meta_dst=tuple(tail_meta_dst),
-        tail_meta_src=tuple(tail_meta_src),
+        tail_meta_dst=tail_meta_dst,
+        tail_meta_src=tail_meta_src,
         n_tail_rows=n_tail_rows,
         covered=(int(force["covered"]) if force is not None
                  else int(is_hub.sum())),

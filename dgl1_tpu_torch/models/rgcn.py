@@ -12,6 +12,7 @@ from torch import nn
 
 from dgl1_tpu_torch.graph import Graph, resolve_device
 from dgl1_tpu_torch.nn.conv import RelGraphConv, _xavier_uniform
+from dgl1_tpu_torch.utils.profiler import span
 
 __all__ = ["RGCN", "HeteroRGCN"]
 
@@ -65,8 +66,9 @@ class HeteroRGCN(nn.Module):
     to ``hidden_feats``) and ``l1`` (to ``out_feats``), relu between
     them, on the two blocks of a sampled batch. ``forward(blocks, x)``
     takes ``{ntype: input rows}`` and returns the logits of
-    ``out_ntype``'s dst nodes. :meth:`jax_state_dict` maps the example's
-    flax parameters onto this module."""
+    ``out_ntype``'s dst nodes; each layer runs in a ``model.layer`` span
+    (``index``). :meth:`jax_state_dict` maps the example's flax
+    parameters onto this module."""
 
     def __init__(self, canonical_etypes, in_feats: dict, hidden_feats: int,
                  out_feats: int, out_ntype: str = "paper", device=None,
@@ -86,8 +88,10 @@ class HeteroRGCN(nn.Module):
             for _, et, _ in canonical_etypes})
 
     def forward(self, blocks, x: dict):
-        h = {k: torch.relu(v) for k, v in self.l0(blocks[0], x).items()}
-        return self.l1(blocks[1], h)[self.out_ntype]
+        with span("model.layer", index=0):
+            h = {k: torch.relu(v) for k, v in self.l0(blocks[0], x).items()}
+        with span("model.layer", index=1):
+            return self.l1(blocks[1], h)[self.out_ntype]
 
     @staticmethod
     def jax_state_dict(params, canonical_etypes):

@@ -29,6 +29,7 @@ from dgl1_tpu_torch.ops.battention import bdense_gat_attention
 from dgl1_tpu_torch.ops.edge_softmax import edge_softmax
 from dgl1_tpu_torch.ops.engine_xla import gather_rows, take_fill
 from dgl1_tpu_torch.ops.segment import gather_mm, segment_mm
+from dgl1_tpu_torch.utils.profiler import span
 
 __all__ = ["GraphConv", "EdgeWeightNorm", "GATConv", "SAGEConv",
            "RelGraphConv", "DotGatConv", "GINConv", "SGConv", "APPNPConv",
@@ -316,38 +317,42 @@ class GATConv(nn.Module):
     def forward(self, g: Graph, feat, generator=None):
         h, f = self.num_heads, self.out_feats
         drop_f = self.training and self.feat_drop > 0
-        h_src = _dropout(feat, self.feat_drop, generator) if drop_f else feat
-        feat_src = self.fc(h_src).reshape(-1, h, f)
-        el = (feat_src * self.attn_l).sum(dim=-1, keepdim=True)
-        er = (feat_src * self.attn_r).sum(dim=-1, keepdim=True)
+        with span("gat.project"):
+            h_src = (_dropout(feat, self.feat_drop, generator) if drop_f
+                     else feat)
+            feat_src = self.fc(h_src).reshape(-1, h, f)
+            el = (feat_src * self.attn_l).sum(dim=-1, keepdim=True)
+            er = (feat_src * self.attn_r).sum(dim=-1, keepdim=True)
         attn_drop = self.attn_drop if self.training else 0.0
 
-        rst = None
-        if can_fuse_attention(g, f):
-            seed = None
-            if attn_drop > 0.0:
-                seed = torch.randint(
-                    -2 ** 31, 2 ** 31 - 1, (1,), dtype=torch.int32,
-                    generator=generator,
-                    device=(generator.device if generator is not None
-                            else "cpu"))
-            rst = gat_attention(g, el, er, feat_src, self.negative_slope,
-                                attn_drop, seed)
-        if rst is None and attn_drop == 0.0:
-            rst = bdense_gat_attention(g, el, er, feat_src,
-                                       self.negative_slope)
-        if rst is None:
-            e = gsddmm(g, "add", el, er, lhs_target="u", rhs_target="v")
-            e = torch.nn.functional.leaky_relu(e, self.negative_slope)
-            a = edge_softmax(g, e)
-            if attn_drop > 0.0:
-                a = _dropout(a, attn_drop, generator)
-            rst = gspmm(g, "mul", "sum", feat_src, a)
+        with span("gat.attention"):
+            rst = None
+            if can_fuse_attention(g, f):
+                seed = None
+                if attn_drop > 0.0:
+                    seed = torch.randint(
+                        -2 ** 31, 2 ** 31 - 1, (1,), dtype=torch.int32,
+                        generator=generator,
+                        device=(generator.device if generator is not None
+                                else "cpu"))
+                rst = gat_attention(g, el, er, feat_src,
+                                    self.negative_slope, attn_drop, seed)
+            if rst is None and attn_drop == 0.0:
+                rst = bdense_gat_attention(g, el, er, feat_src,
+                                           self.negative_slope)
+            if rst is None:
+                e = gsddmm(g, "add", el, er, lhs_target="u", rhs_target="v")
+                e = torch.nn.functional.leaky_relu(e, self.negative_slope)
+                a = edge_softmax(g, e)
+                if attn_drop > 0.0:
+                    a = _dropout(a, attn_drop, generator)
+                rst = gspmm(g, "mul", "sum", feat_src, a)
 
         if self.res_fc is not None:
-            h_dst = (_dropout(feat, self.feat_drop, generator) if drop_f
-                     else feat)
-            rst = rst + self.res_fc(h_dst).reshape(-1, h, f)
+            with span("gat.residual"):
+                h_dst = (_dropout(feat, self.feat_drop, generator) if drop_f
+                         else feat)
+                rst = rst + self.res_fc(h_dst).reshape(-1, h, f)
         if self.bias is not None:
             rst = rst + self.bias
         if self.activation is not None:

@@ -8,6 +8,8 @@ from typing import Dict
 import torch
 from torch import nn
 
+from dgl1_tpu_torch.utils.profiler import span
+
 __all__ = ["HeteroGraphConv"]
 
 _AGGREGATES = ("sum", "mean", "max", "min", "stack")
@@ -21,7 +23,8 @@ class HeteroGraphConv(nn.Module):
     or ``stack`` (a new axis 1). When the destination type has inputs the
     module gets the pair ``(inputs[srctype], inputs[dsttype][:num_dst])``:
     on a hetero block the destination nodes are the first rows of their
-    type's source side. Parameters ``mods.<etype>.*``;
+    type's source side. Each relation runs in a ``hetero.rel`` span
+    (``src``, ``etype``, ``dst``). Parameters ``mods.<etype>.*``;
     :func:`dgl1_tpu_torch.params.from_jax_params` maps the reference's
     ``mods_<etype>`` onto them."""
 
@@ -40,12 +43,14 @@ class HeteroGraphConv(nn.Module):
             if etype not in self.mods or srctype not in inputs:
                 continue
             rel = hg.rel_graphs[c]
-            if dsttype in inputs:
-                feat = (inputs[srctype],
-                        inputs[dsttype][: rel.num_dst_nodes()])
-            else:
-                feat = inputs[srctype]
-            out = self.mods[etype](rel, feat, **mod_kwargs.get(etype, {}))
+            with span("hetero.rel", src=srctype, etype=etype, dst=dsttype):
+                if dsttype in inputs:
+                    feat = (inputs[srctype],
+                            inputs[dsttype][: rel.num_dst_nodes()])
+                else:
+                    feat = inputs[srctype]
+                out = self.mods[etype](rel, feat,
+                                       **mod_kwargs.get(etype, {}))
             per_dst.setdefault(dsttype, []).append(out)
         results = {}
         for dsttype, outs in per_dst.items():

@@ -33,6 +33,12 @@ mode (``ops/precision.py``), read when the forward runs and kept for its
 backward, reaches K6 and K7 as the reference's ``dt`` does; the tail, the
 diagonal and K8 stay float32.
 
+Spans (``utils/profiler.py``): the forward's ``attn.fwd.hub`` (K6),
+``attn.fwd.tail_max`` (the node-level shift), ``attn.fwd.tail``,
+``attn.fwd.merge``, ``attn.fwd.diag`` and ``attn.fwd.normalize``; the
+backward's ``attn.bwd.hub`` (K7), ``attn.bwd.ger`` (K8), ``attn.bwd.tail``,
+``attn.bwd.merge`` and ``attn.bwd.diag``.
+
 Not ported: ``el_in_ft`` lane packing and the backward split/streaming
 options (TPU memory-residency tricks). Heads wider than ``MAX_HEAD_DIM``
 features decline (the layer then takes the block-dense or composed
@@ -50,6 +56,7 @@ from dgl1_tpu_torch.ops import attn_kernels as AK
 from dgl1_tpu_torch.ops.engine_ell import ell_reduce, ell_stack
 from dgl1_tpu_torch.ops.engine_xla import take_fill
 from dgl1_tpu_torch.ops.precision import get_matmul_precision
+from dgl1_tpu_torch.utils.profiler import count, span
 
 __all__ = ["gat_attention", "can_fuse_attention"]
 
@@ -77,53 +84,62 @@ def _attn_forward(g: Graph, slope, drop, h, d, el2, er2, ft2, seed, bf16):
     hub = g.hub_dst
     num_dst = g.num_dst_nodes()
     f = h * d
-    er_g = take_fill(er2, hub["hub_ids"])
-    num_hub, den_hub, mraw_hub = AK.attn_fwd(
-        hub["full_fwd"], el2, er_g, ft2, h, d, slope, drop, seed, m.n_groups,
-        bf16)
+    count("layout.read.hub")
+    with span("attn.fwd.hub"):
+        er_g = take_fill(er2, hub["hub_ids"])
+        num_hub, den_hub, mraw_hub = AK.attn_fwd(
+            hub["full_fwd"], el2, er_g, ft2, h, d, slope, drop, seed,
+            m.n_groups, bf16)
 
     # Node-level shift: hub rows take K6's group max, tail rows the exact
     # per-destination ELL max, and the diagonal joins node-wise.
-    mstack = ell_stack(m.tail_meta_dst, hub["t_idx"], hub["t_eid"],
-                       "copy_lhs", "max", el2, None)
-    mraw = _merge_t_inv(m, hub, mstack, mraw_hub, num_dst, NEG)
-    if m.has_diag:
-        diag = hub["diag"][:, None] > 0
-        mraw = torch.maximum(mraw, torch.where(diag, el2[:num_dst],
-                                               torch.full_like(mraw, NEG)))
-    mz = leaky_relu(mraw + er2, slope)
+    with span("attn.fwd.tail_max"):
+        mstack = ell_stack(m.tail_meta_dst, hub["t_idx"], hub["t_eid"],
+                           "copy_lhs", "max", el2, None)
+        mraw = _merge_t_inv(m, hub, mstack, mraw_hub, num_dst, NEG)
+        if m.has_diag:
+            diag = hub["diag"][:, None] > 0
+            mraw = torch.maximum(mraw, torch.where(
+                diag, el2[:num_dst], torch.full_like(mraw, NEG)))
+        mz = leaky_relu(mraw + er2, slope)
 
     # Tail, in compact tail-slot space: one payload [p * mask * ft | p]
     # through one copy_rhs stack.
-    ts, td = hub["tail_src"], hub["tail_dst"]
-    el_t = take_fill(el2, ts)
-    er_mz = take_fill(torch.cat([er2, mz], dim=1), td)
-    z = leaky_relu(el_t + er_mz[:, :h], slope)
-    valid = (ts != SENT)[:, None]
-    p_t = torch.where(valid, torch.exp(z - er_mz[:, h:]),
-                      torch.zeros_like(z))
-    p_num_t = p_t * AK.drop_mask(hub["tail_eid"], seed, drop, h) \
-        if drop > 0.0 else p_t
-    ft_ts = take_fill(ft2, ts)
-    prod = (p_num_t[:, :, None] * ft_ts.reshape(-1, h, d)).reshape(-1, f)
-    fused = ell_stack(m.tail_meta_dst, hub["t_idx"], hub["t_eid_c"],
-                      "copy_rhs", "sum", None, torch.cat([prod, p_t], dim=1))
-    num = _merge_t_inv(m, hub, fused[:, :f], num_hub, num_dst, 0.0)
-    den = _merge_t_inv(m, hub, fused[:, f:], den_hub, num_dst, 0.0)
+    with span("attn.fwd.tail"):
+        ts, td = hub["tail_src"], hub["tail_dst"]
+        el_t = take_fill(el2, ts)
+        er_mz = take_fill(torch.cat([er2, mz], dim=1), td)
+        z = leaky_relu(el_t + er_mz[:, :h], slope)
+        valid = (ts != SENT)[:, None]
+        p_t = torch.where(valid, torch.exp(z - er_mz[:, h:]),
+                          torch.zeros_like(z))
+        p_num_t = p_t * AK.drop_mask(hub["tail_eid"], seed, drop, h) \
+            if drop > 0.0 else p_t
+        ft_ts = take_fill(ft2, ts)
+        prod = (p_num_t[:, :, None] * ft_ts.reshape(-1, h, d)).reshape(-1, f)
+        fused = ell_stack(m.tail_meta_dst, hub["t_idx"], hub["t_eid_c"],
+                          "copy_rhs", "sum", None,
+                          torch.cat([prod, p_t], dim=1))
+    with span("attn.fwd.merge"):
+        num = _merge_t_inv(m, hub, fused[:, :f], num_hub, num_dst, 0.0)
+        den = _merge_t_inv(m, hub, fused[:, f:], den_hub, num_dst, 0.0)
 
     if m.has_diag:
-        z_ii = leaky_relu(el2[:num_dst] + er2, slope)
-        p_ii = torch.where(diag, torch.exp(z_ii - mz), torch.zeros_like(mz))
-        p_num_ii = p_ii * AK.drop_mask(hub["diag_eid"], seed, drop, h) \
-            if drop > 0.0 else p_ii
-        num = num + (p_num_ii[:, :, None]
-                     * ft2[:num_dst].reshape(-1, h, d)).reshape(num_dst, f)
-        den = den + p_ii
+        with span("attn.fwd.diag"):
+            z_ii = leaky_relu(el2[:num_dst] + er2, slope)
+            p_ii = torch.where(diag, torch.exp(z_ii - mz),
+                               torch.zeros_like(mz))
+            p_num_ii = p_ii * AK.drop_mask(hub["diag_eid"], seed, drop, h) \
+                if drop > 0.0 else p_ii
+            num = num + (p_num_ii[:, :, None] * ft2[:num_dst].reshape(
+                -1, h, d)).reshape(num_dst, f)
+            den = den + p_ii
 
     # A normal floor: 1e-38 is subnormal and would flush to 0 (0/0 = NaN
     # at zero-in-degree rows).
-    den_safe = torch.clamp_min(den, 1e-30)
-    out = num.reshape(-1, h, d) / den_safe[:, :, None]
+    with span("attn.fwd.normalize"):
+        den_safe = torch.clamp_min(den, 1e-30)
+        out = num.reshape(-1, h, d) / den_safe[:, :, None]
     return out, mz, den_safe
 
 
@@ -133,77 +149,85 @@ def _attn_backward(g: Graph, slope, drop, h, d, el2, er2, ft2, seed, mz,
     hub = g.hub_dst
     num_src, num_dst = g.num_src_nodes(), g.num_dst_nodes()
     f = h * d
-    ct2 = ct.reshape(-1, f).to(torch.float32).contiguous()
-    ct3 = ct2.reshape(-1, h, d)
-    # Softmax jacobian row term, node-level: rho = <ct, out> per head.
-    rho = (ct3 * out).sum(dim=2)
-    lse = mz + torch.log(den)  # den is already floored at 1e-30
-    ids = hub["hub_ids"]
-    lay = hub["full_bwd"]
-    group_rows = (take_fill(er2, ids), take_fill(lse, ids),
-                  take_fill(rho, ids))
-    ft_ct = (ft2, take_fill(ct2, ids))
-    gft_hub, gel_hub, gerp = AK.attn_bwd_src(
-        lay, el2, *group_rows, *ft_ct, h, d, slope, drop, seed, m.n_win,
-        bf16)
-    win_rows = hub["win_mask_full"].repeat_interleave(BLK)[:, None]
-    gft_hub = torch.where(win_rows, gft_hub, torch.zeros_like(gft_hub))
-    gel_hub = torch.where(win_rows, gel_hub, torch.zeros_like(gel_hub))
-    if "gperm" in lay:
-        ger_hub = AK.ger_reduce(lay, gerp, m.n_groups)
-    else:  # the reference's route for layouts without gperm descriptors
-        ger_hub = AK.attn_bwd_grp(hub["full_fwd"], el2, *group_rows, *ft_ct,
-                                  h, d, slope, drop, seed, m.n_groups, bf16)
+    with span("attn.bwd.hub"):
+        ct2 = ct.reshape(-1, f).to(torch.float32).contiguous()
+        ct3 = ct2.reshape(-1, h, d)
+        # Softmax jacobian row term, node-level: rho = <ct, out> per head.
+        rho = (ct3 * out).sum(dim=2)
+        lse = mz + torch.log(den)  # den is already floored at 1e-30
+        ids = hub["hub_ids"]
+        lay = hub["full_bwd"]
+        group_rows = (take_fill(er2, ids), take_fill(lse, ids),
+                      take_fill(rho, ids))
+        ft_ct = (ft2, take_fill(ct2, ids))
+        gft_hub, gel_hub, gerp = AK.attn_bwd_src(
+            lay, el2, *group_rows, *ft_ct, h, d, slope, drop, seed, m.n_win,
+            bf16)
+        win_rows = hub["win_mask_full"].repeat_interleave(BLK)[:, None]
+        gft_hub = torch.where(win_rows, gft_hub, torch.zeros_like(gft_hub))
+        gel_hub = torch.where(win_rows, gel_hub, torch.zeros_like(gel_hub))
+    with span("attn.bwd.ger"):
+        if "gperm" in lay:
+            ger_hub = AK.ger_reduce(lay, gerp, m.n_groups)
+        else:  # the reference's route for layouts without gperm descriptors
+            ger_hub = AK.attn_bwd_grp(hub["full_fwd"], el2, *group_rows,
+                                      *ft_ct, h, d, slope, drop, seed,
+                                      m.n_groups, bf16)
 
     # Tail, compact slot space: one src-side and one dst-side gather.
-    ts, td = hub["tail_src"], hub["tail_dst"]
-    el_ts = take_fill(el2, ts)
-    packed = take_fill(torch.cat([er2, lse, rho], dim=1), td)
-    s_t = el_ts + packed[:, :h]
-    valid = (ts != SENT)[:, None]
-    # Padding slots gather lse = 0, so exp stays finite before the mask.
-    a_t = torch.where(valid, torch.exp(leaky_relu(s_t, slope)
-                                       - packed[:, h:2 * h]),
-                      torch.zeros_like(s_t))
-    ft_ts = take_fill(ft2, ts).reshape(-1, h, d)
-    ct_td = take_fill(ct2, td).reshape(-1, h, d)
-    g_t = (ft_ts * ct_td).sum(dim=2)
-    a_num_t = a_t
-    if drop > 0.0:
-        m_t = AK.drop_mask(hub["tail_eid"], seed, drop, h)
-        a_num_t, g_t = a_t * m_t, g_t * m_t
-    q_t = a_t * (g_t - packed[:, 2 * h:]) * _dleaky(s_t, slope)
-    rev = {"idx": hub["r_idx"], "eid": hub["r_eid_c"],
-           "inv_perm": hub["r_inv"]}
-    pay_b = torch.cat([(a_num_t[:, :, None] * ct_td).reshape(-1, f), q_t],
-                      dim=1)
-    fused_b = ell_reduce(m.tail_meta_src, rev, "copy_rhs", "sum", None,
-                         pay_b, num_src)
-    ger_stack = ell_stack(m.tail_meta_dst, hub["t_idx"], hub["t_eid_c"],
-                          "copy_rhs", "sum", None, q_t)
+    with span("attn.bwd.tail"):
+        ts, td = hub["tail_src"], hub["tail_dst"]
+        el_ts = take_fill(el2, ts)
+        packed = take_fill(torch.cat([er2, lse, rho], dim=1), td)
+        s_t = el_ts + packed[:, :h]
+        valid = (ts != SENT)[:, None]
+        # Padding slots gather lse = 0, so exp stays finite before the
+        # mask.
+        a_t = torch.where(valid, torch.exp(leaky_relu(s_t, slope)
+                                           - packed[:, h:2 * h]),
+                          torch.zeros_like(s_t))
+        ft_ts = take_fill(ft2, ts).reshape(-1, h, d)
+        ct_td = take_fill(ct2, td).reshape(-1, h, d)
+        g_t = (ft_ts * ct_td).sum(dim=2)
+        a_num_t = a_t
+        if drop > 0.0:
+            m_t = AK.drop_mask(hub["tail_eid"], seed, drop, h)
+            a_num_t, g_t = a_t * m_t, g_t * m_t
+        q_t = a_t * (g_t - packed[:, 2 * h:]) * _dleaky(s_t, slope)
+        rev = {"idx": hub["r_idx"], "eid": hub["r_eid_c"],
+               "inv_perm": hub["r_inv"]}
+        pay_b = torch.cat([(a_num_t[:, :, None] * ct_td).reshape(-1, f),
+                           q_t], dim=1)
+        fused_b = ell_reduce(m.tail_meta_src, rev, "copy_rhs", "sum", None,
+                             pay_b, num_src)
+        ger_stack = ell_stack(m.tail_meta_dst, hub["t_idx"], hub["t_eid_c"],
+                              "copy_rhs", "sum", None, q_t)
 
-    gft = gft_hub[:num_src] + fused_b[:, :f]
-    gel = gel_hub[:num_src] + fused_b[:, f:]
-    ger = _merge_t_inv(m, hub, ger_stack, ger_hub, num_dst, 0.0)
+    with span("attn.bwd.merge"):
+        gft = gft_hub[:num_src] + fused_b[:, :f]
+        gel = gel_hub[:num_src] + fused_b[:, f:]
+        ger = _merge_t_inv(m, hub, ger_stack, ger_hub, num_dst, 0.0)
 
     if m.has_diag:
-        diag = hub["diag"][:, None] > 0
-        ft3 = ft2[:num_dst].reshape(-1, h, d)
-        z_raw = el2[:num_dst] + er2
-        p_ii = torch.where(diag, torch.exp(leaky_relu(z_raw, slope) - mz),
-                           torch.zeros_like(mz))
-        a_ii = p_ii / den
-        a_num_ii = a_ii
-        g_ii = (ct3[:num_dst] * ft3).sum(dim=2)
-        if drop > 0.0:
-            m_ii = AK.drop_mask(hub["diag_eid"], seed, drop, h)
-            a_num_ii, g_ii = a_ii * m_ii, g_ii * m_ii
-        q_ii = a_ii * (g_ii - rho) * _dleaky(z_raw, slope)
-        # gft and gel are fresh sums: safe to update in place.
-        gft[:num_dst] += (a_num_ii[:, :, None] * ct3[:num_dst]).reshape(
-            num_dst, f)
-        gel[:num_dst] += q_ii
-        ger = ger + q_ii
+        with span("attn.bwd.diag"):
+            diag = hub["diag"][:, None] > 0
+            ft3 = ft2[:num_dst].reshape(-1, h, d)
+            z_raw = el2[:num_dst] + er2
+            p_ii = torch.where(diag, torch.exp(leaky_relu(z_raw, slope)
+                                               - mz),
+                               torch.zeros_like(mz))
+            a_ii = p_ii / den
+            a_num_ii = a_ii
+            g_ii = (ct3[:num_dst] * ft3).sum(dim=2)
+            if drop > 0.0:
+                m_ii = AK.drop_mask(hub["diag_eid"], seed, drop, h)
+                a_num_ii, g_ii = a_ii * m_ii, g_ii * m_ii
+            q_ii = a_ii * (g_ii - rho) * _dleaky(z_raw, slope)
+            # gft and gel are fresh sums: safe to update in place.
+            gft[:num_dst] += (a_num_ii[:, :, None] * ct3[:num_dst]).reshape(
+                num_dst, f)
+            gel[:num_dst] += q_ii
+            ger = ger + q_ii
     return gel, ger, gft
 
 

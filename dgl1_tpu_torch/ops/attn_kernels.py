@@ -13,7 +13,7 @@ A wrapper given CPU tensors computes its plain version (``*_torch``);
 given CUDA tensors it launches its kernel or raises. It checks devices,
 types, shapes and contiguity, allocates the outputs, and adds one to
 ``LAUNCHES[name]`` for each call that launches its kernel and nowhere
-else.
+else; the launch runs in the span ``kernel.<name>``.
 
 Outputs are narrow: the reference pads ``den``, ``mraw``, ``gel`` and the
 per-chunk partials to 128 lanes (the TPU's tiling) and ``num``/``gft`` to
@@ -42,7 +42,8 @@ import torch
 from torch.nn.functional import leaky_relu
 
 from dgl1_tpu_torch.hub_format import BLK
-from dgl1_tpu_torch.ops.hub_kernels import _check, _chunk_rows, _f32, _int32
+from dgl1_tpu_torch.ops.hub_kernels import (_check, _chunk_rows, _f32,
+                                            _int32, _kernel_span)
 from dgl1_tpu_torch.ops.precision import round_bf16, rounding
 
 __all__ = ["attn_fwd", "attn_bwd_src", "attn_bwd_grp", "ger_reduce",
@@ -521,7 +522,7 @@ def attn_fwd(lay, el, er_g, ft, h: int, d: int, slope: float,
     mraw = torch.empty((n_groups * BLK, h), dtype=torch.float32, device=dev)
     mkey = torch.empty((n_groups, h), dtype=torch.int32, device=dev)
     plan = (pl.nhs, pl.nsub, pl.ws, pl.g)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span("attn_fwd", bf16):
         lib = _lib()
         n = lib.attn_fwd_scratch(n_chunks, h, d, *plan, n_groups,
                                  int(drop > 0.0), int(bf16))
@@ -584,7 +585,7 @@ def attn_bwd_src(lay, el, er_g, lse_g, rho_g, ft, ct_g, h: int, d: int,
     gft = torch.empty((n_win * BLK, h * d), dtype=torch.float32, device=dev)
     gel = torch.empty((n_win * BLK, h), dtype=torch.float32, device=dev)
     gerp = torch.empty((n_chunks * BLK, h), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span("attn_bwd_src", bf16):
         rc = _lib().attn_bwd_src(
             lay["a"].data_ptr(), lay["b"].data_ptr(), lay["eid"].data_ptr(),
             lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,
@@ -618,7 +619,7 @@ def attn_bwd_grp(lay, el, er_g, lse_g, rho_g, ft, ct_g, h: int, d: int,
         return ger  # the C entry would launch nothing
     pl = grp_plan(h, d, max(chunk, 1))
     plan = pl[:7]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span("attn_bwd_grp", bf16):
         lib = _lib()
         n = lib.attn_grp_scratch(n_chunks, chunk, n_groups, h, d, *plan)
         if n < 0:
@@ -659,7 +660,7 @@ def ger_reduce(lay, gerp, n_groups: int):
     if gerp.data_ptr() % 16:
         gerp = gerp.clone()
     n_out = n_groups * BLK * h
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span("ger_reduce"):
         lib = _lib()
         # The output, then the scratch slots, in one allocation.
         buf = torch.empty((n_out + lib.attn_ger_scratch(n_chunks, n_groups,

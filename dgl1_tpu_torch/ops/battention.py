@@ -30,6 +30,7 @@ from dgl1_tpu_torch.bdense_format import BLK, BDenseMeta
 from dgl1_tpu_torch.graph import Graph
 from dgl1_tpu_torch.ops.engine_ell import ell_stack
 from dgl1_tpu_torch.ops.engine_xla import gather_rows, take_fill
+from dgl1_tpu_torch.utils.profiler import count
 
 __all__ = ["can_fuse_battention", "bdense_gat_attention", "CALLS"]
 
@@ -258,6 +259,7 @@ def bdense_gat_attention(g: Graph, el, er, ft, negative_slope: float = 0.2):
     if not can_fuse_battention(g):
         return None
     CALLS["bdense_gat_attention"] += 1
+    count("layout.read.bdense")
     el2 = el.reshape(el.shape[0], -1)
     er2 = er.reshape(er.shape[0], -1)
     h, d = el2.shape[1], ft.shape[-1]

@@ -30,7 +30,8 @@ The wrapper given CPU tensors computes the plain version
 (:func:`block_mm_torch`); given CUDA tensors it launches the kernel or
 raises. It checks devices, types, shapes and contiguity, allocates the
 output, and adds one to ``LAUNCHES["block_fwd"]`` or
-``LAUNCHES["block_bwd"]`` (transpose) for each launch and nowhere else.
+``LAUNCHES["block_bwd"]`` (transpose) for each launch and nowhere else;
+the launch runs in the span ``kernel.<that name>``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch
 
 from dgl1_tpu_torch.bdense_format import BLK
 from dgl1_tpu_torch.ops.precision import round_bf16
+from dgl1_tpu_torch.utils.profiler import span
 
 __all__ = ["block_mm", "block_mm_torch", "LAUNCHES", "reset_launches",
            "KERNELS"]
@@ -136,7 +138,9 @@ def block_mm(transpose: bool, a, ptr, in_blocks, x, num_out: int,
     out = torch.empty((num_out, f), dtype=torch.float32, device=dev)
     if f == 0 or num_out == 0:
         return out
-    with torch.cuda.device(dev):
+    name = "block_bwd" if transpose else "block_fwd"
+    name = f"{name}.bf16" if bf16 else name
+    with torch.cuda.device(dev), span(f"kernel.{name}"):
         rc = _lib().block_mm(
             int(bool(transpose)), int(a.dtype == torch.bfloat16),
             a.data_ptr(), ptr.data_ptr(), in_blocks.data_ptr(),
@@ -146,6 +150,5 @@ def block_mm(transpose: bool, a, ptr, in_blocks, x, num_out: int,
     if rc != 0:
         raise RuntimeError(f"bdense kernel block_mm: CUDA error {rc} at "
                            f"launch")
-    name = "block_bwd" if transpose else "block_fwd"
-    LAUNCHES[f"{name}.bf16" if bf16 else name] += 1
+    LAUNCHES[name] += 1
     return out

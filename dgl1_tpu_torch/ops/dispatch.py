@@ -11,13 +11,17 @@ through. The starting engine is ``DGL1_TPU_ENGINE`` as it stood at import
 dispatch, where the reference would fall silently to the oracle
 (``"pallas"``, the reference's name for the tile engine, means
 ``"tile"``).
-:func:`set_auto_order` replaces the order ``"auto"`` tries.
+:func:`set_auto_order` replaces the order ``"auto"`` tries. The engine
+that takes a call runs in a ``dispatch.<engine>`` span (an attempt its
+engine declines is left out of the record).
 """
 
 from __future__ import annotations
 
 import os
 from typing import Callable, Dict, List
+
+from dgl1_tpu_torch.utils.profiler import span
 
 # The reference's name for the tile engine.
 _ALIASES = {"pallas": "tile"}
@@ -69,7 +73,10 @@ def dispatch_gspmm(g, op, reduce_op, u, e):
     """Try the engines in order; None if all decline."""
     x = u if u is not None else e
     for name in _candidates(x is not None and x.is_cuda):
-        out = _ENGINES[name](g, op, reduce_op, u, e)
+        with span("dispatch." + name) as sp:
+            out = _ENGINES[name](g, op, reduce_op, u, e)
+            if out is None:
+                sp.drop()
         if out is not None:
             return out
     return None

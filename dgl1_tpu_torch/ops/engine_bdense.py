@@ -22,6 +22,7 @@ from dgl1_tpu_torch.graph import Graph
 from dgl1_tpu_torch.ops import bdense_kernels as K
 from dgl1_tpu_torch.ops.engine_ell import ell_reduce
 from dgl1_tpu_torch.ops.precision import get_matmul_precision
+from dgl1_tpu_torch.utils.profiler import count
 
 __all__ = ["gspmm_bdense"]
 
@@ -83,6 +84,7 @@ def gspmm_bdense(g: Graph, op: str, reduce_op: str, u, e):
         return None
     if u is None or not u.is_floating_point():
         return None
+    count("layout.read.bdense")
     out = _BDenseSum.apply(g, u, get_matmul_precision() == "bf16")
     if reduce_op == "mean":
         deg = g.in_degrees().to(out.dtype).clamp(min=1.0)

@@ -9,6 +9,12 @@ is owed here. Backward: grad_u is the same reduce over the reverse
 direction (``Graph.ell_src``), or, on sampled blocks, which carry no
 ``ell_src``, K9 over the reverse tiles (``engine_tile._tiled_reduce`` on
 ``Graph.tsrc``); grad_e is a gather, zero on padded edges.
+
+Spans (``utils/profiler.py``): ``ell.stack`` around each stack and
+``ell.permute`` around the inverse permute, wherever they are called
+from; each stack adds its padded slots (n_rows * k over its buckets) to
+the counter ``ell.slots`` and its real edges (the meta's ``real``, kept
+on the host by the builder) to ``ell.real``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from dgl1_tpu_torch.graph import Graph
 from dgl1_tpu_torch.ops.engine_xla import _binary, gather_rows, take_fill
+from dgl1_tpu_torch.utils.profiler import count, span, tracing
 
 __all__ = ["gspmm_ell", "ell_reduce", "ell_stack"]
 
@@ -34,13 +41,23 @@ def ell_reduce(meta: Tuple, ell: dict, op: str, reduce_op: str,
     if ell["inv_perm"].shape[0] == 0:
         # Uniform layout (graph._build_ell_uniform): rows already in order.
         return stacked
-    return take_fill(stacked, ell["inv_perm"])
+    with span("ell.permute"):
+        return take_fill(stacked, ell["inv_perm"])
 
 
 def ell_stack(meta: Tuple, idx, eid, op: str, reduce_op: str, u, e):
     """Bucket-sorted per-row reductions without the final inverse
     permute: (n_nonzero_rows, *feat). The hub engine appends its hub block
     to this before one shared permute."""
+    with span("ell.stack"):
+        real = getattr(meta, "real", None) if tracing() else None
+        if real is not None:
+            count("ell.slots", sum(k * n_b for k, n_b in meta))
+            count("ell.real", real)
+        return _stack(meta, idx, eid, op, reduce_op, u, e)
+
+
+def _stack(meta, idx, eid, op, reduce_op, u, e):
     ident = {"max": float("-inf"), "min": float("inf")}.get(reduce_op, 0.0)
     # sum/mean with copy_lhs or mul: a fill-gather makes padding slots
     # the identity with no masking pass.
@@ -124,6 +141,7 @@ class _EllSum(torch.autograd.Function):
             # Sampled blocks carry no src-direction ELL: K9 over tsrc.
             from dgl1_tpu_torch.ops.engine_tile import _tiled_reduce
 
+            count("layout.read.tile")
             return _tiled_reduce(op2, g.tsrc, uu, ee, g.num_src_nodes())
 
         def ct_dst():
@@ -167,6 +185,7 @@ def gspmm_ell(g: Graph, op: str, reduce_op: str, u, e):
             return None
     if op != "copy_rhs" and u is None or op != "copy_lhs" and e is None:
         return None
+    count("layout.read.ell")
     out = _EllSum.apply(g, op, u, e)
     if reduce_op == "mean":
         deg = g.in_degrees().to(out.dtype).clamp(min=1.0)

@@ -45,6 +45,7 @@ from dgl1_tpu_torch.ops import hub_kernels as K
 from dgl1_tpu_torch.ops.engine_ell import ell_reduce, ell_stack
 from dgl1_tpu_torch.ops.engine_xla import take_fill
 from dgl1_tpu_torch.ops.precision import get_matmul_precision
+from dgl1_tpu_torch.utils.profiler import count
 
 __all__ = ["gspmm_hub"]
 
@@ -362,6 +363,7 @@ def gspmm_hub(g: Graph, op: str, reduce_op: str, u, e):
         # past e's end, so a short e would silently drop edges.
         raise ValueError(f"edge data has {e.shape[0]} rows, the graph "
                          f"{g.num_edges_padded()} edges")
+    count("layout.read.hub")
     out = _HubSum.apply(g, op, he, rep, u, e,
                         get_matmul_precision() == "bf16")
     if reduce_op == "mean":

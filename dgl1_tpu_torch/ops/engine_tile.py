@@ -23,6 +23,7 @@ from dgl1_tpu_torch.graph import TILE_ROWS, Graph
 from dgl1_tpu_torch.ops import tile_kernels as K
 from dgl1_tpu_torch.ops.engine_ell import _mask_e, _sum_to_shape
 from dgl1_tpu_torch.ops.engine_xla import _binary, gather_rows
+from dgl1_tpu_torch.utils.profiler import count
 
 __all__ = ["gspmm_tile"]
 
@@ -195,6 +196,7 @@ def gspmm_tile(g: Graph, op: str, reduce_op: str, u, e):
         return None
     u_in = u if op != "copy_rhs" else None
     e_in = e if op != "copy_lhs" else None
+    count("layout.read.tile")
     if reduce_op in ("max", "min"):
         return _TileMinMax.apply(g, op, reduce_op == "max", u_in, e_in)
     out = _TileSum.apply(g, op, u_in, e_in)

@@ -16,7 +16,8 @@ given CUDA tensors it launches its kernel or raises. It checks devices,
 types, shapes and contiguity, allocates the output, and adds one to
 ``LAUNCHES[name]`` for each kernel launch and nowhere else: where there
 is nothing to compute (no chunk, no row or a zero width) it returns the
-output without calling the kernel.
+output without calling the kernel. Each launch runs in the span
+``kernel.<name>`` (``utils/profiler.py``).
 
 Feature widths need no padding to 128 and the source operands may stop at
 ``num_src`` rows: the kernels mask the ragged edges (the plain versions
@@ -44,6 +45,7 @@ import torch
 from dgl1_tpu_torch.hub_format import (BLK, CHUNK, DENSE_RB, EXPAND_PACK,
                                        EXPAND_RB)
 from dgl1_tpu_torch.ops.precision import rounding as _rnd
+from dgl1_tpu_torch.utils.profiler import span
 
 __all__ = ["dense_fwd", "chunk_sum", "expand", "dense_bwd_fused",
            "dense_bwd", "chunk_weighted", "edge_grad", "dense_fwd_torch",
@@ -236,6 +238,11 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _kernel_span(name, bf16=False):
+    """The span of one launch, named as its ``LAUNCHES`` key."""
+    return span(f"kernel.{name}.bf16" if bf16 else f"kernel.{name}")
+
+
 def _done(name, rc, bf16=False):
     if rc != 0:
         raise RuntimeError(f"hub kernel {name}: CUDA error {rc} at launch")
@@ -284,7 +291,7 @@ def dense_fwd(c, u, bf16: bool = False):
                          "count matrix needs a multiple of 4 columns")
     _aligned16("K1 loads the count matrix", c)
     u, ld = _rows16(u)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span("dense_fwd", bf16):
         rc = _lib().hub_dense_fwd(c.data_ptr(), _C_DTYPES[c.dtype],
                                   u.data_ptr(), out.data_ptr(), u.shape[0],
                                   kd, f, ld, int(bf16), _stream(dev))
@@ -311,7 +318,7 @@ def chunk_sum(lay, inp, n_out_blocks: int, bf16: bool = False):
         return out  # nothing to launch
     _walkable("K2", lay, chunk, ("a", "b"))
     inp, ld = _rows16(inp)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span("chunk_sum", bf16):
         rc = _lib().hub_chunk_sum(
             lay["a"].data_ptr(), lay["b"].data_ptr(),
             lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,
@@ -358,7 +365,7 @@ def expand(merged, x_starts, x_desc, num_dst: int, diag_w=None,
     if num_dst == 0 or f == 0:
         return out
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span("expand"):
         rc = _lib().hub_expand(x_starts.data_ptr(), x_desc.data_ptr(),
                                merged.data_ptr(), merged.shape[0],
                                out.data_ptr(), num_dst, f, ptr(diag_w),
@@ -391,7 +398,7 @@ def dense_bwd(c, ct, n_out=None, bf16: bool = False):
     out = torch.empty((n_out, f), dtype=torch.float32, device=dev)
     if n_out == 0 or f == 0:
         return out
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span("dense_bwd", bf16):
         rc = _lib().hub_dense_bwd(c.data_ptr(), _C_DTYPES[c.dtype],
                                   ct.data_ptr(), out.data_ptr(), n_out,
                                   c.shape[1], f, None, None, None,
@@ -420,7 +427,7 @@ def dense_bwd_fused(c, ct, tail, gb_starts, gb_desc, n_out=None,
     out = torch.empty((n_out, f), dtype=torch.float32, device=dev)
     if n_out == 0 or f == 0:
         return out
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span("dense_bwd_fused", bf16):
         rc = _lib().hub_dense_bwd(c.data_ptr(), _C_DTYPES[c.dtype],
                                   ct.data_ptr(), out.data_ptr(), n_out,
                                   c.shape[1], f, gb_starts.data_ptr(),
@@ -492,7 +499,7 @@ def chunk_weighted(mode: str, lay, e2, inp, n_out_blocks: int, he: int,
                       device=dev)
     if n_chunks == 0 or width == 0 or e2.shape[0] == 0:
         return out  # the C entry would launch nothing
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span(f"chunk_{mode}", bf16):
         rc = _lib().hub_chunk_weighted(
             _MODES[mode], lay["a"].data_ptr(), lay["b"].data_ptr(),
             lay["eid"].data_ptr(), lay["in_id"].data_ptr(),
@@ -556,7 +563,7 @@ def edge_grad(mode: str, lay, u, ct, he: int, rep: int,
         ws = edge_grad_plan(he, rep)
         u, ldu = _rows16(u)
         ct, ldc = _rows16(ct)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _kernel_span(f"edge_grad_{mode}", bf16):
         rc = _lib().hub_edge_grad(
             _MODES[mode], lay["a"].data_ptr(), lay["b"].data_ptr(),
             lay["in_id"].data_ptr(), lay["out_id"].data_ptr(), n_chunks,

@@ -26,7 +26,8 @@ A wrapper given CPU tensors computes its plain version (``*_torch``);
 given CUDA tensors it launches its kernel with the plan of
 :func:`tile_plan_for` or raises. It checks devices, types, shapes and
 contiguity, allocates the output, and adds one to ``LAUNCHES[name]`` for
-each kernel launch and nowhere else.
+each kernel launch and nowhere else; the launch runs in the span
+``kernel.<name>``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from dgl1_tpu_torch.graph import TILE_EDGES, TILE_ROWS
+from dgl1_tpu_torch.utils.profiler import span
 
 __all__ = ["tile_sum", "tile_minmax", "tile_sum_torch", "tile_minmax_torch",
            "tile_plan", "tile_plan_for", "TilePlan", "LAUNCHES",
@@ -256,7 +258,7 @@ def _reduce(name, head, rows, first, lid, src, n_row_blocks, idx):
     if f == 0:
         return out
     p = tile_plan_for(src, n_row_blocks)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span(f"kernel.{name}"):
         rc = getattr(_lib(), name)(
             *head, rows.data_ptr(), first.data_ptr(), lid.data_ptr(),
             lid.shape[0], src.data_ptr(),

@@ -9,8 +9,9 @@ then a ``torch.profiler`` window of ``--steps`` steps on that batch.
         [--steps 3]
 
 Prints one JSON line an entry: host ms a step (between two device
-syncs), device busy ms a step (the profiler's device kernels), the idle
-share (1 - busy / host), the hand kernels' launches a step and the top
+syncs), device busy ms a step (the union of the profiler's device
+intervals, ``utils.profiler.device_ms``), the idle share (1 - busy /
+host), the hand kernels' launches a step and the top
 device kernels. Runs on ``cuda`` only: the idle share of a CPU run means
 nothing.
 """
@@ -28,6 +29,7 @@ import time
 import torch
 
 from dgl1_tpu_torch.tools import run_examples as H
+from dgl1_tpu_torch.utils.profiler import device_ms
 
 
 def kernel_modules():
@@ -42,26 +44,6 @@ def launches() -> dict:
     for m in kernel_modules():
         out.update({k: v for k, v in m.LAUNCHES.items() if v})
     return out
-
-
-def device_ms(prof, top: int = 6) -> tuple:
-    """Device busy ms over a ``torch.profiler`` window and its ``top``
-    kernels (name, ms, calls). A host annotation's device span shares its
-    name with the host event and is left out, so no time counts twice."""
-    events = prof.key_averages()
-    host = {e.key for e in events
-            if e.device_type == torch.autograd.DeviceType.CPU}
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key not in host]
-
-    def us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    first = sorted(kernels, key=us, reverse=True)[:top]
-    return (sum(us(e) for e in kernels) / 1e3,
-            [(e.key, us(e) / 1e3, e.count) for e in first])
 
 
 def profile_entry(entry: str, steps: int, device) -> dict:

@@ -3,7 +3,14 @@ softmax cross-entropy over all nodes, backward, Adam), the sampled
 mini-batch step of ``tools/bench_minibatch.py`` /
 ``examples/train_sage_minibatch.py`` and the sampled heterograph R-GCN
 step of ``examples/train_rgcn_sampled.py`` (dense Adam beside the
-embedding tables' sparse Adam)."""
+embedding tables' sparse Adam).
+
+Each step is the span ``train.step`` (``utils/profiler.py``) holding
+``train.zero_grad``, ``train.forward``, ``train.loss``,
+``train.backward``, ``train.optimizer`` and ``train.readback`` (the
+loss's read-back and the device sync); the sampled trainers' wait for a
+batch is ``train.wait``. A call made while tracing is on leaves one
+record."""
 
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch.nn.functional as F
 
 from dgl1_tpu_torch.optim import (sparse_adam_init, sparse_adam_update,
                                   take_rows)
+from dgl1_tpu_torch.utils.profiler import BACKWARD, STEP, span, train_record
 
 __all__ = ["train", "train_sampled", "train_sampled_rgcn", "embed_ids"]
 
@@ -30,18 +38,26 @@ def train(graph, feat, labels, model, steps: int = 5, lr: float = 1e-2,
     opt = torch.optim.Adam(model.parameters(), lr=lr)
     model.train()
     losses, step_s = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        logits = model(graph, feat=feat, generator=generator,
-                       **model_kwargs)
-        loss = F.cross_entropy(logits, labels.long())
-        loss.backward()
-        opt.step()
-        losses.append(float(loss.detach()))
-        if labels.is_cuda:
-            torch.cuda.synchronize(labels.device)
-        step_s.append(time.perf_counter() - t0)
+    with train_record(labels.device):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            with span(STEP):
+                with span("train.zero_grad"):
+                    opt.zero_grad(set_to_none=True)
+                with span("train.forward"):
+                    logits = model(graph, feat=feat, generator=generator,
+                                   **model_kwargs)
+                with span("train.loss"):
+                    loss = F.cross_entropy(logits, labels.long())
+                with span(BACKWARD):
+                    loss.backward()
+                with span("train.optimizer"):
+                    opt.step()
+                with span("train.readback"):
+                    losses.append(float(loss.detach()))
+                    if labels.is_cuda:
+                        torch.cuda.synchronize(labels.device)
+            step_s.append(time.perf_counter() - t0)
     return {"losses": losses, "step_s": step_s}
 
 
@@ -67,27 +83,36 @@ def train_sampled(batches, feat, labels, model, steps=None, lr: float = 1e-3,
     sample_s = getattr(batches, "sample_s", None)
     first_sample = len(sample_s) if sample_s is not None else 0
     it = iter(batches)
-    for _ in (itertools.count() if steps is None else range(steps)):
-        t0 = time.perf_counter()
-        try:
-            inp, out, blocks, mask = next(it)
-        except StopIteration:
-            break
-        t1 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        x = feat.index_select(0, inp)
-        y = labels.index_select(0, out).long()
-        logits = model(blocks, x, generator=generator)
-        ce = F.cross_entropy(logits, y, reduction="none")
-        m = mask.to(ce.dtype)
-        loss = (ce * m).sum() / m.sum().clamp(min=1.0)
-        loss.backward()
-        opt.step()
-        losses.append(float(loss.detach()))
-        if feat.is_cuda:
-            torch.cuda.synchronize(feat.device)
-        step_s.append(time.perf_counter() - t1)
-        wait_s.append(t1 - t0)
+    with train_record(feat.device):
+        for _ in (itertools.count() if steps is None else range(steps)):
+            t0 = time.perf_counter()
+            try:
+                with span("train.wait"):
+                    inp, out, blocks, mask = next(it)
+            except StopIteration:
+                break
+            t1 = time.perf_counter()
+            with span(STEP):
+                with span("train.zero_grad"):
+                    opt.zero_grad(set_to_none=True)
+                with span("train.forward"):
+                    x = feat.index_select(0, inp)
+                    logits = model(blocks, x, generator=generator)
+                with span("train.loss"):
+                    y = labels.index_select(0, out).long()
+                    ce = F.cross_entropy(logits, y, reduction="none")
+                    m = mask.to(ce.dtype)
+                    loss = (ce * m).sum() / m.sum().clamp(min=1.0)
+                with span(BACKWARD):
+                    loss.backward()
+                with span("train.optimizer"):
+                    opt.step()
+                with span("train.readback"):
+                    losses.append(float(loss.detach()))
+                    if feat.is_cuda:
+                        torch.cuda.synchronize(feat.device)
+            step_s.append(time.perf_counter() - t1)
+            wait_s.append(t1 - t0)
     if hasattr(it, "close"):
         it.close()  # stops a loader's worker threads
     sample_ms = ([s * 1e3 for s in sample_s[first_sample:]]
@@ -136,35 +161,45 @@ def train_sampled_rgcn(batches, feat, labels, model, tables: dict,
     first = (len(sample_s) if sample_s is not None else 0,
              len(pull_s) if pull_s is not None else 0)
     it = iter(batches)
-    for _ in (itertools.count() if steps is None else range(steps)):
-        t0 = time.perf_counter()
-        try:
-            item = next(it)
-        except StopIteration:
-            break
-        t1 = time.perf_counter()
-        inp, out, blocks, mask = item[:4]
-        x_in = (item[4] if feat is None
-                else feat.index_select(0, inp[ntype]))
-        ids = embed_ids(inp, blocks, tables)
-        rows = {nt: take_rows(tables[nt], ids[nt]).requires_grad_(True)
-                for nt in tables}
-        opt.zero_grad(set_to_none=True)
-        logits = model(blocks, {ntype: x_in, **rows})
-        ce = F.cross_entropy(logits, labels.index_select(0, out[ntype])
-                             .long(), reduction="none")
-        m = mask.to(ce.dtype)
-        loss = (ce * m).sum() / m.sum().clamp(min=1.0)
-        loss.backward()
-        opt.step()
-        for nt in tables:
-            sparse_adam_update(tables[nt], states[nt], ids[nt],
-                               rows[nt].grad, lr=sparse_lr)
-        losses.append(float(loss.detach()))
-        if logits.is_cuda:
-            torch.cuda.synchronize(logits.device)
-        step_s.append(time.perf_counter() - t1)
-        wait_s.append(t1 - t0)
+    with train_record(labels.device):
+        for _ in (itertools.count() if steps is None else range(steps)):
+            t0 = time.perf_counter()
+            try:
+                with span("train.wait"):
+                    item = next(it)
+            except StopIteration:
+                break
+            t1 = time.perf_counter()
+            with span(STEP):
+                inp, out, blocks, mask = item[:4]
+                with span("train.zero_grad"):
+                    opt.zero_grad(set_to_none=True)
+                with span("train.forward"):
+                    x_in = (item[4] if feat is None
+                            else feat.index_select(0, inp[ntype]))
+                    ids = embed_ids(inp, blocks, tables)
+                    rows = {nt: take_rows(tables[nt], ids[nt])
+                            .requires_grad_(True) for nt in tables}
+                    logits = model(blocks, {ntype: x_in, **rows})
+                with span("train.loss"):
+                    ce = F.cross_entropy(
+                        logits, labels.index_select(0, out[ntype]).long(),
+                        reduction="none")
+                    m = mask.to(ce.dtype)
+                    loss = (ce * m).sum() / m.sum().clamp(min=1.0)
+                with span(BACKWARD):
+                    loss.backward()
+                with span("train.optimizer"):
+                    opt.step()
+                    for nt in tables:
+                        sparse_adam_update(tables[nt], states[nt], ids[nt],
+                                           rows[nt].grad, lr=sparse_lr)
+                with span("train.readback"):
+                    losses.append(float(loss.detach()))
+                    if logits.is_cuda:
+                        torch.cuda.synchronize(logits.device)
+            step_s.append(time.perf_counter() - t1)
+            wait_s.append(t1 - t0)
     if hasattr(it, "close"):
         it.close()
 
